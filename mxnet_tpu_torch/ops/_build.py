@@ -1,0 +1,105 @@
+"""Build the port's CUDA kernels from the sources in ``ops/csrc/``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` into ``mxnet_tpu_torch/_build/lib<name>-<hash>.so`` (the hash
+is of the source, so an edited kernel rebuilds), then loaded with
+``ctypes``. No PyTorch header is included: such a build takes seconds,
+where one through ``torch.utils.cpp_extension`` takes minutes. Builds
+happen at first use, never at import; :func:`build_all` starts one
+``nvcc`` per source at once, so the whole set costs one compile's time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+__all__ = ["ARCH_FLAGS", "BUILD_DIR", "SOURCES", "build_all", "load",
+           "nvcc_path"]
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+#: the kernels of this package, by name (``csrc/<name>.cu``)
+SOURCES = ("paged_attention",)
+#: Hopper with its arch-specific features (wgmma, setmaxnreg)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+_lock = threading.Lock()
+_libs = {}
+#: ``-Xptxas -v`` report (registers, shared memory, spills) per build
+BUILD_LOGS = {}
+
+
+def nvcc_path():
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on
+    PATH, else ``/usr/local/cuda/bin/nvcc``. Raises when none exists."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels of "
+                       "mxnet_tpu_torch are built on the machine with the "
+                       "card (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _target(name):
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(ARCH_FLAGS).encode()) \
+            .hexdigest()[:12]
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def _start(name):
+    """Start ``nvcc`` for ``name`` unless its library is built; returns
+    (process or None, tmp path, final path)."""
+    src, lib = _target(name)
+    if os.path.exists(lib):
+        return None, None, lib
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, src]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, lib
+
+
+def _finish(name, proc, tmp, lib):
+    if proc is not None:
+        out, _ = proc.communicate()
+        BUILD_LOGS[name] = out
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                               f"(exit {proc.returncode}):\n{out}")
+        os.replace(tmp, lib)      # atomic: concurrent builds agree
+    return ctypes.CDLL(lib)
+
+
+def build_all(names=SOURCES):
+    """Build (or find built) every named kernel, all ``nvcc`` runs in
+    parallel; returns ``{name: ctypes.CDLL}``."""
+    with _lock:
+        todo = [n for n in names if n not in _libs]
+        started = [(n, *_start(n)) for n in todo]
+        for n, proc, tmp, lib in started:
+            _libs[n] = _finish(n, proc, tmp, lib)
+        return {n: _libs[n] for n in names}
+
+
+def load(name):
+    """The loaded library of one kernel, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = build_all((name,))[name]
+    return lib

@@ -1,0 +1,152 @@
+"""Paged flash attention for decode serving: the CUDA kernel's wrapper
+and its plain PyTorch version.
+
+Port of the paged part of ``mxnet_tpu/ops/pallas/flash_attention.py``
+(``paged_flash_attention`` / ``_paged_fwd_kernel`` and
+``paged_attention_reference``). Shapes, as there::
+
+    q          (B, H, Sq, D)          the last Sq tokens of each sequence
+    k_pages    (P, H, page_size, D)   the pool (all sequences)
+    v_pages    (P, H, page_size, D)
+    page_table (B, NP) int32          physical page ids, padded with any
+                                      in-range id past the row's
+                                      ceil(kv_len / page_size) pages
+    kv_lens    (B,) int32             written history length per row,
+                                      INCLUDING the Sq query tokens
+
+Query row ``i`` sees positions ``<= kv_len - Sq + i`` and ``< kv_len``;
+a row with nothing to see gives exact zeros. Forward only.
+
+:func:`paged_flash_attention` launches the hand-written CUDA kernel
+(``csrc/paged_attention.cu``) for CUDA tensors, and raises on what the
+kernel does not take. It takes the plain version
+(:func:`paged_attention_reference`) only for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["LAUNCHES", "paged_attention_reference",
+           "paged_flash_attention"]
+
+_NEG_INF = -1e30
+#: kernel launches by kernel name (the main-path proof counts these)
+LAUNCHES = {"paged_attention": 0}
+_HEAD_DIMS = (8, 16, 32, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = _build.load("paged_attention").mxtt_paged_attention_fwd
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def paged_attention_reference(q, k_pages, v_pages, page_table, kv_lens,
+                              sm_scale=None):
+    """Plain PyTorch version, line for line the JAX package's dense
+    reference: gather the table'd pages, mask columns past each row's
+    ``kv_len`` (causal within the Sq chunk), max-subtracted softmax.
+    Every row's computation is independent of the others."""
+    b, h, sq, d = q.shape
+    page_size = k_pages.shape[2]
+    npages = page_table.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    tbl = page_table.long()
+    # (B, NP, H, page, D) -> (B, H, NP*page, D)
+    k = torch.movedim(k_pages[tbl], 2, 1) \
+        .reshape(b, h, npages * page_size, d)
+    v = torch.movedim(v_pages[tbl], 2, 1) \
+        .reshape(b, h, npages * page_size, d)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * sm_scale, k.float())
+    col = torch.arange(npages * page_size, dtype=torch.int32,
+                       device=q.device)
+    row = torch.arange(sq, dtype=torch.int32, device=q.device)
+    kvl = kv_lens.to(torch.int32)[:, None, None, None]
+    mask = torch.logical_and(
+        col[None, None, None, :] <= kvl - sq + row[None, None, :, None],
+        col[None, None, None, :] < kvl)
+    s = torch.where(mask, s, torch.tensor(_NEG_INF, dtype=s.dtype,
+                                          device=s.device))
+    m = s.amax(dim=-1, keepdim=True)
+    seen = m > _NEG_INF / 2
+    p = torch.where(seen, torch.exp(s - m), torch.zeros((), device=s.device))
+    l = p.sum(dim=-1, keepdim=True)
+    l = torch.where(l == 0.0, torch.ones((), device=l.device), l)
+    return torch.einsum("bhqk,bhkd->bhqd", p / l, v.float()).to(q.dtype)
+
+
+def _check(q, k_pages, v_pages, page_table, kv_lens):
+    b, h, sq, d = q.shape
+    if k_pages.ndim != 4 or k_pages.shape[1] != h or k_pages.shape[3] != d \
+            or v_pages.shape != k_pages.shape:
+        raise ValueError(
+            f"page pool shape {tuple(k_pages.shape)}/"
+            f"{tuple(v_pages.shape)} does not match q heads/dim ({h}, {d})")
+    if page_table.ndim != 2 or page_table.shape[0] != b:
+        raise ValueError(f"page_table must be (B={b}, NP), got "
+                         f"{tuple(page_table.shape)}")
+    if kv_lens.shape != (b,):
+        raise ValueError(f"kv_lens must be (B={b},), got "
+                         f"{tuple(kv_lens.shape)}")
+    if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise TypeError(f"paged attention takes float32 or bfloat16 q/k/v "
+                        f"of one dtype, got {q.dtype}/{k_pages.dtype}/"
+                        f"{v_pages.dtype}")
+    if page_table.dtype != torch.int32 or kv_lens.dtype != torch.int32:
+        raise TypeError("page_table and kv_lens must be int32")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not supported by the kernel "
+                         f"(one of {_HEAD_DIMS})")
+    devs = {t.device for t in (q, k_pages, v_pages, page_table, kv_lens)}
+    if len(devs) != 1:
+        raise ValueError(f"paged attention operands on several devices: "
+                         f"{sorted(map(str, devs))}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("page_table", page_table), ("kv_lens", kv_lens)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def paged_flash_attention(q, k_pages, v_pages, page_table, kv_lens,
+                          sm_scale=None):
+    """Decode-path attention over a paged KV pool (shapes in the module
+    docstring). CUDA tensors launch the CUDA kernel or raise; CPU
+    tensors take :func:`paged_attention_reference`."""
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pages, v_pages, page_table,
+                                         kv_lens, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged attention runs on cuda or cpu tensors, "
+                         f"got {q.device}")
+    _check(q, k_pages, v_pages, page_table, kv_lens)
+    b, h, sq, d = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    # scale, then round back to q's type, where the TPU wrapper does
+    qf = (q * sm_scale).to(q.dtype).contiguous()
+    out = torch.empty_like(qf)
+    fn = _kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(qf.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+                 b, h, sq, d, k_pages.shape[2], page_table.shape[1],
+                 _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"paged attention kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["paged_attention"] += 1
+    return out

@@ -1,0 +1,124 @@
+"""The PyTorch port stands alone: it imports neither ``jax`` nor
+``mxnet_tpu``, its entry points run on the card unless asked for the
+CPU, and its kernel is built only when first launched."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu_torch import context
+from mxnet_tpu_torch.ops import _build
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted(str(p.relative_to(ROOT))
+                    for p in (ROOT / "mxnet_tpu_torch").rglob("*.py")) \
+    + ["chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+
+
+def _imports(path):
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_no_file_imports_jax_or_the_jax_package(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {name}"
+
+
+def test_import_leaves_jax_out_of_the_process():
+    code = (
+        "import sys\n"
+        "import mxnet_tpu_torch, mxnet_tpu_torch.serving\n"
+        "import mxnet_tpu_torch.ops, mxnet_tpu_torch.telemetry\n"
+        "import mxnet_tpu_torch.context, mxnet_tpu_torch.envvars\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'mxnet_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for dev in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            context.resolve_device(dev)
+    assert context.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from mxnet_tpu_torch.serving import PagedCausalLM, PagedKVPool
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedCausalLM(vocab=16, units=8, layers=1, heads=1, max_len=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedKVPool(1, 1, 8, page_size=4, n_pages=2)
+    model = PagedCausalLM(vocab=16, units=8, layers=1, heads=1,
+                          max_len=8, device="cpu")
+    assert model.device.type == "cpu"
+
+
+def test_wrapper_on_cpu_takes_the_plain_version_without_building():
+    from mxnet_tpu_torch.ops import launch_counts, paged_attention
+
+    rng = np.random.RandomState(0)
+    q = torch.from_numpy(rng.randn(2, 2, 1, 8).astype(np.float32))
+    k = torch.from_numpy(rng.randn(4, 2, 4, 8).astype(np.float32))
+    tbl = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+    kvl = torch.tensor([3, 6], dtype=torch.int32)
+    before = launch_counts()
+    out = paged_attention.paged_flash_attention(q, k, k, tbl, kvl)
+    assert out.shape == q.shape
+    assert launch_counts() == before
+    assert paged_attention._fn is None       # no kernel was loaded
+    with pytest.raises(ValueError):
+        paged_attention.paged_flash_attention(q.to("meta"), k, k, tbl,
+                                              kvl)
+
+
+def test_nvcc_missing_is_an_error(monkeypatch):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
+
+
+def test_build_targets_hopper_from_repo_sources():
+    assert _build.ARCH_FLAGS == ("-gencode", "arch=compute_90a,code=sm_90a")
+    for name in _build.SOURCES:
+        src, lib = _build._target(name)
+        assert os.path.isfile(src)
+        assert os.path.dirname(lib) == _build.BUILD_DIR
+    gitignore = (ROOT / ".gitignore").read_text().split()
+    assert "mxnet_tpu_torch/_build/" in gitignore
+
+
+def test_envvars_share_the_jax_package_names_and_defaults():
+    import mxnet_tpu.envvars as jax_env
+    from mxnet_tpu_torch import envvars
+
+    for name, var in envvars.ENVVARS.items():
+        ref = jax_env.ENVVARS[name]
+        assert (var.vtype, var.default) == (ref.vtype, ref.default), name
