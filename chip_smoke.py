@@ -6,35 +6,52 @@
 Phases, each printed as it ends; any failure raises and exits non-zero:
 
 1. the card's name and power limit;
-2. build every kernel of the decode-serving path from ``mxnet_tpu_torch/
+2. build every kernel of both serving paths from ``mxnet_tpu_torch/
    ops/csrc`` (one ``nvcc`` per source, all at once);
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, in float32 and bfloat16, with its
-   time, the plain version's, a library yardstick and the bound;
-4. the main path at GPT-2-small width (vocab 50257, 768 units, 12
-   layers, 12 heads, random weights from ``--seed``): a ``DecodeEngine``
-   serves 8 greedy requests; results, streams, solo parity and the
-   kernel launch counts are checked, serving metrics printed;
-5. a 2-layer model with the same seed on the card and on the CPU:
-   greedy tokens agree, logits agree within ``atol=1e-3``.
+   shapes its path gives it, in float32 and bfloat16, with its time,
+   the plain version's, a library yardstick and the bound: paged
+   attention (decode and chunk shapes), flash attention (packed rows
+   of 64, 256 and 512 tokens, and a dense causal 512), LayerNorm
+   (8 x 512 rows of 768, eps 1e-12);
+4. decode serving at GPT-2-small width (vocab 50257, 768 units, 12
+   layers, 12 heads, random weights from ``--seed``): a
+   ``DecodeEngine`` serves 8 greedy requests; results, streams, solo
+   parity and the kernel launch counts are checked, serving metrics
+   printed;
+5. encoder serving at BERT-base width (vocab 30522, 768 units, 3072
+   hidden, 12 layers, 12 heads, max_length 512, random weights from
+   ``--seed``): a ``ServingEngine`` (mean pool, buckets 64/256/512, 8
+   rows) is warmed over its shape universe, then 8 client threads
+   submit 48 requests of 8..512 tokens at once; every answer is held
+   against the same request served alone, launches must be exactly
+   12 (flash attention) and 25 (LayerNorm) per forward, serving
+   metrics printed;
+6. 2-layer models with the same seed on the card and on the CPU, for
+   both paths: greedy tokens agree and decode logits agree within
+   ``atol=1e-3``; encoder outputs agree within ``atol=1e-3``.
 
-The second-to-last line is ``{"kernels": [...]}``, the last
+The last three lines of standard output are ``{"kernels": [...]}``,
+then the card's name and power limit as ``nvidia-smi --query-gpu=
+name,power.limit --format=csv,noheader`` gives them, then
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
-the ``mxnet_tpu_torch`` package beside this file, it exits non-zero and
-prints no result.
+the ``mxnet_tpu_torch`` package beside this file, it exits non-zero
+and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, f32 FLOP/s outside the
-# tensor cores (the kernel's math is f32 on CUDA cores)
+# tensor cores (the kernels' math is f32 on CUDA cores for f32 inputs)
 PEAK_HBM_BPS = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
@@ -58,6 +75,18 @@ def cuda_ms(fn, iters=50, warmup=5):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def within_ulp(got, want, abs_tol, rel_tol=0.0):
+    """Every element of ``got`` within ``abs_tol + rel_tol * |want|`` of
+    ``want`` plus, for a bf16 output, one unit in its last place (2**-7
+    of the value): kernel and plain version each round an f32 result
+    once."""
+    import torch
+
+    rel = rel_tol + (2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0)
+    bound = want.float().abs() * rel + abs_tol
+    return bool(((got.float() - want.float()).abs() <= bound).all())
 
 
 def paged_case(rng, b, h, sq, d, page_size, width, kv_lens, dtype, dev):
@@ -179,6 +208,201 @@ def check_paged_attention(rng, dev):
     entry.update(out["decode"])
     entry["chunk"] = dict(out["chunk"],
                           shape="chunk B=1 H=12 Sq=64 D=64 width 16 f32")
+    return entry
+
+
+def packed_segments(rng, b, s):
+    """(B, S) segment ids of packed rows: each row holds requests of
+    8..S/2 tokens back to back from slot 0 (ids 1, 2, ...), then at
+    least one padding slot (id 0); and each row's used length."""
+    import numpy as np
+
+    seg = np.zeros((b, s), np.int32)
+    used = np.zeros(b, np.int32)
+    for r in range(b):
+        pos, sid = 0, 1
+        limit = s - int(rng.randint(1, max(2, s // 8)))
+        while True:
+            n = int(rng.randint(8, max(9, s // 2 + 1)))
+            if pos + n > limit:
+                break
+            seg[r, pos:pos + n] = sid
+            pos, sid = pos + n, sid + 1
+        used[r] = pos
+    return seg, used
+
+
+def flash_work(b, h, s, d, itemsize, seg=None, causal=False):
+    """(bytes, flops) one flash call needs for THESE inputs: q, k, v
+    read once, o and the f32 lse written once, the ids and lengths;
+    4 * D flops (QK^T and PV) per visible (query, key) pair."""
+    import numpy as np
+
+    bytes_ = 4 * b * h * s * d * itemsize + b * h * s * 4
+    if seg is not None:
+        bytes_ += seg.size * 4 + b * 4
+        pairs = 0
+        for row in seg:
+            _, counts = np.unique(row[row > 0], return_counts=True)
+            pairs += int((counts.astype(np.int64) ** 2).sum())
+    elif causal:
+        pairs = b * s * (s + 1) // 2
+    else:
+        pairs = b * s * s
+    return bytes_, 4 * d * h * pairs
+
+
+def check_flash_attention(rng, dev):
+    """K1 against its plain version at the encoder path's shapes:
+    B=8 rows, 12 heads, D=64, packed rows of 64/256/512 slots (with
+    padding, kv_lens from it) and a dense causal 512, in float32 and
+    bfloat16. Returns the kernel's JSON entry (numbers of the packed
+    512 f32 case at top level, the others under ``cases``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops.flash_attention import (
+        flash_attention_reference, flash_attention_with_lse)
+
+    b, h, d = 8, 12, 64
+    # o within 1e-4 (f32, the same math summed in another order) plus,
+    # in bf16, one unit in the last place of the plain value (both round
+    # an f32 result once); lse is f32 on both sides from the same
+    # rounded q and k
+    cases = [("packed", 64), ("packed", 256), ("packed", 512),
+             ("causal", 512)]
+    out = {}
+    for kind, s in cases:
+        seg_np, used = packed_segments(rng, b, s) if kind == "packed" \
+            else (None, None)
+        base = [rng.randn(b, h, s, d).astype("float32") for _ in range(3)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.tensor(x, dtype=dtype, device=dev)
+                       for x in base)
+            kw = {"causal": True} if kind == "causal" else {
+                "segment_ids": torch.tensor(seg_np, device=dev),
+                "kv_lens": torch.tensor(used, device=dev)}
+            o, lse = flash_attention_with_lse(q, k, v, **kw)
+            ro, rlse = flash_attention_reference(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (o.float() - ro.float()).abs().max().item()
+            lse_err = (lse - rlse).abs().max().item()
+            empty = rlse <= -1e29
+            if not torch.isfinite(o.float()).all():
+                raise AssertionError(f"flash {kind} {s}: non-finite o")
+            if not torch.equal(lse[empty], rlse[empty]) or (
+                    empty.any() and o.float()[empty].abs().max() != 0):
+                raise AssertionError(f"flash {kind} {s}: rows with no "
+                                     f"visible key are not exact zeros")
+            name = f"{kind} S={s} {str(dtype)[6:]}"
+            log(f"flash_attention {name}: max_abs_err {err:.3e} (tol "
+                f"1e-4{' + 1 ulp' if dtype != torch.float32 else ''}), "
+                f"lse {lse_err:.3e} (tol 1e-4), {int(empty.sum())} empty "
+                f"query rows")
+            if not (within_ulp(o, ro, 1e-4) and lse_err <= 1e-4):
+                raise AssertionError(f"flash_attention {name}: o err "
+                                     f"{err}, lse err {lse_err}")
+            if dtype != torch.float32:
+                out[(kind, s)]["bf16_max_abs_err"] = err
+                continue
+            ms = cuda_ms(lambda: flash_attention_with_lse(q, k, v, **kw))
+            plain_ms = cuda_ms(
+                lambda: flash_attention_reference(q, k, v, **kw), iters=10)
+            # yardstick only (never called by the port): SDPA with the
+            # same visibility as a boolean mask built outside the timing
+            if kind == "causal":
+                mask = torch.ones(s, s, dtype=torch.bool,
+                                  device=dev).tril()
+            else:
+                sg = kw["segment_ids"].long()
+                mask = (sg[:, None, :, None] == sg[:, None, None, :]) \
+                    & (sg[:, None, None, :] > 0)
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), iters=20)
+            nbytes, flops = flash_work(b, h, s, d, 4, seg_np,
+                                       kind == "causal")
+            t_bytes = nbytes / PEAK_HBM_BPS * 1e3
+            t_ops = flops / PEAK_F32_FLOPS * 1e3
+            out[(kind, s)] = {
+                "shape": f"{kind} B={b} H={h} S={s} D={d} f32",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms,
+                "library": "SDPA with a boolean mask"}
+            log(f"flash_attention {name}: {ms * 1e3:.2f} us kernel, "
+                f"{plain_ms * 1e3:.2f} us plain, {library_ms * 1e3:.2f} us "
+                f"library_ms (SDPA, boolean mask), bound "
+                f"{max(t_bytes, t_ops) * 1e3:.2f} us "
+                f"({out[(kind, s)]['bound_by']}: {nbytes} B, {flops} flop)")
+    entry = {"name": "flash_attention", "route": "cuda",
+             "source": "mxnet_tpu_torch/ops/csrc/flash_attention.cu",
+             "replaces": "mxnet_tpu/ops/pallas/flash_attention.py:568"}
+    entry.update(out.pop(("packed", 512)))
+    entry["cases"] = list(out.values())
+    return entry
+
+
+def check_layer_norm(rng, dev):
+    """K3a against its plain version at the encoder path's shape:
+    8 x 512 rows of 768, eps 1e-12, in float32 and bfloat16; returns
+    the kernel's JSON entry (numbers of the float32 case)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops.layer_norm import (layer_norm_fused,
+                                                layer_norm_reference)
+
+    r, d, eps = 8 * 512, 768, 1e-12
+    # an offset mean: a one-pass E[x^2] - mean^2 variance would show
+    x0 = (rng.randn(r, d) * 0.5 + 3.0).astype("float32")
+    g0, b0 = (rng.randn(d).astype("float32") for _ in range(2))
+    # y within 1e-5 + 2**-20 |y| (f32, sums in another order: the mean's
+    # rounding, times rstd |gamma|, does not shrink with |y|, and the
+    # rest grows with it) plus, in bf16, one unit in the last place of
+    # the plain value
+    entry = {"name": "layer_norm", "route": "cuda",
+             "source": "mxnet_tpu_torch/ops/csrc/layer_norm.cu",
+             "replaces": "mxnet_tpu/ops/pallas/layer_norm.py:89",
+             "shape": f"R={r} D={d} eps={eps} f32"}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, g, b = (torch.tensor(a, dtype=dtype, device=dev)
+                   for a in (x0, g0, b0))
+        y, mu, rs = layer_norm_fused(x, g, b, eps, return_stats=True)
+        ry, rmu, rrs = layer_norm_reference(x, g, b, eps,
+                                            return_stats=True)
+        torch.cuda.synchronize()
+        err = (y.float() - ry.float()).abs().max().item()
+        stat_err = max((mu - rmu).abs().max().item(),
+                       ((rs - rrs).abs() / rrs).max().item())
+        log(f"layer_norm {str(dtype)[6:]}: max_abs_err {err:.3e} (tol "
+            f"1e-5 + 2**-20 |y|"
+            f"{' + 1 ulp' if dtype != torch.float32 else ''}), "
+            f"mean/rstd {stat_err:.3e} (tol 1e-5)")
+        if not (within_ulp(y, ry, 1e-5, 2.0 ** -20) and stat_err <= 1e-5):
+            raise AssertionError(f"layer_norm {dtype}: err {err}, stats "
+                                 f"{stat_err}")
+        if dtype != torch.float32:
+            entry["bf16_max_abs_err"] = err
+            continue
+        ms = cuda_ms(lambda: layer_norm_fused(x, g, b, eps))
+        plain_ms = cuda_ms(lambda: layer_norm_reference(x, g, b, eps),
+                           iters=20)
+        library_ms = cuda_ms(lambda: F.layer_norm(x, (d,), g, b, eps))
+        nbytes = 2 * r * d * 4 + 2 * d * 4
+        flops = 8 * r * d
+        t_bytes = nbytes / PEAK_HBM_BPS * 1e3
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        entry.update({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations",
+                      "library_ms": library_ms,
+                      "library": "F.layer_norm"})
+        log(f"layer_norm f32: {ms * 1e3:.2f} us kernel, {plain_ms * 1e3:.2f}"
+            f" us plain, {library_ms * 1e3:.2f} us library_ms "
+            f"(F.layer_norm), bound {entry['bound_ms'] * 1e3:.2f} us "
+            f"({entry['bound_by']}: {nbytes} B, {flops} flop)")
     return entry
 
 
@@ -335,6 +559,158 @@ def cross_device(seed, dev):
         raise AssertionError(f"logits gap {gap} > 1e-3")
 
 
+BERT_BASE = dict(vocab_size=30522, units=768, hidden_size=3072,
+                 num_layers=12, num_heads=12, max_length=512)
+
+
+def encoder_requests(rng, n=48):
+    """``n`` requests of 8..512 tokens; every second one has token
+    type 1 on its second half."""
+    import numpy as np
+
+    reqs = []
+    for i in range(n):
+        toks = rng.randint(1000, 30522, int(rng.randint(8, 513)))
+        tt = None
+        if i % 2:
+            tt = np.zeros(len(toks), np.int32)
+            tt[len(toks) // 2:] = 1
+        reqs.append((toks.astype(np.int32), tt))
+    return reqs
+
+
+def serve_encoder(seed, profile, dev, power_line, clients=8):
+    """BERT-base width through ServingEngine; returns the launch counts
+    of the run (warmup, traffic and solo runs)."""
+    import numpy as np
+
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.gluon.model_zoo.bert import (BERTModel,
+                                                      bert_serving_entry)
+    from mxnet_tpu_torch.serving import ServingEngine
+
+    layers = BERT_BASE["num_layers"]
+    t0 = time.perf_counter()
+    net = BERTModel(device=dev, seed=seed, **BERT_BASE)
+    log(f"model: BERT-base width, {layers} layers, "
+        f"{sum(p.numel() for p in net.parameters())} params "
+        f"({time.perf_counter() - t0:.1f} s to build)")
+    entry = bert_serving_entry(net)
+    forwards = collections.Counter()
+
+    def counted(ids, tt, vl, seg, pos):
+        forwards[tuple(ids.shape)] += 1
+        return entry(ids, tt, vl, seg, pos)
+
+    reqs = encoder_requests(np.random.RandomState(seed + 2))
+    results = [None] * len(reqs)
+    eng = ServingEngine(counted, device=dev, pool="mean",
+                        bucket_lens=(64, 256, 512), max_rows=8)
+    with eng:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.warmup()
+        log(f"warmup: {sum(forwards.values())} forwards over the shape "
+            f"universe in {time.perf_counter() - t0:.1f} s")
+        n_warm = sum(forwards.values())
+        forwards.clear()
+        eng.reset_stats()
+        go = threading.Barrier(clients + 1)
+
+        def client(c):
+            go.wait()
+            futs = [(i, eng.submit(*reqs[i]))
+                    for i in range(c, len(reqs), clients)]
+            for i, f in futs:
+                results[i] = f.result(timeout=600)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(clients)]
+        for t in threads:
+            t.start()
+        with _profiler(profile) as prof:
+            go.wait()
+            t0 = time.perf_counter()
+            for t in threads:
+                t.join(600)
+            wall = time.perf_counter() - t0
+        if prof is not None:
+            report_profile(prof, wall)
+        snap = eng.snapshot()
+        batches = dict(forwards)
+        forwards.clear()
+        if any(r is None for r in results):
+            raise AssertionError(f"{sum(r is None for r in results)} "
+                                 f"requests unanswered")
+        gap = 0.0
+        for (toks, tt), got in zip(reqs, results):
+            solo = eng.infer(toks, tt, timeout=600)
+            gap = max(gap, float(np.abs(got - solo).max()))
+        counts = ops.launch_counts()
+    n_fwd = n_warm + sum(batches.values()) + sum(forwards.values())
+    # f32 throughout; cuBLAS picks its GEMM by row count, so a batched
+    # and a solo forward differ in summation order over 12 layers
+    log(f"solo parity: max gap {gap:.3e} over {len(reqs)} mean-pooled "
+        f"results (atol 2e-3)")
+    if not gap <= 2e-3:
+        raise AssertionError(f"batched vs solo gap {gap} > 2e-3")
+    want = {"flash_attention": layers * n_fwd,
+            "layer_norm": (2 * layers + 1) * n_fwd}
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{name} launched {counts[name]} times "
+                                 f"in {n_fwd} forwards, want {n}")
+    lat = snap["latency"]["total"]
+    toks = sum(len(t) for t, _ in reqs)
+    by_shape = {f"{r}x{s}": n for (r, s), n in sorted(batches.items())}
+    log(f"served {len(reqs)} requests, {toks} tokens in {wall:.3f} s: "
+        f"{len(reqs) / wall:.2f} requests/s, {toks / wall:.1f} tokens/s; "
+        f"latency p50 {lat['p50_ms']} ms p99 {lat['p99_ms']} ms; packing "
+        f"efficiency {snap['packing_efficiency']}; batches by rows x "
+        f"row_len {by_shape}; {n_fwd} forwards ({n_warm} warmup, "
+        f"{len(reqs)} solo); launches {counts} [{power_line}]")
+    log("encoder serving metrics: " + json.dumps(
+        {"requests_per_s": len(reqs) / wall, "tokens_per_s": toks / wall,
+         "wall_s": wall, "requests": len(reqs), "tokens": toks,
+         "latency_ms": lat, "packing_efficiency":
+             snap["packing_efficiency"], "batches": by_shape,
+         "warmup_forwards": n_warm,
+         "forwards": n_fwd, "solo_max_gap": gap, "launches": counts,
+         "card": power_line}))
+    return counts
+
+
+def cross_device_encoder(seed, dev):
+    """Same seed, 2 layers at BERT-base width, one packed batch on the
+    card and on the CPU (plain versions there)."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTModel
+    from mxnet_tpu_torch.io.packing import pack_sequences
+
+    kw = dict(BERT_BASE, num_layers=2, seed=seed)
+    rng = np.random.RandomState(seed + 3)
+    seqs = [rng.randint(1000, 30522, n).astype(np.int32)
+            for n in (7, 70, 130, 300, 512, 33)]
+    packed = pack_sequences(seqs, 512)
+    arrays = (packed.data, np.zeros_like(packed.data), packed.valid_length,
+              packed.segment_ids, packed.positions)
+    outs = {}
+    for name, device in (("cuda", dev), ("cpu", "cpu")):
+        net = BERTModel(device=device, **kw)
+        t = [torch.from_numpy(a).to(net.device) for a in arrays]
+        with torch.inference_mode():
+            seq, _ = net(t[0], t[1], t[2], None, t[3], t[4])
+        outs[name] = seq.float().cpu().numpy()
+    valid = packed.segment_ids > 0
+    gap = float(np.abs(outs["cuda"] - outs["cpu"])[valid].max())
+    log(f"cross-device encoder: {len(seqs)} packed sequences, max gap "
+        f"{gap:.3e} over valid slots (atol 1e-3)")
+    if not gap <= 1e-3:
+        raise AssertionError(f"encoder gap {gap} > 1e-3")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -377,12 +753,19 @@ def main():
                 log(f"  ptxas {name}: {line.strip()}")
 
     rng = np.random.RandomState(args.seed)
-    entries = [check_paged_attention(rng, dev)]
-    counts = serve_main_path(args.seed, args.profile, dev, power_line)
+    entries = [check_paged_attention(rng, dev),
+               check_flash_attention(rng, dev), check_layer_norm(rng, dev)]
+    # each path's launches, counted from 0 over its own run
+    decode = serve_main_path(args.seed, args.profile, dev, power_line)
+    encoder = serve_encoder(args.seed, args.profile, dev, power_line)
+    launches = {"paged_attention": decode["paged_attention"],
+                "flash_attention": encoder["flash_attention"],
+                "layer_norm": encoder["layer_norm"]}
     for e in entries:
-        e["launches"] = counts[e["name"]]
+        e["launches"] = launches[e["name"]]
         e["card"] = power_line
     cross_device(args.seed, dev)
+    cross_device_encoder(args.seed, dev)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(power_line)

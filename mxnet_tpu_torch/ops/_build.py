@@ -7,6 +7,8 @@ is of the source, so an edited kernel rebuilds), then loaded with
 where one through ``torch.utils.cpp_extension`` takes minutes. Builds
 happen at first use, never at import; :func:`build_all` starts one
 ``nvcc`` per source at once, so the whole set costs one compile's time.
+The sources share ``csrc/common.cuh``; the wrappers share
+:data:`DTYPE_CODES` and :func:`launch`.
 """
 from __future__ import annotations
 
@@ -17,19 +19,26 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["ARCH_FLAGS", "BUILD_DIR", "SOURCES", "build_all", "load",
-           "nvcc_path"]
+import torch
+
+__all__ = ["ARCH_FLAGS", "BUILD_DIR", "DTYPE_CODES", "SOURCES", "build_all",
+           "launch", "load", "nvcc_path"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 #: the kernels of this package, by name (``csrc/<name>.cu``)
-SOURCES = ("paged_attention",)
+SOURCES = ("paged_attention", "flash_attention", "layer_norm")
+#: headers every source may include
+HEADERS = ("common.cuh",)
 #: Hopper with its arch-specific features (wgmma, setmaxnreg)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: the ``dtype`` argument of the kernels' C entry points
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _lock = threading.Lock()
 _libs = {}
+_fns = {}
 #: ``-Xptxas -v`` report (registers, shared memory, spills) per build
 BUILD_LOGS = {}
 
@@ -54,10 +63,11 @@ def nvcc_path():
 
 def _target(name):
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(ARCH_FLAGS).encode()) \
-            .hexdigest()[:12]
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha1(" ".join(ARCH_FLAGS).encode())
+    for path in (src, *(os.path.join(CSRC, x) for x in HEADERS)):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _start(name):
@@ -103,3 +113,20 @@ def load(name):
     if lib is None:
         lib = build_all((name,))[name]
     return lib
+
+
+def launch(name, symbol, argtypes, device, *args):
+    """Call the C entry point ``symbol`` of kernel ``name`` (built on
+    first use) with ``args`` and ``device``'s current stream; each entry
+    point takes the stream last and returns a ``cudaError_t``. Raises
+    ``RuntimeError`` when that is not 0."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

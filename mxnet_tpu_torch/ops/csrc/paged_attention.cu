@@ -38,25 +38,17 @@
 // dot products run on CUDA cores, not wgmma; no split-KV across blocks
 // (flash-decoding) for long histories. Those come in later changes.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
+
+using mxtt::store;
+using mxtt::to_f32;
 
 constexpr int kThreads = 128;
 constexpr int kThreadsPerRow = 8;
 constexpr int kRowsPerBlock = kThreads / kThreadsPerRow;   // QT = 16
 constexpr float kNegInf = -1e30f;                          // as the TPU kernel
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void from_f32(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16(x);
-}
 
 // DPT = D / kThreadsPerRow output dims per thread.
 template <typename T, int DPT>
@@ -157,7 +149,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = out + (head_q + row) * D + g;
 #pragma unroll
     for (int i = 0; i < DPT; ++i)
-      from_f32(orow + i * kThreadsPerRow, acc[i] / l_safe);
+      store(orow + i * kThreadsPerRow, acc[i] / l_safe);
   }
 }
 
@@ -171,11 +163,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       ((size_t)kRowsPerBlock * D + (size_t)page_size * (D + 1) +
        (size_t)page_size * D + (size_t)kRowsPerBlock * page_size);
   auto kern = paged_attention_kernel<T, DPT>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  cudaError_t e = mxtt::allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
   dim3 grid(B, H, (Sq + kRowsPerBlock - 1) / kRowsPerBlock);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

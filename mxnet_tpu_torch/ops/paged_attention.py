@@ -37,19 +37,10 @@ _NEG_INF = -1e30
 #: kernel launches by kernel name (the main-path proof counts these)
 LAUNCHES = {"paged_attention": 0}
 _HEAD_DIMS = (8, 16, 32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("paged_attention").mxtt_paged_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+_DTYPES = (torch.float32, torch.bfloat16)
+# mxtt_paged_attention_fwd(q, k, v, table, kv_lens, out, B, H, Sq, D,
+#                          page_size, n_table, dtype)
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
 
 
 def paged_attention_reference(q, k_pages, v_pages, page_table, kv_lens,
@@ -100,7 +91,7 @@ def _check(q, k_pages, v_pages, page_table, kv_lens):
     if kv_lens.shape != (b,):
         raise ValueError(f"kv_lens must be (B={b},), got "
                          f"{tuple(kv_lens.shape)}")
-    if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype \
+    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
         raise TypeError(f"paged attention takes float32 or bfloat16 q/k/v "
                         f"of one dtype, got {q.dtype}/{k_pages.dtype}/"
@@ -138,15 +129,11 @@ def paged_flash_attention(q, k_pages, v_pages, page_table, kv_lens,
     # scale, then round back to q's type, where the TPU wrapper does
     qf = (q * sm_scale).to(q.dtype).contiguous()
     out = torch.empty_like(qf)
-    fn = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(qf.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-                 b, h, sq, d, k_pages.shape[2], page_table.shape[1],
-                 _DTYPE_CODES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"paged attention kernel launch failed: CUDA "
-                           f"error {err}")
+    _build.launch("paged_attention", "mxtt_paged_attention_fwd", _ARGS,
+                  q.device, qf.data_ptr(), k_pages.data_ptr(),
+                  v_pages.data_ptr(), page_table.data_ptr(),
+                  kv_lens.data_ptr(), out.data_ptr(), b, h, sq, d,
+                  k_pages.shape[2], page_table.shape[1],
+                  _build.DTYPE_CODES[q.dtype])
     LAUNCHES["paged_attention"] += 1
     return out

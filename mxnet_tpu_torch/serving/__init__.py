@@ -1,8 +1,21 @@
-"""Decode serving for the PyTorch port: :class:`DecodeEngine`
-(continuous batching over a paged KV pool) driving
-:class:`PagedCausalLM`.
+"""Serving for the PyTorch port: encoder serving with
+:class:`ServingEngine` (packed rows through a BERT forward), and decode
+serving with :class:`DecodeEngine` (continuous batching over a paged
+KV pool) driving :class:`PagedCausalLM`.
 
-Quickstart::
+Encoder quickstart::
+
+    from mxnet_tpu_torch.gluon.model_zoo.bert import (BERTModel,
+                                                      bert_serving_entry)
+    from mxnet_tpu_torch.serving import ServingEngine
+
+    net = BERTModel(seed=0)                       # BERT-base, on the GPU
+    with ServingEngine(bert_serving_entry(net), pool="mean",
+                       bucket_lens=(64, 256, 512)) as eng:
+        eng.warmup()
+        vec = eng.infer([101, 7592, 2088, 102])   # (768,) mean-pooled
+
+Decode quickstart::
 
     from mxnet_tpu_torch.serving import DecodeEngine, PagedCausalLM
 
@@ -17,9 +30,11 @@ Quickstart::
 """
 from __future__ import annotations
 
-from .batcher import DecodeSlots, PrefillChunks
+from .batcher import (ContinuousBatcher, DecodeSlots, PackedPlan,
+                      PrefillChunks)
 from .decode import DecodeEngine, DecodeRequest
 from .decode_model import PagedCausalLM
+from .engine import ServingEngine
 from .kvcache import KVPagesExhaustedError, PagedKVPool
 from .metrics import CostLedger, DecodeStats, ServingStats
 from .queue import (DeadlineExceededError, EngineStoppedError,
@@ -27,10 +42,10 @@ from .queue import (DeadlineExceededError, EngineStoppedError,
                     RequestQueue, RequestTooLongError, ServingError,
                     UnknownModelError)
 
-__all__ = ["CostLedger", "DeadlineExceededError", "DecodeEngine",
-           "DecodeRequest", "DecodeSlots", "DecodeStats",
+__all__ = ["ContinuousBatcher", "CostLedger", "DeadlineExceededError",
+           "DecodeEngine", "DecodeRequest", "DecodeSlots", "DecodeStats",
            "EngineStoppedError", "InferenceFuture", "InvalidSamplingError",
-           "KVPagesExhaustedError", "PagedCausalLM", "PagedKVPool",
-           "PrefillChunks", "QueueFullError", "RequestQueue",
-           "RequestTooLongError", "ServingError", "ServingStats",
-           "UnknownModelError"]
+           "KVPagesExhaustedError", "PackedPlan", "PagedCausalLM",
+           "PagedKVPool", "PrefillChunks", "QueueFullError",
+           "RequestQueue", "RequestTooLongError", "ServingEngine",
+           "ServingError", "ServingStats", "UnknownModelError"]

@@ -1,16 +1,153 @@
-"""Decode-loop shape buckets: :class:`DecodeSlots` (rows x page-table
-width) and :class:`PrefillChunks` (chunk x page-table width).
+"""Shape buckets of both serving paths.
 
-A port of the decode half of ``mxnet_tpu/serving/batcher.py``; the
-encoder path's ``ContinuousBatcher`` belongs to encoder serving and is
-left for that slice. PyTorch runs eagerly, so no executable is compiled
-per bucket; the buckets still bound the shapes the paged-attention
-kernel and the engine's cost ledger see, and keep the engine's
+- :class:`ContinuousBatcher` first-fit-packs drained encoder requests
+  into a small closed set of (rows, row_len) shapes and emits a
+  :class:`PackedPlan`: the row length is the smallest configured
+  bucket that holds the longest request, the row COUNT is rounded up
+  to a power of two (capped at ``max_rows``), padding with 1-token
+  dummy rows. Within a row, requests are isolated by the flash
+  kernel's ``segment_ids`` path.
+- :class:`DecodeSlots` (rows x page-table width) and
+  :class:`PrefillChunks` (chunk x page-table width) bound the decode
+  loop's shapes.
+
+A port of ``mxnet_tpu/serving/batcher.py``. PyTorch runs eagerly, so
+no executable is compiled per bucket; the buckets still bound the
+shapes the kernels and the engines' cost ledgers see, and keep the
 scheduling identical to the JAX package's.
 """
 from __future__ import annotations
 
-__all__ = ["DecodeSlots", "PrefillChunks"]
+import numpy as np
+
+from ..io.packing import pack_sequences
+
+__all__ = ["ContinuousBatcher", "DecodeSlots", "PackedPlan",
+           "PrefillChunks"]
+
+
+class PackedPlan:
+    """One dispatchable batch: packed arrays + request placements."""
+
+    __slots__ = ("data", "token_types", "segment_ids", "positions",
+                 "valid_length", "entries", "rows", "row_len",
+                 "valid_tokens", "pad_rows")
+
+    def __init__(self, data, token_types, segment_ids, positions,
+                 valid_length, entries, pad_rows):
+        self.data = data
+        self.token_types = token_types
+        self.segment_ids = segment_ids
+        self.positions = positions
+        self.valid_length = valid_length
+        self.entries = entries            # [(request, Placement)]
+        self.rows, self.row_len = data.shape
+        self.valid_tokens = sum(len(r) for r, _ in entries)
+        self.pad_rows = pad_rows
+
+    @property
+    def packing_efficiency(self):
+        return self.valid_tokens / float(self.rows * self.row_len)
+
+
+class ContinuousBatcher:
+    """Stateless planner: ``plan(requests)`` -> (PackedPlan, leftovers).
+
+    Leftovers are requests that did not fit this batch (all rows full);
+    the engine carries them into the next iteration at the front of the
+    line — nothing is ever dropped here (dropping is the queue's and
+    deadline checker's job, where it is loud).
+    """
+
+    def __init__(self, bucket_lens=(64, 256, 1024), max_rows=8,
+                 quantize_rows=True, pad_value=0):
+        lens = sorted(set(int(b) for b in bucket_lens))
+        if not lens or lens[0] < 1:
+            raise ValueError(f"bad bucket_lens {bucket_lens!r}")
+        if max_rows < 1:
+            raise ValueError("max_rows must be >= 1")
+        self.bucket_lens = tuple(lens)
+        self.max_len = lens[-1]
+        self.max_rows = int(max_rows)
+        self.quantize_rows = quantize_rows
+        self.pad_value = pad_value
+
+    def shape_universe(self):
+        """Every (rows, row_len) this batcher can emit, enumerable up
+        front for warmup."""
+        rows = (_pow2_up_to(self.max_rows) if self.quantize_rows
+                else list(range(1, self.max_rows + 1)))
+        return [(r, b) for b in self.bucket_lens for r in rows]
+
+    def _bucket_for(self, n):
+        for b in self.bucket_lens:
+            if n <= b:
+                return b
+        return None
+
+    def _quantized_rows(self, used_rows):
+        if not self.quantize_rows:
+            return used_rows
+        r = 1
+        while r < used_rows:
+            r *= 2
+        return min(r, self.max_rows)
+
+    def plan(self, requests):
+        """First-fit as many of ``requests`` (in order) as fit
+        ``max_rows`` rows of the chosen bucket length."""
+        if not requests:
+            return None, []
+        row_len = self._bucket_for(max(len(r) for r in requests))
+        if row_len is None:
+            # the engine rejects oversize requests at admission; this
+            # guards direct batcher users
+            fits = [r for r in requests if len(r) <= self.max_len]
+            rest = [r for r in requests if len(r) > self.max_len]
+            plan, leftover = self.plan(fits)
+            return plan, leftover + rest
+        used = []                       # slots consumed per open row
+        accepted, leftover = [], []
+        for r in requests:
+            n = len(r)
+            for i in range(len(used)):  # first fit
+                if used[i] + n <= row_len:
+                    used[i] += n
+                    accepted.append(r)
+                    break
+            else:
+                if len(used) < self.max_rows:
+                    used.append(n)
+                    accepted.append(r)
+                else:
+                    leftover.append(r)
+        tts = [r.token_types if r.token_types is not None
+               else np.zeros(len(r), np.int32) for r in accepted]
+        batch = pack_sequences([r.tokens for r in accepted], row_len,
+                               extras=[tts], pad_value=self.pad_value,
+                               dtype=np.int32, max_rows=self.max_rows)
+        rows = self._quantized_rows(batch.data.shape[0])
+        pad_rows = rows - batch.data.shape[0]
+        data = _pad_rows(batch.data, pad_rows, self.pad_value)
+        seg = _pad_rows(batch.segment_ids, pad_rows, 0)
+        pos = _pad_rows(batch.positions, pad_rows, 0)
+        tt = _pad_rows(batch.extras[0], pad_rows, 0)
+        vl = np.concatenate([batch.valid_length,
+                             np.ones(pad_rows, np.int32)]) \
+            if pad_rows else batch.valid_length
+        # dummy rows carry ONE 1-token segment so no row reaches the
+        # kernel with zero valid keys (an all-masked softmax row)
+        seg[batch.data.shape[0]:, 0] = 1
+        return PackedPlan(data, tt, seg, pos, vl,
+                          list(zip(accepted, batch.placements)),
+                          pad_rows), leftover
+
+
+def _pad_rows(arr, pad_rows, fill):
+    if not pad_rows:
+        return arr
+    return np.concatenate(
+        [arr, np.full((pad_rows,) + arr.shape[1:], fill, arr.dtype)])
 
 
 def _pow2_up_to(cap):

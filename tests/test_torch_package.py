@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor
 ``mxnet_tpu``, its entry points run on the card unless asked for the
-CPU, and its kernel is built only when first launched."""
+CPU, and its kernels are built only when first launched."""
 import ast
 import os
 import pathlib
@@ -40,12 +40,22 @@ def test_no_file_imports_jax_or_the_jax_package(path):
         assert top not in FORBIDDEN, f"{path} imports {name}"
 
 
+def test_import_scan_covers_every_subpackage():
+    scanned = {pathlib.Path(p).parts[1] for p in PORT_FILES
+               if p.startswith("mxnet_tpu_torch/") and p.count("/") > 1}
+    for sub in ("gluon", "io", "ndarray", "ops", "serving", "telemetry"):
+        assert sub in scanned, sub
+    assert "mxnet_tpu_torch/gluon/model_zoo/bert.py" in PORT_FILES
+
+
 def test_import_leaves_jax_out_of_the_process():
     code = (
         "import sys\n"
         "import mxnet_tpu_torch, mxnet_tpu_torch.serving\n"
         "import mxnet_tpu_torch.ops, mxnet_tpu_torch.telemetry\n"
         "import mxnet_tpu_torch.context, mxnet_tpu_torch.envvars\n"
+        "import mxnet_tpu_torch.gluon, mxnet_tpu_torch.ndarray\n"
+        "import mxnet_tpu_torch.io\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mxnet_tpu')]\n"
         "assert not bad, bad\n"
@@ -67,16 +77,27 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
-    from mxnet_tpu_torch.serving import PagedCausalLM, PagedKVPool
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTModel
+    from mxnet_tpu_torch.serving import (PagedCausalLM, PagedKVPool,
+                                         ServingEngine)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PagedCausalLM(vocab=16, units=8, layers=1, heads=1, max_len=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PagedKVPool(1, 1, 8, page_size=4, n_pages=2)
+    bert = dict(vocab_size=16, units=8, hidden_size=16, num_layers=1,
+                num_heads=2, max_length=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BERTModel(**bert)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(lambda *a: None, bucket_lens=(8,))
     model = PagedCausalLM(vocab=16, units=8, layers=1, heads=1,
                           max_len=8, device="cpu")
     assert model.device.type == "cpu"
+    assert BERTModel(device="cpu", **bert).device.type == "cpu"
+    eng = ServingEngine(lambda *a: None, device="cpu", bucket_lens=(8,))
+    assert eng.device.type == "cpu"
 
 
 def test_wrapper_on_cpu_takes_the_plain_version_without_building():
@@ -91,10 +112,41 @@ def test_wrapper_on_cpu_takes_the_plain_version_without_building():
     out = paged_attention.paged_flash_attention(q, k, k, tbl, kvl)
     assert out.shape == q.shape
     assert launch_counts() == before
-    assert paged_attention._fn is None       # no kernel was loaded
+    assert "paged_attention" not in _build._libs   # nothing was loaded
     with pytest.raises(ValueError):
         paged_attention.paged_flash_attention(q.to("meta"), k, k, tbl,
                                               kvl)
+
+
+def test_k1_and_k3a_wrappers_on_cpu_take_the_plain_version_unbuilt():
+    from mxnet_tpu_torch.ops import (flash_attention, launch_counts,
+                                     layer_norm)
+
+    rng = np.random.RandomState(1)
+    q = torch.from_numpy(rng.randn(2, 2, 5, 8).astype(np.float32))
+    seg = torch.tensor([[1, 1, 2, 2, 0], [1, 1, 1, 1, 1]],
+                       dtype=torch.int32)
+    x = torch.from_numpy(rng.randn(3, 4, 16).astype(np.float32))
+    g, b = torch.ones(16), torch.zeros(16)
+    before = launch_counts()
+    assert set(before) == {"paged_attention", "flash_attention",
+                           "layer_norm"}
+    o, lse = flash_attention.flash_attention_with_lse(
+        q, q, q, kv_lens=(seg > 0).sum(1, dtype=torch.int32),
+        segment_ids=seg)
+    assert torch.equal(
+        o, flash_attention.flash_attention_reference(
+            q, q, q, kv_lens=(seg > 0).sum(1, dtype=torch.int32),
+            segment_ids=seg)[0])
+    assert o[0, :, 4].abs().max().item() == 0.0      # the padding row
+    y = layer_norm.layer_norm_fused(x, g, b, 1e-12)
+    assert torch.equal(y, layer_norm.layer_norm_reference(x, g, b, 1e-12))
+    assert launch_counts() == before
+    assert not {"flash_attention", "layer_norm"} & set(_build._libs)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q.to("meta"), q, q)
+    with pytest.raises(ValueError):
+        layer_norm.layer_norm_fused(x.to("meta"), g, b)
 
 
 def test_nvcc_missing_is_an_error(monkeypatch):
