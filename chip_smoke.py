@@ -6,14 +6,19 @@
 Phases, each printed as it ends; any failure raises and exits non-zero:
 
 1. the card's name and power limit;
-2. build every kernel of both serving paths from ``mxnet_tpu_torch/
-   ops/csrc`` (one ``nvcc`` per source, all at once);
+2. build every kernel of the serving and training paths from
+   ``mxnet_tpu_torch/ops/csrc`` (one ``nvcc`` per source, all at once);
 3. each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it, in float32 and bfloat16, with its time,
    the plain version's, a library yardstick and the bound: paged
    attention (decode and chunk shapes), flash attention (packed rows
    of 64, 256 and 512 tokens, and a dense causal 512), LayerNorm
-   (8 x 512 rows of 768, eps 1e-12);
+   (8 x 512 rows of 768, eps 1e-12); and the training kernels at the
+   training step's shapes: the flash-attention backward (64 x 128
+   padded rows of the training batch, packed 512, dense causal 512),
+   the LayerNorm backward (8192 x 768) and the fused softmax
+   cross-entropy forward and backward (the batch's valid positions x
+   30522);
 4. decode serving at GPT-2-small width (vocab 50257, 768 units, 12
    layers, 12 heads, random weights from ``--seed``): a
    ``DecodeEngine`` serves 8 greedy requests; results, streams, solo
@@ -27,9 +32,28 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    against the same request served alone, launches must be exactly
    12 (flash attention) and 25 (LayerNorm) per forward, serving
    metrics printed;
-6. 2-layer models with the same seed on the card and on the CPU, for
-   both paths: greedy tokens agree and decode logits agree within
-   ``atol=1e-3``; encoder outputs agree within ``atol=1e-3``.
+6. BERT-base MLM training (``train-bertbase-mlm-b64s128``: the trunk
+   without its pooler plus ``BERTMLMHead``, dropout 0, random f32
+   weights from ``--seed``): 64 rows of 128 slots with valid lengths
+   uniform in [64, 128] (``valid_length`` rides the flash kernels), ids
+   and labels uniform over the vocabulary, every valid position
+   predicted; ``autograd.record()`` -> forward ->
+   ``nd.softmax_cross_entropy`` -> ``backward()`` ->
+   ``Trainer.step(valid tokens)`` with Adam at lr 1e-4, 2 warm-up steps
+   then 10 on the same batch. Every loss finite, the 10th below the
+   1st, launches per step exactly 12 + 12 (flash attention forward and
+   backward), 26 + 26 (LayerNorm) and 1 + 1 (softmax cross-entropy),
+   every parameter's gradient finite and not all zero; step time p50,
+   valid and slot tokens/s and peak memory printed;
+7. 2-layer models with the same seed on the card and on the CPU, for
+   all three paths: greedy tokens agree and decode logits agree within
+   ``atol=1e-3``; encoder outputs agree within ``atol=1e-3``; three
+   Adam steps of the training path give losses within ``1e-4``
+   relative and step-1 gradients within ``1e-3`` of each parameter's
+   largest CPU gradient.
+
+``--profile`` adds a torch.profiler breakdown (device time by kernel,
+busy share) of both serving windows and of one training step.
 
 The last three lines of standard output are ``{"kernels": [...]}``,
 then the card's name and power limit as ``nvidia-smi --query-gpu=
@@ -406,6 +430,290 @@ def check_layer_norm(rng, dev):
     return entry
 
 
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate
+    and the operations over the f32 rate."""
+    t_bytes = nbytes / PEAK_HBM_BPS * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def backward_ms(out, inputs, grad, iters=20):
+    """Device time of one autograd backward of ``out`` (built once,
+    kept with retain_graph) to ``inputs``: a library call's backward
+    alone, its forward excluded."""
+    import torch
+
+    return cuda_ms(lambda: torch.autograd.grad(out, inputs, grad,
+                                               retain_graph=True),
+                   iters=iters)
+
+
+TRAIN_B, TRAIN_S, VOCAB = 64, 128, 30522
+
+
+def train_batch(seed, b=TRAIN_B, s=TRAIN_S, vocab=VOCAB):
+    """The training batch, as ``BENCH_PADDED=1`` draws it: valid lengths
+    uniform in [S/2, S], ids and labels uniform over the vocabulary, one
+    label per valid position; ``pos`` indexes the valid slots of the
+    flattened (B * S) rows."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed + 4)
+    lens = rng.randint(s // 2, s + 1, b).astype(np.int32)
+    ids = rng.randint(0, vocab, (b, s)).astype(np.int32)
+    labels = rng.randint(0, vocab, int(lens.sum())).astype(np.int32)
+    pos = np.concatenate([r * s + np.arange(n) for r, n in enumerate(lens)])
+    return lens, ids, labels, pos
+
+
+def check_flash_attention_bwd(rng, dev, lens):
+    """K2 against its plain version: the training batch's 64 x 128
+    padded rows (``kv_lens`` = its valid lengths), packed rows of 512
+    and a dense causal 512, in float32 and bfloat16. Returns the
+    kernel's JSON entry (the padded f32 case at top level)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops.flash_attention import (
+        flash_attention_backward, flash_attention_backward_reference,
+        flash_attention_with_lse)
+
+    h, d = 12, 64
+    cases = [("padded", TRAIN_B, TRAIN_S), ("packed", 8, 512),
+             ("causal", 8, 512)]
+    out = {}
+    for kind, b, s in cases:
+        seg_np = used = None
+        if kind == "packed":
+            seg_np, used = packed_segments(rng, b, s)
+        elif kind == "padded":
+            used = np.asarray(lens, np.int32)
+        base = [rng.randn(b, h, s, d).astype("float32") for _ in range(4)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.tensor(x, dtype=dtype, device=dev)
+                           for x in base)
+            kw = {"causal": True} if kind == "causal" else {
+                "kv_lens": torch.tensor(used, device=dev)}
+            if kind == "packed":
+                kw["segment_ids"] = torch.tensor(seg_np, device=dev)
+            o, lse = flash_attention_with_lse(q, k, v, **kw)
+            got = flash_attention_backward(q, k, v, o, lse, do, **kw)
+            delta = (do.float() * o.float()).sum(-1)
+            want = flash_attention_backward_reference(q, k, v, lse, do,
+                                                      delta, **kw)
+            torch.cuda.synchronize()
+            err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want))
+            name = f"{kind} B={b} S={s} {str(dtype)[6:]}"
+            # f32 sums over up to 512 keys or queries in another order,
+            # plus one output ulp in bf16
+            log(f"flash_attention_bwd {name}: max_abs_err {err:.3e} (tol "
+                f"1e-4 + 1e-5 |g|{' + 1 ulp' if dtype != torch.float32 else ''})")
+            if not all(torch.isfinite(g.float()).all() for g in got) or \
+                    not all(within_ulp(g, w, 1e-4, 1e-5)
+                            for g, w in zip(got, want)):
+                raise AssertionError(f"flash_attention_bwd {name}: err "
+                                     f"{err}")
+            if dtype != torch.float32:
+                out[kind]["bf16_max_abs_err"] = err
+                continue
+            ms = cuda_ms(lambda: flash_attention_backward(q, k, v, o, lse,
+                                                          do, **kw))
+            plain_ms = cuda_ms(lambda: flash_attention_backward_reference(
+                q, k, v, lse, do, delta, **kw), iters=10)
+            # yardstick only (never called by the port): the backward of
+            # SDPA with the same visibility as a boolean mask
+            col = torch.arange(s, device=dev)
+            if kind == "causal":
+                mask = col[None, :] <= col[:, None]
+            elif kind == "padded":
+                mask = (col[None, :] < kw["kv_lens"].long()[:, None]
+                        )[:, None, None, :]
+            else:
+                sg = kw["segment_ids"].long()
+                mask = (sg[:, None, :, None] == sg[:, None, None, :]) \
+                    & (sg[:, None, None, :] > 0)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            ref_o = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+            library_ms = backward_ms(ref_o, leaves, do)
+            del ref_o, leaves
+            nbytes, _ = flash_work(b, h, s, d, 4, seg_np, kind == "causal")
+            if kind == "padded":
+                pairs = h * s * int(used.astype(np.int64).sum())
+            else:
+                _, fwd_flops = flash_work(b, h, s, d, 4, seg_np,
+                                          kind == "causal")
+                pairs = fwd_flops // (4 * d)
+            # read q, k, v, o, do and lse; write dq, dk, dv: the forward's
+            # bytes (q, k, v, o, lse) plus do and three gradients
+            nbytes += 4 * b * h * s * d * 4
+            flops = 10 * d * pairs          # s, dp, dq, dk, dv products
+            bms, by = bound(nbytes, flops)
+            out[kind] = {
+                "shape": f"{kind} B={b} H={h} S={s} D={d} f32",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+                "library": "SDPA backward (autograd), boolean mask"}
+            log(f"flash_attention_bwd {name}: {ms * 1e3:.2f} us kernel "
+                f"(delta included), {plain_ms * 1e3:.2f} us plain, "
+                f"{library_ms * 1e3:.2f} us library_ms (SDPA backward, "
+                f"boolean mask), bound {bms * 1e3:.2f} us ({by}: {nbytes} "
+                f"B, {flops} flop)")
+    entry = {"name": "flash_attention_bwd", "route": "cuda",
+             "source": "mxnet_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+             "replaces": "mxnet_tpu/ops/pallas/flash_attention.py:686",
+             "also_replaces": ["mxnet_tpu/ops/pallas/flash_attention.py:747",
+                               "mxnet_tpu/ops/pallas/flash_attention.py:775"]}
+    entry.update(out.pop("padded"))
+    entry["cases"] = list(out.values())
+    return entry
+
+
+def check_layer_norm_bwd(rng, dev):
+    """K3b against its plain version at the trunk's shape: 64 x 128 rows
+    of 768, eps 1e-12, float32 and bfloat16; returns the kernel's JSON
+    entry (the float32 numbers)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops.layer_norm import (
+        layer_norm_backward, layer_norm_backward_reference,
+        layer_norm_fused)
+
+    r, d, eps = TRAIN_B * TRAIN_S, 768, 1e-12
+    x0 = (rng.randn(r, d) * 0.5 + 3.0).astype("float32")
+    g0, dy0 = rng.randn(d).astype("float32"), rng.randn(r, d).astype(
+        "float32")
+    entry = {"name": "layer_norm_bwd", "route": "cuda",
+             "source": "mxnet_tpu_torch/ops/csrc/layer_norm.cu",
+             "replaces": "mxnet_tpu/ops/pallas/layer_norm.py:117",
+             "shape": f"R={r} D={d} eps={eps} f32"}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, g, dy = (torch.tensor(a, dtype=dtype, device=dev)
+                    for a in (x0, g0, dy0))
+        _, mu, rs = layer_norm_fused(x, g, g, eps, return_stats=True)
+        dx, dg, db = layer_norm_backward(x, g, mu, rs, dy)
+        rdx, rdg, rdb = layer_norm_backward_reference(x, g, mu, rs, dy)
+        torch.cuda.synchronize()
+        err = (dx.float() - rdx.float()).abs().max().item()
+        # dgamma, dbeta: sums over 8192 rows in another order, within
+        # 5e-5 of the sum of their terms' magnitudes
+        xhat = (x.float() - mu[:, None]) * rs[:, None]
+        red_ok = all(bool(((a - b_).abs() <= 5e-5 * t.abs().sum(0) + 1e-5)
+                          .all())
+                     for a, b_, t in ((dg, rdg, dy.float() * xhat),
+                                      (db, rdb, dy.float())))
+        red_err = max((dg - rdg).abs().max().item(),
+                      (db - rdb).abs().max().item())
+        log(f"layer_norm_bwd {str(dtype)[6:]}: dx max_abs_err {err:.3e} "
+            f"(tol 1e-4 + 1e-5 |dx|"
+            f"{' + 1 ulp' if dtype != torch.float32 else ''}), "
+            f"dgamma/dbeta {red_err:.3e} (tol 5e-5 of the terms' |sum|)")
+        if not (within_ulp(dx, rdx, 1e-4, 1e-5) and red_ok):
+            raise AssertionError(f"layer_norm_bwd {dtype}: dx err {err}, "
+                                 f"dgamma/dbeta err {red_err}")
+        if dtype != torch.float32:
+            entry["bf16_max_abs_err"] = err
+            continue
+        ms = cuda_ms(lambda: layer_norm_backward(x, g, mu, rs, dy))
+        plain_ms = cuda_ms(lambda: layer_norm_backward_reference(
+            x, g, mu, rs, dy), iters=20)
+        leaves = [t.detach().requires_grad_() for t in (x, g, g)]
+        ref_y = F.layer_norm(leaves[0], (d,), leaves[1], leaves[2], eps)
+        library_ms = backward_ms(ref_y, leaves, dy)
+        del ref_y, leaves
+        # read x, dy, gamma, mean, rstd; write dx, dgamma, dbeta
+        nbytes = 3 * r * d * 4 + d * 4 + 2 * r * 4 + 2 * d * 4
+        flops = 11 * r * d
+        bms, by = bound(nbytes, flops)
+        entry.update({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bms, "bound_by": by,
+                      "library_ms": library_ms,
+                      "library": "F.layer_norm backward (autograd)"})
+        log(f"layer_norm_bwd f32: {ms * 1e3:.2f} us kernel, "
+            f"{plain_ms * 1e3:.2f} us plain, {library_ms * 1e3:.2f} us "
+            f"library_ms (F.layer_norm backward), bound {bms * 1e3:.2f} us "
+            f"({by}: {nbytes} B, {flops} flop)")
+    return entry
+
+
+def check_softmax_xent(rng, dev, n):
+    """K4a and K4b against their plain versions at the MLM loss's shape
+    (the batch's ``n`` valid positions x 30522), float32 and bfloat16;
+    returns the two kernels' JSON entries (float32 numbers)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops.softmax_xent import (
+        softmax_xent_backward, softmax_xent_backward_reference,
+        softmax_xent_forward, softmax_xent_reference)
+
+    v = VOCAB
+    x0 = (rng.randn(n, v) * 2.0).astype("float32")
+    lab = torch.tensor(rng.randint(0, v, n), dtype=torch.int32, device=dev)
+    g = torch.tensor(rng.rand(n).astype("float32"), device=dev)
+    src = "mxnet_tpu_torch/ops/csrc/softmax_xent.cu"
+    fwd = {"name": "softmax_xent_fwd", "route": "cuda", "source": src,
+           "replaces": "mxnet_tpu/ops/pallas/softmax_xent.py:89",
+           "shape": f"N={n} V={v} f32"}
+    bwd = {"name": "softmax_xent_bwd", "route": "cuda", "source": src,
+           "replaces": "mxnet_tpu/ops/pallas/softmax_xent.py:127",
+           "shape": f"N={n} V={v} f32"}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.tensor(x0, dtype=dtype, device=dev)
+        loss, lse = softmax_xent_forward(x, lab)
+        dx = softmax_xent_backward(x, lab, lse, g)
+        rloss, rlse = softmax_xent_reference(x, lab)
+        rdx = softmax_xent_backward_reference(x, lab, rlse, g)
+        torch.cuda.synchronize()
+        err = max((loss - rloss).abs().max().item(),
+                  (lse - rlse).abs().max().item())
+        derr = (dx.float() - rdx.float()).abs().max().item()
+        name = str(dtype)[6:]
+        # an f32 log-sum-exp over 30522 terms in another order; dx in
+        # the logits' type
+        log(f"softmax_xent {name}: loss/lse max_abs_err {err:.3e} (tol "
+            f"1e-5 + 1e-6 |lse|), dx {derr:.3e} (tol 1e-6 + 1e-5 |dx|"
+            f"{' + 1 ulp' if dtype != torch.float32 else ''})")
+        if not (bool(((loss - rloss).abs() <= 1e-5 + 1e-6 * rloss.abs())
+                     .all()) and within_ulp(dx, rdx, 1e-6, 1e-5)):
+            raise AssertionError(f"softmax_xent {dtype}: loss err {err}, "
+                                 f"dx err {derr}")
+        if dtype != torch.float32:
+            fwd["bf16_max_abs_err"], bwd["bf16_max_abs_err"] = err, derr
+            continue
+        lab64 = lab.long()
+        leaf = x.detach().requires_grad_()
+        ref = F.cross_entropy(leaf, lab64, reduction="none")
+        for entry, e, fn, plain, lib, nbytes, flops, libname in (
+                (fwd, err, lambda: softmax_xent_forward(x, lab),
+                 lambda: softmax_xent_reference(x, lab),
+                 lambda: F.cross_entropy(x, lab64, reduction="none"),
+                 n * v * 4 + n * 4 + 2 * n * 4, 4 * n * v,
+                 "F.cross_entropy(reduction='none') forward"),
+                (bwd, derr, lambda: softmax_xent_backward(x, lab, lse, g),
+                 lambda: softmax_xent_backward_reference(x, lab, lse, g),
+                 None, 2 * n * v * 4 + 3 * n * 4, 4 * n * v,
+                 "F.cross_entropy(reduction='none') backward (autograd)")):
+            ms = cuda_ms(fn)
+            plain_ms = cuda_ms(plain, iters=10)
+            library_ms = cuda_ms(lib) if lib is not None \
+                else backward_ms(ref, [leaf], g)
+            bms, by = bound(nbytes, flops)
+            entry.update({"max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bms, "bound_by": by,
+                          "library_ms": library_ms, "library": libname})
+            log(f"{entry['name']} f32: {ms * 1e3:.2f} us kernel, "
+                f"{plain_ms * 1e3:.2f} us plain, {library_ms * 1e3:.2f} us "
+                f"library_ms ({libname}), bound {bms * 1e3:.2f} us ({by}: "
+                f"{nbytes} B, {flops} flop)")
+        del ref, leaf
+    return [fwd, bwd]
+
+
 def _profiler(on):
     import contextlib
 
@@ -419,14 +727,20 @@ def _profiler(on):
 
 
 def report_profile(prof, wall):
-    """Device time by kernel over the serving window, and the device's
-    busy share of the window's wall (the profiler's own overhead
-    inflates the wall; read shares, not rates, from a profiled run)."""
+    """Device time by kernel over the window, and the device's busy
+    share of the window's wall (the profiler's own overhead inflates
+    the wall; read shares, not rates, from a profiled run). Only the
+    device's own events count: the operators that launched them (which
+    in the backward's threads carry their kernels' time too) do not."""
+    from torch.autograd import DeviceType
+
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    rows = sorted(prof.key_averages(), key=dev_us, reverse=True)
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in rows) / 1e6
     log(f"profile: device busy {busy:.4f} s of {wall:.4f} s wall "
         f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
@@ -711,6 +1025,165 @@ def cross_device_encoder(seed, dev):
         raise AssertionError(f"encoder gap {gap} > 1e-3")
 
 
+def build_trainer(seed, dev, num_layers):
+    """BERT-base width trunk (no pooler: the MLM loss never reads it)
+    + ``BERTMLMHead`` with random weights from ``seed``, dropout 0, and
+    a ``Trainer`` with Adam at lr 1e-4 over all their parameters."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTMLMHead, BERTModel
+
+    cfg = dict(BERT_BASE, num_layers=num_layers)
+    net = BERTModel(dropout=0.0, attention_dropout=0.0, use_pooler=False,
+                    device=dev, seed=seed, **cfg)
+    head = BERTMLMHead(cfg["vocab_size"], cfg["units"], device=dev,
+                       seed=seed + 1)
+    params = dict(net.collect_params().items())
+    params.update(head.collect_params().items())
+    trainer = gluon.Trainer(params, "adam", {"learning_rate": 1e-4})
+    return net, head, params, trainer
+
+
+def to_device(batch, dev):
+    import numpy as np
+    import torch
+
+    lens, ids, labels, pos = batch
+    return (torch.tensor(ids, device=dev), torch.zeros(ids.shape,
+                                                       dtype=torch.int32,
+                                                       device=dev),
+            torch.tensor(lens, device=dev), torch.tensor(pos, device=dev),
+            torch.tensor(labels, device=dev), int(np.sum(lens)))
+
+
+def train_step(net, head, trainer, batch):
+    """One MLM step through the user's entry points; returns the loss
+    tensor (shape (1,), the sum over the valid positions)."""
+    from mxnet_tpu_torch import autograd, nd
+
+    ids, tt, lens, pos, labels, n_valid = batch
+    with autograd.record():
+        seq = net(ids, tt, lens)
+        flat = seq.reshape(-1, seq.shape[-1])[pos]   # the valid slots
+        loss = nd.softmax_cross_entropy(head(flat), labels)
+    loss.backward()
+    trainer.step(n_valid)
+    return loss
+
+
+def train_main_path(seed, profile, dev, power_line, steps=10, warmup=2):
+    """``train-bertbase-mlm-b64s128`` on the card; returns the launch
+    counts of the measured steps."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import ops
+
+    layers = BERT_BASE["num_layers"]
+    t0 = time.perf_counter()
+    net, head, params, trainer = build_trainer(seed, dev, layers)
+    n_params = sum(p.data().numel() for p in params.values())
+    log(f"model: BERT-base width, {layers} layers + MLM head, {n_params} "
+        f"params ({time.perf_counter() - t0:.1f} s to build)")
+    batch = to_device(train_batch(seed), dev)
+    n_valid = batch[-1]
+    for _ in range(warmup):
+        train_step(net, head, trainer, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = train_step(net, head, trainer, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item() / n_valid)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_step = {"flash_attention": layers, "flash_attention_bwd": layers,
+                "layer_norm": 2 * layers + 2,
+                "layer_norm_bwd": 2 * layers + 2,
+                "softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
+    for name, n in per_step.items():
+        if counts[name] != n * steps:
+            raise AssertionError(f"{name} launched {counts[name]} times in "
+                                 f"{steps} steps, want {n} per step")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    dead = []
+    for name, p in params.items():
+        g = p.grad()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: non-finite gradient")
+        if g.abs().max().item() == 0.0:
+            dead.append(name)
+    if dead:
+        raise AssertionError(f"all-zero gradients: {dead}")
+    if profile:
+        with _profiler(True) as prof:
+            t0 = time.perf_counter()
+            train_step(net, head, trainer, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        log("training step profile:")
+        report_profile(prof, wall)
+    p50 = float(np.median(times))
+    slots = TRAIN_B * TRAIN_S
+    log(f"trained {steps} steps (+{warmup} warm-up) on {TRAIN_B} x "
+        f"{TRAIN_S} slots, {n_valid} valid: step p50 {p50 * 1e3:.2f} ms, "
+        f"{n_valid / p50:.1f} valid tokens/s, {slots / p50:.1f} slot "
+        f"tokens/s; loss per token {losses[0]:.6f} -> {losses[-1]:.6f}; "
+        f"peak memory {peak / 2 ** 30:.3f} GiB; launches {counts} "
+        f"[{power_line}]")
+    log("training metrics: " + json.dumps(
+        {"step_ms_p50": p50 * 1e3, "step_ms": [t * 1e3 for t in times],
+         "valid_tokens_per_s": n_valid / p50,
+         "slot_tokens_per_s": slots / p50, "valid_tokens": n_valid,
+         "loss_per_token": losses, "peak_memory_bytes": peak,
+         "params": n_params, "launches": counts, "card": power_line}))
+    return counts
+
+
+def cross_device_train(seed, dev, steps=3):
+    """Same seed, 2 layers at BERT-base width, a small batch: three Adam
+    steps on the card and on the CPU (plain versions there)."""
+    import numpy as np
+    import torch
+
+    batch = train_batch(seed + 5, b=4, s=32)
+    runs = {}
+    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        net, head, params, trainer = build_trainer(seed, device, 2)
+        data = to_device(batch, device)
+        losses, grads = [], None
+        for i in range(steps):
+            losses.append(train_step(net, head, trainer, data).item())
+            if i == 0:
+                grads = {k: p.grad().detach().cpu().clone()
+                         for k, p in params.items()}
+        runs[name] = losses, grads
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    worst, worst_name = 0.0, None
+    for k, g_cpu in runs["cpu"][1].items():
+        gap = (runs["cuda"][1][k] - g_cpu).abs().max().item()
+        scale = g_cpu.abs().max().item()
+        if gap > 1e-3 * scale + 1e-7 and gap / max(scale, 1e-30) > worst:
+            worst, worst_name = gap / max(scale, 1e-30), k
+    log(f"cross-device training: losses {runs['cuda'][0]} (card) vs "
+        f"{runs['cpu'][0]} (cpu), max relative gap {rel:.3e} (tol 1e-4); "
+        f"step-1 gradients of {len(runs['cpu'][1])} parameters "
+        f"{'within' if worst_name is None else 'NOT within'} 1e-3 of each "
+        f"parameter's largest CPU gradient")
+    if not rel <= 1e-4:
+        raise AssertionError(f"training losses differ by {rel}")
+    if worst_name is not None:
+        raise AssertionError(f"gradient of {worst_name} differs by {worst} "
+                             f"of its scale")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -753,19 +1226,31 @@ def main():
                 log(f"  ptxas {name}: {line.strip()}")
 
     rng = np.random.RandomState(args.seed)
+    lens = train_batch(args.seed)[0]
     entries = [check_paged_attention(rng, dev),
-               check_flash_attention(rng, dev), check_layer_norm(rng, dev)]
+               check_flash_attention(rng, dev), check_layer_norm(rng, dev),
+               check_flash_attention_bwd(rng, dev, lens),
+               check_layer_norm_bwd(rng, dev),
+               *check_softmax_xent(rng, dev, int(lens.sum()))]
     # each path's launches, counted from 0 over its own run
     decode = serve_main_path(args.seed, args.profile, dev, power_line)
     encoder = serve_encoder(args.seed, args.profile, dev, power_line)
-    launches = {"paged_attention": decode["paged_attention"],
-                "flash_attention": encoder["flash_attention"],
-                "layer_norm": encoder["layer_norm"]}
+    train = train_main_path(args.seed, args.profile, dev, power_line)
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        name = e["name"]
+        if name == "paged_attention":
+            e["launches"] = decode[name]
+        elif name in ("flash_attention", "layer_norm"):
+            # forward kernels of both the encoder and the training path
+            e["launches"] = encoder[name]
+            e["launches_by_path"] = {"encoder": encoder[name],
+                                     "train": train[name]}
+        else:
+            e["launches"] = train[name]
         e["card"] = power_line
     cross_device(args.seed, dev)
     cross_device_encoder(args.seed, dev)
+    cross_device_train(args.seed, dev)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(power_line)

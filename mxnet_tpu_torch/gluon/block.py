@@ -1,24 +1,34 @@
 """Base of the port's layers: an ``nn.Module`` that carries Gluon's
-parameter naming.
+parameter naming and MXNet's recording rule.
 
-Port of the naming half of ``mxnet_tpu/gluon/block.py``. A Gluon block
-created inside its parent's ``name_scope`` gets the parent's prefix
-plus its own (``"enc_"``, ``"layer0_"``, ``"attn_"``, ...), and its
-parameters are named prefix + ``weight``/``bias``/``gamma``/``beta``.
+Port of ``mxnet_tpu/gluon/block.py`` for eager training and serving.
+A Gluon block created inside its parent's ``name_scope`` gets the
+parent's prefix plus its own (``"enc_"``, ``"layer0_"``, ``"attn_"``,
+...), and its parameters are named prefix +
+``weight``/``bias``/``gamma``/``beta``.
 Each :class:`Block` keeps its own prefix; :meth:`Block.gluon_params`
 joins them along the module tree, so the port's parameters carry the
 JAX model's names without the model prefix (``bertmodel0_``). That is
 what :meth:`Block.load_gluon_params` matches weights by.
 
-No deferred shapes, no hybridize, no autograd: parameters are made at
-construction with their full shapes on the block's device, and do not
-require gradients (this part of the port is forward only).
+Parameters are made at construction with their full shapes on the
+block's device (no deferred shapes; ``hybridize`` has no counterpart:
+PyTorch runs eagerly). Each takes a gradient per its ``grad_req``
+(``"write"`` by default, see ``autograd``); :meth:`Block.collect_params`
+gives their Gluon :class:`~.parameter.Parameter` views for a
+``Trainer``. A block records a graph only inside ``autograd.record()``:
+called anywhere else it runs with torch's gradient mode off, as an
+MXNet block records nothing outside ``record()``. Train/predict mode is
+``autograd.is_training()``, not ``nn.Module.training``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+
+from .. import autograd
+from .parameter import Parameter, ParameterDict
 
 __all__ = ["Block"]
 
@@ -30,10 +40,14 @@ class Block(nn.Module):
         super().__init__()
         self._prefix = prefix or ""
 
-    def _param(self, shape, dtype, device, fill=0.0):
-        return nn.Parameter(torch.full(tuple(shape), fill, dtype=dtype,
-                                       device=device),
-                            requires_grad=False)
+    def __call__(self, *args, **kwargs):
+        with torch.set_grad_enabled(autograd.is_recording()):
+            return super().__call__(*args, **kwargs)
+
+    def _param(self, shape, dtype, device, fill=0.0, grad_req="write"):
+        p = nn.Parameter(torch.full(tuple(shape), fill, dtype=dtype,
+                                    device=device))
+        return autograd.set_grad_req(p, grad_req)
 
     def gluon_params(self):
         """``{gluon name (model prefix stripped): parameter}`` in
@@ -48,6 +62,18 @@ class Block(nn.Module):
 
         walk(self, "")
         return out
+
+    def collect_params(self):
+        """:class:`~.parameter.ParameterDict` of the block's parameters
+        by Gluon name (model prefix stripped)."""
+        return ParameterDict(self._prefix, (
+            (name, Parameter.of(name, p))
+            for name, p in self.gluon_params().items()))
+
+    def zero_grad(self):
+        """Zero every parameter's gradient (MXNet's, not
+        ``nn.Module.zero_grad``'s drop to None)."""
+        self.collect_params().zero_grad()
 
     @torch.no_grad()
     def initialize(self, seed=0, sigma=0.02):

@@ -1,8 +1,8 @@
-"""BERT trunk and its serving entry point.
+"""BERT trunk, its pretraining heads and its serving entry point.
 
 Port of ``mxnet_tpu/gluon/model_zoo/bert.py`` (``BERTEmbeddings``,
-``BERTModel``, ``get_bert``/``bert_base``/``bert_large`` and
-``bert_serving_entry``; the MLM/NSP heads belong to training).
+``BERTModel``, ``BERTMLMHead``, ``BERTNSPHead``,
+``get_bert``/``bert_base``/``bert_large`` and ``bert_serving_entry``).
 ``model(inputs, token_types, valid_length, mask, segment_ids,
 positions)`` gives ``(sequence_output, pooled_output)``, or the
 sequence output alone without a pooler. Packed rows (``io/packing``)
@@ -10,10 +10,10 @@ pass ``segment_ids`` and per-sequence ``positions``; attention then
 stays inside each packed sequence (the flash kernel's segment path).
 
 Weights are seeded (:meth:`~..block.Block.initialize`) or carried over
-from the JAX model with :meth:`BERTModel.from_gluon_params`. The model
-is built in eval mode, MXNet's default outside ``autograd.record``: its
-dropouts are the identity. ``device=None`` is the current CUDA device
-and raises without one.
+from the JAX blocks with each class's ``from_gluon_params``. Dropout
+follows ``autograd.is_training()``: the identity outside
+``autograd.record()``. ``device=None`` is the current CUDA device and
+raises without one.
 """
 from __future__ import annotations
 
@@ -23,10 +23,27 @@ import torch
 
 from ...context import resolve_device
 from ..block import Block
-from ..nn import Dense, Dropout, Embedding, LayerNorm, TransformerEncoder
+from ..nn import (Activation, Dense, Dropout, Embedding, LayerNorm,
+                  TransformerEncoder)
 
-__all__ = ["BERTEmbeddings", "BERTModel", "bert_base", "bert_large",
-           "bert_serving_entry", "get_bert"]
+__all__ = ["BERTEmbeddings", "BERTMLMHead", "BERTModel", "BERTNSPHead",
+           "bert_base", "bert_large", "bert_serving_entry", "get_bert"]
+
+
+def _strip_prefix(params, anchor):
+    """``params`` of one JAX block (names with its prefix, such as
+    ``bertmodel0_``) without that prefix; the prefix is what precedes
+    the one name ending in ``anchor``. Raises ``KeyError`` on no or
+    several such names and on names outside the prefix."""
+    hits = [k for k in params if k.endswith(anchor)]
+    if len(hits) != 1:
+        raise KeyError(f"params hold no single '<prefix>{anchor}'")
+    prefix = hits[0][:-len(anchor)]
+    foreign = sorted(k for k in params if not k.startswith(prefix))
+    if foreign:
+        raise KeyError(f"parameters outside the model prefix "
+                       f"{prefix!r}: {foreign}")
+    return {k[len(prefix):]: v for k, v in params.items()}
 
 
 class BERTEmbeddings(Block):
@@ -109,7 +126,6 @@ class BERTModel(Block):
                              device=self.device)
                        if use_pooler else None)
         self.initialize(seed)
-        self.eval()
 
     def forward(self, inputs, token_types, valid_length=None, mask=None,
                 segment_ids=None, positions=None):
@@ -133,16 +149,7 @@ class BERTModel(Block):
         The geometry is read off the shapes (``num_heads`` is not in
         them). Raises ``KeyError`` on a missing or extra name and
         ``ValueError`` on a misshapen one."""
-        heads = [k for k in params if k.endswith("embed_word_weight")]
-        if len(heads) != 1:
-            raise KeyError("params hold no single '<prefix>embed_word_"
-                           "weight'")
-        prefix = heads[0][:-len("embed_word_weight")]
-        foreign = sorted(k for k in params if not k.startswith(prefix))
-        if foreign:
-            raise KeyError(f"parameters outside the model prefix "
-                           f"{prefix!r}: {foreign}")
-        p = {k[len(prefix):]: v for k, v in params.items()}
+        p = _strip_prefix(params, "embed_word_weight")
         missing = [k for k in ("embed_pos_weight", "embed_type_weight")
                    if k not in p]
         if missing:
@@ -165,6 +172,65 @@ class BERTModel(Block):
                   use_pooler="pooler_weight" in p, dtype=dtype,
                   device=device)
         return net.load_gluon_params(p)
+
+
+class BERTMLMHead(Block):
+    """Masked-LM head: transform (Dense + erf GELU + LayerNorm), then
+    the decoder to vocabulary logits."""
+
+    def __init__(self, vocab_size, units, layer_norm_eps=1e-12,
+                 dtype="float32", prefix="", device=None, seed=0):
+        super().__init__(prefix)
+        self.device = resolve_device(device)
+        self.transform = Dense(units, flatten=False, dtype=dtype,
+                               in_units=units, prefix="transform_",
+                               device=self.device)
+        self.act = Activation("gelu")
+        self.ln = LayerNorm(epsilon=layer_norm_eps, in_channels=units,
+                            dtype=dtype, prefix="ln_", device=self.device)
+        self.decoder = Dense(vocab_size, flatten=False, dtype=dtype,
+                             in_units=units, prefix="decoder_",
+                             device=self.device)
+        self.initialize(seed)
+
+    def forward(self, seq):
+        return self.decoder(self.ln(self.act(self.transform(seq))))
+
+    @classmethod
+    def from_gluon_params(cls, params, device=None, layer_norm_eps=1e-12,
+                          dtype="float32"):
+        """The port's head with the JAX head's weights (``params``:
+        ``{name: array}`` of its ``collect_params()``, prefix such as
+        ``bertmlmhead0_`` included)."""
+        p = _strip_prefix(params, "decoder_weight")
+        vocab, units = tuple(getattr(p["decoder_weight"], "shape", ()))
+        head = cls(vocab, units, layer_norm_eps=layer_norm_eps,
+                   dtype=dtype, device=device)
+        return head.load_gluon_params(p)
+
+
+class BERTNSPHead(Block):
+    """Next-sentence head: Dense(2) over the pooled output."""
+
+    def __init__(self, units=768, dtype="float32", prefix="", device=None,
+                 seed=0):
+        super().__init__(prefix)
+        self.device = resolve_device(device)
+        self.classifier = Dense(2, flatten=False, dtype=dtype,
+                                in_units=units, prefix="cls_",
+                                device=self.device)
+        self.initialize(seed)
+
+    def forward(self, pooled):
+        return self.classifier(pooled)
+
+    @classmethod
+    def from_gluon_params(cls, params, device=None, dtype="float32"):
+        """The port's head with the JAX head's weights (prefix such as
+        ``bertnsphead0_`` included)."""
+        p = _strip_prefix(params, "cls_weight")
+        units = tuple(getattr(p["cls_weight"], "shape", ()))[1]
+        return cls(units, dtype=dtype, device=device).load_gluon_params(p)
 
 
 _BERT_SPECS = {
@@ -202,9 +268,6 @@ def bert_serving_entry(model, head=None, hybridize=True):
     if given, applies to it. ``hybridize`` has no counterpart here
     (PyTorch runs eagerly) and is ignored."""
     del hybridize
-    model.eval()
-    if head is not None:
-        head.eval()
 
     def entry(ids, token_types, valid_length, segment_ids, positions):
         out = model(ids, token_types, valid_length, None, segment_ids,

@@ -4,14 +4,19 @@ Port of the layers of ``mxnet_tpu/gluon/nn/basic_layers.py`` that BERT
 uses, as ``nn.Module``s with Gluon's parameter names and layouts
 (Dense's weight is (units, in_units), as ``nn.Linear``'s). Shapes are
 given at construction (``in_units``, ``in_channels``): the port has no
-deferred initialization. ``device=None`` is the current CUDA device
-and raises without one; pass ``device="cpu"`` for the CPU.
+deferred initialization. All are differentiable inside
+``autograd.record()``: Dense and Embedding through torch's own
+gradients (the embedding keeps its clamping gather), LayerNorm through
+the K3a/K3b Function. ``Dropout`` drops only in train mode
+(``autograd.is_training()``). ``device=None`` is the current CUDA
+device and raises without one; pass ``device="cpu"`` for the CPU.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ... import autograd
 from ...context import resolve_device
 from ...ndarray import op_impl_nn as _nn
 from ..block import Block
@@ -82,14 +87,15 @@ class LayerNorm(Block):
 
 
 class Dropout(Block):
-    """Dropout in training mode; the identity otherwise."""
+    """Dropout in train mode (``autograd.is_training()``, as the JAX
+    layer reads it); the identity otherwise."""
 
     def __init__(self, rate, prefix=""):
         super().__init__(prefix)
         self._rate = float(rate)
 
     def forward(self, x):
-        if self.training and self._rate > 0:
+        if autograd.is_training() and self._rate > 0:
             return F.dropout(x, self._rate, training=True)
         return x
 

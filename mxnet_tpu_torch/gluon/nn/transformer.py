@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from ... import autograd
 from ...ndarray import op_impl_nn as _nn
 from ..block import Block
 from .basic_layers import Activation, Dense, Dropout, LayerNorm
@@ -61,7 +62,7 @@ class MultiHeadAttention(Block):
         if segment_ids is not None and valid_length is None:
             valid_length = _nn.segment_valid_len(segment_ids)
 
-        need_drop = bool(self._attn_drop) and self.training
+        need_drop = bool(self._attn_drop) and autograd.is_training()
         if mask is None and not need_drop:
             out = _nn.flash_attention_op(q, k, v, valid_length, segment_ids,
                                          causal=self._causal)

@@ -1,14 +1,17 @@
-"""The neural-network ops encoder serving calls, as plain functions on
-tensors.
+"""The neural-network ops BERT serving and training call, as plain
+functions on tensors.
 
-Port of the parts of ``mxnet_tpu/ndarray/op_impl_nn.py`` the BERT
-forward reaches: the activations (erf GELU, tanh for the pooler, relu),
-the embedding gather, LayerNorm, fused flash attention, and the
-attention mask helpers of the composed (additive-mask) path. Flash
-attention and last-axis LayerNorm go to the hand-written CUDA kernels
-for CUDA tensors (``ops.flash_attention`` / ``ops.layer_norm``) and to
-their plain versions for CPU tensors; the rest is plain PyTorch, as
-the JAX package leaves it to XLA.
+Port of the parts of ``mxnet_tpu/ndarray/op_impl_nn.py`` (and ``pick``
+of ``op_impl_basic.py``) the BERT forward, its MLM loss and the Gluon
+losses reach: the activations (erf GELU, tanh for the pooler, relu),
+the embedding gather, LayerNorm, fused flash attention, the attention
+mask helpers of the composed (additive-mask) path, ``log_softmax``,
+``pick`` and ``softmax_cross_entropy``. Flash attention, last-axis
+LayerNorm and ``softmax_cross_entropy`` go to the hand-written CUDA
+kernels for CUDA tensors (``ops.flash_attention``, ``ops.layer_norm``,
+``ops.softmax_xent``; each differentiable through its backward kernel)
+and to their plain versions for CPU tensors; the rest is plain PyTorch,
+as the JAX package leaves it to XLA.
 """
 from __future__ import annotations
 
@@ -17,12 +20,14 @@ import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention
 from ..ops.layer_norm import layer_norm_fused
+from ..ops.softmax_xent import softmax_xent_fused
 
 __all__ = ["activation", "attention_length_mask", "attention_segment_mask",
            "attention_zero_empty_rows", "attention_zero_pad_rows",
            "batch_dot_attention_apply", "batch_dot_attention_scores",
            "causal_mask_scores", "embedding", "flash_attention_op",
-           "layer_norm", "segment_valid_len"]
+           "layer_norm", "log_softmax", "pick", "segment_valid_len",
+           "softmax_cross_entropy"]
 
 _NEG = -1e30
 
@@ -136,3 +141,34 @@ def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
     shape[ax] = data.shape[ax]
     return xc * torch.rsqrt(var + eps) * gamma.reshape(shape) \
         + beta.reshape(shape)
+
+
+# -- losses ------------------------------------------------------------------
+def log_softmax(data, axis=-1, temperature=None):
+    """``log_softmax`` op (``temperature`` divides the input first)."""
+    x = data if temperature in (None, 1.0) else data / temperature
+    return torch.log_softmax(x, dim=int(axis))
+
+
+def pick(data, index, axis=-1, keepdims=False):
+    """``pick`` op: the entries of ``data`` at ``index`` along ``axis``;
+    out-of-range indices clip, as MXNet's default ``mode="clip"``."""
+    ax = int(axis) % data.ndim
+    idx = index.to(torch.int64).clamp(0, data.shape[ax] - 1)
+    out = torch.gather(data, ax, idx.unsqueeze(ax))
+    return out if keepdims else out.squeeze(ax)
+
+
+def softmax_cross_entropy(data, label):
+    """``softmax_cross_entropy`` op: the SUM over rows of
+    ``-log softmax(data)[label]`` for (N, V) ``data`` and (N,) integer
+    labels, shape (1,) in the data's type. The per-row losses come from
+    the fused kernel (``ops.softmax_xent``: K4a forward, K4b backward);
+    float64 data takes the plain log-softmax and pick, as the JAX op
+    does off its kernel's types."""
+    if data.dtype in (torch.float32, torch.bfloat16, torch.float16):
+        loss = softmax_xent_fused(data, label)
+        return loss.sum().reshape(1).to(data.dtype)
+    logp = torch.log_softmax(data, dim=-1)
+    picked = torch.gather(logp, 1, label.to(torch.int64)[:, None])
+    return -picked.sum().reshape(1)

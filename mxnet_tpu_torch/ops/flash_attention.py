@@ -1,9 +1,10 @@
-"""Flash attention forward: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Flash attention, forward (K1) and backward (K2): the CUDA kernels'
+wrappers, their plain PyTorch versions, and the autograd Function that
+binds the two.
 
-Port of the forward of ``mxnet_tpu/ops/pallas/flash_attention.py``
+Port of ``mxnet_tpu/ops/pallas/flash_attention.py``
 (``flash_attention`` / ``flash_attention_with_lse`` over ``_flash_fwd``
-and ``_fwd_kernel``), with the same public signatures minus
+and ``_flash_bwd``), with the same public signatures minus
 ``interpret``. Shapes, as there::
 
     q            (B, H, Sq, D)
@@ -21,13 +22,17 @@ before the products, as the TPU wrapper does. A row with no visible
 key gives exact zeros and ``lse = -1e30``. ``lse`` is (B, H, Sq)
 float32.
 
-:func:`flash_attention` / :func:`flash_attention_with_lse` launch the
-hand-written CUDA kernel (``csrc/flash_attention.cu``) for CUDA
-tensors; they take the plain version (:func:`flash_attention_reference`)
-only for CPU tensors. Both check the operands and raise on what the
-kernel does not take.
-Forward only: asking for a gradient through the kernel raises (the
-backward kernels come with training).
+Both functions are differentiable, :func:`flash_attention_with_lse` in
+both outputs: the lse cotangent folds into the backward's
+``delta = rowsum(do * o) - dlse``. Forward and backward run in one
+``torch.autograd.Function``: for CUDA tensors its forward launches K1
+(``csrc/flash_attention.cu``) and its backward K2
+(``csrc/flash_attention_bwd.cu``: a dq kernel and a dk/dv kernel, one
+launch count); for CPU tensors it takes the plain versions
+(:func:`flash_attention_reference`,
+:func:`flash_attention_backward_reference`), so the CPU tests run the
+same wiring. The operands are checked, and what the kernels do not
+take raises.
 """
 from __future__ import annotations
 
@@ -37,16 +42,22 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "flash_attention", "flash_attention_reference",
+__all__ = ["LAUNCHES", "flash_attention", "flash_attention_backward",
+           "flash_attention_backward_reference", "flash_attention_reference",
            "flash_attention_with_lse"]
 
 _NEG_INF = -1e30
 #: kernel launches by kernel name (the main-path proof counts these)
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 _MAX_D = 128
 # mxtt_flash_attention_fwd(q, k, v, kv_lens, seg, o, lse, strides, B, H,
 #                          Sq, Skv, D, scale, causal, q_offset, dtype)
 _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] \
+    + [ctypes.c_int] * 3
+# mxtt_flash_attention_bwd(q, k, v, do, lse, delta, kv_lens, seg, dq, dk,
+#                          dv, strides, B, H, Sq, Skv, D, scale, causal,
+#                          q_offset, dtype)
+_BWD_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float] \
     + [ctypes.c_int] * 3
 
 
@@ -97,6 +108,36 @@ def flash_attention_reference(q, k, v, sm_scale=None, causal=False,
     return o, lse[..., 0]
 
 
+def flash_attention_backward_reference(q, k, v, lse, do, delta,
+                                       sm_scale=None, causal=False,
+                                       q_offset=0, kv_lens=None,
+                                       segment_ids=None):
+    """Plain PyTorch version of the backward: the TPU kernels' math step
+    by step in float32. ``lse`` is the forward's, ``delta`` (B, H, Sq)
+    ``rowsum(do * o) - dlse``. Returns ``(dq, dk, dv)`` in q's, k's and
+    v's types."""
+    d = q.shape[-1]
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    sq, skv = q.shape[2], k.shape[2]
+    qf = (q * sm_scale).to(q.dtype).float()
+    kf, vf, dof = k.float(), v.float(), do.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    mask = _visible(sq, skv, q.device, kv_lens, segment_ids, causal,
+                    q_offset)
+    # masked BEFORE the exponent: empty rows have lse = -1e30
+    z = s - lse.float()[..., None]
+    if mask is not None:
+        z = torch.where(mask, z, torch.full((), -torch.inf, device=z.device))
+    p = torch.exp(z)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta.float()[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * sm_scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check(q, k, v, kv_lens, segment_ids):
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash attention takes (B, H, S, D) q, k, v")
@@ -143,14 +184,8 @@ def _check(q, k, v, kv_lens, segment_ids):
 
 
 def _launch(q, k, v, sm_scale, causal, q_offset, kv_lens, segment_ids):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("the flash attention kernel is forward only: "
-                           "run it under torch.no_grad() or "
-                           "inference_mode()")
     b, h, sq, d = q.shape
     skv = k.shape[2]
-    if sm_scale is None:
-        sm_scale = 1.0 / (d ** 0.5)
     # o in a (B, S, H, D) buffer: the caller's merge of the heads back
     # to (B, S, H * D) is then a free reshape
     o = torch.empty((b, sq, h, d), dtype=q.dtype,
@@ -172,21 +207,109 @@ def _launch(q, k, v, sm_scale, causal, q_offset, kv_lens, segment_ids):
     return o, lse
 
 
+def _launch_bwd(q, k, v, lse, do, delta, sm_scale, causal, q_offset,
+                kv_lens, segment_ids):
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    # each gradient in a (B, S, H, D) buffer, as o: the caller's merge of
+    # the heads back into the fused projection's layout is a view
+    dq, dk, dv = (torch.empty((b, n, h, d), dtype=t.dtype,
+                              device=q.device).transpose(1, 2)
+                  for t, n in ((q, sq), (k, skv), (v, skv)))
+    if b * h * max(sq, skv) == 0:
+        return dq, dk, dv
+    strides = (ctypes.c_longlong * 21)(
+        *(t.stride(i) for t in (q, k, v, do, dq, dk, dv) for i in range(3)))
+    _build.launch("flash_attention_bwd", "mxtt_flash_attention_bwd",
+                  _BWD_ARGS, q.device, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(),
+                  kv_lens.data_ptr() if kv_lens is not None else None,
+                  segment_ids.data_ptr() if segment_ids is not None
+                  else None,
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  ctypes.addressof(strides), b, h, sq, skv, d,
+                  float(sm_scale), int(bool(causal)), int(q_offset),
+                  _build.DTYPE_CODES[q.dtype])
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def flash_attention_backward(q, k, v, o, lse, do, sm_scale=None,
+                             causal=False, q_offset=0, kv_lens=None,
+                             segment_ids=None, dlse=None):
+    """dq, dk, dv of flash attention from the forward's ``o`` and
+    ``lse`` and the output gradient ``do`` (and ``dlse``, the lse's
+    gradient, when lse was used). CUDA tensors launch K2 or raise; CPU
+    tensors take :func:`flash_attention_backward_reference`. ``delta =
+    rowsum(do * o) - dlse`` is one torch expression outside the kernel,
+    as the JAX package computes it outside its kernels."""
+    _check(q, k, v, kv_lens, segment_ids)
+    if do.shape != q.shape or do.dtype != q.dtype or o.shape != q.shape:
+        raise ValueError(f"o/do must be {tuple(q.shape)} {q.dtype}, got "
+                         f"{tuple(o.shape)}/{tuple(do.shape)} {do.dtype}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise TypeError(f"lse must be {tuple(q.shape[:3])} float32, got "
+                        f"{tuple(lse.shape)} {lse.dtype}")
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    delta = (do.float() * o.float()).sum(-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(
+            q, k, v, lse, do, delta, sm_scale, causal, q_offset, kv_lens,
+            segment_ids)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    return _launch_bwd(q, k, v, lse.contiguous(), do, delta.contiguous(),
+                       sm_scale, causal, q_offset, kv_lens, segment_ids)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K2 backward (plain versions for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale, causal, q_offset, kv_lens,
+                segment_ids):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_reference(q, k, v, sm_scale, causal,
+                                               q_offset, kv_lens,
+                                               segment_ids)
+        else:
+            o, lse = _launch(q, k, v, sm_scale, causal, q_offset, kv_lens,
+                             segment_ids)
+        ctx.save_for_backward(q, k, v, o, lse, kv_lens, segment_ids)
+        ctx.attrs = (sm_scale, causal, q_offset)
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse, kv_lens, segment_ids = ctx.saved_tensors
+        sm_scale, causal, q_offset = ctx.attrs
+        if do is None:
+            do = torch.zeros_like(q)
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, o, lse, do, sm_scale, causal, q_offset, kv_lens,
+            segment_ids, dlse)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention_with_lse(q, k, v, sm_scale=None, causal=False,
                              q_offset=0, kv_lens=None, segment_ids=None):
-    """Flash attention returning ``(o, lse)`` (module docstring). CUDA
-    tensors launch the CUDA kernel or raise; CPU tensors take
-    :func:`flash_attention_reference`. On the card ``o`` is a
+    """Flash attention returning ``(o, lse)`` (module docstring),
+    differentiable in both. CUDA tensors launch the CUDA kernels or
+    raise; CPU tensors take the plain versions. On the card ``o`` is a
     (B, H, Sq, D) view of a (B, Sq, H, D) buffer."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention runs on cuda or cpu tensors, "
                          f"got {q.device}")
     _check(q, k, v, kv_lens, segment_ids)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, sm_scale, causal,
-                                         q_offset, kv_lens, segment_ids)
-    return _launch(q, k, v, sm_scale, causal, q_offset, kv_lens,
-                   segment_ids)
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    return _FlashAttention.apply(q, k, v, float(sm_scale), bool(causal),
+                                 int(q_offset), kv_lens, segment_ids)
 
 
 def flash_attention(q, k, v, sm_scale=None, causal=False, q_offset=0,

@@ -1,19 +1,26 @@
-"""LayerNorm over the last axis: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""LayerNorm over the last axis, forward (K3a) and backward (K3b): the
+CUDA kernels' wrappers, their plain PyTorch versions, and the autograd
+Function that binds the two.
 
-Port of ``mxnet_tpu/ops/pallas/layer_norm.py`` (forward:
-``_ln_fwd`` / ``_ln_fwd_kernel``). Any leading shape is flattened to
-(R, D) over the normalised last axis. The math, in float32 whatever
-the input type: the mean, then the variance of the centred values
-(never E[x^2] - mean^2), ``rstd = 1 / sqrt(var + eps)``, and
-``y = (x - mean) * rstd * gamma + beta`` in x's type. The per-row mean
-and rstd (float32) come back on request: the backward needs them.
+Port of ``mxnet_tpu/ops/pallas/layer_norm.py`` (``_ln_fwd`` /
+``_ln_fwd_kernel`` and ``_ln_bwd`` / ``_ln_bwd_kernel``). Any leading
+shape is flattened to (R, D) over the normalised last axis. The math,
+in float32 whatever the input type: the mean, then the variance of the
+centred values (never E[x^2] - mean^2), ``rstd = 1 / sqrt(var + eps)``,
+and ``y = (x - mean) * rstd * gamma + beta`` in x's type. The per-row
+mean and rstd (float32) come back on request: the backward needs them.
 
-:func:`layer_norm_fused` launches the hand-written CUDA kernel
-(``csrc/layer_norm.cu``) for CUDA tensors and takes the plain version
-(:func:`layer_norm_reference`) only for CPU tensors; on both it checks
-the operands and raises on what the kernel does not take. Forward
-only: the backward kernel comes with training.
+The backward, from the saved mean and rstd: ``dx = rstd * (dxhat -
+mean(dxhat) - xhat * mean(dxhat * xhat))`` with ``dxhat = dy * gamma``,
+and dgamma, dbeta summed over the rows in float32.
+
+:func:`layer_norm_fused` is differentiable: one
+``torch.autograd.Function`` whose forward is K3a with the stats saved
+and whose backward is K3b (``csrc/layer_norm.cu`` holds both). CUDA
+tensors launch the kernels; CPU tensors take the plain versions
+(:func:`layer_norm_reference`, :func:`layer_norm_backward_reference`),
+so the CPU tests run the same wiring. The operands are checked, and
+what the kernels do not take raises.
 """
 from __future__ import annotations
 
@@ -23,14 +30,23 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "layer_norm_fused", "layer_norm_reference"]
+__all__ = ["LAUNCHES", "layer_norm_backward",
+           "layer_norm_backward_reference", "layer_norm_fused",
+           "layer_norm_reference"]
 
 #: kernel launches by kernel name (the main-path proof counts these)
-LAUNCHES = {"layer_norm": 0}
+LAUNCHES = {"layer_norm": 0, "layer_norm_bwd": 0}
 _MAX_D = 1024
 # mxtt_layer_norm_fwd(x, gamma, beta, y, mean, rstd, R, D, eps, dtype)
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float,
                                                        ctypes.c_int]
+# mxtt_layer_norm_bwd(x, gamma, mean, rstd, dy, dx, part, dgb, R, D,
+#                     blocks, dtype)
+_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+#: the backward's row blocks at most (each writes one row of dgamma and
+#: dbeta partials; a fixed cap keeps the sum's order fixed)
+_BWD_BLOCKS = 512
+_WARPS_PER_BLOCK = 8
 
 
 def layer_norm_reference(x, gamma, beta, eps=1e-5, return_stats=False):
@@ -47,6 +63,21 @@ def layer_norm_reference(x, gamma, beta, eps=1e-5, return_stats=False):
     if return_stats:
         return y, mu.reshape(-1), rs.reshape(-1)
     return y
+
+
+def layer_norm_backward_reference(x, gamma, mean, rstd, dy):
+    """Plain PyTorch version of the backward: ``_ln_bwd_kernel``'s math
+    on (R, D) rows in float32 from the saved (R,) mean and rstd.
+    Returns dx (x's shape and type) and dgamma, dbeta ((D,) float32)."""
+    d = x.shape[-1]
+    x2, dy2 = x.reshape(-1, d).float(), dy.reshape(-1, d).float()
+    mu, rs = mean.reshape(-1, 1).float(), rstd.reshape(-1, 1).float()
+    xhat = (x2 - mu) * rs
+    dxhat = dy2 * gamma.float()
+    m1 = dxhat.mean(dim=1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=1, keepdim=True)
+    dx = (rs * (dxhat - m1 - xhat * m2)).to(x.dtype).reshape(x.shape)
+    return dx, (dy2 * xhat).sum(dim=0), dy2.sum(dim=0)
 
 
 def _check(x, gamma, beta):
@@ -71,21 +102,10 @@ def _check(x, gamma, beta):
             raise ValueError(f"{name} must be contiguous")
 
 
-def layer_norm_fused(x, gamma, beta, eps=1e-5, return_stats=False):
-    """LayerNorm over the last axis of ``x`` (module docstring). CUDA
-    tensors launch the CUDA kernel or raise; CPU tensors take
-    :func:`layer_norm_reference`. With ``return_stats`` returns
-    ``(y, mean, rstd)``, the stats (R,) float32."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"layer norm runs on cuda or cpu tensors, got "
-                         f"{x.device}")
-    _check(x, gamma, beta)
+def _forward(x, gamma, beta, eps, return_stats):
+    """K3a (CPU tensors: the plain version)."""
     if x.device.type == "cpu":
         return layer_norm_reference(x, gamma, beta, eps, return_stats)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, gamma, beta)):
-        raise RuntimeError("the layer norm kernel is forward only: run it "
-                           "under torch.no_grad() or inference_mode()")
     d = x.shape[-1]
     r = x.numel() // d
     y = torch.empty_like(x)
@@ -100,3 +120,72 @@ def layer_norm_fused(x, gamma, beta, eps=1e-5, return_stats=False):
                       float(eps), _build.DTYPE_CODES[x.dtype])
         LAUNCHES["layer_norm"] += 1
     return (y, *stats) if return_stats else y
+
+
+def layer_norm_backward(x, gamma, mean, rstd, dy):
+    """dx, dgamma, dbeta of the last-axis LayerNorm from the forward's
+    (R,) float32 mean and rstd. CUDA tensors launch K3b or raise; CPU
+    tensors take :func:`layer_norm_backward_reference`. dgamma and
+    dbeta are (D,) float32: summed per block, then over the blocks in a
+    second pass (no atomics, the same sum every run)."""
+    _check(x, gamma, gamma)
+    d = x.shape[-1]
+    r = x.numel() // d
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"dy must be {tuple(x.shape)} {x.dtype}, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    if mean.shape != (r,) or rstd.shape != (r,) \
+            or mean.dtype != torch.float32 or rstd.dtype != torch.float32:
+        raise TypeError(f"mean/rstd must be ({r},) float32")
+    if x.device.type == "cpu":
+        return layer_norm_backward_reference(x, gamma, mean, rstd, dy)
+    dy = dy.contiguous()
+    dx = torch.empty_like(x)
+    dgb = torch.zeros((2, d), dtype=torch.float32, device=x.device)
+    if r:
+        blocks = min(_BWD_BLOCKS, -(-r // _WARPS_PER_BLOCK))
+        part = torch.empty((2, blocks, d), dtype=torch.float32,
+                           device=x.device)
+        _build.launch("layer_norm", "mxtt_layer_norm_bwd", _BWD_ARGS,
+                      x.device, x.data_ptr(), gamma.data_ptr(),
+                      mean.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
+                      dx.data_ptr(), part.data_ptr(), dgb.data_ptr(), r, d,
+                      blocks, _build.DTYPE_CODES[x.dtype])
+        LAUNCHES["layer_norm_bwd"] += 1
+    return dx, dgb[0], dgb[1]
+
+
+class _LayerNorm(torch.autograd.Function):
+    """K3a forward with the stats saved, K3b backward (plain versions
+    for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        y, mean, rstd = _forward(x, gamma, beta, eps, True)
+        ctx.save_for_backward(x, gamma, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, mean, rstd = ctx.saved_tensors
+        dx, dg, db = layer_norm_backward(x, gamma, mean, rstd, dy)
+        return dx, dg.to(gamma.dtype), db.to(gamma.dtype), None
+
+
+def layer_norm_fused(x, gamma, beta, eps=1e-5, return_stats=False):
+    """LayerNorm over the last axis of ``x`` (module docstring),
+    differentiable in x, gamma and beta. CUDA tensors launch the CUDA
+    kernels or raise; CPU tensors take the plain versions. With
+    ``return_stats`` returns ``(y, mean, rstd)``, the stats (R,)
+    float32; that form is forward only."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"layer norm runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+    _check(x, gamma, beta)
+    if not return_stats:
+        return _LayerNorm.apply(x, gamma, beta, float(eps))
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, gamma, beta)):
+        raise RuntimeError("layer_norm_fused(return_stats=True) is forward "
+                           "only: run it under torch.no_grad()")
+    return _forward(x, gamma, beta, eps, True)

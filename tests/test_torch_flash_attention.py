@@ -1,5 +1,5 @@
-"""The PyTorch port's flash attention (forward) against the JAX
-package's.
+"""The PyTorch port's flash attention (forward and backward) against
+the JAX package's.
 
 The same numpy inputs go through the JAX Pallas kernel in interpret
 mode (``flash_attention_with_lse(..., interpret=True)``, as
@@ -12,12 +12,22 @@ both sides round q * scale and o to bf16, and one bf16 ulp at the
 outputs' magnitude (< 4) is 1.6e-2. The CUDA kernel itself is held
 against the plain version on the card by
 tests/test_torch_cuda_kernels.py and ``chip_smoke.py``.
+
+The backward (K2) is held against ``jax.vjp`` of the JAX kernel in
+interpret mode, once on its fused single-pass path and once on the
+split dq / dk-dv path (``MXNET_TPU_FLASH_SPLIT_BWD=1``), both outputs
+carrying a cotangent (the lse's folds into ``delta``). The port's
+gradients come through its autograd Function on CPU tensors, which
+takes the plain backward: the wiring the card uses. float32 tolerance
+2e-5 absolute and relative: the gradients sum up to S products of
+magnitude ~1 in another order.
 """
 import numpy as np
 import pytest
 import torch
 
 import mxnet_tpu  # noqa: F401  (configures jax for the CPU mesh)
+import jax
 import jax.numpy as jnp
 from mxnet_tpu_torch.ops import flash_attention as fa
 from mxnet_tpu_torch.ops import launch_counts
@@ -124,3 +134,87 @@ def test_cpu_path_refuses_what_the_kernel_refuses():
         fa.flash_attention(torch.zeros(1, 1, 4, 136),
                            torch.zeros(1, 1, 4, 136),
                            torch.zeros(1, 1, 4, 136))
+
+
+def _grads_port(q, k, v, kw, do, dlse):
+    """dq, dk, dv from the port's autograd Function (CPU: the plain
+    backward), with cotangents on o and, when given, lse."""
+    t = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    tkw = {key: (torch.from_numpy(val) if isinstance(val, np.ndarray)
+                 else val) for key, val in kw.items()}
+    before = launch_counts()
+    if dlse is None:
+        o = fa.flash_attention(*t, **tkw)
+        torch.autograd.backward([o], [torch.from_numpy(do)])
+    else:
+        o, lse = fa.flash_attention_with_lse(*t, **tkw)
+        torch.autograd.backward([o, lse], [torch.from_numpy(do),
+                                           torch.from_numpy(dlse)])
+    assert launch_counts() == before          # plain versions, no launch
+    return [x.grad.numpy() for x in t]
+
+
+def _grads_jax(q, k, v, kw, do, dlse):
+    from mxnet_tpu.ops.pallas.flash_attention import (
+        flash_attention, flash_attention_with_lse)
+
+    jkw = {key: (jnp.asarray(val) if isinstance(val, np.ndarray) else val)
+           for key, val in kw.items()}
+    if dlse is None:
+        _, vjp = jax.vjp(lambda a, b, c: flash_attention(
+            a, b, c, interpret=True, **jkw), *map(jnp.asarray, (q, k, v)))
+        grads = vjp(jnp.asarray(do))
+    else:
+        _, vjp = jax.vjp(lambda a, b, c: flash_attention_with_lse(
+            a, b, c, interpret=True, **jkw), *map(jnp.asarray, (q, k, v)))
+        grads = vjp((jnp.asarray(do), jnp.asarray(dlse)))
+    return [np.asarray(g) for g in grads]
+
+
+# the fused path with cotangents on o and lse; the split path on o alone
+@pytest.mark.parametrize("split,with_lse", [(False, True), (True, False)])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_backward_matches_jax_interpret_kernel(monkeypatch, name, split,
+                                               with_lse):
+    monkeypatch.setenv("MXNET_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("MXNET_TPU_FLASH_SPLIT_BWD", "1" if split else "0")
+    q, k, v, kw = _inputs(name)
+    rng = np.random.RandomState(100 + sorted(CASES).index(name))
+    do = rng.randn(*q.shape).astype(np.float32)
+    dlse = rng.randn(*q.shape[:3]).astype(np.float32) if with_lse else None
+    want = _grads_jax(q, k, v, kw, do, dlse)
+    got = _grads_port(q, k, v, kw, do, dlse)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert np.isfinite(g).all(), what
+        np.testing.assert_allclose(g, w, atol=2e-5, rtol=2e-5,
+                                   err_msg=what)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_backward_matches_jax_on_a_multi_block_grid(monkeypatch, split):
+    """S=200 on 128-wide tiles: two query and two key tiles with a
+    ragged edge on the JAX side (its fused path sums dq partials across
+    key tiles), causal, as tests/test_pallas.py's fused-vs-split
+    golden."""
+    monkeypatch.setenv("MXNET_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("MXNET_TPU_FLASH_BLOCK_Q", "128")
+    monkeypatch.setenv("MXNET_TPU_FLASH_BLOCK_K", "128")
+    monkeypatch.setenv("MXNET_TPU_FLASH_SPLIT_BWD", "1" if split else "0")
+    rng = np.random.RandomState(7)
+    q, k, v = ((rng.randn(1, 2, 200, 16) * sc).astype(np.float32)
+               for sc in (0.3, 0.3, 1.0))
+    do = rng.randn(1, 2, 200, 16).astype(np.float32)
+    kw = dict(causal=True, kv_lens=np.array([190], np.int32))
+    for g, w in zip(_grads_port(q, k, v, kw, do, None),
+                    _grads_jax(q, k, v, kw, do, None)):
+        np.testing.assert_allclose(g, w, atol=2e-5, rtol=2e-5)
+
+
+def test_backward_refuses_mismatched_operands():
+    q, k, v, _ = _inputs("dense")
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    o, lse = fa.flash_attention_with_lse(*t)
+    with pytest.raises(ValueError, match="o/do"):
+        fa.flash_attention_backward(*t, o, lse, o[:, :, :3])
+    with pytest.raises(TypeError, match="lse"):
+        fa.flash_attention_backward(*t, o, lse.double(), o)

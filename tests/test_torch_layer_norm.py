@@ -1,4 +1,5 @@
-"""The PyTorch port's LayerNorm (forward) against the JAX package's.
+"""The PyTorch port's LayerNorm (forward and backward) against the JAX
+package's.
 
 The same numpy inputs go through the JAX Pallas kernel in interpret
 mode (``layer_norm_fused(..., interpret=True)``, and ``_ln_res`` for
@@ -9,12 +10,19 @@ is small). Inputs carry an offset mean, so a one-pass E[x^2] - mean^2
 variance would show at eps 1e-12. The CUDA kernel itself is held
 against the plain version on the card by
 tests/test_torch_cuda_kernels.py and ``chip_smoke.py``.
+
+The backward (K3b) is held against ``jax.vjp(layer_norm_fused)`` in
+interpret mode: dx, dgamma and dbeta within 2e-5 absolute and relative
+(dgamma and dbeta are sums over the rows, taken in another order).
+The port's gradients come through its autograd Function on CPU
+tensors, which takes the plain backward: the wiring the card uses.
 """
 import numpy as np
 import pytest
 import torch
 
 import mxnet_tpu  # noqa: F401  (configures jax for the CPU mesh)
+import jax
 import jax.numpy as jnp
 from mxnet_tpu_torch.ndarray import op_impl_nn
 from mxnet_tpu_torch.ops import launch_counts
@@ -101,3 +109,36 @@ def test_cpu_path_refuses_what_the_kernel_refuses():
     with pytest.raises(ValueError, match="contiguous"):
         ln.layer_norm_fused(torch.zeros(8, 4).t(), torch.ones(8),
                             torch.zeros(8))
+
+
+@pytest.mark.parametrize("eps", [1e-5, 1e-12])
+@pytest.mark.parametrize("shape", [(7, 32), (3, 5, 48), (13, 768)])
+def test_backward_matches_jax_interpret_kernel(monkeypatch, shape, eps):
+    monkeypatch.setenv("MXNET_TPU_PALLAS_INTERPRET", "1")
+    from mxnet_tpu.ops.pallas.layer_norm import layer_norm_fused
+
+    x, g, b = _inputs(shape[-1] + len(shape), shape)
+    dy = np.random.RandomState(5).randn(*shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, c, e: layer_norm_fused(a, c, e, eps, True),
+                     *map(jnp.asarray, (x, g, b)))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(dy))]
+    t = [torch.from_numpy(a).requires_grad_() for a in (x, g, b)]
+    before = launch_counts()
+    y = ln.layer_norm_fused(*t, eps)
+    y.backward(torch.from_numpy(dy))
+    assert launch_counts() == before          # plain versions, no launch
+    for got, w, what in zip(t, want, ("dx", "dgamma", "dbeta")):
+        assert got.grad.dtype == torch.float32
+        np.testing.assert_allclose(got.grad.numpy(), w, atol=2e-5,
+                                   rtol=2e-5, err_msg=what)
+
+
+def test_backward_wrapper_refuses_what_the_kernel_refuses():
+    x, g, _ = (torch.from_numpy(a) for a in _inputs(2, (4, 16)))
+    mu, rs = torch.zeros(4), torch.ones(4)
+    with pytest.raises(ValueError, match="dy"):
+        ln.layer_norm_backward(x, g, mu, rs, x[:2])
+    with pytest.raises(TypeError, match="mean/rstd"):
+        ln.layer_norm_backward(x, g, mu.double(), rs, x)
+    with pytest.raises(RuntimeError, match="forward only"):
+        ln.layer_norm_fused(x.requires_grad_(), g, g, return_stats=True)

@@ -130,7 +130,9 @@ def test_k1_and_k3a_wrappers_on_cpu_take_the_plain_version_unbuilt():
     g, b = torch.ones(16), torch.zeros(16)
     before = launch_counts()
     assert set(before) == {"paged_attention", "flash_attention",
-                           "layer_norm"}
+                           "flash_attention_bwd", "layer_norm",
+                           "layer_norm_bwd", "softmax_xent_fwd",
+                           "softmax_xent_bwd"}
     o, lse = flash_attention.flash_attention_with_lse(
         q, q, q, kv_lens=(seg > 0).sum(1, dtype=torch.int32),
         segment_ids=seg)
