@@ -18,7 +18,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    padded rows of the training batch, packed 512, dense causal 512),
    the LayerNorm backward (8192 x 768) and the fused softmax
    cross-entropy forward and backward (the batch's valid positions x
-   30522);
+   30522); the whole-sequence LSTM forward and backward (T=35, H=650,
+   N=32 and N=1024), with their grid and cuDNN's LSTM layer as the
+   yardstick;
 4. decode serving at GPT-2-small width (vocab 50257, 768 units, 12
    layers, 12 heads, random weights from ``--seed``): a
    ``DecodeEngine`` serves 8 greedy requests; results, streams, solo
@@ -45,15 +47,26 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    backward), 26 + 26 (LayerNorm) and 1 + 1 (softmax cross-entropy),
    every parameter's gradient finite and not all zero; step time p50,
    valid and slot tokens/s and peak memory printed;
-7. 2-layer models with the same seed on the card and on the CPU, for
-   all three paths: greedy tokens agree and decode logits agree within
+7. LSTM word LM training (``train-wordlm-wt2-b32t35``:
+   ``mxnet_tpu_torch/examples/word_lm.py``'s loop at WikiText-2 widths,
+   vocab 33278, embedding 650, 2 x LSTM(650), dropout 0.2, Xavier
+   weights from ``--seed``): the example's synthetic corpus in 32 rows,
+   truncated BPTT over segments of 35, SGD at lr 1.0, clip 0.25, 2
+   warm-up segments then 20. Every loss finite, the mean of the last 5
+   below that of the first 5, launches per segment exactly 2 + 2 (LSTM
+   forward and backward), every gradient finite and not all zero; step
+   p50, tokens/s, perplexity and peak memory printed;
+8. 2-layer models with the same seed on the card and on the CPU, for
+   all four paths: greedy tokens agree and decode logits agree within
    ``atol=1e-3``; encoder outputs agree within ``atol=1e-3``; three
-   Adam steps of the training path give losses within ``1e-4``
-   relative and step-1 gradients within ``1e-3`` of each parameter's
-   largest CPU gradient.
+   Adam steps of the BERT training path and three SGD steps of the word
+   LM (2 x 650, vocab 10000, batch 8, dropout 0) give losses within
+   ``1e-4`` relative and step-1 gradients within ``1e-3`` of each
+   parameter's largest CPU gradient.
 
 ``--profile`` adds a torch.profiler breakdown (device time by kernel,
-busy share) of both serving windows and of one training step.
+busy share) of both serving windows and of one step of each training
+path.
 
 The last three lines of standard output are ``{"kernels": [...]}``,
 then the card's name and power limit as ``nvidia-smi --query-gpu=
@@ -714,6 +727,143 @@ def check_softmax_xent(rng, dev, n):
     return [fwd, bwd]
 
 
+# WikiText-2 word LM (``bench.py::main_lstm``'s widths, the example's
+# loop): the LSTM kernels' shapes are (T=35, N, 4 x 650)
+WLM = dict(vocab=33278, emb=650, hid=650, layers=2, dropout=0.2, batch=32,
+           bptt=35, lr=1.0, clip=0.25)
+
+
+def lstm_close(got, want, dtype):
+    """Within 1e-5 of ``want``'s scale (its largest magnitude, at least
+    1) in float32, one bf16 ulp of it in bfloat16: kernel and plain
+    version run the same f32 recurrence, summed in another order, and
+    each rounds every h it feeds back once."""
+    import math
+
+    import torch
+
+    scale = max(want.float().abs().max().item(), 1.0)
+    tol = 1e-5 * scale if dtype == torch.float32 \
+        else 2.0 ** (math.floor(math.log2(scale)) - 7)
+    err = (got.float() - want.float()).abs().max().item()
+    return err <= tol, err
+
+
+def check_lstm(rng, dev):
+    """K6a and K6b against their plain versions at the word LM's shapes
+    (T=35, H=650; N=32 the example's batch, N=1024 ``bench.py``'s), in
+    float32 and bfloat16, with times, the grid, the bound and cuDNN's
+    LSTM layer as the yardstick; returns the two kernels' JSON entries
+    (the N=32 float32 numbers at top level, N=1024 under ``large``)."""
+    import torch
+
+    from mxnet_tpu_torch.ops import lstm
+
+    t, h = WLM["bptt"], WLM["hid"]
+    src = "mxnet_tpu_torch/ops/csrc/lstm.cu"
+    fwd = {"name": "lstm_fwd", "route": "cuda", "source": src,
+           "replaces": "mxnet_tpu/ops/pallas/lstm.py:132"}
+    bwd = {"name": "lstm_bwd", "route": "cuda", "source": src,
+           "replaces": "mxnet_tpu/ops/pallas/lstm.py:175"}
+    for n in (WLM["batch"], 1024):
+        base = [rng.randn(t, n, 4 * h).astype("float32") * 0.5,
+                rng.randn(4 * h, h).astype("float32") / h ** 0.5,
+                rng.randn(n, h).astype("float32") * 0.5,
+                rng.randn(n, h).astype("float32") * 0.5,
+                rng.randn(t, n, h).astype("float32"),
+                rng.randn(t, n, h).astype("float32")]
+        for dtype in (torch.float32, torch.bfloat16):
+            gin, w4, h0, c0, dout, dcseq = (
+                torch.tensor(a, dtype=dtype, device=dev) for a in base)
+            w = w4.t()                       # MXNet's (4H, H), by strides
+            out, cseq, gates = lstm.lstm_forward(gin, w, h0, c0)
+            want = lstm.lstm_forward_reference(gin, w, h0, c0)
+            got_b = lstm.lstm_backward(gates, cseq, out, w, h0, c0, dout,
+                                       dcseq)
+            want_b = lstm.lstm_backward_reference(gates, cseq, out, w, h0,
+                                                  c0, dout, dcseq)
+            torch.cuda.synchronize()
+            res_f = [lstm_close(g, r, dtype) for g, r in
+                     zip((out, cseq, gates), want)]
+            res_b = [lstm_close(g, r, dtype) for g, r in zip(got_b, want_b)]
+            err_f = max(e for _, e in res_f)
+            err_b = max(e for _, e in res_b)
+            name = f"T={t} N={n} H={h} {str(dtype)[6:]}"
+            tol = "1e-5" if dtype == torch.float32 else "one bf16 ulp"
+            log(f"lstm {name}: forward max_abs_err {err_f:.3e}, backward "
+                f"{err_b:.3e} (tol {tol} of each output's scale)")
+            if not all(ok for ok, _ in res_f + res_b):
+                raise AssertionError(f"lstm {name}: forward {res_f}, "
+                                     f"backward {res_b}")
+            if dtype != torch.float32:
+                key = "bf16_max_abs_err" if n == WLM["batch"] \
+                    else "large_bf16_max_abs_err"
+                fwd[key], bwd[key] = err_f, err_b
+                continue
+            iters = 20 if n <= 64 else 5
+            ms_f = cuda_ms(lambda: lstm.lstm_forward(gin, w, h0, c0),
+                           iters=iters, warmup=2)
+            ms_b = cuda_ms(lambda: lstm.lstm_backward(
+                gates, cseq, out, w, h0, c0, dout, dcseq), iters=iters,
+                warmup=2)
+            plain_f = cuda_ms(lambda: lstm.lstm_forward_reference(
+                gin, w, h0, c0), iters=5, warmup=1)
+            plain_b = cuda_ms(lambda: lstm.lstm_backward_reference(
+                gates, cseq, out, w, h0, c0, dout, dcseq), iters=5,
+                warmup=1)
+            # yardstick only (never called by the port): one cuDNN LSTM
+            # layer with the same recurrent weight; it also does the
+            # input projection (x @ W_i2h^T), here x of width H
+            ref = torch.nn.LSTM(h, h, device=dev)
+            with torch.no_grad():
+                ref.weight_hh_l0.copy_(w4)
+            x = torch.tensor(rng.randn(t, n, h).astype("float32"),
+                             device=dev)
+            lib_f = cuda_ms(lambda: ref(x, (h0[None], c0[None])),
+                            iters=iters, warmup=2)
+            xl = x.detach().requires_grad_()
+            ref_out, (ref_h, ref_c) = ref(xl, (h0[None], c0[None]))
+            leaves = [xl, *ref.parameters()]
+            lib_b = cuda_ms(lambda: torch.autograd.grad(
+                (ref_out, ref_c), leaves, (dout, dcseq[-1:]),
+                retain_graph=True), iters=iters, warmup=2)
+            del ref_out, ref_h, ref_c, leaves, xl, ref
+            s = 4
+            flops_f = 2 * t * n * h * 4 * h
+            bytes_f = (t * n * 4 * h * 2 + 4 * h * h + 2 * n * h
+                       + 2 * t * n * h) * s
+            bytes_b = (t * n * 4 * h * 2 + 4 * t * n * h + 4 * h * h
+                       + 2 * n * h) * s + (2 * n * h + 4 * h * h) * 4
+            grid = {k: lstm.lstm_plan(n, h, dtype, bk, dev) for k, bk in
+                    (("fwd", False), ("bwd", True))}
+            for entry, e, ms, plain, lib, nbytes, flops, g, libname in (
+                    (fwd, err_f, ms_f, plain_f, lib_f, bytes_f, flops_f,
+                     grid["fwd"], "torch.nn.LSTM forward (cuDNN), input "
+                     "projection included"),
+                    (bwd, err_b, ms_b, plain_b, lib_b, bytes_b, 2 * flops_f,
+                     grid["bwd"], "torch.nn.LSTM backward (cuDNN, "
+                     "autograd), input projection included")):
+                bms, by = bound(nbytes, flops)
+                nums = {"shape": f"{name}", "max_abs_err": e, "ms": ms,
+                        "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                        "library_ms": lib, "library": libname,
+                        "grid": {k: g[k] for k in (
+                            "blocks", "units_per_block", "rows_per_pass",
+                            "k_split", "smem_bytes")}}
+                if n == WLM["batch"]:
+                    entry.update(nums)
+                else:
+                    entry["large"] = nums
+                log(f"{entry['name']} {name}: {ms * 1e3:.2f} us kernel, "
+                    f"{plain * 1e3:.2f} us plain, {lib * 1e3:.2f} us "
+                    f"library_ms ({libname}), bound {bms * 1e3:.2f} us "
+                    f"({by}: {nbytes} B, {flops} flop); grid "
+                    f"{g['blocks']} blocks x {g['units_per_block']} units, "
+                    f"{g['rows_per_pass']} rows/pass, k split "
+                    f"{g['k_split']}, {g['smem_bytes']} B shared")
+    return [fwd, bwd]
+
+
 def _profiler(on):
     import contextlib
 
@@ -1184,13 +1334,162 @@ def cross_device_train(seed, dev, steps=3):
                              f"of its scale")
 
 
+def build_wordlm(seed, dev, vocab, dropout):
+    """``WordLM`` at 2 x 650 with Xavier weights from ``seed`` and a
+    ``Trainer`` with the example's SGD at lr 1.0."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.examples.word_lm import WordLM
+    from mxnet_tpu_torch.initializer import Xavier
+
+    net = WordLM(vocab, WLM["emb"], WLM["hid"], WLM["layers"],
+                 dropout=dropout, device=dev)
+    net.initialize(init=Xavier(), seed=seed)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": WLM["lr"]})
+    return net, trainer
+
+
+def wordlm_data(vocab, batch, segments):
+    """The example's synthetic corpus, batchified into ``batch`` rows
+    long enough for ``segments`` BPTT segments."""
+    from mxnet_tpu_torch.examples.word_lm import batchify, synthetic_corpus
+
+    n = batch * (WLM["bptt"] * (segments + 1) + 2)
+    return batchify(synthetic_corpus(n, vocab), batch)
+
+
+def train_wordlm_main_path(seed, profile, dev, power_line, steps=20,
+                           warmup=2):
+    """``train-wordlm-wt2-b32t35`` on the card; returns the launch counts
+    of the measured segments."""
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.examples.word_lm import train_segments
+
+    gc.collect()        # earlier phases' graphs: not this path's memory
+    t0 = time.perf_counter()
+    net, trainer = build_wordlm(seed, dev, WLM["vocab"], WLM["dropout"])
+    params = net.collect_params()
+    n_params = sum(p.data().numel() for p in params.values())
+    data = wordlm_data(WLM["vocab"], WLM["batch"], warmup + steps + 1)
+    log(f"model: word LM, vocab {WLM['vocab']}, emb {WLM['emb']}, "
+        f"{WLM['layers']} x LSTM({WLM['hid']}), dropout {WLM['dropout']}, "
+        f"{n_params} params ({time.perf_counter() - t0:.1f} s to build)")
+    segs = train_segments(net, trainer, data, WLM["bptt"], WLM["clip"])
+    for _ in range(warmup):
+        next(segs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = next(segs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.double().mean().item())
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_seg = {"lstm_fwd": WLM["layers"], "lstm_bwd": WLM["layers"]}
+    for name, n in per_seg.items():
+        if counts[name] != n * steps:
+            raise AssertionError(f"{name} launched {counts[name]} times in "
+                                 f"{steps} segments, want {n} per segment")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first 5 mean {first}, "
+                             f"last 5 mean {last}: {losses}")
+    dead = []
+    for name, p in params.items():
+        g = p.grad()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: non-finite gradient")
+        if g.abs().max().item() == 0.0:
+            dead.append(name)
+    if dead:
+        raise AssertionError(f"all-zero gradients: {dead}")
+    if profile:
+        with _profiler(True) as prof:
+            t0 = time.perf_counter()
+            next(segs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        log("word LM step profile:")
+        report_profile(prof, wall)
+    p50 = float(np.median(times))
+    tokens = WLM["batch"] * WLM["bptt"]
+    ppl = math.exp(float(np.mean(losses)))
+    log(f"trained {steps} segments (+{warmup} warm-up) of {WLM['batch']} x "
+        f"{WLM['bptt']} tokens: step p50 {p50 * 1e3:.2f} ms, "
+        f"{tokens / p50:.1f} tokens/s; loss per token {losses[0]:.7f} -> "
+        f"{losses[-1]:.7f} (first 5 mean {first:.7f}, last 5 mean "
+        f"{last:.7f}), perplexity {ppl:.1f}; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB; launches {counts} [{power_line}]")
+    log("word LM metrics: " + json.dumps(
+        {"step_ms_p50": p50 * 1e3, "step_ms": [t * 1e3 for t in times],
+         "tokens_per_s": tokens / p50, "loss_per_token": losses,
+         "perplexity": ppl, "peak_memory_bytes": peak, "params": n_params,
+         "launches": counts, "card": power_line}))
+    return counts
+
+
+def cross_device_wordlm(seed, dev, steps=3):
+    """Same seed, 2 x 650 at vocab 10000, batch 8, bptt 35, dropout 0:
+    three SGD steps of the word LM's loop on the card and on the CPU
+    (plain versions there)."""
+    import torch
+
+    from mxnet_tpu_torch.examples.word_lm import train_segments
+
+    vocab = 10000
+    data = wordlm_data(vocab, 8, steps)
+    runs = {}
+    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        net, trainer = build_wordlm(seed, device, vocab, 0.0)
+        params = net.collect_params()
+        losses, grads = [], None
+        for i, loss in enumerate(train_segments(
+                net, trainer, data, WLM["bptt"], WLM["clip"], steps)):
+            losses.append(loss.double().mean().item())
+            if i == 0:
+                grads = {k: p.grad().detach().cpu().clone()
+                         for k, p in params.items()}
+        runs[name] = losses, grads
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    worst, worst_name = 0.0, None
+    for k, g_cpu in runs["cpu"][1].items():
+        gap = (runs["cuda"][1][k] - g_cpu).abs().max().item()
+        scale = g_cpu.abs().max().item()
+        if gap > 1e-3 * scale + 1e-7 and gap / max(scale, 1e-30) > worst:
+            worst, worst_name = gap / max(scale, 1e-30), k
+    log(f"cross-device word LM: losses {runs['cuda'][0]} (card) vs "
+        f"{runs['cpu'][0]} (cpu), max relative gap {rel:.3e} (tol 1e-4); "
+        f"step-1 gradients of {len(runs['cpu'][1])} parameters "
+        f"{'within' if worst_name is None else 'NOT within'} 1e-3 of each "
+        f"parameter's largest CPU gradient")
+    if not rel <= 1e-4:
+        raise AssertionError(f"word LM losses differ by {rel}")
+    if worst_name is not None:
+        raise AssertionError(f"gradient of {worst_name} differs by {worst} "
+                             f"of its scale")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights, prompts and test inputs")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the serving window with torch.profiler "
-                         "(device time by kernel, busy share)")
+                    help="trace the serving windows and one step of each "
+                         "training path with torch.profiler (device time "
+                         "by kernel, busy share)")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "mxnet_tpu_torch")):
         print("chip_smoke.py: the mxnet_tpu_torch package is not beside "
@@ -1231,14 +1530,19 @@ def main():
                check_flash_attention(rng, dev), check_layer_norm(rng, dev),
                check_flash_attention_bwd(rng, dev, lens),
                check_layer_norm_bwd(rng, dev),
-               *check_softmax_xent(rng, dev, int(lens.sum()))]
+               *check_softmax_xent(rng, dev, int(lens.sum())),
+               *check_lstm(rng, dev)]
     # each path's launches, counted from 0 over its own run
     decode = serve_main_path(args.seed, args.profile, dev, power_line)
     encoder = serve_encoder(args.seed, args.profile, dev, power_line)
     train = train_main_path(args.seed, args.profile, dev, power_line)
+    wordlm = train_wordlm_main_path(args.seed, args.profile, dev,
+                                    power_line)
     for e in entries:
         name = e["name"]
-        if name == "paged_attention":
+        if name in ("lstm_fwd", "lstm_bwd"):
+            e["launches"] = wordlm[name]
+        elif name == "paged_attention":
             e["launches"] = decode[name]
         elif name in ("flash_attention", "layer_norm"):
             # forward kernels of both the encoder and the training path
@@ -1251,6 +1555,7 @@ def main():
     cross_device(args.seed, dev)
     cross_device_encoder(args.seed, dev)
     cross_device_train(args.seed, dev)
+    cross_device_wordlm(args.seed, dev)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(power_line)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import autograd
+from .. import autograd, initializer
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Block"]
@@ -44,9 +44,12 @@ class Block(nn.Module):
         with torch.set_grad_enabled(autograd.is_recording()):
             return super().__call__(*args, **kwargs)
 
-    def _param(self, shape, dtype, device, fill=0.0, grad_req="write"):
+    def _param(self, shape, dtype, device, fill=0.0, grad_req="write",
+               init=None):
         p = nn.Parameter(torch.full(tuple(shape), fill, dtype=dtype,
                                     device=device))
+        if init is not None:
+            p._mx_init = init       # this parameter's own initializer
         return autograd.set_grad_req(p, grad_req)
 
     def gluon_params(self):
@@ -76,14 +79,23 @@ class Block(nn.Module):
         self.collect_params().zero_grad()
 
     @torch.no_grad()
-    def initialize(self, seed=0, sigma=0.02):
-        """Seeded weights: every ``weight`` ~ Normal(0, ``sigma``),
-        drawn in registration order from numpy's generator (so one
-        seed gives the same weights on every device), ``gamma`` ones,
-        ``bias``/``beta`` zeros."""
+    def initialize(self, init=None, seed=0, sigma=0.02):
+        """Seeded weights, drawn in registration order from one numpy
+        generator (so one seed gives the same weights on every device).
+        A parameter made with its own initializer (``_param(...,
+        init=)``, e.g. an LSTM's ``"zeros"`` biases) takes that one;
+        the others take ``init`` (an ``initializer.Initializer`` or a
+        registered name) by their names. Without ``init`` they keep
+        the default: every ``weight`` ~ Normal(0, ``sigma``), ``gamma``
+        ones, ``bias``/``beta`` zeros."""
         rng = np.random.default_rng(seed)
+        default = None if init is None else initializer.create(init)
         for name, p in self.gluon_params().items():
-            if name.endswith("weight"):
+            own = getattr(p, "_mx_init", None)
+            chosen = default if own is None else initializer.create(own)
+            if chosen is not None:
+                chosen(name, p, rng)
+            elif name.endswith("weight"):
                 w = rng.standard_normal(tuple(p.shape), dtype=np.float32)
                 p.copy_(torch.from_numpy(w * np.float32(sigma)))
             else:

@@ -125,7 +125,7 @@ class BERTModel(Block):
                              dtype=dtype, in_units=units, prefix="pooler_",
                              device=self.device)
                        if use_pooler else None)
-        self.initialize(seed)
+        self.initialize(seed=seed)
 
     def forward(self, inputs, token_types, valid_length=None, mask=None,
                 segment_ids=None, positions=None):
@@ -191,7 +191,7 @@ class BERTMLMHead(Block):
         self.decoder = Dense(vocab_size, flatten=False, dtype=dtype,
                              in_units=units, prefix="decoder_",
                              device=self.device)
-        self.initialize(seed)
+        self.initialize(seed=seed)
 
     def forward(self, seq):
         return self.decoder(self.ln(self.act(self.transform(seq))))
@@ -219,7 +219,7 @@ class BERTNSPHead(Block):
         self.classifier = Dense(2, flatten=False, dtype=dtype,
                                 in_units=units, prefix="cls_",
                                 device=self.device)
-        self.initialize(seed)
+        self.initialize(seed=seed)
 
     def forward(self, pooled):
         return self.classifier(pooled)

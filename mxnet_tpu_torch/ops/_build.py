@@ -29,7 +29,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 #: the kernels of this package, by name (``csrc/<name>.cu``)
 SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd",
-           "layer_norm", "softmax_xent")
+           "layer_norm", "softmax_xent", "lstm")
 #: headers every source may include
 HEADERS = ("common.cuh",)
 #: Hopper with its arch-specific features (wgmma, setmaxnreg)

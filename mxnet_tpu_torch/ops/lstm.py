@@ -1,0 +1,289 @@
+"""Whole-sequence LSTM, forward (K6a) and backward (K6b): the CUDA
+kernels' wrappers, their plain PyTorch versions, and the autograd
+Function that binds the two.
+
+Port of ``mxnet_tpu/ops/pallas/lstm.py`` (``lstm_layer_fused`` over
+``_lstm_fwd`` / ``_lstm_fwd_kernel`` and ``_lstm_bwd`` /
+``_lstm_bwd_kernel``). One layer and direction over the whole
+sequence: ``gin`` (T, N, 4H) holds the input-side gate projections
+``x @ W_i2h^T + b_i2h + b_h2h`` in gate order (i, f, g, o), ``w`` is the
+(H, 4H) recurrent weight and ``h0``, ``c0`` the (N, H) initial state::
+
+    z = gin[t] + h @ w          (h rounded to w's type, f32 products)
+    c = sigmoid(z_f) * c + sigmoid(z_i) * tanh(z_g)      (f32 carry)
+    h = sigmoid(z_o) * tanh(c)
+
+Forward emits ``out`` = every h, ``cseq`` = every c and the activated
+gates, all in gin's type; the backward walks time in reverse from them
+and gives ``dgin`` (gin's type) and dh0, dc0, dW (float32, cast to the
+inputs' types by the Function).
+
+``w`` may be any strided (H, 4H) view: MXNet's (4H, H) ``h2h_weight``
+is passed as ``w_h2h.t()``, read by strides, and its gradient is
+written in the same layout, so neither direction copies the weight.
+
+:func:`lstm_layer_fused` is one ``torch.autograd.Function``: for CUDA
+tensors its forward launches K6a and its backward K6b
+(``csrc/lstm.cu``, one persistent cooperative grid each); for CPU
+tensors it takes the plain versions (:func:`lstm_forward_reference`, a
+per-step loop that autograd can also differentiate, and
+:func:`lstm_backward_reference`). In the JAX package the kernel is
+opt-in (``MXNET_TPU_FUSED_LSTM``) and the default is XLA's scan. Here
+the eager counterpart of that scan is the plain per-step loop, about
+eight launches a step, so the card always runs K6 and the CPU always
+the plain loop: the switch has no role in the port.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["LAUNCHES", "lstm_backward", "lstm_backward_reference",
+           "lstm_forward", "lstm_forward_reference", "lstm_layer_fused",
+           "lstm_plan"]
+
+#: kernel launches by kernel name (the main-path proof counts these)
+LAUNCHES = {"lstm_fwd": 0, "lstm_bwd": 0}
+_NO_FIT = 1001
+# mxtt_lstm_plan(bwd, N, H, dtype, plan[8])
+_PLAN_ARGS = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# mxtt_lstm_fwd(gin, w, sk, sg, h0, c0, out, cseq, gates, cbuf, T, N, H,
+#               dtype, blocks, u, P, KS, smem)
+_FWD_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 \
+    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+# mxtt_lstm_bwd(gates, cseq, out, w, sk, sg, h0, c0, dout, dcseq, dgin,
+#               dh0, dc0, dw, T, N, H, dtype, blocks, u, P, KS, smem)
+_BWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 \
+    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+_PLAN_KEYS = ("blocks", "units_per_block", "rows_per_pass", "k_split",
+              "smem_bytes", "blocks_per_sm", "sms", "smem_limit")
+_plans = {}
+
+
+def lstm_forward_reference(gin, w, h0, c0):
+    """Plain PyTorch version of K6a: a per-step loop with the kernel's
+    casts, differentiable by autograd. Returns ``(out, cseq, gates)``
+    in gin's type."""
+    steps, _, g4 = gin.shape
+    hid = g4 // 4
+    wf = w.float()
+    h, c = h0.float(), c0.float()
+    outs, cs, gs = [], [], []
+    for t in range(steps):
+        z = gin[t].float() + h.to(w.dtype).float() @ wf
+        i, f, g, o = z.split(hid, dim=-1)
+        i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o))
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        outs.append(h.to(gin.dtype))
+        cs.append(c.to(gin.dtype))
+        gs.append(torch.cat([i, f, g, o], dim=-1).to(gin.dtype))
+    if not steps:
+        empty = gin.new_empty((0, *h0.shape))
+        return empty, empty.clone(), gin.new_empty(gin.shape)
+    return torch.stack(outs), torch.stack(cs), torch.stack(gs)
+
+
+def lstm_backward_reference(gates, cseq, out, w, h0, c0, dout, dcseq):
+    """Plain PyTorch version of K6b: the reverse-time walk of
+    ``_lstm_bwd_kernel`` in float32. Returns ``(dgin, dh0, dc0, dw)``:
+    dgin in gates' type, the rest float32, dw of w's shape."""
+    steps, _, g4 = gates.shape
+    hid = g4 // 4
+    wf = w.float()
+    dh = torch.zeros(h0.shape, dtype=torch.float32, device=gates.device)
+    dc = torch.zeros_like(dh)
+    dw = torch.zeros(w.shape, dtype=torch.float32, device=gates.device)
+    dgin = torch.empty_like(gates)
+    for t in range(steps - 1, -1, -1):
+        i, f, g, o = gates[t].float().split(hid, dim=-1)
+        c_t = cseq[t].float()
+        c_prev = (cseq[t - 1] if t else c0).float()
+        h_prev = (out[t - 1] if t else h0).to(w.dtype).float()
+        tanh_c = torch.tanh(c_t)
+        dh = dout[t].float() + dh
+        dcur = dh * o * (1.0 - tanh_c * tanh_c) + dc + dcseq[t].float()
+        dz = torch.cat([dcur * g * i * (1.0 - i),
+                        dcur * c_prev * f * (1.0 - f),
+                        dcur * i * (1.0 - g * g),
+                        dh * tanh_c * o * (1.0 - o)], dim=-1)
+        dgin[t] = dz.to(gates.dtype)
+        dzc = dz.to(w.dtype).float()
+        dh = dzc @ wf.t()
+        dc = dcur * f
+        dw += h_prev.t() @ dzc
+    return dgin, dh, dc, dw
+
+
+def _check(gin, w, h0, c0):
+    if gin.ndim != 3 or gin.shape[2] % 4:
+        raise ValueError(f"lstm takes gin (T, N, 4H), got "
+                         f"{tuple(gin.shape)}")
+    steps, n, g4 = gin.shape
+    hid = g4 // 4
+    if tuple(w.shape) != (hid, g4):
+        raise ValueError(f"w must be ({hid}, {g4}), got {tuple(w.shape)}")
+    for name, t in (("h0", h0), ("c0", c0)):
+        if tuple(t.shape) != (n, hid):
+            raise ValueError(f"{name} must be ({n}, {hid}), got "
+                             f"{tuple(t.shape)}")
+    if gin.dtype not in _build.DTYPE_CODES or any(
+            t.dtype != gin.dtype for t in (w, h0, c0)):
+        raise TypeError(f"lstm kernel takes float32, bfloat16 or float16 "
+                        f"gin/w/h0/c0 of one dtype, got {gin.dtype}/"
+                        f"{w.dtype}/{h0.dtype}/{c0.dtype}")
+    devs = {t.device for t in (gin, w, h0, c0)}
+    if len(devs) != 1:
+        raise ValueError(f"lstm operands on several devices: "
+                         f"{sorted(map(str, devs))}")
+    if gin.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lstm runs on cuda or cpu tensors, got "
+                         f"{gin.device}")
+
+
+def lstm_plan(n, hid, dtype=torch.float32, backward=False, device=None):
+    """The grid K6a (or K6b with ``backward``) launches for a batch of
+    ``n`` rows and ``hid`` units on ``device`` (the current CUDA
+    device by default): ``{"blocks", "units_per_block",
+    "rows_per_pass", "k_split", "smem_bytes", "blocks_per_sm", "sms",
+    "smem_limit"}``. Raises ``ValueError`` with those numbers when the
+    shape cannot run: more than 8 units a block, or a W slice and one
+    row that do not fit a block's shared memory, or more blocks than
+    can be resident at once."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (dev.index, bool(backward), int(n), int(hid), dtype)
+    plan = _plans.get(key)
+    if plan is not None:
+        return plan
+    fn = getattr(_build.load("lstm"), "mxtt_lstm_plan")
+    fn.argtypes = [*_PLAN_ARGS, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    buf = (ctypes.c_int * 8)()
+    with torch.cuda.device(dev):
+        err = fn(int(bool(backward)), int(n), int(hid),
+                 _build.DTYPE_CODES[dtype], ctypes.addressof(buf), None)
+    plan = dict(zip(_PLAN_KEYS, list(buf)))
+    if err == _NO_FIT:
+        raise ValueError(
+            f"lstm {'backward' if backward else 'forward'} kernel cannot "
+            f"run N={n}, H={hid} ({dtype}) on this card: {plan['blocks']} "
+            f"blocks of {plan['units_per_block']} units (at most 8) need "
+            f"{plan['smem_bytes']} B of shared memory each with one row "
+            f"per pass (limit {plan['smem_limit']} B), "
+            f"{plan['blocks_per_sm']} resident per SM x {plan['sms']} SMs")
+    if err != 0:
+        raise RuntimeError(f"lstm kernel planning failed: CUDA error {err}")
+    _plans[key] = plan
+    return plan
+
+
+def _grid(plan):
+    return (plan["blocks"], plan["units_per_block"], plan["rows_per_pass"],
+            plan["k_split"], plan["smem_bytes"])
+
+
+def lstm_forward(gin, w, h0, c0):
+    """K6a: ``(out, cseq, gates)`` in gin's type. CUDA tensors launch
+    the kernel or raise; CPU tensors take
+    :func:`lstm_forward_reference`."""
+    _check(gin, w, h0, c0)
+    if gin.device.type == "cpu":
+        return lstm_forward_reference(gin, w, h0, c0)
+    steps, n, g4 = gin.shape
+    hid = g4 // 4
+    gin, h0, c0 = gin.contiguous(), h0.contiguous(), c0.contiguous()
+    out = gin.new_empty((steps, n, hid))
+    cseq = gin.new_empty((steps, n, hid))
+    gates = torch.empty_like(gin)
+    if steps and n:
+        plan = lstm_plan(n, hid, gin.dtype, False, gin.device)
+        cbuf = torch.empty((n, hid), dtype=torch.float32, device=gin.device)
+        _build.launch("lstm", "mxtt_lstm_fwd", _FWD_ARGS, gin.device,
+                      gin.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
+                      h0.data_ptr(), c0.data_ptr(), out.data_ptr(),
+                      cseq.data_ptr(), gates.data_ptr(), cbuf.data_ptr(),
+                      steps, n, hid, _build.DTYPE_CODES[gin.dtype],
+                      *_grid(plan))
+        LAUNCHES["lstm_fwd"] += 1
+    return out, cseq, gates
+
+
+def lstm_backward(gates, cseq, out, w, h0, c0, dout, dcseq):
+    """K6b: ``(dgin, dh0, dc0, dw)`` from the forward's saved gates,
+    cseq and out and the cotangents of out and cseq; dgin in gates'
+    type, dh0/dc0 (N, H) and dw (w's shape and strides) float32. CUDA
+    tensors launch the kernel or raise; CPU tensors take
+    :func:`lstm_backward_reference`."""
+    _check(gates, w, h0, c0)
+    for name, t in (("cseq", cseq), ("out", out), ("dout", dout),
+                    ("dcseq", dcseq)):
+        if tuple(t.shape) != tuple(gates.shape[:2]) + (h0.shape[1],) \
+                or t.dtype != gates.dtype or t.device != gates.device:
+            raise ValueError(f"{name} must be {tuple(gates.shape[:2])} x "
+                             f"{h0.shape[1]} {gates.dtype} on "
+                             f"{gates.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    if gates.device.type == "cpu":
+        return lstm_backward_reference(gates, cseq, out, w, h0, c0, dout,
+                                       dcseq)
+    steps, n, g4 = gates.shape
+    hid = g4 // 4
+    gates, cseq, out, h0, c0, dout, dcseq = (
+        t.contiguous() for t in (gates, cseq, out, h0, c0, dout, dcseq))
+    dgin = torch.empty_like(gates)
+    dh0 = torch.zeros((n, hid), dtype=torch.float32, device=gates.device)
+    dc0 = torch.zeros_like(dh0)
+    dw = torch.empty_strided(tuple(w.shape), w.stride(), dtype=torch.float32,
+                             device=gates.device)
+    if steps and n:
+        plan = lstm_plan(n, hid, gates.dtype, True, gates.device)
+        _build.launch("lstm", "mxtt_lstm_bwd", _BWD_ARGS, gates.device,
+                      gates.data_ptr(), cseq.data_ptr(), out.data_ptr(),
+                      w.data_ptr(), w.stride(0), w.stride(1), h0.data_ptr(),
+                      c0.data_ptr(), dout.data_ptr(), dcseq.data_ptr(),
+                      dgin.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+                      dw.data_ptr(), steps, n, hid,
+                      _build.DTYPE_CODES[gates.dtype], *_grid(plan))
+        LAUNCHES["lstm_bwd"] += 1
+    else:
+        dw.zero_()
+    return dgin, dh0, dc0, dw
+
+
+class _LSTMLayer(torch.autograd.Function):
+    """K6a forward with (gates, cseq, out) saved, K6b backward (plain
+    versions for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, gin, w, h0, c0):
+        out, cseq, gates = lstm_forward(gin, w, h0, c0)
+        ctx.save_for_backward(gates, cseq, out, w, h0, c0)
+        return out, cseq
+
+    @staticmethod
+    def backward(ctx, dout, dcseq):
+        gates, cseq, out, w, h0, c0 = ctx.saved_tensors
+        dgin, dh0, dc0, dw = lstm_backward(gates, cseq, out, w, h0, c0,
+                                           dout, dcseq)
+        return dgin, dw.to(w.dtype), dh0.to(h0.dtype), dc0.to(c0.dtype)
+
+
+def lstm_layer_fused(gin, w_h2h, h0, c0):
+    """One LSTM layer/direction over the whole sequence (module
+    docstring), differentiable in all four inputs.
+
+    gin : (T, N, 4H) input-side gate projections, gate order (i, f, g,
+        o). w_h2h : (H, 4H) recurrent weight, any strides (MXNet's
+        (4H, H) parameter as ``.t()``). h0, c0 : (N, H).
+    Returns ``(out, cseq)``, each (T, N, H) in gin's type; callers take
+    ``out[-1]`` / ``cseq[-1]`` for the final state, so those cotangents
+    reach the backward through plain indexing.
+    """
+    _check(gin, w_h2h, h0, c0)
+    return _LSTMLayer.apply(gin, w_h2h, h0, c0)

@@ -5,6 +5,8 @@ not installed::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -12,6 +14,7 @@ import torch
 from mxnet_tpu_torch.ops import flash_attention as fa
 from mxnet_tpu_torch.ops import launch_counts
 from mxnet_tpu_torch.ops import layer_norm as ln
+from mxnet_tpu_torch.ops import lstm
 from mxnet_tpu_torch.ops import paged_attention as pa
 from mxnet_tpu_torch.ops import softmax_xent as sx
 
@@ -435,6 +438,106 @@ def test_softmax_xent_kernels_refuse_bad_operands(cuda):
     with pytest.raises(ValueError):
         sx.softmax_xent_backward(x, lab, torch.zeros(3, device=cuda),
                                  torch.zeros(4, device=cuda))
+
+
+# -- K6a/K6b: whole-sequence LSTM ---------------------------------------------
+# Kernel and plain version run the same float32 recurrence and sum the
+# products in another order. Float32: within 1e-5 of each tensor's
+# scale (its largest magnitude, at least 1); dW sums T * N products.
+# bf16: one bf16 ulp of the scale, as each side rounds every h it
+# feeds back once.
+def _lstm_case(t, n, h, dtype, dev, zero_state, seed=0):
+    rng = np.random.RandomState(seed + t + n + h)
+    f = lambda *shape: rng.randn(*shape).astype(np.float32)  # noqa: E731
+    gin = f(t, n, 4 * h) * 0.5
+    w = f(4 * h, h) / np.sqrt(h)          # MXNet's (4H, H) layout
+    h0, c0 = (np.zeros((n, h), np.float32),) * 2 if zero_state else (
+        f(n, h) * 0.5, f(n, h) * 0.5)
+    dout = f(t, n, h)
+    dout[-1] += f(n, h)                    # the final h's cotangent
+    dcseq = np.zeros((t, n, h), np.float32)
+    dcseq[-1] = f(n, h)                    # the final c's cotangent
+    to = lambda a: torch.tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    return to(gin), to(w).t(), to(h0), to(c0), to(dout), to(dcseq)
+
+
+def _lstm_close(got, want, dtype, tol=1e-5):
+    scale = max(want.float().abs().max().item(), 1.0)
+    bound = tol * scale if dtype == torch.float32 \
+        else 2.0 ** (math.floor(math.log2(scale)) - 7)
+    return (got.float() - want.float()).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [24, 200, 650])
+@pytest.mark.parametrize("n", [1, 8, 32, 1024])
+@pytest.mark.parametrize("t", [1, 7, 35])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("zero_state", [True, False])
+def test_lstm_kernels_match_plain(cuda, h, n, t, dtype, zero_state):
+    gin, w, h0, c0, dout, dcseq = _lstm_case(t, n, h, dtype, cuda,
+                                             zero_state)
+    before = launch_counts()
+    out, cseq, gates = lstm.lstm_forward(gin, w, h0, c0)
+    want = lstm.lstm_forward_reference(gin, w, h0, c0)
+    # the backward from the kernel's own forward, so each kernel is held
+    # against its plain version on the same inputs
+    got_b = lstm.lstm_backward(gates, cseq, out, w, h0, c0, dout, dcseq)
+    want_b = lstm.lstm_backward_reference(gates, cseq, out, w, h0, c0,
+                                          dout, dcseq)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["lstm_fwd"] == before["lstm_fwd"] + 1
+    assert after["lstm_bwd"] == before["lstm_bwd"] + 1
+    for name, g, r in zip(("out", "cseq", "gates"), (out, cseq, gates),
+                          want):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all(), name
+        assert _lstm_close(g, r, dtype), name
+    assert got_b[3].stride() == w.stride()       # dW in W's layout
+    for name, g, r in zip(("dgin", "dh0", "dc0", "dw"), got_b, want_b):
+        assert torch.isfinite(g.float()).all(), name
+        assert _lstm_close(g, r, dtype), name
+
+
+@pytest.mark.cuda
+def test_lstm_autograd_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.RandomState(12)
+    args = [rng.randn(9, 5, 4 * 40).astype(np.float32) * 0.5,
+            rng.randn(4 * 40, 40).astype(np.float32) / 7,
+            rng.randn(5, 40).astype(np.float32),
+            rng.randn(5, 40).astype(np.float32)]
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [torch.tensor(a, device=dev, requires_grad=True)
+                  for a in args]
+        out, cseq = lstm.lstm_layer_fused(leaves[0], leaves[1].t(),
+                                          *leaves[2:])
+        (out.sum() + (cseq[-1] * cseq[-1]).sum()).backward()
+        grads[dev.type] = [leaf.grad.cpu() for leaf in leaves]
+    for g, r in zip(grads["cuda"], grads["cpu"]):
+        assert _lstm_close(g, r, torch.float32)
+
+
+@pytest.mark.cuda
+def test_lstm_grid_and_what_cannot_fit(cuda):
+    plan = lstm.lstm_plan(32, 650)
+    assert plan["blocks"] * plan["units_per_block"] >= 650
+    assert plan["blocks"] <= plan["blocks_per_sm"] * plan["sms"]
+    assert plan["smem_bytes"] <= plan["smem_limit"]
+    bplan = lstm.lstm_plan(1024, 650, backward=True)
+    assert bplan["rows_per_pass"] >= 1
+    with pytest.raises(ValueError, match="cannot run"):
+        lstm.lstm_plan(8, 4096)
+    gin = torch.zeros(2, 8, 4 * 4096, device=cuda)
+    w = torch.zeros(4096, 4 * 4096, device=cuda)
+    h0 = torch.zeros(8, 4096, device=cuda)
+    before = launch_counts()["lstm_fwd"]
+    with pytest.raises(ValueError, match="cannot run"):
+        lstm.lstm_forward(gin, w, h0, h0)
+    assert launch_counts()["lstm_fwd"] == before
+    with pytest.raises(ValueError):
+        lstm.lstm_forward(gin[:, :, :64], w[:16, :64], h0[:, :16].cpu(),
+                          h0[:, :16])
 
 
 # -- autograd semantics on the card ------------------------------------------

@@ -43,7 +43,8 @@ def test_no_file_imports_jax_or_the_jax_package(path):
 def test_import_scan_covers_every_subpackage():
     scanned = {pathlib.Path(p).parts[1] for p in PORT_FILES
                if p.startswith("mxnet_tpu_torch/") and p.count("/") > 1}
-    for sub in ("gluon", "io", "ndarray", "ops", "serving", "telemetry"):
+    for sub in ("examples", "gluon", "io", "ndarray", "ops", "serving",
+                "telemetry"):
         assert sub in scanned, sub
     assert "mxnet_tpu_torch/gluon/model_zoo/bert.py" in PORT_FILES
 
@@ -55,7 +56,8 @@ def test_import_leaves_jax_out_of_the_process():
         "import mxnet_tpu_torch.ops, mxnet_tpu_torch.telemetry\n"
         "import mxnet_tpu_torch.context, mxnet_tpu_torch.envvars\n"
         "import mxnet_tpu_torch.gluon, mxnet_tpu_torch.ndarray\n"
-        "import mxnet_tpu_torch.io\n"
+        "import mxnet_tpu_torch.io, mxnet_tpu_torch.initializer\n"
+        "import mxnet_tpu_torch.examples.word_lm\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mxnet_tpu')]\n"
         "assert not bad, bad\n"
@@ -92,6 +94,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         BERTModel(**bert)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(lambda *a: None, bucket_lens=(8,))
+    from mxnet_tpu_torch.examples.word_lm import WordLM
+    from mxnet_tpu_torch.gluon.rnn import LSTM
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LSTM(8, input_size=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WordLM(16, 4, 8, 1)
+    assert WordLM(16, 4, 8, 1, device="cpu").rnn.l0_i2h_weight.device.type \
+        == "cpu"
     model = PagedCausalLM(vocab=16, units=8, layers=1, heads=1,
                           max_len=8, device="cpu")
     assert model.device.type == "cpu"
@@ -132,7 +143,7 @@ def test_k1_and_k3a_wrappers_on_cpu_take_the_plain_version_unbuilt():
     assert set(before) == {"paged_attention", "flash_attention",
                            "flash_attention_bwd", "layer_norm",
                            "layer_norm_bwd", "softmax_xent_fwd",
-                           "softmax_xent_bwd"}
+                           "softmax_xent_bwd", "lstm_fwd", "lstm_bwd"}
     o, lse = flash_attention.flash_attention_with_lse(
         q, q, q, kv_lens=(seg > 0).sum(1, dtype=torch.int32),
         segment_ids=seg)
@@ -149,6 +160,25 @@ def test_k1_and_k3a_wrappers_on_cpu_take_the_plain_version_unbuilt():
         flash_attention.flash_attention(q.to("meta"), q, q)
     with pytest.raises(ValueError):
         layer_norm.layer_norm_fused(x.to("meta"), g, b)
+
+
+def test_k6_wrappers_on_cpu_take_the_plain_version_unbuilt():
+    from mxnet_tpu_torch.ops import launch_counts, lstm
+
+    rng = np.random.RandomState(2)
+    gin = torch.from_numpy(rng.randn(3, 2, 16).astype(np.float32))
+    w = torch.from_numpy(rng.randn(16, 4).astype(np.float32)).t()
+    h0 = c0 = torch.zeros(2, 4)
+    before = launch_counts()
+    out, cseq, gates = lstm.lstm_forward(gin, w, h0, c0)
+    dgin, dh0, dc0, dw = lstm.lstm_backward(gates, cseq, out, w, h0, c0,
+                                            out, cseq)
+    assert dgin.shape == gin.shape and dw.shape == w.shape
+    assert launch_counts() == before
+    assert "lstm" not in _build._libs
+    with pytest.raises(ValueError):
+        lstm.lstm_layer_fused(gin.to("meta"), w.to("meta"), h0.to("meta"),
+                              c0.to("meta"))
 
 
 def test_nvcc_missing_is_an_error(monkeypatch):

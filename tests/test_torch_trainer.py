@@ -11,10 +11,13 @@ CPU: ``autograd.record()`` -> BERT + head -> loss -> ``backward()`` ->
   (the fused K4 path) on a padded batch (``valid_length`` on the flash
   path, the valid positions gathered), with the JAX side's kernels in
   interpret mode: every parameter gradient of the first step agrees
-  within 2e-5 absolute + 1e-4 relative, and every weight after three
+  within 2e-5 absolute + 1e-4 relative, and every weight after two
   Trainer steps within 2e-5 (the same float32 math summed in another
   order; Adam divides by the square root of small second moments, so
-  the weights carry the gradients' rounding a little amplified).
+  the weights carry the gradients' rounding a little amplified). One
+  encoder layer and two steps cover every kernel, parameter kind and
+  Adam's carried moments; a second layer or step would repeat them
+  at the cost of the JAX side's interpret-mode kernels.
 
 The port's kernels take their plain versions on CPU tensors, through
 the same autograd Functions the card uses.
@@ -121,7 +124,7 @@ def test_tiny_bert_mlm_trainer_matches_jax_on_its_kernels(monkeypatch):
     monkeypatch.setenv("MXNET_TPU_PALLAS_INTERPRET", "1")
     mx.random.seed(5)
     net = JaxBERT(vocab_size=VOCAB, units=UNITS, hidden_size=64,
-                  num_layers=2, num_heads=HEADS, max_length=40,
+                  num_layers=1, num_heads=HEADS, max_length=40,
                   dropout=0.0, attention_dropout=0.0, use_pooler=False)
     head = JaxMLM(VOCAB, UNITS)
     for b in (net, head):
@@ -153,7 +156,7 @@ def test_tiny_bert_mlm_trainer_matches_jax_on_its_kernels(monkeypatch):
               and jname[:-len(name)] in (net.prefix, head.prefix)}
     assert len(jnames) == len(tparams) == len(jparams)
 
-    for step in range(3):
+    for step in range(2):
         with jag.record():
             seq = net(j_ids, j_tt, j_lens)
             flat = mx.nd.take(seq.reshape((-1, UNITS)), j_pos)
