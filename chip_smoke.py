@@ -20,7 +20,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    cross-entropy forward and backward (the batch's valid positions x
    30522); the whole-sequence LSTM forward and backward (T=35, H=650,
    N=32 and N=1024), with their grid and cuDNN's LSTM layer as the
-   yardstick;
+   yardstick, and the backward's fixed cost at N=1. Every time is the device's (torch.profiler: the device
+   events a call launched, summed), with the wall of a call, host
+   included, beside it; the memory-bound rows (LayerNorm, softmax
+   cross-entropy) also with their inputs rotated past the 50 MB L2, and
+   the LayerNorm forward's host time a call (five rounds interleaved
+   with ``F.layer_norm``'s);
 4. decode serving at GPT-2-small width (vocab 50257, 768 units, 12
    layers, 12 heads, random weights from ``--seed``): a
    ``DecodeEngine`` serves 8 greedy requests; results, streams, solo
@@ -53,8 +58,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    weights from ``--seed``): the example's synthetic corpus in 32 rows,
    truncated BPTT over segments of 35, SGD at lr 1.0, clip 0.25, 2
    warm-up segments then 20. Every loss finite, the mean of the last 5
-   below that of the first 5, launches per segment exactly 2 + 2 (LSTM
-   forward and backward), every gradient finite and not all zero; step
+   below that of the first 5, launches per segment exactly 2 + 2 + 2
+   (LSTM forward, the backward's recurrence and its dW product), every
+   gradient finite and not all zero; step
    p50, tokens/s, perplexity and peak memory printed;
 8. 2-layer models with the same seed on the card and on the CPU, for
    all four paths: greedy tokens agree and decode logits agree within
@@ -91,6 +97,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # tensor cores (the kernels' math is f32 on CUDA cores for f32 inputs)
 PEAK_HBM_BPS = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# TF32 tensor-core peak (dense); a product kept to f32 accuracy by the
+# 3-term split (a_hi b_hi + a_hi b_lo + a_lo b_hi) issues three of them
+PEAK_TF32_FLOPS = 495e12
+L2_BYTES = 50e6
 
 
 def log(msg):
@@ -98,7 +108,9 @@ def log(msg):
 
 
 def cuda_ms(fn, iters=50, warmup=5):
-    """Mean device time of ``fn`` in ms (CUDA events, after warm-up)."""
+    """Mean wall of one call of ``fn`` in ms, host included: CUDA events
+    around ``iters`` back-to-back calls after warm-up. When the host
+    needs longer per call than the device, this is the host's time."""
     import torch
 
     for _ in range(warmup):
@@ -112,6 +124,122 @@ def cuda_ms(fn, iters=50, warmup=5):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def device_ms(fn, iters=20, warmup=3, by_kernel=False):
+    """Mean device time of one call of ``fn`` in ms: torch.profiler
+    traces ``iters`` calls after warm-up and the device events they
+    launched (kernels, memsets, copies) are summed and divided by
+    ``iters``; the host's time between launches is left out. With
+    ``by_kernel`` also returns ``{event name: ms per call}``. Raises
+    when the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            names[e.key] = names.get(e.key, 0.0) + us / 1e3 / iters
+    total = sum(names.values())
+    if not total > 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return (total, names) if by_kernel else total
+
+
+def cold_ms(fn, args, iters=16):
+    """Device time of ``fn(*args)`` with the inputs rotated over enough
+    copies that each call finds them out of the L2 (at least twice its
+    50 MB between two reads of one copy); returns (ms, copies). An
+    input larger than that is its own rotation (copies = 1)."""
+    import itertools
+    import math
+
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    k = max(1, math.ceil(2 * L2_BYTES / nbytes))
+    sets = itertools.cycle([list(args)] + [[a.clone() for a in args]
+                                           for _ in range(k - 1)])
+    ms = device_ms(lambda: fn(*next(sets)), iters=max(iters, k),
+                   warmup=k)
+    return ms, k
+
+
+def host_us(fn, calls=1000, batch=250):
+    """Host time of one call of ``fn`` in µs: ``time.perf_counter``
+    around ``calls`` calls, made in batches behind a ``torch.cuda.
+    _sleep`` that keeps the device busy past each batch's end, so no
+    call waits for the device or for a slot in its queue. Raises if a
+    batch outlasted the sleep."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(calls // batch):
+        torch.cuda._sleep(100_000_000)   # ~50 ms at the card's clock
+        busy = torch.cuda.Event()
+        busy.record()
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter() - t0
+        drained = busy.query()
+        torch.cuda.synchronize()
+        if drained:
+            raise AssertionError("host_us: the device went idle during a "
+                                 "batch; lengthen the sleep")
+    return total / (calls // batch * batch) * 1e6
+
+
+def host_rounds(fns, rounds=5):
+    """:func:`host_us` of each of ``fns`` (``{key: fn}``), taken in
+    ``rounds`` interleaved rounds so that load on the host falls on
+    all of them alike; returns ``{key: (median, [min, max])}`` in µs a
+    call."""
+    import statistics
+
+    got = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            got[k].append(host_us(fn))
+    return {k: (statistics.median(v), [min(v), max(v)])
+            for k, v in got.items()}
+
+
+def timed(kernel, plain, library, iters=50, plain_iters=20, lib_iters=50,
+          warmup=5):
+    """The kernel's, its plain version's and the library yardstick's
+    times: ``ms``, ``plain_ms``, ``library_ms`` device time
+    (:func:`device_ms`), and ``call_ms``, ``plain_call_ms``,
+    ``library_call_ms`` per call, host included (:func:`cuda_ms`)."""
+    out = {}
+    for key, fn, n in (("", kernel, iters), ("plain_", plain, plain_iters),
+                       ("library_", library, lib_iters)):
+        out[f"{key}call_ms"] = cuda_ms(fn, iters=n, warmup=warmup)
+        out[f"{key}ms"] = device_ms(fn, iters=min(n, 20),
+                                    warmup=min(warmup, 2))
+    return out
+
+
+def fmt_times(t):
+    """One log fragment of :func:`timed`'s numbers, in µs."""
+    def us(x):
+        return f"{x * 1e3:.2f}"
+    return (f"device {us(t['ms'])} us kernel, {us(t['plain_ms'])} plain, "
+            f"{us(t['library_ms'])} library; per call, host included, "
+            f"{us(t['call_ms'])} / {us(t['plain_call_ms'])} / "
+            f"{us(t['library_call_ms'])} us")
 
 
 def within_ulp(got, want, abs_tol, rel_tol=0.0):
@@ -205,9 +333,6 @@ def check_paged_attention(rng, dev):
             if dtype != torch.float32:
                 out[name]["bf16_max_abs_err"] = err
                 continue
-            ms = cuda_ms(lambda: paged_flash_attention(*args))
-            plain_ms = cuda_ms(lambda: paged_attention_reference(*args),
-                               iters=20)
             # yardstick only (never called by the port): SDPA over K/V
             # already gathered to dense, the gather excluded
             q, kp, vp, tbl, kvl = args
@@ -218,26 +343,21 @@ def check_paged_attention(rng, dev):
             row = torch.arange(sq, device=dev)
             kv = kvl.long()[:, None, None, None]
             mask = (col <= kv - sq + row[:, None]) & (col < kv)
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, kd, vd, attn_mask=mask))
+            t = timed(lambda: paged_flash_attention(*args),
+                      lambda: paged_attention_reference(*args),
+                      lambda: F.scaled_dot_product_attention(
+                          q, kd, vd, attn_mask=mask))
             nbytes, flops = paged_work(c["b"], c["h"], c["sq"], c["d"],
                                        c["page_size"], c["width"],
                                        c["kv_lens"], 4)
-            t_bytes = nbytes / PEAK_HBM_BPS * 1e3
-            t_ops = flops / PEAK_F32_FLOPS * 1e3
-            out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": max(t_bytes, t_ops),
-                         "bound_by": "bytes" if t_bytes >= t_ops
-                         else "operations",
-                         "library_ms": library_ms,
+            bms, by = bound(nbytes, flops)
+            out[name] = {"max_abs_err": err, **t, "bound_ms": bms,
+                         "bound_by": by,
                          "library": "SDPA on pre-gathered K/V, gather "
                                     "excluded"}
-            log(f"paged_attention {name} f32: {ms * 1e3:.2f} us kernel, "
-                f"{plain_ms * 1e3:.2f} us plain, "
-                f"{library_ms * 1e3:.2f} us library_ms (SDPA on "
-                f"pre-gathered K/V, gather excluded), bound "
-                f"{out[name]['bound_ms'] * 1e3:.2f} us "
-                f"({out[name]['bound_by']}: {nbytes} B, {flops} flop)")
+            log(f"paged_attention {name} f32: {fmt_times(t)} (library: "
+                f"SDPA on pre-gathered K/V, gather excluded), bound "
+                f"{bms * 1e3:.2f} us ({by}: {nbytes} B, {flops} flop)")
     entry = {"name": "paged_attention", "route": "cuda",
              "source": "mxnet_tpu_torch/ops/csrc/paged_attention.cu",
              "replaces": "mxnet_tpu/ops/pallas/flash_attention.py:1027",
@@ -342,9 +462,6 @@ def check_flash_attention(rng, dev):
             if dtype != torch.float32:
                 out[(kind, s)]["bf16_max_abs_err"] = err
                 continue
-            ms = cuda_ms(lambda: flash_attention_with_lse(q, k, v, **kw))
-            plain_ms = cuda_ms(
-                lambda: flash_attention_reference(q, k, v, **kw), iters=10)
             # yardstick only (never called by the port): SDPA with the
             # same visibility as a boolean mask built outside the timing
             if kind == "causal":
@@ -354,24 +471,21 @@ def check_flash_attention(rng, dev):
                 sg = kw["segment_ids"].long()
                 mask = (sg[:, None, :, None] == sg[:, None, None, :]) \
                     & (sg[:, None, None, :] > 0)
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask), iters=20)
+            t = timed(lambda: flash_attention_with_lse(q, k, v, **kw),
+                      lambda: flash_attention_reference(q, k, v, **kw),
+                      lambda: F.scaled_dot_product_attention(
+                          q, k, v, attn_mask=mask),
+                      plain_iters=10, lib_iters=20)
             nbytes, flops = flash_work(b, h, s, d, 4, seg_np,
                                        kind == "causal")
-            t_bytes = nbytes / PEAK_HBM_BPS * 1e3
-            t_ops = flops / PEAK_F32_FLOPS * 1e3
+            bms, by = bound(nbytes, flops)
             out[(kind, s)] = {
                 "shape": f"{kind} B={b} H={h} S={s} D={d} f32",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": library_ms,
+                "max_abs_err": err, **t, "bound_ms": bms, "bound_by": by,
                 "library": "SDPA with a boolean mask"}
-            log(f"flash_attention {name}: {ms * 1e3:.2f} us kernel, "
-                f"{plain_ms * 1e3:.2f} us plain, {library_ms * 1e3:.2f} us "
-                f"library_ms (SDPA, boolean mask), bound "
-                f"{max(t_bytes, t_ops) * 1e3:.2f} us "
-                f"({out[(kind, s)]['bound_by']}: {nbytes} B, {flops} flop)")
+            log(f"flash_attention {name}: {fmt_times(t)} (library: SDPA, "
+                f"boolean mask), bound {bms * 1e3:.2f} us ({by}: {nbytes} "
+                f"B, {flops} flop)")
     entry = {"name": "flash_attention", "route": "cuda",
              "source": "mxnet_tpu_torch/ops/csrc/flash_attention.cu",
              "replaces": "mxnet_tpu/ops/pallas/flash_attention.py:568"}
@@ -422,25 +536,52 @@ def check_layer_norm(rng, dev):
         if dtype != torch.float32:
             entry["bf16_max_abs_err"] = err
             continue
-        ms = cuda_ms(lambda: layer_norm_fused(x, g, b, eps))
-        plain_ms = cuda_ms(lambda: layer_norm_reference(x, g, b, eps),
-                           iters=20)
-        library_ms = cuda_ms(lambda: F.layer_norm(x, (d,), g, b, eps))
+        t = timed(lambda: layer_norm_fused(x, g, b, eps),
+                  lambda: layer_norm_reference(x, g, b, eps),
+                  lambda: F.layer_norm(x, (d,), g, b, eps))
+        t.update(cold_times(
+            lambda *a: layer_norm_fused(*a, eps),
+            lambda *a: F.layer_norm(a[0], (d,), a[1], a[2], eps),
+            (x, g, b)))
+        # the host's share of a call, as the encoder path makes it
+        # (inference mode, no stats)
+        with torch.inference_mode():
+            hr = host_rounds({
+                "k": lambda: layer_norm_fused(x, g, b, eps),
+                "lib": lambda: F.layer_norm(x, (d,), g, b, eps)})
+        t["host_us"], t["host_us_range"] = hr["k"]
+        t["library_host_us"], t["library_host_us_range"] = hr["lib"]
         nbytes = 2 * r * d * 4 + 2 * d * 4
         flops = 8 * r * d
-        t_bytes = nbytes / PEAK_HBM_BPS * 1e3
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
-        entry.update({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": max(t_bytes, t_ops),
-                      "bound_by": "bytes" if t_bytes >= t_ops
-                      else "operations",
-                      "library_ms": library_ms,
-                      "library": "F.layer_norm"})
-        log(f"layer_norm f32: {ms * 1e3:.2f} us kernel, {plain_ms * 1e3:.2f}"
-            f" us plain, {library_ms * 1e3:.2f} us library_ms "
-            f"(F.layer_norm), bound {entry['bound_ms'] * 1e3:.2f} us "
-            f"({entry['bound_by']}: {nbytes} B, {flops} flop)")
+        bms, by = bound(nbytes, flops)
+        entry.update({"max_abs_err": err, **t, "bound_ms": bms,
+                      "bound_by": by, "library": "F.layer_norm"})
+        log(f"layer_norm f32: {fmt_times(t)} (library: F.layer_norm); "
+            f"{fmt_cold(t)}; host a call, median of 5 interleaved rounds "
+            f"[range]: {t['host_us']:.2f} {fmt_range(t['host_us_range'])} "
+            f"us, F.layer_norm {t['library_host_us']:.2f} "
+            f"{fmt_range(t['library_host_us_range'])}; bound "
+            f"{bms * 1e3:.2f} us ({by}: {nbytes} B, {flops} flop)")
     return entry
+
+
+def cold_times(kernel, library, args):
+    """:func:`cold_ms` of the kernel and the library yardstick on the
+    same rotated inputs: ``cold_ms``, ``library_cold_ms`` and the
+    rotation's ``cold_copies``."""
+    ms, k = cold_ms(kernel, args)
+    lib, _ = cold_ms(library, args)
+    return {"cold_ms": ms, "library_cold_ms": lib, "cold_copies": k}
+
+
+def fmt_range(r):
+    return f"[{r[0]:.2f}, {r[1]:.2f}]"
+
+
+def fmt_cold(t):
+    return (f"cold L2 ({t['cold_copies']} copies of the inputs): device "
+            f"{t['cold_ms'] * 1e3:.2f} us kernel, "
+            f"{t['library_cold_ms'] * 1e3:.2f} library")
 
 
 def bound(nbytes, flops):
@@ -450,17 +591,6 @@ def bound(nbytes, flops):
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
-
-
-def backward_ms(out, inputs, grad, iters=20):
-    """Device time of one autograd backward of ``out`` (built once,
-    kept with retain_graph) to ``inputs``: a library call's backward
-    alone, its forward excluded."""
-    import torch
-
-    return cuda_ms(lambda: torch.autograd.grad(out, inputs, grad,
-                                               retain_graph=True),
-                   iters=iters)
 
 
 TRAIN_B, TRAIN_S, VOCAB = 64, 128, 30522
@@ -533,10 +663,6 @@ def check_flash_attention_bwd(rng, dev, lens):
             if dtype != torch.float32:
                 out[kind]["bf16_max_abs_err"] = err
                 continue
-            ms = cuda_ms(lambda: flash_attention_backward(q, k, v, o, lse,
-                                                          do, **kw))
-            plain_ms = cuda_ms(lambda: flash_attention_backward_reference(
-                q, k, v, lse, do, delta, **kw), iters=10)
             # yardstick only (never called by the port): the backward of
             # SDPA with the same visibility as a boolean mask
             col = torch.arange(s, device=dev)
@@ -551,7 +677,13 @@ def check_flash_attention_bwd(rng, dev, lens):
                     & (sg[:, None, None, :] > 0)
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             ref_o = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
-            library_ms = backward_ms(ref_o, leaves, do)
+            t = timed(lambda: flash_attention_backward(q, k, v, o, lse, do,
+                                                       **kw),
+                      lambda: flash_attention_backward_reference(
+                          q, k, v, lse, do, delta, **kw),
+                      lambda: torch.autograd.grad(ref_o, leaves, do,
+                                                  retain_graph=True),
+                      plain_iters=10, lib_iters=20)
             del ref_o, leaves
             nbytes, _ = flash_work(b, h, s, d, 4, seg_np, kind == "causal")
             if kind == "padded":
@@ -567,14 +699,12 @@ def check_flash_attention_bwd(rng, dev, lens):
             bms, by = bound(nbytes, flops)
             out[kind] = {
                 "shape": f"{kind} B={b} H={h} S={s} D={d} f32",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+                "max_abs_err": err, **t, "bound_ms": bms, "bound_by": by,
                 "library": "SDPA backward (autograd), boolean mask"}
-            log(f"flash_attention_bwd {name}: {ms * 1e3:.2f} us kernel "
-                f"(delta included), {plain_ms * 1e3:.2f} us plain, "
-                f"{library_ms * 1e3:.2f} us library_ms (SDPA backward, "
-                f"boolean mask), bound {bms * 1e3:.2f} us ({by}: {nbytes} "
-                f"B, {flops} flop)")
+            log(f"flash_attention_bwd {name}: {fmt_times(t)} (kernel: "
+                f"delta included; library: SDPA backward, boolean mask), "
+                f"bound {bms * 1e3:.2f} us ({by}: {nbytes} B, {flops} "
+                f"flop)")
     entry = {"name": "flash_attention_bwd", "route": "cuda",
              "source": "mxnet_tpu_torch/ops/csrc/flash_attention_bwd.cu",
              "replaces": "mxnet_tpu/ops/pallas/flash_attention.py:686",
@@ -631,25 +761,40 @@ def check_layer_norm_bwd(rng, dev):
         if dtype != torch.float32:
             entry["bf16_max_abs_err"] = err
             continue
-        ms = cuda_ms(lambda: layer_norm_backward(x, g, mu, rs, dy))
-        plain_ms = cuda_ms(lambda: layer_norm_backward_reference(
-            x, g, mu, rs, dy), iters=20)
         leaves = [t.detach().requires_grad_() for t in (x, g, g)]
         ref_y = F.layer_norm(leaves[0], (d,), leaves[1], leaves[2], eps)
-        library_ms = backward_ms(ref_y, leaves, dy)
-        del ref_y, leaves
+        t = timed(lambda: layer_norm_backward(x, g, mu, rs, dy),
+                  lambda: layer_norm_backward_reference(x, g, mu, rs, dy),
+                  lambda: torch.autograd.grad(ref_y, leaves, dy,
+                                              retain_graph=True),
+                  lib_iters=20)
+        del ref_y
+        # cold: the library's graph is rebuilt on each rotated copy, its
+        # forward outside the window (grad of a saved graph per copy)
+        graphs = {}
+
+        def lib_bwd(x_, g_, mu_, rs_, dy_):
+            key = x_.data_ptr()
+            if key not in graphs:
+                lv = [x_.detach().requires_grad_(), leaves[1], leaves[2]]
+                graphs[key] = (F.layer_norm(lv[0], (d,), lv[1], lv[2],
+                                            eps), lv)
+            y_, lv = graphs[key]
+            return torch.autograd.grad(y_, lv, dy_, retain_graph=True)
+
+        t.update(cold_times(layer_norm_backward, lib_bwd,
+                            (x, g, mu, rs, dy)))
+        del graphs, leaves
         # read x, dy, gamma, mean, rstd; write dx, dgamma, dbeta
         nbytes = 3 * r * d * 4 + d * 4 + 2 * r * 4 + 2 * d * 4
         flops = 11 * r * d
         bms, by = bound(nbytes, flops)
-        entry.update({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bms, "bound_by": by,
-                      "library_ms": library_ms,
+        entry.update({"max_abs_err": err, **t, "bound_ms": bms,
+                      "bound_by": by,
                       "library": "F.layer_norm backward (autograd)"})
-        log(f"layer_norm_bwd f32: {ms * 1e3:.2f} us kernel, "
-            f"{plain_ms * 1e3:.2f} us plain, {library_ms * 1e3:.2f} us "
-            f"library_ms (F.layer_norm backward), bound {bms * 1e3:.2f} us "
-            f"({by}: {nbytes} B, {flops} flop)")
+        log(f"layer_norm_bwd f32: {fmt_times(t)} (library: F.layer_norm "
+            f"backward); {fmt_cold(t)}; bound {bms * 1e3:.2f} us ({by}: "
+            f"{nbytes} B, {flops} flop)")
     return entry
 
 
@@ -701,6 +846,8 @@ def check_softmax_xent(rng, dev, n):
         lab64 = lab.long()
         leaf = x.detach().requires_grad_()
         ref = F.cross_entropy(leaf, lab64, reduction="none")
+        # one input of 6541 x 30522 f32 (800 MB) is 16x the L2: each
+        # call finds it cold, so the rotation is that input alone
         for entry, e, fn, plain, lib, nbytes, flops, libname in (
                 (fwd, err, lambda: softmax_xent_forward(x, lab),
                  lambda: softmax_xent_reference(x, lab),
@@ -709,20 +856,19 @@ def check_softmax_xent(rng, dev, n):
                  "F.cross_entropy(reduction='none') forward"),
                 (bwd, derr, lambda: softmax_xent_backward(x, lab, lse, g),
                  lambda: softmax_xent_backward_reference(x, lab, lse, g),
-                 None, 2 * n * v * 4 + 3 * n * 4, 4 * n * v,
+                 lambda: torch.autograd.grad(ref, [leaf], g,
+                                             retain_graph=True),
+                 2 * n * v * 4 + 3 * n * 4, 4 * n * v,
                  "F.cross_entropy(reduction='none') backward (autograd)")):
-            ms = cuda_ms(fn)
-            plain_ms = cuda_ms(plain, iters=10)
-            library_ms = cuda_ms(lib) if lib is not None \
-                else backward_ms(ref, [leaf], g)
+            t = timed(fn, plain, lib, plain_iters=10, lib_iters=20)
+            t.update(cold_times(lambda *_, f=fn: f(), lambda *_, f=lib: f(),
+                                (x,)))
             bms, by = bound(nbytes, flops)
-            entry.update({"max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bms, "bound_by": by,
-                          "library_ms": library_ms, "library": libname})
-            log(f"{entry['name']} f32: {ms * 1e3:.2f} us kernel, "
-                f"{plain_ms * 1e3:.2f} us plain, {library_ms * 1e3:.2f} us "
-                f"library_ms ({libname}), bound {bms * 1e3:.2f} us ({by}: "
-                f"{nbytes} B, {flops} flop)")
+            entry.update({"max_abs_err": e, **t, "bound_ms": bms,
+                          "bound_by": by, "library": libname})
+            log(f"{entry['name']} f32: {fmt_times(t)} (library: "
+                f"{libname}); {fmt_cold(t)}; bound {bms * 1e3:.2f} us "
+                f"({by}: {nbytes} B, {flops} flop)")
         del ref, leaf
     return [fwd, bwd]
 
@@ -763,8 +909,10 @@ def check_lstm(rng, dev):
     src = "mxnet_tpu_torch/ops/csrc/lstm.cu"
     fwd = {"name": "lstm_fwd", "route": "cuda", "source": src,
            "replaces": "mxnet_tpu/ops/pallas/lstm.py:132"}
+    # K6b is two kernels: the recurrence and the dW product after it
     bwd = {"name": "lstm_bwd", "route": "cuda", "source": src,
-           "replaces": "mxnet_tpu/ops/pallas/lstm.py:175"}
+           "replaces": "mxnet_tpu/ops/pallas/lstm.py:175",
+           "kernels": ["lstm_bwd_kernel", "lstm_bwd_dw_kernel"]}
     for n in (WLM["batch"], 1024):
         base = [rng.randn(t, n, 4 * h).astype("float32") * 0.5,
                 rng.randn(4 * h, h).astype("float32") / h ** 0.5,
@@ -801,16 +949,6 @@ def check_lstm(rng, dev):
                 fwd[key], bwd[key] = err_f, err_b
                 continue
             iters = 20 if n <= 64 else 5
-            ms_f = cuda_ms(lambda: lstm.lstm_forward(gin, w, h0, c0),
-                           iters=iters, warmup=2)
-            ms_b = cuda_ms(lambda: lstm.lstm_backward(
-                gates, cseq, out, w, h0, c0, dout, dcseq), iters=iters,
-                warmup=2)
-            plain_f = cuda_ms(lambda: lstm.lstm_forward_reference(
-                gin, w, h0, c0), iters=5, warmup=1)
-            plain_b = cuda_ms(lambda: lstm.lstm_backward_reference(
-                gates, cseq, out, w, h0, c0, dout, dcseq), iters=5,
-                warmup=1)
             # yardstick only (never called by the port): one cuDNN LSTM
             # layer with the same recurrent weight; it also does the
             # input projection (x @ W_i2h^T), here x of width H
@@ -819,14 +957,27 @@ def check_lstm(rng, dev):
                 ref.weight_hh_l0.copy_(w4)
             x = torch.tensor(rng.randn(t, n, h).astype("float32"),
                              device=dev)
-            lib_f = cuda_ms(lambda: ref(x, (h0[None], c0[None])),
-                            iters=iters, warmup=2)
             xl = x.detach().requires_grad_()
             ref_out, (ref_h, ref_c) = ref(xl, (h0[None], c0[None]))
             leaves = [xl, *ref.parameters()]
-            lib_b = cuda_ms(lambda: torch.autograd.grad(
-                (ref_out, ref_c), leaves, (dout, dcseq[-1:]),
-                retain_graph=True), iters=iters, warmup=2)
+            t_f = timed(lambda: lstm.lstm_forward(gin, w, h0, c0),
+                        lambda: lstm.lstm_forward_reference(gin, w, h0, c0),
+                        lambda: ref(x, (h0[None], c0[None])),
+                        iters=iters, plain_iters=5, lib_iters=iters,
+                        warmup=2)
+            t_b = timed(lambda: lstm.lstm_backward(
+                            gates, cseq, out, w, h0, c0, dout, dcseq),
+                        lambda: lstm.lstm_backward_reference(
+                            gates, cseq, out, w, h0, c0, dout, dcseq),
+                        lambda: torch.autograd.grad(
+                            (ref_out, ref_c), leaves, (dout, dcseq[-1:]),
+                            retain_graph=True),
+                        iters=iters, plain_iters=5, lib_iters=iters,
+                        warmup=2)
+            # the backward's device time by event (its kernels, memsets)
+            t_b["ms_by_event"] = device_ms(lambda: lstm.lstm_backward(
+                gates, cseq, out, w, h0, c0, dout, dcseq), iters=iters,
+                warmup=1, by_kernel=True)[1]
             del ref_out, ref_h, ref_c, leaves, xl, ref
             s = 4
             flops_f = 2 * t * n * h * 4 * h
@@ -836,31 +987,59 @@ def check_lstm(rng, dev):
                        + 2 * n * h) * s + (2 * n * h + 4 * h * h) * 4
             grid = {k: lstm.lstm_plan(n, h, dtype, bk, dev) for k, bk in
                     (("fwd", False), ("bwd", True))}
-            for entry, e, ms, plain, lib, nbytes, flops, g, libname in (
-                    (fwd, err_f, ms_f, plain_f, lib_f, bytes_f, flops_f,
-                     grid["fwd"], "torch.nn.LSTM forward (cuDNN), input "
+            # the forward's products run on the CUDA cores (f32 rate);
+            # the backward's on the tensor cores: f32 kept by three TF32
+            # products each, so 3 x the flops at the TF32 rate
+            for entry, e, tm, nbytes, bms_ops, g, libname in (
+                    (fwd, err_f, t_f, bytes_f,
+                     flops_f / PEAK_F32_FLOPS * 1e3, grid["fwd"],
+                     "torch.nn.LSTM forward (cuDNN), input "
                      "projection included"),
-                    (bwd, err_b, ms_b, plain_b, lib_b, bytes_b, 2 * flops_f,
-                     grid["bwd"], "torch.nn.LSTM backward (cuDNN, "
+                    (bwd, err_b, t_b, bytes_b,
+                     3 * 2 * flops_f / PEAK_TF32_FLOPS * 1e3, grid["bwd"],
+                     "torch.nn.LSTM backward (cuDNN, "
                      "autograd), input projection included")):
-                bms, by = bound(nbytes, flops)
-                nums = {"shape": f"{name}", "max_abs_err": e, "ms": ms,
-                        "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                        "library_ms": lib, "library": libname,
-                        "grid": {k: g[k] for k in (
-                            "blocks", "units_per_block", "rows_per_pass",
-                            "k_split", "smem_bytes")}}
+                bms_bytes = nbytes / PEAK_HBM_BPS * 1e3
+                bms = max(bms_bytes, bms_ops)
+                by = "bytes" if bms_bytes >= bms_ops else "operations"
+                flops = 2 * flops_f if entry is bwd else flops_f
+                nums = {"shape": f"{name}", "max_abs_err": e, **tm,
+                        "bound_ms": bms, "bound_by": by, "library": libname,
+                        "grid": {k: v for k, v in g.items()
+                                 if k not in ("sms", "smem_limit")}}
                 if n == WLM["batch"]:
                     entry.update(nums)
                 else:
                     entry["large"] = nums
-                log(f"{entry['name']} {name}: {ms * 1e3:.2f} us kernel, "
-                    f"{plain * 1e3:.2f} us plain, {lib * 1e3:.2f} us "
-                    f"library_ms ({libname}), bound {bms * 1e3:.2f} us "
-                    f"({by}: {nbytes} B, {flops} flop); grid "
-                    f"{g['blocks']} blocks x {g['units_per_block']} units, "
-                    f"{g['rows_per_pass']} rows/pass, k split "
-                    f"{g['k_split']}, {g['smem_bytes']} B shared")
+                log(f"{entry['name']} {name}: {fmt_times(tm)} (library: "
+                    f"{libname}), bound {bms * 1e3:.2f} us ({by}: {nbytes} "
+                    f"B, {flops} flop); grid {g}")
+            log(f"lstm_bwd {name} device time by event (ms a call): "
+                f"{t_b['ms_by_event']}")
+    # K6b at N=1: what a step costs whatever the batch (grid sync,
+    # phase A, the chain of loads)
+    gin, w4, h0, c0, dout, dcseq = (
+        torch.tensor(a, device=dev) for a in
+        (rng.randn(t, 1, 4 * h).astype("float32") * 0.5,
+         rng.randn(4 * h, h).astype("float32") / h ** 0.5,
+         *(rng.randn(1, h).astype("float32") * 0.5 for _ in range(2)),
+         *(rng.randn(t, 1, h).astype("float32") for _ in range(2))))
+    w = w4.t()
+    out, cseq, gates = lstm.lstm_forward(gin, w, h0, c0)
+    args = (gates, cseq, out, w, h0, c0, dout, dcseq)
+    res = [lstm_close(g, r, torch.float32) for g, r in
+           zip(lstm.lstm_backward(*args),
+               lstm.lstm_backward_reference(*args))]
+    if not all(ok for ok, _ in res):
+        raise AssertionError(f"lstm_bwd T={t} N=1 H={h} float32: {res}")
+    ms, by_event = device_ms(lambda: lstm.lstm_backward(*args),
+                             by_kernel=True)
+    bwd["n1"] = {"shape": f"T={t} N=1 H={h} float32",
+                 "max_abs_err": max(e for _, e in res), "ms": ms,
+                 "ms_by_event": by_event}
+    log(f"lstm_bwd T={t} N=1 H={h} float32: max_abs_err "
+        f"{bwd['n1']['max_abs_err']:.3e} (tol 1e-5 of scale), device "
+        f"{ms * 1e3:.2f} us; by event (ms a call): {by_event}")
     return [fwd, bwd]
 
 
@@ -1395,7 +1574,8 @@ def train_wordlm_main_path(seed, profile, dev, power_line, steps=20,
         losses.append(loss.double().mean().item())
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    per_seg = {"lstm_fwd": WLM["layers"], "lstm_bwd": WLM["layers"]}
+    per_seg = {"lstm_fwd": WLM["layers"], "lstm_bwd": WLM["layers"],
+               "lstm_bwd_dw": WLM["layers"]}
     for name, n in per_seg.items():
         if counts[name] != n * steps:
             raise AssertionError(f"{name} launched {counts[name]} times in "
@@ -1540,8 +1720,12 @@ def main():
                                     power_line)
     for e in entries:
         name = e["name"]
-        if name in ("lstm_fwd", "lstm_bwd"):
+        if name == "lstm_fwd":
             e["launches"] = wordlm[name]
+        elif name == "lstm_bwd":
+            e["launches"] = wordlm[name]
+            e["launches_by_kernel"] = {
+                k: wordlm[k] for k in ("lstm_bwd", "lstm_bwd_dw")}
         elif name == "paged_attention":
             e["launches"] = decode[name]
         elif name in ("flash_attention", "layer_norm"):

@@ -7,7 +7,8 @@ The wrappers live in their modules (``ops.flash_attention``,
 ``ops.flash_attention`` is the module. Each module counts its kernels'
 launches by name; a backward counts apart from its forward
 (``flash_attention_bwd``, ``layer_norm_bwd``, ``softmax_xent_bwd``,
-``lstm_bwd``)."""
+``lstm_bwd``), and a second kernel of one call apart from the first
+(``lstm_bwd_dw``, the LSTM backward's dW product)."""
 from __future__ import annotations
 
 from . import flash_attention as _flash

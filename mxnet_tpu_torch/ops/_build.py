@@ -120,14 +120,23 @@ def launch(name, symbol, argtypes, device, *args):
     """Call the C entry point ``symbol`` of kernel ``name`` (built on
     first use) with ``args`` and ``device``'s current stream; each entry
     point takes the stream last and returns a ``cudaError_t``. Raises
-    ``RuntimeError`` when that is not 0."""
+    ``RuntimeError`` when that is not 0. The call switches the current
+    device only when ``device`` is not already current: a launch on the
+    current device costs no device switch."""
     fn = _fns.get(symbol)
     if fn is None:
         fn = getattr(load(name), symbol)
         fn.argtypes = [*argtypes, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    # the current stream's cudaStream_t, without building a
+    # torch.cuda.Stream object (the call Triton's launcher makes)
+    if index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -25,9 +25,14 @@
 // about 10 flops per element, far below what the card computes in the
 // time the bytes take. The bound is those bytes over HBM bandwidth.
 //
-// What this simple design leaves on the table: 4-byte (not 16-byte)
-// loads for f32, 2-byte for bf16/f16; gamma and beta are re-read by
-// every warp (they stay in L1/L2).
+// Measured as device time alone (chip_smoke.py, torch.profiler; H100
+// 80GB HBM3 at 700 W) at R = 4096, D = 768, f32: 9.28 us with the
+// inputs cold in L2 against the 7.51 us HBM bound (81%), 6.49 us warm,
+// both faster than F.layer_norm (14.49 / 12.46 us). The body is kept
+// as it is. What it leaves: 4-byte (not 16-byte) loads for f32, 2-byte
+// for bf16/f16, and gamma and beta re-read by every warp (they stay in
+// L1/L2). At this size a call's cost is the host's: the wrapper
+// (ops/layer_norm.py) keeps its Python to the checks and the launch.
 //
 // BACKWARD. Replaces _ln_bwd_kernel (launched by _ln_bwd). From x, dy
 // (R, D), gamma and the forward's f32 mean and rstd per row:

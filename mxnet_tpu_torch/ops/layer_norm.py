@@ -81,39 +81,48 @@ def layer_norm_backward_reference(x, gamma, mean, rstd, dy):
 
 
 def _check(x, gamma, beta):
-    d = x.shape[-1] if x.ndim else 0
-    if x.ndim < 1 or not 1 <= d <= _MAX_D:
+    """Raise on what the kernels do not take. Written for the call that
+    passes: each test is one comparison, and the messages are built
+    only on the way out (K3a runs 25 times a BERT forward)."""
+    shape = x.shape
+    d = shape[-1] if shape else 0
+    if not 1 <= d <= _MAX_D:
         raise ValueError(f"layer norm kernel takes a last axis of 1..{_MAX_D}"
-                         f", got shape {tuple(x.shape)}")
+                         f", got shape {tuple(shape)}")
     if gamma.shape != (d,) or beta.shape != (d,):
         raise ValueError(f"gamma/beta must be ({d},), got "
                          f"{tuple(gamma.shape)}/{tuple(beta.shape)}")
-    if x.dtype not in _build.DTYPE_CODES or gamma.dtype != x.dtype \
-            or beta.dtype != x.dtype:
+    dtype = x.dtype
+    if gamma.dtype != dtype or beta.dtype != dtype \
+            or dtype not in _build.DTYPE_CODES:
         raise TypeError(f"layer norm kernel takes float32, bfloat16 or "
                         f"float16 x/gamma/beta of one dtype, got "
-                        f"{x.dtype}/{gamma.dtype}/{beta.dtype}")
-    devs = {t.device for t in (x, gamma, beta)}
-    if len(devs) != 1:
+                        f"{dtype}/{gamma.dtype}/{beta.dtype}")
+    dev = x.device
+    if gamma.device != dev or beta.device != dev:
+        devs = {t.device for t in (x, gamma, beta)}
         raise ValueError(f"layer norm operands on several devices: "
                          f"{sorted(map(str, devs))}")
-    for name, t in (("x", x), ("gamma", gamma), ("beta", beta)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if not (x.is_contiguous() and gamma.is_contiguous()
+            and beta.is_contiguous()):
+        name = next(n for n, t in (("x", x), ("gamma", gamma),
+                                   ("beta", beta)) if not t.is_contiguous())
+        raise ValueError(f"{name} must be contiguous")
 
 
 def _forward(x, gamma, beta, eps, return_stats):
     """K3a (CPU tensors: the plain version)."""
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return layer_norm_reference(x, gamma, beta, eps, return_stats)
     d = x.shape[-1]
     r = x.numel() // d
     y = torch.empty_like(x)
-    stats = (torch.empty(r, dtype=torch.float32, device=x.device),
-             torch.empty(r, dtype=torch.float32, device=x.device)) \
+    stats = (torch.empty(r, dtype=torch.float32, device=dev),
+             torch.empty(r, dtype=torch.float32, device=dev)) \
         if return_stats else None
     if r:
-        _build.launch("layer_norm", "mxtt_layer_norm_fwd", _ARGS, x.device,
+        _build.launch("layer_norm", "mxtt_layer_norm_fwd", _ARGS, dev,
                       x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                       y.data_ptr(), stats[0].data_ptr() if stats else None,
                       stats[1].data_ptr() if stats else None, r, d,
@@ -183,7 +192,12 @@ def layer_norm_fused(x, gamma, beta, eps=1e-5, return_stats=False):
                          f"{x.device}")
     _check(x, gamma, beta)
     if not return_stats:
-        return _LayerNorm.apply(x, gamma, beta, float(eps))
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or gamma.requires_grad
+                                        or beta.requires_grad):
+            return _LayerNorm.apply(x, gamma, beta, float(eps))
+        # nothing to differentiate (serving): no graph node, no stats
+        return _forward(x, gamma, beta, eps, False)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, gamma, beta)):
         raise RuntimeError("layer_norm_fused(return_stats=True) is forward "

@@ -23,8 +23,9 @@ is passed as ``w_h2h.t()``, read by strides, and its gradient is
 written in the same layout, so neither direction copies the weight.
 
 :func:`lstm_layer_fused` is one ``torch.autograd.Function``: for CUDA
-tensors its forward launches K6a and its backward K6b
-(``csrc/lstm.cu``, one persistent cooperative grid each); for CPU
+tensors its forward launches K6a (``csrc/lstm.cu``, one persistent
+cooperative grid) and its backward K6b (the recurrence, one persistent
+cooperative grid on the tensor cores, then the dW product); for CPU
 tensors it takes the plain versions (:func:`lstm_forward_reference`, a
 per-step loop that autograd can also differentiate, and
 :func:`lstm_backward_reference`). In the JAX package the kernel is
@@ -43,24 +44,32 @@ from . import _build
 
 __all__ = ["LAUNCHES", "lstm_backward", "lstm_backward_reference",
            "lstm_forward", "lstm_forward_reference", "lstm_layer_fused",
-           "lstm_plan"]
+           "lstm_plan", "plan_grid"]
 
-#: kernel launches by kernel name (the main-path proof counts these)
-LAUNCHES = {"lstm_fwd": 0, "lstm_bwd": 0}
-_NO_FIT = 1001
-# mxtt_lstm_plan(bwd, N, H, dtype, plan[8])
-_PLAN_ARGS = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+#: kernel launches by kernel name (the main-path proof counts these):
+#: the backward is two kernels, the recurrence and the dW product
+LAUNCHES = {"lstm_fwd": 0, "lstm_bwd": 0, "lstm_bwd_dw": 0}
+# mxtt_lstm_device(out[3]); mxtt_lstm_occupancy(bwd, u, dtype, smem,
+# out[1])
+_DEVICE_ARGS = [ctypes.c_void_p]
+_OCC_ARGS = [ctypes.c_int] * 4 + [ctypes.c_void_p]
 # mxtt_lstm_fwd(gin, w, sk, sg, h0, c0, out, cseq, gates, cbuf, T, N, H,
 #               dtype, blocks, u, P, KS, smem)
 _FWD_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 \
     + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-# mxtt_lstm_bwd(gates, cseq, out, w, sk, sg, h0, c0, dout, dcseq, dgin,
-#               dh0, dc0, dw, T, N, H, dtype, blocks, u, P, KS, smem)
-_BWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 \
-    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-_PLAN_KEYS = ("blocks", "units_per_block", "rows_per_pass", "k_split",
-              "smem_bytes", "blocks_per_sm", "sms", "smem_limit")
+# mxtt_lstm_bwd(gates, cseq, w, sk, sg, c0, dout, dcseq, dgin, dh0, dc0,
+#               T, N, H, dtype, blocks, u, RG, ldw, smem)
+_BWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 \
+    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+# mxtt_lstm_bwd_dw(out, h0, dgin, dw, sk, sg, T, N, H, dtype)
+_DW_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 \
+    + [ctypes.c_int] * 4
+_THREADS = 256
+_WARPS = _THREADS // 32
+_MAX_UNITS = 8          # forward units a block at most; one mma n-tile
+_MAX_SPLIT = 32         # the forward's dot-product split at most
 _plans = {}
+_devices = {}
 
 
 def lstm_forward_reference(gin, w, h0, c0):
@@ -145,15 +154,109 @@ def _check(gin, w, h0, c0):
                          f"{gin.device}")
 
 
+def plan_grid(n, hid, dtype, sms, smem_limit, backward=False):
+    """The grid of one K6a (or, with ``backward``, K6b recurrence)
+    launch for ``n`` rows and ``hid`` units on a card with ``sms`` SMs
+    and ``smem_limit`` bytes of shared memory a block: a pure function,
+    the arithmetic of ``csrc/lstm.cu``'s layout. One block an SM.
+
+    Forward: ``units_per_block`` = ceil(H / SMs) (at most 8) units a
+    block, ``blocks`` of them; each keeps its W slice (H x 4u f32) and a
+    tile of ``rows_per_pass`` rows of h (stride H | 1) in shared memory,
+    with ``k_split`` partial sums a row.
+
+    Backward: blocks of ``units_per_block`` units (two mma n-tiles, 16,
+    where W's rows for them fit, else 8) x ``row_groups`` groups of the
+    batch's ``m_tiles`` tiles of 16 rows, so that each step's dgin
+    crosses L2 once per unit group, not once per block:
+    ``unit_groups`` = ceil(H / u), ``row_groups`` = min(m_tiles,
+    SMs // unit_groups). Shared memory: W's rows padded to whole
+    n-tiles (``w_row`` elements of W's type each, a multiple of 64
+    bytes at 64 mod 128) and the depth split's partial sums (8 x 16 rows
+    x the n-tiles' units, f32). Raises ``ValueError`` with the numbers
+    when the shape does not fit."""
+    n, hid, sms, smem_limit = int(n), int(hid), int(sms), int(smem_limit)
+    if n < 1 or hid < 1 or sms < 1:
+        raise ValueError(f"lstm grid needs N, H and SMs >= 1, got N={n}, "
+                         f"H={hid}, SMs={sms}")
+    plan = {"sms": sms, "smem_limit": smem_limit}
+    if backward:
+        item = torch.finfo(dtype).bits // 8
+        chunk = 64 // item                  # depth of one warp's chunk
+        row = -(-4 * hid // chunk) * chunk * item
+        if row % 128 == 0:
+            row += 64
+        mt = -(-n // 16)
+        for tiles in ((2, 1) if hid > _MAX_UNITS else (1,)):
+            un = 8 * tiles
+            smem = un * row + _WARPS * 16 * un * 4
+            if smem <= smem_limit:
+                break
+        u = min(un, hid)
+        groups = -(-hid // u)
+        rg = max(1, min(mt, sms // groups))
+        plan.update(blocks=groups * rg, units_per_block=u,
+                    unit_groups=groups, row_groups=rg, m_tiles=mt,
+                    w_row=row // item, smem_bytes=smem)
+        fits = smem <= smem_limit and groups <= sms
+        need = (f"{groups} unit groups of {u} units (one block an SM) "
+                f"and {smem} B of shared memory")
+    else:
+        u = -(-hid // sms)
+        base = hid * 4 * u                  # floats: the W slice
+        per_row = (hid | 1) + _MAX_SPLIT * 4 * u
+        rows = max(0, (smem_limit // 4 - base) // per_row)
+        rows = min(rows, n, _THREADS)
+        ks = 1
+        if rows >= 1:
+            ks = min(1 << ((_THREADS // rows).bit_length() - 1), _MAX_SPLIT)
+            smem = 4 * (base + rows * (hid | 1)
+                        + (ks * rows * 4 * u if ks > 1 else 0))
+        else:
+            smem = 4 * (base + per_row)     # what one row a pass needs
+        plan.update(blocks=-(-hid // u), units_per_block=u,
+                    rows_per_pass=rows, k_split=ks, smem_bytes=smem)
+        fits = u <= _MAX_UNITS and rows >= 1
+        need = (f"{plan['blocks']} blocks of {u} units (at most "
+                f"{_MAX_UNITS}) with {smem} B of shared memory and "
+                f"{max(rows, 1)} row(s) a pass")
+    if not fits:
+        raise ValueError(
+            f"lstm {'backward' if backward else 'forward'} kernel cannot "
+            f"run N={n}, H={hid} ({dtype}) on {sms} SMs: {need} (limit "
+            f"{smem_limit} B)")
+    return plan
+
+
+def _device_numbers(dev):
+    """(SMs, shared bytes a block may have) of ``dev``; raises when it
+    cannot launch a cooperative grid."""
+    got = _devices.get(dev.index)
+    if got is None:
+        fn = getattr(_build.load("lstm"), "mxtt_lstm_device")
+        fn.argtypes = [*_DEVICE_ARGS, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        buf = (ctypes.c_int * 3)()
+        with torch.cuda.device(dev):
+            err = fn(ctypes.addressof(buf), None)
+        if err != 0:
+            raise RuntimeError(f"lstm kernel: device query failed, CUDA "
+                               f"error {err}")
+        if not buf[2]:
+            raise RuntimeError(f"lstm kernel: {dev} has no cooperative "
+                               f"launch")
+        got = _devices[dev.index] = (buf[0], buf[1])
+    return got
+
+
 def lstm_plan(n, hid, dtype=torch.float32, backward=False, device=None):
-    """The grid K6a (or K6b with ``backward``) launches for a batch of
-    ``n`` rows and ``hid`` units on ``device`` (the current CUDA
-    device by default): ``{"blocks", "units_per_block",
-    "rows_per_pass", "k_split", "smem_bytes", "blocks_per_sm", "sms",
-    "smem_limit"}``. Raises ``ValueError`` with those numbers when the
-    shape cannot run: more than 8 units a block, or a W slice and one
-    row that do not fit a block's shared memory, or more blocks than
-    can be resident at once."""
+    """The grid K6a (or K6b's recurrence with ``backward``) launches for
+    a batch of ``n`` rows and ``hid`` units on ``device`` (the current
+    CUDA device by default): :func:`plan_grid` at the card's numbers,
+    plus ``blocks_per_sm``, the blocks the kernel can keep resident on
+    an SM. Raises ``ValueError`` with the numbers when the shape cannot
+    run: more units a block than the kernel takes, shared memory past
+    the limit, or more blocks than can be resident at once."""
     dev = torch.device("cuda" if device is None else device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -161,31 +264,27 @@ def lstm_plan(n, hid, dtype=torch.float32, backward=False, device=None):
     plan = _plans.get(key)
     if plan is not None:
         return plan
-    fn = getattr(_build.load("lstm"), "mxtt_lstm_plan")
-    fn.argtypes = [*_PLAN_ARGS, ctypes.c_void_p]
+    sms, limit = _device_numbers(dev)
+    plan = plan_grid(n, hid, dtype, sms, limit, backward)
+    fn = getattr(_build.load("lstm"), "mxtt_lstm_occupancy")
+    fn.argtypes = [*_OCC_ARGS, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    buf = (ctypes.c_int * 8)()
+    buf = (ctypes.c_int * 1)()
     with torch.cuda.device(dev):
-        err = fn(int(bool(backward)), int(n), int(hid),
-                 _build.DTYPE_CODES[dtype], ctypes.addressof(buf), None)
-    plan = dict(zip(_PLAN_KEYS, list(buf)))
-    if err == _NO_FIT:
+        err = fn(int(bool(backward)), plan["units_per_block"],
+                 _build.DTYPE_CODES[dtype], plan["smem_bytes"],
+                 ctypes.addressof(buf), None)
+    if err != 0:
+        raise RuntimeError(f"lstm kernel planning failed: CUDA error {err}")
+    plan["blocks_per_sm"] = buf[0]
+    if buf[0] * sms < plan["blocks"]:
         raise ValueError(
             f"lstm {'backward' if backward else 'forward'} kernel cannot "
             f"run N={n}, H={hid} ({dtype}) on this card: {plan['blocks']} "
-            f"blocks of {plan['units_per_block']} units (at most 8) need "
-            f"{plan['smem_bytes']} B of shared memory each with one row "
-            f"per pass (limit {plan['smem_limit']} B), "
-            f"{plan['blocks_per_sm']} resident per SM x {plan['sms']} SMs")
-    if err != 0:
-        raise RuntimeError(f"lstm kernel planning failed: CUDA error {err}")
+            f"blocks with {plan['smem_bytes']} B of shared memory each, "
+            f"{buf[0]} resident per SM x {sms} SMs")
     _plans[key] = plan
     return plan
-
-
-def _grid(plan):
-    return (plan["blocks"], plan["units_per_block"], plan["rows_per_pass"],
-            plan["k_split"], plan["smem_bytes"])
 
 
 def lstm_forward(gin, w, h0, c0):
@@ -209,7 +308,9 @@ def lstm_forward(gin, w, h0, c0):
                       h0.data_ptr(), c0.data_ptr(), out.data_ptr(),
                       cseq.data_ptr(), gates.data_ptr(), cbuf.data_ptr(),
                       steps, n, hid, _build.DTYPE_CODES[gin.dtype],
-                      *_grid(plan))
+                      plan["blocks"], plan["units_per_block"],
+                      plan["rows_per_pass"], plan["k_split"],
+                      plan["smem_bytes"])
         LAUNCHES["lstm_fwd"] += 1
     return out, cseq, gates
 
@@ -218,7 +319,8 @@ def lstm_backward(gates, cseq, out, w, h0, c0, dout, dcseq):
     """K6b: ``(dgin, dh0, dc0, dw)`` from the forward's saved gates,
     cseq and out and the cotangents of out and cseq; dgin in gates'
     type, dh0/dc0 (N, H) and dw (w's shape and strides) float32. CUDA
-    tensors launch the kernel or raise; CPU tensors take
+    tensors launch the two kernels (counted as ``lstm_bwd`` and
+    ``lstm_bwd_dw``) or raise; CPU tensors take
     :func:`lstm_backward_reference`."""
     _check(gates, w, h0, c0)
     for name, t in (("cseq", cseq), ("out", out), ("dout", dout),
@@ -242,15 +344,21 @@ def lstm_backward(gates, cseq, out, w, h0, c0, dout, dcseq):
     dw = torch.empty_strided(tuple(w.shape), w.stride(), dtype=torch.float32,
                              device=gates.device)
     if steps and n:
+        code = _build.DTYPE_CODES[gates.dtype]
         plan = lstm_plan(n, hid, gates.dtype, True, gates.device)
         _build.launch("lstm", "mxtt_lstm_bwd", _BWD_ARGS, gates.device,
-                      gates.data_ptr(), cseq.data_ptr(), out.data_ptr(),
-                      w.data_ptr(), w.stride(0), w.stride(1), h0.data_ptr(),
-                      c0.data_ptr(), dout.data_ptr(), dcseq.data_ptr(),
-                      dgin.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-                      dw.data_ptr(), steps, n, hid,
-                      _build.DTYPE_CODES[gates.dtype], *_grid(plan))
+                      gates.data_ptr(), cseq.data_ptr(), w.data_ptr(),
+                      w.stride(0), w.stride(1), c0.data_ptr(),
+                      dout.data_ptr(), dcseq.data_ptr(), dgin.data_ptr(),
+                      dh0.data_ptr(), dc0.data_ptr(), steps, n, hid, code,
+                      plan["blocks"], plan["units_per_block"],
+                      plan["row_groups"], plan["w_row"], plan["smem_bytes"])
         LAUNCHES["lstm_bwd"] += 1
+        _build.launch("lstm", "mxtt_lstm_bwd_dw", _DW_ARGS, gates.device,
+                      out.data_ptr(), h0.data_ptr(), dgin.data_ptr(),
+                      dw.data_ptr(), dw.stride(0), dw.stride(1), steps, n,
+                      hid, code)
+        LAUNCHES["lstm_bwd_dw"] += 1
     else:
         dw.zero_()
     return dgin, dh0, dc0, dw

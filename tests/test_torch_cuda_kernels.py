@@ -218,6 +218,37 @@ def test_layer_norm_kernel_matches_plain(cuda, r, d, dtype, eps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [33, 766, 768, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_layer_norm_kernel_on_any_width_and_row_start(cuda, d, dtype,
+                                                      offset):
+    """Widths that are not a multiple of a 16-byte vector, and (offset
+    1) the rows of ``x[1:]``, whose start is not 16-byte aligned when
+    D * itemsize is not a multiple of 16 (766 f32: 8 bytes off)."""
+    rng = np.random.RandomState(d)
+    full = torch.tensor(rng.randn(65, d).astype(np.float32) * 0.5 + 3.0,
+                        dtype=dtype, device=cuda)
+    x = full[offset:]
+    g = torch.tensor(rng.randn(d).astype(np.float32), dtype=dtype,
+                     device=cuda)
+    b = torch.tensor(rng.randn(d).astype(np.float32), dtype=dtype,
+                     device=cuda)
+    before = launch_counts()["layer_norm"]
+    y, mu, rs = ln.layer_norm_fused(x, g, b, 1e-12, return_stats=True)
+    ry, rmu, rrs = ln.layer_norm_reference(x, g, b, 1e-12,
+                                           return_stats=True)
+    torch.cuda.synchronize()
+    assert launch_counts()["layer_norm"] == before + 1
+    assert _within(y, ry, 1e-5, 2.0 ** -20)
+    assert (mu - rmu).abs().max().item() <= 1e-5
+    assert ((rs - rrs).abs() / rrs).max().item() <= 1e-5
+    with torch.inference_mode():     # the serving path: no stats
+        assert torch.equal(ln.layer_norm_fused(x, g, b, 1e-12), y)
+    assert launch_counts()["layer_norm"] == before + 2
+
+
+@pytest.mark.cuda
 def test_layer_norm_kernel_refuses_bad_operands(cuda):
     x = torch.randn(4, 16, device=cuda)
     g = torch.ones(16, device=cuda)
@@ -489,6 +520,7 @@ def test_lstm_kernels_match_plain(cuda, h, n, t, dtype, zero_state):
     after = launch_counts()
     assert after["lstm_fwd"] == before["lstm_fwd"] + 1
     assert after["lstm_bwd"] == before["lstm_bwd"] + 1
+    assert after["lstm_bwd_dw"] == before["lstm_bwd_dw"] + 1
     for name, g, r in zip(("out", "cseq", "gates"), (out, cseq, gates),
                           want):
         assert g.dtype == dtype and torch.isfinite(g.float()).all(), name
@@ -497,6 +529,56 @@ def test_lstm_kernels_match_plain(cuda, h, n, t, dtype, zero_state):
     for name, g, r in zip(("dgin", "dh0", "dc0", "dw"), got_b, want_b):
         assert torch.isfinite(g.float()).all(), name
         assert _lstm_close(g, r, dtype), name
+
+
+def _lstm_backward_matches(cuda, t, n, h, dtype, w_layout):
+    """K6b's two kernels against the plain backward on the kernel
+    forward's outputs; the same bits on a second run; each counter up
+    by one a call."""
+    gin, w, h0, c0, dout, dcseq = _lstm_case(t, n, h, dtype, cuda, False)
+    if w_layout == "h4h":               # a contiguous (H, 4H) weight
+        w = w.contiguous()
+    out, cseq, gates = lstm.lstm_forward(gin, w, h0, c0)
+    before = launch_counts()
+    got = lstm.lstm_backward(gates, cseq, out, w, h0, c0, dout, dcseq)
+    after = launch_counts()
+    again = lstm.lstm_backward(gates, cseq, out, w, h0, c0, dout, dcseq)
+    want = lstm.lstm_backward_reference(gates, cseq, out, w, h0, c0, dout,
+                                        dcseq)
+    torch.cuda.synchronize()
+    assert after["lstm_bwd"] == before["lstm_bwd"] + 1
+    assert after["lstm_bwd_dw"] == before["lstm_bwd_dw"] + 1
+    assert got[3].stride() == w.stride()
+    for name, g, r, g2 in zip(("dgin", "dh0", "dc0", "dw"), got, want,
+                              again):
+        assert torch.isfinite(g.float()).all(), name
+        assert _lstm_close(g, r, dtype), name
+        assert torch.equal(g, g2), name        # no atomics: same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [24, 200, 650, 1056])
+@pytest.mark.parametrize("n", [1, 17, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_layout", ["4hh", "h4h"])
+def test_lstm_backward_kernels_on_ragged_m_tiles(cuda, h, n, dtype,
+                                                 w_layout):
+    """N not a multiple of the m16 tile, H up to 1056 (8 units a block
+    on 132 SMs), one step, both layouts of W."""
+    _lstm_backward_matches(cuda, 1, n, h, dtype, w_layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n", [(3, 17), (7, 5), (2, 33), (35, 3)])
+@pytest.mark.parametrize("h", [33, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_lstm_dw_kernel_on_ragged_depth(cuda, t, n, h, dtype):
+    """T * N (the dW product's depth) not a multiple of its 16-deep
+    step; H = 33 and 200 are not multiples of its 64-row tile, 4H not
+    one of its 128 columns; at H = 33 a 16-bit dgin row is not a whole
+    number of 16-byte groups (the recurrence's element-wise loads)."""
+    _lstm_backward_matches(cuda, t, n, h, dtype, "4hh")
 
 
 @pytest.mark.cuda
@@ -525,7 +607,15 @@ def test_lstm_grid_and_what_cannot_fit(cuda):
     assert plan["blocks"] <= plan["blocks_per_sm"] * plan["sms"]
     assert plan["smem_bytes"] <= plan["smem_limit"]
     bplan = lstm.lstm_plan(1024, 650, backward=True)
-    assert bplan["rows_per_pass"] >= 1
+    assert bplan["blocks"] <= bplan["blocks_per_sm"] * bplan["sms"]
+    assert bplan == {**lstm.plan_grid(1024, 650, torch.float32,
+                                      bplan["sms"], bplan["smem_limit"],
+                                      backward=True),
+                     "blocks_per_sm": bplan["blocks_per_sm"]}
+    for n in (1, 33, 1024):
+        for dtype in (torch.float32, torch.bfloat16):
+            lstm.lstm_plan(n, 1056, dtype, backward=True)
+            lstm.lstm_plan(n, 1056, dtype)
     with pytest.raises(ValueError, match="cannot run"):
         lstm.lstm_plan(8, 4096)
     gin = torch.zeros(2, 8, 4 * 4096, device=cuda)

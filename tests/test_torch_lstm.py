@@ -134,3 +134,140 @@ def test_wrappers_check_their_operands():
     empty = tl.lstm_forward(gin[:0], w, h0, c0)
     assert [tuple(t.shape) for t in empty] == [(0, N, H), (0, N, H),
                                                (0, N, 4 * H)]
+
+
+# -- K6's grid plan and K6b's product arithmetic (no card needed) ------------
+H100 = dict(sms=132, smem_limit=232448)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("n,hid", [(32, 650), (1024, 650), (1, 1056),
+                                   (33, 1056), (17, 24)])
+def test_plan_fits_the_word_lm_and_h_up_to_1056_on_an_h100(n, hid,
+                                                           backward):
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = tl.plan_grid(n, hid, dtype, backward=backward, **H100)
+        assert plan["blocks"] <= 132          # one block an SM
+        assert plan["smem_bytes"] <= H100["smem_limit"]
+        if backward:
+            # unit groups of one or two n-tiles x row groups of m-tiles;
+            # W rows padded to whole chunks, 64 B apart in the banks
+            item = 4 if dtype == torch.float32 else 2
+            assert plan["units_per_block"] <= 16
+            assert plan["unit_groups"] * plan["units_per_block"] >= hid
+            assert plan["blocks"] == plan["unit_groups"] * plan["row_groups"]
+            assert 1 <= plan["row_groups"] <= plan["m_tiles"]
+            assert plan["m_tiles"] * 16 >= n
+            assert plan["w_row"] >= 4 * hid
+            assert plan["w_row"] * item % 128 == 64
+        else:
+            assert plan["units_per_block"] <= 8
+            assert plan["blocks"] * plan["units_per_block"] >= hid
+            assert 1 <= plan["rows_per_pass"] <= min(n, 256)
+
+
+def test_plan_of_the_word_lm_shapes():
+    # one block per SM's worth of units: 130 blocks of 5 units at H=650
+    fwd = tl.plan_grid(32, 650, torch.float32, **H100)
+    assert (fwd["blocks"], fwd["units_per_block"], fwd["rows_per_pass"],
+            fwd["k_split"], fwd["smem_bytes"]) == (130, 5, 32, 8, 155808)
+    # the backward: 41 groups of 16 units (W's 16 rows, 167 KB, fit in
+    # f32) x 2 row groups at N=32, x 3 at N=1024; at H=1056 f32 only 8
+    # rows fit: 132 groups of 8, one row group
+    def grid(n, hid, dtype=torch.float32):
+        p = tl.plan_grid(n, hid, dtype, backward=True, **H100)
+        return (p["units_per_block"], p["unit_groups"], p["row_groups"],
+                p["blocks"])
+    assert grid(32, 650) == (16, 41, 2, 82)
+    assert grid(1024, 650) == (16, 41, 3, 123)
+    assert grid(1, 650) == (16, 41, 1, 41)
+    assert grid(1024, 1056) == (8, 132, 1, 132)
+    assert grid(1024, 1056, torch.bfloat16) == (16, 66, 2, 132)
+    assert grid(33, 5) == (5, 1, 3, 3)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_plan_refuses_what_cannot_fit_with_its_numbers(backward):
+    with pytest.raises(ValueError, match=r"cannot run N=8, H=4096 "
+                                         r"\(torch.float32\) on 132 SMs: "):
+        tl.plan_grid(8, 4096, torch.float32, backward=backward, **H100)
+    with pytest.raises(ValueError, match="limit 20000 B"):
+        tl.plan_grid(8, 650, torch.float32, sms=132, smem_limit=20000,
+                     backward=backward)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero: what ``cvt.rna.tf32.f32`` does."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _rz(x):
+    """float64 to float32, rounded toward zero."""
+    r = x.float()
+    return torch.where(r.double().abs() > x.abs(),
+                       torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _mma(c, a, b):
+    """One tensor-core mma: c + a . b with exact products, the sum
+    rounded toward zero to f32 (the tensor cores do not round their
+    adds to nearest)."""
+    return _rz(c.double() + a.double() @ b.double())
+
+
+def _mma_product(a, b, terms, fresh=True):
+    """a (M, K) . b (K, N) as K6b's kernels form it: chunks of 16 of the
+    depth, each two k-steps of 8 of TF32 mma; ``terms=3`` splits each
+    operand into TF32 hi + lo and sums a_lo b_hi + a_hi b_lo + a_hi
+    b_hi, ``terms=1`` takes a_hi b_hi alone. ``fresh``: each chunk into
+    a zero partial, added to the f32 sum rounded to nearest (the
+    kernels); else the whole depth through the mma's own accumulator."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    pairs = [(al, bh), (ah, bl), (ah, bh)] if terms == 3 else [(ah, bh)]
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for c in range(0, a.shape[1], 16):
+        part = torch.zeros_like(acc) if fresh else acc
+        for k in (c, c + 8):
+            s = slice(k, k + 8)
+            for x, y in pairs:
+                part = _mma(part, x[:, s], y[s])
+        acc = acc + part if fresh else part
+    return acc
+
+
+def test_tf32_round_to_nearest_keeps_ten_bits():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -11,
+                      -(1.0 + 2.0 ** -12), 3.0 + 2.0 ** -9])
+    assert _tf32(x).tolist() == [1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
+                                 -1.0, 3.0 + 2.0 ** -9]
+
+
+@pytest.mark.parametrize("depth", [2600, 1120])
+def test_three_term_tf32_product_keeps_f32_accuracy(depth):
+    """K6b's products at the word LM's depths: 4H = 2600 (the
+    recurrence, dgin . W^T) and T*N = 1120 (dW = h^T . dgin). The 3-term
+    split, summed a chunk at a time into fresh partials, stays within
+    1e-5 of the result's scale against float64, the tolerance the card
+    tests hold K6b to. One TF32 product does not, which is why f32
+    takes three. Carrying the whole depth through the mma's own
+    accumulator, whose adds round toward zero, drifts (~depth x 2^-24:
+    past 1e-5 at 2600 here, and on the card at both depths) an order of
+    magnitude beyond the fresh partials."""
+    rng = np.random.RandomState(depth)
+    a = torch.from_numpy((rng.randn(32, depth) * 0.5 + 0.2)
+                         .astype(np.float32))
+    b = torch.from_numpy((rng.randn(depth, 8) / 25.5 + 0.01)
+                         .astype(np.float32))
+    want = a.double() @ b.double()
+    scale = max(want.abs().max().item(), 1.0)
+
+    def err(**kw):
+        return (_mma_product(a, b, **kw).double() - want).abs().max().item()
+
+    fresh = err(terms=3)
+    assert fresh <= 1e-5 * scale, (fresh, scale)
+    assert err(terms=1) > 1e-5 * scale, (err(terms=1), scale)
+    assert err(terms=3, fresh=False) > 10 * fresh

@@ -143,7 +143,8 @@ def test_k1_and_k3a_wrappers_on_cpu_take_the_plain_version_unbuilt():
     assert set(before) == {"paged_attention", "flash_attention",
                            "flash_attention_bwd", "layer_norm",
                            "layer_norm_bwd", "softmax_xent_fwd",
-                           "softmax_xent_bwd", "lstm_fwd", "lstm_bwd"}
+                           "softmax_xent_bwd", "lstm_fwd", "lstm_bwd",
+                           "lstm_bwd_dw"}
     o, lse = flash_attention.flash_attention_with_lse(
         q, q, q, kv_lens=(seg > 0).sum(1, dtype=torch.int32),
         segment_ids=seg)
