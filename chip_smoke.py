@@ -25,13 +25,24 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    included, beside it; the memory-bound rows (LayerNorm, softmax
    cross-entropy) also with their inputs rotated past the 50 MB L2, and
    the LayerNorm forward's host time a call (five rounds interleaved
-   with ``F.layer_norm``'s);
-4. decode serving at GPT-2-small width (vocab 50257, 768 units, 12
+   with ``F.layer_norm``'s). ``device_ms`` takes a trace only when every
+   device event occurs a whole multiple of the calls traced (retraced
+   once, then the row fails);
+4. the fused ops on the calls of the op faults, on the card against
+   the same op on the CPU (1e-4 of scale; the LSTM's gradients 1e-3),
+   with exact launch counts: LayerNorm at D=2048 forward and backward
+   (K3a, K3b) and with ``output_mean_var`` (composed, no launch),
+   attention at head_dim 256 forward and backward (K1, K2) and in
+   float64 (composed, no launch), ``softmax_cross_entropy`` with
+   float32 labels (the op casts them, K4a takes the call), one BPTT
+   segment of ``gluon.rnn.LSTM`` at H=1500 (K6a, K6b and its dW
+   product, W's rows in device memory);
+5. decode serving at GPT-2-small width (vocab 50257, 768 units, 12
    layers, 12 heads, random weights from ``--seed``): a
    ``DecodeEngine`` serves 8 greedy requests; results, streams, solo
    parity and the kernel launch counts are checked, serving metrics
    printed;
-5. encoder serving at BERT-base width (vocab 30522, 768 units, 3072
+6. encoder serving at BERT-base width (vocab 30522, 768 units, 3072
    hidden, 12 layers, 12 heads, max_length 512, random weights from
    ``--seed``): a ``ServingEngine`` (mean pool, buckets 64/256/512, 8
    rows) is warmed over its shape universe, then 8 client threads
@@ -39,7 +50,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    against the same request served alone, launches must be exactly
    12 (flash attention) and 25 (LayerNorm) per forward, serving
    metrics printed;
-6. BERT-base MLM training (``train-bertbase-mlm-b64s128``: the trunk
+7. BERT-base MLM training (``train-bertbase-mlm-b64s128``: the trunk
    without its pooler plus ``BERTMLMHead``, dropout 0, random f32
    weights from ``--seed``): 64 rows of 128 slots with valid lengths
    uniform in [64, 128] (``valid_length`` rides the flash kernels), ids
@@ -52,7 +63,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    backward), 26 + 26 (LayerNorm) and 1 + 1 (softmax cross-entropy),
    every parameter's gradient finite and not all zero; step time p50,
    valid and slot tokens/s and peak memory printed;
-7. LSTM word LM training (``train-wordlm-wt2-b32t35``:
+8. LSTM word LM training (``train-wordlm-wt2-b32t35``:
    ``mxnet_tpu_torch/examples/word_lm.py``'s loop at WikiText-2 widths,
    vocab 33278, embedding 650, 2 x LSTM(650), dropout 0.2, Xavier
    weights from ``--seed``): the example's synthetic corpus in 32 rows,
@@ -62,7 +73,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    (LSTM forward, the backward's recurrence and its dW product), every
    gradient finite and not all zero; step
    p50, tokens/s, perplexity and peak memory printed;
-8. 2-layer models with the same seed on the card and on the CPU, for
+9. 2-layer models with the same seed on the card and on the CPU, for
    all four paths: greedy tokens agree and decode logits agree within
    ``atol=1e-3``; encoder outputs agree within ``atol=1e-3``; three
    Adam steps of the BERT training path and three SGD steps of the word
@@ -94,7 +105,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, f32 FLOP/s outside the
-# tensor cores (the kernels' math is f32 on CUDA cores for f32 inputs)
+# tensor cores (the bound of the kernels whose math runs there)
 PEAK_HBM_BPS = 3.35e12
 PEAK_F32_FLOPS = 67e12
 # TF32 tensor-core peak (dense); a product kept to f32 accuracy by the
@@ -131,8 +142,11 @@ def device_ms(fn, iters=20, warmup=3, by_kernel=False):
     traces ``iters`` calls after warm-up and the device events they
     launched (kernels, memsets, copies) are summed and divided by
     ``iters``; the host's time between launches is left out. With
-    ``by_kernel`` also returns ``{event name: ms per call}``. Raises
-    when the trace holds no device time."""
+    ``by_kernel`` also returns ``{event name: ms per call}``. Every
+    event name must occur a whole multiple of ``iters`` times (each call
+    launches the same work): a trace that lost events is taken once
+    more, and a second short count raises, as does a trace with no
+    device time; a short sum is never returned."""
     import torch
     from torch.autograd import DeviceType
 
@@ -141,20 +155,46 @@ def device_ms(fn, iters=20, warmup=3, by_kernel=False):
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    names = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-            names[e.key] = names.get(e.key, 0.0) + us / 1e3 / iters
-    total = sum(names.values())
-    if not total > 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return (total, names) if by_kernel else total
+    # Now and then the device tracing misses the first launches after it
+    # starts (on an H100 the first few calls of a window, whatever ran
+    # on the device before them): the host waits 50 ms before launching
+    # anything, and a ~1 ms spin kernel (torch.cuda._sleep) on each side
+    # of the calls, left out of the sums, keeps the window's edges off
+    # the calls' events.
+    for attempt in range(2):
+        with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(0.05)
+            torch.cuda._sleep(2_000_000)
+            for _ in range(iters):
+                fn()
+            torch.cuda._sleep(2_000_000)
+            torch.cuda.synchronize()
+        names, counts = {}, {}
+        for e in prof.key_averages():
+            # the spins are not the calls'
+            if e.device_type == DeviceType.CUDA and \
+                    "spin_kernel" not in e.key:
+                us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+                names[e.key] = names.get(e.key, 0.0) + us / 1e3 / iters
+                counts[e.key] = counts.get(e.key, 0) + e.count
+        short = {k: n for k, n in counts.items() if n % iters}
+        total = sum(names.values())
+        if not short and total > 0:
+            return (total, names) if by_kernel else total
+        log(f"device_ms: trace {attempt + 1} of {iters} calls "
+            f"{'has event counts ' + str(short) if short else 'has no device time'}")
+    raise AssertionError(f"device_ms: events lost in two traces of {iters} "
+                         f"calls: counts {short or 'none'} are not whole "
+                         f"multiples of the calls")
+
+
+def kernel_name(event):
+    """A device event's kernel name without its return type, namespace
+    and arguments."""
+    name = event.split("(")[0] if "(anonymous" not in event \
+        else event.split("::", 1)[-1].split("(")[0]
+    return name.replace("void ", "")
 
 
 def cold_ms(fn, args, iters=16):
@@ -584,11 +624,12 @@ def fmt_cold(t):
             f"{t['library_cold_ms'] * 1e3:.2f} library")
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=PEAK_F32_FLOPS):
     """(bound_ms, bound_by): the larger of the bytes over the HBM rate
-    and the operations over the f32 rate."""
+    and the operations over ``peak`` (the f32 CUDA-core rate unless
+    given)."""
     t_bytes = nbytes / PEAK_HBM_BPS * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -620,6 +661,7 @@ def check_flash_attention_bwd(rng, dev, lens):
     import torch
     import torch.nn.functional as F
 
+    from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.ops.flash_attention import (
         flash_attention_backward, flash_attention_backward_reference,
         flash_attention_with_lse)
@@ -696,15 +738,17 @@ def check_flash_attention_bwd(rng, dev, lens):
             # bytes (q, k, v, o, lse) plus do and three gradients
             nbytes += 4 * b * h * s * d * 4
             flops = 10 * d * pairs          # s, dp, dq, dk, dv products
-            bms, by = bound(nbytes, flops)
+            # on the tensor cores, f32 kept by three TF32 products each
+            bms, by = bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)
             out[kind] = {
                 "shape": f"{kind} B={b} H={h} S={s} D={d} f32",
+                "path": fa.backward_path(s, d),
                 "max_abs_err": err, **t, "bound_ms": bms, "bound_by": by,
                 "library": "SDPA backward (autograd), boolean mask"}
             log(f"flash_attention_bwd {name}: {fmt_times(t)} (kernel: "
-                f"delta included; library: SDPA backward, boolean mask), "
-                f"bound {bms * 1e3:.2f} us ({by}: {nbytes} B, {flops} "
-                f"flop)")
+                f"{fa.backward_path(s, d)}, delta included; library: SDPA "
+                f"backward, boolean mask), bound {bms * 1e3:.2f} us ({by}: "
+                f"{nbytes} B, {flops} flop x 3 TF32 terms)")
     entry = {"name": "flash_attention_bwd", "route": "cuda",
              "source": "mxnet_tpu_torch/ops/csrc/flash_attention_bwd.cu",
              "replaces": "mxnet_tpu/ops/pallas/flash_attention.py:686",
@@ -987,12 +1031,12 @@ def check_lstm(rng, dev):
                        + 2 * n * h) * s + (2 * n * h + 4 * h * h) * 4
             grid = {k: lstm.lstm_plan(n, h, dtype, bk, dev) for k, bk in
                     (("fwd", False), ("bwd", True))}
-            # the forward's products run on the CUDA cores (f32 rate);
-            # the backward's on the tensor cores: f32 kept by three TF32
-            # products each, so 3 x the flops at the TF32 rate
+            # both directions' products run on the tensor cores: f32
+            # kept by three TF32 products each, so 3 x the flops at the
+            # TF32 rate
             for entry, e, tm, nbytes, bms_ops, g, libname in (
                     (fwd, err_f, t_f, bytes_f,
-                     flops_f / PEAK_F32_FLOPS * 1e3, grid["fwd"],
+                     3 * flops_f / PEAK_TF32_FLOPS * 1e3, grid["fwd"],
                      "torch.nn.LSTM forward (cuDNN), input "
                      "projection included"),
                     (bwd, err_b, t_b, bytes_b,
@@ -1041,6 +1085,124 @@ def check_lstm(rng, dev):
         f"{bwd['n1']['max_abs_err']:.3e} (tol 1e-5 of scale), device "
         f"{ms * 1e3:.2f} us; by event (ms a call): {by_event}")
     return [fwd, bwd]
+
+
+def check_op_dispatch(seed, dev):
+    """The fused ops on the calls of the op faults, on the card against
+    the same op on the CPU, each call's launches counted: LayerNorm at
+    D=2048 (K3a and K3b, a block a row) forward and backward, and with
+    ``output_mean_var`` (the JAX op's composed math: no launch);
+    attention at head_dim 256 (K1 and K2's split pair, lengths and a
+    causal mask) forward and backward, and in float64 (composed: no
+    launch); ``softmax_cross_entropy`` with float32 labels (the op casts
+    them, K4a takes the call); one BPTT segment of ``gluon.rnn.LSTM`` at
+    H=1500 (``word_lm.py --nhid 1500``: K6a and K6b with W's rows in
+    device memory, and the dW product), forward and backward. Each
+    kernel call's device time is printed. Tolerances: 1e-4 of each
+    output's scale (float32 sums in another order; the LSTM's gradients
+    1e-3, as the word LM's gate)."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch import ndarray as tnd
+    from mxnet_tpu_torch.gluon import rnn
+    from mxnet_tpu_torch.ndarray import op_impl_nn
+    from mxnet_tpu_torch.ops import launch_counts, lstm, reset_launch_counts
+
+    rng = np.random.RandomState(seed + 6)
+    cpu = torch.device("cpu")
+    x = rng.randn(4, 33, 2048).astype("float32") * 0.5 + 1.0
+    g, b = rng.randn(2048).astype("float32"), rng.randn(2048).astype("float32")
+    q, k, v = (rng.randn(2, 2, 40, 256).astype("float32") for _ in range(3))
+    lens = np.array([40, 9], np.int32)
+    logits = rng.randn(64, 1000).astype("float32")
+    labels = rng.randint(0, 1000, 64).astype("float32")
+    hid, steps, rows = 1500, WLM["bptt"], 8
+    seq = rng.randn(steps, rows, hid).astype("float32")
+    if not lstm.lstm_plan(rows, hid, torch.float32, device=dev)["w_global"]:
+        raise AssertionError("lstm plan: H=1500 f32 must keep W's rows in "
+                             "device memory")
+
+    def grads(outs, leaves):
+        """outs, then the gradients of sum(out * out) over ``leaves``."""
+        sum(((o.float() * o.float()).sum() for o in outs)).backward()
+        return outs + [a.grad for a in leaves]
+
+    def layer_norm_2048(t):
+        leaves = [t(a, True) for a in (x, g, b)]
+        return grads([op_impl_nn.layer_norm(*leaves, eps=1e-5)], leaves)
+
+    def attention_256(t, dtype="float32"):
+        leaves = [t(a.astype(dtype), True) for a in (q, k, v)]
+        return grads([op_impl_nn.flash_attention_op(
+            *leaves, valid_len=t(lens), causal=True)], leaves)
+
+    def lstm_segment(t):
+        dev_ = t(seq).device
+        layer = rnn.LSTM(hid, input_size=hid, device=dev_)
+        layer.initialize(seed=seed)
+        xs = t(seq, True)
+        with autograd.record():
+            out = layer(xs)
+        return grads([out], [xs]) + [p.grad() for p in
+                                     layer.collect_params().values()]
+
+    # name: (call, its launches on the card)
+    calls = {
+        "layer_norm D=2048": (layer_norm_2048,
+                              {"layer_norm": 1, "layer_norm_bwd": 1}),
+        "layer_norm output_mean_var": (lambda t: list(op_impl_nn.layer_norm(
+            t(x[..., :768]), t(g[:768]), t(b[:768]), eps=1e-5,
+            output_mean_var=True)), {}),
+        "attention head_dim 256": (attention_256, {
+            "flash_attention": 1, "flash_attention_bwd": 1}),
+        "attention float64": (lambda t: attention_256(t, "float64"), {}),
+        "softmax_cross_entropy float labels": (lambda t: [
+            tnd.softmax_cross_entropy(t(logits), t(labels))],
+            {"softmax_xent_fwd": 1}),
+        "gluon.rnn.LSTM H=1500": (lstm_segment, {
+            "lstm_fwd": 1, "lstm_bwd": 1, "lstm_bwd_dw": 1}),
+    }
+    worst = {}
+    for name, (fn, expect) in calls.items():
+        def on(device):
+            def t(a, grad=False):
+                return torch.tensor(a, device=device, requires_grad=grad)
+            return lambda: fn(t)
+        reset_launch_counts()
+        got = on(dev)()
+        torch.cuda.synchronize()
+        moved = {k: n for k, n in launch_counts().items() if n}
+        if moved != expect:
+            raise AssertionError(f"op dispatch {name}: launches {moved}, "
+                                 f"expected {expect}")
+        want = on(cpu)()
+        errs = []
+        for i, (gt, w) in enumerate(zip(got, want)):
+            # the LSTM's gradients (outputs past its first) as the word
+            # LM's gate
+            tol = 1e-3 if "LSTM" in name and i else 1e-4
+            scale = max(w.abs().max().item(), 1.0)
+            errs.append((gt.detach().cpu() - w.detach()).abs().max().item()
+                        / scale)
+            if not (torch.isfinite(gt).all() and errs[-1] <= tol):
+                raise AssertionError(f"op dispatch {name}: output {i} "
+                                     f"differs by {errs[-1]} of scale")
+        worst[name] = max(errs)
+        ms = ""
+        if expect:
+            # the ported kernels' device time a call (the inputs' copies
+            # and the layer's set-up left out)
+            _, by = device_ms(on(dev), iters=3, warmup=1, by_kernel=True)
+            ms = ", device ms a call " + json.dumps({
+                kernel_name(e): round(t, 4) for e, t in by.items()
+                if any(f in e for f in ("layer_norm", "flash_", "xent",
+                                        "lstm"))})
+        log(f"op dispatch {name}: card vs CPU max {worst[name]:.3e} of "
+            f"scale, launches {moved or 'none'}{ms}")
+    reset_launch_counts()
+    return worst
 
 
 def _profiler(on):
@@ -1712,6 +1874,7 @@ def main():
                check_layer_norm_bwd(rng, dev),
                *check_softmax_xent(rng, dev, int(lens.sum())),
                *check_lstm(rng, dev)]
+    check_op_dispatch(args.seed, dev)
     # each path's launches, counted from 0 over its own run
     decode = serve_main_path(args.seed, args.profile, dev, power_line)
     encoder = serve_encoder(args.seed, args.profile, dev, power_line)

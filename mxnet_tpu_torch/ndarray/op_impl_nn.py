@@ -12,14 +12,25 @@ kernels for CUDA tensors (``ops.flash_attention``, ``ops.layer_norm``,
 ``ops.softmax_xent``; each differentiable through its backward kernel)
 and to their plain versions for CPU tensors; the rest is plain PyTorch,
 as the JAX package leaves it to XLA.
+
+Each fused op decides from device, shape and type alone, before any
+launch, whether its kernel takes the call, as the JAX ops ask
+``pallas_ok_for`` and the kernel's types: attention takes it for 4-D
+float32/bfloat16/float16, LayerNorm for the last axis in those types
+without ``output_mean_var``. What the JAX op computes with composed
+math on its accelerator (float64, ``output_mean_var``, another axis)
+takes the same math here on either device. On the card every other
+call goes to the kernel, whose wrapper raises on a shape it cannot
+run (attention head dims past 256); CPU tensors past the kernels'
+shapes take the composed math, as the JAX op does on its CPU.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..ops.flash_attention import flash_attention
-from ..ops.layer_norm import layer_norm_fused
+from ..ops import flash_attention as _fa
+from ..ops import layer_norm as _ln
 from ..ops.softmax_xent import softmax_xent_fused
 
 __all__ = ["activation", "attention_length_mask", "attention_segment_mask",
@@ -117,30 +128,56 @@ def flash_attention_op(query, key, value, valid_len=None, segment_ids=None,
                        causal=False, sm_scale=None):
     """softmax(Q K^T * scale) V over (B, H, S, D) inputs, with the
     per-example key lengths ``valid_len`` (B,) and the packed
-    ``segment_ids`` (B, S) masked in the kernel. A causal mask is
-    end-aligned: q row 0 sits at key position ``Skv - Sq``."""
+    ``segment_ids`` (B, S) masked. A causal mask is end-aligned: q row 0
+    sits at key position ``Skv - Sq``. The kernel takes what
+    ``ops.flash_attention.kernel_takes``; anything else (float64, and on
+    the CPU head dims past 256) takes the JAX op's composed softmax:
+    float32 scores scaled after the product, rows with no visible key
+    exact zeros, the result in the query's type."""
     if valid_len is not None:
         valid_len = valid_len.to(torch.int32).reshape(-1).contiguous()
     if segment_ids is not None:
         segment_ids = segment_ids.to(torch.int32).contiguous()
     q_off = key.shape[2] - query.shape[2] if causal else 0
-    return flash_attention(query, key, value, sm_scale, bool(causal), q_off,
-                           valid_len, segment_ids)
+    if _fa.kernel_takes(query):
+        return _fa.flash_attention(query, key, value, sm_scale, bool(causal),
+                                   q_off, valid_len, segment_ids)
+    scale = sm_scale if sm_scale is not None \
+        else 1.0 / (query.shape[-1] ** 0.5)
+    s = batch_dot_attention_scores(query.float(), key.float()) * scale
+    mask = _fa.visible_mask(s.shape[-2], s.shape[-1], s.device, valid_len,
+                            segment_ids, causal, q_off)
+    p = torch.softmax(s if mask is None else
+                      torch.where(mask, s, torch.full((), _NEG,
+                                                      device=s.device)),
+                      dim=-1)
+    if mask is not None:
+        p = torch.where(mask.expand(s.shape).any(-1, keepdim=True), p,
+                        torch.zeros((), device=s.device))
+    return batch_dot_attention_apply(p, value.float()).to(query.dtype)
 
 
-def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
-    """LayerNorm over ``axis``: the last axis goes to the fused kernel
-    (``ops.layer_norm``), any other to the plain math."""
+def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
+    """LayerNorm over ``axis``. A last-axis call the kernel takes
+    (``ops.layer_norm.kernel_takes``) without ``output_mean_var`` goes
+    to the fused kernel; any other takes the JAX op's mean and
+    variance. With ``output_mean_var`` returns ``(out, mean, var)``,
+    the axis squeezed from the statistics."""
     ax = int(axis) % data.ndim
-    if ax == data.ndim - 1:
-        return layer_norm_fused(data.contiguous(), gamma, beta, float(eps))
+    if not output_mean_var and ax == data.ndim - 1 \
+            and _ln.kernel_takes(data):
+        return _ln.layer_norm_fused(data.contiguous(), gamma, beta,
+                                    float(eps))
     mean = data.mean(dim=ax, keepdim=True)
     xc = data - mean
     var = (xc * xc).mean(dim=ax, keepdim=True)
     shape = [1] * data.ndim
     shape[ax] = data.shape[ax]
-    return xc * torch.rsqrt(var + eps) * gamma.reshape(shape) \
+    out = xc * torch.rsqrt(var + eps) * gamma.reshape(shape) \
         + beta.reshape(shape)
+    if output_mean_var:
+        return out, mean.squeeze(ax), var.squeeze(ax)
+    return out
 
 
 # -- losses ------------------------------------------------------------------
@@ -161,11 +198,13 @@ def pick(data, index, axis=-1, keepdims=False):
 
 def softmax_cross_entropy(data, label):
     """``softmax_cross_entropy`` op: the SUM over rows of
-    ``-log softmax(data)[label]`` for (N, V) ``data`` and (N,) integer
-    labels, shape (1,) in the data's type. The per-row losses come from
-    the fused kernel (``ops.softmax_xent``: K4a forward, K4b backward);
-    float64 data takes the plain log-softmax and pick, as the JAX op
-    does off its kernel's types."""
+    ``-log softmax(data)[label]`` for (N, V) ``data`` and (N,) labels of
+    any numeric type (cast to int32 first, as both JAX paths do), shape
+    (1,) in the data's type. The per-row losses come from the fused
+    kernel (``ops.softmax_xent``: K4a forward, K4b backward); float64
+    data takes the plain log-softmax and pick, as the JAX op does off
+    its kernel's types."""
+    label = label.to(torch.int32)
     if data.dtype in (torch.float32, torch.bfloat16, torch.float16):
         loss = softmax_xent_fused(data, label)
         return loss.sum().reshape(1).to(data.dtype)

@@ -11,7 +11,12 @@ Each layer and direction computes its input projections for the whole
 sequence in one product, ``gin = x @ W_i2h^T + b_i2h + b_h2h`` (plain
 torch, as the JAX package leaves it to XLA), then runs the recurrence in
 ``ops.lstm.lstm_layer_fused``: K6a forward and K6b backward on the
-card, their plain per-step versions on the CPU. A reverse direction
+card, their plain per-step versions on the CPU. The op takes that path
+for every layer of the kernels' types (float32/bfloat16/float16; on an
+H100 the kernels run H up to 2112 and raise past it), decided before
+any launch. A float64 layer, which the kernels do not take, runs the
+JAX op's ``lax.scan`` cell as a per-step loop in the input's type,
+differentiable by autograd. A reverse direction
 flips the sequence before and after; its final state is the last step
 it PROCESSED (``out[-1]`` before the flip back). Dropout falls between
 layers, in training only; ``lstm_state_clip_min/max`` clip the final c.
@@ -26,7 +31,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.lstm import lstm_layer_fused
+from ..ops import lstm as _lstm
+from ..ops._build import DTYPE_CODES
 
 __all__ = ["pack_rnn_params", "rnn", "rnn_layers", "rnn_param_size"]
 
@@ -99,17 +105,36 @@ def pack_rnn_params(layer_params, mode="lstm"):
     return torch.cat(ws + bs)
 
 
+def _scan(gx, w_h2h, b_h2h, h0, c0):
+    """The JAX op's ``lax.scan`` LSTM cell, a step at a time: gates
+    ``gx[t] + h @ W_h2h^T + b_h2h`` in gate order (i, f, g, o), carry in
+    the input's type. Returns ``(out, c_last)``."""
+    h, c = h0, c0
+    outs = []
+    for t in range(gx.shape[0]):
+        i, f, g, o = (gx[t] + h @ w_h2h.t() + b_h2h).chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        outs.append(h)
+    return torch.stack(outs), c
+
+
 def _run_layer(x, w_i2h, w_h2h, b_i2h, b_h2h, h0, c0, reverse=False):
     """One direction of one layer. x (T, N, I) -> out (T, N, H), h_last,
     c_last."""
     if reverse:
         x = torch.flip(x, dims=(0,))
-    gin = (F.linear(x, w_i2h, b_i2h) + b_h2h).to(x.dtype)
-    out, cseq = lstm_layer_fused(gin, w_h2h.t(), h0, c0)
-    h_last = out[-1]
+    if x.dtype in DTYPE_CODES:
+        gin = (F.linear(x, w_i2h, b_i2h) + b_h2h).to(x.dtype)
+        out, cseq = _lstm.lstm_layer_fused(gin, w_h2h.t(), h0, c0)
+        h_last, c_last = out[-1], cseq[-1].to(c0.dtype)
+    else:
+        out, c_last = _scan(F.linear(x, w_i2h, b_i2h), w_h2h, b_h2h, h0,
+                            c0)
+        h_last = out[-1]
     if reverse:
         out = torch.flip(out, dims=(0,))
-    return out, h_last, cseq[-1].to(c0.dtype)
+    return out, h_last, c_last
 
 
 def rnn_layers(data, layer_params, state, state_cell, num_layers=1,

@@ -66,7 +66,9 @@ struct Strides {                // element strides of (b, h, s); d is 1
   long long q[3], k[3], v[3], o[3];
 };
 
-// DP = D rounded up to 16, 32, 64 or 128; columns D..DP-1 are zeros.
+// DP = D rounded up to 16, 32, 64, 128 or 256; columns D..DP-1 are
+// zeros. At DP = 256 the tiles take 210 KB of shared memory (one block
+// an SM).
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -307,6 +309,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
     return launch<T, 64>(q, k, v, kvl, seg, o, lse, st, B, H, Sq, Skv, D, scale, causal, q_offset, s);
   if (D <= 128)
     return launch<T, 128>(q, k, v, kvl, seg, o, lse, st, B, H, Sq, Skv, D, scale, causal, q_offset, s);
+  if (D <= 256)
+    return launch<T, 256>(q, k, v, kvl, seg, o, lse, st, B, H, Sq, Skv, D, scale, causal, q_offset, s);
   return cudaErrorInvalidValue;
 }
 
@@ -322,7 +326,7 @@ extern "C" int mxtt_flash_attention_fwd(
     const void* seg, void* o, void* lse, const long long* strides, int B,
     int H, int Sq, int Skv, int D, float scale, int causal, int q_offset,
     int dtype, void* stream) {
-  if (B < 1 || H < 1 || Sq < 1 || Skv < 0 || D < 1 || D > 128)
+  if (B < 1 || H < 1 || Sq < 1 || Skv < 0 || D < 1 || D > 256)
     return (int)cudaErrorInvalidValue;
   Strides st;
   for (int i = 0; i < 3; ++i) {

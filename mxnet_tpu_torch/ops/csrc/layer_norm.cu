@@ -18,7 +18,13 @@
 // warp-shuffle reductions, and the output is written straight from the
 // same registers. Nothing goes through shared memory and no row is
 // read twice. 8 warps per block; rows are independent, so there is no
-// cross-block reduction. D <= 1024 (32 values per lane at most).
+// cross-block reduction. That holds for D <= 1024 (32 values per lane
+// at most). A longer row (GPT-sized widths, D = 2048 and up: the TPU
+// kernel blocks any D) is one BLOCK's: its 256 threads walk the row in
+// strides of 256, the sums are block reductions (warp shuffles, then
+// the 8 warp sums in shared memory in a fixed order), and x is read
+// three times (the sum, the centred sum, the write), the later reads
+// mostly from L1/L2. Any D >= 1.
 //
 // Bound. Memory: x is read once and y written once, 2 * R * D *
 // sizeof(T) bytes, plus gamma and beta and 8 bytes of stats per row;
@@ -41,7 +47,8 @@
 //     dgamma = sum over rows of dy * xhat,  dbeta = sum over rows of dy
 // dx in x's type, dgamma and dbeta in f32.
 //
-// Design. dx: one warp per row, in registers, as the forward. dgamma
+// Design. dx: one warp per row, in registers, as the forward (a block
+// per row, walking it twice, past D = 1024). dgamma
 // and dbeta reduce ACROSS rows, which the TPU accumulates over its
 // sequential grid into one output block. Blocks here run in no order,
 // so the reduction takes two passes and no float atomics (the result is
@@ -50,6 +57,10 @@
 // columns' partial sums in registers, the block folds its 8 warps'
 // partials through shared memory and writes one f32 row of partials
 // per block; a second small kernel sums the partial rows per column.
+// Past D = 1024 a block owns one row at a time and each thread a fixed
+// set of columns, so the thread adds its columns' terms straight into
+// the block's partial row in device memory (read and written by that
+// thread alone, in row order: no race, the same sum every run).
 //
 // Bound. Memory: x and dy read once and dx written once, 3 * R * D *
 // sizeof(T) bytes, plus gamma and 8 bytes of stats per row, plus the
@@ -125,10 +136,62 @@ cudaError_t launch(const void* x, const void* g, const void* b, void* y,
   return cudaGetLastError();
 }
 
+constexpr int kLongThreads = kWarpsPerBlock * 32;   // a block per row
+
+// Sum of v over the block's threads, the same in every thread: warp
+// sums, then the 8 of them in a fixed order. `red` holds kWarpsPerBlock
+// floats; the trailing barrier frees it for the next call.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarpsPerBlock; ++w) s += red[w];
+  __syncthreads();
+  return s;
+}
+
+// D > 1024: block `row` normalises row `row`, walking it three times.
+template <typename T>
+__global__ void __launch_bounds__(kLongThreads)
+layer_norm_fwd_long_kernel(const T* __restrict__ x,
+                           const T* __restrict__ gamma,
+                           const T* __restrict__ beta, T* __restrict__ y,
+                           float* __restrict__ mean_out,
+                           float* __restrict__ rstd_out, int D, float eps) {
+  __shared__ float red[kWarpsPerBlock];
+  const long long row = blockIdx.x;
+  const T* xr = x + row * D;
+  float s = 0.f;
+  for (int c = threadIdx.x; c < D; c += kLongThreads) s += to_f32(xr[c]);
+  const float mu = block_sum(s, red) / (float)D;
+  float s2 = 0.f;
+  for (int c = threadIdx.x; c < D; c += kLongThreads) {
+    const float v = to_f32(xr[c]) - mu;
+    s2 = fmaf(v, v, s2);
+  }
+  const float rs = 1.f / sqrtf(block_sum(s2, red) / (float)D + eps);
+  T* yr = y + row * D;
+  for (int c = threadIdx.x; c < D; c += kLongThreads)
+    store(yr + c,
+          (to_f32(xr[c]) - mu) * rs * to_f32(gamma[c]) + to_f32(beta[c]));
+  if (threadIdx.x == 0 && mean_out != nullptr) {
+    mean_out[row] = mu;
+    rstd_out[row] = rs;
+  }
+}
+
 template <typename T>
 cudaError_t dispatch(const void* x, const void* g, const void* b, void* y,
                      float* mean, float* rstd, int R, int D, float eps,
                      cudaStream_t s) {
+  if (D > 1024) {
+    layer_norm_fwd_long_kernel<T><<<R, kLongThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g),
+        static_cast<const T*>(b), static_cast<T*>(y), mean, rstd, D, eps);
+    return cudaGetLastError();
+  }
   const int need = (D + 31) / 32;
   if (need <= 1) return launch<T, 1>(x, g, b, y, mean, rstd, R, D, eps, s);
   if (need <= 2) return launch<T, 2>(x, g, b, y, mean, rstd, R, D, eps, s);
@@ -223,6 +286,45 @@ __global__ void layer_norm_bwd_reduce_kernel(const float* __restrict__ part,
   out[blockIdx.y * D + c] = s;
 }
 
+// D > 1024: block b walks rows b, b + blocks, ...; thread t owns columns
+// t, t + 256, ... and adds their dgamma and dbeta terms to the block's
+// partial rows part[0][b] and part[1][b] (zeroed first).
+template <typename T>
+__global__ void __launch_bounds__(kLongThreads)
+layer_norm_bwd_long_kernel(const T* __restrict__ x,
+                           const T* __restrict__ gamma,
+                           const float* __restrict__ mean,
+                           const float* __restrict__ rstd,
+                           const T* __restrict__ dy, T* __restrict__ dx,
+                           float* __restrict__ part, int R, int D) {
+  __shared__ float red[kWarpsPerBlock];
+  float* pg = part + (long long)blockIdx.x * D;
+  float* pb = pg + (long long)gridDim.x * D;
+  for (int c = threadIdx.x; c < D; c += kLongThreads) pg[c] = pb[c] = 0.f;
+  for (long long row = blockIdx.x; row < R; row += gridDim.x) {
+    const T* xr = x + row * D;
+    const T* dyr = dy + row * D;
+    const float mu = mean[row], rs = rstd[row];
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = threadIdx.x; c < D; c += kLongThreads) {
+      const float xh = (to_f32(xr[c]) - mu) * rs;
+      const float dxh = to_f32(dyr[c]) * to_f32(gamma[c]);
+      s1 += dxh;
+      s2 = fmaf(dxh, xh, s2);
+    }
+    const float m1 = block_sum(s1, red) / (float)D;
+    const float m2 = block_sum(s2, red) / (float)D;
+    T* dxr = dx + row * D;
+    for (int c = threadIdx.x; c < D; c += kLongThreads) {
+      const float dyv = to_f32(dyr[c]);
+      const float xh = (to_f32(xr[c]) - mu) * rs;
+      store(dxr + c, rs * (dyv * to_f32(gamma[c]) - m1 - xh * m2));
+      pg[c] = fmaf(dyv, xh, pg[c]);
+      pb[c] += dyv;
+    }
+  }
+}
+
 template <typename T, int VPL>
 cudaError_t launch_bwd(const void* x, const void* g, const float* mean,
                        const float* rstd, const void* dy, void* dx,
@@ -245,6 +347,16 @@ cudaError_t dispatch_bwd(const void* x, const void* g, const float* mean,
                          const float* rstd, const void* dy, void* dx,
                          float* part, float* dgb, int R, int D, int blocks,
                          cudaStream_t s) {
+  if (D > 1024) {
+    layer_norm_bwd_long_kernel<T><<<blocks, kLongThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), mean, rstd,
+        static_cast<const T*>(dy), static_cast<T*>(dx), part, R, D);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    layer_norm_bwd_reduce_kernel<<<dim3((D + 255) / 256, 2), 256, 0, s>>>(
+        part, dgb, blocks, D);
+    return cudaGetLastError();
+  }
   const int need = (D + 31) / 32;
   if (need <= 1) return launch_bwd<T, 1>(x, g, mean, rstd, dy, dx, part, dgb, R, D, blocks, s);
   if (need <= 2) return launch_bwd<T, 2>(x, g, mean, rstd, dy, dx, part, dgb, R, D, blocks, s);
@@ -265,7 +377,7 @@ extern "C" int mxtt_layer_norm_fwd(const void* x, const void* gamma,
                                    const void* beta, void* y, void* mean,
                                    void* rstd, int R, int D, float eps,
                                    int dtype, void* stream) {
-  if (R < 1 || D < 1 || D > 1024) return (int)cudaErrorInvalidValue;
+  if (R < 1 || D < 1) return (int)cudaErrorInvalidValue;
   float* mu = static_cast<float*>(mean);
   float* rs = static_cast<float*>(rstd);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -280,15 +392,15 @@ extern "C" int mxtt_layer_norm_fwd(const void* x, const void* gamma,
 // Plain C entry point (loaded with ctypes) of the backward. dtype as
 // above (x, gamma, dy and dx share it); mean and rstd (R,) float32;
 // part is (2, blocks, D) float32 scratch, dgb (2, D) float32 receives
-// dgamma then dbeta. Launches the row kernel over `blocks` blocks, then
-// the reduction; returns the first failing launch's cudaError_t.
+// dgamma then dbeta. Launches the row kernel over `blocks` blocks (each
+// 8 rows at a time up to D = 1024, one past it), then the reduction;
+// returns the first failing launch's cudaError_t.
 extern "C" int mxtt_layer_norm_bwd(const void* x, const void* gamma,
                                    const void* mean, const void* rstd,
                                    const void* dy, void* dx, void* part,
                                    void* dgb, int R, int D, int blocks,
                                    int dtype, void* stream) {
-  if (R < 1 || D < 1 || D > 1024 || blocks < 1)
-    return (int)cudaErrorInvalidValue;
+  if (R < 1 || D < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
   const float* mu = static_cast<const float*>(mean);
   const float* rs = static_cast<const float*>(rstd);
   float* pt = static_cast<float*>(part);

@@ -23,56 +23,73 @@
 // with h_{-1}, c_{-1} = h0, c0. dh0, dc0 (the carries after step 0) and
 // dW come out in f32.
 //
-// Forward design. The TPU kernel keeps all of W (6.8 MB at H = 650 in
-// f32) in VMEM for the T sequential grid steps. An SM has at most 227 KB
-// of shared memory, so here ONE persistent cooperative grid splits the
-// hidden units: block j owns u consecutive units and their four gate
-// columns (k, H+k, 2H+k, 3H+k), u = ceil(H / SMs). Its slice of W
-// (H x 4u) stays in shared memory for all T steps, and the gate
-// nonlinearities and the c carry are local to the block. Only h crosses
-// blocks, once a step: each block writes its units of out[t], the grid
-// syncs (cooperative_groups::grid_group::sync), and every block reads
-// all of out[t] back (ld.global.cg, never through L1) as the next
-// step's h. Reading h back in out's type is exactly the TPU kernel's
-// rounding of h to W's type. Within a block, rows of the batch go in
-// passes of P rows staged in shared memory; each thread takes one row
-// and a 1/KS share of the H-long dot products for all 4u columns, and
-// the KS partial sums meet in shared memory, summed in a fixed order by
-// all threads at once. Tiles are staged with 16 loads in flight per
-// thread before any store; each step's gin is fetched under its dot
-// products. The grid (u, P, KS, shared bytes) is planned in Python
-// (ops/lstm.py::plan_grid); this file checks occupancy.
+// Design. Both directions run ONE persistent cooperative grid with ONE
+// grid sync a step, the recurrent product on the tensor cores, and no
+// atomics (the same bits every run). The TPU kernel keeps all of W (6.8
+// MB at H = 650 in f32) in VMEM for the T sequential grid steps; an SM
+// has at most 227 KB of shared memory, so here the hidden units are
+// split: block b owns u <= 16 units and a group of the batch's m16 row
+// tiles (unit group b % UG, row group b / UG, UG = ceil(H / u), RG =
+// min(m-tiles, SMs / UG)), and W's part for its units stays in shared
+// memory for all T steps. W is read (and dW written) by strides, so
+// MXNet's (4H, H) h2h weight is taken as it is. The products: the
+// block's W part is the mma's B operand, held in shared memory as rows
+// of the depth (W's type; ldw elements a row, 64 mod 128 bytes so the 8
+// lanes of a 16-byte access phase hit distinct banks); A fragments come
+// straight from L2 (ld.global.cg, 16 bytes a lane, in batches, the next
+// batch in flight under this one's products), not staged: each lane's
+// 16 bytes are two mma k-steps' worth of its fragment slots (the k order
+// inside a chunk of 64 bytes is permuted, the same way for A and B).
+// f32: m16n8k8 TF32 with the 3-term split (common.cuh), A split once
+// for all n-tiles; bf16/f16: m16n8k16, the loaded words used as they
+// are; f32 accumulation, each chunk into a fresh partial added
+// round-to-nearest (the tensor cores' own adds round toward zero). A
+// block with fewer than 8 m-tiles splits the depth across its 8 warps;
+// the partials meet in shared memory, summed in a fixed order. The grid
+// (u, RG, ldw, shared bytes) is planned in Python (ops/lstm.py::
+// plan_grid); this file checks occupancy. Where W's part does not fit
+// shared memory at a grid of one block an SM (f32 past H = 1056, e.g.
+// the word LM's --nhid 1500: 94 groups of 16 units, 385 KB of W rows a
+// block forward), each block stages the same rows into its own slice of
+// a scratch in device memory (`wg`) instead, and the products read B
+// from there through L1/L2, at the cost of those bytes every step;
+// shared memory then holds only the partial sums. Up to H = 2112 (132
+// groups of 16 units).
 //
-// Backward design. Two kernels, both deterministic (no atomics, the
-// same bits every run), W read and dW written by strides, so MXNet's
-// (4H, H) h2h weight is taken as it is.
-//  1. The recurrence (lstm_bwd_kernel): one persistent cooperative grid,
-//     ONE grid sync a step. Block b owns u <= 16 units (two mma n-tiles
-//     of 8; one where W's rows for two do not fit) and a group of the
-//     batch's m16 row tiles: unit group b % UG, row group b / UG, UG =
-//     ceil(H / u), RG = min(m-tiles, SMs / UG). Phase A: the block
-//     computes dgin for its rows and units from local values (the
-//     carries, the saved gates, c_t, c_{t-1}) and writes dgin[t]; the
-//     grid syncs. Phase B: dh_{t-1}[own rows, own units] = dgin[t][own
-//     rows] (4H deep) . W[own units, :]^T on the tensor cores with
-//     mma.sync, in chunks of 64 bytes a row. W's rows (16 x 4H, W's
-//     type) sit in shared memory for all T steps; A fragments come
-//     straight from L2 (ld.global.cg, 16 bytes a lane, in batches, the
-//     next batch in flight under this one's products), not staged: each
-//     lane's 16 bytes are two mma k-steps' worth of its fragment slots
-//     (the k order inside a chunk is permuted, the same way for A and
-//     B). f32: m16n8k8 TF32 with a 3-term split (a_hi b_hi + a_hi b_lo +
-//     a_lo b_hi, hi/lo rounded to nearest by cvt.rna, split on the fly,
-//     A once for both n-tiles) and f32 accumulation, which keeps f32
-//     accuracy; bf16/f16: m16n8k16 with f32 accumulation, the loaded
-//     words used as they are. The tensor cores round their own adds
-//     toward zero, so each chunk sums into a fresh partial and the
-//     partials into the running sum with round-to-nearest f32 adds. A
-//     block with fewer than 8 m-tiles splits the depth across its 8
-//     warps; the partials meet in shared memory, summed in a fixed order.
-//     Every step, dgin[t] crosses L2 once per unit group (41 at H = 650),
-//     not once per block: at the word LM's N = 32 that is 13.6 MB a step
-//     instead of 43 MB.
+// Forward design (lstm_fwd_kernel). The block's W part is the four gate
+// columns of each of its units (16 units: 64 columns, eight n8 tiles;
+// 164 KB at H = 650 in f32), each column a row of depth H in shared
+// memory, ordered so that one warp's item holds all four gates of its
+// units: n-tile 4 hf + q is gate q of units [8 hf, 8 hf + 8). A warp
+// item is one m16 tile of rows x one half of the units (and one share of
+// the depth when the depth is split); a block has 16 warps, twice the
+// backward's, since its products' latency (the load, the split, the
+// three mma) is hidden only by other warps. The step: z[own rows, own
+// 64 columns] = h_{t-1}[own rows] (H deep) . W part; then each lane
+// holds i, f, g, o of its (row,
+// unit) pairs in registers (or, with a split depth, the threads of the
+// block sum the partials from shared memory), adds gin[t], and updates
+// the c carry (f32, in a scratch the same thread reads back next step),
+// writing out[t], cseq[t] and the gates. h_{t-1} is read from a scratch
+// of two buffers of N x hp in gin's type (hp: H rounded up to whole
+// 64-byte chunks, zero past H, so every row is whole aligned chunks):
+// step t reads buffer (t + 1) % 2 and writes buffer t % 2, which no
+// block reads again before the next grid sync. Reading h back in gin's
+// type is exactly the TPU kernel's rounding of h to W's type. h0 goes
+// into buffer 1 before one grid sync ahead of step 0. Every step, h
+// crosses L2 once per unit group (41 at H = 650), and the gate
+// nonlinearities and the c carry stay in the block.
+//
+// Backward design. Two kernels, both deterministic.
+//  1. The recurrence (lstm_bwd_kernel). The block's W part is W's row
+//     (4H deep) for each of its units: two n-tiles of 8 units, one where
+//     W's rows for two do not fit. Phase A: the block computes dgin for
+//     its rows and units from local values (the carries, the saved
+//     gates, c_t, c_{t-1}) and writes dgin[t]; the grid syncs. Phase B:
+//     dh_{t-1}[own rows, own units] = dgin[t][own rows] (4H deep) .
+//     W[own units, :]^T. Every step, dgin[t] crosses L2 once per unit
+//     group, not once per block: at the word LM's N = 32 that is 13.6
+//     MB a step instead of 43 MB.
 //  2. dW (lstm_bwd_dw_kernel), after the loop: no step depends on it, so
 //     it leaves the serial path. dW = hp^T . dgin with hp = [h0; out[0..
 //     T-2]] (T*N x H) and dgin (T*N x 4H): one tiled product, 64 x 128
@@ -81,14 +98,12 @@
 //     value is staged; bf16/f16 values are exact in TF32, one term), f32
 //     accumulation.
 
-// Bound. Operations: 2*T*N*H*4H flops forward, twice that backward.
-// The forward runs on the CUDA cores (67 TFLOP/s f32); the backward's
-// products on the tensor cores, at 495 TFLOP/s TF32 over 3 terms for
-// f32. Bytes: gin, out, cseq, gates and W once each. What the
-// recurrence pays on top: a grid sync and a short chain of L2 round
-// trips every step (about 10 us a step on an H100 whatever N), and
-// dgin[t] re-read from L2 by every unit group; the forward still runs
-// on the CUDA cores and every block re-reads all of h each step.
+// Bound. Operations: 2*T*N*H*4H flops forward, twice that backward,
+// all on the tensor cores, at 495 TFLOP/s TF32 over 3 terms for f32.
+// Bytes: gin, out, cseq, gates and W once each. What the recurrence
+// pays on top: a grid sync and a short chain of L2 round trips every
+// step (about 10 us a step on an H100 whatever N), and h (forward) or
+// dgin[t] (backward) re-read from L2 by every unit group.
 
 #include <cooperative_groups.h>
 
@@ -98,23 +113,17 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using mxtt::mma_16;
+using mxtt::mma_tf32_0;
+using mxtt::mma_tf32x3;
+using mxtt::split_tf32;
 using mxtt::store;
 using mxtt::to_f32;
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxUnits = 8;      // forward: units a block at most; one n8 tile
-
-// a value written by another block in this launch: read through L2
-__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float ldcg(const __nv_bfloat16* p) {
-  return __bfloat162float(
-      __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
-}
-__device__ __forceinline__ float ldcg(const __half* p) {
-  return __half2float(
-      __ushort_as_half(__ldcg(reinterpret_cast<const unsigned short*>(p))));
-}
+constexpr int kWarps = kThreads / 32;   // the backward's warps a block
+constexpr int kFwdWarps = 16;           // the forward's warps a block
+constexpr int kTile = 8;          // units (backward) of one mma n-tile
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + expf(-x));
@@ -139,210 +148,6 @@ __device__ __forceinline__ void stage(int count, Src src, Dst dst) {
       if (e < count) store(dst(e), v[b]);
     }
   }
-}
-
-// Shared memory of the forward, in floats: W slice H x 4U, the h tile
-// P x (H | 1) (odd row stride: rows fall in different banks) and the
-// partial sums KS x P x 4U.
-__host__ __device__ inline size_t fwd_smem_floats(int H, int U, int P,
-                                                  int KS) {
-  return (size_t)H * 4 * U + (size_t)P * (H | 1) +
-         (KS > 1 ? (size_t)KS * P * 4 * U : 0);
-}
-
-template <typename T, int U>
-__global__ void __launch_bounds__(kThreads, 1)
-lstm_fwd_kernel(const T* __restrict__ gin, const T* __restrict__ w,
-                long long sk, long long sg, const T* __restrict__ h0,
-                const T* __restrict__ c0, T* out, T* __restrict__ cseq,
-                T* __restrict__ gates, float* __restrict__ cbuf, int steps,
-                int N, int H, int P, int KS) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int C = 4 * U;                 // columns of the slice
-  const int G = 4 * H;
-  const int unit0 = blockIdx.x * U;
-  const int nu = min(U, H - unit0);
-  const int hs = H | 1;
-  float* w_s = smem;                       // [k][gate * U + j]
-  float* h_s = w_s + (size_t)H * C;        // [row][k], stride hs
-  float* red_s = h_s + (size_t)P * hs;     // [s][row][c]
-
-  stage(H * C,
-        [&](int e) {
-          const int k = e / C, c = e % C, gate = c / U, j = c % U;
-          return j < nu ? to_f32(w[k * sk + (long long)(gate * H + unit0 + j) * sg])
-                        : 0.f;
-        },
-        [&](int e) { return w_s + e; });
-  __syncthreads();
-  cg::grid_group grid = cg::this_grid();
-  const int row = threadIdx.x % P;
-  const int s = threadIdx.x / P;
-  for (int t = 0; t < steps; ++t) {
-    const T* hsrc = t == 0 ? h0 : out + (size_t)(t - 1) * N * H;
-    for (int r0 = 0; r0 < N; r0 += P) {
-      const int rows = min(P, N - r0);
-      const T* tile = hsrc + (size_t)r0 * H;     // rows x H, contiguous
-      stage(rows * H, [&](int e) { return ldcg(tile + e); },
-            [&](int e) { return h_s + (e / H) * hs + e % H; });
-      __syncthreads();
-      const bool head = s == 0 && row < rows;
-      float gz[C];           // this row's gin, fetched under the products
-      if (head) {
-        const size_t zb = ((size_t)t * N + r0 + row) * G + unit0;
-#pragma unroll
-        for (int gate = 0; gate < 4; ++gate) {
-#pragma unroll
-          for (int j = 0; j < U; ++j)
-            gz[gate * U + j] = j < nu ? to_f32(gin[zb + gate * H + j]) : 0.f;
-        }
-      }
-      float acc[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] = 0.f;
-      const bool mine = s < KS && row < rows;
-      if (mine) {
-        const float* hr = h_s + row * hs;
-        for (int k = s; k < H; k += KS) {
-          const float hv = hr[k];
-          const float4* wr = reinterpret_cast<const float4*>(w_s + k * C);
-#pragma unroll
-          for (int q = 0; q < U; ++q) {
-            const float4 w4 = wr[q];
-            acc[4 * q + 0] = fmaf(hv, w4.x, acc[4 * q + 0]);
-            acc[4 * q + 1] = fmaf(hv, w4.y, acc[4 * q + 1]);
-            acc[4 * q + 2] = fmaf(hv, w4.z, acc[4 * q + 2]);
-            acc[4 * q + 3] = fmaf(hv, w4.w, acc[4 * q + 3]);
-          }
-        }
-      }
-      if (KS > 1) {
-        if (mine) {
-#pragma unroll
-          for (int c = 0; c < C; ++c) red_s[(s * P + row) * C + c] = acc[c];
-        }
-        __syncthreads();
-        // every (row, column) sum in the split order 0..KS-1, in place
-        for (int e = threadIdx.x; e < rows * C; e += blockDim.x) {
-          float v = red_s[e];
-          for (int q = 1; q < KS; ++q) v += red_s[q * P * C + e];
-          red_s[e] = v;
-        }
-        __syncthreads();
-        if (head) {
-#pragma unroll
-          for (int c = 0; c < C; ++c) acc[c] = red_s[row * C + c];
-        }
-      }
-      if (head) {
-        const int n = r0 + row;
-        const size_t zb = ((size_t)t * N + n) * G;
-        const size_t hb = ((size_t)t * N + n) * H;
-#pragma unroll
-        for (int j = 0; j < U; ++j) {
-          if (j < nu) {
-            const int unit = unit0 + j;
-            const float zi = gz[0 * U + j] + acc[0 * U + j];
-            const float zf = gz[1 * U + j] + acc[1 * U + j];
-            const float zg = gz[2 * U + j] + acc[2 * U + j];
-            const float zo = gz[3 * U + j] + acc[3 * U + j];
-            const float i = sigmoid_f(zi), f = sigmoid_f(zf);
-            const float g = tanhf(zg), o = sigmoid_f(zo);
-            const float cp = t == 0 ? to_f32(c0[(size_t)n * H + unit])
-                                    : cbuf[(size_t)n * H + unit];
-            const float cn = f * cp + i * g;
-            const float hn = o * tanhf(cn);
-            cbuf[(size_t)n * H + unit] = cn;
-            store(out + hb + unit, hn);
-            store(cseq + hb + unit, cn);
-            store(gates + zb + unit, i);
-            store(gates + zb + H + unit, f);
-            store(gates + zb + 2 * H + unit, g);
-            store(gates + zb + 3 * H + unit, o);
-          }
-        }
-      }
-      __syncthreads();   // the tile is reloaded by the next pass
-    }
-    if (t + 1 < steps) grid.sync();   // out[t] complete for every block
-  }
-}
-
-// ---- backward: tensor-core helpers ----------------------------------------
-
-// x rounded to TF32 (10 mantissa bits), to nearest, ties away from 0
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, each TF32 (the 3-term split's halves)
-__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi,
-                                           uint32_t& lo) {
-  const float f = __uint_as_float(x);
-  hi = tf32_rna(f);
-  lo = tf32_rna(f - __uint_as_float(hi));
-}
-
-// d += a (16 x 8, row) . b (8 x 8, col), TF32 in, f32 accumulation
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d = a . b (a fresh sum: the accumulator input is zero)
-__device__ __forceinline__ void mma_tf32_0(float* d, const uint32_t* a,
-                                           const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(0.f));
-}
-
-// d (+)= a . b in f32 with f32 accuracy from split operands: a_lo b_hi +
-// a_hi b_lo + a_hi b_hi (the small terms first; a_lo b_lo, ~2^-22 of the
-// product, is dropped). `fresh`: d starts from zero.
-__device__ __forceinline__ void mma_tf32x3(float* d, const uint32_t* ah,
-                                           const uint32_t* al,
-                                           const uint32_t* bh,
-                                           const uint32_t* bl, bool fresh) {
-  if (fresh)
-    mma_tf32_0(d, al, bh);
-  else
-    mma_tf32(d, al, bh);
-  mma_tf32(d, ah, bl);
-  mma_tf32(d, ah, bh);
-}
-
-// d += a (16 x 16, row) . b (16 x 8, col), 16-bit in, f32 accumulation
-template <typename T>
-__device__ __forceinline__ void mma_16(float* d, const uint32_t* a,
-                                       const uint32_t* b);
-template <>
-__device__ __forceinline__ void mma_16<__nv_bfloat16>(float* d,
-                                                      const uint32_t* a,
-                                                      const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-template <>
-__device__ __forceinline__ void mma_16<__half>(float* d, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // 16 bytes of row `p` at k = kk..kk+KG-1 from L2 (written by other blocks
@@ -461,9 +266,223 @@ __device__ __forceinline__ void mma_batch(float (&acc)[NT][4],
     }
 }
 
-// chunks of the depth in one batch of loads (2 x kBatch 16-byte loads a
+// chunks of the depth in one batch of loads (2 x B 16-byte loads a
 // lane); a warp keeps two batches, one loading while the other multiplies
 constexpr int kBatch = 4;
+
+// A warp's share of a product: acc = rows [16 m, 16 m + 16) of `src`
+// (row stride ld, G deep, rows past N zero) over the chunks [c0, c1),
+// times the NT n-tiles of W rows at wrow (this lane's row of n-tile 0;
+// n-tile j lies 8 rows further). acc[j]: rows 16 m + gid (0, 1) and
+// + 8 (2, 3), columns 8 j + 2 tig (+ 1).
+template <typename T, int NT, int B>
+__device__ __forceinline__ void tile_product(float (&acc)[NT][4],
+                                             const T* src, size_t ld, int m,
+                                             int N, int c0, int c1,
+                                             const T* wrow, int ldw, int G,
+                                             bool vec) {
+  constexpr int KG = 16 / (int)sizeof(T);   // k of one lane's 16 bytes
+  constexpr int KC = 4 * KG;                // k of one warp chunk
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const int r0 = m * 16 + gid, r1 = r0 + 8;
+  const T* p0 = src + (size_t)min(r0, N - 1) * ld;
+  const T* p1 = src + (size_t)min(r1, N - 1) * ld;
+  const bool ok0 = r0 < N, ok1 = r1 < N;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+  uint4 x0[B], x1[B], y0[B], y1[B];
+  load_batch<T, KG, KC>(x0, x1, p0, p1, c0, c1, tig, ok0, ok1, G, vec);
+  for (int c = c0; c < c1; c += 2 * B) {
+    load_batch<T, KG, KC>(y0, y1, p0, p1, c + B, c1, tig, ok0, ok1, G, vec);
+    mma_batch<T, KC>(acc, x0, x1, wrow, ldw, c, c1);
+    load_batch<T, KG, KC>(x0, x1, p0, p1, c + 2 * B, c1, tig, ok0, ok1, G,
+                          vec);
+    mma_batch<T, KC>(acc, y0, y1, wrow, ldw, c + B, c1);
+  }
+}
+
+// Depth-split work of a block with fewer tiles than warps: KS shares of
+// the depth a tile, so that every warp has one item.
+__device__ __forceinline__ int depth_split(int tiles, int warps) {
+  return tiles >= warps ? 1 : warps / max(tiles, 1);
+}
+
+// What the cell of (row n, unit) at step t reads besides its products:
+// gin[t]'s four gates and the c carry (cbuf; c0 at t = 0).
+struct CellIn {
+  float z[4];
+  float c;
+};
+
+template <typename T>
+__device__ __forceinline__ CellIn cell_in(const T* gin, const T* c0,
+                                          const float* cbuf, int t, int N,
+                                          int H, int n, int unit) {
+  const size_t zb = ((size_t)t * N + n) * 4 * H + unit;
+  const size_t sb = (size_t)n * H + unit;
+  CellIn in;
+#pragma unroll
+  for (int g = 0; g < 4; ++g) in.z[g] = to_f32(gin[zb + g * H]);
+  in.c = t == 0 ? to_f32(c0[sb]) : cbuf[sb];
+  return in;
+}
+
+// The cell of one (row n, unit) at step t from its recurrent products z:
+// the gates from gin[t] + z, the f32 c carry, and the writes of out[t],
+// cseq[t], the gates, the carry and h's scratch row.
+template <typename T>
+__device__ __forceinline__ void lstm_cell(const CellIn& in, const float* z,
+                                          T* out, T* cseq, T* gates,
+                                          float* cbuf, T* hdst, int t,
+                                          int N, int H, int hp, int n,
+                                          int unit) {
+  const size_t zb = ((size_t)t * N + n) * 4 * H + unit;
+  const size_t hb = ((size_t)t * N + n) * H + unit;
+  const float i = sigmoid_f(in.z[0] + z[0]);
+  const float f = sigmoid_f(in.z[1] + z[1]);
+  const float g = tanhf(in.z[2] + z[2]);
+  const float o = sigmoid_f(in.z[3] + z[3]);
+  const float cn = f * in.c + i * g;
+  const float hn = o * tanhf(cn);
+  cbuf[(size_t)n * H + unit] = cn;
+  store(out + hb, hn);
+  store(cseq + hb, cn);
+  store(gates + zb, i);
+  store(gates + zb + H, f);
+  store(gates + zb + 2 * H, g);
+  store(gates + zb + 3 * H, o);
+  store(hdst + (size_t)n * hp + unit, hn);
+}
+
+// The forward for blocks of U <= 8 NH units (the header's layout), NH
+// halves of 8 units, kFwdWarps warps: a work item is one m16 tile x one
+// half (four n-tiles: its units' four gates) x one share of the depth.
+// Shared memory: w_s [32 NH][ldw] of T, row 32 hf + 8 g + r = column
+// (gate g, unit 8 hf + r) of W's part, W[0..H) then zeros (in wg's
+// slice instead when WG); then red_s [16 work items][16][32] f32
+// partial sums when the depth is split. WG is a template argument so
+// that the resident variant's W reads stay shared-memory loads.
+template <typename T, int NH, bool WG>
+__global__ void __launch_bounds__(32 * kFwdWarps, 1)
+lstm_fwd_kernel(const T* __restrict__ gin, const T* __restrict__ w,
+                long long sk, long long sg, const T* __restrict__ h0,
+                const T* __restrict__ c0, T* __restrict__ out,
+                T* __restrict__ cseq, T* __restrict__ gates,
+                float* __restrict__ cbuf, T* hbuf, T* wg, int steps, int N,
+                int H, int U, int RG, int ldw, int hp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int KG = 16 / (int)sizeof(T);
+  constexpr int KC = 4 * KG;
+  constexpr int WR = 32 * NH;               // W columns of the block
+  // W's part in shared memory, or in this block's slice of wg
+  T* w_s = WG ? wg + (size_t)blockIdx.x * WR * ldw
+              : reinterpret_cast<T*>(smem_raw);
+  float* red_s = reinterpret_cast<float*>(
+      smem_raw + (WG ? 0 : (size_t)WR * ldw * sizeof(T)));
+  const int UG = (H + U - 1) / U;
+  const int ug = blockIdx.x % UG, rg = blockIdx.x / UG;
+  const int unit0 = ug * U;
+  const int nu = min(U, H - unit0);
+  const int mt = (N + 15) / 16;
+  const int mt0 = mt * rg / RG, mt1 = mt * (rg + 1) / RG;
+  const int row0 = 16 * mt0, rows = min(N, 16 * mt1) - row0;
+  const int pairs = (mt1 - mt0) * NH;       // (m-tile, half) pairs
+  const int KS = depth_split(pairs, kFwdWarps);
+  const int items = pairs * KS;
+  const int chunks = hp / KC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const size_t buf = (size_t)N * hp;        // elements of one h buffer
+
+  stage(WR * ldw,
+        [&](int e) {
+          const int r = e / ldw, k = e % ldw;
+          const int unit = 8 * (r / 32) + r % 8, g = (r / 8) % 4;
+          return unit < nu && k < H
+                     ? to_f32(w[(long long)k * sk +
+                                (long long)(g * H + unit0 + unit) * sg])
+                     : 0.f;
+        },
+        [&](int e) { return w_s + e; });
+  // h0 into buffer 1 (read at step 0); the last unit group zeroes the
+  // columns past H of both buffers for its rows
+  for (int p = threadIdx.x; p < rows * nu; p += blockDim.x) {
+    const int n = row0 + p / nu, unit = unit0 + p % nu;
+    hbuf[buf + (size_t)n * hp + unit] = h0[(size_t)n * H + unit];
+  }
+  if (ug == UG - 1) {
+    const int pad = hp - H;
+    for (int p = threadIdx.x; p < 2 * rows * pad; p += blockDim.x) {
+      const int b = p / (rows * pad), n = row0 + (p / pad) % rows;
+      store(hbuf + b * buf + (size_t)n * hp + H + p % pad, 0.f);
+    }
+  }
+  __syncthreads();
+  cg::grid_group grid = cg::this_grid();
+  grid.sync();   // h0 and the zeros visible to every block
+  for (int t = 0; t < steps; ++t) {
+    const T* hsrc = hbuf + ((t + 1) & 1) * buf;
+    T* hdst = hbuf + (t & 1) * buf;
+    // a split depth's cells: this thread's first (row, unit) reads its
+    // gin and c under the products
+    CellIn first;
+    if (KS > 1 && threadIdx.x < rows * nu)
+      first = cell_in(gin, c0, cbuf, t, N, H, row0 + threadIdx.x / nu,
+                      unit0 + threadIdx.x % nu);
+    for (int item = warp; item < items; item += kFwdWarps) {
+      const int pair = item / KS, split = item % KS;
+      const int m = mt0 + pair / NH, hf = pair % NH;
+      float acc[4][4];
+      tile_product<T, 4, 1>(acc, hsrc, hp, m, N,
+                            (int)((long long)chunks * split / KS),
+                            (int)((long long)chunks * (split + 1) / KS),
+                            w_s + (32 * hf + gid) * ldw + tig * KG, ldw, hp,
+                            true);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = gid + (q < 2 ? 0 : 8), u = 8 * hf + 2 * tig + (q & 1);
+        if (KS == 1) {
+          if (m * 16 + r < N && u < nu) {
+            const float z[4] = {acc[0][q], acc[1][q], acc[2][q], acc[3][q]};
+            lstm_cell(cell_in(gin, c0, cbuf, t, N, H, m * 16 + r, unit0 + u),
+                      z, out, cseq, gates, cbuf, hdst, t, N, H, hp,
+                      m * 16 + r, unit0 + u);
+          }
+        } else {
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            red_s[(item * 16 + r) * 32 + g * 8 + 2 * tig + (q & 1)] =
+                acc[g][q];
+        }
+      }
+    }
+    if (KS > 1) {
+      __syncthreads();
+      // each (row, unit): the KS partials of its four gates in split
+      // order 0..KS-1
+      for (int p = threadIdx.x; p < rows * nu; p += blockDim.x) {
+        const int rl = p / nu, u = p % nu;
+        const int pair = (rl / 16) * NH + u / 8, r = rl % 16;
+        float z[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float v = 0.f;
+          for (int sp = 0; sp < KS; ++sp)
+            v += red_s[((pair * KS + sp) * 16 + r) * 32 + g * 8 + u % 8];
+          z[g] = v;
+        }
+        lstm_cell(p == threadIdx.x
+                      ? first
+                      : cell_in(gin, c0, cbuf, t, N, H, row0 + rl, unit0 + u),
+                  z, out, cseq, gates, cbuf, hdst, t, N, H, hp, row0 + rl,
+                  unit0 + u);
+      }
+    }
+    if (t + 1 < steps) grid.sync();   // h_t complete for every block
+  }
+}
 
 // The recurrence for blocks of U <= 8 NT units and a group of the batch's
 // m16 row tiles: block b owns unit group b % UG (units [ug U, ug U + U))
@@ -471,24 +490,27 @@ constexpr int kBatch = 4;
 // L2 once per unit group and row, not once per block. Shared memory:
 // w_s [8 NT][ldw] of T, row j = W[unit0 + j][0..4H) then zeros (ldw *
 // sizeof(T) = 64 mod 128 bytes: the 8 lanes of a 16-byte access phase
-// hit distinct banks); then red_s [8 work items][16][8 NT] f32 partial
+// hit distinct banks; in wg's slice instead when WG); then
+// red_s [8 work items][16][8 NT] f32 partial
 // sums when the depth is split across warps (a block with fewer than 8
 // m-tiles: KS = 8 / m-tiles).
-template <typename T, int NT>
+template <typename T, int NT, bool WG>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_bwd_kernel(const T* __restrict__ gates, const T* __restrict__ cseq,
                 const T* __restrict__ w, long long sk, long long sg,
                 const T* __restrict__ c0, const T* __restrict__ dout,
                 const T* __restrict__ dcseq, T* dgin, float* dh_c,
-                float* dc_c, int steps, int N, int H, int U, int RG,
+                float* dc_c, T* wg, int steps, int N, int H, int U, int RG,
                 int ldw) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int KG = 16 / (int)sizeof(T);   // k of one lane's 16 bytes
   constexpr int KC = 4 * KG;                // k of one warp chunk
   constexpr int UN = 8 * NT;                // units of the n-tiles
-  T* w_s = reinterpret_cast<T*>(smem_raw);
-  float* red_s = reinterpret_cast<float*>(smem_raw +
-                                          (size_t)UN * ldw * sizeof(T));
+  // W's part in shared memory, or in this block's slice of wg
+  T* w_s = WG ? wg + (size_t)blockIdx.x * UN * ldw
+              : reinterpret_cast<T*>(smem_raw);
+  float* red_s = reinterpret_cast<float*>(
+      smem_raw + (WG ? 0 : (size_t)UN * ldw * sizeof(T)));
   const int G = 4 * H;
   const int UG = (H + U - 1) / U;
   const int ug = blockIdx.x % UG, rg = blockIdx.x / UG;
@@ -498,7 +520,7 @@ lstm_bwd_kernel(const T* __restrict__ gates, const T* __restrict__ cseq,
   const int mt0 = mt * rg / RG, mt1 = mt * (rg + 1) / RG;
   const int row0 = 16 * mt0, rows = min(N, 16 * mt1) - row0;
   const int my_mt = mt1 - mt0;
-  const int KS = my_mt >= kWarps ? 1 : kWarps / max(my_mt, 1);
+  const int KS = depth_split(my_mt, kWarps);
   const int items = my_mt * KS;
   const int chunks = (G + KC - 1) / KC;
   const bool vec = G % KG == 0;
@@ -545,24 +567,11 @@ lstm_bwd_kernel(const T* __restrict__ gates, const T* __restrict__ cseq,
       const int m = mt0 + item / KS, split = item % KS;
       const int c0_ = (int)((long long)chunks * split / KS);
       const int c1_ = (int)((long long)chunks * (split + 1) / KS);
-      const int r0 = m * 16 + gid, r1 = r0 + 8;
-      const T* p0 = dsrc + (size_t)min(r0, N - 1) * G;
-      const T* p1 = dsrc + (size_t)min(r1, N - 1) * G;
-      float acc[NT][4] = {};
-      // two batches in registers: the next one loads under this one's
-      // products
-      uint4 x0[kBatch], x1[kBatch], y0[kBatch], y1[kBatch];
-      const bool ok0 = r0 < N, ok1 = r1 < N;
-      load_batch<T, KG, KC>(x0, x1, p0, p1, c0_, c1_, tig, ok0, ok1, G, vec);
-      for (int c = c0_; c < c1_; c += 2 * kBatch) {
-        load_batch<T, KG, KC>(y0, y1, p0, p1, c + kBatch, c1_, tig, ok0, ok1,
-                              G, vec);
-        mma_batch<T, KC>(acc, x0, x1, wrow, ldw, c, c1_);
-        load_batch<T, KG, KC>(x0, x1, p0, p1, c + 2 * kBatch, c1_, tig, ok0,
-                              ok1, G, vec);
-        mma_batch<T, KC>(acc, y0, y1, wrow, ldw, c + kBatch, c1_);
-      }
-      // acc[j]: rows r0 (0, 1) and r1 (2, 3), units 8 j + 2 tig (+ 1)
+      float acc[NT][4];
+      tile_product<T, NT, kBatch>(acc, dsrc, G, m, N, c0_, c1_, wrow, ldw,
+                                  G, vec);
+      // acc[j]: rows 16 m + gid (0, 1) and + 8 (2, 3), units 8 j + 2 tig
+      // (+ 1)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -735,58 +744,81 @@ lstm_bwd_dw_kernel(const T* __restrict__ out, const T* __restrict__ h0,
       }
 }
 
-template <typename T, int U>
-const void* fwd_fn() { return reinterpret_cast<const void*>(&lstm_fwd_kernel<T, U>); }
-
+// the forward for u <= 16 units a block (four n-tiles of 8 gate columns
+// a unit half: one half or two), W's part in device memory when wg
 template <typename T>
-const void* fwd_for(int u) {
-  switch (u) {
-#define MXTT_LSTM_U(n) \
-  case n: return fwd_fn<T, n>();
-    MXTT_LSTM_U(1) MXTT_LSTM_U(2) MXTT_LSTM_U(3) MXTT_LSTM_U(4)
-    MXTT_LSTM_U(5) MXTT_LSTM_U(6) MXTT_LSTM_U(7) MXTT_LSTM_U(8)
-#undef MXTT_LSTM_U
-    default: return nullptr;
-  }
+const void* fwd_for(int u, bool wg) {
+  if (u < 1 || u > 2 * kTile) return nullptr;
+  if (wg)
+    return u <= kTile
+               ? reinterpret_cast<const void*>(&lstm_fwd_kernel<T, 1, true>)
+               : reinterpret_cast<const void*>(&lstm_fwd_kernel<T, 2, true>);
+  return u <= kTile
+             ? reinterpret_cast<const void*>(&lstm_fwd_kernel<T, 1, false>)
+             : reinterpret_cast<const void*>(&lstm_fwd_kernel<T, 2, false>);
 }
 
-// the recurrence for u <= 16 units a block (one n-tile of 8 or two)
+// the recurrence for u <= 16 units a block (one n-tile of 8 or two), W's
+// rows in device memory when wg
 template <typename T>
-const void* bwd_for(int u) {
-  if (u < 1 || u > 2 * kMaxUnits) return nullptr;
-  return u <= kMaxUnits ? reinterpret_cast<const void*>(&lstm_bwd_kernel<T, 1>)
-                        : reinterpret_cast<const void*>(&lstm_bwd_kernel<T, 2>);
+const void* bwd_for(int u, bool wg) {
+  if (u < 1 || u > 2 * kTile) return nullptr;
+  if (wg)
+    return u <= kTile
+               ? reinterpret_cast<const void*>(&lstm_bwd_kernel<T, 1, true>)
+               : reinterpret_cast<const void*>(&lstm_bwd_kernel<T, 2, true>);
+  return u <= kTile
+             ? reinterpret_cast<const void*>(&lstm_bwd_kernel<T, 1, false>)
+             : reinterpret_cast<const void*>(&lstm_bwd_kernel<T, 2, false>);
 }
 
 // the recurrence kernel (bwd = 1) or the forward (bwd = 0) for u units
-const void* kernel_for(int bwd, int u, int dtype) {
+const void* kernel_for(int bwd, int u, int dtype, bool wg) {
   switch (dtype) {
-    case 0: return bwd ? bwd_for<float>(u) : fwd_for<float>(u);
-    case 1: return bwd ? bwd_for<__nv_bfloat16>(u) : fwd_for<__nv_bfloat16>(u);
-    case 2: return bwd ? bwd_for<__half>(u) : fwd_for<__half>(u);
+    case 0: return bwd ? bwd_for<float>(u, wg) : fwd_for<float>(u, wg);
+    case 1: return bwd ? bwd_for<__nv_bfloat16>(u, wg) : fwd_for<__nv_bfloat16>(u, wg);
+    case 2: return bwd ? bwd_for<__half>(u, wg) : fwd_for<__half>(u, wg);
     default: return nullptr;
   }
 }
 
 int item_size(int dtype) { return dtype == 0 ? 4 : 2; }
 
-// the recurrence's shared bytes: W rows of ldw elements for the n-tiles
-// of u units, and the split partial sums (8 work items x 16 rows)
-size_t bwd_smem_bytes(int dtype, int ldw, int u) {
-  const int un = u <= kMaxUnits ? kMaxUnits : 2 * kMaxUnits;
-  return (size_t)un * ldw * item_size(dtype) +
-         (size_t)kWarps * 16 * un * sizeof(float);
+// Shared bytes of either kernel: W rows of ldw elements (the forward's
+// four gate columns a unit, the backward's one row a unit, padded to
+// whole n-tiles of u <= 8 or u <= 16 units; none when they are in device
+// memory, `wg`) and the split partial sums (f32: the backward's 8 work
+// items x 16 rows x those rows, the forward's 16 items x 16 rows x 32
+// columns).
+size_t smem_bytes(int bwd, int dtype, int ldw, int u, bool wg) {
+  const int rows = (bwd ? 1 : 4) * (u <= kTile ? kTile : 2 * kTile);
+  return (wg ? 0 : (size_t)rows * ldw * item_size(dtype)) +
+         (bwd ? (size_t)kWarps * 16 * rows : (size_t)kFwdWarps * 16 * 32) *
+             sizeof(float);
 }
 
-bool grid_ok(int H, int blocks, int u) {
-  return u >= 1 && u <= kMaxUnits && blocks * u >= H && (blocks - 1) * u < H;
+// threads a block of the forward (bwd = 0) or the backward's recurrence
+int block_threads(int bwd) { return bwd ? kThreads : 32 * kFwdWarps; }
+
+// the grid both kernels take: blocks = ceil(H / u) unit groups x RG row
+// groups (RG <= the m16 tiles of N), u <= 16; ldw elements a W row of
+// `depth` (at least depth rounded up to 64 bytes, 64 mod 128 bytes)
+bool grid_ok(int N, int H, int dtype, int blocks, int u, int RG, int ldw,
+             int depth, int smem, int bwd, bool wg) {
+  const int chunk = 64 / item_size(dtype);
+  return N >= 1 && H >= 1 && u >= 1 && u <= 2 * kTile && RG >= 1 &&
+         RG <= (N + 15) / 16 && blocks == (H + u - 1) / u * RG &&
+         ldw >= (depth + chunk - 1) / chunk * chunk &&
+         ldw * item_size(dtype) % 128 == 64 &&
+         (size_t)smem >= smem_bytes(bwd, dtype, ldw, u, wg);
 }
 
-cudaError_t launch_coop(const void* fn, int blocks, void** args, int smem,
-                        void* stream) {
+cudaError_t launch_coop(const void* fn, int bwd, int blocks, void** args,
+                        int smem, void* stream) {
   cudaError_t err = mxtt::allow_smem(fn, (size_t)smem);
   if (!err)
-    err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kThreads), args,
+    err = cudaLaunchCooperativeKernel(fn, dim3(blocks),
+                                      dim3(block_threads(bwd)), args,
                                       (size_t)smem,
                                       static_cast<cudaStream_t>(stream));
   if (!err) err = cudaGetLastError();
@@ -810,18 +842,20 @@ extern "C" int mxtt_lstm_device(void* out_, void* stream) {
 }
 
 // Blocks of the forward or of the backward's recurrence (bwd = 1), for
-// u units a block, that can be resident on one SM with `smem` bytes
-// of dynamic shared memory each, to out[0]. A cooperative grid must not
+// u units a block and W's part in shared memory (wg = 0) or device
+// memory (wg = 1), that can be resident on one SM with `smem` bytes of
+// dynamic shared memory each, to out[0]. A cooperative grid must not
 // have more than that times the SMs. Returns a cudaError_t.
-extern "C" int mxtt_lstm_occupancy(int bwd, int u, int dtype, int smem,
-                                   void* out_, void* stream) {
+extern "C" int mxtt_lstm_occupancy(int bwd, int u, int dtype, int wg,
+                                   int smem, void* out_, void* stream) {
   (void)stream;
   int* out = static_cast<int*>(out_);
   out[0] = 0;
-  const void* fn = kernel_for(bwd, u, dtype);
+  const void* fn = kernel_for(bwd, u, dtype, wg != 0);
   if (fn == nullptr || smem < 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = mxtt::allow_smem(fn, (size_t)smem);
-  if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, kThreads, (size_t)smem);
+  if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   out, fn, block_threads(bwd), (size_t)smem);
   return (int)err;
 }
 
@@ -829,23 +863,29 @@ extern "C" int mxtt_lstm_occupancy(int bwd, int u, int dtype, int smem,
 // cooperative launch over the planned grid. gin (T, N, 4H), h0 and c0
 // (N, H), out and cseq (T, N, H), gates (T, N, 4H): contiguous, of type
 // `dtype`; w (H, 4H) of the same type at strides (sk, sg) in elements;
-// cbuf (N, H) float32 scratch (the c carry). Returns the launch's
-// cudaError_t.
+// cbuf (N, H) float32 scratch (the c carry); hbuf (2, N, hp) scratch of
+// type `dtype`, hp = H rounded up to 64 bytes; wg null (W's part in
+// shared memory) or scratch of type `dtype` for blocks x 64 (32 where u
+// <= 8) rows of ldw elements. The grid as the backward's
+// (mxtt_lstm_bwd), ldw elements a W column (depth H). Returns the
+// launch's cudaError_t.
 extern "C" int mxtt_lstm_fwd(const void* gin, const void* w, long long sk,
                              long long sg, const void* h0, const void* c0,
                              void* out, void* cseq, void* gates, void* cbuf,
-                             int T, int N, int H, int dtype, int blocks, int u,
-                             int P, int KS, int smem, void* stream) {
-  if (T < 1 || N < 1 || H < 1 || !grid_ok(H, blocks, u) || P < 1 ||
-      KS < 1 || P * KS > kThreads ||
-      (size_t)smem < 4 * fwd_smem_floats(H, u, P, KS))
+                             void* hbuf, void* wg, int T, int N, int H,
+                             int dtype, int blocks, int u, int RG, int ldw,
+                             int hp, int smem, void* stream) {
+  const int chunk = 64 / item_size(dtype);
+  if (T < 1 || hp != (H + chunk - 1) / chunk * chunk ||
+      !grid_ok(N, H, dtype, blocks, u, RG, ldw, H, smem, 0, wg != nullptr))
     return (int)cudaErrorInvalidValue;
-  const void* fn = kernel_for(0, u, dtype);
+  const void* fn = kernel_for(0, u, dtype, wg != nullptr);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   float* cb = static_cast<float*>(cbuf);
   void* args[] = {(void*)&gin, (void*)&w, &sk, &sg, (void*)&h0, (void*)&c0,
-                  &out, &cseq, &gates, &cb, &T, &N, &H, &P, &KS};
-  return (int)launch_coop(fn, blocks, args, smem, stream);
+                  &out, &cseq, &gates, &cb, &hbuf, &wg, &T, &N, &H, &u,
+                  &RG, &ldw, &hp};
+  return (int)launch_coop(fn, 0, blocks, args, smem, stream);
 }
 
 // Plain C entry point of the backward's recurrence. gates, dgin (T, N,
@@ -854,30 +894,27 @@ extern "C" int mxtt_lstm_fwd(const void* gin, const void* w, long long sk,
 // zeros (they are the carries and end as dh0, dc0). The grid: blocks =
 // ceil(H / u) unit groups x RG row groups (RG <= the m16 tiles of N), u
 // <= 16. ldw: elements of a W row in shared memory (at least 4H rounded
-// up to 64 bytes, ldw * itemsize = 64 mod 128). Returns the launch's
-// cudaError_t.
+// up to 64 bytes, ldw * itemsize = 64 mod 128). wg: null (W's rows in
+// shared memory) or scratch of type `dtype` for blocks x 16 (8 where u
+// <= 8) rows of ldw elements. Returns the launch's cudaError_t.
 extern "C" int mxtt_lstm_bwd(const void* gates, const void* cseq,
                              const void* w, long long sk, long long sg,
                              const void* c0, const void* dout,
                              const void* dcseq, void* dgin, void* dh0,
-                             void* dc0, int T, int N, int H, int dtype,
-                             int blocks, int u, int RG, int ldw, int smem,
-                             void* stream) {
-  const int chunk = 64 / item_size(dtype);
-  if (T < 1 || N < 1 || H < 1 || u < 1 || u > 2 * kMaxUnits || RG < 1 ||
-      RG > (N + 15) / 16 || blocks != (H + u - 1) / u * RG ||
-      ldw < (4 * H + chunk - 1) / chunk * chunk ||
-      ldw * item_size(dtype) % 128 != 64 ||
-      (size_t)smem < bwd_smem_bytes(dtype, ldw, u))
+                             void* dc0, void* wg, int T, int N, int H,
+                             int dtype, int blocks, int u, int RG, int ldw,
+                             int smem, void* stream) {
+  if (T < 1 ||
+      !grid_ok(N, H, dtype, blocks, u, RG, ldw, 4 * H, smem, 1, wg != nullptr))
     return (int)cudaErrorInvalidValue;
-  const void* fn = kernel_for(1, u, dtype);
+  const void* fn = kernel_for(1, u, dtype, wg != nullptr);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   float* dh = static_cast<float*>(dh0);
   float* dc = static_cast<float*>(dc0);
   void* args[] = {(void*)&gates, (void*)&cseq, (void*)&w, &sk, &sg,
                   (void*)&c0, (void*)&dout, (void*)&dcseq, &dgin, &dh, &dc,
-                  &T, &N, &H, &u, &RG, &ldw};
-  return (int)launch_coop(fn, blocks, args, smem, stream);
+                  &wg, &T, &N, &H, &u, &RG, &ldw};
+  return (int)launch_coop(fn, 1, blocks, args, smem, stream);
 }
 
 // Plain C entry point of the backward's dW product: dw (H, 4H) float32

@@ -27,8 +27,9 @@ both outputs: the lse cotangent folds into the backward's
 ``delta = rowsum(do * o) - dlse``. Forward and backward run in one
 ``torch.autograd.Function``: for CUDA tensors its forward launches K1
 (``csrc/flash_attention.cu``) and its backward K2
-(``csrc/flash_attention_bwd.cu``: a dq kernel and a dk/dv kernel, one
-launch count); for CPU tensors it takes the plain versions
+(``csrc/flash_attention_bwd.cu``: one pass where every key fits a block,
+else a dq and a dk/dv kernel, see :func:`backward_path`; one launch
+count); for CPU tensors it takes the plain versions
 (:func:`flash_attention_reference`,
 :func:`flash_attention_backward_reference`), so the CPU tests run the
 same wiring. The operands are checked, and what the kernels do not
@@ -44,25 +45,50 @@ from . import _build
 
 __all__ = ["LAUNCHES", "flash_attention", "flash_attention_backward",
            "flash_attention_backward_reference", "flash_attention_reference",
-           "flash_attention_with_lse"]
+           "flash_attention_with_lse", "backward_path", "kernel_takes",
+           "visible_mask"]
 
 _NEG_INF = -1e30
 #: kernel launches by kernel name (the main-path proof counts these)
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
-_MAX_D = 128
+_MAX_D = 256
 # mxtt_flash_attention_fwd(q, k, v, kv_lens, seg, o, lse, strides, B, H,
 #                          Sq, Skv, D, scale, causal, q_offset, dtype)
 _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] \
     + [ctypes.c_int] * 3
-# mxtt_flash_attention_bwd(q, k, v, do, lse, delta, kv_lens, seg, dq, dk,
-#                          dv, strides, B, H, Sq, Skv, D, scale, causal,
-#                          q_offset, dtype)
-_BWD_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float] \
+# mxtt_flash_attention_bwd(q, k, v, do, o, lse, dlse, kv_lens, seg, dq,
+#                          dk, dv, strides, B, H, Sq, Skv, D, scale,
+#                          causal, q_offset, dtype)
+_BWD_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float] \
     + [ctypes.c_int] * 3
+#: keys and head dim the one-pass backward holds in shared memory at most
+#: (``csrc/flash_attention_bwd.cu`` picks its path by the same limits)
+_FUSED_KEYS, _FUSED_D = 128, 64
 
 
-def _visible(sq, skv, device, kv_lens=None, segment_ids=None,
-             causal=False, q_offset=0):
+def kernel_takes(q):
+    """Whether the op hands queries like ``q`` to the kernels, from its
+    device, shape and type alone, before any launch, as the JAX op asks
+    ``pallas_ok_for`` and its kernel's types: (B, H, S, D) float32,
+    bfloat16 or float16. On the card that is every such call (the
+    kernels take D <= 256 and raise past it); CPU tensors, on which the
+    JAX op computes its composed math, take the plain versions for D
+    <= 256 only."""
+    return q.ndim == 4 and q.dtype in _build.DTYPE_CODES \
+        and (q.device.type == "cuda" or 1 <= q.shape[-1] <= _MAX_D)
+
+
+def backward_path(skv, d):
+    """Which K2 kernels a backward of ``skv`` keys and head dim ``d``
+    launches: ``"fused"`` (one pass, every key in the block: Skv <= 128,
+    the JAX kernel's nk <= 2 case, and D <= 64) or ``"split"`` (a dq and
+    a dk/dv kernel). The kernels' C entry point makes the same choice;
+    this is its label for tests and reports."""
+    return "fused" if skv <= _FUSED_KEYS and d <= _FUSED_D else "split"
+
+
+def visible_mask(sq, skv, device, kv_lens=None, segment_ids=None,
+                 causal=False, q_offset=0):
     """(B|1, 1, Sq, Skv) bool mask of the visible (query, key) pairs,
     or None when every pair is visible."""
     mask = None
@@ -93,8 +119,8 @@ def flash_attention_reference(q, k, v, sm_scale=None, causal=False,
     sq, skv = q.shape[2], k.shape[2]
     qf = (q * sm_scale).to(q.dtype).float()
     s = torch.einsum("bhqd,bhkd->bhqk", qf, k.float())
-    mask = _visible(sq, skv, q.device, kv_lens, segment_ids, causal,
-                    q_offset)
+    mask = visible_mask(sq, skv, q.device, kv_lens, segment_ids, causal,
+                        q_offset)
     if mask is not None:
         s = torch.where(mask, s, torch.full((), _NEG_INF, device=s.device))
     m = s.amax(dim=-1, keepdim=True)
@@ -123,8 +149,8 @@ def flash_attention_backward_reference(q, k, v, lse, do, delta,
     qf = (q * sm_scale).to(q.dtype).float()
     kf, vf, dof = k.float(), v.float(), do.float()
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
-    mask = _visible(sq, skv, q.device, kv_lens, segment_ids, causal,
-                    q_offset)
+    mask = visible_mask(sq, skv, q.device, kv_lens, segment_ids, causal,
+                        q_offset)
     # masked BEFORE the exponent: empty rows have lse = -1e30
     z = s - lse.float()[..., None]
     if mask is not None:
@@ -207,7 +233,7 @@ def _launch(q, k, v, sm_scale, causal, q_offset, kv_lens, segment_ids):
     return o, lse
 
 
-def _launch_bwd(q, k, v, lse, do, delta, sm_scale, causal, q_offset,
+def _launch_bwd(q, k, v, o, lse, do, dlse, sm_scale, causal, q_offset,
                 kv_lens, segment_ids):
     b, h, sq, d = q.shape
     skv = k.shape[2]
@@ -218,12 +244,13 @@ def _launch_bwd(q, k, v, lse, do, delta, sm_scale, causal, q_offset,
                   for t, n in ((q, sq), (k, skv), (v, skv)))
     if b * h * max(sq, skv) == 0:
         return dq, dk, dv
-    strides = (ctypes.c_longlong * 21)(
-        *(t.stride(i) for t in (q, k, v, do, dq, dk, dv) for i in range(3)))
+    strides = (ctypes.c_longlong * 24)(
+        *(t.stride(i) for t in (q, k, v, do, o, dq, dk, dv)
+          for i in range(3)))
     _build.launch("flash_attention_bwd", "mxtt_flash_attention_bwd",
                   _BWD_ARGS, q.device, q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                  delta.data_ptr(),
+                  v.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                  dlse.data_ptr() if dlse is not None else None,
                   kv_lens.data_ptr() if kv_lens is not None else None,
                   segment_ids.data_ptr() if segment_ids is not None
                   else None,
@@ -242,28 +269,32 @@ def flash_attention_backward(q, k, v, o, lse, do, sm_scale=None,
     ``lse`` and the output gradient ``do`` (and ``dlse``, the lse's
     gradient, when lse was used). CUDA tensors launch K2 or raise; CPU
     tensors take :func:`flash_attention_backward_reference`. ``delta =
-    rowsum(do * o) - dlse`` is one torch expression outside the kernel,
-    as the JAX package computes it outside its kernels."""
+    rowsum(do * o) - dlse``, which the JAX package computes outside its
+    kernels, is one torch expression on the CPU and computed by K2 from
+    o, do and dlse on the card."""
     _check(q, k, v, kv_lens, segment_ids)
-    if do.shape != q.shape or do.dtype != q.dtype or o.shape != q.shape:
+    if do.shape != q.shape or do.dtype != q.dtype or o.shape != q.shape \
+            or o.dtype != q.dtype:
         raise ValueError(f"o/do must be {tuple(q.shape)} {q.dtype}, got "
-                         f"{tuple(o.shape)}/{tuple(do.shape)} {do.dtype}")
+                         f"{tuple(o.shape)}/{tuple(do.shape)} "
+                         f"{o.dtype}/{do.dtype}")
     if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
         raise TypeError(f"lse must be {tuple(q.shape[:3])} float32, got "
                         f"{tuple(lse.shape)} {lse.dtype}")
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
-    delta = (do.float() * o.float()).sum(-1)
-    if dlse is not None:
-        delta = delta - dlse.float()
     if q.device.type == "cpu":
+        delta = (do.float() * o.float()).sum(-1)
+        if dlse is not None:
+            delta = delta - dlse.float()
         return flash_attention_backward_reference(
             q, k, v, lse, do, delta, sm_scale, causal, q_offset, kv_lens,
             segment_ids)
-    if do.stride(-1) != 1:
-        do = do.contiguous()
-    return _launch_bwd(q, k, v, lse.contiguous(), do, delta.contiguous(),
-                       sm_scale, causal, q_offset, kv_lens, segment_ids)
+    do, o = (t if t.stride(-1) == 1 else t.contiguous() for t in (do, o))
+    if dlse is not None:
+        dlse = dlse.float().contiguous()
+    return _launch_bwd(q, k, v, o, lse.contiguous(), do, dlse, sm_scale,
+                       causal, q_offset, kv_lens, segment_ids)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -30,13 +30,14 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "layer_norm_backward",
+__all__ = ["LAUNCHES", "kernel_takes", "layer_norm_backward",
            "layer_norm_backward_reference", "layer_norm_fused",
            "layer_norm_reference"]
 
 #: kernel launches by kernel name (the main-path proof counts these)
 LAUNCHES = {"layer_norm": 0, "layer_norm_bwd": 0}
-_MAX_D = 1024
+#: the widest row one warp holds (wider rows take a block each)
+_WARP_D = 1024
 # mxtt_layer_norm_fwd(x, gamma, beta, y, mean, rstd, R, D, eps, dtype)
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float,
                                                        ctypes.c_int]
@@ -47,6 +48,14 @@ _BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
 #: dbeta partials; a fixed cap keeps the sum's order fixed)
 _BWD_BLOCKS = 512
 _WARPS_PER_BLOCK = 8
+
+
+def kernel_takes(x):
+    """Whether the kernels take ``x``, from its shape and type alone: a
+    last axis of at least 1, float32, bfloat16 or float16. The op calls
+    it before any launch, as the JAX op tests its kernel's types."""
+    return x.ndim >= 1 and x.dtype in _build.DTYPE_CODES \
+        and x.shape[-1] >= 1
 
 
 def layer_norm_reference(x, gamma, beta, eps=1e-5, return_stats=False):
@@ -86,9 +95,9 @@ def _check(x, gamma, beta):
     only on the way out (K3a runs 25 times a BERT forward)."""
     shape = x.shape
     d = shape[-1] if shape else 0
-    if not 1 <= d <= _MAX_D:
-        raise ValueError(f"layer norm kernel takes a last axis of 1..{_MAX_D}"
-                         f", got shape {tuple(shape)}")
+    if d < 1:
+        raise ValueError(f"layer norm kernel takes a last axis of at least "
+                         f"1, got shape {tuple(shape)}")
     if gamma.shape != (d,) or beta.shape != (d,):
         raise ValueError(f"gamma/beta must be ({d},), got "
                          f"{tuple(gamma.shape)}/{tuple(beta.shape)}")
@@ -152,7 +161,9 @@ def layer_norm_backward(x, gamma, mean, rstd, dy):
     dx = torch.empty_like(x)
     dgb = torch.zeros((2, d), dtype=torch.float32, device=x.device)
     if r:
-        blocks = min(_BWD_BLOCKS, -(-r // _WARPS_PER_BLOCK))
+        # a warp a row up to _WARP_D, a block a row past it
+        rows_a_block = _WARPS_PER_BLOCK if d <= _WARP_D else 1
+        blocks = min(_BWD_BLOCKS, -(-r // rows_a_block))
         part = torch.empty((2, blocks, d), dtype=torch.float32,
                            device=x.device)
         _build.launch("layer_norm", "mxtt_layer_norm_bwd", _BWD_ARGS,

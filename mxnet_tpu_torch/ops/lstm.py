@@ -30,9 +30,10 @@ tensors it takes the plain versions (:func:`lstm_forward_reference`, a
 per-step loop that autograd can also differentiate, and
 :func:`lstm_backward_reference`). In the JAX package the kernel is
 opt-in (``MXNET_TPU_FUSED_LSTM``) and the default is XLA's scan. Here
-the eager counterpart of that scan is the plain per-step loop, about
-eight launches a step, so the card always runs K6 and the CPU always
-the plain loop: the switch has no role in the port.
+the eager counterpart of that scan is a per-step loop, about eight
+launches a step, so the ``RNN`` op takes K6 for every layer of the
+kernels' types and the scan only for others (float64): the switch has
+no role in the port.
 """
 from __future__ import annotations
 
@@ -42,32 +43,32 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "lstm_backward", "lstm_backward_reference",
-           "lstm_forward", "lstm_forward_reference", "lstm_layer_fused",
-           "lstm_plan", "plan_grid"]
+__all__ = ["LAUNCHES", "device_numbers", "lstm_backward",
+           "lstm_backward_reference", "lstm_forward",
+           "lstm_forward_reference", "lstm_layer_fused", "lstm_plan",
+           "plan_grid"]
 
 #: kernel launches by kernel name (the main-path proof counts these):
 #: the backward is two kernels, the recurrence and the dW product
 LAUNCHES = {"lstm_fwd": 0, "lstm_bwd": 0, "lstm_bwd_dw": 0}
-# mxtt_lstm_device(out[3]); mxtt_lstm_occupancy(bwd, u, dtype, smem,
+# mxtt_lstm_device(out[3]); mxtt_lstm_occupancy(bwd, u, dtype, wg, smem,
 # out[1])
 _DEVICE_ARGS = [ctypes.c_void_p]
-_OCC_ARGS = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-# mxtt_lstm_fwd(gin, w, sk, sg, h0, c0, out, cseq, gates, cbuf, T, N, H,
-#               dtype, blocks, u, P, KS, smem)
+_OCC_ARGS = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# mxtt_lstm_fwd(gin, w, sk, sg, h0, c0, out, cseq, gates, cbuf, hbuf, wg,
+#               T, N, H, dtype, blocks, u, RG, ldw, hp, smem)
 _FWD_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 \
-    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
 # mxtt_lstm_bwd(gates, cseq, w, sk, sg, c0, dout, dcseq, dgin, dh0, dc0,
-#               T, N, H, dtype, blocks, u, RG, ldw, smem)
+#               wg, T, N, H, dtype, blocks, u, RG, ldw, smem)
 _BWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 \
-    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
 # mxtt_lstm_bwd_dw(out, h0, dgin, dw, sk, sg, T, N, H, dtype)
 _DW_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 \
     + [ctypes.c_int] * 4
-_THREADS = 256
-_WARPS = _THREADS // 32
-_MAX_UNITS = 8          # forward units a block at most; one mma n-tile
-_MAX_SPLIT = 32         # the forward's dot-product split at most
+_WARPS = 8              # warps a block of the backward's recurrence
+_FWD_WARPS = 16         # warps a block of the forward
+_TILE = 8               # units of one mma n-tile
 _plans = {}
 _devices = {}
 
@@ -154,72 +155,80 @@ def _check(gin, w, h0, c0):
                          f"{gin.device}")
 
 
+def _plan(n, hid, dtype, sms, smem_limit, backward):
+    """(plan, fits, what it needs): :func:`plan_grid`'s arithmetic, not
+    raising."""
+    plan = {"sms": sms, "smem_limit": smem_limit}
+    item = torch.finfo(dtype).bits // 8
+    chunk = 64 // item                  # depth of one warp's chunk
+    depth = 4 * hid if backward else hid
+    row = -(-depth // chunk) * chunk * item
+    if row % 128 == 0:
+        row += 64
+    w_rows = 1 if backward else 4       # W rows a unit
+    mt = -(-n // 16)
+
+    def layout(u, w_global):
+        rows = w_rows * u
+        # the depth split's partials: the backward's 8 warps x 16 rows x
+        # its W rows, the forward's 16 warps x 16 rows x 32 columns
+        red = _WARPS * 16 * rows * 4 if backward else _FWD_WARPS * 16 * 32 * 4
+        return rows, red + (0 if w_global else rows * row)
+
+    # W's part in shared memory where it fits at one block an SM, else
+    # (wide f32 layers) in device memory at 16 units a block
+    sizes = (2 * _TILE, _TILE) if hid > _TILE else (_TILE,)
+    for u, w_global in [*((u, False) for u in sizes), (sizes[0], True)]:
+        rows, smem = layout(u, w_global)
+        if smem <= smem_limit and -(-hid // u) <= sms:
+            break
+    u = min(u, hid)
+    groups = -(-hid // u)
+    rg = max(1, min(mt, sms // groups))
+    plan.update(blocks=groups * rg, units_per_block=u, unit_groups=groups,
+                row_groups=rg, m_tiles=mt, w_row=row // item,
+                smem_bytes=smem, w_global=w_global,
+                w_scratch=groups * rg * rows * (row // item)
+                if w_global else 0)
+    if not backward:
+        plan["h_row"] = -(-hid // chunk) * chunk
+    fits = n >= 1 and hid >= 1 and smem <= smem_limit and groups <= sms
+    need = (f"{groups} unit groups of {u} units (one block an SM) and "
+            f"{smem} B of shared memory")
+    return plan, fits, need
+
+
 def plan_grid(n, hid, dtype, sms, smem_limit, backward=False):
     """The grid of one K6a (or, with ``backward``, K6b recurrence)
     launch for ``n`` rows and ``hid`` units on a card with ``sms`` SMs
     and ``smem_limit`` bytes of shared memory a block: a pure function,
     the arithmetic of ``csrc/lstm.cu``'s layout. One block an SM.
 
-    Forward: ``units_per_block`` = ceil(H / SMs) (at most 8) units a
-    block, ``blocks`` of them; each keeps its W slice (H x 4u f32) and a
-    tile of ``rows_per_pass`` rows of h (stride H | 1) in shared memory,
-    with ``k_split`` partial sums a row.
-
-    Backward: blocks of ``units_per_block`` units (two mma n-tiles, 16,
-    where W's rows for them fit, else 8) x ``row_groups`` groups of the
-    batch's ``m_tiles`` tiles of 16 rows, so that each step's dgin
-    crosses L2 once per unit group, not once per block:
+    Both kernels run the recurrent product on the tensor cores over
+    blocks of ``units_per_block`` units (16, two mma n-tiles, where W's
+    rows for them fit, else 8) x ``row_groups`` groups of the batch's
+    ``m_tiles`` tiles of 16 rows, so that each step's h (forward) or
+    dgin (backward) crosses L2 once per unit group, not once per block:
     ``unit_groups`` = ceil(H / u), ``row_groups`` = min(m_tiles,
-    SMs // unit_groups). Shared memory: W's rows padded to whole
-    n-tiles (``w_row`` elements of W's type each, a multiple of 64
-    bytes at 64 mod 128) and the depth split's partial sums (8 x 16 rows
-    x the n-tiles' units, f32). Raises ``ValueError`` with the numbers
-    when the shape does not fit."""
+    SMs // unit_groups). Shared memory: W's rows for the block's units
+    (the forward's four gate columns a unit, the backward's one row a
+    unit), padded to whole n-tiles, each ``w_row`` elements of W's type
+    (the product's depth, H forward and 4H backward, rounded up to 64
+    bytes at 64 mod 128), and the depth split's partial sums (f32).
+    Where W's rows do not fit at one block an SM (``w_global``), 16
+    units a block keep them in a device-memory scratch of ``w_scratch``
+    elements instead, and shared memory holds the partial sums only.
+    The forward reads h from a scratch of ``h_row`` elements a row (H
+    rounded up to whole 64-byte chunks).
+    On an H100 (132 SMs, 232,448 B) W stays in shared memory up to H =
+    1056 in f32 and both fit up to H = 2112 (132 groups of 16 units).
+    Raises ``ValueError`` with the numbers when the shape does not
+    fit."""
     n, hid, sms, smem_limit = int(n), int(hid), int(sms), int(smem_limit)
     if n < 1 or hid < 1 or sms < 1:
         raise ValueError(f"lstm grid needs N, H and SMs >= 1, got N={n}, "
                          f"H={hid}, SMs={sms}")
-    plan = {"sms": sms, "smem_limit": smem_limit}
-    if backward:
-        item = torch.finfo(dtype).bits // 8
-        chunk = 64 // item                  # depth of one warp's chunk
-        row = -(-4 * hid // chunk) * chunk * item
-        if row % 128 == 0:
-            row += 64
-        mt = -(-n // 16)
-        for tiles in ((2, 1) if hid > _MAX_UNITS else (1,)):
-            un = 8 * tiles
-            smem = un * row + _WARPS * 16 * un * 4
-            if smem <= smem_limit:
-                break
-        u = min(un, hid)
-        groups = -(-hid // u)
-        rg = max(1, min(mt, sms // groups))
-        plan.update(blocks=groups * rg, units_per_block=u,
-                    unit_groups=groups, row_groups=rg, m_tiles=mt,
-                    w_row=row // item, smem_bytes=smem)
-        fits = smem <= smem_limit and groups <= sms
-        need = (f"{groups} unit groups of {u} units (one block an SM) "
-                f"and {smem} B of shared memory")
-    else:
-        u = -(-hid // sms)
-        base = hid * 4 * u                  # floats: the W slice
-        per_row = (hid | 1) + _MAX_SPLIT * 4 * u
-        rows = max(0, (smem_limit // 4 - base) // per_row)
-        rows = min(rows, n, _THREADS)
-        ks = 1
-        if rows >= 1:
-            ks = min(1 << ((_THREADS // rows).bit_length() - 1), _MAX_SPLIT)
-            smem = 4 * (base + rows * (hid | 1)
-                        + (ks * rows * 4 * u if ks > 1 else 0))
-        else:
-            smem = 4 * (base + per_row)     # what one row a pass needs
-        plan.update(blocks=-(-hid // u), units_per_block=u,
-                    rows_per_pass=rows, k_split=ks, smem_bytes=smem)
-        fits = u <= _MAX_UNITS and rows >= 1
-        need = (f"{plan['blocks']} blocks of {u} units (at most "
-                f"{_MAX_UNITS}) with {smem} B of shared memory and "
-                f"{max(rows, 1)} row(s) a pass")
+    plan, fits, need = _plan(n, hid, dtype, sms, smem_limit, backward)
     if not fits:
         raise ValueError(
             f"lstm {'backward' if backward else 'forward'} kernel cannot "
@@ -228,7 +237,7 @@ def plan_grid(n, hid, dtype, sms, smem_limit, backward=False):
     return plan
 
 
-def _device_numbers(dev):
+def device_numbers(dev):
     """(SMs, shared bytes a block may have) of ``dev``; raises when it
     cannot launch a cooperative grid."""
     got = _devices.get(dev.index)
@@ -264,7 +273,7 @@ def lstm_plan(n, hid, dtype=torch.float32, backward=False, device=None):
     plan = _plans.get(key)
     if plan is not None:
         return plan
-    sms, limit = _device_numbers(dev)
+    sms, limit = device_numbers(dev)
     plan = plan_grid(n, hid, dtype, sms, limit, backward)
     fn = getattr(_build.load("lstm"), "mxtt_lstm_occupancy")
     fn.argtypes = [*_OCC_ARGS, ctypes.c_void_p]
@@ -272,8 +281,8 @@ def lstm_plan(n, hid, dtype=torch.float32, backward=False, device=None):
     buf = (ctypes.c_int * 1)()
     with torch.cuda.device(dev):
         err = fn(int(bool(backward)), plan["units_per_block"],
-                 _build.DTYPE_CODES[dtype], plan["smem_bytes"],
-                 ctypes.addressof(buf), None)
+                 _build.DTYPE_CODES[dtype], int(plan["w_global"]),
+                 plan["smem_bytes"], ctypes.addressof(buf), None)
     if err != 0:
         raise RuntimeError(f"lstm kernel planning failed: CUDA error {err}")
     plan["blocks_per_sm"] = buf[0]
@@ -303,14 +312,19 @@ def lstm_forward(gin, w, h0, c0):
     if steps and n:
         plan = lstm_plan(n, hid, gin.dtype, False, gin.device)
         cbuf = torch.empty((n, hid), dtype=torch.float32, device=gin.device)
+        # h_{t-1} and h_t, rows of whole 64-byte chunks (the kernel zeroes
+        # the columns past H)
+        hbuf = gin.new_empty((2, n, plan["h_row"]))
+        wg = gin.new_empty(plan["w_scratch"]) if plan["w_global"] else None
         _build.launch("lstm", "mxtt_lstm_fwd", _FWD_ARGS, gin.device,
                       gin.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
                       h0.data_ptr(), c0.data_ptr(), out.data_ptr(),
                       cseq.data_ptr(), gates.data_ptr(), cbuf.data_ptr(),
-                      steps, n, hid, _build.DTYPE_CODES[gin.dtype],
-                      plan["blocks"], plan["units_per_block"],
-                      plan["rows_per_pass"], plan["k_split"],
-                      plan["smem_bytes"])
+                      hbuf.data_ptr(), wg.data_ptr() if wg is not None
+                      else None, steps, n, hid,
+                      _build.DTYPE_CODES[gin.dtype], plan["blocks"],
+                      plan["units_per_block"], plan["row_groups"],
+                      plan["w_row"], plan["h_row"], plan["smem_bytes"])
         LAUNCHES["lstm_fwd"] += 1
     return out, cseq, gates
 
@@ -346,11 +360,15 @@ def lstm_backward(gates, cseq, out, w, h0, c0, dout, dcseq):
     if steps and n:
         code = _build.DTYPE_CODES[gates.dtype]
         plan = lstm_plan(n, hid, gates.dtype, True, gates.device)
+        wg = gates.new_empty(plan["w_scratch"]) if plan["w_global"] \
+            else None
         _build.launch("lstm", "mxtt_lstm_bwd", _BWD_ARGS, gates.device,
                       gates.data_ptr(), cseq.data_ptr(), w.data_ptr(),
                       w.stride(0), w.stride(1), c0.data_ptr(),
                       dout.data_ptr(), dcseq.data_ptr(), dgin.data_ptr(),
-                      dh0.data_ptr(), dc0.data_ptr(), steps, n, hid, code,
+                      dh0.data_ptr(), dc0.data_ptr(),
+                      wg.data_ptr() if wg is not None else None, steps, n,
+                      hid, code,
                       plan["blocks"], plan["units_per_block"],
                       plan["row_groups"], plan["w_row"], plan["smem_bytes"])
         LAUNCHES["lstm_bwd"] += 1

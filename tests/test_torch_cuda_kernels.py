@@ -119,7 +119,7 @@ def _flash_case(seed, b, h, sq, skv, d, dev, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128, 136, 200, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("mode", ["dense", "causal_offset", "kv_lens",
@@ -170,8 +170,9 @@ def test_flash_attention_kernel_takes_strided_heads(cuda):
 @pytest.mark.cuda
 def test_flash_attention_kernel_refuses_bad_operands(cuda):
     _, q, k, v = _flash_case(4, 2, 2, 16, 16, 200, cuda, torch.float32)
+    _, q, k, v = _flash_case(4, 2, 2, 16, 16, 264, cuda, torch.float32)
     with pytest.raises(ValueError):
-        fa.flash_attention(q, k, v)                     # D > 128
+        fa.flash_attention(q, k, v)                     # D > 256
     _, q, k, v = _flash_case(4, 2, 2, 16, 16, 16, cuda, torch.float32)
     with pytest.raises(TypeError):
         fa.flash_attention(q, k.double(), v)
@@ -191,7 +192,10 @@ def test_flash_attention_kernel_refuses_bad_operands(cuda):
 # -- K3a: LayerNorm forward --------------------------------------------------
 @pytest.mark.cuda
 @pytest.mark.parametrize("r,d", [(1, 32), (37, 768), (8 * 512, 768),
-                                 (5, 1000), (3, 1024), (9, 7)])
+                                 (5, 1000), (3, 1024), (9, 7),
+                                 # a block a row past 1024
+                                 (3, 1025), (37, 2048), (5, 4099),
+                                 (2, 12288)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("eps", [1e-5, 1e-12])
@@ -252,10 +256,10 @@ def test_layer_norm_kernel_on_any_width_and_row_start(cuda, d, dtype,
 def test_layer_norm_kernel_refuses_bad_operands(cuda):
     x = torch.randn(4, 16, device=cuda)
     g = torch.ones(16, device=cuda)
-    with pytest.raises(ValueError):
-        ln.layer_norm_fused(torch.randn(2, 2048, device=cuda),
-                            torch.ones(2048, device=cuda),
-                            torch.zeros(2048, device=cuda))
+    with pytest.raises(ValueError):              # an empty last axis
+        ln.layer_norm_fused(torch.randn(2, 0, device=cuda),
+                            torch.ones(0, device=cuda),
+                            torch.zeros(0, device=cuda))
     with pytest.raises(TypeError):
         ln.layer_norm_fused(x, g.double(), g)
     with pytest.raises(ValueError):
@@ -297,7 +301,7 @@ def _flash_bwd_case(cuda, d, dtype, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128, 136, 200, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("mode", ["dense", "causal_offset",
@@ -341,10 +345,70 @@ def test_flash_attention_autograd_on_strided_heads(cuda):
     assert (grads["cuda"] - grads["cpu"]).abs().max().item() <= 1e-4
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 17, 64, 65, 127, 128, 129, 512])
+@pytest.mark.parametrize("mode", ["kv_lens", "causal", "packed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_attention_backward_fused_and_split(cuda, s, mode, dtype):
+    """K2 on both sides of its one-pass limit (128 keys at D = 64):
+    ragged tiles, a row of no visible key (kv_len 0, packed padding),
+    the same bits on a second call."""
+    rng, q, k, v = _flash_case(s, 3, 2, s, s, 64, cuda, dtype)
+    kw = {"causal": True} if mode == "causal" else {
+        "kv_lens": torch.tensor([0, max(1, s // 2), s], dtype=torch.int32,
+                                device=cuda)}
+    if mode == "packed":
+        seg, used = _packed_rows(rng, 3, s)
+        kw = {"segment_ids": torch.tensor(seg, device=cuda),
+              "kv_lens": torch.tensor(used, device=cuda)}
+    do = torch.tensor(rng.randn(*q.shape).astype(np.float32), dtype=dtype,
+                      device=cuda)
+    assert fa.backward_path(s, 64) == ("fused" if s <= 128 else "split")
+    o, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+    again = fa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    want = fa.flash_attention_backward_reference(q, k, v, lse, do, delta,
+                                                 **kw)
+    torch.cuda.synchronize()
+    for g, w, g2, what in zip(got, want, again, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all(), what
+        assert _within(g, w, 1e-4, 1e-5), \
+            (what, (g.float() - w.float()).abs().max().item())
+        assert torch.equal(g, g2), what          # no atomics: same bits
+    if mode != "causal":                         # batch 0 sees no key
+        assert all(g[0].abs().max().item() == 0.0 for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [70, 200])
+def test_flash_attention_backward_on_strided_heads_both_paths(cuda, s):
+    """K2 on head views of one fused projection, one pass (S = 70) and
+    split (S = 200): the same gradients as on contiguous copies."""
+    rng = np.random.RandomState(s)
+    qkv = torch.tensor(rng.randn(2, s, 3, 4, 64).astype(np.float32),
+                       device=cuda)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    do = torch.tensor(rng.randn(2, 4, s, 64).astype(np.float32),
+                      device=cuda)
+    o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=True)
+    want = fa.flash_attention_backward(
+        *(t.contiguous() for t in (q, k, v, o)), lse, do, causal=True)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 # -- K3b: LayerNorm backward -------------------------------------------------
 @pytest.mark.cuda
 @pytest.mark.parametrize("r,d", [(1, 32), (37, 768), (8 * 1024, 768),
-                                 (5, 1000), (3, 1024), (9, 7), (5000, 64)])
+                                 (5, 1000), (3, 1024), (9, 7), (5000, 64),
+                                 # a block a row past 1024; more rows
+                                 # than its 512 blocks
+                                 (3, 1025), (700, 2048), (5, 4099),
+                                 (2, 12288)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_layer_norm_backward_kernel_matches_plain(cuda, r, d, dtype):
@@ -402,10 +466,10 @@ def test_layer_norm_backward_kernel_refuses_bad_operands(cuda):
         ln.layer_norm_backward(x, g, mu, rs, x[:2])
     with pytest.raises(ValueError):
         ln.layer_norm_backward(x, g.cpu(), mu, rs, x)
-    big = torch.randn(2, 2048, device=cuda)
+    empty = torch.randn(2, 0, device=cuda)
     with pytest.raises(ValueError):
-        ln.layer_norm_backward(big, torch.ones(2048, device=cuda),
-                               mu[:2], rs[:2], big)
+        ln.layer_norm_backward(empty, torch.ones(0, device=cuda),
+                               mu[:2], rs[:2], empty)
 
 
 # -- K4a/K4b: fused softmax cross-entropy ------------------------------------
@@ -557,15 +621,42 @@ def _lstm_backward_matches(cuda, t, n, h, dtype, w_layout):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h", [24, 200, 650, 1056])
+@pytest.mark.parametrize("h", [24, 200, 650, 1056, 1500, 2112])
 @pytest.mark.parametrize("n", [1, 17, 33])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("w_layout", ["4hh", "h4h"])
 def test_lstm_backward_kernels_on_ragged_m_tiles(cuda, h, n, dtype,
                                                  w_layout):
     """N not a multiple of the m16 tile, H up to 1056 (8 units a block
-    on 132 SMs), one step, both layouts of W."""
+    on 132 SMs) and past it (1500, 2112: W's rows in device memory, but
+    1500 in bf16), one step, both layouts of W."""
     _lstm_backward_matches(cuda, 1, n, h, dtype, w_layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [24, 200, 650, 1056, 1500, 2112])
+@pytest.mark.parametrize("n", [1, 17, 33, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_layout", ["4hh", "h4h"])
+def test_lstm_forward_kernel_on_its_grid(cuda, h, n, dtype, w_layout):
+    """K6a over its unit groups x row groups: N not a multiple of the
+    m16 tile, up to 8 row groups of one block (N=1024), H up to 1056 (8
+    units a block) and past it (W's columns in device memory at 16
+    units a block), both layouts of W, three steps (both h buffers
+    written and read again); the same bits on a second run."""
+    gin, w, h0, c0, _, _ = _lstm_case(3, n, h, dtype, cuda, False)
+    if w_layout == "h4h":               # a contiguous (H, 4H) weight
+        w = w.contiguous()
+    before = launch_counts()["lstm_fwd"]
+    got = lstm.lstm_forward(gin, w, h0, c0)
+    again = lstm.lstm_forward(gin, w, h0, c0)
+    want = lstm.lstm_forward_reference(gin, w, h0, c0)
+    torch.cuda.synchronize()
+    assert launch_counts()["lstm_fwd"] == before + 2
+    for name, g, r, g2 in zip(("out", "cseq", "gates"), got, want, again):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all(), name
+        assert _lstm_close(g, r, dtype), name
+        assert torch.equal(g, g2), name        # no atomics: same bits
 
 
 @pytest.mark.cuda
@@ -601,6 +692,29 @@ def test_lstm_autograd_on_the_card_matches_the_cpu(cuda):
 
 
 @pytest.mark.cuda
+def test_ops_raise_on_the_card_where_no_kernel_runs(cuda):
+    """On the card an op never falls back to composed math for a call
+    of its kernels' types: past the kernels' shapes it raises before any
+    launch (a head dim past 256; an LSTM layer past one block an SM of
+    16 units, H = 2113 on an H100)."""
+    from mxnet_tpu_torch.ndarray import op_impl_nn, op_impl_rnn
+
+    before = launch_counts()
+    q = torch.zeros(1, 1, 4, 264, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        op_impl_nn.flash_attention_op(q, q, q)
+    hid = 16 * lstm.device_numbers(cuda)[0] + 1
+    size = op_impl_rnn.rnn_param_size(1, 4, hid, False, "lstm")
+    state = torch.zeros(1, 1, hid, device=cuda)
+    with pytest.raises(ValueError, match="cannot run"):
+        op_impl_rnn.rnn(torch.zeros(2, 1, 4, device=cuda),
+                        torch.zeros(size, device=cuda), state, state,
+                        state_size=hid, num_layers=1, bidirectional=False,
+                        mode="lstm")
+    assert launch_counts() == before
+
+
+@pytest.mark.cuda
 def test_lstm_grid_and_what_cannot_fit(cuda):
     plan = lstm.lstm_plan(32, 650)
     assert plan["blocks"] * plan["units_per_block"] >= 650
@@ -614,8 +728,10 @@ def test_lstm_grid_and_what_cannot_fit(cuda):
                      "blocks_per_sm": bplan["blocks_per_sm"]}
     for n in (1, 33, 1024):
         for dtype in (torch.float32, torch.bfloat16):
-            lstm.lstm_plan(n, 1056, dtype, backward=True)
-            lstm.lstm_plan(n, 1056, dtype)
+            for hid in (1056, 1500, 2112):
+                lstm.lstm_plan(n, hid, dtype, backward=True)
+                lstm.lstm_plan(n, hid, dtype)
+    assert lstm.lstm_plan(32, 1500)["w_global"]
     with pytest.raises(ValueError, match="cannot run"):
         lstm.lstm_plan(8, 4096)
     gin = torch.zeros(2, 8, 4 * 4096, device=cuda)

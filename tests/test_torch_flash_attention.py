@@ -131,9 +131,21 @@ def test_cpu_path_refuses_what_the_kernel_refuses():
     with pytest.raises(TypeError, match="kv_lens"):
         fa.flash_attention(q, k, k, kv_lens=torch.ones(1, dtype=torch.int64))
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(torch.zeros(1, 1, 4, 136),
-                           torch.zeros(1, 1, 4, 136),
-                           torch.zeros(1, 1, 4, 136))
+        fa.flash_attention(torch.zeros(1, 1, 4, 264),
+                           torch.zeros(1, 1, 4, 264),
+                           torch.zeros(1, 1, 4, 264))
+
+
+@pytest.mark.parametrize("skv,d,path", [(128, 64, "fused"),
+                                        (129, 64, "split"),
+                                        (1, 8, "fused"), (128, 65, "split"),
+                                        (512, 64, "split"),
+                                        (64, 256, "split")])
+def test_backward_takes_one_pass_where_every_key_fits_a_block(skv, d, path):
+    """K2's choice, as the JAX kernel's nk <= 2: one pass up to 128 keys
+    (K, V, q', do, p and ds in shared memory at D <= 64), the dq and
+    dk/dv pair past that."""
+    assert fa.backward_path(skv, d) == path
 
 
 def _grads_port(q, k, v, kw, do, dlse):

@@ -149,41 +149,69 @@ def test_plan_fits_the_word_lm_and_h_up_to_1056_on_an_h100(n, hid,
         plan = tl.plan_grid(n, hid, dtype, backward=backward, **H100)
         assert plan["blocks"] <= 132          # one block an SM
         assert plan["smem_bytes"] <= H100["smem_limit"]
-        if backward:
-            # unit groups of one or two n-tiles x row groups of m-tiles;
-            # W rows padded to whole chunks, 64 B apart in the banks
-            item = 4 if dtype == torch.float32 else 2
-            assert plan["units_per_block"] <= 16
-            assert plan["unit_groups"] * plan["units_per_block"] >= hid
-            assert plan["blocks"] == plan["unit_groups"] * plan["row_groups"]
-            assert 1 <= plan["row_groups"] <= plan["m_tiles"]
-            assert plan["m_tiles"] * 16 >= n
-            assert plan["w_row"] >= 4 * hid
-            assert plan["w_row"] * item % 128 == 64
-        else:
-            assert plan["units_per_block"] <= 8
-            assert plan["blocks"] * plan["units_per_block"] >= hid
-            assert 1 <= plan["rows_per_pass"] <= min(n, 256)
+        # unit groups of one or two n-tiles x row groups of m-tiles; W
+        # rows padded to whole chunks of the product's depth, 64 B apart
+        # in the banks
+        item = 4 if dtype == torch.float32 else 2
+        assert plan["units_per_block"] <= 16
+        assert plan["unit_groups"] * plan["units_per_block"] >= hid
+        assert plan["blocks"] == plan["unit_groups"] * plan["row_groups"]
+        assert 1 <= plan["row_groups"] <= plan["m_tiles"]
+        assert plan["m_tiles"] * 16 >= n
+        assert plan["w_row"] >= (4 * hid if backward else hid)
+        assert plan["w_row"] * item % 128 == 64
+        if not backward:                      # h in whole 64-byte chunks
+            assert plan["h_row"] >= hid and plan["h_row"] * item % 64 == 0
 
 
 def test_plan_of_the_word_lm_shapes():
-    # one block per SM's worth of units: 130 blocks of 5 units at H=650
-    fwd = tl.plan_grid(32, 650, torch.float32, **H100)
-    assert (fwd["blocks"], fwd["units_per_block"], fwd["rows_per_pass"],
-            fwd["k_split"], fwd["smem_bytes"]) == (130, 5, 32, 8, 155808)
-    # the backward: 41 groups of 16 units (W's 16 rows, 167 KB, fit in
-    # f32) x 2 row groups at N=32, x 3 at N=1024; at H=1056 f32 only 8
-    # rows fit: 132 groups of 8, one row group
-    def grid(n, hid, dtype=torch.float32):
-        p = tl.plan_grid(n, hid, dtype, backward=True, **H100)
+    # 41 groups of 16 units x 2 row groups at N=32, x 3 at N=1024. The
+    # forward keeps the 64 gate columns of its units (164 KB at H=650 in
+    # f32), the backward W's 16 rows (167 KB); at H=1056 f32 only 8
+    # units fit: 132 groups of 8, one row group
+    def grid(n, hid, dtype=torch.float32, backward=True):
+        p = tl.plan_grid(n, hid, dtype, backward=backward, **H100)
         return (p["units_per_block"], p["unit_groups"], p["row_groups"],
                 p["blocks"])
-    assert grid(32, 650) == (16, 41, 2, 82)
-    assert grid(1024, 650) == (16, 41, 3, 123)
-    assert grid(1, 650) == (16, 41, 1, 41)
-    assert grid(1024, 1056) == (8, 132, 1, 132)
-    assert grid(1024, 1056, torch.bfloat16) == (16, 66, 2, 132)
-    assert grid(33, 5) == (5, 1, 3, 3)
+    for backward in (False, True):
+        assert grid(32, 650, backward=backward) == (16, 41, 2, 82)
+        assert grid(1024, 650, backward=backward) == (16, 41, 3, 123)
+        assert grid(1, 650, backward=backward) == (16, 41, 1, 41)
+        assert grid(1024, 1056, backward=backward) == (8, 132, 1, 132)
+        assert grid(1024, 1056, torch.bfloat16, backward) == (16, 66, 2,
+                                                              132)
+        assert grid(33, 5, backward=backward) == (5, 1, 3, 3)
+    fwd = tl.plan_grid(32, 650, torch.float32, **H100)
+    assert (fwd["w_row"], fwd["h_row"], fwd["smem_bytes"]) == (656, 656,
+                                                               200704)
+
+
+@pytest.mark.parametrize("n,hid,dtype,w_global", [
+    (32, 650, torch.float32, False), (1024, 650, torch.float32, False),
+    (32, 1056, torch.float32, False), (1024, 1056, torch.bfloat16, False),
+    (32, 1057, torch.float32, True), (32, 1500, torch.float32, True),
+    (32, 1500, torch.bfloat16, False), (1024, 2112, torch.float32, True)])
+def test_plan_keeps_w_in_shared_memory_where_it_fits(n, hid, dtype,
+                                                     w_global):
+    """Both directions on an H100: W's part in shared memory up to H =
+    1056 in f32 (and H = 1500 in bf16); past that (``word_lm.py --nhid
+    1500``) 16 units a block with W's rows in a device-memory scratch of
+    ``w_scratch`` elements, shared memory for the partial sums only, up
+    to H = 2112."""
+    for backward in (False, True):
+        plan = tl.plan_grid(n, hid, dtype, backward=backward, **H100)
+        assert plan["w_global"] is w_global
+        assert plan["blocks"] <= 132
+        rows = (1 if backward else 4) * 16
+        if w_global:
+            assert plan["units_per_block"] == 16
+            assert plan["w_scratch"] == plan["blocks"] * rows * \
+                plan["w_row"]
+            assert plan["smem_bytes"] == (8192 if backward else 32768)
+        else:
+            assert plan["w_scratch"] == 0
+    with pytest.raises(ValueError, match="133 unit groups of 16"):
+        tl.plan_grid(n, 2113, dtype, **H100)
 
 
 @pytest.mark.parametrize("backward", [False, True])
@@ -191,8 +219,9 @@ def test_plan_refuses_what_cannot_fit_with_its_numbers(backward):
     with pytest.raises(ValueError, match=r"cannot run N=8, H=4096 "
                                          r"\(torch.float32\) on 132 SMs: "):
         tl.plan_grid(8, 4096, torch.float32, backward=backward, **H100)
-    with pytest.raises(ValueError, match="limit 20000 B"):
-        tl.plan_grid(8, 650, torch.float32, sms=132, smem_limit=20000,
+    # below the partial sums' bytes: W's rows in device memory do not help
+    with pytest.raises(ValueError, match="limit 8000 B"):
+        tl.plan_grid(8, 650, torch.float32, sms=132, smem_limit=8000,
                      backward=backward)
 
 
@@ -243,6 +272,22 @@ def test_tf32_round_to_nearest_keeps_ten_bits():
                       -(1.0 + 2.0 ** -12), 3.0 + 2.0 ** -9])
     assert _tf32(x).tolist() == [1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
                                  -1.0, 3.0 + 2.0 ** -9]
+
+
+@pytest.mark.parametrize("depth", [64, 128])
+def test_three_term_tf32_product_at_the_attention_backwards_depths(depth):
+    """K2's products on the same tensor-core arithmetic: depth D = 64
+    (s = q' k^T, dp = do v^T) and Skv = 128 (dq = ds k; dk, dv over a
+    query tile of 64, twice). The 3-term split stays within 1e-5 of
+    scale against float64; one TF32 term does not."""
+    rng = np.random.RandomState(depth)
+    a = torch.from_numpy(rng.randn(32, depth).astype(np.float32))
+    b = torch.from_numpy(rng.randn(depth, 8).astype(np.float32))
+    want = a.double() @ b.double()
+    scale = max(want.abs().max().item(), 1.0)
+    for terms, within in ((3, True), (1, False)):
+        err = (_mma_product(a, b, terms).double() - want).abs().max().item()
+        assert (err <= 1e-5 * scale) is within, (terms, err, scale)
 
 
 @pytest.mark.parametrize("depth", [2600, 1120])
