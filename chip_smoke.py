@@ -11,8 +11,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 3. each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it, in float32 and bfloat16, with its time,
    the plain version's, a library yardstick and the bound: paged
-   attention (decode and chunk shapes), flash attention (packed rows
-   of 64, 256 and 512 tokens, and a dense causal 512), LayerNorm
+   attention (decode histories of 0..1024 tokens, the decode burst's
+   own histories, a prefill chunk), flash attention (packed rows of
+   64, 256 and 512 tokens, a dense causal 512, and the training
+   batch's 64 x 128 padded rows), LayerNorm
    (8 x 512 rows of 768, eps 1e-12); and the training kernels at the
    training step's shapes: the flash-attention backward (64 x 128
    padded rows of the training batch, packed 512, dense causal 512),
@@ -343,6 +345,10 @@ def check_paged_attention(rng, dev):
         # decode: 8 rows of 12 heads, ragged histories incl. 0 and 1024
         "decode": dict(b=8, h=12, sq=1, d=64, page_size=16, width=64,
                        kv_lens=[0, 1, 17, 100, 333, 512, 777, 1024]),
+        # decode at the serving burst's own histories (prompts of 5..200
+        # tokens plus up to 32 generated), in its table bucket of 16
+        "burst": dict(b=8, h=12, sq=1, d=64, page_size=16, width=16,
+                      kv_lens=[37, 49, 72, 96, 97, 132, 182, 232]),
         # chunked prefill: one 64-token chunk ending at position 200
         "chunk": dict(b=1, h=12, sq=64, d=64, page_size=16, width=16,
                       kv_lens=[201]),
@@ -403,6 +409,8 @@ def check_paged_attention(rng, dev):
              "replaces": "mxnet_tpu/ops/pallas/flash_attention.py:1027",
              "shape": "decode B=8 H=12 Sq=1 D=64 page 16 width 64 f32"}
     entry.update(out["decode"])
+    entry["burst"] = dict(out["burst"],
+                          shape="burst B=8 H=12 Sq=1 D=64 width 16 f32")
     entry["chunk"] = dict(out["chunk"],
                           shape="chunk B=1 H=12 Sq=64 D=64 width 16 f32")
     return entry
@@ -429,56 +437,76 @@ def packed_segments(rng, b, s):
     return seg, used
 
 
-def flash_work(b, h, s, d, itemsize, seg=None, causal=False):
-    """(bytes, flops) one flash call needs for THESE inputs: q, k, v
-    read once, o and the f32 lse written once, the ids and lengths;
-    4 * D flops (QK^T and PV) per visible (query, key) pair."""
+def flash_work(b, h, s, d, itemsize, seg=None, causal=False, used=None):
+    """(bytes, flops) one flash call needs for THESE inputs. Without
+    ``used`` (each row's kv_len): q, k, v read for every slot. With it:
+    k and v read up to each row's kv_len, q for the slots that see a key
+    (a packed row's used slots; every slot of a padded row), and the
+    lengths. Always o and the f32 lse written for every slot, and the
+    ids; 4 * D flops (QK^T and PV) per visible (query, key) pair."""
     import numpy as np
 
-    bytes_ = 4 * b * h * s * d * itemsize + b * h * s * 4
+    if used is None:
+        q_rows = kv_rows = b * s
+        bytes_ = 0
+    else:
+        kv_rows = int(np.asarray(used, np.int64).sum())
+        q_rows = kv_rows if seg is not None else b * s
+        bytes_ = b * 4
+    bytes_ += (q_rows + 2 * kv_rows + b * s) * h * d * itemsize \
+        + b * h * s * 4
     if seg is not None:
-        bytes_ += seg.size * 4 + b * 4
+        bytes_ += seg.size * 4 + (b * 4 if used is None else 0)
         pairs = 0
         for row in seg:
             _, counts = np.unique(row[row > 0], return_counts=True)
             pairs += int((counts.astype(np.int64) ** 2).sum())
     elif causal:
         pairs = b * s * (s + 1) // 2
+    elif used is not None:
+        pairs = s * kv_rows
     else:
         pairs = b * s * s
     return bytes_, 4 * d * h * pairs
 
 
-def check_flash_attention(rng, dev):
+def check_flash_attention(rng, dev, lens):
     """K1 against its plain version at the encoder path's shapes:
     B=8 rows, 12 heads, D=64, packed rows of 64/256/512 slots (with
-    padding, kv_lens from it) and a dense causal 512, in float32 and
-    bfloat16. Returns the kernel's JSON entry (numbers of the packed
-    512 f32 case at top level, the others under ``cases``)."""
+    padding, kv_lens from it) and a dense causal 512, and at the
+    training step's: the batch's 64 x 128 padded rows (``kv_lens`` =
+    its valid lengths), in float32 and bfloat16. Returns the kernel's
+    JSON entry (numbers of the packed 512 f32 case at top level, the
+    others under ``cases``)."""
+    import numpy as np
     import torch
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops.flash_attention import (
         flash_attention_reference, flash_attention_with_lse)
 
-    b, h, d = 8, 12, 64
+    h, d = 12, 64
     # o within 1e-4 (f32, the same math summed in another order) plus,
     # in bf16, one unit in the last place of the plain value (both round
     # an f32 result once); lse is f32 on both sides from the same
     # rounded q and k
-    cases = [("packed", 64), ("packed", 256), ("packed", 512),
-             ("causal", 512)]
+    cases = [("packed", 8, 64), ("packed", 8, 256), ("packed", 8, 512),
+             ("causal", 8, 512), ("padded", TRAIN_B, TRAIN_S)]
     out = {}
-    for kind, s in cases:
-        seg_np, used = packed_segments(rng, b, s) if kind == "packed" \
-            else (None, None)
+    for kind, b, s in cases:
+        seg_np = used = None
+        if kind == "packed":
+            seg_np, used = packed_segments(rng, b, s)
+        elif kind == "padded":
+            used = np.asarray(lens, np.int32)
         base = [rng.randn(b, h, s, d).astype("float32") for _ in range(3)]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.tensor(x, dtype=dtype, device=dev)
                        for x in base)
             kw = {"causal": True} if kind == "causal" else {
-                "segment_ids": torch.tensor(seg_np, device=dev),
                 "kv_lens": torch.tensor(used, device=dev)}
+            if kind == "packed":
+                kw["segment_ids"] = torch.tensor(seg_np, device=dev)
             o, lse = flash_attention_with_lse(q, k, v, **kw)
             ro, rlse = flash_attention_reference(q, k, v, **kw)
             torch.cuda.synchronize()
@@ -491,7 +519,7 @@ def check_flash_attention(rng, dev):
                     empty.any() and o.float()[empty].abs().max() != 0):
                 raise AssertionError(f"flash {kind} {s}: rows with no "
                                      f"visible key are not exact zeros")
-            name = f"{kind} S={s} {str(dtype)[6:]}"
+            name = f"{kind} B={b} S={s} {str(dtype)[6:]}"
             log(f"flash_attention {name}: max_abs_err {err:.3e} (tol "
                 f"1e-4{' + 1 ulp' if dtype != torch.float32 else ''}), "
                 f"lse {lse_err:.3e} (tol 1e-4), {int(empty.sum())} empty "
@@ -504,9 +532,12 @@ def check_flash_attention(rng, dev):
                 continue
             # yardstick only (never called by the port): SDPA with the
             # same visibility as a boolean mask built outside the timing
+            col = torch.arange(s, device=dev)
             if kind == "causal":
-                mask = torch.ones(s, s, dtype=torch.bool,
-                                  device=dev).tril()
+                mask = col[None, :] <= col[:, None]
+            elif kind == "padded":
+                mask = (col[None, :] < kw["kv_lens"].long()[:, None]
+                        )[:, None, None, :]
             else:
                 sg = kw["segment_ids"].long()
                 mask = (sg[:, None, :, None] == sg[:, None, None, :]) \
@@ -517,15 +548,20 @@ def check_flash_attention(rng, dev):
                           q, k, v, attn_mask=mask),
                       plain_iters=10, lib_iters=20)
             nbytes, flops = flash_work(b, h, s, d, 4, seg_np,
-                                       kind == "causal")
-            bms, by = bound(nbytes, flops)
+                                       kind == "causal", used)
+            # the products on the tensor cores, f32 kept by three TF32
+            # terms each; the bound on CUDA cores beside it
+            bms, by = bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)
+            cms, cby = bound(nbytes, flops)
             out[(kind, s)] = {
                 "shape": f"{kind} B={b} H={h} S={s} D={d} f32",
                 "max_abs_err": err, **t, "bound_ms": bms, "bound_by": by,
+                "bound_cuda_cores_ms": cms, "bound_cuda_cores_by": cby,
                 "library": "SDPA with a boolean mask"}
             log(f"flash_attention {name}: {fmt_times(t)} (library: SDPA, "
                 f"boolean mask), bound {bms * 1e3:.2f} us ({by}: {nbytes} "
-                f"B, {flops} flop)")
+                f"B, {flops} flop x 3 TF32 terms; on CUDA cores "
+                f"{cms * 1e3:.2f} us, {cby})")
     entry = {"name": "flash_attention", "route": "cuda",
              "source": "mxnet_tpu_torch/ops/csrc/flash_attention.cu",
              "replaces": "mxnet_tpu/ops/pallas/flash_attention.py:568"}
@@ -1869,7 +1905,8 @@ def main():
     rng = np.random.RandomState(args.seed)
     lens = train_batch(args.seed)[0]
     entries = [check_paged_attention(rng, dev),
-               check_flash_attention(rng, dev), check_layer_norm(rng, dev),
+               check_flash_attention(rng, dev, lens),
+               check_layer_norm(rng, dev),
                check_flash_attention_bwd(rng, dev, lens),
                check_layer_norm_bwd(rng, dev),
                *check_softmax_xent(rng, dev, int(lens.sum())),

@@ -131,4 +131,188 @@ __device__ __forceinline__ void mma_16<__half>(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+
+// TF32 operand words of f32 values: hi, and lo = x - hi when `split`
+template <int N, bool SPLIT>
+__device__ __forceinline__ void tf32_words(const float (&x)[N],
+                                           uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (SPLIT)
+      split_tf32(__float_as_uint(x[i]), hi[i], lo[i]);
+    else
+      hi[i] = tf32_rna(x[i]);   // exact: a 16-bit input value
+  }
+}
+
+// acc[j] += A (16 x 8) . B (8 x 8) at depth k0..k0+7, j < nt_live <= NT,
+// for one warp: A(m, k) and B(k, n) read f32 from shared memory (B's n
+// = 8 j + column), every B fragment loaded before the products. SA /
+// SB: the operand is f32 data to split into TF32 hi + lo; otherwise it
+// holds 16-bit input values, exact in TF32, and takes one term. The
+// k-step goes into fresh partials, added round-to-nearest (the tensor
+// cores' own adds round toward zero). acc[j]: rows gid (0, 1) and
+// gid + 8 (2, 3), columns 8 j + 2 tig (+ 1).
+template <int NT, bool SA, bool SB, typename FA, typename FB>
+__device__ __forceinline__ void mma_kstep(float (&acc)[NT][4], int k0, FA A,
+                                          FB B, int nt_live) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const float av[4] = {A(gid, k0 + tig), A(gid + 8, k0 + tig),
+                       A(gid, k0 + tig + 4), A(gid + 8, k0 + tig + 4)};
+  float bv[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    bv[j][0] = j < nt_live ? B(k0 + tig, 8 * j + gid) : 0.f;
+    bv[j][1] = j < nt_live ? B(k0 + tig + 4, 8 * j + gid) : 0.f;
+  }
+  uint32_t ah[4], al[4];
+  tf32_words<4, SA>(av, ah, al);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt_live) {
+      uint32_t bh[2], bl[2];
+      tf32_words<2, SB>(bv[j], bh, bl);
+      float p[4];
+      if (SA) {
+        mma_tf32_0(p, al, bh);
+        if (SB) mma_tf32(p, ah, bl);
+        mma_tf32(p, ah, bh);
+      } else if (SB) {
+        mma_tf32_0(p, ah, bl);
+        mma_tf32(p, ah, bh);
+      } else {
+        mma_tf32_0(p, ah, bh);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] += p[q];
+    }
+  }
+}
+
+// TF32 operand words without the conversion unit: hi = x rounded to
+// TF32 (to nearest, ties away from zero) by an integer add and mask,
+// lo = x - hi (exact) passed as its f32 bits: the tensor cores read a
+// TF32 operand's top 19 bits, so lo is truncated to TF32 there (an error
+// of at most 2^-21 |x|, below the dropped lo.lo term's order). Without
+// `split`, x is a 16-bit input value, a TF32 value already.
+template <int N, bool SPLIT>
+__device__ __forceinline__ void tf32_words_int(const float (&x)[N],
+                                               uint32_t (&hi)[N],
+                                               uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const uint32_t u = __float_as_uint(x[i]);
+    if (SPLIT) {
+      hi[i] = (u + 0x1000u) & 0xffffe000u;
+      lo[i] = __float_as_uint(x[i] - __uint_as_float(hi[i]));
+    } else {
+      hi[i] = u;
+    }
+  }
+}
+
+// mma_kstep with the n-tiles' products interleaved: every n-tile's
+// first term, then every second, then every third, so mma issued back
+// to back are independent and a warp need not wait out each product's
+// latency (4 NT more registers), and with the operands split by
+// tf32_words_int: the conversion unit's rate would bound the products
+// otherwise. A's words (ah, al: tf32_words_int of this lane's A values
+// A(gid, k0 + tig), A(gid + 8, k0 + tig), A(gid, k0 + tig + 4),
+// A(gid + 8, k0 + tig + 4)) are split once by the caller.
+template <int NT, bool SA, bool SB, typename FB>
+__device__ __forceinline__ void mma_kstep_il(float (&acc)[NT][4],
+                                             const uint32_t (&ah)[4],
+                                             const uint32_t (&al)[4],
+                                             int k0, FB B, int nt_live) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float bv[2] = {j < nt_live ? B(k0 + tig, 8 * j + gid) : 0.f,
+                         j < nt_live ? B(k0 + tig + 4, 8 * j + gid) : 0.f};
+    tf32_words_int<2, SB>(bv, bh[j], bl[j]);
+  }
+  float p[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt_live) {
+      if (SA)
+        mma_tf32_0(p[j], al, bh[j]);
+      else if (SB)
+        mma_tf32_0(p[j], ah, bl[j]);
+      else
+        mma_tf32_0(p[j], ah, bh[j]);
+    }
+  }
+  if (SA && SB) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      if (j < nt_live) mma_tf32(p[j], ah, bl[j]);
+  }
+  if (SA || SB) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      if (j < nt_live) mma_tf32(p[j], ah, bh[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    if (j < nt_live)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] += p[j][q];
+}
+
+// acc += A (16 x K) . B (K x 8 NT), K a multiple of 8 (mma_kstep)
+template <int NT, bool SA, bool SB, typename FA, typename FB>
+__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], int K, FA A,
+                                         FB B) {
+  for (int k0 = 0; k0 < K; k0 += 8)
+    mma_kstep<NT, SA, SB>(acc, k0, A, B, NT);
+}
+
+// Two products of one depth in one loop (independent chains for the
+// scheduler): acc0 += A0 . B0, acc1 += A1 . B1.
+template <int NT, bool SA, bool SB, typename FA0, typename FB0,
+          typename FA1, typename FB1>
+__device__ __forceinline__ void warp_mma2(float (&acc0)[NT][4], FA0 A0,
+                                          FB0 B0, float (&acc1)[NT][4],
+                                          FA1 A1, FB1 B1, int K,
+                                          int nt_live = NT) {
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    mma_kstep<NT, SA, SB>(acc0, k0, A0, B0, nt_live);
+    mma_kstep<NT, SA, SB>(acc1, k0, A1, B1, nt_live);
+  }
+}
+
+// ---- asynchronous copies (cp.async) ----------------------------------------
+//
+// Global -> shared without a trip through registers. `src_bytes` of the
+// copy's 16 (or 4) are read and the rest of the destination is zero-
+// filled; with 0 nothing is read. Both addresses must be aligned to the
+// copy's size. A thread's copies land when cp_async_wait lets them;
+// other threads see them after a barrier.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 }  // namespace mxtt

@@ -11,307 +11,467 @@
 //     seg[b, i] == seg[b, j]               (when packed; Sq == Skv)
 // q' is q * sm_scale rounded back to q's type, as the TPU wrapper
 // pre-scales it. A row with no visible key gives exact zeros and
-// lse = -1e30 (the TPU kernel's `seen` guard and l_safe division). All
-// math in float32 on CUDA cores, for f32 inputs as for bf16/f16 (the
-// TPU kernel runs f32 at HIGHEST precision: no TF32 here either).
+// lse = -1e30 (the TPU kernel's `seen` guard and l_safe division). The
+// TPU kernel runs f32 at HIGHEST precision; so does this one.
+//
+// Bound. Operations: 4 * D flops per visible (i, j) pair (QK^T and PV).
+// On the tensor cores an f32 product kept to f32 accuracy takes three
+// TF32 products (495 / 3 TFLOP/s); at BERT-base's S = 512, D = 64 that
+// is about 85 flops per byte of q, k, v and o, above the card's balance
+// of 49 at that rate, so operations bound f32; 16-bit inputs take one
+// TF32 term for QK^T and two for PV, and move half the bytes.
 //
 // Design. On the TPU the key-tile axis is a sequential grid dimension
-// and m, l and acc live in VMEM scratch between grid steps. Here
-// blocks run in no order, so one block owns one (batch*head, 64-query
-// tile) and LOOPS over 64-key tiles itself, with the running max m and
-// sum l per query row in shared memory and the output accumulator in
-// registers. 256 threads; in the two products each thread owns a 4 x 4
-// tile of scores and a 4-row x D/16 slice of the output (register
-// tiling: 8 shared-memory reads per 16 FMAs). Q, K, V and the score
-// tile are staged in shared memory as f32 (K rows padded by one word:
-// no bank conflicts). Whole key tiles are skipped as _block_visible
-// does: the loop never reaches tiles at or past kv_len or above the
-// causal diagonal, and with segment ids a tile none of whose ids falls
-// in the query tile's [min, max] id range is skipped after reading its
-// 64 ids (one __syncthreads_or); the ids are compared in the kernel,
-// so the TPU's host-side range pre-pass and its lane/sublane id
-// broadcasts are not needed. The ragged edges (Sq, Skv and D not
-// multiples of the tiles) are masked by index. q, k, v and o may be
-// any views whose last axis is contiguous (strides are arguments), so
-// heads sliced out of a fused QKV projection need no copy, and o can
-// be written straight into a (B, S, H, D) buffer.
+// and m, l and acc live in VMEM scratch between grid steps. Here one
+// block of 8 warps owns one (batch*head, 64-query tile) and LOOPS over
+// key tiles (64 keys, 32 past D = 128). A warp owns 16 query rows and
+// one half of each key tile, with its own (m, l, acc); the two halves
+// are folded once, at the end, through shared memory. Two warps a row
+// group (16 an SM at two blocks) keep the tensor cores fed where one
+// warp would wait out its products' latency.
+//  - Both products run on mma.sync m16n8k8 TF32 (common.cuh's
+//    mma_kstep_il): f32 operands split into TF32 hi + lo (3 terms),
+//    16-bit ones exact in one term, each k-step summed into a fresh
+//    partial added round-to-nearest; the n-tiles' products interleaved,
+//    so mma issued back to back are independent.
+//  - Scores stay in registers: the warp's S fragment (16 x 32) is
+//    masked, its row max taken with quad shuffles, exponentiated, and
+//    used in place as the A operand of P.V: accumulator columns
+//    (2 tig, 2 tig + 1) serve as depth indices (tig, tig + 4), and V's
+//    rows are read in that order. No score tile in shared memory, no
+//    block-wide sync for the softmax; the row sum l is kept per lane
+//    and summed over the quad once, at the end.
+//  - q' is staged once as f32 (scaled and rounded as it is staged); K
+//    and V tiles are raw in shared memory (f32 or 16-bit), double
+//    buffered: cp.async brings the next live tile while the warps
+//    compute on this one, one __syncthreads a tile. Rows are padded
+//    (4 words in f32, 8 halves in 16 bits) so the fragment reads are
+//    free of bank conflicts. Tiles not 16-byte aligned (odd widths or
+//    strides) are staged through registers instead.
+//  - Whole key tiles are skipped as _block_visible does: the loop never
+//    reaches tiles at or past kv_len or above the causal diagonal, and
+//    with segment ids a pre-pass over the visible keys' ids marks the
+//    tiles holding an id in the query tile's [min, max] range (one
+//    bit a tile in shared memory; skipped where the keys fit one tile);
+//    the rest are never loaded.
+//  - The ragged edges (Sq, Skv and D not multiples of the tiles) are
+//    zero-filled and masked. q, k, v and o may be any views whose last
+//    axis is contiguous (strides are arguments), so heads sliced out of
+//    a fused QKV projection need no copy, and o can be written straight
+//    into a (B, S, H, D) buffer. No atomics: the same bits every run.
 //
-// Bound. Operations: 4 * D flops per visible (i, j) pair (QK^T and PV);
-// at BERT-base's S = 512, D = 64 that is 256 flops per byte of q, k, v
-// and o in f32, above the card's f32 CUDA-core balance (67 TFLOP/s over
-// 3.35 TB/s = 20 flops per byte), so the kernel is bound by operations
-// (in bf16 against the tensor cores' 989 TFLOP/s, it would be bytes).
-//
-// What this simple design leaves on the table: the products run on
-// CUDA cores (no wgmma / mma.sync, which bf16 would need to approach
-// its bound); K and V tiles are loaded synchronously (no cp.async/TMA
-// double-buffering); 64-query tiles give only B * H * Sq / 64 blocks.
+// What it still leaves: mma.sync rather than wgmma, and cp.async rather
+// than TMA with mbarriers; 16-bit inputs still take TF32 (not the
+// m16n8k16 16-bit mma) and P.V keeps p in f32 (two TF32 terms), so bf16
+// does not reach its tensor-core rate; the f32 split of each K and V
+// fragment is redone by every warp that reads it; head dims past 128
+// hold a 32-key tile and 128 accumulator registers a lane.
 
 #include "common.cuh"
 
 namespace {
 
+using mxtt::cp_async16;
+using mxtt::cp_async4;
+using mxtt::cp_async_commit;
+using mxtt::cp_async_wait;
+using mxtt::mma_kstep_il;
 using mxtt::round_to;
 using mxtt::store;
+using mxtt::tf32_words_int;
 using mxtt::to_f32;
 
-constexpr int kBQ = 64;         // queries per block
-constexpr int kBK = 64;         // keys per loop turn
-constexpr int kThreads = 256;
-constexpr int kPS = kBK + 1;    // score tile row stride (floats)
-constexpr float kNegInf = -1e30f;   // as the TPU kernel's sentinel
-constexpr int kSegPadQ = -2, kSegPadK = -3;   // never equal to each other
+constexpr int kRowGroups = 4;           // warps along the queries
+constexpr int kWarps = 2 * kRowGroups;  // and two along each key tile
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kRowGroups;    // queries a block: 16 a warp
+constexpr float kNegInf = -1e30f;       // as the TPU kernel's sentinel
+constexpr int kSegPadQ = -2;            // no key holds it
 
 struct Strides {                // element strides of (b, h, s); d is 1
   long long q[3], k[3], v[3], o[3];
 };
 
-// DP = D rounded up to 16, 32, 64, 128 or 256; columns D..DP-1 are
-// zeros. At DP = 256 the tiles take 210 KB of shared memory (one block
-// an SM).
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int32_t* __restrict__ kv_lens,
-                 const int32_t* __restrict__ seg, T* __restrict__ o,
-                 float* __restrict__ lse, Strides st, int H, int Sq, int Skv,
-                 int D, float scale, int causal, int q_offset) {
-  constexpr int KS = DP + 1;          // K row stride (floats)
-  constexpr int DPT = DP / 16;        // output dims per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                   // kBQ x DP
-  float* ks = qs + kBQ * DP;          // kBK x KS
-  float* vs = ks + kBK * KS;          // kBK x DP
-  float* ps = vs + kBK * DP;          // kBQ x kPS (scores, then p)
-  float* m_s = ps + kBQ * kPS;        // kBQ running max
-  float* l_s = m_s + kBQ;             // kBQ running sum
-  float* a_s = l_s + kBQ;             // kBQ rescale of this turn
-  int* segq = reinterpret_cast<int*>(a_s + kBQ);   // kBQ
-  int* segk = segq + kBQ;                           // kBK
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int32_t* kv_lens;       // (B,) or null
+  const int32_t* seg;           // (B, S) or null
+  void* o;
+  float* lse;                   // (B, H, Sq), contiguous
+  Strides st;
+  int H, Sq, Skv, D;
+  float scale;
+  int causal, q_offset;
+  int vec;                      // k, v tiles may be copied 16 bytes at once
+};
 
-  const int tid = threadIdx.x;
+// Shared memory of a block at padded head dim DP: q' (kBQ rows, f32),
+// two stages of K and V (KT rows each, T), two stages of key segment
+// ids, the query ids, then one bit a key tile (live tiles, packed rows).
+// After the loop the stages hold the second key half's o for the merge
+// and q's rows its m and l.
+template <typename T, int DP>
+struct Tiles {
+  static constexpr int KT = DP <= 128 ? 64 : 32;       // keys a tile
+  static constexpr int LDQ = DP + 4;                   // f32
+  static constexpr int LDK = DP + (sizeof(T) == 4 ? 4 : 8);
+  static constexpr size_t q_bytes = sizeof(float) * kBQ * LDQ;
+  static constexpr size_t stage = 2 * (size_t)KT * LDK;   // elements
+  static constexpr size_t fixed =
+      q_bytes + 2 * stage * sizeof(T) + sizeof(int) * (2 * KT + kBQ);
+  static_assert(2 * stage * sizeof(T) >= sizeof(float) * kBQ * LDQ,
+                "the merge's o fits the stages");
+  static size_t bytes(int mask_words) {
+    return fixed + sizeof(unsigned) * mask_words;
+  }
+};
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, DP <= 64 ? 2 : 1)
+flash_fwd_kernel(Args a) {
+  using S = Tiles<T, DP>;
+  constexpr int KT = S::KT, LDQ = S::LDQ, LDK = S::LDK;
+  constexpr int KH = KT / 2;            // keys of a tile a warp takes
+  constexpr int NT = KH / 8;            // score n-tiles (keys) a warp
+  constexpr int ND = DP / 8;            // output n-tiles (dims) a warp
+  constexpr int OC = ND < 4 ? ND : 4;   // output n-tiles a P.V step
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int VEC = 16 / sizeof(T);   // elements a 16-byte copy
+  constexpr int CPR = DP / VEC;         // copies a padded row
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  T* kv = reinterpret_cast<T*>(smem + S::q_bytes);   // [stage][K, V]
+  int* segk = reinterpret_cast<int*>(kv + 2 * S::stage);   // [stage][KT]
+  int* segq = segk + 2 * KT;                               // kBQ
+  unsigned* live = reinterpret_cast<unsigned*>(segq + kBQ);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int rg = warp % kRowGroups, kh = warp / kRowGroups;
   const int bh = blockIdx.x;
-  const int b = bh / H, h = bh - b * H;
+  const int b = bh / a.H, h = bh - b * a.H;
   const int q0 = blockIdx.y * kBQ;
-  const int rows_here = min(kBQ, Sq - q0);
-  int kvl = kv_lens != nullptr ? kv_lens[b] : Skv;
-  kvl = max(0, min(kvl, Skv));
+  const int rows_here = min(kBQ, a.Sq - q0);
+  int kvl = a.kv_lens != nullptr ? a.kv_lens[b] : a.Skv;
+  kvl = max(0, min(kvl, a.Skv));
   // columns past col_end are invisible to every row of this tile
   int col_end = kvl;
-  if (causal) col_end = min(col_end, q0 + rows_here + q_offset);
-  const int n_tiles = col_end > 0 ? (col_end + kBK - 1) / kBK : 0;
+  if (a.causal) col_end = min(col_end, q0 + rows_here + a.q_offset);
+  const int n_tiles = col_end > 0 ? (col_end + KT - 1) / KT : 0;
 
-  const T* qb = q + b * st.q[0] + h * st.q[1];
-  const T* kb = k + b * st.k[0] + h * st.k[1];
-  const T* vb = v + b * st.v[0] + h * st.v[1];
-  for (int i = tid; i < kBQ * DP; i += kThreads) {
-    const int r = i / DP, d = i - r * DP;
-    float x = 0.f;
-    if (r < rows_here && d < D)
-      x = round_to(to_f32(qb[(long long)(q0 + r) * st.q[2] + d]) * scale,
-                   T());
-    qs[i] = x;
-  }
-  if (tid < kBQ) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-    segq[tid] = (seg != nullptr && tid < rows_here)
-                    ? seg[(long long)b * Sq + q0 + tid] : kSegPadQ;
-  }
-  __syncthreads();
-  int qmin = 0x7fffffff, qmax = -0x7fffffff;
-  if (seg != nullptr) {
+  const T* qb = static_cast<const T*>(a.q) + b * a.st.q[0] + h * a.st.q[1];
+  const T* kb = static_cast<const T*>(a.k) + b * a.st.k[0] + h * a.st.k[1];
+  const T* vb = static_cast<const T*>(a.v) + b * a.st.v[0] + h * a.st.v[1];
+  const int32_t* segrow =
+      a.seg != nullptr ? a.seg + (long long)b * a.Skv : nullptr;
+
+  // packed rows: mark the key tiles holding an id of this query tile's
+  // [min, max] range (one tile needs no mark: if none of its ids
+  // matches, every pair is masked)
+  auto stage_segq = [&]() {
+    if (tid < kBQ)
+      segq[tid] = tid < rows_here ? segrow[q0 + tid] : kSegPadQ;
+  };
+  if (segrow != nullptr && n_tiles > 1) {
+    stage_segq();
+    for (int i = tid; i < (n_tiles + 31) / 32; i += kThreads) live[i] = 0u;
+    __syncthreads();
+    int qmin = 0x7fffffff, qmax = -0x7fffffff;
     for (int r = 0; r < rows_here; ++r) {
       qmin = min(qmin, segq[r]);
       qmax = max(qmax, segq[r]);
     }
+    for (int c0 = 0; c0 < col_end; c0 += 4 * kThreads) {
+      int sk[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = c0 + u * kThreads + tid;
+        sk[u] = c < col_end ? segrow[c] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = c0 + u * kThreads + tid;
+        if (c < col_end && sk[u] >= qmin && sk[u] <= qmax)
+          atomicOr(&live[(c / KT) >> 5], 1u << ((c / KT) & 31));
+      }
+    }
+    __syncthreads();
   }
-
-  const int ty = tid / 16, tx = tid % 16;     // product-phase layout
-  const int srow = tid / 4, ssub = tid % 4;   // softmax-phase layout
-  float acc[4][DPT];
+  // the first live tile at or after t (n_tiles when none)
+  auto next_tile = [&](int t) {
+    if (segrow == nullptr || n_tiles == 1) return min(t, n_tiles);
+    while (t < n_tiles) {
+      const unsigned w = live[t >> 5] >> (t & 31);
+      if (w != 0u) return t + __ffs(w) - 1;
+      t = (t | 31) + 1;
+    }
+    return n_tiles;
+  };
+  // start the copies of key tile t into stage s: rows past the live
+  // keys and columns past D are zeros
+  auto stage = [&](int t, int s) {
+    const int c0 = t * KT, cols = min(KT, col_end - c0);
+    T* ks = kv + s * S::stage;
+    T* vs = ks + KT * LDK;
+    for (int i = tid; i < KT * CPR; i += kThreads) {
+      const int r = i / CPR, d0 = (i - r * CPR) * VEC;
+      const int n = r < cols ? max(0, min(VEC, a.D - d0)) : 0;
+      const T* gk = kb + (long long)(c0 + r) * a.st.k[2] + d0;
+      const T* gv = vb + (long long)(c0 + r) * a.st.v[2] + d0;
+      T* dk = ks + r * LDK + d0;
+      T* dv = vs + r * LDK + d0;
+      if (a.vec) {
+        cp_async16(dk, n > 0 ? gk : kb, n * (int)sizeof(T));
+        cp_async16(dv, n > 0 ? gv : vb, n * (int)sizeof(T));
+      } else {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int c0 = t * kBK;
-    __syncthreads();              // the last turn's readers are done
-    if (seg != nullptr) {
-      int hit = 0;
-      if (tid < kBK) {
-        const int c = c0 + tid;
-        int sk = kSegPadK;
-        if (c < col_end) {
-          sk = seg[(long long)b * Skv + c];
-          hit = sk >= qmin && sk <= qmax;
+        for (int e = 0; e < VEC; ++e) {
+          if (e < n) {
+            dk[e] = gk[e];
+            dv[e] = gv[e];
+          } else {
+            store(dk + e, 0.f);
+            store(dv + e, 0.f);
+          }
         }
-        segk[tid] = sk;
       }
-      if (!__syncthreads_or(hit)) continue;   // disjoint ids: skip
     }
-    for (int i = tid; i < kBK * DP; i += kThreads) {
-      const int c = i / DP, d = i - c * DP;
-      const int col = c0 + c;
-      float kx = 0.f, vx = 0.f;
-      if (col < col_end && d < D) {
-        kx = to_f32(kb[(long long)col * st.k[2] + d]);
-        vx = to_f32(vb[(long long)col * st.v[2] + d]);
-      }
-      ks[c * KS + d] = kx;
-      vs[i] = vx;
-    }
-    __syncthreads();
+    if (segrow != nullptr)
+      for (int c = tid; c < KT; c += kThreads)
+        cp_async4(segk + s * KT + c, c < cols ? segrow + c0 + c : segrow,
+                  c < cols ? 4 : 0);
+    cp_async_commit();
+  };
 
-    // scores: rows ty + 16 i, columns tx + 16 j
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DP; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * KS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int row = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int col = c0 + c;
-        bool ok = r < rows_here && col < kvl;
-        if (causal) ok = ok && col <= row + q_offset;
-        if (seg != nullptr) ok = ok && segk[c] == segq[r];
-        ps[r * kPS + c] = ok ? sc[i][j] : kNegInf;
-      }
-    }
-    __syncthreads();
+  int t = next_tile(0), s = 0;
+  if (t < n_tiles) stage(t, 0);
 
-    // online softmax: 4 threads per row, 16 contiguous columns each
-    {
-      float* pr = ps + srow * kPS + ssub * 16;
-      const float m_prev = m_s[srow];
-      float mx = kNegInf;
+  // q', scaled and rounded to T as the TPU wrapper does; rows past the
+  // tile and columns past D are zeros. Up to 16 loads a thread in
+  // flight before any store.
+  for (int i0 = 0; i0 < kBQ * DP; i0 += 16 * kThreads) {
+    float x[16];
 #pragma unroll
-      for (int c = 0; c < 16; ++c) mx = fmaxf(mx, pr[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_cur = fmaxf(m_prev, mx);
-      // rows with no visible key yet keep m at the sentinel: exp(s - m)
-      // would be 1 there, so p and alpha are forced to 0 until a real
-      // score lands (the TPU kernel's `seen` guard)
-      const bool seen = m_cur > kNegInf * 0.5f;
-      const float alpha = seen ? expf(m_prev - m_cur) : 0.f;
-      float psum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const float p = seen ? expf(pr[c] - m_cur) : 0.f;
-        pr[c] = p;
-        psum += p;
-      }
-      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-      if (ssub == 0) {
-        m_s[srow] = m_cur;
-        l_s[srow] = l_s[srow] * alpha + psum;
-        a_s[srow] = alpha;
-      }
+    for (int u = 0; u < 16; ++u) {
+      const int i = i0 + u * kThreads + tid;
+      const int r = i / DP, d = i - r * DP;
+      x[u] = i < kBQ * DP && r < rows_here && d < a.D
+                 ? to_f32(qb[(long long)(q0 + r) * a.st.q[2] + d]) : 0.f;
     }
-    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      const int i = i0 + u * kThreads + tid;
+      const int r = i / DP, d = i - r * DP;
+      if (i < kBQ * DP) qs[r * LDQ + d] = round_to(x[u] * a.scale, T());
+    }
+  }
 
-    // acc = acc * alpha + p @ v: rows ty + 16 i, dims tx + 16 j
+  // with one key tile the ids were not needed before its copies
+  if (segrow != nullptr && n_tiles == 1) stage_segq();
+
+  const int wr = 16 * rg;                   // the warp's first row
+  const bool warp_live = wr < rows_here;
+  const int ra = wr + gid, rb = ra + 8;     // this lane's two rows
+  // the columns a row sees lie below its limit: kv_len, the causal
+  // diagonal; none for a row past the tile
+  auto row_limit = [&](int r) {
+    int lim = r < rows_here ? kvl : 0;
+    if (a.causal) lim = min(lim, q0 + r + a.q_offset + 1);
+    return lim;
+  };
+  const int lim[2] = {row_limit(ra), row_limit(rb)};
+  const int dk8 = (a.D + 7) / 8;            // k-steps / n-tiles over D
+  float o[ND][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float al = a_s[ty + 16 * i];
+  for (int j = 0; j < ND; ++j)
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] *= al;
-    }
+    for (int q = 0; q < 4; ++q) o[j][q] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  while (t < n_tiles) {
+    cp_async_wait<0>();
+    __syncthreads();            // tile t landed; tile t-1's readers done
+    const int tn = next_tile(t + 1);
+    if (tn < n_tiles) stage(tn, s ^ 1);
+    const int c0 = t * KT + kh * KH;          // this warp's first key
+    const int nt_live = min(NT, max(0, (min(KT, col_end - t * KT) -
+                                        kh * KH + 7) / 8));
+    if (warp_live && nt_live > 0) {
+      const T* ks = kv + s * S::stage + kh * KH * LDK;
+      const T* vs = ks + KT * LDK;
+      const int* sk = segk + s * KT + kh * KH;
+      const float* qw = qs + wr * LDQ;
+      const int sqa = segrow != nullptr ? segq[ra] : 0;
+      const int sqb = segrow != nullptr ? segq[rb] : 0;
+      // s = q' k^T (16 x KH)
+      float sc[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sc[j][q] = 0.f;
 #pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float pv[4], vv[DPT];
+      for (int kk = 0; kk < ND; ++kk) {
+        if (kk < dk8) {
+          const int k0 = 8 * kk;
+          const float av[4] = {qw[gid * LDQ + k0 + tig],
+                               qw[(gid + 8) * LDQ + k0 + tig],
+                               qw[gid * LDQ + k0 + tig + 4],
+                               qw[(gid + 8) * LDQ + k0 + tig + 4]};
+          uint32_t ah[4], al[4];
+          tf32_words_int<4, F32>(av, ah, al);
+          mma_kstep_il<NT, F32, F32>(
+              sc, ah, al, k0,
+              [&](int k, int n) { return to_f32(ks[n * LDK + k]); },
+              nt_live);
+        }
+      }
+      // mask, then the online softmax of the two rows, in registers
+      float tmax[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * kPS + c];
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) vv[j] = vs[c * DP + tx + 16 * j];
+        for (int q = 0; q < 4; ++q) {
+          const int c = 8 * j + 2 * tig + (q & 1);
+          bool ok = c0 + c < lim[q >> 1];
+          if (segrow != nullptr) ok = ok && sk[c] == (q < 2 ? sqa : sqb);
+          sc[j][q] = ok ? sc[j][q] : kNegInf;
+          tmax[q >> 1] = fmaxf(tmax[q >> 1], sc[j][q]);
+        }
+      float alpha[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 2; ++i) {
+        tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+        tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+        const float mn = fmaxf(m[i], tmax[i]);
+        // rows with no visible key yet keep m at the sentinel: exp(s - m)
+        // would be 1 there, so p and alpha are forced to 0 until a real
+        // score lands (the TPU kernel's `seen` guard)
+        alpha[i] = mn > kNegInf * 0.5f ? __expf(m[i] - mn) : 0.f;
+        m[i] = mn;
+        l[i] *= alpha[i];
+      }
 #pragma unroll
-        for (int j = 0; j < DPT; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = q >> 1;
+          const float p = m[i] > kNegInf * 0.5f ? __expf(sc[j][q] - m[i])
+                                                : 0.f;
+          sc[j][q] = p;
+          l[i] += p;
+        }
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) o[j][q] *= alpha[q >> 1];
+      // o += p v: p's columns (2 tig, 2 tig + 1) of key step j are the
+      // depth indices (tig, tig + 4), so V's rows are read in that order
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j < nt_live) {
+          const float av[4] = {sc[j][0], sc[j][2], sc[j][1], sc[j][3]};
+          uint32_t ah[4], al[4];
+          tf32_words_int<4, true>(av, ah, al);
+#pragma unroll
+          for (int c = 0; c < ND / OC; ++c) {
+            auto& oc = *reinterpret_cast<float(*)[OC][4]>(&o[c * OC][0]);
+            mma_kstep_il<OC, true, F32>(
+                oc, ah, al, 8 * j,
+                [&](int k, int n) {
+                  const int key = (k & ~7) | ((k & 3) << 1) | ((k >> 2) & 1);
+                  return to_f32(vs[key * LDK + c * 8 * OC + n]);
+                },
+                dk8 - c * OC);
+          }
+        }
+      }
     }
+    t = tn;
+    s ^= 1;
   }
 
-  // epilogue: o = acc / l_safe; lse = m + log(l), or -1e30 when l == 0
-  T* ob = o + b * st.o[0] + h * st.o[1];
-  float* lb = lse + (long long)bh * Sq;
+  // the row sums over the quad; then the second key half's (m, l, o)
+  // go through shared memory to the first, which folds them in and
+  // writes o = acc / l_safe and lse = m + log(l) (-1e30 when l == 0)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  __syncthreads();              // every warp is done with the stages
+  float* om = reinterpret_cast<float*>(kv);   // kBQ x LDQ
+  float* ml = qs;                             // kBQ x (m, l)
+  if (kh == 1 && warp_live) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = i == 0 ? ra : rb;
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          om[r * LDQ + 8 * j + 2 * tig + e] = o[j][2 * i + e];
+      if (tig == 0) {
+        ml[2 * r] = m[i];
+        ml[2 * r + 1] = l[i];
+      }
+    }
+  }
+  __syncthreads();
+  if (kh == 1 || !warp_live) return;
+  T* ob = static_cast<T*>(a.o) + b * a.st.o[0] + h * a.st.o[1];
+  float* lb = a.lse + (long long)bh * a.Sq;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = i == 0 ? ra : rb;
     if (r >= rows_here) continue;
-    const float l = l_s[r];
-    const float l_safe = l == 0.f ? 1.f : l;
-    T* orow = ob + (long long)(q0 + r) * st.o[2];
+    const float m1 = ml[2 * r], mx = fmaxf(m[i], m1);
+    const float s0 = __expf(m[i] - mx), s1 = __expf(m1 - mx);
+    const float lt = l[i] * s0 + ml[2 * r + 1] * s1;
+    const float l_safe = lt == 0.f ? 1.f : lt;
+    const float inv = 1.f / l_safe;
+    T* orow = ob + (long long)(q0 + r) * a.st.o[2];
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) store(orow + d, acc[i][j] / l_safe);
-    }
-    if (tx == 0) lb[q0 + r] = l == 0.f ? kNegInf : m_s[r] + logf(l_safe);
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * j + 2 * tig + e;
+        if (d < a.D)
+          store(orow + d, (o[j][2 * i + e] * s0 + om[r * LDQ + d] * s1) * inv);
+      }
+    if (tig == 0) lb[q0 + r] = lt == 0.f ? kNegInf : mx + logf(l_safe);
   }
-}
-
-template <int DP>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)kBQ * DP + (size_t)kBK * (DP + 1) +
-                          (size_t)kBK * DP + (size_t)kBQ * kPS + 3 * kBQ) +
-         sizeof(int) * (kBQ + kBK);
 }
 
 template <typename T, int DP>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int32_t* kvl, const int32_t* seg, void* o,
-                   float* lse, const Strides& st, int B, int H, int Sq,
-                   int Skv, int D, float scale, int causal, int q_offset,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DP>();
+cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+  using S = Tiles<T, DP>;
+  const int n_tiles = (a.Skv + S::KT - 1) / S::KT;
+  const int mask_words = a.seg != nullptr ? (n_tiles + 31) / 32 : 0;
+  const size_t smem = S::bytes(mask_words);
   auto kern = flash_fwd_kernel<T, DP>;
   cudaError_t e = mxtt::allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kvl, seg, static_cast<T*>(o), lse, st, H,
-      Sq, Skv, D, scale, causal, q_offset);
+  dim3 grid(B * a.H, (a.Sq + kBQ - 1) / kBQ);
+  kern<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const int32_t* kvl, const int32_t* seg, void* o,
-                     float* lse, const Strides& st, int B, int H, int Sq,
-                     int Skv, int D, float scale, int causal, int q_offset,
-                     cudaStream_t s) {
-  if (D <= 16)
-    return launch<T, 16>(q, k, v, kvl, seg, o, lse, st, B, H, Sq, Skv, D, scale, causal, q_offset, s);
-  if (D <= 32)
-    return launch<T, 32>(q, k, v, kvl, seg, o, lse, st, B, H, Sq, Skv, D, scale, causal, q_offset, s);
-  if (D <= 64)
-    return launch<T, 64>(q, k, v, kvl, seg, o, lse, st, B, H, Sq, Skv, D, scale, causal, q_offset, s);
-  if (D <= 128)
-    return launch<T, 128>(q, k, v, kvl, seg, o, lse, st, B, H, Sq, Skv, D, scale, causal, q_offset, s);
-  if (D <= 256)
-    return launch<T, 256>(q, k, v, kvl, seg, o, lse, st, B, H, Sq, Skv, D, scale, causal, q_offset, s);
-  return cudaErrorInvalidValue;
+cudaError_t dispatch(const Args& a, int B, cudaStream_t s) {
+  if (a.D <= 16) return launch<T, 16>(a, B, s);
+  if (a.D <= 32) return launch<T, 32>(a, B, s);
+  if (a.D <= 64) return launch<T, 64>(a, B, s);
+  if (a.D <= 128) return launch<T, 128>(a, B, s);
+  return launch<T, 256>(a, B, s);
+}
+
+bool aligned16(const void* p, const long long* st, int esize) {
+  if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  for (int i = 0; i < 3; ++i)
+    if (st[i] * esize % 16 != 0) return false;
+  return true;
 }
 
 }  // namespace
@@ -326,27 +486,36 @@ extern "C" int mxtt_flash_attention_fwd(
     const void* seg, void* o, void* lse, const long long* strides, int B,
     int H, int Sq, int Skv, int D, float scale, int causal, int q_offset,
     int dtype, void* stream) {
-  if (B < 1 || H < 1 || Sq < 1 || Skv < 0 || D < 1 || D > 256)
+  if (B < 1 || H < 1 || Sq < 1 || Skv < 0 || D < 1 || D > 256 ||
+      dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
-  Strides st;
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.kv_lens = static_cast<const int32_t*>(kv_lens);
+  a.seg = static_cast<const int32_t*>(seg);
+  a.o = o;
+  a.lse = static_cast<float*>(lse);
   for (int i = 0; i < 3; ++i) {
-    st.q[i] = strides[i];
-    st.k[i] = strides[3 + i];
-    st.v[i] = strides[6 + i];
-    st.o[i] = strides[9 + i];
+    a.st.q[i] = strides[i];
+    a.st.k[i] = strides[3 + i];
+    a.st.v[i] = strides[6 + i];
+    a.st.o[i] = strides[9 + i];
   }
-  const int32_t* kvl = static_cast<const int32_t*>(kv_lens);
-  const int32_t* sg = static_cast<const int32_t*>(seg);
-  float* ls = static_cast<float*>(lse);
+  a.H = H;
+  a.Sq = Sq;
+  a.Skv = Skv;
+  a.D = D;
+  a.scale = scale;
+  a.causal = causal;
+  a.q_offset = q_offset;
+  const int esize = dtype == 0 ? 4 : 2;
+  a.vec = aligned16(k, a.st.k, esize) && aligned16(v, a.st.v, esize);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0:
-      return (int)dispatch<float>(q, k, v, kvl, sg, o, ls, st, B, H, Sq, Skv, D, scale, causal, q_offset, s);
-    case 1:
-      return (int)dispatch<__nv_bfloat16>(q, k, v, kvl, sg, o, ls, st, B, H, Sq, Skv, D, scale, causal, q_offset, s);
-    case 2:
-      return (int)dispatch<__half>(q, k, v, kvl, sg, o, ls, st, B, H, Sq, Skv, D, scale, causal, q_offset, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 0: return (int)dispatch<float>(a, B, s);
+    case 1: return (int)dispatch<__nv_bfloat16>(a, B, s);
+    default: return (int)dispatch<__half>(a, B, s);
   }
 }

@@ -78,12 +78,11 @@
 
 namespace {
 
-using mxtt::mma_tf32;
-using mxtt::mma_tf32_0;
 using mxtt::round_to;
-using mxtt::split_tf32;
 using mxtt::store;
 using mxtt::to_f32;
+using mxtt::warp_mma;
+using mxtt::warp_mma2;
 
 constexpr int kQT = 64;         // queries per tile
 constexpr int kFusedKT = 128;   // keys per tile (all of them), fused
@@ -180,86 +179,6 @@ __device__ __forceinline__ void stage2(float* dst0, const T* src0,
       dst0[r * (DP + 4) + d] = scale0 ? round_to(x[u] * scale, T()) : x[u];
       dst1[r * (DP + 4) + d] = y[u];
     }
-  }
-}
-
-// TF32 operand words of f32 values: hi, and lo = x - hi when `split`
-template <int N, bool SPLIT>
-__device__ __forceinline__ void tf32_words(const float (&x)[N],
-                                           uint32_t (&hi)[N],
-                                           uint32_t (&lo)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if (SPLIT)
-      split_tf32(__float_as_uint(x[i]), hi[i], lo[i]);
-    else
-      hi[i] = mxtt::tf32_rna(x[i]);   // exact: a 16-bit input value
-  }
-}
-
-// acc[j] += A (16 x 8) . B (8 x 8) at depth k0..k0+7, j < nt_live <= NT,
-// for one warp: A(m, k) and B(k, n) read f32 from shared memory (B's n
-// = 8 j + column), every B fragment loaded before the products. SA /
-// SB: the operand is f32 data to split into TF32 hi + lo; otherwise it
-// holds 16-bit input values, exact in TF32, and takes one term. The
-// k-step goes into fresh partials, added round-to-nearest (the tensor
-// cores' own adds round toward zero). acc[j]: rows gid (0, 1) and
-// gid + 8 (2, 3), columns 8 j + 2 tig (+ 1).
-template <int NT, bool SA, bool SB, typename FA, typename FB>
-__device__ __forceinline__ void mma_kstep(float (&acc)[NT][4], int k0, FA A,
-                                          FB B, int nt_live) {
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  const float av[4] = {A(gid, k0 + tig), A(gid + 8, k0 + tig),
-                       A(gid, k0 + tig + 4), A(gid + 8, k0 + tig + 4)};
-  float bv[NT][2];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    bv[j][0] = j < nt_live ? B(k0 + tig, 8 * j + gid) : 0.f;
-    bv[j][1] = j < nt_live ? B(k0 + tig + 4, 8 * j + gid) : 0.f;
-  }
-  uint32_t ah[4], al[4];
-  tf32_words<4, SA>(av, ah, al);
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    if (j < nt_live) {
-      uint32_t bh[2], bl[2];
-      tf32_words<2, SB>(bv[j], bh, bl);
-      float p[4];
-      if (SA) {
-        mma_tf32_0(p, al, bh);
-        if (SB) mma_tf32(p, ah, bl);
-        mma_tf32(p, ah, bh);
-      } else if (SB) {
-        mma_tf32_0(p, ah, bl);
-        mma_tf32(p, ah, bh);
-      } else {
-        mma_tf32_0(p, ah, bh);
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[j][q] += p[q];
-    }
-  }
-}
-
-// acc += A (16 x K) . B (K x 8 NT), K a multiple of 8 (mma_kstep)
-template <int NT, bool SA, bool SB, typename FA, typename FB>
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], int K, FA A,
-                                         FB B) {
-  for (int k0 = 0; k0 < K; k0 += 8)
-    mma_kstep<NT, SA, SB>(acc, k0, A, B, NT);
-}
-
-// Two products of one depth in one loop (independent chains for the
-// scheduler): acc0 += A0 . B0, acc1 += A1 . B1.
-template <int NT, bool SA, bool SB, typename FA0, typename FB0,
-          typename FA1, typename FB1>
-__device__ __forceinline__ void warp_mma2(float (&acc0)[NT][4], FA0 A0,
-                                          FB0 B0, float (&acc1)[NT][4],
-                                          FA1 A1, FB1 B1, int K,
-                                          int nt_live = NT) {
-  for (int k0 = 0; k0 < K; k0 += 8) {
-    mma_kstep<NT, SA, SB>(acc0, k0, A0, B0, nt_live);
-    mma_kstep<NT, SA, SB>(acc1, k0, A1, B1, nt_live);
   }
 }
 

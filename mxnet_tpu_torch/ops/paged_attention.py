@@ -19,28 +19,41 @@ a row with nothing to see gives exact zeros. Forward only.
 
 :func:`paged_flash_attention` launches the hand-written CUDA kernel
 (``csrc/paged_attention.cu``) for CUDA tensors, and raises on what the
-kernel does not take. It takes the plain version
-(:func:`paged_attention_reference`) only for CPU tensors.
+kernel does not take (float32 and bfloat16, head dims 1..256). It takes
+the plain version (:func:`paged_attention_reference`) only for CPU
+tensors. The kernel is split-KV: one launch a call, each row's history
+cut into chunks of 64 keys (longer past 32 chunks) whose partial
+softmax states the last block of a query tile folds, in chunk order.
+The wrapper gives it a scratch for the partials, sized by the kernel's
+own split policy (:func:`split_count`), and the ticket counters of the
+current stream, which the kernel leaves at zero: calls on one stream
+run one after another, so no two running calls share counters.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 
 __all__ = ["LAUNCHES", "paged_attention_reference",
-           "paged_flash_attention"]
+           "paged_flash_attention", "split_count"]
 
 _NEG_INF = -1e30
 #: kernel launches by kernel name (the main-path proof counts these)
 LAUNCHES = {"paged_attention": 0}
-_HEAD_DIMS = (8, 16, 32, 64, 128)
+_MAX_D = 256
 _DTYPES = (torch.float32, torch.bfloat16)
-# mxtt_paged_attention_fwd(q, k, v, table, kv_lens, out, B, H, Sq, D,
-#                          page_size, n_table, dtype)
-_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+# mxtt_paged_attention_fwd(q, k, v, table, kv_lens, out, part, tickets,
+#                          B, H, Sq, D, page_size, n_table, vec, scale,
+#                          dtype)
+_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float] \
+    + [ctypes.c_int]
+#: per (device, stream), the kernel's ticket counters: zeros between
+#: calls (the last block of a query tile resets its own)
+_TICKETS = {}
 
 
 def paged_attention_reference(q, k_pages, v_pages, page_table, kv_lens,
@@ -98,9 +111,9 @@ def _check(q, k_pages, v_pages, page_table, kv_lens):
                         f"{v_pages.dtype}")
     if page_table.dtype != torch.int32 or kv_lens.dtype != torch.int32:
         raise TypeError("page_table and kv_lens must be int32")
-    if d not in _HEAD_DIMS:
+    if not 1 <= d <= _MAX_D:
         raise ValueError(f"head_dim {d} not supported by the kernel "
-                         f"(one of {_HEAD_DIMS})")
+                         f"(1..{_MAX_D})")
     devs = {t.device for t in (q, k_pages, v_pages, page_table, kv_lens)}
     if len(devs) != 1:
         raise ValueError(f"paged attention operands on several devices: "
@@ -109,6 +122,36 @@ def _check(q, k_pages, v_pages, page_table, kv_lens):
                     ("page_table", page_table), ("kv_lens", kv_lens)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+@functools.lru_cache(maxsize=None)
+def split_count(n_table, page_size):
+    """Blocks the kernel takes along a row's keys, as the kernel's
+    library computes them (``mxtt_paged_attention_split``): one a
+    64-key chunk (more keys a chunk past 32 chunks), as many as the
+    table's width can hold, at least one. Only the grid and the scratch
+    depend on it: a row's chunks depend on its own ``kv_len``, so its
+    result does not. Builds the kernel on first use."""
+    fn = _build.load("paged_attention").mxtt_paged_attention_split
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    n = fn(int(n_table), int(page_size))
+    if n < 1:
+        raise ValueError(f"no split for a table of {n_table} pages of "
+                         f"{page_size}")
+    return n
+
+
+def _tickets(device, n):
+    """The current stream's ticket counters on ``device``, at least
+    ``n``: calls on other streams may run at the same time, so each
+    stream has its own."""
+    key = (device, torch._C._cuda_getCurrentRawStream(device.index))
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _TICKETS[key] = buf
+    return buf
 
 
 def paged_flash_attention(q, k_pages, v_pages, page_table, kv_lens,
@@ -126,14 +169,25 @@ def paged_flash_attention(q, k_pages, v_pages, page_table, kv_lens,
     b, h, sq, d = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / (d ** 0.5)
-    # scale, then round back to q's type, where the TPU wrapper does
-    qf = (q * sm_scale).to(q.dtype).contiguous()
-    out = torch.empty_like(qf)
+    # the kernel scales q and rounds it back to q's type as it loads it,
+    # where the TPU wrapper pre-scales it
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    page_size, n_table = k_pages.shape[2], page_table.shape[1]
+    n_split = split_count(n_table, page_size)
+    # each (row, head, query, chunk)'s partial: m, l, then D sums
+    part = torch.empty(b * h * sq * n_split * (d + 2), dtype=torch.float32,
+                       device=q.device)
+    vec = int(d * q.element_size() % 16 == 0
+              and all(t.data_ptr() % 16 == 0 for t in (q, k_pages,
+                                                       v_pages)))
     _build.launch("paged_attention", "mxtt_paged_attention_fwd", _ARGS,
-                  q.device, qf.data_ptr(), k_pages.data_ptr(),
+                  q.device, q.data_ptr(), k_pages.data_ptr(),
                   v_pages.data_ptr(), page_table.data_ptr(),
-                  kv_lens.data_ptr(), out.data_ptr(), b, h, sq, d,
-                  k_pages.shape[2], page_table.shape[1],
+                  kv_lens.data_ptr(), out.data_ptr(), part.data_ptr(),
+                  _tickets(q.device, b * h * sq).data_ptr(), b, h, sq, d,
+                  page_size, n_table, vec, float(sm_scale),
                   _build.DTYPE_CODES[q.dtype])
     LAUNCHES["paged_attention"] += 1
     return out

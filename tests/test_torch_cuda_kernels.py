@@ -49,7 +49,8 @@ def _case(seed, sq, kvls, d, dev, dtype, p=10, h=4, psize=8, npg=3):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sq,kvls", CASES)
-@pytest.mark.parametrize("d", [8, 16, 64, 128])
+# d = 20 in bf16: rows of 40 bytes, read element by element
+@pytest.mark.parametrize("d", [8, 16, 20, 24, 64, 80, 96, 128, 256])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 def test_paged_attention_kernel_matches_plain(cuda, sq, kvls, d, dtype,
@@ -75,6 +76,145 @@ def test_paged_attention_kernel_refuses_bad_operands(cuda):
         pa.paged_flash_attention(q, k, v, table.long(), kvl)
     with pytest.raises(ValueError):
         pa.paged_flash_attention(q, k.cpu(), v, table, kvl)
+    q, k, v, table, kvl = _case(1, 1, (5, 17, 24), 264, cuda,
+                                torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.paged_flash_attention(q, k, v, table, kvl)
+
+
+def _pool_case(seed, sq, kvls, psize, dev, dtype, d=64, h=2, spare=1):
+    """A pool holding every row's history on permuted pages, each row's
+    table ``spare`` pages wider than its longest history needs (the
+    spare slots point at other rows' pages)."""
+    rng = np.random.RandomState(seed)
+    b = len(kvls)
+    width = -(-max(kvls) // psize) + spare
+    p = b * width + 1
+    k = rng.randn(p, h, psize, d).astype(np.float32)
+    v = rng.randn(p, h, psize, d).astype(np.float32)
+    table = rng.permutation(p)[:b * width].reshape(b, width)
+    q = rng.randn(b, h, sq, d).astype(np.float32)
+    f = [torch.tensor(x, dtype=dtype, device=dev) for x in (q, k, v)]
+    i = [torch.tensor(x, dtype=torch.int32, device=dev)
+         for x in (table.astype(np.int32), np.asarray(kvls, np.int32))]
+    return f + i
+
+
+# histories up to 4096 keys: ending inside a page, on a page's edge, on a
+# 64-key chunk's edge, past 32 chunks (128-key chunks); chunk rows before
+# the history starts
+LONG_CASES = [
+    (1, 16, (1, 63, 64, 65, 1000, 1024, 4095, 4096)),
+    (1, 8, (8, 200, 2048, 2049)),
+    (1, 32, (31, 32, 640, 3000)),
+    (4, 16, (4, 64, 67, 4096)),
+    (64, 16, (64, 128, 129, 1500)),
+    (64, 32, (10, 640, 2111)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,psize,kvls", LONG_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_attention_kernel_across_chunks(cuda, sq, psize, kvls, dtype,
+                                              tol):
+    args = _pool_case(7, sq, kvls, psize, cuda, dtype)
+    got = pa.paged_flash_attention(*args)
+    want = pa.paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    for r, n in enumerate(kvls):        # chunk rows before the history
+        if sq > n:
+            assert got[r, :, :sq - n].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_rows_are_independent(cuda, sq, dtype):
+    """Each row of a mixed batch has the same bits as the row run alone
+    with a table just wide enough for it (another grid, another
+    scratch): the property the decode engine's solo parity leans on."""
+    kvls = (0, 5, 64, 100, 1024, 2049, 4000, 17)
+    psize = 16
+    q, k, v, table, kvl = _pool_case(8, sq, kvls, psize, cuda, dtype,
+                                     spare=3)
+    batch = pa.paged_flash_attention(q, k, v, table, kvl)
+    for r, n in enumerate(kvls):
+        width = max(1, -(-n // psize))
+        alone = pa.paged_flash_attention(
+            q[r:r + 1].contiguous(), k, v,
+            table[r:r + 1, :width].contiguous(), kvl[r:r + 1].contiguous())
+        assert torch.equal(batch[r], alone[0]), (r, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1, 64])
+def test_paged_attention_same_bits_every_run(cuda, sq):
+    args = _pool_case(9, sq, (70, 1024, 3000, 333), 16, cuda,
+                      torch.float32)
+    first = pa.paged_flash_attention(*args)
+    for _ in range(3):
+        assert torch.equal(pa.paged_flash_attention(*args), first)
+
+
+@pytest.mark.cuda
+def test_paged_attention_calls_on_two_streams(cuda):
+    """Calls that run at once on two streams of one device, over the
+    same (row, head, tile) grid, keep their own ticket counters: each
+    gives the bits it gives alone, within 1e-4 of the plain version."""
+    kvls = (4000, 3000, 1024, 2049)
+    cases = [_pool_case(11 + i, 1, kvls, 16, cuda, torch.float32)
+             for i in range(2)]
+    alone = [pa.paged_flash_attention(*a) for a in cases]
+    want = [pa.paged_attention_reference(*a) for a in cases]
+    main = torch.cuda.current_stream()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(main)
+    got = [[], []]
+    for _ in range(8):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got[i].append(pa.paged_flash_attention(*cases[i]))
+    for st in streams:
+        main.wait_stream(st)
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert (alone[i] - want[i]).abs().max().item() <= 1e-4
+        for g in got[i]:
+            assert torch.equal(g, alone[i])
+
+
+@pytest.mark.cuda
+def test_split_count_follows_the_table_only(cuda):
+    assert pa.split_count(0, 16) == 1
+    assert pa.split_count(4, 16) == 1
+    assert pa.split_count(5, 16) == 2
+    assert pa.split_count(64, 16) == 16
+    assert pa.split_count(1024, 16) == 32
+
+
+@pytest.mark.cuda
+def test_paged_attention_kernel_reads_no_padding_slot(cuda):
+    """Table slots past a row's pages may hold any id: pointing them at
+    pages full of NaN changes nothing."""
+    q, k, v, table, kvl = _pool_case(10, 1, (33, 64, 100), 16, cuda,
+                                     torch.float32, spare=2)
+    want = pa.paged_flash_attention(q, k, v, table, kvl)
+    # the one page of the pool no table slot names
+    poison = (set(range(k.shape[0])) - set(table.flatten().tolist())).pop()
+    k2, v2 = k.clone(), v.clone()
+    k2[poison] = float("nan")
+    v2[poison] = float("nan")
+    table2 = table.clone()
+    for r, n in enumerate((33, 64, 100)):
+        table2[r, -(-n // 16):] = poison
+    got = pa.paged_flash_attention(q, k2, v2, table2, kvl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 # -- K1: flash attention forward -------------------------------------------
@@ -119,7 +259,8 @@ def _flash_case(seed, b, h, sq, skv, d, dev, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [8, 16, 32, 64, 128, 136, 200, 256])
+# d = 20 in 16 bits: rows of 40 bytes, staged through registers
+@pytest.mark.parametrize("d", [8, 16, 20, 32, 64, 128, 136, 200, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("mode", ["dense", "causal_offset", "kv_lens",
@@ -152,6 +293,24 @@ def test_flash_attention_kernel_matches_plain(cuda, d, dtype, mode):
     assert torch.equal(lse[empty], rlse[empty])
     if empty.any():
         assert o.float()[empty].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["packed", "causal", "kv_lens"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_same_bits_every_run(cuda, mode, dtype):
+    rng, q, k, v = _flash_case(5, 3, 2, 300, 300, 64, cuda, dtype)
+    kw = {"causal": True} if mode == "causal" else {
+        "kv_lens": torch.tensor([300, 1, 150], dtype=torch.int32,
+                                device=cuda)}
+    if mode == "packed":
+        seg, used = _packed_rows(rng, 3, 300)
+        kw = {"segment_ids": torch.tensor(seg, device=cuda),
+              "kv_lens": torch.tensor(used, device=cuda)}
+    o, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    for _ in range(3):
+        o2, lse2 = fa.flash_attention_with_lse(q, k, v, **kw)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.cuda

@@ -138,9 +138,10 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
                         v=a["v"].double()), TypeError),
     (lambda a: a.update(k=a["k"].bfloat16()), TypeError),
     (lambda a: a.update(q=a["q"].transpose(2, 3)), ValueError),
-    (lambda a: a.update(q=a["q"][..., :12].contiguous(),
-                        k=a["k"][..., :12].contiguous(),
-                        v=a["v"][..., :12].contiguous()), ValueError),
+    (lambda a: a.update(q=a["q"].new_zeros(*a["q"].shape[:3], 264),
+                        k=a["k"].new_zeros(*a["k"].shape[:3], 264),
+                        v=a["v"].new_zeros(*a["v"].shape[:3], 264)),
+     ValueError),
 ])
 def test_kernel_refuses_what_it_cannot_take(mutate, err):
     q, k, v, table, kvl = _torch(*_case(5, 4, (9, 20, 4)))
@@ -155,3 +156,38 @@ def test_kernel_accepts_the_slice_shapes():
     q, k, v, table, kvl = _torch(*_case(6, 1, (5, 17, 24), d=64))
     pa._check(q, k, v, table, kvl)
     pa._check(q.bfloat16(), k.bfloat16(), v.bfloat16(), table, kvl)
+
+
+@pytest.mark.parametrize("d", [1, 24, 80, 256])
+def test_kernel_accepts_any_head_dim_to_256(d):
+    q, k, v, table, kvl = _torch(*_case(6, 1, (5, 17, 24), d=d))
+    pa._check(q, k, v, table, kvl)
+    pa._check(q.bfloat16(), k.bfloat16(), v.bfloat16(), table, kvl)
+
+
+@pytest.mark.parametrize("sq,d", [(1, 80), (1, 96), (4, 256)])
+def test_plain_matches_jax_reference_wide_heads_long_history(sq, d):
+    """Head dims the kernel now takes beside the old ones, over
+    histories of several hundred tokens (many pages, several of the
+    kernel's 64-key chunks), against the JAX package's reference."""
+    from mxnet_tpu.ops.pallas.flash_attention import \
+        paged_attention_reference
+
+    kvls = (300, 517, 0, 64)
+    q, k, v, table, kvl = _case(7, sq, kvls, p=4 * 34 + 1, h=2, psize=16,
+                                d=d, npg=34)
+    want = np.asarray(paged_attention_reference(q, k, v, table, kvl))
+    got = pa.paged_flash_attention(*_torch(q, k, v, table, kvl)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    assert np.all(got[2] == 0.0)
+
+
+def test_plain_matches_jax_interpret_kernel_at_head_dim_80(monkeypatch):
+    monkeypatch.setenv("MXNET_TPU_PALLAS_INTERPRET", "1")
+    from mxnet_tpu.ops.pallas.flash_attention import paged_flash_attention
+
+    q, k, v, table, kvl = _case(8, 4, (9, 20, 4), h=2, d=80)
+    want = np.asarray(paged_flash_attention(q, k, v, table, kvl,
+                                            interpret=True))
+    got = pa.paged_flash_attention(*_torch(q, k, v, table, kvl)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
