@@ -20,9 +20,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    padded rows of the training batch, packed 512, dense causal 512),
    the LayerNorm backward (8192 x 768) and the fused softmax
    cross-entropy forward and backward (the batch's valid positions x
-   30522); the whole-sequence LSTM forward and backward (T=35, H=650,
-   N=32 and N=1024), with their grid and cuDNN's LSTM layer as the
-   yardstick, and the backward's fixed cost at N=1. Every time is the device's (torch.profiler: the device
+   30522; K3b and K4b also a repeat call held ``torch.equal``); the
+   whole-sequence LSTM forward and backward (T=35, H=650, N=32 and
+   N=1024), with their grid and cuDNN's LSTM layer as the yardstick,
+   and the backward's fixed cost at N=1. Every time is the device's (torch.profiler: the device
    events a call launched, summed), with the wall of a call, host
    included, beside it; the memory-bound rows (LayerNorm, softmax
    cross-entropy) also with their inputs rotated past the 50 MB L2, and
@@ -35,10 +36,14 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    with exact launch counts: LayerNorm at D=2048 forward and backward
    (K3a, K3b) and with ``output_mean_var`` (composed, no launch),
    attention at head_dim 256 forward and backward (K1, K2) and in
-   float64 (composed, no launch), ``softmax_cross_entropy`` with
-   float32 labels (the op casts them, K4a takes the call), one BPTT
-   segment of ``gluon.rnn.LSTM`` at H=1500 (K6a, K6b and its dW
-   product, W's rows in device memory);
+   float64 (composed, no launch), attention at head dims 264 and 512
+   (K1 and K2 over chunks of the head dim; K2's one pass at S=40, its
+   split pair at S=512), paged attention at head dim 320 (K5, decode
+   and a 64-query chunk), ``softmax_cross_entropy`` with float32
+   labels (the op casts them, K4a takes the call), one BPTT segment of
+   ``gluon.rnn.LSTM`` at H=1500 (K6a, K6b and its dW product, W's rows
+   in device memory) and one of 2 x LSTM(2500) at N=32 (each block
+   walking two work blocks a step);
 5. decode serving at GPT-2-small width (vocab 50257, 768 units, 12
    layers, 12 heads, random weights from ``--seed``): a
    ``DecodeEngine`` serves 8 greedy requests; results, streams, solo
@@ -671,6 +676,10 @@ def bound(nbytes, flops, peak=PEAK_F32_FLOPS):
 
 
 TRAIN_B, TRAIN_S, VOCAB = 64, 128, 30522
+# device ms of the first port's K3b and K4b at these rows' shapes, before
+# their Hopper redesign (PERF.md, Findings: chip_smoke.py on an NVIDIA
+# H100 80GB HBM3 at 700.00 W); printed beside this run's, never compared
+WAS_MS = {"layer_norm_bwd": 0.06840, "softmax_xent_bwd": 0.97009}
 
 
 def train_batch(seed, b=TRAIN_B, s=TRAIN_S, vocab=VOCAB):
@@ -838,6 +847,11 @@ def check_layer_norm_bwd(rng, dev):
         if not (within_ulp(dx, rdx, 1e-4, 1e-5) and red_ok):
             raise AssertionError(f"layer_norm_bwd {dtype}: dx err {err}, "
                                  f"dgamma/dbeta err {red_err}")
+        # no atomics: a second call gives the same bits
+        again = layer_norm_backward(x, g, mu, rs, dy)
+        if not all(torch.equal(a, b_) for a, b_ in zip((dx, dg, db), again)):
+            raise AssertionError(f"layer_norm_bwd {dtype}: a second call "
+                                 f"gave other bits")
         if dtype != torch.float32:
             entry["bf16_max_abs_err"] = err
             continue
@@ -864,6 +878,11 @@ def check_layer_norm_bwd(rng, dev):
 
         t.update(cold_times(layer_norm_backward, lib_bwd,
                             (x, g, mu, rs, dy)))
+        # the row kernel and the fold apart
+        t["ms_by_event"] = {
+            kernel_name(e): v for e, v in device_ms(
+                lambda: layer_norm_backward(x, g, mu, rs, dy),
+                by_kernel=True)[1].items()}
         del graphs, leaves
         # read x, dy, gamma, mean, rstd; write dx, dgamma, dbeta
         nbytes = 3 * r * d * 4 + d * 4 + 2 * r * 4 + 2 * d * 4
@@ -874,7 +893,9 @@ def check_layer_norm_bwd(rng, dev):
                       "library": "F.layer_norm backward (autograd)"})
         log(f"layer_norm_bwd f32: {fmt_times(t)} (library: F.layer_norm "
             f"backward); {fmt_cold(t)}; bound {bms * 1e3:.2f} us ({by}: "
-            f"{nbytes} B, {flops} flop)")
+            f"{nbytes} B, {flops} flop); was "
+            f"{WAS_MS['layer_norm_bwd'] * 1e3:.2f} us device; same bits "
+            f"on a second call; device ms by kernel {t['ms_by_event']}")
     return entry
 
 
@@ -920,6 +941,9 @@ def check_softmax_xent(rng, dev, n):
                      .all()) and within_ulp(dx, rdx, 1e-6, 1e-5)):
             raise AssertionError(f"softmax_xent {dtype}: loss err {err}, "
                                  f"dx err {derr}")
+        if not torch.equal(softmax_xent_backward(x, lab, lse, g), dx):
+            raise AssertionError(f"softmax_xent_bwd {dtype}: a second call "
+                                 f"gave other bits")
         if dtype != torch.float32:
             fwd["bf16_max_abs_err"], bwd["bf16_max_abs_err"] = err, derr
             continue
@@ -946,9 +970,12 @@ def check_softmax_xent(rng, dev, n):
             bms, by = bound(nbytes, flops)
             entry.update({"max_abs_err": e, **t, "bound_ms": bms,
                           "bound_by": by, "library": libname})
+            was = (f"; was {WAS_MS[entry['name']] * 1e3:.2f} us device, "
+                   f"same bits on a second call"
+                   if entry["name"] in WAS_MS else "")
             log(f"{entry['name']} f32: {fmt_times(t)} (library: "
                 f"{libname}); {fmt_cold(t)}; bound {bms * 1e3:.2f} us "
-                f"({by}: {nbytes} B, {flops} flop)")
+                f"({by}: {nbytes} B, {flops} flop){was}")
         del ref, leaf
     return [fwd, bwd]
 
@@ -1130,10 +1157,15 @@ def check_op_dispatch(seed, dev):
     ``output_mean_var`` (the JAX op's composed math: no launch);
     attention at head_dim 256 (K1 and K2's split pair, lengths and a
     causal mask) forward and backward, and in float64 (composed: no
-    launch); ``softmax_cross_entropy`` with float32 labels (the op casts
-    them, K4a takes the call); one BPTT segment of ``gluon.rnn.LSTM`` at
+    launch); attention at head dims 264 and 512 (K1 and K2 over chunks
+    of the head dim: 40 keys on K2's one pass, 512 on its split pair);
+    paged attention (K5) at head dim 320, decode and a 64-query chunk;
+    ``softmax_cross_entropy`` with float32 labels (the op casts them,
+    K4a takes the call); one BPTT segment of ``gluon.rnn.LSTM`` at
     H=1500 (``word_lm.py --nhid 1500``: K6a and K6b with W's rows in
-    device memory, and the dW product), forward and backward. Each
+    device memory, and the dW product), forward and backward, and one of
+    2 x LSTM(2500) at N=32 (157 unit groups: blocks walk two work blocks
+    a step). Each
     kernel call's device time is printed. Tolerances: 1e-4 of each
     output's scale (float32 sums in another order; the LSTM's gradients
     1e-3, as the word LM's gate)."""
@@ -1146,12 +1178,31 @@ def check_op_dispatch(seed, dev):
     from mxnet_tpu_torch.ndarray import op_impl_nn
     from mxnet_tpu_torch.ops import launch_counts, lstm, reset_launch_counts
 
+    from mxnet_tpu_torch.ops import paged_attention as pa
+
     rng = np.random.RandomState(seed + 6)
     cpu = torch.device("cpu")
     x = rng.randn(4, 33, 2048).astype("float32") * 0.5 + 1.0
     g, b = rng.randn(2048).astype("float32"), rng.randn(2048).astype("float32")
     q, k, v = (rng.randn(2, 2, 40, 256).astype("float32") for _ in range(3))
     lens = np.array([40, 9], np.int32)
+    # head dims past 256: 40 keys (K2's one pass) and 512 (its split pair)
+    wide = {(d, s): [rng.randn(2, 2, s, d).astype("float32")
+                     for _ in range(3)]
+            for d in (264, 512) for s in (40, 512)}
+    wide_lens = {40: np.array([40, 9], np.int32),
+                 512: np.array([512, 300], np.int32)}
+    # paged attention at head dim 320: decode and a 64-query chunk over
+    # histories of 5..700 tokens on 16-token pages
+    paged = {}
+    for sq in (1, 64):
+        kvls = np.array([700, 64 + 5, 333], np.int32)
+        width = -(-int(kvls.max()) // 16)
+        pool = rng.randn(3 * width + 1, 2, 16, 320).astype("float32")
+        paged[sq] = (rng.randn(3, 2, sq, 320).astype("float32"), pool,
+                     rng.randn(*pool.shape).astype("float32"),
+                     rng.permutation(3 * width + 1)[:3 * width]
+                     .reshape(3, width).astype(np.int32), kvls)
     logits = rng.randn(64, 1000).astype("float32")
     labels = rng.randint(0, 1000, 64).astype("float32")
     hid, steps, rows = 1500, WLM["bptt"], 8
@@ -1159,6 +1210,13 @@ def check_op_dispatch(seed, dev):
     if not lstm.lstm_plan(rows, hid, torch.float32, device=dev)["w_global"]:
         raise AssertionError("lstm plan: H=1500 f32 must keep W's rows in "
                              "device memory")
+    # past one unit group an SM: 2 x LSTM(2500), N=32, a short segment
+    hid_w, steps_w, rows_w = 2500, 5, WLM["batch"]
+    seq_w = rng.randn(steps_w, rows_w, hid_w).astype("float32")
+    plan_w = lstm.lstm_plan(rows_w, hid_w, torch.float32, True, dev)
+    if plan_w["walk"] < 2:
+        raise AssertionError(f"lstm plan: H={hid_w} must walk work blocks, "
+                             f"got {plan_w}")
 
     def grads(outs, leaves):
         """outs, then the gradients of sum(out * out) over ``leaves``."""
@@ -1174,11 +1232,21 @@ def check_op_dispatch(seed, dev):
         return grads([op_impl_nn.flash_attention_op(
             *leaves, valid_len=t(lens), causal=True)], leaves)
 
-    def lstm_segment(t):
-        dev_ = t(seq).device
-        layer = rnn.LSTM(hid, input_size=hid, device=dev_)
+    def attention_wide(t, d, s):
+        leaves = [t(a, True) for a in wide[d, s]]
+        return grads([op_impl_nn.flash_attention_op(
+            *leaves, valid_len=t(wide_lens[s]), causal=True)], leaves)
+
+    def paged_320(t, sq):
+        qp, kp, vp, table, kvls = paged[sq]
+        return [pa.paged_flash_attention(t(qp), t(kp), t(vp), t(table),
+                                         t(kvls))]
+
+    def lstm_segment(t, h=hid, xs_np=seq, layers=1):
+        dev_ = t(xs_np).device
+        layer = rnn.LSTM(h, num_layers=layers, input_size=h, device=dev_)
         layer.initialize(seed=seed)
-        xs = t(seq, True)
+        xs = t(xs_np, True)
         with autograd.record():
             out = layer(xs)
         return grads([out], [xs]) + [p.grad() for p in
@@ -1194,11 +1262,22 @@ def check_op_dispatch(seed, dev):
         "attention head_dim 256": (attention_256, {
             "flash_attention": 1, "flash_attention_bwd": 1}),
         "attention float64": (lambda t: attention_256(t, "float64"), {}),
+        **{f"attention head_dim {d} S={sl}": (
+            lambda t, d=d, sl=sl: attention_wide(t, d, sl),
+            {"flash_attention": 1, "flash_attention_bwd": 1})
+           for d in (264, 512) for sl in (40, 512)},
+        "paged decode head_dim 320": (lambda t: paged_320(t, 1),
+                                      {"paged_attention": 1}),
+        "paged chunk head_dim 320": (lambda t: paged_320(t, 64),
+                                     {"paged_attention": 1}),
         "softmax_cross_entropy float labels": (lambda t: [
             tnd.softmax_cross_entropy(t(logits), t(labels))],
             {"softmax_xent_fwd": 1}),
         "gluon.rnn.LSTM H=1500": (lstm_segment, {
             "lstm_fwd": 1, "lstm_bwd": 1, "lstm_bwd_dw": 1}),
+        f"gluon.rnn.LSTM 2 x H={hid_w} T={steps_w} N={rows_w}": (
+            lambda t: lstm_segment(t, hid_w, seq_w, 2),
+            {"lstm_fwd": 2, "lstm_bwd": 2, "lstm_bwd_dw": 2}),
     }
     worst = {}
     for name, (fn, expect) in calls.items():
@@ -1234,7 +1313,7 @@ def check_op_dispatch(seed, dev):
             ms = ", device ms a call " + json.dumps({
                 kernel_name(e): round(t, 4) for e, t in by.items()
                 if any(f in e for f in ("layer_norm", "flash_", "xent",
-                                        "lstm"))})
+                                        "lstm", "paged_"))})
         log(f"op dispatch {name}: card vs CPU max {worst[name]:.3e} of "
             f"scale, launches {moved or 'none'}{ms}")
     reset_launch_counts()
@@ -1254,8 +1333,9 @@ def _profiler(on):
 
 
 def report_profile(prof, wall):
-    """Device time by kernel over the window, and the device's busy
-    share of the window's wall (the profiler's own overhead inflates
+    """Device time by kernel over the window (the 15 largest and every
+    kernel of the port's own), and the device's busy share of the
+    window's wall (the profiler's own overhead inflates
     the wall; read shares, not rates, from a profiled run). Only the
     device's own events count: the operators that launched them (which
     in the backward's threads carry their kernels' time too) do not."""
@@ -1271,9 +1351,13 @@ def report_profile(prof, wall):
     busy = sum(dev_us(e) for e in rows) / 1e6
     log(f"profile: device busy {busy:.4f} s of {wall:.4f} s wall "
         f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
-    for e in rows[:15]:
-        log(f"  {dev_us(e) / 1e3:10.3f} ms  {e.count:6d}x  "
-            f"{e.key[:90]}")
+    # the 15 largest, then the port's own kernels below them (those of
+    # its sources' anonymous namespaces)
+    for i, e in enumerate(rows):
+        ours = e.key.split("(anonymous namespace)::")[0] in ("", "void ")
+        if i < 15 or ours:
+            log(f"  {dev_us(e) / 1e3:10.3f} ms  {e.count:6d}x  "
+                f"{e.key[:90]}")
 
 
 def serve_main_path(seed, profile, dev, power_line, layers=12, new=32):

@@ -19,10 +19,9 @@ launch, whether its kernel takes the call, as the JAX ops ask
 float32/bfloat16/float16, LayerNorm for the last axis in those types
 without ``output_mean_var``. What the JAX op computes with composed
 math on its accelerator (float64, ``output_mean_var``, another axis)
-takes the same math here on either device. On the card every other
-call goes to the kernel, whose wrapper raises on a shape it cannot
-run (attention head dims past 256); CPU tensors past the kernels'
-shapes take the composed math, as the JAX op does on its CPU.
+takes the same math here on either device. Every other call goes to
+the kernel, at any head dim: on the card the kernels launch, on the
+CPU their plain versions run.
 """
 from __future__ import annotations
 
@@ -130,8 +129,8 @@ def flash_attention_op(query, key, value, valid_len=None, segment_ids=None,
     per-example key lengths ``valid_len`` (B,) and the packed
     ``segment_ids`` (B, S) masked. A causal mask is end-aligned: q row 0
     sits at key position ``Skv - Sq``. The kernel takes what
-    ``ops.flash_attention.kernel_takes``; anything else (float64, and on
-    the CPU head dims past 256) takes the JAX op's composed softmax:
+    ``ops.flash_attention.kernel_takes``; anything else (float64)
+    takes the JAX op's composed softmax:
     float32 scores scaled after the product, rows with no visible key
     exact zeros, the result in the query's type."""
     if valid_len is not None:

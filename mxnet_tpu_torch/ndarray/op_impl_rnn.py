@@ -12,9 +12,9 @@ sequence in one product, ``gin = x @ W_i2h^T + b_i2h + b_h2h`` (plain
 torch, as the JAX package leaves it to XLA), then runs the recurrence in
 ``ops.lstm.lstm_layer_fused``: K6a forward and K6b backward on the
 card, their plain per-step versions on the CPU. The op takes that path
-for every layer of the kernels' types (float32/bfloat16/float16; on an
-H100 the kernels run H up to 2112 and raise past it), decided before
-any launch. A float64 layer, which the kernels do not take, runs the
+for every layer of the kernels' types (float32/bfloat16/float16, any
+H: past one unit group an SM the kernels' blocks walk several), decided
+before any launch. A float64 layer, which the kernels do not take, runs the
 JAX op's ``lax.scan`` cell as a per-step loop in the input's type,
 differentiable by autograd. A reverse direction
 flips the sequence before and after; its final state is the last step

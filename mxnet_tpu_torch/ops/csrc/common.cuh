@@ -36,6 +36,40 @@ __device__ __forceinline__ float round_to(float x, __half) {
   return __half2float(__float2half(x));
 }
 
+// A 16-byte vector of T (4 f32 or 8 bf16/f16 values), as loaded from or
+// stored to memory aligned to 16 bytes, unpacked to and packed from f32.
+template <typename T>
+struct Vec16 {
+  static constexpr int N = 16 / sizeof(T);
+  __device__ static void unpack(uint4 w, float (&out)[N]) {
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (sizeof(T) == 4) {
+        out[i] = __uint_as_float(u[i]);
+      } else {
+        const T* h = reinterpret_cast<const T*>(&u[i]);
+        out[2 * i] = to_f32(h[0]);
+        out[2 * i + 1] = to_f32(h[1]);
+      }
+    }
+  }
+  __device__ static uint4 pack(const float (&v)[N]) {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (sizeof(T) == 4) {
+        u[i] = __float_as_uint(v[i]);
+      } else {
+        T* h = reinterpret_cast<T*>(&u[i]);
+        store(h, v[2 * i]);
+        store(h + 1, v[2 * i + 1]);
+      }
+    }
+    return make_uint4(u[0], u[1], u[2], u[3]);
+  }
+};
+
 // Let `kern` take `smem` bytes of dynamic shared memory (above 48 KiB a
 // kernel must opt in).
 template <typename Kernel>

@@ -65,7 +65,8 @@
 // m16n8k16 16-bit mma) and P.V keeps p in f32 (two TF32 terms), so bf16
 // does not reach its tensor-core rate; the f32 split of each K and V
 // fragment is redone by every warp that reads it; head dims past 128
-// hold a 32-key tile and 128 accumulator registers a lane.
+// hold a 32-key tile and 128 accumulator registers a lane. Past 256 the
+// head dim is cut into chunks (flash_fwd_wide_kernel, below).
 
 #include "common.cuh"
 
@@ -444,6 +445,249 @@ flash_fwd_kernel(Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Head dims past 256 (flash_fwd_wide_kernel). Grid (B * H, 64-query
+// tiles, chunks of kWideDC = 128 columns of the head dim); block z
+// writes o's columns [z DC, z DC + DC). 8 warps: warp w takes the query
+// m-tile w % 4 and, of a 64-key tile, the key half w / 4 for the scores
+// and the column half w / 4 of the chunk for o. For each live key tile:
+//  - s = q' k^T summed over the whole head dim, chunk after chunk: q'
+//    (f32, scaled and rounded as it is staged) and k (f32) through
+//    shared memory in chunk order, so every block of a query tile gets
+//    the same scores and lse, bit for bit;
+//  - the masked scores go to a tile in shared memory, where 4 threads a
+//    row take the online-softmax step (m, l and o's rescale alpha, kept
+//    per row) and leave p, while v's chunk z is staged;
+//  - each warp rescales its o (16 rows x 64 columns, registers) by
+//    alpha and adds p v.
+// Products on mma.sync TF32 (common.cuh's mma_kstep: f32 operands in 3
+// terms, p always; 16-bit q' and k exact in one). Staging is synchronous
+// and the scores are recomputed by each of a query tile's ceil(D / 128)
+// blocks: the price of any head dim, paid only past 256.
+constexpr int kWideDC = 128;            // head-dim columns a chunk
+constexpr int kWideKT = 64;             // keys a tile
+constexpr int kWideLD = kWideDC + 4;    // f32 row stride of q', k, v
+constexpr int kWideLS = kWideKT + 4;    // f32 row stride of the scores
+constexpr int kSegPadK = -3;            // never equal to kSegPadQ
+
+struct WideTiles {
+  float* qs;          // [kBQ][LD]  q' chunk
+  float* kvs;         // [KT][LD]   k chunk, then v chunk z
+  float* ss;          // [kBQ][LS]  scores, then p
+  float* alpha;       // [kBQ]      o's rescale of the step
+  float* lrow;        // [kBQ]      the rows' l at the end
+  int* segq;          // [kBQ]
+  int* segk;          // [KT]
+  __device__ explicit WideTiles(float* s)
+      : qs(s), kvs(qs + kBQ * kWideLD), ss(kvs + kWideKT * kWideLD),
+        alpha(ss + kBQ * kWideLS), lrow(alpha + kBQ),
+        segq(reinterpret_cast<int*>(lrow + kBQ)), segk(segq + kBQ) {}
+  static constexpr size_t bytes() {
+    return sizeof(float) * ((size_t)(kBQ + kWideKT) * kWideLD +
+                            (size_t)kBQ * kWideLS + 2 * kBQ) +
+           sizeof(int) * (kBQ + kWideKT);
+  }
+};
+
+// Rows [r0, r0 + ROWS) x columns [d0, d0 + kWideDC) of a (S, D) slice as
+// f32 into dst (row stride kWideLD), scaled and rounded to T when
+// `scaled` (q'); rows past `rows` and columns past dn are zeros. Up to
+// 16 loads a thread in flight before any store.
+template <typename T, int ROWS>
+__device__ __forceinline__ void stage_wide(float* dst, const T* src,
+                                           long long rs, int r0, int rows,
+                                           int d0, int dn, bool scaled,
+                                           float scale) {
+  constexpr int kPer = ROWS * kWideDC / kThreads;
+  constexpr int kGroup = kPer < 16 ? kPer : 16;
+#pragma unroll
+  for (int u0 = 0; u0 < kPer; u0 += kGroup) {
+    float x[kGroup];
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const int i = threadIdx.x + (u0 + u) * kThreads;
+      const int r = i / kWideDC, d = i - r * kWideDC;
+      x[u] = r < rows && d < dn
+                 ? to_f32(src[(long long)(r0 + r) * rs + d0 + d]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const int i = threadIdx.x + (u0 + u) * kThreads;
+      const int r = i / kWideDC, d = i - r * kWideDC;
+      dst[r * kWideLD + d] = scaled ? round_to(x[u] * scale, T()) : x[u];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(Args a) {
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int NT = kWideKT / 2 / 8;   // score n-tiles a warp: 32 keys
+  constexpr int ON = kWideDC / 2 / 8;   // o n-tiles a warp: 64 columns
+  extern __shared__ __align__(16) float wsmem[];
+  const WideTiles sm(wsmem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int mi = warp % kRowGroups, half = warp / kRowGroups;
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh - b * a.H;
+  const int q0 = blockIdx.y * kBQ;
+  const int rows_here = min(kBQ, a.Sq - q0);
+  const int nc = (a.D + kWideDC - 1) / kWideDC;
+  const int dz = blockIdx.z * kWideDC, dnz = min(kWideDC, a.D - dz);
+  int kvl = a.kv_lens != nullptr ? a.kv_lens[b] : a.Skv;
+  kvl = max(0, min(kvl, a.Skv));
+  int col_end = kvl;
+  if (a.causal) col_end = min(col_end, q0 + rows_here + a.q_offset);
+  const int n_tiles = col_end > 0 ? (col_end + kWideKT - 1) / kWideKT : 0;
+  const T* qb = static_cast<const T*>(a.q) + b * a.st.q[0] + h * a.st.q[1];
+  const T* kb = static_cast<const T*>(a.k) + b * a.st.k[0] + h * a.st.k[1];
+  const T* vb = static_cast<const T*>(a.v) + b * a.st.v[0] + h * a.st.v[1];
+  const int32_t* segrow =
+      a.seg != nullptr ? a.seg + (long long)b * a.Skv : nullptr;
+  if (tid < kBQ)
+    sm.segq[tid] =
+        segrow != nullptr && tid < rows_here ? segrow[q0 + tid] : kSegPadQ;
+
+  // the softmax step: 4 threads a row, 16 keys each; m and l of row
+  // srow, the same in its 4 threads
+  const int srow = tid >> 2, spart = tid & 3;
+  float m = kNegInf, l = 0.f;
+  float o[ON][4];
+#pragma unroll
+  for (int j = 0; j < ON; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) o[j][q] = 0.f;
+  const bool warp_live = 16 * mi < rows_here;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int c0 = t * kWideKT, cols = min(kWideKT, col_end - c0);
+    const int nt_live = max(0, min(NT, (cols - 32 * half + 7) / 8));
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s[j][q] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      const int d0 = c * kWideDC, dn = min(kWideDC, a.D - d0);
+      __syncthreads();            // the last readers of the tiles are done
+      stage_wide<T, kBQ>(sm.qs, qb, a.st.q[2], q0, rows_here, d0, dn, true,
+                         a.scale);
+      stage_wide<T, kWideKT>(sm.kvs, kb, a.st.k[2], c0, cols, d0, dn, false,
+                             0.f);
+      if (c == 0 && segrow != nullptr)
+        for (int i = tid; i < kWideKT; i += kThreads)
+          sm.segk[i] = i < cols ? segrow[c0 + i] : kSegPadK;
+      __syncthreads();
+      if (warp_live) {
+        const float* qr = sm.qs + 16 * mi * kWideLD;
+        const float* kr = sm.kvs + 32 * half * kWideLD;
+        for (int k0 = 0; k0 < kWideDC; k0 += 8)
+          mxtt::mma_kstep<NT, F32, F32>(
+              s, k0, [&](int r, int k) { return qr[r * kWideLD + k]; },
+              [&](int k, int n) { return kr[n * kWideLD + k]; }, nt_live);
+      }
+    }
+    // the masked scores into the tile
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = 16 * mi + gid + (q < 2 ? 0 : 8);
+        const int cc = 32 * half + 8 * j + 2 * tig + (q & 1);
+        bool ok = r < rows_here && cc < cols;
+        if (a.causal) ok = ok && c0 + cc <= q0 + r + a.q_offset;
+        if (segrow != nullptr) ok = ok && sm.segk[cc] == sm.segq[r];
+        sm.ss[r * kWideLS + cc] = ok ? s[j][q] : kNegInf;
+      }
+    __syncthreads();              // the scores are in; k is read
+    stage_wide<T, kWideKT>(sm.kvs, vb, a.st.v[2], c0, cols, dz, dnz, false,
+                           0.f);
+    {
+      // rows with no visible key yet keep m at the sentinel: p and
+      // alpha are forced to 0 there (the TPU kernel's `seen` guard)
+      float* sr = sm.ss + srow * kWideLS + 16 * spart;
+      float tmax = kNegInf;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) tmax = fmaxf(tmax, sr[e]);
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+      const float mn = fmaxf(m, tmax);
+      const bool seen = mn > kNegInf * 0.5f;
+      const float al = seen ? __expf(m - mn) : 0.f;
+      float ls = 0.f;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const float p = seen ? __expf(sr[e] - mn) : 0.f;
+        sr[e] = p;
+        ls += p;
+      }
+      ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+      ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+      l = l * al + ls;
+      m = mn;
+      if (spart == 0) sm.alpha[srow] = al;
+    }
+    __syncthreads();              // p, alpha and v's chunk are in
+    if (warp_live) {
+      const float a0 = sm.alpha[16 * mi + gid];
+      const float a1 = sm.alpha[16 * mi + gid + 8];
+#pragma unroll
+      for (int j = 0; j < ON; ++j) {
+        o[j][0] *= a0;
+        o[j][1] *= a0;
+        o[j][2] *= a1;
+        o[j][3] *= a1;
+      }
+      const float* pr = sm.ss + 16 * mi * kWideLS;
+      const float* vc = sm.kvs + 64 * half;
+      for (int k0 = 0; k0 < cols; k0 += 8)
+        mxtt::mma_kstep<ON, true, F32>(
+            o, k0, [&](int r, int k) { return pr[r * kWideLS + k]; },
+            [&](int k, int n) { return vc[k * kWideLD + n]; }, ON);
+    }
+  }
+  // o = acc / l_safe, and (chunk 0's block) lse = m + log(l), -1e30
+  // where l == 0
+  if (spart == 0) {
+    sm.lrow[srow] = l;
+    if (blockIdx.z == 0 && srow < rows_here)
+      a.lse[(long long)bh * a.Sq + q0 + srow] =
+          l == 0.f ? kNegInf : m + logf(l);
+  }
+  __syncthreads();
+  if (!warp_live) return;
+  T* ob = static_cast<T*>(a.o) + b * a.st.o[0] + h * a.st.o[1];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 16 * mi + gid + 8 * i;
+    if (r >= rows_here) continue;
+    const float lr = sm.lrow[r];
+    const float inv = 1.f / (lr == 0.f ? 1.f : lr);
+    T* orow = ob + (long long)(q0 + r) * a.st.o[2] + dz;
+#pragma unroll
+    for (int j = 0; j < ON; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 64 * half + 8 * j + 2 * tig + e;
+        if (d < dnz) store(orow + d, o[j][2 * i + e] * inv);
+      }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const Args& a, int B, cudaStream_t stream) {
+  const size_t smem = WideTiles::bytes();
+  auto kern = flash_fwd_wide_kernel<T>;
+  cudaError_t e = mxtt::allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(B * a.H, (a.Sq + kBQ - 1) / kBQ,
+            (a.D + kWideDC - 1) / kWideDC);
+  kern<<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T, int DP>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   using S = Tiles<T, DP>;
@@ -464,7 +708,8 @@ cudaError_t dispatch(const Args& a, int B, cudaStream_t s) {
   if (a.D <= 32) return launch<T, 32>(a, B, s);
   if (a.D <= 64) return launch<T, 64>(a, B, s);
   if (a.D <= 128) return launch<T, 128>(a, B, s);
-  return launch<T, 256>(a, B, s);
+  if (a.D <= 256) return launch<T, 256>(a, B, s);
+  return launch_wide<T>(a, B, s);
 }
 
 bool aligned16(const void* p, const long long* st, int esize) {
@@ -486,8 +731,8 @@ extern "C" int mxtt_flash_attention_fwd(
     const void* seg, void* o, void* lse, const long long* strides, int B,
     int H, int Sq, int Skv, int D, float scale, int causal, int q_offset,
     int dtype, void* stream) {
-  if (B < 1 || H < 1 || Sq < 1 || Skv < 0 || D < 1 || D > 256 ||
-      dtype < 0 || dtype > 2)
+  if (B < 1 || H < 1 || Sq < 1 || Skv < 0 || D < 1 || dtype < 0 ||
+      dtype > 2)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;

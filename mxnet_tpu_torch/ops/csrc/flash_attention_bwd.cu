@@ -44,6 +44,12 @@
 //    block per (batch*head, key tile) looping over the query tiles: s
 //    and dp computed in each (7 products a pair). Key tiles are 64
 //    keys, 32 at head dims past 128 (214 KB of shared memory then).
+//  - Past D = 256 the same kernels run over chunks of the head dim (64
+//    columns one-pass, 128 split; the chunk is a grid axis): each
+//    block sums s and dp over every chunk through the D <= 64 (or
+//    <= 128) tiles, then computes its chunk of the gradients. The
+//    one-pass kernel takes every Skv <= 128 there again, since its
+//    tiles no longer grow with D.
 // The C entry point picks the path from Skv and D.
 // Every block computes delta for a query tile as it stages it (in the
 // dk/dv kernel once for each key tile: measured faster on an H100 than
@@ -226,17 +232,14 @@ struct Heads {                  // this (batch, head)'s slices
         dv(static_cast<T*>(a.dv) + b * a.st.dv[0] + h * a.st.dv[1]) {}
 };
 
-// Stage the query tile: q' and do (rows_here rows from q0), lse, the
-// query segment ids (pads where none), and delta = rowsum(do * o) -
-// dlse, 4 threads a row, each D / 4 products, in a fixed order.
+// Stage the query tile's lse, query segment ids (pads where none) and
+// delta = rowsum(do * o) - dlse over the whole head dim, 4 threads a row,
+// each D / 4 products, in a fixed order.
 template <typename T, int DP, int KT, int NW>
-__device__ __forceinline__ void stage_queries(const Tiles<DP, KT>& sm,
-                                              const Args& a, int b, int bh,
-                                              const Heads<T>& x, int q0,
-                                              int rows_here) {
-  stage2<T, DP, kQT, 32 * NW>(sm.qs, x.q, a.st.q[2], sm.dos, x.dout,
-                              a.st.dO[2], q0, rows_here, a.D, true,
-                              a.scale);
+__device__ __forceinline__ void query_stats(const Tiles<DP, KT>& sm,
+                                            const Args& a, int b, int bh,
+                                            const Heads<T>& x, int q0,
+                                            int rows_here) {
   const int r = threadIdx.x / 4, part = threadIdx.x % 4;
   const long long o = (long long)bh * a.Sq + q0 + r;
   const bool live = r < rows_here;
@@ -258,8 +261,32 @@ __device__ __forceinline__ void stage_queries(const Tiles<DP, KT>& sm,
   }
 }
 
+// Stage the query tile: q' and do (rows_here rows from q0), then
+// query_stats.
+template <typename T, int DP, int KT, int NW>
+__device__ __forceinline__ void stage_queries(const Tiles<DP, KT>& sm,
+                                              const Args& a, int b, int bh,
+                                              const Heads<T>& x, int q0,
+                                              int rows_here) {
+  stage2<T, DP, kQT, 32 * NW>(sm.qs, x.q, a.st.q[2], sm.dos, x.dout,
+                              a.st.dO[2], q0, rows_here, a.D, true,
+                              a.scale);
+  query_stats<T, DP, KT, NW>(sm, a, b, bh, x, q0, rows_here);
+}
+
+// Stage the key segment ids of the tile at k0 (pads past the `cols`
+// live keys).
+template <int DP, int KT, int NW>
+__device__ __forceinline__ void key_ids(const Tiles<DP, KT>& sm,
+                                        const Args& a, int b, int k0,
+                                        int cols) {
+  for (int c = threadIdx.x; c < KT; c += 32 * NW)
+    sm.segk[c] = (a.seg != nullptr && c < cols)
+                     ? a.seg[(long long)b * a.Skv + k0 + c] : kSegPadK;
+}
+
 // Stage the key tile: k and v (cols live rows from k0, the rest zeros)
-// and the key segment ids (pads past the live keys).
+// and the key segment ids.
 template <typename T, int DP, int KT, int NW>
 __device__ __forceinline__ void stage_keys(const Tiles<DP, KT>& sm,
                                            const Args& a, int b,
@@ -267,39 +294,49 @@ __device__ __forceinline__ void stage_keys(const Tiles<DP, KT>& sm,
                                            int cols) {
   stage2<T, DP, KT, 32 * NW>(sm.ks, x.k, a.st.k[2], sm.vs, x.v, a.st.v[2],
                              k0, cols, a.D, false, 0.f);
-  for (int c = threadIdx.x; c < KT; c += 32 * NW)
-    sm.segk[c] = (a.seg != nullptr && c < cols)
-                     ? a.seg[(long long)b * a.Skv + k0 + c] : kSegPadK;
+  key_ids<DP, KT, NW>(sm, a, b, k0, cols);
 }
 
-// s = q' k^T and dp = do v^T for the staged pair (Work's split), masked,
-// then p and ds into shared memory. `cols`: live keys of the tile;
-// visibility as the header says.
+// s += q' k^T and dp += do v^T over the staged columns of the pair
+// (Work's split: a warp's 16 queries x SNT n-tiles of keys). `cols`:
+// live keys of the tile; a warp past the live rows adds nothing (every
+// pair it skips is masked in score_write).
 template <typename T, int DP, int KT, int NW>
-__device__ __forceinline__ void scores(const Tiles<DP, KT>& sm,
-                                       const Args& a, int q0, int rows_here,
-                                       int k0, int cols) {
+__device__ __forceinline__ void score_products(
+    const Tiles<DP, KT>& sm, int rows_here, int cols,
+    float (&s)[Work<DP, KT, NW>::SNT][4],
+    float (&dp)[Work<DP, KT, NW>::SNT][4]) {
   using W = Work<DP, KT, NW>;
   constexpr bool kSplit = sizeof(T) == 4;
   constexpr int NT = W::SNT;
-  constexpr int LD = Tiles<DP, KT>::LD, LP = Tiles<DP, KT>::LP;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
+  constexpr int LD = Tiles<DP, KT>::LD;
+  const int warp = threadIdx.x >> 5;
   const int mi = warp % 4, c0 = (warp / 4) * (8 * NT);
   const float* qr = sm.qs + 16 * mi * LD;
   const float* orow = sm.dos + 16 * mi * LD;
   const float* kr = sm.ks + c0 * LD;
   const float* vr = sm.vs + c0 * LD;
-  // n-tiles of live keys; none for a warp past the live rows (every
-  // pair it skips is masked below)
   const int nt_live = 16 * mi < rows_here
                           ? max(0, min(NT, (cols - c0 + 7) / 8)) : 0;
-  float s[NT][4] = {}, dp[NT][4] = {};
   warp_mma2<NT, kSplit, kSplit>(
       s, [&](int m, int k) { return qr[m * LD + k]; },
       [&](int k, int n) { return kr[n * LD + k]; }, dp,
       [&](int m, int k) { return orow[m * LD + k]; },
       [&](int k, int n) { return vr[n * LD + k]; }, DP, nt_live);
+}
+
+// The pair's s and dp masked into p and ds in shared memory; visibility
+// as the header says.
+template <int DP, int KT, int NW>
+__device__ __forceinline__ void score_write(
+    const Tiles<DP, KT>& sm, const Args& a, int q0, int rows_here, int k0,
+    int cols, const float (&s)[Work<DP, KT, NW>::SNT][4],
+    const float (&dp)[Work<DP, KT, NW>::SNT][4]) {
+  constexpr int NT = Work<DP, KT, NW>::SNT;
+  constexpr int LP = Tiles<DP, KT>::LP;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int mi = warp % 4, c0 = (warp / 4) * (8 * NT);
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -314,6 +351,18 @@ __device__ __forceinline__ void scores(const Tiles<DP, KT>& sm,
       sm.ps[r * LP + c] = p;
       sm.dss[r * LP + c] = p * (dp[j][q] - sm.del[r]);
     }
+}
+
+// s = q' k^T and dp = do v^T for the staged pair, masked, then p and ds
+// into shared memory.
+template <typename T, int DP, int KT, int NW>
+__device__ __forceinline__ void scores(const Tiles<DP, KT>& sm,
+                                       const Args& a, int q0, int rows_here,
+                                       int k0, int cols) {
+  constexpr int NT = Work<DP, KT, NW>::SNT;
+  float s[NT][4] = {}, dp[NT][4] = {};
+  score_products<T, DP, KT, NW>(sm, rows_here, cols, s, dp);
+  score_write<DP, KT, NW>(sm, a, q0, rows_here, k0, cols, s, dp);
 }
 
 // dq += ds k for the staged pair (Work's split), as deep as the tile's
@@ -357,10 +406,11 @@ __device__ __forceinline__ void dkv_product(
       [&](int k, int n) { return oc[k * LD + n]; }, (rows_here + 7) / 8 * 8);
 }
 
-// Write a warp's dq rows (scaled to the ORIGINAL q) for the tile at q0.
+// Write a warp's dq rows (scaled to the ORIGINAL q) for the tile at q0:
+// columns d0 + [0, dn).
 template <typename T, int DP, int KT, int NW>
 __device__ __forceinline__ void write_dq(
-    const Args& a, T* dqb, int q0, int rows_here,
+    const Args& a, T* dqb, int q0, int rows_here, int d0, int dn,
     const float (&acc)[Work<DP, KT, NW>::QNT][4]) {
   using W = Work<DP, KT, NW>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -372,16 +422,17 @@ __device__ __forceinline__ void write_dq(
     for (int q = 0; q < 4; ++q) {
       const int r = 16 * (warp % 4) + gid + (q < 2 ? 0 : 8);
       const int d = (warp / 4) * (8 * W::QNT) + 8 * j + 2 * tig + (q & 1);
-      if (r < rows_here && d < a.D)
-        store(dqb + (long long)(q0 + r) * a.st.dq[2] + d,
+      if (r < rows_here && d < dn)
+        store(dqb + (long long)(q0 + r) * a.st.dq[2] + d0 + d,
               acc[j][q] * a.scale);
     }
 }
 
-// Write a warp's dk, dv rows of the key tile at k0 (`rows` of them).
+// Write a warp's dk, dv rows of the key tile at k0 (`rows` of them):
+// columns d0 + [0, dn).
 template <typename T, int DP, int KT, int NW>
 __device__ __forceinline__ void write_dkv(
-    const Args& a, T* dkb, T* dvb, int k0, int rows,
+    const Args& a, T* dkb, T* dvb, int k0, int rows, int d0, int dn,
     const float (&dk)[Work<DP, KT, NW>::KNT][4],
     const float (&dv)[Work<DP, KT, NW>::KNT][4]) {
   using W = Work<DP, KT, NW>;
@@ -393,9 +444,9 @@ __device__ __forceinline__ void write_dkv(
     for (int q = 0; q < 4; ++q) {
       const int c = 16 * (warp % W::KM) + gid + (q < 2 ? 0 : 8);
       const int d = (warp / W::KM) * W::KNT * 8 + 8 * j + 2 * tig + (q & 1);
-      if (c < rows && d < a.D) {
-        store(dkb + (long long)(k0 + c) * a.st.dk[2] + d, dk[j][q]);
-        store(dvb + (long long)(k0 + c) * a.st.dv[2] + d, dv[j][q]);
+      if (c < rows && d < dn) {
+        store(dkb + (long long)(k0 + c) * a.st.dk[2] + d0 + d, dk[j][q]);
+        store(dvb + (long long)(k0 + c) * a.st.dv[2] + d0 + d, dv[j][q]);
       }
     }
 }
@@ -431,11 +482,11 @@ flash_bwd_fused_kernel(Args a) {
     __syncthreads();
     float dq[W::QNT][4] = {};
     dq_product<T, DP, KT, NW>(sm, rows_here, kvl, dq);
-    write_dq<T, DP, KT, NW>(a, x.dq, q0, rows_here, dq);
+    write_dq<T, DP, KT, NW>(a, x.dq, q0, rows_here, 0, a.D, dq);
     dkv_product<T, DP, KT, NW>(sm, rows_here, kvl, dk, dv);
   }
   // every key row is written: zeros where no query sees it
-  write_dkv<T, DP, KT, NW>(a, x.dk, x.dv, 0, a.Skv, dk, dv);
+  write_dkv<T, DP, KT, NW>(a, x.dk, x.dv, 0, a.Skv, 0, a.D, dk, dv);
 }
 
 // ---------------------------------------------------------------------------
@@ -483,7 +534,7 @@ flash_bwd_dq_kernel(Args a) {
     __syncthreads();
     dq_product<T, DP, KT, NW>(sm, rows_here, cols, dq);
   }
-  write_dq<T, DP, KT, NW>(a, x.dq, q0, rows_here, dq);
+  write_dq<T, DP, KT, NW>(a, x.dq, q0, rows_here, 0, a.D, dq);
 }
 
 // ---------------------------------------------------------------------------
@@ -535,7 +586,192 @@ flash_bwd_dkv_kernel(Args a) {
     dkv_product<T, DP, KT, NW>(sm, rows_here, keys_live, dk, dv);
   }
   // every key row of the tile is written: zeros where no query sees it
-  write_dkv<T, DP, KT, NW>(a, x.dk, x.dv, k0, cols_here, dk, dv);
+  write_dkv<T, DP, KT, NW>(a, x.dk, x.dv, k0, cols_here, 0, a.D, dk, dv);
+}
+
+// ---------------------------------------------------------------------------
+// Head dims past 256: the same three kernels over chunks of DP columns
+// of the head dim (64 in the one-pass kernel, 128 in the split pair), so
+// their tiles stay the D <= 64 and D <= 128 ones. Block z of the grid's
+// chunk axis writes the gradients' columns [z DP, z DP + DP). For a
+// tile pair, s and dp are summed over every chunk: q', do, k and v
+// staged chunk after chunk through the same tiles, in chunk order, so
+// every block of the pair gets the same p and ds, bit for bit; then
+// chunk z is staged again (unless it was the last) for the gradient
+// products. Only the s and dp work repeats, once a chunk of the output;
+// delta is taken over the whole head dim once a query tile
+// (query_stats).
+
+// Stage chunk c of the pair: q' and do (rows_here rows from q0) and k
+// and v (cols rows from k0), columns [c DP, c DP + DP) of the head dim.
+template <typename T, int DP, int KT, int NW>
+__device__ __forceinline__ void stage_chunk(const Tiles<DP, KT>& sm,
+                                            const Args& a,
+                                            const Heads<T>& x, int q0,
+                                            int rows_here, int k0, int cols,
+                                            int c) {
+  const int d0 = c * DP, dn = min(DP, a.D - d0);
+  stage2<T, DP, kQT, 32 * NW>(sm.qs, x.q + d0, a.st.q[2], sm.dos,
+                              x.dout + d0, a.st.dO[2], q0, rows_here, dn,
+                              true, a.scale);
+  stage2<T, DP, KT, 32 * NW>(sm.ks, x.k + d0, a.st.k[2], sm.vs, x.v + d0,
+                             a.st.v[2], k0, cols, dn, false, 0.f);
+}
+
+// p and ds of the pair (query tile at q0, key tile at k0) over the whole
+// head dim into shared memory, leaving chunk z staged; the query stats
+// and key ids must be staged. Ends with every thread past a barrier.
+template <typename T, int DP, int KT, int NW>
+__device__ __forceinline__ void wide_scores(const Tiles<DP, KT>& sm,
+                                            const Args& a,
+                                            const Heads<T>& x, int q0,
+                                            int rows_here, int k0, int cols,
+                                            int z) {
+  constexpr int NT = Work<DP, KT, NW>::SNT;
+  const int nc = (a.D + DP - 1) / DP;
+  float s[NT][4] = {}, dp[NT][4] = {};
+  for (int c = 0; c < nc; ++c) {
+    __syncthreads();              // the last chunk's readers are done
+    stage_chunk<T, DP, KT, NW>(sm, a, x, q0, rows_here, k0, cols, c);
+    __syncthreads();
+    score_products<T, DP, KT, NW>(sm, rows_here, cols, s, dp);
+  }
+  score_write<DP, KT, NW>(sm, a, q0, rows_here, k0, cols, s, dp);
+  if (z != nc - 1) {
+    __syncthreads();
+    stage_chunk<T, DP, KT, NW>(sm, a, x, q0, rows_here, k0, cols, z);
+  }
+  __syncthreads();
+}
+
+// One pass (Skv <= 128) past D = 256: one block per (b*h, 64-column
+// chunk), all keys in one tile, walking the query tiles.
+template <typename T>
+__global__ void __launch_bounds__(32 * kFusedWarps)
+flash_bwd_fused_wide_kernel(Args a) {
+  constexpr int DP = 64, NW = kFusedWarps, KT = kFusedKT;
+  using W = Work<DP, KT, NW>;
+  extern __shared__ float smem[];
+  const Tiles<DP, KT> sm(smem);
+  const int bh = blockIdx.x, z = blockIdx.y;
+  const int b = bh / a.H, h = bh - b * a.H;
+  const int d0 = z * DP, dn = min(DP, a.D - d0);
+  const Heads<T> x(a, b, h);
+  const int kvl = clamp_kvl(a, b);
+  key_ids<DP, KT, NW>(sm, a, b, 0, kvl);
+  float dk[W::KNT][4] = {}, dv[W::KNT][4] = {};
+  const int n_qt = (a.Sq + kQT - 1) / kQT;
+  for (int t = 0; t < n_qt; ++t) {
+    const int q0 = t * kQT, rows_here = min(kQT, a.Sq - q0);
+    // a tile where no row sees a key: every row's dq is zero
+    if (kvl == 0 || (a.causal && q0 + rows_here - 1 + a.q_offset < 0)) {
+      for (int e = threadIdx.x; e < rows_here * dn; e += W::kThreads)
+        store(x.dq + (long long)(q0 + e / dn) * a.st.dq[2] + d0 + e % dn,
+              0.f);
+      continue;
+    }
+    __syncthreads();              // the last turn's readers are done
+    query_stats<T, DP, KT, NW>(sm, a, b, bh, x, q0, rows_here);
+    wide_scores<T, DP, KT, NW>(sm, a, x, q0, rows_here, 0, kvl, z);
+    float dq[W::QNT][4] = {};
+    dq_product<T, DP, KT, NW>(sm, rows_here, kvl, dq);
+    write_dq<T, DP, KT, NW>(a, x.dq, q0, rows_here, d0, dn, dq);
+    dkv_product<T, DP, KT, NW>(sm, rows_here, kvl, dk, dv);
+  }
+  write_dkv<T, DP, KT, NW>(a, x.dk, x.dv, 0, a.Skv, d0, dn, dk, dv);
+}
+
+// Split dq past D = 256: one block per (b*h, 64-query tile, 128-column
+// chunk), looping over key tiles.
+template <typename T>
+__global__ void __launch_bounds__(32 * kSplitWarps)
+flash_bwd_dq_wide_kernel(Args a) {
+  constexpr int DP = 128, NW = kSplitWarps, KT = split_kt<DP>();
+  using W = Work<DP, KT, NW>;
+  extern __shared__ float smem[];
+  const Tiles<DP, KT> sm(smem);
+  const int bh = blockIdx.x, z = blockIdx.z;
+  const int b = bh / a.H, h = bh - b * a.H;
+  const int d0 = z * DP, dn = min(DP, a.D - d0);
+  const Heads<T> x(a, b, h);
+  const int q0 = blockIdx.y * kQT;
+  const int rows_here = min(kQT, a.Sq - q0);
+  int col_end = clamp_kvl(a, b);
+  if (a.causal) col_end = min(col_end, q0 + rows_here + a.q_offset);
+  const int n_tiles = col_end > 0 ? (col_end + KT - 1) / KT : 0;
+  query_stats<T, DP, KT, NW>(sm, a, b, bh, x, q0, rows_here);
+  __syncthreads();
+  int qmin = 0x7fffffff, qmax = -0x7fffffff;
+  if (a.seg != nullptr) {
+    for (int r = 0; r < rows_here; ++r) {
+      qmin = min(qmin, sm.segq[r]);
+      qmax = max(qmax, sm.segq[r]);
+    }
+  }
+  float dq[W::QNT][4] = {};
+  for (int t = 0; t < n_tiles; ++t) {
+    const int c0 = t * KT, cols = min(KT, col_end - c0);
+    __syncthreads();              // the last turn's readers are done
+    if (a.seg != nullptr) {
+      int hit = 0;
+      if (threadIdx.x < cols) {
+        const int sk = a.seg[(long long)b * a.Skv + c0 + threadIdx.x];
+        hit = sk >= qmin && sk <= qmax;
+      }
+      if (!__syncthreads_or(hit)) continue;   // disjoint ids: skip
+    }
+    key_ids<DP, KT, NW>(sm, a, b, c0, cols);
+    wide_scores<T, DP, KT, NW>(sm, a, x, q0, rows_here, c0, cols, z);
+    dq_product<T, DP, KT, NW>(sm, rows_here, cols, dq);
+  }
+  write_dq<T, DP, KT, NW>(a, x.dq, q0, rows_here, d0, dn, dq);
+}
+
+// Split dk, dv past D = 256: one block per (b*h, key tile, 128-column
+// chunk), looping over query tiles.
+template <typename T>
+__global__ void __launch_bounds__(32 * kSplitWarps)
+flash_bwd_dkv_wide_kernel(Args a) {
+  constexpr int DP = 128, NW = kSplitWarps, KT = split_kt<DP>();
+  using W = Work<DP, KT, NW>;
+  extern __shared__ float smem[];
+  const Tiles<DP, KT> sm(smem);
+  const int bh = blockIdx.x, z = blockIdx.z;
+  const int b = bh / a.H, h = bh - b * a.H;
+  const int d0 = z * DP, dn = min(DP, a.D - d0);
+  const Heads<T> x(a, b, h);
+  const int k0 = blockIdx.y * KT;
+  const int cols_here = min(KT, a.Skv - k0);
+  const int keys_live = max(0, min(cols_here, clamp_kvl(a, b) - k0));
+  const int row_begin = a.causal ? max(0, k0 - a.q_offset) : 0;
+  const int n_qt = (a.Sq + kQT - 1) / kQT;
+  const int t_begin = keys_live > 0 ? row_begin / kQT : n_qt;
+  key_ids<DP, KT, NW>(sm, a, b, k0, keys_live);
+  __syncthreads();
+  int kmin = 0x7fffffff, kmax = -0x7fffffff;
+  if (a.seg != nullptr) {
+    for (int c = 0; c < keys_live; ++c) {
+      kmin = min(kmin, sm.segk[c]);
+      kmax = max(kmax, sm.segk[c]);
+    }
+  }
+  float dk[W::KNT][4] = {}, dv[W::KNT][4] = {};
+  for (int t = t_begin; t < n_qt; ++t) {
+    const int q0 = t * kQT, rows_here = min(kQT, a.Sq - q0);
+    __syncthreads();              // the last turn's readers are done
+    if (a.seg != nullptr) {
+      int hit = 0;
+      if (threadIdx.x < rows_here) {
+        const int sq = a.seg[(long long)b * a.Sq + q0 + threadIdx.x];
+        hit = sq >= kmin && sq <= kmax;
+      }
+      if (!__syncthreads_or(hit)) continue;   // disjoint ids: skip
+    }
+    query_stats<T, DP, KT, NW>(sm, a, b, bh, x, q0, rows_here);
+    wide_scores<T, DP, KT, NW>(sm, a, x, q0, rows_here, k0, keys_live, z);
+    dkv_product<T, DP, KT, NW>(sm, rows_here, keys_live, dk, dv);
+  }
+  write_dkv<T, DP, KT, NW>(a, x.dk, x.dv, k0, cols_here, d0, dn, dk, dv);
 }
 
 template <typename K>
@@ -571,6 +807,30 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   return e;
 }
 
+// past D = 256: the one-pass kernel over 64-column chunks where every
+// key fits its tile (Skv <= 128), else the split pair over 128-column
+// chunks
+template <typename T>
+cudaError_t launch_wide(const Args& a, int B, cudaStream_t stream) {
+  if (a.Skv <= kFusedKT)
+    return launch1(flash_bwd_fused_wide_kernel<T>,
+                   dim3(B * a.H, (a.D + 63) / 64), 32 * kFusedWarps,
+                   Tiles<64, kFusedKT>::bytes(), a, stream);
+  constexpr int KT = split_kt<128>();
+  constexpr size_t smem = Tiles<128, KT>::bytes();
+  const int nc = (a.D + 127) / 128;
+  cudaError_t e = cudaSuccess;
+  if (a.Sq > 0)
+    e = launch1(flash_bwd_dq_wide_kernel<T>,
+                dim3(B * a.H, (a.Sq + kQT - 1) / kQT, nc), 32 * kSplitWarps,
+                smem, a, stream);
+  if (e == cudaSuccess)
+    e = launch1(flash_bwd_dkv_wide_kernel<T>,
+                dim3(B * a.H, (a.Skv + KT - 1) / KT, nc), 32 * kSplitWarps,
+                smem, a, stream);
+  return e;
+}
+
 template <typename T>
 cudaError_t dispatch(const Args& a, int B, cudaStream_t s) {
   if (a.D <= 16) return launch<T, 16>(a, B, s);
@@ -578,7 +838,7 @@ cudaError_t dispatch(const Args& a, int B, cudaStream_t s) {
   if (a.D <= 64) return launch<T, 64>(a, B, s);
   if (a.D <= 128) return launch<T, 128>(a, B, s);
   if (a.D <= 256) return launch<T, 256>(a, B, s);
-  return cudaErrorInvalidValue;
+  return launch_wide<T>(a, B, s);
 }
 
 }  // namespace
@@ -588,15 +848,16 @@ cudaError_t dispatch(const Args& a, int B, cudaStream_t s) {
 // the forward's output; lse and dlse (the lse's gradient, or null) are
 // (B, H, Sq) float32, contiguous; kv_lens (B,) and seg (B, S) int32 or
 // null. strides holds 24 element strides: (b, h, s) of q, k,
-// v, do, o, dq, dk, then dv. Skv <= 128 with D <= 64 launches the
-// one-pass kernel, anything else the dq and the dk/dv kernel. Returns
-// the first failing launch's cudaError_t (0 = launched).
+// v, do, o, dq, dk, then dv. Any head dim. Skv <= 128 with D <= 64 or
+// D > 256 launches the one-pass kernel, anything else the dq and the
+// dk/dv kernel. Returns the first failing launch's cudaError_t (0 =
+// launched).
 extern "C" int mxtt_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dO,
     const void* o, const void* lse, const void* dlse, const void* kv_lens, const void* seg, void* dq, void* dk, void* dv,
     const long long* strides, int B, int H, int Sq, int Skv, int D,
     float scale, int causal, int q_offset, int dtype, void* stream) {
-  if (B < 1 || H < 1 || Sq < 0 || Skv < 0 || D < 1 || D > 256)
+  if (B < 1 || H < 1 || Sq < 0 || Skv < 0 || D < 1)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;

@@ -53,8 +53,12 @@
 // block forward), each block stages the same rows into its own slice of
 // a scratch in device memory (`wg`) instead, and the products read B
 // from there through L1/L2, at the cost of those bytes every step;
-// shared memory then holds only the partial sums. Up to H = 2112 (132
-// groups of 16 units).
+// shared memory then holds only the partial sums. Any H: past one unit
+// group an SM (H > 2112 on an H100: 157 groups of 16 units at H = 2500)
+// the grid keeps one block an SM and block b walks the work blocks (unit
+// group x row group) b, b + blocks, ... every step, each with its own
+// slice of `wg`, still one grid sync a step; a step then costs the
+// walk's length in products.
 //
 // Forward design (lstm_fwd_kernel). The block's W part is the four gate
 // columns of each of its units (16 units: 64 columns, eight n8 tiles;
@@ -356,15 +360,45 @@ __device__ __forceinline__ void lstm_cell(const CellIn& in, const float* z,
   store(hdst + (size_t)n * hp + unit, hn);
 }
 
+// The work of block wb of a grid of UG unit groups x RG row groups:
+// unit group wb % UG (units [unit0, unit0 + nu)) and row group wb / UG
+// (m-tiles [mt0, mt1), rows [row0, row0 + rows)), and its split of the
+// product: `per_tile` work items a m-tile (the forward's unit halves)
+// times KS shares of the depth, `items` in all, over `warps` warps. The
+// kernels compute their own block's once, before the steps: its
+// divisions would otherwise sit on every step's serial path.
+struct Share {
+  int unit0, nu, mt0, mt1, row0, rows, KS, items;
+  bool last_units;              // the last unit group
+  __device__ Share(int wb, int UG, int U, int RG, int N, int H, int per_tile,
+                   int warps) {
+    const int ug = wb % UG, rg = wb / UG;
+    const int mt = (N + 15) / 16;
+    unit0 = ug * U;
+    nu = min(U, H - unit0);
+    mt0 = mt * rg / RG;
+    mt1 = mt * (rg + 1) / RG;
+    row0 = 16 * mt0;
+    rows = min(N, 16 * mt1) - row0;
+    KS = depth_split((mt1 - mt0) * per_tile, warps);
+    items = (mt1 - mt0) * per_tile * KS;
+    last_units = ug == UG - 1;
+  }
+};
+
 // The forward for blocks of U <= 8 NH units (the header's layout), NH
 // halves of 8 units, kFwdWarps warps: a work item is one m16 tile x one
 // half (four n-tiles: its units' four gates) x one share of the depth.
 // Shared memory: w_s [32 NH][ldw] of T, row 32 hf + 8 g + r = column
 // (gate g, unit 8 hf + r) of W's part, W[0..H) then zeros (in wg's
-// slice instead when WG); then red_s [16 work items][16][32] f32
-// partial sums when the depth is split. WG is a template argument so
-// that the resident variant's W reads stay shared-memory loads.
-template <typename T, int NH, bool WG>
+// slice of the work block instead when WG); then red_s [16 work
+// items][16][32] f32 partial sums when the depth is split. WG is a
+// template argument so that the resident variant's W reads stay
+// shared-memory loads. With WALK (W in device memory, a grid smaller
+// than UG x RG) block b does work blocks b, b + gridDim.x, ... every
+// step; without, block b is work block b, and the step is straight-line
+// code as before the walk existed.
+template <typename T, int NH, bool WG, bool WALK>
 __global__ void __launch_bounds__(32 * kFwdWarps, 1)
 lstm_fwd_kernel(const T* __restrict__ gin, const T* __restrict__ w,
                 long long sk, long long sg, const T* __restrict__ h0,
@@ -376,64 +410,65 @@ lstm_fwd_kernel(const T* __restrict__ gin, const T* __restrict__ w,
   constexpr int KG = 16 / (int)sizeof(T);
   constexpr int KC = 4 * KG;
   constexpr int WR = 32 * NH;               // W columns of the block
-  // W's part in shared memory, or in this block's slice of wg
-  T* w_s = WG ? wg + (size_t)blockIdx.x * WR * ldw
-              : reinterpret_cast<T*>(smem_raw);
+  // W's part in shared memory, or in work block wb's slice of wg
+  auto w_part = [&](int wb) {
+    return WG ? wg + (size_t)wb * WR * ldw : reinterpret_cast<T*>(smem_raw);
+  };
   float* red_s = reinterpret_cast<float*>(
       smem_raw + (WG ? 0 : (size_t)WR * ldw * sizeof(T)));
   const int UG = (H + U - 1) / U;
-  const int ug = blockIdx.x % UG, rg = blockIdx.x / UG;
-  const int unit0 = ug * U;
-  const int nu = min(U, H - unit0);
-  const int mt = (N + 15) / 16;
-  const int mt0 = mt * rg / RG, mt1 = mt * (rg + 1) / RG;
-  const int row0 = 16 * mt0, rows = min(N, 16 * mt1) - row0;
-  const int pairs = (mt1 - mt0) * NH;       // (m-tile, half) pairs
-  const int KS = depth_split(pairs, kFwdWarps);
-  const int items = pairs * KS;
+  const int work = UG * RG;
   const int chunks = hp / KC;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const size_t buf = (size_t)N * hp;        // elements of one h buffer
+  const Share own(blockIdx.x, UG, U, RG, N, H, NH, kFwdWarps);
+  auto share = [&](int wb) {
+    return wb == (int)blockIdx.x ? own
+                                 : Share(wb, UG, U, RG, N, H, NH, kFwdWarps);
+  };
 
-  stage(WR * ldw,
-        [&](int e) {
-          const int r = e / ldw, k = e % ldw;
-          const int unit = 8 * (r / 32) + r % 8, g = (r / 8) % 4;
-          return unit < nu && k < H
-                     ? to_f32(w[(long long)k * sk +
-                                (long long)(g * H + unit0 + unit) * sg])
-                     : 0.f;
-        },
-        [&](int e) { return w_s + e; });
-  // h0 into buffer 1 (read at step 0); the last unit group zeroes the
-  // columns past H of both buffers for its rows
-  for (int p = threadIdx.x; p < rows * nu; p += blockDim.x) {
-    const int n = row0 + p / nu, unit = unit0 + p % nu;
-    hbuf[buf + (size_t)n * hp + unit] = h0[(size_t)n * H + unit];
-  }
-  if (ug == UG - 1) {
-    const int pad = hp - H;
-    for (int p = threadIdx.x; p < 2 * rows * pad; p += blockDim.x) {
-      const int b = p / (rows * pad), n = row0 + (p / pad) % rows;
-      store(hbuf + b * buf + (size_t)n * hp + H + p % pad, 0.f);
+  for (int wb = blockIdx.x; wb < work; wb += gridDim.x) {
+    const Share sh = share(wb);
+    stage(WR * ldw,
+          [&](int e) {
+            const int r = e / ldw, k = e % ldw;
+            const int unit = 8 * (r / 32) + r % 8, g = (r / 8) % 4;
+            return unit < sh.nu && k < H
+                       ? to_f32(w[(long long)k * sk +
+                                  (long long)(g * H + sh.unit0 + unit) * sg])
+                       : 0.f;
+          },
+          [&](int e) { return w_part(wb) + e; });
+    // h0 into buffer 1 (read at step 0); the last unit group zeroes the
+    // columns past H of both buffers for its rows
+    for (int p = threadIdx.x; p < sh.rows * sh.nu; p += blockDim.x) {
+      const int n = sh.row0 + p / sh.nu, unit = sh.unit0 + p % sh.nu;
+      hbuf[buf + (size_t)n * hp + unit] = h0[(size_t)n * H + unit];
+    }
+    if (sh.last_units) {
+      const int pad = hp - H;
+      for (int p = threadIdx.x; p < 2 * sh.rows * pad; p += blockDim.x) {
+        const int b = p / (sh.rows * pad), n = sh.row0 + (p / pad) % sh.rows;
+        store(hbuf + b * buf + (size_t)n * hp + H + p % pad, 0.f);
+      }
     }
   }
   __syncthreads();
-  cg::grid_group grid = cg::this_grid();
-  grid.sync();   // h0 and the zeros visible to every block
-  for (int t = 0; t < steps; ++t) {
-    const T* hsrc = hbuf + ((t + 1) & 1) * buf;
-    T* hdst = hbuf + (t & 1) * buf;
+
+  // step t of one work block: its products, then its cells
+  auto step = [&](int t, const T* hsrc, T* hdst, const Share& sh,
+                  const T* w_s) {
+    const int KS = sh.KS;
     // a split depth's cells: this thread's first (row, unit) reads its
     // gin and c under the products
     CellIn first;
-    if (KS > 1 && threadIdx.x < rows * nu)
-      first = cell_in(gin, c0, cbuf, t, N, H, row0 + threadIdx.x / nu,
-                      unit0 + threadIdx.x % nu);
-    for (int item = warp; item < items; item += kFwdWarps) {
+    if (KS > 1 && threadIdx.x < sh.rows * sh.nu)
+      first = cell_in(gin, c0, cbuf, t, N, H, sh.row0 + threadIdx.x / sh.nu,
+                      sh.unit0 + threadIdx.x % sh.nu);
+    for (int item = warp; item < sh.items; item += kFwdWarps) {
       const int pair = item / KS, split = item % KS;
-      const int m = mt0 + pair / NH, hf = pair % NH;
+      const int m = sh.mt0 + pair / NH, hf = pair % NH;
       float acc[4][4];
       tile_product<T, 4, 1>(acc, hsrc, hp, m, N,
                             (int)((long long)chunks * split / KS),
@@ -444,11 +479,12 @@ lstm_fwd_kernel(const T* __restrict__ gin, const T* __restrict__ w,
       for (int q = 0; q < 4; ++q) {
         const int r = gid + (q < 2 ? 0 : 8), u = 8 * hf + 2 * tig + (q & 1);
         if (KS == 1) {
-          if (m * 16 + r < N && u < nu) {
+          if (m * 16 + r < N && u < sh.nu) {
             const float z[4] = {acc[0][q], acc[1][q], acc[2][q], acc[3][q]};
-            lstm_cell(cell_in(gin, c0, cbuf, t, N, H, m * 16 + r, unit0 + u),
+            lstm_cell(cell_in(gin, c0, cbuf, t, N, H, m * 16 + r,
+                              sh.unit0 + u),
                       z, out, cseq, gates, cbuf, hdst, t, N, H, hp,
-                      m * 16 + r, unit0 + u);
+                      m * 16 + r, sh.unit0 + u);
           }
         } else {
 #pragma unroll
@@ -462,8 +498,8 @@ lstm_fwd_kernel(const T* __restrict__ gin, const T* __restrict__ w,
       __syncthreads();
       // each (row, unit): the KS partials of its four gates in split
       // order 0..KS-1
-      for (int p = threadIdx.x; p < rows * nu; p += blockDim.x) {
-        const int rl = p / nu, u = p % nu;
+      for (int p = threadIdx.x; p < sh.rows * sh.nu; p += blockDim.x) {
+        const int rl = p / sh.nu, u = p % sh.nu;
         const int pair = (rl / 16) * NH + u / 8, r = rl % 16;
         float z[4];
 #pragma unroll
@@ -475,25 +511,42 @@ lstm_fwd_kernel(const T* __restrict__ gin, const T* __restrict__ w,
         }
         lstm_cell(p == threadIdx.x
                       ? first
-                      : cell_in(gin, c0, cbuf, t, N, H, row0 + rl, unit0 + u),
-                  z, out, cseq, gates, cbuf, hdst, t, N, H, hp, row0 + rl,
-                  unit0 + u);
+                      : cell_in(gin, c0, cbuf, t, N, H, sh.row0 + rl,
+                                sh.unit0 + u),
+                  z, out, cseq, gates, cbuf, hdst, t, N, H, hp,
+                  sh.row0 + rl, sh.unit0 + u);
       }
+    }
+  };
+
+  cg::grid_group grid = cg::this_grid();
+  grid.sync();   // h0 and the zeros visible to every block
+  for (int t = 0; t < steps; ++t) {
+    const T* hsrc = hbuf + ((t + 1) & 1) * buf;
+    T* hdst = hbuf + (t & 1) * buf;
+    if constexpr (WALK) {
+      for (int wb = blockIdx.x; wb < work; wb += gridDim.x) {
+        if (wb != (int)blockIdx.x) __syncthreads();   // red_s is free
+        step(t, hsrc, hdst, share(wb), w_part(wb));
+      }
+    } else {
+      step(t, hsrc, hdst, own, w_part(blockIdx.x));
     }
     if (t + 1 < steps) grid.sync();   // h_t complete for every block
   }
 }
 
 // The recurrence for blocks of U <= 8 NT units and a group of the batch's
-// m16 row tiles: block b owns unit group b % UG (units [ug U, ug U + U))
-// and row group b / UG (m-tiles [mt RG_i / RG, ...)), so dgin[t] crosses
-// L2 once per unit group and row, not once per block. Shared memory:
-// w_s [8 NT][ldw] of T, row j = W[unit0 + j][0..4H) then zeros (ldw *
-// sizeof(T) = 64 mod 128 bytes: the 8 lanes of a 16-byte access phase
-// hit distinct banks; in wg's slice instead when WG); then
-// red_s [8 work items][16][8 NT] f32 partial
-// sums when the depth is split across warps (a block with fewer than 8
-// m-tiles: KS = 8 / m-tiles).
+// m16 row tiles: work block wb owns unit group wb % UG (units [ug U, ug U
+// + U)) and row group wb / UG (m-tiles [mt RG_i / RG, ...)), so dgin[t]
+// crosses L2 once per unit group and row, not once per block. Shared
+// memory: w_s [8 NT][ldw] of T, row j = W[unit0 + j][0..4H) then zeros
+// (ldw * sizeof(T) = 64 mod 128 bytes: the 8 lanes of a 16-byte access
+// phase hit distinct banks; in wg's slice of the work block instead when
+// WG); then red_s [8 work items][16][8 NT] f32 partial sums when the
+// depth is split across warps (a block with fewer than 8 m-tiles: KS =
+// 8 / m-tiles). Block b does work blocks b, b + gridDim.x, ... (a grid
+// smaller than UG x RG only when WG), each phase for all of them.
 template <typename T, int NT, bool WG>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_bwd_kernel(const T* __restrict__ gates, const T* __restrict__ cseq,
@@ -506,96 +559,107 @@ lstm_bwd_kernel(const T* __restrict__ gates, const T* __restrict__ cseq,
   constexpr int KG = 16 / (int)sizeof(T);   // k of one lane's 16 bytes
   constexpr int KC = 4 * KG;                // k of one warp chunk
   constexpr int UN = 8 * NT;                // units of the n-tiles
-  // W's part in shared memory, or in this block's slice of wg
-  T* w_s = WG ? wg + (size_t)blockIdx.x * UN * ldw
-              : reinterpret_cast<T*>(smem_raw);
+  // W's part in shared memory, or in work block wb's slice of wg
+  auto w_part = [&](int wb) {
+    return WG ? wg + (size_t)wb * UN * ldw : reinterpret_cast<T*>(smem_raw);
+  };
   float* red_s = reinterpret_cast<float*>(
       smem_raw + (WG ? 0 : (size_t)UN * ldw * sizeof(T)));
   const int G = 4 * H;
   const int UG = (H + U - 1) / U;
-  const int ug = blockIdx.x % UG, rg = blockIdx.x / UG;
-  const int unit0 = ug * U;
-  const int nu = min(U, H - unit0);
-  const int mt = (N + 15) / 16;
-  const int mt0 = mt * rg / RG, mt1 = mt * (rg + 1) / RG;
-  const int row0 = 16 * mt0, rows = min(N, 16 * mt1) - row0;
-  const int my_mt = mt1 - mt0;
-  const int KS = depth_split(my_mt, kWarps);
-  const int items = my_mt * KS;
+  const int work = UG * RG;
   const int chunks = (G + KC - 1) / KC;
   const bool vec = G % KG == 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
 
-  stage(UN * ldw,
-        [&](int e) {
-          const int j = e / ldw, g = e % ldw;
-          return j < nu && g < G
-                     ? to_f32(w[(long long)(unit0 + j) * sk + (long long)g * sg])
-                     : 0.f;
-        },
-        [&](int e) { return w_s + e; });
+  const Share own(blockIdx.x, UG, U, RG, N, H, 1, kWarps);
+  for (int wb = blockIdx.x; wb < work; wb += gridDim.x) {
+    const Share sh = wb == (int)blockIdx.x
+                         ? own : Share(wb, UG, U, RG, N, H, 1, kWarps);
+    stage(UN * ldw,
+          [&](int e) {
+            const int j = e / ldw, g = e % ldw;
+            return j < sh.nu && g < G
+                       ? to_f32(w[(long long)(sh.unit0 + j) * sk +
+                                  (long long)g * sg])
+                       : 0.f;
+          },
+          [&](int e) { return w_part(wb) + e; });
+  }
   __syncthreads();
   cg::grid_group grid = cg::this_grid();
-  const T* wrow = w_s + gid * ldw + tig * KG;
   for (int t = steps - 1; t >= 0; --t) {
     // A: dgin[t] for this block's rows and units, from local values only
-    for (int p = threadIdx.x; p < rows * nu; p += blockDim.x) {
-      const int n = row0 + p / nu, unit = unit0 + p % nu;
-      const size_t zb = ((size_t)t * N + n) * G;
-      const size_t hb = ((size_t)t * N + n) * H;
-      const size_t sb = (size_t)n * H + unit;
-      const float i = to_f32(gates[zb + unit]);
-      const float f = to_f32(gates[zb + H + unit]);
-      const float g = to_f32(gates[zb + 2 * H + unit]);
-      const float o = to_f32(gates[zb + 3 * H + unit]);
-      const float ct = to_f32(cseq[hb + unit]);
-      const float cp = t == 0 ? to_f32(c0[sb]) : to_f32(cseq[hb - (size_t)N * H + unit]);
-      const float tc = tanhf(ct);
-      const float dh = to_f32(dout[hb + unit]) + dh_c[sb];
-      const float dc = dh * o * (1.f - tc * tc) + dc_c[sb] + to_f32(dcseq[hb + unit]);
-      store(dgin + zb + unit, dc * g * i * (1.f - i));
-      store(dgin + zb + H + unit, dc * cp * f * (1.f - f));
-      store(dgin + zb + 2 * H + unit, dc * i * (1.f - g * g));
-      store(dgin + zb + 3 * H + unit, dh * tc * o * (1.f - o));
-      dc_c[sb] = dc * f;
+    for (int wb = blockIdx.x; wb < work; wb += gridDim.x) {
+      const Share sh = wb == (int)blockIdx.x
+                           ? own : Share(wb, UG, U, RG, N, H, 1, kWarps);
+      for (int p = threadIdx.x; p < sh.rows * sh.nu; p += blockDim.x) {
+        const int n = sh.row0 + p / sh.nu, unit = sh.unit0 + p % sh.nu;
+        const size_t zb = ((size_t)t * N + n) * G;
+        const size_t hb = ((size_t)t * N + n) * H;
+        const size_t sb = (size_t)n * H + unit;
+        const float i = to_f32(gates[zb + unit]);
+        const float f = to_f32(gates[zb + H + unit]);
+        const float g = to_f32(gates[zb + 2 * H + unit]);
+        const float o = to_f32(gates[zb + 3 * H + unit]);
+        const float ct = to_f32(cseq[hb + unit]);
+        const float cp = t == 0 ? to_f32(c0[sb]) : to_f32(cseq[hb - (size_t)N * H + unit]);
+        const float tc = tanhf(ct);
+        const float dh = to_f32(dout[hb + unit]) + dh_c[sb];
+        const float dc = dh * o * (1.f - tc * tc) + dc_c[sb] + to_f32(dcseq[hb + unit]);
+        store(dgin + zb + unit, dc * g * i * (1.f - i));
+        store(dgin + zb + H + unit, dc * cp * f * (1.f - f));
+        store(dgin + zb + 2 * H + unit, dc * i * (1.f - g * g));
+        store(dgin + zb + 3 * H + unit, dh * tc * o * (1.f - o));
+        dc_c[sb] = dc * f;
+      }
     }
     grid.sync();   // dgin[t] complete for every block
     // B: dh_{t-1}[own rows, own units] = dgin[t][own rows] . W[own units]^T
     const T* dsrc = dgin + (size_t)t * N * G;
-    for (int item = warp; item < items; item += kWarps) {
-      const int m = mt0 + item / KS, split = item % KS;
-      const int c0_ = (int)((long long)chunks * split / KS);
-      const int c1_ = (int)((long long)chunks * (split + 1) / KS);
-      float acc[NT][4];
-      tile_product<T, NT, kBatch>(acc, dsrc, G, m, N, c0_, c1_, wrow, ldw,
-                                  G, vec);
-      // acc[j]: rows 16 m + gid (0, 1) and + 8 (2, 3), units 8 j + 2 tig
-      // (+ 1)
+    for (int wb = blockIdx.x; wb < work; wb += gridDim.x) {
+      const Share sh = wb == (int)blockIdx.x
+                           ? own : Share(wb, UG, U, RG, N, H, 1, kWarps);
+      const T* wrow = w_part(wb) + gid * ldw + tig * KG;
+      const int my_mt = sh.mt1 - sh.mt0;
+      const int KS = sh.KS, items = sh.items;
+      for (int item = warp; item < items; item += kWarps) {
+        const int m = sh.mt0 + item / KS, split = item % KS;
+        const int c0_ = (int)((long long)chunks * split / KS);
+        const int c1_ = (int)((long long)chunks * (split + 1) / KS);
+        float acc[NT][4];
+        tile_product<T, NT, kBatch>(acc, dsrc, G, m, N, c0_, c1_, wrow, ldw,
+                                    G, vec);
+        // acc[j]: rows 16 m + gid (0, 1) and + 8 (2, 3), units 8 j + 2 tig
+        // (+ 1)
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int r = gid + (q < 2 ? 0 : 8), u = 8 * j + 2 * tig + (q & 1);
-          if (KS == 1) {
-            if (m * 16 + r < N && u < nu)
-              dh_c[(size_t)(m * 16 + r) * H + unit0 + u] = acc[j][q];
-          } else {
-            red_s[(item * 16 + r) * UN + u] = acc[j][q];
+          for (int q = 0; q < 4; ++q) {
+            const int r = gid + (q < 2 ? 0 : 8), u = 8 * j + 2 * tig + (q & 1);
+            if (KS == 1) {
+              if (m * 16 + r < N && u < sh.nu)
+                dh_c[(size_t)(m * 16 + r) * H + sh.unit0 + u] = acc[j][q];
+            } else {
+              red_s[(item * 16 + r) * UN + u] = acc[j][q];
+            }
+          }
+      }
+      if (KS > 1) {
+        __syncthreads();
+        // each (row, unit): the KS partials in split order 0..KS-1
+        for (int e = threadIdx.x; e < my_mt * 16 * UN; e += blockDim.x) {
+          const int mi = e / (16 * UN), r = (e / UN) % 16, u = e % UN;
+          const int row = (sh.mt0 + mi) * 16 + r;
+          if (row < N && u < sh.nu) {
+            float v = 0.f;
+            for (int q = 0; q < KS; ++q) v += red_s[((mi * KS + q) * 16 + r) * UN + u];
+            dh_c[(size_t)row * H + sh.unit0 + u] = v;
           }
         }
-    }
-    if (KS > 1) {
-      __syncthreads();
-      // each (row, unit): the KS partials in split order 0..KS-1
-      for (int e = threadIdx.x; e < my_mt * 16 * UN; e += blockDim.x) {
-        const int mi = e / (16 * UN), r = (e / UN) % 16, u = e % UN;
-        const int row = (mt0 + mi) * 16 + r;
-        if (row < N && u < nu) {
-          float v = 0.f;
-          for (int q = 0; q < KS; ++q) v += red_s[((mi * KS + q) * 16 + r) * UN + u];
-          dh_c[(size_t)row * H + unit0 + u] = v;
-        }
+        // the next work block writes red_s again
+        if (wb + (int)gridDim.x < work) __syncthreads();
       }
     }
     __syncthreads();   // dh_c is read by other threads in the next phase A
@@ -745,21 +809,25 @@ lstm_bwd_dw_kernel(const T* __restrict__ out, const T* __restrict__ h0,
 }
 
 // the forward for u <= 16 units a block (four n-tiles of 8 gate columns
-// a unit half: one half or two), W's part in device memory when wg
+// a unit half: one half or two), W's part in device memory when wg,
+// blocks walking several work blocks when walk (only with wg)
 template <typename T>
-const void* fwd_for(int u, bool wg) {
-  if (u < 1 || u > 2 * kTile) return nullptr;
+const void* fwd_for(int u, bool wg, bool walk) {
+  if (u < 1 || u > 2 * kTile || (walk && !wg)) return nullptr;
+  const bool one = u <= kTile;
+  if (walk)
+    return one ? reinterpret_cast<const void*>(&lstm_fwd_kernel<T, 1, true, true>)
+               : reinterpret_cast<const void*>(&lstm_fwd_kernel<T, 2, true, true>);
   if (wg)
-    return u <= kTile
-               ? reinterpret_cast<const void*>(&lstm_fwd_kernel<T, 1, true>)
-               : reinterpret_cast<const void*>(&lstm_fwd_kernel<T, 2, true>);
-  return u <= kTile
-             ? reinterpret_cast<const void*>(&lstm_fwd_kernel<T, 1, false>)
-             : reinterpret_cast<const void*>(&lstm_fwd_kernel<T, 2, false>);
+    return one ? reinterpret_cast<const void*>(&lstm_fwd_kernel<T, 1, true, false>)
+               : reinterpret_cast<const void*>(&lstm_fwd_kernel<T, 2, true, false>);
+  return one ? reinterpret_cast<const void*>(&lstm_fwd_kernel<T, 1, false, false>)
+             : reinterpret_cast<const void*>(&lstm_fwd_kernel<T, 2, false, false>);
 }
 
 // the recurrence for u <= 16 units a block (one n-tile of 8 or two), W's
-// rows in device memory when wg
+// rows in device memory when wg (its blocks walk work blocks whenever
+// the grid is smaller than UG x RG)
 template <typename T>
 const void* bwd_for(int u, bool wg) {
   if (u < 1 || u > 2 * kTile) return nullptr;
@@ -772,12 +840,13 @@ const void* bwd_for(int u, bool wg) {
              : reinterpret_cast<const void*>(&lstm_bwd_kernel<T, 2, false>);
 }
 
-// the recurrence kernel (bwd = 1) or the forward (bwd = 0) for u units
-const void* kernel_for(int bwd, int u, int dtype, bool wg) {
+// the recurrence kernel (bwd = 1) or the forward (bwd = 0, its walking
+// variant when walk) for u units
+const void* kernel_for(int bwd, int u, int dtype, bool wg, bool walk) {
   switch (dtype) {
-    case 0: return bwd ? bwd_for<float>(u, wg) : fwd_for<float>(u, wg);
-    case 1: return bwd ? bwd_for<__nv_bfloat16>(u, wg) : fwd_for<__nv_bfloat16>(u, wg);
-    case 2: return bwd ? bwd_for<__half>(u, wg) : fwd_for<__half>(u, wg);
+    case 0: return bwd ? bwd_for<float>(u, wg) : fwd_for<float>(u, wg, walk);
+    case 1: return bwd ? bwd_for<__nv_bfloat16>(u, wg) : fwd_for<__nv_bfloat16>(u, wg, walk);
+    case 2: return bwd ? bwd_for<__half>(u, wg) : fwd_for<__half>(u, wg, walk);
     default: return nullptr;
   }
 }
@@ -800,14 +869,19 @@ size_t smem_bytes(int bwd, int dtype, int ldw, int u, bool wg) {
 // threads a block of the forward (bwd = 0) or the backward's recurrence
 int block_threads(int bwd) { return bwd ? kThreads : 32 * kFwdWarps; }
 
-// the grid both kernels take: blocks = ceil(H / u) unit groups x RG row
-// groups (RG <= the m16 tiles of N), u <= 16; ldw elements a W row of
-// `depth` (at least depth rounded up to 64 bytes, 64 mod 128 bytes)
+// the grid both kernels take: UG = ceil(H / u) unit groups x RG row
+// groups (RG <= the m16 tiles of N) of work blocks, u <= 16, on `blocks`
+// blocks: all of them, or (W's part in device memory, `wg`) fewer, each
+// walking several; ldw elements a W row of `depth` (at least depth
+// rounded up to 64 bytes, 64 mod 128 bytes)
 bool grid_ok(int N, int H, int dtype, int blocks, int u, int RG, int ldw,
              int depth, int smem, int bwd, bool wg) {
   const int chunk = 64 / item_size(dtype);
-  return N >= 1 && H >= 1 && u >= 1 && u <= 2 * kTile && RG >= 1 &&
-         RG <= (N + 15) / 16 && blocks == (H + u - 1) / u * RG &&
+  if (N < 1 || H < 1 || u < 1 || u > 2 * kTile || RG < 1 ||
+      RG > (N + 15) / 16)
+    return false;
+  const long long work = (long long)((H + u - 1) / u) * RG;
+  return blocks >= 1 && blocks <= work && (blocks == work || wg) &&
          ldw >= (depth + chunk - 1) / chunk * chunk &&
          ldw * item_size(dtype) % 128 == 64 &&
          (size_t)smem >= smem_bytes(bwd, dtype, ldw, u, wg);
@@ -843,15 +917,17 @@ extern "C" int mxtt_lstm_device(void* out_, void* stream) {
 
 // Blocks of the forward or of the backward's recurrence (bwd = 1), for
 // u units a block and W's part in shared memory (wg = 0) or device
-// memory (wg = 1), that can be resident on one SM with `smem` bytes of
+// memory (wg = 1), blocks walking several work blocks (walk = 1, with
+// wg only), that can be resident on one SM with `smem` bytes of
 // dynamic shared memory each, to out[0]. A cooperative grid must not
 // have more than that times the SMs. Returns a cudaError_t.
 extern "C" int mxtt_lstm_occupancy(int bwd, int u, int dtype, int wg,
-                                   int smem, void* out_, void* stream) {
+                                   int walk, int smem, void* out_,
+                                   void* stream) {
   (void)stream;
   int* out = static_cast<int*>(out_);
   out[0] = 0;
-  const void* fn = kernel_for(bwd, u, dtype, wg != 0);
+  const void* fn = kernel_for(bwd, u, dtype, wg != 0, walk != 0);
   if (fn == nullptr || smem < 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = mxtt::allow_smem(fn, (size_t)smem);
   if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -865,8 +941,9 @@ extern "C" int mxtt_lstm_occupancy(int bwd, int u, int dtype, int wg,
 // `dtype`; w (H, 4H) of the same type at strides (sk, sg) in elements;
 // cbuf (N, H) float32 scratch (the c carry); hbuf (2, N, hp) scratch of
 // type `dtype`, hp = H rounded up to 64 bytes; wg null (W's part in
-// shared memory) or scratch of type `dtype` for blocks x 64 (32 where u
-// <= 8) rows of ldw elements. The grid as the backward's
+// shared memory) or scratch of type `dtype` for ceil(H / u) x RG work
+// blocks x 64 (32 where u <= 8) rows of ldw elements. The grid as the
+// backward's
 // (mxtt_lstm_bwd), ldw elements a W column (depth H). Returns the
 // launch's cudaError_t.
 extern "C" int mxtt_lstm_fwd(const void* gin, const void* w, long long sk,
@@ -879,7 +956,8 @@ extern "C" int mxtt_lstm_fwd(const void* gin, const void* w, long long sk,
   if (T < 1 || hp != (H + chunk - 1) / chunk * chunk ||
       !grid_ok(N, H, dtype, blocks, u, RG, ldw, H, smem, 0, wg != nullptr))
     return (int)cudaErrorInvalidValue;
-  const void* fn = kernel_for(0, u, dtype, wg != nullptr);
+  const bool walk = blocks < (H + u - 1) / u * RG;
+  const void* fn = kernel_for(0, u, dtype, wg != nullptr, walk);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   float* cb = static_cast<float*>(cbuf);
   void* args[] = {(void*)&gin, (void*)&w, &sk, &sg, (void*)&h0, (void*)&c0,
@@ -891,12 +969,14 @@ extern "C" int mxtt_lstm_fwd(const void* gin, const void* w, long long sk,
 // Plain C entry point of the backward's recurrence. gates, dgin (T, N,
 // 4H); cseq, dout, dcseq (T, N, H); c0 (N, H): contiguous, of type
 // `dtype`; w at strides (sk, sg). dh0 and dc0 (N, H) float32 must hold
-// zeros (they are the carries and end as dh0, dc0). The grid: blocks =
-// ceil(H / u) unit groups x RG row groups (RG <= the m16 tiles of N), u
-// <= 16. ldw: elements of a W row in shared memory (at least 4H rounded
-// up to 64 bytes, ldw * itemsize = 64 mod 128). wg: null (W's rows in
-// shared memory) or scratch of type `dtype` for blocks x 16 (8 where u
-// <= 8) rows of ldw elements. Returns the launch's cudaError_t.
+// zeros (they are the carries and end as dh0, dc0). The grid: ceil(H /
+// u) unit groups x RG row groups (RG <= the m16 tiles of N) of work
+// blocks, u <= 16, on `blocks` blocks (all of them, or fewer when wg:
+// block b walks work blocks b, b + blocks, ...). ldw: elements of a W
+// row in shared memory (at least 4H rounded up to 64 bytes, ldw *
+// itemsize = 64 mod 128). wg: null (W's rows in shared memory) or
+// scratch of type `dtype` for the work blocks x 16 (8 where u <= 8) rows
+// of ldw elements. Returns the launch's cudaError_t.
 extern "C" int mxtt_lstm_bwd(const void* gates, const void* cseq,
                              const void* w, long long sk, long long sg,
                              const void* c0, const void* dout,
@@ -907,7 +987,7 @@ extern "C" int mxtt_lstm_bwd(const void* gates, const void* cseq,
   if (T < 1 ||
       !grid_ok(N, H, dtype, blocks, u, RG, ldw, 4 * H, smem, 1, wg != nullptr))
     return (int)cudaErrorInvalidValue;
-  const void* fn = kernel_for(1, u, dtype, wg != nullptr);
+  const void* fn = kernel_for(1, u, dtype, wg != nullptr, false);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   float* dh = static_cast<float*>(dh0);
   float* dc = static_cast<float*>(dc0);

@@ -11,7 +11,8 @@
 // decode). Table slots at/after ceil(kv_len / page_size) are padding
 // and are never read. A row with nothing to attend to (kv_len = 0, or
 // a chunk row before the history starts) gives exactly 0. Inputs f32
-// or bf16, any head dim up to 256; all math in f32. q is scaled by
+// or bf16, any head dim (past 256 in chunks of 256: see WIDE below);
+// all math in f32. q is scaled by
 // sm_scale and rounded back to q's type as it is loaded, where the TPU
 // wrapper pre-scales it.
 //
@@ -161,7 +162,15 @@ __device__ __forceinline__ void fold(float& m, float& l, float (&a)[N],
   m = mx;
 }
 
-template <typename T, int DP, int QT>
+// WIDE (head dims past 256): DP = 256 and blockIdx.z = tile * nz + z,
+// nz = ceil(D / 256): the block writes the output's dims [z DP, z DP +
+// DP) of its tile. The scores still run over the whole head dim: for
+// each batch of U keys, the lanes' partial dots are summed over the
+// chunks of 256 dims (q's and K's slices of each chunk loaded in turn,
+// q from L1), then over the key group; V is loaded for chunk z only.
+// Every block of a tile takes the same scores, bit for bit; each keeps
+// its own (m, l) partials and tickets.
+template <typename T, int DP, int QT, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(Params p) {
   using C = Cfg<T, DP, QT>;
@@ -169,7 +178,12 @@ paged_attention_kernel(Params p) {
   __shared__ float wacc[kWarps][QT][DP];
   __shared__ int last_block;
 
-  const int bh = blockIdx.x, j = blockIdx.y, tile = blockIdx.z;
+  const int nz = WIDE ? (p.D + DP - 1) / DP : 1;
+  const int bh = blockIdx.x, j = blockIdx.y;
+  const int tile = WIDE ? blockIdx.z / nz : blockIdx.z;
+  const int z = WIDE ? blockIdx.z - tile * nz : 0;
+  // the output dims of this block: [d_base, d_base + dn)
+  const int d_base = z * DP, dn = WIDE ? min(DP, p.D - d_base) : p.D;
   const int n_split = gridDim.y;
   const int b = bh / p.H, h = bh - b * p.H;
   const int r0 = tile * QT;
@@ -190,25 +204,29 @@ paged_attention_kernel(Params p) {
   const bool vec = p.vec != 0;
   const T* qb = static_cast<const T*>(p.q) + ((size_t)bh * p.Sq + r0) * p.D;
 
-  // this lane's slice of q', scaled and rounded to T: vector vi covers
-  // dims (vi * LPK + li) * VEC..
+  // this lane's slice of q' (dims c DP..c DP + DP of the head dim),
+  // scaled and rounded to T: vector vi covers dims (vi * LPK + li) * VEC..
   float qv[QT][C::DPL];
+  auto load_q = [&](int c) {
 #pragma unroll
-  for (int r = 0; r < QT; ++r)
+    for (int r = 0; r < QT; ++r)
 #pragma unroll
-    for (int vi = 0; vi < C::VPL; ++vi) {
-      float* dst = &qv[r][vi * C::VEC];
-      if (r < rows) {
-        load_vec<T, C::VEC>(qb + (size_t)r * p.D, (vi * C::LPK + li) * C::VEC,
-                            p.D, vec, dst);
+      for (int vi = 0; vi < C::VPL; ++vi) {
+        float* dst = &qv[r][vi * C::VEC];
+        if (r < rows) {
+          load_vec<T, C::VEC>(qb + (size_t)r * p.D + c * DP,
+                              (vi * C::LPK + li) * C::VEC, p.D - c * DP, vec,
+                              dst);
 #pragma unroll
-        for (int e = 0; e < C::VEC; ++e)
-          dst[e] = round_to(dst[e] * p.scale, T());
-      } else {
+          for (int e = 0; e < C::VEC; ++e)
+            dst[e] = round_to(dst[e] * p.scale, T());
+        } else {
 #pragma unroll
-        for (int e = 0; e < C::VEC; ++e) dst[e] = 0.f;
+          for (int e = 0; e < C::VEC; ++e) dst[e] = 0.f;
+        }
       }
-    }
+  };
+  if constexpr (!WIDE) load_q(0);
 
   float m[QT], l[QT], acc[QT][C::DPL];
 #pragma unroll
@@ -228,45 +246,121 @@ paged_attention_kernel(Params p) {
   for (int s0 = c_begin; s0 < c_end; s0 += kSub) {
 #pragma unroll 1
     for (int i0 = 0; i0 < C::KPG; i0 += C::U) {
-      // U keys' K and V rows (zeros for keys past the chunk), all
-      // loads issued before any is used
       int col[C::U];
-      float kx[C::U][C::DPL], vx[C::U][C::DPL];
+      float vx[C::U][C::DPL];
+      float sc[QT][C::U];
+      if constexpr (!WIDE) {
+        // U keys' K and V rows (zeros for keys past the chunk), all
+        // loads issued before any is used
+        float kx[C::U][C::DPL];
 #pragma unroll
-      for (int u = 0; u < C::U; ++u) {
-        col[u] = s0 + g + C::G * (i0 + u);
-        if (col[u] < c_end) {
-          const int slot = col[u] / p.page_size;
-          const size_t row =
-              ((size_t)trow[slot] * p.H + h) * p.page_size +
-              (col[u] - slot * p.page_size);
-          const T* kr = kp + row * p.D;
-          const T* vr = vp + row * p.D;
+        for (int u = 0; u < C::U; ++u) {
+          col[u] = s0 + g + C::G * (i0 + u);
+          if (col[u] < c_end) {
+            const int slot = col[u] / p.page_size;
+            const size_t row =
+                ((size_t)trow[slot] * p.H + h) * p.page_size +
+                (col[u] - slot * p.page_size);
+            const T* kr = kp + row * p.D;
+            const T* vr = vp + row * p.D;
+#pragma unroll
+            for (int vi = 0; vi < C::VPL; ++vi) {
+              const int d0 = (vi * C::LPK + li) * C::VEC;
+              load_vec<T, C::VEC>(kr, d0, p.D, vec, &kx[u][vi * C::VEC]);
+              load_vec<T, C::VEC>(vr, d0, p.D, vec, &vx[u][vi * C::VEC]);
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < C::DPL; ++e) kx[u][e] = vx[u][e] = 0.f;
+          }
+        }
+        // scores: each lane's partial dot, summed over the key group
+#pragma unroll
+        for (int r = 0; r < QT; ++r)
+#pragma unroll
+          for (int u = 0; u < C::U; ++u) {
+            float d = 0.f;
+#pragma unroll
+            for (int e = 0; e < C::DPL; ++e) d = fmaf(qv[r][e], kx[u][e], d);
+#pragma unroll
+            for (int o = C::LPK / 2; o > 0; o >>= 1)
+              d += __shfl_xor_sync(0xffffffffu, d, o);
+            sc[r][u] = d;
+          }
+      } else {
+        // the U keys' rows, then the dots over the head dim chunk by
+        // chunk, then V's chunk z
+        const T* kr[C::U];
+        const T* vr[C::U];
+#pragma unroll
+        for (int u = 0; u < C::U; ++u) {
+          col[u] = s0 + g + C::G * (i0 + u);
+          kr[u] = vr[u] = nullptr;
+          if (col[u] < c_end) {
+            const int slot = col[u] / p.page_size;
+            const size_t row =
+                ((size_t)trow[slot] * p.H + h) * p.page_size +
+                (col[u] - slot * p.page_size);
+            kr[u] = kp + row * p.D;
+            vr[u] = vp + row * p.D;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < QT; ++r)
+#pragma unroll
+          for (int u = 0; u < C::U; ++u) sc[r][u] = 0.f;
+        for (int c = 0; c < nz; ++c) {
+          float kx[C::U][C::DPL];
+#pragma unroll
+          for (int u = 0; u < C::U; ++u) {
+#pragma unroll
+            for (int vi = 0; vi < C::VPL; ++vi) {
+              const int d0 = (vi * C::LPK + li) * C::VEC;
+              if (kr[u] != nullptr) {
+                load_vec<T, C::VEC>(kr[u] + c * DP, d0, p.D - c * DP, vec,
+                                    &kx[u][vi * C::VEC]);
+              } else {
+#pragma unroll
+                for (int e = 0; e < C::VEC; ++e) kx[u][vi * C::VEC + e] = 0.f;
+              }
+            }
+          }
+          load_q(c);
+#pragma unroll
+          for (int r = 0; r < QT; ++r)
+#pragma unroll
+            for (int u = 0; u < C::U; ++u) {
+              float d = sc[r][u];
+#pragma unroll
+              for (int e = 0; e < C::DPL; ++e)
+                d = fmaf(qv[r][e], kx[u][e], d);
+              sc[r][u] = d;
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < QT; ++r)
+#pragma unroll
+          for (int u = 0; u < C::U; ++u) {
+            float d = sc[r][u];
+#pragma unroll
+            for (int o = C::LPK / 2; o > 0; o >>= 1)
+              d += __shfl_xor_sync(0xffffffffu, d, o);
+            sc[r][u] = d;
+          }
+#pragma unroll
+        for (int u = 0; u < C::U; ++u)
 #pragma unroll
           for (int vi = 0; vi < C::VPL; ++vi) {
             const int d0 = (vi * C::LPK + li) * C::VEC;
-            load_vec<T, C::VEC>(kr, d0, p.D, vec, &kx[u][vi * C::VEC]);
-            load_vec<T, C::VEC>(vr, d0, p.D, vec, &vx[u][vi * C::VEC]);
+            if (vr[u] != nullptr) {
+              load_vec<T, C::VEC>(vr[u] + d_base, d0, dn, vec,
+                                  &vx[u][vi * C::VEC]);
+            } else {
+#pragma unroll
+              for (int e = 0; e < C::VEC; ++e) vx[u][vi * C::VEC + e] = 0.f;
+            }
           }
-        } else {
-#pragma unroll
-          for (int e = 0; e < C::DPL; ++e) kx[u][e] = vx[u][e] = 0.f;
-        }
       }
-      // scores: each lane's partial dot, summed over the key group
-      float sc[QT][C::U];
-#pragma unroll
-      for (int r = 0; r < QT; ++r)
-#pragma unroll
-        for (int u = 0; u < C::U; ++u) {
-          float d = 0.f;
-#pragma unroll
-          for (int e = 0; e < C::DPL; ++e) d = fmaf(qv[r][e], kx[u][e], d);
-#pragma unroll
-          for (int o = C::LPK / 2; o > 0; o >>= 1)
-            d += __shfl_xor_sync(0xffffffffu, d, o);
-          sc[r][u] = d;
-        }
       // online softmax over the U keys, row by row
 #pragma unroll
       for (int r = 0; r < QT; ++r) {
@@ -327,13 +421,15 @@ paged_attention_kernel(Params p) {
   }
   __syncthreads();
 
-  // merge the warps, warp 0 first; one element (row, dim) a thread
-  T* ob = static_cast<T*>(p.out) + ((size_t)bh * p.Sq + r0) * p.D;
+  // merge the warps, warp 0 first; one element (row, dim) a thread.
+  // The partials: (m, l) at [row][chunk][z], then the D sums of each
+  // (row, chunk)
+  T* ob = static_cast<T*>(p.out) + ((size_t)bh * p.Sq + r0) * p.D + d_base;
   const size_t prow0 = (size_t)bh * p.Sq + r0;    // partial row of r = 0
   float* pml = p.part;
-  float* pacc = p.part + (size_t)gridDim.x * p.Sq * n_split * 2;
-  for (int i = tid; i < rows * p.D; i += kThreads) {
-    const int r = i / p.D, d = i - r * p.D;
+  float* pacc = p.part + (size_t)gridDim.x * p.Sq * n_split * 2 * nz;
+  for (int i = tid; i < rows * dn; i += kThreads) {
+    const int r = i / dn, d = i - r * dn;
     float mm = wm[0][r], ll = wl[0][r];
     float a[1] = {wacc[0][r][d]};
 #pragma unroll
@@ -345,10 +441,10 @@ paged_attention_kernel(Params p) {
       store(ob + (size_t)r * p.D + d, a[0] / (ll == 0.f ? 1.f : ll));
     } else {
       const size_t pi = (prow0 + r) * n_split + j;
-      pacc[pi * p.D + d] = a[0];
+      pacc[pi * p.D + d_base + d] = a[0];
       if (d == 0) {
-        pml[2 * pi] = mm;
-        pml[2 * pi + 1] = ll;
+        pml[2 * (pi * nz + z)] = mm;
+        pml[2 * (pi * nz + z) + 1] = ll;
       }
     }
   }
@@ -357,7 +453,7 @@ paged_attention_kernel(Params p) {
   // the last of the tile's nc blocks to finish combines the partials
   __threadfence();
   __syncthreads();
-  int* ticket = p.tickets + (size_t)bh * gridDim.z + tile;
+  int* ticket = p.tickets + (size_t)bh * gridDim.z + blockIdx.z;
   if (tid == 0) {
     const int t = atomicAdd(ticket, 1);
     last_block = t == nc - 1;
@@ -366,32 +462,35 @@ paged_attention_kernel(Params p) {
   __syncthreads();
   if (!last_block) return;
   __threadfence();
-  for (int i = tid; i < rows * p.D; i += kThreads) {
-    const int r = i / p.D, d = i - r * p.D;
+  for (int i = tid; i < rows * dn; i += kThreads) {
+    const int r = i / dn, d = i - r * dn;
     const size_t pi0 = (prow0 + r) * n_split;
     float mm = kNegInf;
-    for (int c = 0; c < nc; ++c) mm = fmaxf(mm, __ldcg(pml + 2 * (pi0 + c)));
+    for (int c = 0; c < nc; ++c)
+      mm = fmaxf(mm, __ldcg(pml + 2 * ((pi0 + c) * nz + z)));
     float ll = 0.f, a = 0.f;
     for (int c = 0; c < nc; ++c) {
-      const float w = __expf(__ldcg(pml + 2 * (pi0 + c)) - mm);
-      ll = fmaf(__ldcg(pml + 2 * (pi0 + c) + 1), w, ll);
-      a = fmaf(__ldcg(pacc + (pi0 + c) * p.D + d), w, a);
+      const float* ml = pml + 2 * ((pi0 + c) * nz + z);
+      const float w = __expf(__ldcg(ml) - mm);
+      ll = fmaf(__ldcg(ml + 1), w, ll);
+      a = fmaf(__ldcg(pacc + (pi0 + c) * p.D + d_base + d), w, a);
     }
     store(ob + (size_t)r * p.D + d, a / (ll == 0.f ? 1.f : ll));
   }
 }
 
-template <typename T, int DP, int QT>
+template <typename T, int DP, int QT, bool WIDE = false>
 cudaError_t launch(const Params& p, int B, int n_split, cudaStream_t s) {
-  dim3 grid(B * p.H, n_split, (p.Sq + QT - 1) / QT);
-  paged_attention_kernel<T, DP, QT><<<grid, kThreads, 0, s>>>(p);
+  const int nz = WIDE ? (p.D + DP - 1) / DP : 1;
+  dim3 grid(B * p.H, n_split, (p.Sq + QT - 1) / QT * nz);
+  paged_attention_kernel<T, DP, QT, WIDE><<<grid, kThreads, 0, s>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool WIDE = false>
 cudaError_t launch_qt(const Params& p, int B, int n_split, cudaStream_t s) {
-  return p.Sq == 1 ? launch<T, DP, 1>(p, B, n_split, s)
-                   : launch<T, DP, 4>(p, B, n_split, s);
+  return p.Sq == 1 ? launch<T, DP, 1, WIDE>(p, B, n_split, s)
+                   : launch<T, DP, 4, WIDE>(p, B, n_split, s);
 }
 
 template <typename T>
@@ -400,7 +499,8 @@ cudaError_t dispatch(const Params& p, int B, int n_split, cudaStream_t s) {
   if (p.D <= 32) return launch_qt<T, 32>(p, B, n_split, s);
   if (p.D <= 64) return launch_qt<T, 64>(p, B, n_split, s);
   if (p.D <= 128) return launch_qt<T, 128>(p, B, n_split, s);
-  return launch_qt<T, 256>(p, B, n_split, s);
+  if (p.D <= 256) return launch_qt<T, 256>(p, B, n_split, s);
+  return launch_qt<T, 256, true>(p, B, n_split, s);
 }
 
 // Blocks of the grid along a row's keys: one a 64-key chunk (more keys
@@ -421,10 +521,11 @@ extern "C" int mxtt_paged_attention_split(int n_table, int page_size) {
 }
 
 // Plain C entry point (loaded with ctypes). dtype: 0 = float32,
-// 1 = bfloat16; scale = sm_scale. `part` holds B*H*Sq*n_split*(D + 2)
-// floats of scratch, n_split = mxtt_paged_attention_split(n_table,
-// page_size); `tickets` B*H*Sq int32 zeros, which the kernel leaves at
-// zero, owned by the calls of one stream. vec: q, k and v are 16-byte
+// 1 = bfloat16; scale = sm_scale. `part` holds B*H*Sq*n_split*(D +
+// 2 nz) floats of scratch, n_split = mxtt_paged_attention_split(n_table,
+// page_size), nz = ceil(D / 256) past D = 256 and 1 up to it; `tickets`
+// B*H*Sq*nz int32 zeros, which the kernel leaves at zero, owned by the
+// calls of one stream. vec: q, k and v are 16-byte
 // aligned and D a whole number of 16-byte vectors. Returns the launch's
 // cudaError_t (0 = launched).
 extern "C" int mxtt_paged_attention_fwd(
@@ -432,8 +533,7 @@ extern "C" int mxtt_paged_attention_fwd(
     const void* kv_lens, void* out, void* part, void* tickets, int B, int H,
     int Sq, int D, int page_size, int n_table, int vec, float scale,
     int dtype, void* stream) {
-  if (B < 1 || H < 1 || Sq < 1 || D < 1 || D > 256 || page_size < 1 ||
-      n_table < 0)
+  if (B < 1 || H < 1 || Sq < 1 || D < 1 || page_size < 1 || n_table < 0)
     return (int)cudaErrorInvalidValue;
   const int n_split = split_for(n_table, page_size);
   Params p;

@@ -25,14 +25,15 @@
 // The backward is one elementwise pass per row from the saved lse.
 //
 // Bound. Memory: the forward reads the logits once (N * V * sizeof(T)
-// bytes; 750 MB at the BERT MLM shape 6144 x 30522 in f32); the
+// bytes; 800 MB at the BERT MLM shape 6541 x 30522 in f32); the
 // backward reads them once and writes dx once, twice those bytes. One
 // exponent per element is far below the f32 rate in the time the bytes
 // take.
 //
-// What this simple design leaves on the table: scalar (not 16-byte)
-// loads; the backward re-reads the logits where a fused head could
-// produce dx while the forward still holds them.
+// What the forward leaves on the table: scalar (not 16-byte) loads. The
+// backward (redesigned for Hopper: the comment above xent_bwd_kernel)
+// re-reads the logits where a fused head could produce dx while the
+// forward still holds them.
 
 #include "common.cuh"
 
@@ -93,19 +94,81 @@ xent_fwd_kernel(const T* __restrict__ x, const int32_t* __restrict__ labels,
   }
 }
 
+// 2^x on the special-function unit (ex2.approx: relative error below
+// 2^-22; results below 2^-126 flush to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Backward (Hopper redesign): one block of 256 threads a row. The row's
+// head, up to its first 16-byte boundary, and its tail past the last
+// whole vector go element by element; the rest as 16-byte vectors (4
+// f32, 8 bf16/f16), each thread keeping kInFlight of them loaded before
+// it computes and stores any (streaming loads and stores: the logits
+// are read once, dx is not read again here). x and dx rows share their
+// offset from a 16-byte boundary (`vec`, checked by the entry point;
+// otherwise the whole row goes element by element). p = 2^(x log2(e) -
+// lse log2(e)) on the special-function unit: one FMA and one ex2 an
+// element, where expf costs a range reduction and a polynomial. Its
+// error against expf(x - lse): the FMA's rounding of the exponent (half
+// an ulp of |x - lse| log2(e), 2^-19 at |x - lse| < 22) plus ex2's
+// 2^-22, both relative to p: below 3e-6 of p, inside the kernel tests'
+// 1e-5.
+constexpr int kInFlight = 4;
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 xent_bwd_kernel(const T* __restrict__ x, const int32_t* __restrict__ labels,
                 const float* __restrict__ lse, const float* __restrict__ g,
-                T* __restrict__ dx, int V) {
+                T* __restrict__ dx, int V, int vec) {
+  using W = mxtt::Vec16<T>;
+  constexpr int VEC = W::N;
   const long long row = blockIdx.x;
   const T* xr = x + row * V;
   T* dr = dx + row * V;
-  const float r = lse[row], gr = g[row];
+  const float gr = g[row], nl = -lse[row] * kLog2e;
   const int lab = labels[row];
-  for (int c = threadIdx.x; c < V; c += kThreads) {
-    const float p = expf(to_f32(xr[c]) - r);
-    store(dr + c, (c == lab ? p - 1.f : p) * gr);
+  auto grad = [&](int c, float xv) {
+    const float p = ex2(fmaf(xv, kLog2e, nl));
+    return (c == lab ? p - 1.f : p) * gr;
+  };
+  // [0, head) and [tail, V) element by element, [head, tail) in vectors
+  int head = V, nvec = 0;
+  if (vec) {
+    const int mis = (int)(reinterpret_cast<uintptr_t>(xr) % 16 / sizeof(T));
+    head = min(V, mis == 0 ? 0 : VEC - mis);
+    nvec = (V - head) / VEC;
+  }
+  const int tail = head + nvec * VEC;
+  for (int c = threadIdx.x; c < head; c += kThreads)
+    store(dr + c, grad(c, to_f32(xr[c])));
+  for (int c = tail + threadIdx.x; c < V; c += kThreads)
+    store(dr + c, grad(c, to_f32(xr[c])));
+  const uint4* xv = reinterpret_cast<const uint4*>(xr + head);
+  uint4* dv = reinterpret_cast<uint4*>(dr + head);
+  for (int v0 = threadIdx.x; v0 < nvec; v0 += kInFlight * kThreads) {
+    uint4 w[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int vi = v0 + u * kThreads;
+      if (vi < nvec) w[u] = __ldcs(xv + vi);
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int vi = v0 + u * kThreads;
+      if (vi < nvec) {
+        float f[VEC];
+        W::unpack(w[u], f);
+        const int c0 = head + vi * VEC;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) f[e] = grad(c0 + e, f[e]);
+        __stcs(dv + vi, W::pack(f));
+      }
+    }
   }
 }
 
@@ -121,8 +184,12 @@ template <typename T>
 cudaError_t launch_bwd(const void* x, const int32_t* lab, const float* lse,
                        const float* g, void* dx, int N, int V,
                        cudaStream_t s) {
+  // rows of x and dx equally far from a 16-byte boundary
+  const int vec = reinterpret_cast<uintptr_t>(x) % 16 ==
+                  reinterpret_cast<uintptr_t>(dx) % 16;
   xent_bwd_kernel<T><<<N, kThreads, 0, s>>>(static_cast<const T*>(x), lab,
-                                            lse, g, static_cast<T*>(dx), V);
+                                            lse, g, static_cast<T*>(dx), V,
+                                            vec);
   return cudaGetLastError();
 }
 

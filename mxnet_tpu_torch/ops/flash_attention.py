@@ -51,7 +51,6 @@ __all__ = ["LAUNCHES", "flash_attention", "flash_attention_backward",
 _NEG_INF = -1e30
 #: kernel launches by kernel name (the main-path proof counts these)
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
-_MAX_D = 256
 # mxtt_flash_attention_fwd(q, k, v, kv_lens, seg, o, lse, strides, B, H,
 #                          Sq, Skv, D, scale, causal, q_offset, dtype)
 _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] \
@@ -61,30 +60,31 @@ _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] \
 #                          causal, q_offset, dtype)
 _BWD_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float] \
     + [ctypes.c_int] * 3
-#: keys and head dim the one-pass backward holds in shared memory at most
+#: keys and head dim the one-pass backward holds in shared memory at most,
+#: and the head dim past which every kernel walks it in chunks
 #: (``csrc/flash_attention_bwd.cu`` picks its path by the same limits)
-_FUSED_KEYS, _FUSED_D = 128, 64
+_FUSED_KEYS, _FUSED_D, _CHUNKED_D = 128, 64, 256
 
 
 def kernel_takes(q):
     """Whether the op hands queries like ``q`` to the kernels, from its
-    device, shape and type alone, before any launch, as the JAX op asks
+    shape and type alone, before any launch, as the JAX op asks
     ``pallas_ok_for`` and its kernel's types: (B, H, S, D) float32,
-    bfloat16 or float16. On the card that is every such call (the
-    kernels take D <= 256 and raise past it); CPU tensors, on which the
-    JAX op computes its composed math, take the plain versions for D
-    <= 256 only."""
-    return q.ndim == 4 and q.dtype in _build.DTYPE_CODES \
-        and (q.device.type == "cuda" or 1 <= q.shape[-1] <= _MAX_D)
+    bfloat16 or float16, at any head dim, on either device (the JAX
+    kernel takes the whole head dim into its blocks at any D; CPU
+    tensors take the plain versions)."""
+    return q.ndim == 4 and q.dtype in _build.DTYPE_CODES
 
 
 def backward_path(skv, d):
     """Which K2 kernels a backward of ``skv`` keys and head dim ``d``
     launches: ``"fused"`` (one pass, every key in the block: Skv <= 128,
-    the JAX kernel's nk <= 2 case, and D <= 64) or ``"split"`` (a dq and
+    the JAX kernel's nk <= 2 case, with D <= 64, or D > 256 where the
+    kernel walks the head dim in chunks of 64) or ``"split"`` (a dq and
     a dk/dv kernel). The kernels' C entry point makes the same choice;
     this is its label for tests and reports."""
-    return "fused" if skv <= _FUSED_KEYS and d <= _FUSED_D else "split"
+    return "fused" if skv <= _FUSED_KEYS and (
+        d <= _FUSED_D or d > _CHUNKED_D) else "split"
 
 
 def visible_mask(sq, skv, device, kv_lens=None, segment_ids=None,
@@ -172,9 +172,9 @@ def _check(q, k, v, kv_lens, segment_ids):
     if k.shape != (b, h, skv, d) or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
-    if not 1 <= d <= _MAX_D:
+    if d < 1:
         raise ValueError(f"head_dim {d} not supported by the kernel "
-                         f"(1..{_MAX_D})")
+                         f"(at least 1)")
     if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"flash attention takes float32, bfloat16 or "

@@ -51,10 +51,10 @@ __all__ = ["LAUNCHES", "device_numbers", "lstm_backward",
 #: kernel launches by kernel name (the main-path proof counts these):
 #: the backward is two kernels, the recurrence and the dW product
 LAUNCHES = {"lstm_fwd": 0, "lstm_bwd": 0, "lstm_bwd_dw": 0}
-# mxtt_lstm_device(out[3]); mxtt_lstm_occupancy(bwd, u, dtype, wg, smem,
-# out[1])
+# mxtt_lstm_device(out[3]); mxtt_lstm_occupancy(bwd, u, dtype, wg, walk,
+# smem, out[1])
 _DEVICE_ARGS = [ctypes.c_void_p]
-_OCC_ARGS = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_OCC_ARGS = [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # mxtt_lstm_fwd(gin, w, sk, sg, h0, c0, out, cseq, gates, cbuf, hbuf, wg,
 #               T, N, H, dtype, blocks, u, RG, ldw, hp, smem)
 _FWD_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 \
@@ -155,7 +155,7 @@ def _check(gin, w, h0, c0):
                          f"{gin.device}")
 
 
-def _plan(n, hid, dtype, sms, smem_limit, backward):
+def _plan(n, hid, dtype, sms, smem_limit, backward, mem_limit=None):
     """(plan, fits, what it needs): :func:`plan_grid`'s arithmetic, not
     raising."""
     plan = {"sms": sms, "smem_limit": smem_limit}
@@ -176,7 +176,8 @@ def _plan(n, hid, dtype, sms, smem_limit, backward):
         return rows, red + (0 if w_global else rows * row)
 
     # W's part in shared memory where it fits at one block an SM, else
-    # (wide f32 layers) in device memory at 16 units a block
+    # (wide layers) in device memory at 16 units a block, where a block
+    # may walk several work blocks a step
     sizes = (2 * _TILE, _TILE) if hid > _TILE else (_TILE,)
     for u, w_global in [*((u, False) for u in sizes), (sizes[0], True)]:
         rows, smem = layout(u, w_global)
@@ -185,55 +186,68 @@ def _plan(n, hid, dtype, sms, smem_limit, backward):
     u = min(u, hid)
     groups = -(-hid // u)
     rg = max(1, min(mt, sms // groups))
-    plan.update(blocks=groups * rg, units_per_block=u, unit_groups=groups,
-                row_groups=rg, m_tiles=mt, w_row=row // item,
-                smem_bytes=smem, w_global=w_global,
-                w_scratch=groups * rg * rows * (row // item)
-                if w_global else 0)
+    work = groups * rg
+    blocks = min(work, sms)
+    scratch = work * rows * (row // item) if w_global else 0
+    plan.update(blocks=blocks, work_blocks=work, walk=-(-work // blocks),
+                units_per_block=u, unit_groups=groups, row_groups=rg,
+                m_tiles=mt, w_row=row // item, smem_bytes=smem,
+                w_global=w_global, w_scratch=scratch)
     if not backward:
         plan["h_row"] = -(-hid // chunk) * chunk
-    fits = n >= 1 and hid >= 1 and smem <= smem_limit and groups <= sms
-    need = (f"{groups} unit groups of {u} units (one block an SM) and "
-            f"{smem} B of shared memory")
+    mem_ok = mem_limit is None or scratch * item <= mem_limit
+    fits = n >= 1 and hid >= 1 and smem <= smem_limit and mem_ok
+    need = (f"{groups} unit groups of {u} units x {rg} row groups on "
+            f"{blocks} blocks (one an SM), {smem} B of shared memory a "
+            f"block (limit {smem_limit} B) and {scratch * item} B of W "
+            f"rows in device memory (limit "
+            f"{'none' if mem_limit is None else f'{mem_limit} B'})")
     return plan, fits, need
 
 
-def plan_grid(n, hid, dtype, sms, smem_limit, backward=False):
+def plan_grid(n, hid, dtype, sms, smem_limit, backward=False,
+              mem_limit=None):
     """The grid of one K6a (or, with ``backward``, K6b recurrence)
     launch for ``n`` rows and ``hid`` units on a card with ``sms`` SMs
     and ``smem_limit`` bytes of shared memory a block: a pure function,
     the arithmetic of ``csrc/lstm.cu``'s layout. One block an SM.
 
     Both kernels run the recurrent product on the tensor cores over
-    blocks of ``units_per_block`` units (16, two mma n-tiles, where W's
-    rows for them fit, else 8) x ``row_groups`` groups of the batch's
-    ``m_tiles`` tiles of 16 rows, so that each step's h (forward) or
-    dgin (backward) crosses L2 once per unit group, not once per block:
-    ``unit_groups`` = ceil(H / u), ``row_groups`` = min(m_tiles,
-    SMs // unit_groups). Shared memory: W's rows for the block's units
-    (the forward's four gate columns a unit, the backward's one row a
-    unit), padded to whole n-tiles, each ``w_row`` elements of W's type
-    (the product's depth, H forward and 4H backward, rounded up to 64
-    bytes at 64 mod 128), and the depth split's partial sums (f32).
-    Where W's rows do not fit at one block an SM (``w_global``), 16
-    units a block keep them in a device-memory scratch of ``w_scratch``
-    elements instead, and shared memory holds the partial sums only.
-    The forward reads h from a scratch of ``h_row`` elements a row (H
-    rounded up to whole 64-byte chunks).
+    work blocks of ``units_per_block`` units (16, two mma n-tiles, where
+    W's rows for them fit, else 8) x ``row_groups`` groups of the
+    batch's ``m_tiles`` tiles of 16 rows, so that each step's h
+    (forward) or dgin (backward) crosses L2 once per unit group, not
+    once per block: ``unit_groups`` = ceil(H / u), ``row_groups`` =
+    min(m_tiles, SMs // unit_groups) (at least 1), ``work_blocks`` their
+    product. Shared memory: W's rows for the block's units (the
+    forward's four gate columns a unit, the backward's one row a unit),
+    padded to whole n-tiles, each ``w_row`` elements of W's type (the
+    product's depth, H forward and 4H backward, rounded up to 64 bytes
+    at 64 mod 128), and the depth split's partial sums (f32). Where W's
+    rows do not fit at one block an SM (``w_global``), 16 units a work
+    block keep them in a device-memory scratch of ``w_scratch`` elements
+    (one slice a work block) instead, and shared memory holds the
+    partial sums only. The grid is ``blocks`` = min(work_blocks, SMs):
+    past one unit group an SM (H > 16 x SMs) block b walks the work blocks
+    b, b + blocks, ... every step (``walk`` of them at most), still one
+    grid sync a step. The forward reads h from a scratch of ``h_row``
+    elements a row (H rounded up to whole 64-byte chunks).
     On an H100 (132 SMs, 232,448 B) W stays in shared memory up to H =
-    1056 in f32 and both fit up to H = 2112 (132 groups of 16 units).
-    Raises ``ValueError`` with the numbers when the shape does not
-    fit."""
+    1056 in f32; any H runs with W's rows in device memory.
+    ``mem_limit``: bytes of device memory the W scratch may take (none
+    by default). Raises ``ValueError`` with the numbers when the shape
+    does not fit: shared memory below the partial sums, or the scratch
+    past ``mem_limit``."""
     n, hid, sms, smem_limit = int(n), int(hid), int(sms), int(smem_limit)
     if n < 1 or hid < 1 or sms < 1:
         raise ValueError(f"lstm grid needs N, H and SMs >= 1, got N={n}, "
                          f"H={hid}, SMs={sms}")
-    plan, fits, need = _plan(n, hid, dtype, sms, smem_limit, backward)
+    plan, fits, need = _plan(n, hid, dtype, sms, smem_limit, backward,
+                             mem_limit)
     if not fits:
         raise ValueError(
             f"lstm {'backward' if backward else 'forward'} kernel cannot "
-            f"run N={n}, H={hid} ({dtype}) on {sms} SMs: {need} (limit "
-            f"{smem_limit} B)")
+            f"run N={n}, H={hid} ({dtype}) on {sms} SMs: {need}")
     return plan
 
 
@@ -264,8 +278,8 @@ def lstm_plan(n, hid, dtype=torch.float32, backward=False, device=None):
     CUDA device by default): :func:`plan_grid` at the card's numbers,
     plus ``blocks_per_sm``, the blocks the kernel can keep resident on
     an SM. Raises ``ValueError`` with the numbers when the shape cannot
-    run: more units a block than the kernel takes, shared memory past
-    the limit, or more blocks than can be resident at once."""
+    run: shared memory past the limit, a W scratch past the card's
+    memory, or more blocks than can be resident at once."""
     dev = torch.device("cuda" if device is None else device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -274,7 +288,8 @@ def lstm_plan(n, hid, dtype=torch.float32, backward=False, device=None):
     if plan is not None:
         return plan
     sms, limit = device_numbers(dev)
-    plan = plan_grid(n, hid, dtype, sms, limit, backward)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    plan = plan_grid(n, hid, dtype, sms, limit, backward, total)
     fn = getattr(_build.load("lstm"), "mxtt_lstm_occupancy")
     fn.argtypes = [*_OCC_ARGS, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -282,6 +297,7 @@ def lstm_plan(n, hid, dtype=torch.float32, backward=False, device=None):
     with torch.cuda.device(dev):
         err = fn(int(bool(backward)), plan["units_per_block"],
                  _build.DTYPE_CODES[dtype], int(plan["w_global"]),
+                 int(plan["blocks"] < plan["work_blocks"]),
                  plan["smem_bytes"], ctypes.addressof(buf), None)
     if err != 0:
         raise RuntimeError(f"lstm kernel planning failed: CUDA error {err}")

@@ -19,7 +19,7 @@ a row with nothing to see gives exact zeros. Forward only.
 
 :func:`paged_flash_attention` launches the hand-written CUDA kernel
 (``csrc/paged_attention.cu``) for CUDA tensors, and raises on what the
-kernel does not take (float32 and bfloat16, head dims 1..256). It takes
+kernel does not take (float32 and bfloat16 at any head dim). It takes
 the plain version (:func:`paged_attention_reference`) only for CPU
 tensors. The kernel is split-KV: one launch a call, each row's history
 cut into chunks of 64 keys (longer past 32 chunks) whose partial
@@ -44,7 +44,9 @@ __all__ = ["LAUNCHES", "paged_attention_reference",
 _NEG_INF = -1e30
 #: kernel launches by kernel name (the main-path proof counts these)
 LAUNCHES = {"paged_attention": 0}
-_MAX_D = 256
+#: head dims a block takes at once; past it the kernel writes the output
+#: in chunks of this many dims, one block each
+_CHUNK_D = 256
 _DTYPES = (torch.float32, torch.bfloat16)
 # mxtt_paged_attention_fwd(q, k, v, table, kv_lens, out, part, tickets,
 #                          B, H, Sq, D, page_size, n_table, vec, scale,
@@ -111,9 +113,9 @@ def _check(q, k_pages, v_pages, page_table, kv_lens):
                         f"{v_pages.dtype}")
     if page_table.dtype != torch.int32 or kv_lens.dtype != torch.int32:
         raise TypeError("page_table and kv_lens must be int32")
-    if not 1 <= d <= _MAX_D:
+    if d < 1:
         raise ValueError(f"head_dim {d} not supported by the kernel "
-                         f"(1..{_MAX_D})")
+                         f"(at least 1)")
     devs = {t.device for t in (q, k_pages, v_pages, page_table, kv_lens)}
     if len(devs) != 1:
         raise ValueError(f"paged attention operands on several devices: "
@@ -176,9 +178,12 @@ def paged_flash_attention(q, k_pages, v_pages, page_table, kv_lens,
         return out
     page_size, n_table = k_pages.shape[2], page_table.shape[1]
     n_split = split_count(n_table, page_size)
-    # each (row, head, query, chunk)'s partial: m, l, then D sums
-    part = torch.empty(b * h * sq * n_split * (d + 2), dtype=torch.float32,
-                       device=q.device)
+    # chunks of the output's dims: ceil(D / 256) past D = 256, else one
+    nz = -(-d // _CHUNK_D) if d > _CHUNK_D else 1
+    # each (row, head, query, key chunk)'s partial: m, l a dims chunk,
+    # then D sums
+    part = torch.empty(b * h * sq * n_split * (d + 2 * nz),
+                       dtype=torch.float32, device=q.device)
     vec = int(d * q.element_size() % 16 == 0
               and all(t.data_ptr() % 16 == 0 for t in (q, k_pages,
                                                        v_pages)))
@@ -186,7 +191,8 @@ def paged_flash_attention(q, k_pages, v_pages, page_table, kv_lens,
                   q.device, q.data_ptr(), k_pages.data_ptr(),
                   v_pages.data_ptr(), page_table.data_ptr(),
                   kv_lens.data_ptr(), out.data_ptr(), part.data_ptr(),
-                  _tickets(q.device, b * h * sq).data_ptr(), b, h, sq, d,
+                  _tickets(q.device, b * h * sq * nz).data_ptr(), b, h, sq,
+                  d,
                   page_size, n_table, vec, float(sm_scale),
                   _build.DTYPE_CODES[q.dtype])
     LAUNCHES["paged_attention"] += 1

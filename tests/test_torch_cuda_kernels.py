@@ -76,10 +76,53 @@ def test_paged_attention_kernel_refuses_bad_operands(cuda):
         pa.paged_flash_attention(q, k, v, table.long(), kvl)
     with pytest.raises(ValueError):
         pa.paged_flash_attention(q, k.cpu(), v, table, kvl)
+    # any head dim runs; a pool whose head dim is not q's does not
     q, k, v, table, kvl = _case(1, 1, (5, 17, 24), 264, cuda,
                                 torch.float32)
-    with pytest.raises(ValueError, match="head_dim"):
-        pa.paged_flash_attention(q, k, v, table, kvl)
+    with pytest.raises(ValueError, match="page pool shape"):
+        pa.paged_flash_attention(q, k[..., :256].contiguous(),
+                                 v[..., :256].contiguous(), table, kvl)
+    with pytest.raises(TypeError):
+        pa.paged_flash_attention(q.half(), k.half(), v.half(), table, kvl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,kvls", CASES)
+@pytest.mark.parametrize("d", [264, 320, 512])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_attention_kernel_past_256(cuda, sq, kvls, d, dtype, tol):
+    """Head dims past 256: the output in chunks of 256 dims, one block
+    each, the scores over the whole head dim; the same bits on a second
+    call."""
+    args = _case(3, sq, kvls, d, cuda, dtype)
+    before = launch_counts()["paged_attention"]
+    got = pa.paged_flash_attention(*args)
+    again = pa.paged_flash_attention(*args)
+    want = pa.paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["paged_attention"] == before + 2
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, again)
+    for r, n in enumerate(kvls):
+        if n == 0:
+            assert got[r].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1, 64])
+def test_paged_attention_past_256_across_chunks(cuda, sq):
+    """Histories of several 64-key chunks at head dim 320: each output
+    chunk's partials and tickets are its own."""
+    args = _pool_case(12, sq, (70, 1024, 3000, 333), 16, cuda,
+                      torch.float32, d=320)
+    got = pa.paged_flash_attention(*args)
+    want = pa.paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+    for _ in range(2):
+        assert torch.equal(pa.paged_flash_attention(*args), got)
 
 
 def _pool_case(seed, sq, kvls, psize, dev, dtype, d=64, h=2, spare=1):
@@ -314,6 +357,46 @@ def test_flash_attention_same_bits_every_run(cuda, mode, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [264, 320, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["dense", "causal_offset", "kv_lens",
+                                  "packed", "packed_long"])
+def test_flash_attention_kernel_past_256(cuda, d, dtype, mode):
+    """Head dims past 256: o in chunks of 128 columns, one block each,
+    the scores over the whole head dim; lengths, causal and packed rows
+    as below 256, the same tolerances, the same bits on a second call."""
+    sq = skv = 77
+    kw = {}
+    if mode == "packed_long":
+        sq = skv = 300
+    if mode == "causal_offset":
+        sq, skv = 45, 130
+        kw = dict(causal=True, q_offset=skv - sq)
+    rng, q, k, v = _flash_case(2, 3, 2, sq, skv, d, cuda, dtype)
+    if mode == "kv_lens":
+        kw["kv_lens"] = torch.tensor([0, 1, 70], dtype=torch.int32,
+                                     device=cuda)
+    if mode.startswith("packed"):
+        seg, used = _packed_rows(rng, 3, sq)
+        kw["segment_ids"] = torch.tensor(seg, device=cuda)
+        kw["kv_lens"] = torch.tensor(used, device=cuda)
+    before = launch_counts()["flash_attention"]
+    o, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    o2, lse2 = fa.flash_attention_with_lse(q, k, v, **kw)
+    ro, rlse = fa.flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 2
+    assert torch.isfinite(o.float()).all()
+    assert _within(o, ro, 1e-4)
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    empty = rlse <= -1e29
+    assert torch.equal(lse[empty], rlse[empty])
+    if empty.any():
+        assert o.float()[empty].abs().max().item() == 0.0
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
 def test_flash_attention_kernel_takes_strided_heads(cuda):
     # q, k, v sliced out of one fused (B, S, 3, H, D) projection
     rng = np.random.RandomState(3)
@@ -328,10 +411,10 @@ def test_flash_attention_kernel_takes_strided_heads(cuda):
 
 @pytest.mark.cuda
 def test_flash_attention_kernel_refuses_bad_operands(cuda):
-    _, q, k, v = _flash_case(4, 2, 2, 16, 16, 200, cuda, torch.float32)
+    # any head dim runs; k and v of another head dim than q do not
     _, q, k, v = _flash_case(4, 2, 2, 16, 16, 264, cuda, torch.float32)
     with pytest.raises(ValueError):
-        fa.flash_attention(q, k, v)                     # D > 256
+        fa.flash_attention(q, k[..., :256], v[..., :256])
     _, q, k, v = _flash_case(4, 2, 2, 16, 16, 16, cuda, torch.float32)
     with pytest.raises(TypeError):
         fa.flash_attention(q, k.double(), v)
@@ -487,6 +570,40 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, d, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [264, 320, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["dense", "causal_offset",
+                                  "causal_rows_before_keys", "kv_lens",
+                                  "packed", "packed_long"])
+def test_flash_attention_backward_kernel_past_256(cuda, d, dtype, mode):
+    """K2 past head dim 256: the one-pass kernel over 64-column chunks
+    at Skv <= 128 (77 and 40 keys), the split pair over 128-column
+    chunks past it (130 and 300 keys); the tolerances of the D <= 256
+    test, the same bits on a second call."""
+    q, k, v, kw, do, dlse = _flash_bwd_case(cuda, d, dtype, mode)
+    o, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    before = launch_counts()["flash_attention_bwd"]
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, dlse=dlse, **kw)
+    again = fa.flash_attention_backward(q, k, v, o, lse, do, dlse=dlse,
+                                        **kw)
+    delta = (do.float() * o.float()).sum(-1) - dlse
+    want = fa.flash_attention_backward_reference(q, k, v, lse, do, delta,
+                                                 **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention_bwd"] == before + 2
+    assert fa.backward_path(k.shape[2], d) == (
+        "fused" if k.shape[2] <= 128 else "split")
+    for g, w, g2, what in zip(got, want, again, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.shape == w.shape, what
+        assert torch.isfinite(g.float()).all(), what
+        assert _within(g, w, 1e-4, 1e-5), \
+            (what, (g.float() - w.float()).abs().max().item())
+        assert torch.equal(g, g2), what
+    if mode == "causal_rows_before_keys":
+        assert got[0][:, :, :60].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
 def test_flash_attention_autograd_on_strided_heads(cuda):
     """Forward K1 and backward K2 through the autograd Function on heads
     sliced out of one fused projection: the gradient of the projection
@@ -596,6 +713,44 @@ def test_layer_norm_backward_kernel_matches_plain(cuda, r, d, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [768, 770, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_layer_norm_backward_widths_and_same_bits(cuda, d, dtype, offset):
+    """K3b on rows of whole 16-byte vectors (768; 2048 a block a row),
+    on a width that is not (770), and (offset 1) on the rows of
+    ``x[1:]``, whose start is not 16-byte aligned at 770: the tolerances
+    above, and the same bits on a second call."""
+    rng = np.random.RandomState(d + offset)
+    r = 1000
+    full = torch.tensor(rng.randn(r + 1, d).astype(np.float32) * 0.5 + 3.0,
+                        dtype=dtype, device=cuda)
+    x = full[offset:offset + r]
+    dfull = torch.tensor(rng.randn(r + 1, d).astype(np.float32),
+                         dtype=dtype, device=cuda)
+    dy = dfull[offset:offset + r]
+    g = torch.tensor(rng.randn(d).astype(np.float32), dtype=dtype,
+                     device=cuda)
+    _, mu, rs = ln.layer_norm_fused(x, g, g, 1e-12, return_stats=True)
+    before = launch_counts()["layer_norm_bwd"]
+    got = ln.layer_norm_backward(x, g, mu, rs, dy)
+    again = ln.layer_norm_backward(x, g, mu, rs, dy)
+    rdx, rdg, rdb = ln.layer_norm_backward_reference(x, g, mu, rs, dy)
+    torch.cuda.synchronize()
+    assert launch_counts()["layer_norm_bwd"] == before + 2
+    dx, dg, db = got
+    assert _within(dx, rdx, 1e-4, 1e-5)
+    xhat = (x.float() - mu[:, None]) * rs[:, None]
+    for gt, want, terms in ((dg, rdg, dy.float() * xhat),
+                            (db, rdb, dy.float())):
+        bound = 5e-5 * terms.abs().sum(0) + 1e-5
+        assert ((gt - want).abs() <= bound).all()
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
 def test_layer_norm_autograd_runs_both_kernels(cuda):
     rng = np.random.RandomState(8)
     x = torch.tensor(rng.randn(6, 40, 96).astype(np.float32), device=cuda,
@@ -660,6 +815,38 @@ def test_softmax_xent_kernels_match_plain(cuda, n, v, dtype):
     assert loss[0].item() == lse[0].item()
     assert dx.dtype == dtype
     assert _within(dx, rdx, 1e-6, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [3, 30522, 30523])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_softmax_xent_backward_widths_and_same_bits(cuda, v, dtype, offset):
+    """K4b on V below one 16-byte vector (3), the MLM vocabulary (rows
+    8 bytes off a 16-byte boundary in f32), an odd V, and (offset 1)
+    logits whose storage starts one element past dx's alignment (element
+    by element); labels outside [0, V) pick nothing. The tolerance
+    above, and the same bits on a second call."""
+    rng = np.random.RandomState(v + offset)
+    n = 37
+    flat = torch.tensor(rng.randn(n * v + 1).astype(np.float32) * 2.0,
+                        dtype=dtype, device=cuda)
+    x = flat[offset:offset + n * v].view(n, v)
+    labels = rng.randint(0, v, n).astype(np.int32)
+    labels[0], labels[1] = -1, v
+    lab = torch.tensor(labels, device=cuda)
+    g = torch.tensor(rng.randn(n).astype(np.float32), device=cuda)
+    _, lse = sx.softmax_xent_forward(x, lab)
+    before = launch_counts()["softmax_xent_bwd"]
+    dx = sx.softmax_xent_backward(x, lab, lse, g)
+    again = sx.softmax_xent_backward(x, lab, lse, g)
+    rdx = sx.softmax_xent_backward_reference(x, lab, lse, g)
+    torch.cuda.synchronize()
+    assert launch_counts()["softmax_xent_bwd"] == before + 2
+    assert dx.dtype == dtype
+    assert _within(dx, rdx, 1e-6, 1e-5)
+    assert torch.equal(dx, again)
 
 
 @pytest.mark.cuda
@@ -832,6 +1019,42 @@ def test_lstm_dw_kernel_on_ragged_depth(cuda, t, n, h, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 32])
+def test_lstm_kernels_past_one_unit_group_an_sm(cuda, n):
+    """H = 2500 f32: 157 unit groups of 16 on at most one block an SM,
+    so blocks walk several work blocks a step (W's rows in device
+    memory); forward, the backward's recurrence and dW against their
+    plain versions, and the same bits on a second call."""
+    gin, w, h0, c0, dout, dcseq = _lstm_case(3, n, 2500, torch.float32,
+                                             cuda, False)
+    plan = lstm.lstm_plan(n, 2500, backward=True)
+    assert plan["w_global"] and plan["walk"] >= 2
+    assert plan["blocks"] <= plan["sms"] < plan["work_blocks"]
+    before = launch_counts()
+    got = lstm.lstm_forward(gin, w, h0, c0)
+    want = lstm.lstm_forward_reference(gin, w, h0, c0)
+    # the backward from the kernel's own forward (out, cseq, gates)
+    got_b = lstm.lstm_backward(got[2], got[1], got[0], w, h0, c0, dout,
+                               dcseq)
+    want_b = lstm.lstm_backward_reference(got[2], got[1], got[0], w, h0,
+                                          c0, dout, dcseq)
+    again = lstm.lstm_forward(gin, w, h0, c0)
+    again_b = lstm.lstm_backward(got[2], got[1], got[0], w, h0, c0, dout,
+                                 dcseq)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["lstm_fwd"] == before["lstm_fwd"] + 2
+    assert after["lstm_bwd"] == before["lstm_bwd"] + 2
+    assert after["lstm_bwd_dw"] == before["lstm_bwd_dw"] + 2
+    for name, g, r, g2 in zip(("out", "cseq", "gates", "dgin", "dh0", "dc0",
+                               "dw"), (*got, *got_b), (*want, *want_b),
+                              (*again, *again_b)):
+        assert torch.isfinite(g.float()).all(), name
+        assert _lstm_close(g, r, torch.float32), name
+        assert torch.equal(g, g2), name
+
+
+@pytest.mark.cuda
 def test_lstm_autograd_on_the_card_matches_the_cpu(cuda):
     rng = np.random.RandomState(12)
     args = [rng.randn(9, 5, 4 * 40).astype(np.float32) * 0.5,
@@ -853,24 +1076,36 @@ def test_lstm_autograd_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.cuda
 def test_ops_raise_on_the_card_where_no_kernel_runs(cuda):
     """On the card an op never falls back to composed math for a call
-    of its kernels' types: past the kernels' shapes it raises before any
-    launch (a head dim past 256; an LSTM layer past one block an SM of
-    16 units, H = 2113 on an H100)."""
+    of its kernels' types: head dim 264 and an LSTM layer past one
+    block an SM of 16 units (H = 16 SMs + 1) launch the kernels, and
+    what no kernel takes (keys of another head dim than the queries, an
+    initial state of the wrong width) raises before any launch."""
     from mxnet_tpu_torch.ndarray import op_impl_nn, op_impl_rnn
 
     before = launch_counts()
     q = torch.zeros(1, 1, 4, 264, device=cuda)
-    with pytest.raises(ValueError, match="head_dim"):
-        op_impl_nn.flash_attention_op(q, q, q)
+    with pytest.raises(ValueError, match="do not match"):
+        op_impl_nn.flash_attention_op(q, q[..., :256], q[..., :256])
     hid = 16 * lstm.device_numbers(cuda)[0] + 1
     size = op_impl_rnn.rnn_param_size(1, 4, hid, False, "lstm")
     state = torch.zeros(1, 1, hid, device=cuda)
-    with pytest.raises(ValueError, match="cannot run"):
+    with pytest.raises(ValueError):
         op_impl_rnn.rnn(torch.zeros(2, 1, 4, device=cuda),
-                        torch.zeros(size, device=cuda), state, state,
-                        state_size=hid, num_layers=1, bidirectional=False,
-                        mode="lstm")
+                        torch.zeros(size, device=cuda), state[..., 1:],
+                        state, state_size=hid, num_layers=1,
+                        bidirectional=False, mode="lstm")
     assert launch_counts() == before
+    o = op_impl_nn.flash_attention_op(q, q, q)
+    out = op_impl_rnn.rnn(torch.zeros(2, 1, 4, device=cuda),
+                          torch.zeros(size, device=cuda), state, state,
+                          state_size=hid, num_layers=1, bidirectional=False,
+                          mode="lstm")
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["lstm_fwd"] == before["lstm_fwd"] + 1
+    assert o.abs().max().item() == 0.0
+    assert all(t.abs().max().item() == 0.0 for t in out)
 
 
 @pytest.mark.cuda
@@ -887,22 +1122,25 @@ def test_lstm_grid_and_what_cannot_fit(cuda):
                      "blocks_per_sm": bplan["blocks_per_sm"]}
     for n in (1, 33, 1024):
         for dtype in (torch.float32, torch.bfloat16):
-            for hid in (1056, 1500, 2112):
+            for hid in (1056, 1500, 2112, 2500):
                 lstm.lstm_plan(n, hid, dtype, backward=True)
                 lstm.lstm_plan(n, hid, dtype)
     assert lstm.lstm_plan(32, 1500)["w_global"]
+    # H = 4096: 256 work blocks walked by one block an SM
+    wide = lstm.lstm_plan(8, 4096)
+    assert wide["w_global"] and wide["blocks"] == wide["sms"]
+    assert wide["work_blocks"] == 256
+    # what cannot fit: W's rows past the device memory given
     with pytest.raises(ValueError, match="cannot run"):
-        lstm.lstm_plan(8, 4096)
-    gin = torch.zeros(2, 8, 4 * 4096, device=cuda)
-    w = torch.zeros(4096, 4 * 4096, device=cuda)
-    h0 = torch.zeros(8, 4096, device=cuda)
+        lstm.plan_grid(8, 4096, torch.float32, wide["sms"],
+                       wide["smem_limit"], mem_limit=1 << 20)
+    gin = torch.zeros(2, 8, 4 * 64, device=cuda)
+    w = torch.zeros(64, 4 * 64, device=cuda)
+    h0 = torch.zeros(8, 64, device=cuda)
     before = launch_counts()["lstm_fwd"]
-    with pytest.raises(ValueError, match="cannot run"):
-        lstm.lstm_forward(gin, w, h0, h0)
-    assert launch_counts()["lstm_fwd"] == before
     with pytest.raises(ValueError):
-        lstm.lstm_forward(gin[:, :, :64], w[:16, :64], h0[:, :16].cpu(),
-                          h0[:, :16])
+        lstm.lstm_forward(gin, w, h0.cpu(), h0)
+    assert launch_counts()["lstm_fwd"] == before
 
 
 # -- autograd semantics on the card ------------------------------------------

@@ -130,21 +130,27 @@ def test_cpu_path_refuses_what_the_kernel_refuses():
                            segment_ids=torch.zeros(1, 4, dtype=torch.int32))
     with pytest.raises(TypeError, match="kv_lens"):
         fa.flash_attention(q, k, k, kv_lens=torch.ones(1, dtype=torch.int64))
-    with pytest.raises(ValueError, match="head_dim"):
+    # any head dim runs; keys of another head dim than the queries do not
+    with pytest.raises(ValueError, match="do not match"):
         fa.flash_attention(torch.zeros(1, 1, 4, 264),
-                           torch.zeros(1, 1, 4, 264),
-                           torch.zeros(1, 1, 4, 264))
+                           torch.zeros(1, 1, 4, 256),
+                           torch.zeros(1, 1, 4, 256))
 
 
 @pytest.mark.parametrize("skv,d,path", [(128, 64, "fused"),
                                         (129, 64, "split"),
                                         (1, 8, "fused"), (128, 65, "split"),
                                         (512, 64, "split"),
-                                        (64, 256, "split")])
+                                        (64, 256, "split"),
+                                        (128, 264, "fused"),
+                                        (129, 264, "split"),
+                                        (77, 512, "fused"),
+                                        (512, 512, "split")])
 def test_backward_takes_one_pass_where_every_key_fits_a_block(skv, d, path):
     """K2's choice, as the JAX kernel's nk <= 2: one pass up to 128 keys
-    (K, V, q', do, p and ds in shared memory at D <= 64), the dq and
-    dk/dv pair past that."""
+    (K, V, q', do, p and ds in shared memory at D <= 64, and past D =
+    256, where the kernels walk the head dim in chunks of 64), the dq
+    and dk/dv pair past that."""
     assert fa.backward_path(skv, d) == path
 
 
@@ -230,3 +236,37 @@ def test_backward_refuses_mismatched_operands():
         fa.flash_attention_backward(*t, o, lse, o[:, :, :3])
     with pytest.raises(TypeError, match="lse"):
         fa.flash_attention_backward(*t, o, lse.double(), o)
+
+
+@pytest.mark.parametrize("d", [264, 320])
+def test_plain_matches_jax_interpret_kernel_past_256(monkeypatch, d):
+    """Head dims past 256, which the kernels take in chunks of the head
+    dim: the port's plain forward and backward (its autograd Function on
+    CPU tensors) against the JAX kernel in interpret mode, lengths and
+    a causal mask, cotangents on o and lse; the tolerances above."""
+    monkeypatch.setenv("MXNET_TPU_PALLAS_INTERPRET", "1")
+    from mxnet_tpu.ops.pallas.flash_attention import (
+        flash_attention_with_lse)
+
+    rng = np.random.RandomState(d)
+    q, k, v = (rng.randn(2, 1, 9, d).astype(np.float32) for _ in range(3))
+    kw = dict(causal=True, kv_lens=np.array([0, 7], np.int32))
+    jkw = dict(causal=True, kv_lens=jnp.asarray(kw["kv_lens"]))
+    want_o, want_lse = flash_attention_with_lse(
+        *(jnp.asarray(x) for x in (q, k, v)), interpret=True, **jkw)
+    tkw = dict(causal=True, kv_lens=torch.from_numpy(kw["kv_lens"]))
+    assert fa.kernel_takes(torch.from_numpy(q))
+    got_o, got_lse = fa.flash_attention_with_lse(
+        *(torch.from_numpy(x) for x in (q, k, v)), **tkw)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o),
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               atol=1e-5, rtol=1e-5)
+    assert np.all(got_o.numpy()[0] == 0.0)
+    do = rng.randn(*q.shape).astype(np.float32)
+    dlse = rng.randn(*q.shape[:3]).astype(np.float32)
+    for g, w, what in zip(_grads_port(q, k, v, kw, do, dlse),
+                          _grads_jax(q, k, v, kw, do, dlse),
+                          ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g, w, atol=2e-5, rtol=2e-5,
+                                   err_msg=what)

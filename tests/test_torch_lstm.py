@@ -195,34 +195,70 @@ def test_plan_keeps_w_in_shared_memory_where_it_fits(n, hid, dtype,
                                                      w_global):
     """Both directions on an H100: W's part in shared memory up to H =
     1056 in f32 (and H = 1500 in bf16); past that (``word_lm.py --nhid
-    1500``) 16 units a block with W's rows in a device-memory scratch of
-    ``w_scratch`` elements, shared memory for the partial sums only, up
-    to H = 2112."""
+    1500``) 16 units a work block with W's rows in a device-memory
+    scratch of ``w_scratch`` elements (a slice a work block), shared
+    memory for the partial sums only. One block a work block up to H =
+    2112; at 2113 the 133 unit groups take 132 blocks, one walking two.
+    What the plan refuses is a W scratch past the device memory given."""
     for backward in (False, True):
         plan = tl.plan_grid(n, hid, dtype, backward=backward, **H100)
         assert plan["w_global"] is w_global
         assert plan["blocks"] <= 132
+        assert plan["blocks"] == plan["work_blocks"] and plan["walk"] == 1
         rows = (1 if backward else 4) * 16
         if w_global:
             assert plan["units_per_block"] == 16
-            assert plan["w_scratch"] == plan["blocks"] * rows * \
+            assert plan["w_scratch"] == plan["work_blocks"] * rows * \
                 plan["w_row"]
             assert plan["smem_bytes"] == (8192 if backward else 32768)
         else:
             assert plan["w_scratch"] == 0
-    with pytest.raises(ValueError, match="133 unit groups of 16"):
-        tl.plan_grid(n, 2113, dtype, **H100)
+    past = tl.plan_grid(n, 2113, dtype, **H100)
+    assert (past["unit_groups"], past["row_groups"], past["blocks"],
+            past["walk"]) == (133, 1, 132, 2)
+    item = torch.finfo(dtype).bits // 8
+    with pytest.raises(ValueError, match=r"133 unit groups of 16 units x 1 "
+                                         r"row groups on 132 blocks"):
+        tl.plan_grid(n, 2113, dtype, mem_limit=past["w_scratch"] * item - 1,
+                     **H100)
 
 
 @pytest.mark.parametrize("backward", [False, True])
 def test_plan_refuses_what_cannot_fit_with_its_numbers(backward):
+    # H = 4096 runs (256 work blocks on 132 blocks); its W rows do not
+    # fit a device memory of 64 MB
     with pytest.raises(ValueError, match=r"cannot run N=8, H=4096 "
-                                         r"\(torch.float32\) on 132 SMs: "):
-        tl.plan_grid(8, 4096, torch.float32, backward=backward, **H100)
+                                         r"\(torch.float32\) on 132 SMs: "
+                                         r".*limit 67108864 B"):
+        tl.plan_grid(8, 4096, torch.float32, backward=backward,
+                     mem_limit=64 << 20, **H100)
     # below the partial sums' bytes: W's rows in device memory do not help
     with pytest.raises(ValueError, match="limit 8000 B"):
         tl.plan_grid(8, 650, torch.float32, sms=132, smem_limit=8000,
                      backward=backward)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("n,hid,groups,rg,walk", [
+    (32, 2500, 157, 1, 2), (1, 2500, 157, 1, 2), (32, 4224, 264, 1, 2),
+    (1024, 4224, 264, 1, 2), (8, 8448, 528, 1, 4)])
+def test_plan_walks_work_blocks_past_one_an_sm(backward, n, hid, groups,
+                                               rg, walk):
+    """Past H = 2112 on an H100 (132 SMs, 232,448 B): 16 units a work
+    block, W's rows in device memory, one block an SM walking
+    ceil(work blocks / 132) of them; a pure function of its numbers."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = tl.plan_grid(n, hid, dtype, backward=backward, **H100)
+        again = tl.plan_grid(n, hid, dtype, backward=backward, **H100)
+        assert plan == again
+        assert plan["w_global"] and plan["units_per_block"] == 16
+        assert (plan["unit_groups"], plan["row_groups"]) == (groups, rg)
+        assert plan["work_blocks"] == groups * rg
+        assert plan["blocks"] == 132 and plan["walk"] == walk
+        rows = (1 if backward else 4) * 16
+        assert plan["w_scratch"] == plan["work_blocks"] * rows * \
+            plan["w_row"]
+        assert plan["smem_bytes"] == (8192 if backward else 32768)
 
 
 def _tf32(x):

@@ -73,11 +73,12 @@ def _attention_case(seed, b, h, sq, skv, d, dtype):
                                           ("valid_len_causal", 264,
                                            np.float32)])
 def test_attention_off_the_kernel_matches_jax(mode, d, dtype):
-    """Head dims of 256 (K1's widest tiles; here its plain version),
-    and off the kernel float64 and, on the CPU, head dims past 256 (the
-    JAX op's float32 masked softmax):
-    rows with no visible key exact zeros (a valid length of 0; causal
-    rows before the first key), the result in the query's type."""
+    """Head dims of 256 (K1's widest tiles) and past it (264: the
+    kernels' head-dim chunks; here their plain versions, as the JAX op
+    takes any head dim into its kernel), and off the kernel float64
+    (the JAX op's float32 masked softmax): rows with no visible key
+    exact zeros (a valid length of 0; causal rows before the first
+    key), the result in the query's type."""
     sq, skv = (5, 9) if "causal" in mode else (8, 8)
     rng, q, k, v = _attention_case(d, 3, 2, sq, skv, d, dtype)
     kw = {}
@@ -104,6 +105,42 @@ def test_attention_off_the_kernel_matches_jax(mode, d, dtype):
                                rtol=TOL[np.float32])
     if "valid_len" in mode:                    # the empty example
         assert not got[0].any()
+
+
+def test_ops_route_wide_calls_to_the_kernels(monkeypatch):
+    """On tensors as the card has them (the meta device: shapes and
+    types, no data), the ops send attention at head dim 512 and an LSTM
+    layer of H = 2500 float32, past the kernels' old limits, to the
+    kernels' entry points, and float64 to the composed math, deciding
+    before any launch."""
+    calls = []
+    meta = torch.device("meta")
+    monkeypatch.setattr(op_impl_nn._fa, "flash_attention", lambda q, *a:
+                        calls.append(("attention", q.shape[-1])) or q)
+    q = torch.empty(2, 2, 5, 512, device=meta)
+    assert op_impl_nn.flash_attention_op(q, q, q).shape == q.shape
+    out = op_impl_nn.flash_attention_op(q.double(), q.double(), q.double())
+    assert out.dtype == torch.float64
+    assert calls == [("attention", 512)]
+
+    def fused(gin, w, h0, c0):
+        calls.append(("lstm", h0.shape[-1], gin.dtype))
+        t = gin.new_empty(gin.shape[0], *h0.shape)
+        return t, t
+
+    monkeypatch.setattr(op_impl_rnn._lstm, "lstm_layer_fused", fused)
+    scan = op_impl_rnn._scan
+    monkeypatch.setattr(op_impl_rnn, "_scan", lambda *a: (
+        calls.append(("scan", a[0].dtype)) or scan(*a)))
+    for dtype in (torch.float32, torch.float64):
+        h = 2500
+        size = op_impl_rnn.rnn_param_size(1, 8, h, False, "lstm")
+        state = torch.empty(1, 3, h, dtype=dtype, device=meta)
+        op_impl_rnn.rnn(torch.empty(2, 3, 8, dtype=dtype, device=meta),
+                        torch.empty(size, dtype=dtype, device=meta), state,
+                        state, state_size=h, num_layers=1, mode="lstm")
+    assert calls[1:] == [("lstm", 2500, torch.float32),
+                         ("scan", torch.float64)]
 
 
 def test_multi_head_attention_with_heads_of_256_runs():

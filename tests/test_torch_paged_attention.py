@@ -138,8 +138,8 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
                         v=a["v"].double()), TypeError),
     (lambda a: a.update(k=a["k"].bfloat16()), TypeError),
     (lambda a: a.update(q=a["q"].transpose(2, 3)), ValueError),
-    (lambda a: a.update(q=a["q"].new_zeros(*a["q"].shape[:3], 264),
-                        k=a["k"].new_zeros(*a["k"].shape[:3], 264),
+    # any head dim, but the pool's must be q's
+    (lambda a: a.update(k=a["k"].new_zeros(*a["k"].shape[:3], 264),
                         v=a["v"].new_zeros(*a["v"].shape[:3], 264)),
      ValueError),
 ])
@@ -163,6 +163,29 @@ def test_kernel_accepts_any_head_dim_to_256(d):
     q, k, v, table, kvl = _torch(*_case(6, 1, (5, 17, 24), d=d))
     pa._check(q, k, v, table, kvl)
     pa._check(q.bfloat16(), k.bfloat16(), v.bfloat16(), table, kvl)
+
+
+@pytest.mark.parametrize("d", [264, 320, 512])
+def test_kernel_accepts_head_dims_past_256(d):
+    q, k, v, table, kvl = _torch(*_case(6, 1, (5, 17, 24), d=d))
+    pa._check(q, k, v, table, kvl)
+    pa._check(q.bfloat16(), k.bfloat16(), v.bfloat16(), table, kvl)
+
+
+@pytest.mark.parametrize("sq,d", [(1, 264), (4, 320)])
+def test_plain_matches_jax_interpret_kernel_past_256(monkeypatch, sq, d):
+    """Head dims past 256 (the kernel's output in chunks of 256 dims):
+    decode and a 4-query chunk against the JAX kernel in interpret
+    mode."""
+    monkeypatch.setenv("MXNET_TPU_PALLAS_INTERPRET", "1")
+    from mxnet_tpu.ops.pallas.flash_attention import paged_flash_attention
+
+    q, k, v, table, kvl = _case(9, sq, (9, 20, 0), h=2, d=d)
+    want = np.asarray(paged_flash_attention(q, k, v, table, kvl,
+                                            interpret=True))
+    got = pa.paged_flash_attention(*_torch(q, k, v, table, kvl)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    assert np.all(got[2] == 0.0)
 
 
 @pytest.mark.parametrize("sq,d", [(1, 80), (1, 96), (4, 256)])
