@@ -86,11 +86,42 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    Adam steps of the BERT training path and three SGD steps of the word
    LM (2 x 650, vocab 10000, batch 8, dropout 0) give losses within
    ``1e-4`` relative and step-1 gradients within ``1e-3`` of each
-   parameter's largest CPU gradient.
+   parameter's largest CPU gradient;
+10. ResNet-50 ImageNet-style training (``train-resnet50-imagenet-b128``:
+    ``mxnet_tpu_torch/examples/train_imagenet.py``'s building blocks,
+    ``resnet50_v1`` with 1000 classes, Xavier weights from ``--seed``,
+    one synthetic batch of 128 x 3 x 224 x 224 uniform [0, 1) images
+    and uniform labels, SGD at lr 0.1, momentum 0.9, wd 1e-4), 30
+    warm-up steps (the loss first climbs for ~15 steps at lr 0.1, as
+    the JAX model's does) then 10, once in float32 and once after
+    ``net.cast("bfloat16")`` (BatchNorm keeps float32). Every loss
+    finite and the 10th below the 1st, every gradient finite and not all
+    zero, the running statistics finite and moved, no launch of any
+    port kernel (convolution, pooling and BatchNorm run in cuDNN and
+    torch's own kernels); step p50, images/s, peak memory and the
+    step's FLOPs (convolutions and Dense, forward x 3) against 67
+    TFLOP/s f32 and 989 TFLOP/s bf16 printed;
+11. the MNIST MLP (``train-mnist-mlp-b64``:
+    ``mxnet_tpu_torch/examples/mnist_gluon.py`` at its defaults:
+    synthetic 60000, batch 64, Adam 1e-3, 5 epochs, a shuffled
+    ``DataLoader``): its own gate (accuracy > 0.8), no port kernel,
+    samples/s printed;
+12. ``resnet50_v1`` at batch 4, 224 x 224, two SGD steps on the card
+    and on the CPU, in float64: losses within ``1e-4`` relative, step-1
+    gradients within ``1e-3`` of scale, running statistics within
+    ``1e-4``; in float32 the step-1 losses within ``1e-4`` (the
+    float32 gradients' gaps printed beside those of two CPU runs, with
+    and without oneDNN: this model's float32 step-1 gradients move by
+    tens of percent of scale with the rounding).
+
+The op-dispatch phase also times one
+``F.scaled_dot_product_attention`` call beside K1, K2 and K5 at head
+dims past 256 (264 and 512; K5 also 320): forward and backward apart.
 
 ``--profile`` adds a torch.profiler breakdown (device time by kernel,
 busy share) of both serving windows and of one step of each training
-path.
+path; the ResNet steps also by layer kind (convolutions, BatchNorm,
+ReLU, pooling, Dense, loss, optimizer).
 
 The last three lines of standard output are ``{"kernels": [...]}``,
 then the card's name and power limit as ``nvidia-smi --query-gpu=
@@ -194,6 +225,31 @@ def device_ms(fn, iters=20, warmup=3, by_kernel=False):
     raise AssertionError(f"device_ms: events lost in two traces of {iters} "
                          f"calls: counts {short or 'none'} are not whole "
                          f"multiples of the calls")
+
+
+def queued_ms(fn, iters=10, warmup=2):
+    """Device time of one call of ``fn`` in ms, without the profiler:
+    CUDA events around ``iters`` calls that the host queues behind a
+    ~25 ms spin kernel, so the device runs them back to back (the gaps
+    between a call's kernels included, the host's time not). Raises if
+    the host had not queued them all before the spin ended."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    if t0.query():
+        raise AssertionError("queued_ms: the spin ended before the calls "
+                             "were queued; lengthen it")
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
 
 
 def kernel_name(event):
@@ -1199,10 +1255,23 @@ def check_op_dispatch(seed, dev):
         kvls = np.array([700, 64 + 5, 333], np.int32)
         width = -(-int(kvls.max()) // 16)
         pool = rng.randn(3 * width + 1, 2, 16, 320).astype("float32")
-        paged[sq] = (rng.randn(3, 2, sq, 320).astype("float32"), pool,
-                     rng.randn(*pool.shape).astype("float32"),
-                     rng.permutation(3 * width + 1)[:3 * width]
-                     .reshape(3, width).astype(np.int32), kvls)
+        paged[320, sq] = (rng.randn(3, 2, sq, 320).astype("float32"), pool,
+                          rng.randn(*pool.shape).astype("float32"),
+                          rng.permutation(3 * width + 1)[:3 * width]
+                          .reshape(3, width).astype(np.int32), kvls)
+    # and at head dims 264 and 512 (two of K5's 256-column chunks), from
+    # a generator of their own so that the rows above keep their inputs
+    rng_wide = np.random.RandomState(seed + 16)
+    for d in (264, 512):
+        for sq in (1, 64):
+            kvls = np.array([700, 64 + 5, 333], np.int32)
+            width = -(-int(kvls.max()) // 16)
+            pool = rng_wide.randn(3 * width + 1, 2, 16, d).astype("float32")
+            paged[d, sq] = (
+                rng_wide.randn(3, 2, sq, d).astype("float32"), pool,
+                rng_wide.randn(*pool.shape).astype("float32"),
+                rng_wide.permutation(3 * width + 1)[:3 * width]
+                .reshape(3, width).astype(np.int32), kvls)
     logits = rng.randn(64, 1000).astype("float32")
     labels = rng.randint(0, 1000, 64).astype("float32")
     hid, steps, rows = 1500, WLM["bptt"], 8
@@ -1237,8 +1306,8 @@ def check_op_dispatch(seed, dev):
         return grads([op_impl_nn.flash_attention_op(
             *leaves, valid_len=t(wide_lens[s]), causal=True)], leaves)
 
-    def paged_320(t, sq):
-        qp, kp, vp, table, kvls = paged[sq]
+    def paged_wide(t, d, sq):
+        qp, kp, vp, table, kvls = paged[d, sq]
         return [pa.paged_flash_attention(t(qp), t(kp), t(vp), t(table),
                                          t(kvls))]
 
@@ -1266,10 +1335,10 @@ def check_op_dispatch(seed, dev):
             lambda t, d=d, sl=sl: attention_wide(t, d, sl),
             {"flash_attention": 1, "flash_attention_bwd": 1})
            for d in (264, 512) for sl in (40, 512)},
-        "paged decode head_dim 320": (lambda t: paged_320(t, 1),
-                                      {"paged_attention": 1}),
-        "paged chunk head_dim 320": (lambda t: paged_320(t, 64),
-                                     {"paged_attention": 1}),
+        **{f"paged {'decode' if sq == 1 else 'chunk'} head_dim {d}": (
+            lambda t, d=d, sq=sq: paged_wide(t, d, sq),
+            {"paged_attention": 1})
+           for d in (320, 264, 512) for sq in (1, 64)},
         "softmax_cross_entropy float labels": (lambda t: [
             tnd.softmax_cross_entropy(t(logits), t(labels))],
             {"softmax_xent_fwd": 1}),
@@ -1279,7 +1348,7 @@ def check_op_dispatch(seed, dev):
             lambda t: lstm_segment(t, hid_w, seq_w, 2),
             {"lstm_fwd": 2, "lstm_bwd": 2, "lstm_bwd_dw": 2}),
     }
-    worst = {}
+    worst, kernel_ms = {}, {}
     for name, (fn, expect) in calls.items():
         def on(device):
             def t(a, grad=False):
@@ -1310,14 +1379,86 @@ def check_op_dispatch(seed, dev):
             # the ported kernels' device time a call (the inputs' copies
             # and the layer's set-up left out)
             _, by = device_ms(on(dev), iters=3, warmup=1, by_kernel=True)
-            ms = ", device ms a call " + json.dumps({
-                kernel_name(e): round(t, 4) for e, t in by.items()
+            kernel_ms[name] = {
+                kernel_name(e): t for e, t in by.items()
                 if any(f in e for f in ("layer_norm", "flash_", "xent",
-                                        "lstm", "paged_"))})
+                                        "lstm", "paged_"))}
+            ms = ", device ms a call " + json.dumps(
+                {k: round(t, 4) for k, t in kernel_ms[name].items()})
         log(f"op dispatch {name}: card vs CPU max {worst[name]:.3e} of "
             f"scale, launches {moved or 'none'}{ms}")
     reset_launch_counts()
+    sdpa_beside_chunks(dev, wide, wide_lens, paged, kernel_ms)
     return worst
+
+
+def sdpa_beside_chunks(dev, wide, wide_lens, paged, kernel_ms):
+    """Library yardsticks of the op-dispatch rows past head dim 256: one
+    ``F.scaled_dot_product_attention`` call on the same inputs and masks
+    (an additive float mask), its forward and its backward
+    (``torch.autograd.grad`` of the forward's output with the row's head
+    gradient, 2 x out) apart, beside
+    K1's and K2's device time a call; the paged rows against SDPA over
+    K/V already gathered to dense (the gather excluded), forward only, as
+    phase 3's K5 yardstick. SDPA's times are ``queued_ms``'s (the
+    profiler dropped the first memory-efficient attention kernel of
+    every trace of one row), the kernels' ``device_ms``'s; f32."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = {}
+    for (d, s), arrs in wide.items():
+        q, k, v = (torch.tensor(a, device=dev, requires_grad=True)
+                   for a in arrs)
+        lens = torch.tensor(wide_lens[s], device=dev)
+        col = torch.arange(s, device=dev)
+        keep = (col[None, :] <= col[:, None])[None, None] \
+            & (col < lens[:, None, None, None])
+        # an additive float mask, made once: a boolean one is turned
+        # into one inside every call
+        mask = torch.zeros(keep.shape, device=dev).masked_fill(
+            ~keep, float("-inf"))
+
+        def fwd():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        out = fwd()
+        head = (2 * out).detach()
+
+        def fwd_bwd():
+            torch.autograd.grad(fwd(), (q, k, v), head)
+
+        f_ms = queued_ms(fwd)
+        fb_ms = queued_ms(fwd_bwd)
+        mine = kernel_ms[f"attention head_dim {d} S={s}"]
+        k1 = sum(t for e, t in mine.items() if "flash_fwd" in e)
+        k2 = sum(t for e, t in mine.items() if "flash_bwd" in e)
+        rows[f"attention head_dim {d} S={s}"] = {
+            "k1_ms": k1, "sdpa_fwd_ms": f_ms, "k2_ms": k2,
+            "sdpa_bwd_ms": fb_ms - f_ms}
+    for (d, sq), (qn, kn, vn, tn, kvn) in paged.items():
+        q, kp, vp = (torch.tensor(a, device=dev) for a in (qn, kn, vn))
+        tbl = torch.tensor(tn, device=dev).long()
+        b, h = q.shape[:2]
+        kd = torch.movedim(kp[tbl], 2, 1).reshape(b, h, -1, d)
+        vd = torch.movedim(vp[tbl], 2, 1).reshape(b, h, -1, d)
+        col = torch.arange(kd.shape[2], device=dev)
+        row = torch.arange(sq, device=dev)
+        kv = torch.tensor(kvn, device=dev).long()[:, None, None, None]
+        keep = (col <= kv - sq + row[:, None]) & (col < kv)
+        mask = torch.zeros(keep.shape, device=dev).masked_fill(
+            ~keep, float("-inf"))
+        name = f"paged {'decode' if sq == 1 else 'chunk'} head_dim {d}"
+        rows[name] = {
+            "k5_ms": sum(kernel_ms[name].values()),
+            "sdpa_fwd_ms": queued_ms(
+                lambda: F.scaled_dot_product_attention(q, kd, vd,
+                                                       attn_mask=mask))}
+    for name, r in rows.items():
+        log(f"op dispatch {name}: device ms a call " + json.dumps(
+            {k: round(t, 4) for k, t in r.items()}))
+    log("op dispatch SDPA yardsticks: " + json.dumps(rows))
+    return rows
 
 
 def _profiler(on):
@@ -1332,13 +1473,15 @@ def _profiler(on):
     return torch.profiler.profile(activities=acts)
 
 
-def report_profile(prof, wall):
+def report_profile(prof, wall, ranges=()):
     """Device time by kernel over the window (the 15 largest and every
     kernel of the port's own), and the device's busy share of the
     window's wall (the profiler's own overhead inflates
     the wall; read shares, not rates, from a profiled run). Only the
     device's own events count: the operators that launched them (which
-    in the backward's threads carry their kernels' time too) do not."""
+    in the backward's threads carry their kernels' time too) do not,
+    nor the trace's own named ``ranges``, which the trace also puts on
+    the device's timeline."""
     from torch.autograd import DeviceType
 
     def dev_us(e):
@@ -1346,7 +1489,8 @@ def report_profile(prof, wall):
                        getattr(e, "self_cuda_time_total", 0.0))
 
     rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
+                   if e.device_type == DeviceType.CUDA
+                   and e.key not in ranges),
                   key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in rows) / 1e6
     log(f"profile: device busy {busy:.4f} s of {wall:.4f} s wall "
@@ -1944,6 +2088,428 @@ def cross_device_wordlm(seed, dev, steps=3):
                              f"of its scale")
 
 
+# 30 warm-up steps: at the example's lr 0.1 (momentum 0.9, no lr
+# warm-up, Xavier weights) the loss falls for two steps, then climbs
+# to a peak between steps 11 and 29 (8 to 33 over seeds 0-4 in f32 and
+# bf16 on an H100) before it falls; the 10 measured steps come after.
+RESNET = dict(network="resnet50_v1", classes=1000, batch=128, image=224,
+              steps=10, warmup=30)
+# steps of the main path's start that a second model must repeat
+RESNET_REPEAT = 3
+# H100 SXM data-sheet peak of bf16 on the tensor cores (dense)
+PEAK_BF16_FLOPS = 989e12
+
+
+def forward_flops(net, x):
+    """FLOPs of one forward of ``net`` on ``x`` counted from its
+    convolutions' and Dense layers' shapes: 2 x multiply-adds, each
+    output element taking in_channels / groups x kernel taps (the
+    Dense: in_units); BatchNorm, pooling and elementwise work left out.
+    One predict-mode forward, no graph kept."""
+    from mxnet_tpu_torch.gluon.nn import Dense
+    from mxnet_tpu_torch.gluon.nn.conv_layers import _Conv
+
+    total = [0]
+
+    def count(mod, inputs, out):
+        total[0] += 2 * out.numel() * (mod.weight[0].numel()
+                                       if isinstance(mod, _Conv)
+                                       else mod.weight.shape[1])
+
+    hooks = [m.register_forward_hook(count) for m in net.modules()
+             if isinstance(m, (_Conv, Dense))]
+    try:
+        net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def resnet_profile(net, run):
+    """One traced step of the ResNet path: device time by layer kind
+    (CPU ops' device totals: convolutions forward and backward, the
+    BatchNorms, ReLU, pooling, the Dense, the loss, the optimizer) and
+    the device's busy share; BatchNorm's forward is marked by hooks for
+    the trace only."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from mxnet_tpu_torch.gluon.nn import BatchNorm
+
+    ranges = []
+
+    def enter(mod, args):
+        ranges.append(torch.profiler.record_function("BatchNorm.forward"))
+        ranges[-1].__enter__()
+
+    def leave(mod, args, out):
+        ranges.pop().__exit__(None, None, None)
+
+    hooks = []
+    for m in net.modules():
+        if isinstance(m, BatchNorm):
+            hooks.append(m.register_forward_pre_hook(enter))
+            hooks.append(m.register_forward_hook(leave))
+    try:
+        with _profiler(True) as prof:
+            wall = run()
+    finally:
+        for h in hooks:
+            h.remove()
+
+    def dev_us(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0.0))
+
+    def self_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # one CPU-side row each: the forward op (its device total holds the
+    # kernels it launched) or the backward node's evaluate_function row
+    bwd = "autograd::engine::evaluate_function: "
+    kinds = {
+        "conv forward": ("aten::convolution",),
+        "conv backward": (bwd + "ConvolutionBackward0",),
+        "BatchNorm forward": ("BatchNorm.forward",),
+        "BatchNorm backward": (bwd + "_BatchNormTrainBackward",),
+        "relu": ("aten::relu", bwd + "ReluBackward0"),
+        "residual add": ("aten::add", bwd + "AddBackward0"),
+        "max pool": ("aten::max_pool2d",
+                     bwd + "MaxPool2DWithIndicesBackward0"),
+        "global pool + dense": ("aten::mean", bwd + "MeanBackward1",
+                                "aten::linear", bwd + "AddmmBackward0"),
+        "loss": ("aten::log_softmax", bwd + "LogSoftmaxBackward0",
+                 "aten::gather", bwd + "GatherBackward0"),
+        "optimizer": ("optimizer.step",),
+    }
+    rows = {e.key: dev_us(e) / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU}
+    got = {kind: sum(rows.get(n, 0.0) for n in names)
+           for kind, names in kinds.items()}
+    # the device's busy time: the union of its events' intervals (cuDNN
+    # may run kernels side by side); the trace's own ranges, which it
+    # also puts on the device's timeline, left out
+    marks = ("BatchNorm.forward", "optimizer.step")
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and e.name not in marks)
+    union, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    busy = union / 1e3
+    kernels = sum(self_us(e) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.key not in marks) / 1e3
+    got["other"] = kernels - sum(got.values())
+    log(f"resnet step profile: device busy {busy:.3f} ms of "
+        f"{wall * 1e3:.3f} ms wall ({100 * busy / (wall * 1e3):.1f}%, idle "
+        f"{100 * (1 - busy / (wall * 1e3)):.1f}%), kernels {kernels:.3f} ms "
+        f"summed; device ms by kind "
+        + json.dumps({k: round(v, 3) for k, v in got.items()}))
+    report_profile(prof, wall, marks)
+    return dict(got, busy_ms=busy, kernels_ms=kernels, wall_ms=wall * 1e3)
+
+
+def train_resnet_main_path(seed, profile, dev, power_line, dtype):
+    """``train-resnet50-imagenet-b128`` on the card in ``dtype``
+    (``examples/train_imagenet.py``'s building blocks): Xavier weights
+    from ``seed``, one synthetic batch, SGD (lr 0.1, momentum 0.9, wd
+    1e-4), 30 warm-up steps then 10. Gates: every loss finite and the
+    10th below the 1st, every gradient finite and not all zero, the
+    running statistics finite and moved, no launch of a port kernel,
+    and a second model from ``seed`` repeating the first steps' losses
+    bit for bit (the losses are chaotic in the weights: the loss gate
+    means something only on a run that one seed fixes). Returns the
+    path's metrics."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.examples import train_imagenet as ex
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()       # the whole phase launches none
+    r = RESNET
+    t0 = time.perf_counter()
+    net, loss_fn, trainer = ex.build(r["network"], r["classes"], dev,
+                                     dtype, seed)
+    params = net.collect_params()
+    n_params = sum(p.data().numel() for p in params.values()
+                   if p.grad_req != "null")
+    stats0 = {k: p.data().detach().clone() for k, p in params.items()
+              if "running" in k}
+    x, y = ex.synthetic_batch(r["batch"], r["image"], r["classes"], seed,
+                              dev, dtype)
+    flops = 3 * forward_flops(net, x)
+    log(f"model: {r['network']}, {r['classes']} classes, {dtype}, "
+        f"{n_params} trained params, {len(params)} parameters with the "
+        f"running statistics ({time.perf_counter() - t0:.1f} s to build)")
+    t0 = time.perf_counter()
+    warm = []
+    for _ in range(r["warmup"]):
+        _, loss = ex.train_step(net, loss_fn, trainer, x, y)
+        warm.append(loss.detach().double().mean())
+    warm = torch.stack(warm).tolist()
+    torch.cuda.synchronize()
+    log(f"warm-up: {r['warmup']} steps in {time.perf_counter() - t0:.1f} s "
+        f"(the first calls' set-up included)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [], []
+    for _ in range(r["steps"]):
+        t0 = time.perf_counter()
+        _, loss = ex.train_step(net, loss_fn, trainer, x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.double().mean().item())
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if counts:
+        raise AssertionError(f"the ResNet path launched port kernels: "
+                             f"{counts}")
+    if not all(np.isfinite(warm + losses)):
+        raise AssertionError(f"non-finite loss: {warm + losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    dead = []
+    for name, p in params.items():
+        if p.grad_req == "null":
+            continue
+        g = p.grad()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: non-finite gradient")
+        if g.abs().max().item() == 0.0:
+            dead.append(name)
+    if dead:
+        raise AssertionError(f"all-zero gradients: {dead}")
+    for name, before in stats0.items():
+        now = params[name].data()
+        if not bool(torch.isfinite(now).all()):
+            raise AssertionError(f"{name}: non-finite running statistic")
+        if torch.equal(now, before):
+            raise AssertionError(f"{name}: running statistic did not move")
+    again = _resnet_repeat(seed, dev, dtype, x, y, RESNET_REPEAT)
+    if again != warm[:RESNET_REPEAT]:
+        raise AssertionError(f"a second model from seed {seed} gave other "
+                             f"losses: {again} vs {warm[:RESNET_REPEAT]}")
+    log(f"repeat: a second model from seed {seed} gave the first "
+        f"{RESNET_REPEAT} losses bit for bit")
+    breakdown = None
+    if profile:
+        step = trainer.step
+
+        def marked_step(batch_size):
+            with torch.profiler.record_function("optimizer.step"):
+                step(batch_size)
+
+        def one_step():
+            t0 = time.perf_counter()
+            ex.train_step(net, loss_fn, trainer, x, y)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        trainer.step = marked_step      # the trace's range, this step only
+        try:
+            breakdown = resnet_profile(net, one_step)
+        finally:
+            del trainer.step
+    p50 = float(np.median(times))
+    peak_flops = PEAK_F32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
+    share = flops / p50 / peak_flops
+    log(f"trained {r['steps']} steps (+{r['warmup']} warm-up) of "
+        f"{r['batch']} x 3 x {r['image']}^2 in {dtype}: step p50 "
+        f"{p50 * 1e3:.2f} ms, {r['batch'] / p50:.1f} images/s; "
+        f"{flops / 1e12:.4f} TFLOP a step (conv + dense, forward x 3): "
+        f"{flops / p50 / 1e12:.2f} TFLOP/s, {100 * share:.2f}% of "
+        f"{peak_flops / 1e12:.0f} TFLOP/s; loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}; peak memory {peak / 2 ** 30:.3f} GiB "
+        f"[{power_line}]")
+    metrics = {"dtype": dtype, "step_ms_p50": p50 * 1e3,
+               "step_ms": [t * 1e3 for t in times],
+               "images_per_s": r["batch"] / p50, "step_flops": flops,
+               "tflops_per_s": flops / p50 / 1e12,
+               "peak_share": share, "peak_flops": peak_flops,
+               "loss": losses, "warmup_loss": warm,
+               "peak_memory_bytes": peak,
+               "params": n_params, "profile_ms": breakdown,
+               "card": power_line}
+    log("resnet metrics: " + json.dumps(metrics))
+    del net, trainer, x, y
+    return metrics
+
+
+def _resnet_repeat(seed, dev, dtype, x, y, steps):
+    """The first ``steps`` mean losses of a second model built from
+    ``seed`` as the main path builds it, on the main path's batch."""
+    import torch
+
+    from mxnet_tpu_torch.examples import train_imagenet as ex
+
+    r = RESNET
+    net, loss_fn, trainer = ex.build(r["network"], r["classes"], dev,
+                                     dtype, seed)
+    losses = [ex.train_step(net, loss_fn, trainer, x, y)[1].detach()
+              .double().mean() for _ in range(steps)]
+    return torch.stack(losses).tolist()
+
+
+def _resnet_steps(seed, device, dtype, batch, steps, perturb=0.0):
+    """``steps`` SGD steps of ``resnet50_v1`` from ``seed`` in ``dtype``
+    on a synthetic batch (each pixel times ``1 + perturb * N(0, 1)``
+    from ``seed`` where ``perturb`` is set): the mean losses, the step-1
+    gradients and the running statistics after the last step, on the
+    host."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.examples import train_imagenet as ex
+
+    r = RESNET
+    net, loss_fn, trainer = ex.build(r["network"], r["classes"], device,
+                                     "float32", seed)
+    net.cast(dtype)
+    x, y = ex.synthetic_batch(batch, r["image"], r["classes"], seed + 7,
+                              device, dtype)
+    if perturb:
+        noise = np.random.RandomState(seed).standard_normal(x.shape)
+        x = x * (1.0 + perturb * torch.from_numpy(noise).to(x))
+    params = net.collect_params()
+    losses, grads = [], None
+    for i in range(steps):
+        _, loss = ex.train_step(net, loss_fn, trainer, x, y)
+        losses.append(loss.double().mean().item())
+        if i == 0:
+            grads = {k: p.grad().detach().double().cpu()
+                     for k, p in params.items() if p.grad_req != "null"}
+    stats = {k: p.data().detach().double().cpu()
+             for k, p in params.items() if "running" in k}
+    return losses, grads, stats
+
+
+def _resnet_gaps(a, b):
+    """(worst loss gap relative, worst step-1 gradient gap of scale and
+    its parameter, worst running-statistic gap of scale and its tensor)
+    of run ``a`` against run ``b``. A convolution bias that feeds a
+    BatchNorm (the bottlenecks' 1x1 biases) has a zero gradient in exact
+    arithmetic and holds rounding noise on any device; its scale is the
+    largest gradient of the model's BatchNorm betas in ``b``."""
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a[0], b[0]))
+    beta = max(g.abs().max().item() for k, g in b[1].items()
+               if k.endswith("_beta"))
+    grad = max(((a[1][k] - g).abs().max().item()
+                / max(beta if "conv2d" in k and k.endswith("_bias")
+                      else g.abs().max().item(), 1e-30), k)
+               for k, g in b[1].items())
+    stat = max(((a[2][k] - t).abs().max().item()
+                / max(t.abs().max().item(), 1e-30), k)
+               for k, t in b[2].items())
+    return rel, grad, stat
+
+
+def cross_device_resnet(seed, dev, steps=2, batch=4):
+    """``resnet50_v1`` from the same seed at batch 4, 224 x 224, two SGD
+    steps on the card and on the CPU. Gated in float64 (every layer,
+    BatchNorm's statistics too, computes in float64): mean losses within
+    1e-4 relative, step-1 gradients within 1e-3 of each parameter's
+    largest CPU gradient, running statistics within 1e-4 of each
+    tensor's largest magnitude. In float32 only the step-1 losses are
+    gated (1e-4): the step-1 gradients of this model and batch move by
+    up to tens of percent of scale between two correct float32 runs
+    that round otherwise, which the float32 CPU run shows against
+    itself with its oneDNN convolutions turned off (printed beside the
+    card's gaps); the loss after a step at lr 0.1 inherits that. The
+    cause is the model's conditioning, not the rounding: a float64 run
+    on the card whose pixels move by 1e-7 relative (float32's rounding
+    is 6e-8) is printed against the unmoved one."""
+    import torch
+
+    cpu = torch.device("cpu")
+    runs = {}
+    for dtype in ("float64", "float32"):
+        for name, device in (("cuda", dev), ("cpu", cpu)):
+            runs[name, dtype] = _resnet_steps(seed, device, dtype, batch,
+                                              steps)
+    runs["cuda-moved", "float64"] = _resnet_steps(seed, dev, "float64",
+                                                  batch, steps, perturb=1e-7)
+    prev = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        runs["cpu-native", "float32"] = _resnet_steps(seed, cpu, "float32",
+                                                      batch, steps)
+    finally:
+        torch.backends.mkldnn.enabled = prev
+    gaps = {}
+    for a, b in ((("cuda", "float64"), ("cpu", "float64")),
+                 (("cuda", "float32"), ("cpu", "float32")),
+                 (("cpu-native", "float32"), ("cpu", "float32")),
+                 (("cuda-moved", "float64"), ("cuda", "float64"))):
+        gaps[a] = _resnet_gaps(runs[a], runs[b])
+        rel, (grad, gname), (stat, sname) = gaps[a]
+        log(f"cross-device resnet {a[0]} vs {b[0]}, {a[1]}: losses "
+            f"{runs[a][0]} vs {runs[b][0]}, max relative gap {rel:.3e}; "
+            f"step-1 gradients of {len(runs[b][1])} parameters within "
+            f"{grad:.3e} of scale (worst {gname}); running statistics of "
+            f"{len(runs[b][2])} tensors within {stat:.3e} (worst {sname})")
+    rel, (grad, gname), (stat, sname) = gaps["cuda", "float64"]
+    if not rel <= 1e-4:
+        raise AssertionError(f"resnet float64 losses differ by {rel}")
+    if not grad <= 1e-3:
+        raise AssertionError(f"resnet float64 gradient of {gname} differs "
+                             f"by {grad} of its scale")
+    if not stat <= 1e-4:
+        raise AssertionError(f"resnet float64 running statistic {sname} "
+                             f"differs by {stat} of its scale")
+    first = abs(runs["cuda", "float32"][0][0] - runs["cpu", "float32"][0][0]) \
+        / abs(runs["cpu", "float32"][0][0])
+    if not first <= 1e-4:
+        raise AssertionError(f"resnet float32 step-1 losses differ by "
+                             f"{first}")
+    log(f"cross-device resnet: float64 gates hold (losses 1e-4, "
+        f"gradients 1e-3, running statistics 1e-4), float32 step-1 "
+        f"losses within {first:.3e} (tol 1e-4)")
+
+
+def train_mnist_main_path(seed, dev, power_line):
+    """``train-mnist-mlp-b64``: ``examples/mnist_gluon.py`` at its
+    defaults (synthetic 60000, batch 64, Adam 1e-3, 5 epochs, shuffled
+    ``DataLoader``) on the card; its own gate (accuracy > 0.8) and no
+    launch of a port kernel."""
+    import gc
+
+    import torch
+
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.examples import mnist_gluon
+
+    gc.collect()
+    args = mnist_gluon.parse_args(["--seed", str(seed)])
+    args.device = str(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = mnist_gluon.train(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    if counts:
+        raise AssertionError(f"the MNIST path launched port kernels: "
+                             f"{counts}")
+    if not res["accuracy"] > 0.8:
+        raise AssertionError(f"MNIST did not converge: {res}")
+    rates = [e["samples_per_s"] for e in res["epochs"]]
+    log(f"mnist: {args.epochs} epochs of {args.samples} in {wall:.2f} s "
+        f"(set-up included), samples/s by epoch {[round(v, 1) for v in rates]}"
+        f", accuracy {res['accuracy']:.4f} [{power_line}]")
+    log("mnist metrics: " + json.dumps(dict(res, wall_s=wall,
+                                            card=power_line)))
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2002,6 +2568,11 @@ def main():
     train = train_main_path(args.seed, args.profile, dev, power_line)
     wordlm = train_wordlm_main_path(args.seed, args.profile, dev,
                                     power_line)
+    # the vision paths: no port kernel on them (cuDNN and torch's own)
+    for dtype in ("float32", "bfloat16"):
+        train_resnet_main_path(args.seed, args.profile, dev, power_line,
+                               dtype)
+    train_mnist_main_path(args.seed, dev, power_line)
     for e in entries:
         name = e["name"]
         if name == "lstm_fwd":
@@ -2024,6 +2595,7 @@ def main():
     cross_device_encoder(args.seed, dev)
     cross_device_train(args.seed, dev)
     cross_device_wordlm(args.seed, dev)
+    cross_device_resnet(args.seed, dev)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(power_line)

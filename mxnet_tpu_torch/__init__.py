@@ -1,5 +1,5 @@
 """PyTorch/CUDA port of ``mxnet_tpu``: decode and encoder serving, and
-BERT training.
+BERT, LSTM word-LM, ResNet and MNIST training.
 
 ``serving.DecodeEngine`` drives ``serving.PagedCausalLM`` over a paged
 KV pool; the paged attention both prefill chunks and decode
@@ -14,16 +14,23 @@ first use. Training goes through the MXNet contract
 ``gluon.Trainer.step()``): the flash attention, LayerNorm and fused
 softmax cross-entropy of that path differentiate through hand-written
 backward kernels (``ops/csrc/flash_attention_bwd.cu``,
-``layer_norm.cu``, ``softmax_xent.cu``).
+``layer_norm.cu``, ``softmax_xent.cu``), and the LSTM word LM's
+whole-sequence LSTM through ``ops/csrc/lstm.cu``. The vision path
+(``gluon.model_zoo.vision`` ResNets over ``gluon.nn``'s convolution,
+pooling and BatchNorm layers, ``gluon.data``, ``metric``) trains
+ResNet-50 ImageNet-style and the MNIST MLP (``examples/``); its
+convolutions and pooling run in cuDNN through torch, as the JAX
+package leaves them to XLA (no hand-written kernel there).
 Module names mirror the JAX package's so each counterpart is found at
 the same relative path. This package imports ``torch`` and nothing of
 ``jax`` or ``mxnet_tpu``.
 """
 from __future__ import annotations
 
-from . import autograd, gluon, lr_scheduler, ndarray, optimizer
+from . import autograd, gluon, initializer, lr_scheduler, metric, ndarray
+from . import optimizer
 from . import ndarray as nd
 
 __version__ = "0.1.0"
-__all__ = ["autograd", "gluon", "lr_scheduler", "nd", "ndarray",
-           "optimizer"]
+__all__ = ["autograd", "gluon", "initializer", "lr_scheduler", "metric",
+           "nd", "ndarray", "optimizer"]

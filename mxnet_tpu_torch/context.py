@@ -9,6 +9,14 @@ Matmul precision is set explicitly for CUDA: full float32 products,
 no TF32, in both cuBLAS and cuDNN. The JAX package's decode path runs
 its f32 products at HIGHEST precision; TF32 would keep only about
 three decimal digits and break parity with it.
+
+cuDNN runs only deterministic convolution algorithms, chosen by its
+heuristics and not by timing (``cudnn.deterministic`` on,
+``cudnn.benchmark`` off), so that one seed gives one training run, as
+the JAX package's compiled steps do. ResNet-50 at the example's SGD
+settings (lr 0.1, momentum 0.9) is chaotic on a fixed batch: with
+timed or atomic algorithms two runs from one seed drift apart within
+a few steps, to losses that differ by whole units after thirty.
 """
 from __future__ import annotations
 
@@ -18,9 +26,12 @@ __all__ = ["resolve_device", "set_matmul_precision"]
 
 
 def set_matmul_precision():
-    """Full-f32 matrix products on the card (no TF32 anywhere)."""
+    """Full-f32 matrix products on the card (no TF32 anywhere), and
+    cuDNN's deterministic convolution algorithms."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
     torch.set_float32_matmul_precision("highest")
 
 

@@ -1,14 +1,18 @@
 """Gluon of the PyTorch port (``mxnet_tpu/gluon``'s counterpart,
-reduced to what BERT serving and training and the LSTM word LM use):
-``nn`` layers as ``torch.nn.Module``s with Gluon's parameter names,
-``rnn.LSTM``, ``model_zoo.bert``, ``Parameter``/``ParameterDict``,
-``loss``, ``utils.clip_global_norm`` and the ``Trainer``."""
+reduced to what its training and serving paths use): ``nn`` layers
+(Dense, Embedding, LayerNorm, BatchNorm, the convolutions and pooling,
+Sequential, the Transformer encoder) as ``torch.nn.Module``s with
+Gluon's parameter names, ``rnn.LSTM``, ``model_zoo`` (BERT and the
+vision ResNets), ``data`` (datasets, samplers, ``DataLoader``, the
+vision datasets and transforms), ``Parameter``/``ParameterDict``,
+``loss``, ``utils`` and the ``Trainer``. ``HybridBlock`` is another
+name for ``Block``: the port runs eagerly."""
 from __future__ import annotations
 
-from . import loss, model_zoo, nn, rnn, utils
-from .block import Block
+from . import data, loss, model_zoo, nn, rnn, utils
+from .block import Block, HybridBlock
 from .parameter import Parameter, ParameterDict
 from .trainer import Trainer
 
-__all__ = ["Block", "Parameter", "ParameterDict", "Trainer", "loss",
-           "model_zoo", "nn", "rnn", "utils"]
+__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Trainer",
+           "data", "loss", "model_zoo", "nn", "rnn", "utils"]

@@ -12,9 +12,13 @@ JAX model's names without the model prefix (``bertmodel0_``). That is
 what :meth:`Block.load_gluon_params` matches weights by.
 
 Parameters are made at construction with their full shapes on the
-block's device (no deferred shapes; ``hybridize`` has no counterpart:
-PyTorch runs eagerly). Each takes a gradient per its ``grad_req``
-(``"write"`` by default, see ``autograd``); :meth:`Block.collect_params`
+block's device (no deferred shapes). ``HybridBlock`` is another name
+for :class:`Block`: PyTorch runs eagerly, and :meth:`Block.hybridize`
+records its arguments and compiles nothing (a CUDA graph of the step
+is ROADMAP Queue 1 item 4). :meth:`Block.cast` changes the
+parameters' type in place, as the JAX block's does. Each parameter
+takes a gradient per its ``grad_req`` (``"write"`` by default, see
+``autograd``); :meth:`Block.collect_params`
 gives their Gluon :class:`~.parameter.Parameter` views for a
 ``Trainer``. A block records a graph only inside ``autograd.record()``:
 called anywhere else it runs with torch's gradient mode off, as an
@@ -30,7 +34,11 @@ from torch import nn
 from .. import autograd, initializer
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block"]
+__all__ = ["Block", "HybridBlock"]
+
+
+# parameter names the default fill sets to one (the rest but weights: 0)
+_ONES = ("gamma", "running_var", "moving_var")
 
 
 class Block(nn.Module):
@@ -52,13 +60,46 @@ class Block(nn.Module):
             p._mx_init = init       # this parameter's own initializer
         return autograd.set_grad_req(p, grad_req)
 
+    def hybridize(self, active=True, **kwargs):
+        """Accepted for the API (``static_alloc``, ``static_shape``,
+        ...) and recorded on the block and its children; nothing is
+        compiled: the port runs eagerly (a CUDA graph of the step is
+        ROADMAP Queue 1 item 4)."""
+        for mod in self.modules():
+            if isinstance(mod, Block):
+                mod._hybridize = (bool(active), dict(kwargs))
+        return self
+
+    @torch.no_grad()
+    def cast(self, dtype):
+        """Cast every parameter to ``dtype`` in place (the tensors stay
+        the same ``nn.Parameter`` objects; old gradients are dropped).
+        A layer may keep some of its own in another type: ``BatchNorm``
+        keeps float32 for float16 and bfloat16."""
+        dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        for child in self.children():
+            if isinstance(child, Block):
+                child.cast(dt)
+            else:
+                child.to(dt)
+        for p in self.parameters(recurse=False):
+            p.data = p.data.to(dt)
+            p.grad = None
+        return self
+
     def gluon_params(self):
         """``{gluon name (model prefix stripped): parameter}`` in
-        registration order."""
+        registration order. Raises ``ValueError`` when two parameters
+        come to one name (children that need prefixes were given
+        none)."""
         out = {}
 
         def walk(mod, prefix):
             for name, p in mod.named_parameters(recurse=False):
+                if prefix + name in out:
+                    raise ValueError(f"two parameters named "
+                                     f"{prefix + name!r}: give the "
+                                     f"children their Gluon prefixes")
                 out[prefix + name] = p
             for child in mod.children():
                 walk(child, prefix + getattr(child, "_prefix", ""))
@@ -87,7 +128,8 @@ class Block(nn.Module):
         the others take ``init`` (an ``initializer.Initializer`` or a
         registered name) by their names. Without ``init`` they keep
         the default: every ``weight`` ~ Normal(0, ``sigma``), ``gamma``
-        ones, ``bias``/``beta`` zeros."""
+        and running variances ones, ``bias``/``beta`` and running means
+        zeros (as ``Initializer`` dispatches by name)."""
         rng = np.random.default_rng(seed)
         default = None if init is None else initializer.create(init)
         for name, p in self.gluon_params().items():
@@ -99,7 +141,7 @@ class Block(nn.Module):
                 w = rng.standard_normal(tuple(p.shape), dtype=np.float32)
                 p.copy_(torch.from_numpy(w * np.float32(sigma)))
             else:
-                p.fill_(1.0 if name.endswith("gamma") else 0.0)
+                p.fill_(1.0 if name.endswith(_ONES) else 0.0)
         return self
 
     @torch.no_grad()
@@ -121,3 +163,6 @@ class Block(nn.Module):
                                  f"{tuple(p.shape)}")
             p.copy_(torch.tensor(arr))
         return self
+
+
+HybridBlock = Block

@@ -1,10 +1,21 @@
 """Layers of the PyTorch port (``mxnet_tpu/gluon/nn``'s counterpart)."""
 from __future__ import annotations
 
-from .basic_layers import Activation, Dense, Dropout, Embedding, LayerNorm
+from .basic_layers import (Activation, BatchNorm, Dense, Dropout, Embedding,
+                           Flatten, HybridLambda, HybridSequential, Identity,
+                           Lambda, LayerNorm, Sequential)
+from .conv_layers import (AvgPool1D, AvgPool2D, AvgPool3D, Conv1D, Conv2D,
+                          Conv3D, GlobalAvgPool1D, GlobalAvgPool2D,
+                          GlobalAvgPool3D, GlobalMaxPool1D, GlobalMaxPool2D,
+                          GlobalMaxPool3D, MaxPool1D, MaxPool2D, MaxPool3D)
 from .transformer import (MultiHeadAttention, PositionwiseFFN,
                           TransformerEncoder, TransformerEncoderCell)
 
-__all__ = ["Activation", "Dense", "Dropout", "Embedding", "LayerNorm",
-           "MultiHeadAttention", "PositionwiseFFN", "TransformerEncoder",
-           "TransformerEncoderCell"]
+__all__ = ["Activation", "AvgPool1D", "AvgPool2D", "AvgPool3D", "BatchNorm",
+           "Conv1D", "Conv2D", "Conv3D", "Dense", "Dropout", "Embedding",
+           "Flatten", "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D",
+           "GlobalMaxPool1D", "GlobalMaxPool2D", "GlobalMaxPool3D",
+           "HybridLambda", "HybridSequential", "Identity", "Lambda",
+           "LayerNorm", "MaxPool1D", "MaxPool2D", "MaxPool3D",
+           "MultiHeadAttention", "PositionwiseFFN", "Sequential",
+           "TransformerEncoder", "TransformerEncoderCell"]

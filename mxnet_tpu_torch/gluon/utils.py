@@ -1,6 +1,8 @@
-"""Gluon utilities: ``clip_global_norm``.
+"""Gluon utilities: ``split_and_load`` and ``clip_global_norm``.
 
-Port of that function of ``mxnet_tpu/gluon/utils.py``.
+Port of those functions of ``mxnet_tpu/gluon/utils.py``. One card
+holds one replica, so ``split_and_load`` takes one device; more wait
+for multi-GPU (ROADMAP Queue 1, 'Multi-GPU').
 """
 from __future__ import annotations
 
@@ -9,7 +11,19 @@ import warnings
 
 import torch
 
-__all__ = ["clip_global_norm"]
+__all__ = ["clip_global_norm", "split_and_load"]
+
+
+def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
+    """``[data]`` on the one device of ``ctx_list`` (a device, a name
+    or a list of one). ``data`` may be a tensor or an array."""
+    if not isinstance(ctx_list, (list, tuple)):
+        ctx_list = [ctx_list]
+    if len(ctx_list) != 1:
+        raise NotImplementedError(
+            f"split_and_load over {len(ctx_list)} devices: multi-GPU is "
+            f"not ported yet (ROADMAP Queue 1, 'Multi-GPU')")
+    return [torch.as_tensor(data, device=torch.device(ctx_list[0]))]
 
 
 @torch.no_grad()

@@ -1,17 +1,21 @@
-"""The neural-network ops BERT serving and training call, as plain
-functions on tensors.
+"""The neural-network ops of the port's models, as plain functions on
+tensors.
 
 Port of the parts of ``mxnet_tpu/ndarray/op_impl_nn.py`` (and ``pick``
-of ``op_impl_basic.py``) the BERT forward, its MLM loss and the Gluon
-losses reach: the activations (erf GELU, tanh for the pooler, relu),
-the embedding gather, LayerNorm, fused flash attention, the attention
-mask helpers of the composed (additive-mask) path, ``log_softmax``,
-``pick`` and ``softmax_cross_entropy``. Flash attention, last-axis
-LayerNorm and ``softmax_cross_entropy`` go to the hand-written CUDA
-kernels for CUDA tensors (``ops.flash_attention``, ``ops.layer_norm``,
-``ops.softmax_xent``; each differentiable through its backward kernel)
-and to their plain versions for CPU tensors; the rest is plain PyTorch,
-as the JAX package leaves it to XLA.
+of ``op_impl_basic.py``) the BERT forward, its MLM loss, the Gluon
+losses and the vision models reach: the activations (erf GELU, tanh
+for the pooler, relu), the embedding gather, LayerNorm, fused flash
+attention, the attention mask helpers of the composed (additive-mask)
+path, ``log_softmax``, ``pick`` and ``softmax_cross_entropy``; and
+``convolution``, ``pooling``, ``batch_norm_train`` and ``batch_norm``,
+which the JAX package leaves to XLA and the port to cuDNN and torch's
+own kernels (no hand-written kernel: the reference wrote none).
+Flash attention, last-axis LayerNorm and ``softmax_cross_entropy`` go
+to the hand-written CUDA kernels for CUDA tensors
+(``ops.flash_attention``, ``ops.layer_norm``, ``ops.softmax_xent``;
+each differentiable through its backward kernel) and to their plain
+versions for CPU tensors; the rest is plain PyTorch, as the JAX
+package leaves it to XLA.
 
 Each fused op decides from device, shape and type alone, before any
 launch, whether its kernel takes the call, as the JAX ops ask
@@ -25,6 +29,8 @@ CPU their plain versions run.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -35,8 +41,9 @@ from ..ops.softmax_xent import softmax_xent_fused
 __all__ = ["activation", "attention_length_mask", "attention_segment_mask",
            "attention_zero_empty_rows", "attention_zero_pad_rows",
            "batch_dot_attention_apply", "batch_dot_attention_scores",
-           "causal_mask_scores", "embedding", "flash_attention_op",
-           "layer_norm", "log_softmax", "pick", "segment_valid_len",
+           "batch_norm", "batch_norm_train", "causal_mask_scores",
+           "convolution", "embedding", "flash_attention_op", "layer_norm",
+           "log_softmax", "pick", "pooling", "relu", "segment_valid_len",
            "softmax_cross_entropy"]
 
 _NEG = -1e30
@@ -56,6 +63,11 @@ def activation(data, act_type="relu"):
     except KeyError:
         raise ValueError(f"unknown act_type {act_type!r}") from None
     return fn(data)
+
+
+def relu(data):
+    """``relu`` op."""
+    return F.relu(data)
 
 
 def embedding(data, weight):
@@ -210,3 +222,209 @@ def softmax_cross_entropy(data, label):
     logp = torch.log_softmax(data, dim=-1)
     picked = torch.gather(logp, 1, label.to(torch.int64)[:, None])
     return -picked.sum().reshape(1)
+
+
+# -- convolution, pooling, BatchNorm -----------------------------------------
+def _tup(v, n):
+    if v is None or (isinstance(v, (tuple, list)) and len(v) == 0):
+        return None
+    t = tuple(int(x) for x in (v if isinstance(v, (tuple, list)) else (v,)))
+    return t * n if len(t) == 1 else t
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def convolution(data, weight, bias=None, kernel=None, stride=None,
+                dilate=None, pad=None, num_filter=None, num_group=1,
+                no_bias=False):
+    """``Convolution`` op over (N, C, *spatial) data and an (O, C /
+    num_group, *kernel) weight, 1-, 2- or 3-D, symmetric zero ``pad``,
+    in the data's type (cuDNN on the card)."""
+    nd_ = weight.ndim - 2 if kernel is None else len(_tup(kernel, 1))
+    out = _CONV[nd_](data, weight,
+                     None if no_bias else bias,
+                     stride=_tup(stride, nd_) or 1,
+                     padding=_tup(pad, nd_) or 0,
+                     dilation=_tup(dilate, nd_) or 1,
+                     groups=int(num_group))
+    return out
+
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _avg_pool(x, k, s, divisor=None):
+    """Unpadded sum (``divisor=1``) or mean pooling; 1-D as 2-D."""
+    if len(k) == 1:
+        out = _avg_pool(x.unsqueeze(-2), (1,) + k, (1,) + s, divisor)
+        return out.squeeze(-2)
+    return _AVG_POOL[len(k)](x, k, s, 0, ceil_mode=False,
+                             count_include_pad=True,
+                             divisor_override=divisor)
+
+
+def pooling(data, kernel=None, pool_type="max", global_pool=False,
+            pooling_convention="valid", stride=None, pad=None,
+            count_include_pad=True):
+    """``Pooling`` op: ``max``, ``avg`` or ``sum`` windows over the
+    spatial axes of (N, C, *spatial) data, or over all of them with
+    ``global_pool`` (kept as size-1 axes). ``"valid"`` pads ``pad`` on
+    both edges; ``"full"`` (ceil mode) pads the high edge up to
+    ``(out - 1) * stride + kernel - in - pad``, as the JAX op does, so
+    a last window that starts in the padding is kept and an average
+    with ``count_include_pad`` divides by the whole kernel there too
+    (torch's ``ceil_mode`` does neither). Padding counts as -inf for
+    max and 0 for sums; ``count_include_pad=False`` divides by the
+    window's unpadded elements."""
+    nd_ = data.ndim - 2
+    if global_pool:
+        ax = tuple(range(2, data.ndim))
+        if pool_type == "max":
+            return data.amax(dim=ax, keepdim=True)
+        if pool_type == "sum":
+            return data.sum(dim=ax, keepdim=True)
+        return data.mean(dim=ax, keepdim=True)
+    if pool_type not in ("max", "avg", "sum"):
+        raise ValueError(f"unknown pool_type {pool_type!r}")
+    k = _tup(kernel, nd_)
+    s = _tup(stride, nd_) or (1,) * nd_
+    p = _tup(pad, nd_) or (0,) * nd_
+    if pooling_convention == "full":
+        pads = []
+        for i in range(nd_):
+            size = data.shape[2 + i]
+            out = int(math.ceil((size + 2 * p[i] - k[i]) / s[i])) + 1
+            need = (out - 1) * s[i] + k[i] - size - p[i]
+            pads.append((p[i], max(need, p[i])))
+    elif pooling_convention == "valid":
+        pads = [(q, q) for q in p]
+    else:
+        raise ValueError(f"unknown pooling_convention "
+                         f"{pooling_convention!r}")
+    native = pooling_convention == "valid" \
+        and all(2 * q <= kk for q, kk in zip(p, k))
+    if pool_type == "max":
+        if native:      # torch pads with -inf itself
+            return _MAX_POOL[nd_](data, k, s, p)
+        fill = -math.inf if data.is_floating_point() \
+            else torch.iinfo(data.dtype).min
+        x = F.pad(data, [e for lo_hi in reversed(pads) for e in lo_hi],
+                  value=fill)
+        return _MAX_POOL[nd_](x, k, s, 0)
+    x = F.pad(data, [e for lo_hi in reversed(pads) for e in lo_hi]) \
+        if any(any(lo_hi) for lo_hi in pads) else data
+    if pool_type == "sum":
+        return _avg_pool(x, k, s, divisor=1)
+    if count_include_pad:
+        return _avg_pool(x, k, s)
+    ones = torch.ones((1, 1) + tuple(data.shape[2:]), dtype=data.dtype,
+                      device=data.device)
+    ones = F.pad(ones, [e for lo_hi in reversed(pads) for e in lo_hi])
+    return _avg_pool(x, k, s, divisor=1) / _avg_pool(ones, k, s, divisor=1)
+
+
+def _bn_shape(ndim, ax):
+    shp = [1] * ndim
+    shp[ax] = -1
+    return shp
+
+
+def _bn_acc(dtype):
+    """BatchNorm's compute type: float32 for float32 and narrower data
+    (the JAX op's), float64 for float64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Training-mode BatchNorm with the JAX op's math (its custom VJP,
+    ``op_impl_nn.py:556-630``): a one-pass sum and sum of squares over
+    ``x - shift`` in float32 (float64 data: float64), the biased
+    variance ``s2/n - mean**2``, and a two-pass backward; the mean's and
+    variance's cotangents fold into the same per-channel form."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, shift, eps, ax, fix_gamma):
+        red = tuple(i for i in range(x.ndim) if i != ax)
+        n = float(math.prod(x.shape[i] for i in red))
+        shp = _bn_shape(x.ndim, ax)
+        # the one-pass variance cancels when |mean| >> std; a shift by
+        # an estimate of the mean (the running mean) keeps it centred
+        acc = _bn_acc(x.dtype)
+        xf = x.to(acc) - shift.to(acc).reshape(shp)
+        s1 = xf.sum(red)
+        s2 = (xf * xf).sum(red)
+        mean_c = s1 / n
+        var = torch.clamp(s2 / n - mean_c * mean_c, min=0.0)
+        mean = mean_c + shift.to(acc)
+        ivar = torch.rsqrt(var + eps)
+        g32 = torch.ones_like(mean) if fix_gamma else gamma.to(acc)
+        scale = g32 * ivar
+        off = beta.to(acc) - mean_c * scale
+        out = torch.addcmul(off.reshape(shp), xf, scale.reshape(shp))
+        ctx.save_for_backward(x, gamma, mean, var)
+        ctx.eps, ctx.ax, ctx.fix_gamma = eps, ax, fix_gamma
+        ctx.beta_dtype = beta.dtype
+        return out.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dout, dmean, dvar):
+        x, gamma, mean, var = ctx.saved_tensors
+        ax = ctx.ax
+        red = tuple(i for i in range(x.ndim) if i != ax)
+        n = float(math.prod(x.shape[i] for i in red))
+        shp = _bn_shape(x.ndim, ax)
+        acc = mean.dtype
+        ivar = torch.rsqrt(var + ctx.eps)
+        g32 = torch.ones_like(mean) if ctx.fix_gamma else gamma.to(acc)
+        dof = dout.to(acc)
+        xc = x.to(acc) - mean.reshape(shp)
+        dbeta = dof.sum(red)
+        t = (dof * xc).sum(red)
+        a = g32 * ivar
+        c = -a * ivar * ivar * t / n
+        b = -a * dbeta / n
+        if dvar is not None:
+            c = c + 2.0 * dvar.to(acc) / n
+        if dmean is not None:
+            b = b + dmean.to(acc) / n
+        dx = torch.addcmul(b.reshape(shp), a.reshape(shp), dof)
+        dx = dx.addcmul_(c.reshape(shp), xc).to(x.dtype)
+        dgamma = torch.zeros_like(gamma) if ctx.fix_gamma \
+            else (t * ivar).to(gamma.dtype)
+        return dx, dgamma, dbeta.to(ctx.beta_dtype), None, None, None, None
+
+
+def batch_norm_train(data, gamma, beta, shift=None, eps=1e-5, axis=1,
+                     fix_gamma=False):
+    """Training-mode BatchNorm: ``(out, batch_mean, batch_var)``, the
+    statistics float32 (float64 for float64 data) and the variance
+    biased (the JAX op's; the
+    running-statistics update stays in the Gluon layer). ``shift`` is a
+    per-channel estimate of the mean (the running mean) that re-centres
+    the one-pass variance; the result is the same math whatever it is.
+    ``fix_gamma`` treats gamma as ones and gives it a zero gradient.
+    Differentiable in ``data``, ``gamma`` and ``beta``."""
+    ax = int(axis) % data.ndim
+    if shift is None:
+        shift = torch.zeros(data.shape[ax], dtype=torch.float32,
+                            device=data.device)
+    return _BatchNormTrain.apply(data, gamma, beta, shift.detach(),
+                                 float(eps), ax, bool(fix_gamma))
+
+
+def batch_norm(data, gamma, beta, mean, var, eps=1e-5, fix_gamma=True,
+               axis=1):
+    """BatchNorm with the given statistics (predict mode): normalised
+    in float32 (float64 for float64 data) whatever the data's type
+    (bf16 data with f32 statistics, as the JAX op), given back in the
+    data's type."""
+    ax = int(axis) % data.ndim
+    shp = _bn_shape(data.ndim, ax)
+    acc = _bn_acc(data.dtype)
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    x_hat = (data.to(acc) - mean.to(acc).reshape(shp)) \
+        * torch.rsqrt(var.to(acc).reshape(shp) + eps)
+    out = x_hat * g.to(acc).reshape(shp) + beta.to(acc).reshape(shp)
+    return out.to(data.dtype)

@@ -58,6 +58,10 @@ def test_import_leaves_jax_out_of_the_process():
         "import mxnet_tpu_torch.gluon, mxnet_tpu_torch.ndarray\n"
         "import mxnet_tpu_torch.io, mxnet_tpu_torch.initializer\n"
         "import mxnet_tpu_torch.examples.word_lm\n"
+        "import mxnet_tpu_torch.examples.train_imagenet\n"
+        "import mxnet_tpu_torch.examples.mnist_gluon\n"
+        "import mxnet_tpu_torch.metric, mxnet_tpu_torch.gluon.data\n"
+        "import mxnet_tpu_torch.gluon.model_zoo.vision\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mxnet_tpu')]\n"
         "assert not bad, bad\n"
@@ -76,6 +80,22 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             context.resolve_device(dev)
     assert context.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_card_precision_is_full_f32_and_cudnn_deterministic(monkeypatch):
+    """No TF32, and cuDNN's deterministic algorithms chosen without
+    timing: one seed gives one training run on the card."""
+    backends = torch.backends
+    monkeypatch.setattr(backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(backends.cudnn, "benchmark", True)
+    monkeypatch.setattr(backends.cudnn, "deterministic", False)
+    context.set_matmul_precision()
+    assert not backends.cuda.matmul.allow_tf32
+    assert not backends.cudnn.allow_tf32
+    assert not backends.cudnn.benchmark
+    assert backends.cudnn.deterministic
+    assert torch.get_float32_matmul_precision() == "highest"
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
