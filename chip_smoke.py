@@ -112,7 +112,28 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
     ``1e-4``; in float32 the step-1 losses within ``1e-4`` (the
     float32 gradients' gaps printed beside those of two CPU runs, with
     and without oneDNN: this model's float32 step-1 gradients move by
-    tens of percent of scale with the rounding).
+    tens of percent of scale with the rounding);
+13. the JAX package's own scripts, unmodified, through
+    ``python -m mxnet_tpu_torch.examples.run_reference`` in child
+    processes on the card: ``example/word_lm.py`` at its default
+    widths, data and schedule (vocab 10000, 2 x LSTM(650), 200000
+    tokens, 2 epochs, bptt 35, batch 32, dropout 0.2, clip 0.25) with
+    ``--optimizer adam --lr 0.002`` (its ``--quick`` optimizer: at its
+    default SGD lr 1.0 neither package learns in 2 epochs; its own
+    gate, perplexity below vocab / 2; K6a, K6b and its dW product
+    launched exactly 2 x 356 times each: 2 + 2 + 2 a segment, 178
+    segments an epoch), then ``example/mnist_gluon.py --epochs 2
+    --save`` (its own gate, accuracy > 0.8; the ``.params`` it wrote
+    load into a fresh MLP on the card and on the CPU, whose logits on
+    a fixed batch agree within 1e-5 of scale; its ``.states`` load
+    into a fresh Trainer, each state on the card, and take a step);
+    perplexities, accuracies and seconds by epoch printed. Then resume
+    on the card: an MLP (Adam, 5 + 5 steps) and the word LM at the
+    script's widths (dropout 0, 3 + 3 SGD segments, the carried hidden
+    states saved too) train, save, and train on here, while a fresh
+    process (``--resume-child``) loads the files and takes the same
+    last steps: final weights equal bit for bit (the word LM within
+    1e-6 relative only if its own run does not repeat bit for bit).
 
 The op-dispatch phase also times one
 ``F.scaled_dot_product_attention`` call beside K1, K2 and K5 at head
@@ -2510,6 +2531,334 @@ def train_mnist_main_path(seed, dev, power_line):
     return res
 
 
+# -- phase 13: the JAX package's own scripts, unmodified, on the card ------
+REF_WLM = dict(vocab=10000, tokens=200000, batch=32, bptt=35, epochs=2,
+               layers=2)
+RESUME_STEPS = (5, 5)           # MLP: steps before the save, steps after
+RESUME_SEGMENTS = (3, 3)        # word LM: segments before and after
+
+
+def ref_wordlm_segments():
+    """Segments an epoch of ``example/word_lm.py`` at its defaults:
+    ``range(0, n - 1 - bptt, bptt)`` over ``n = tokens // batch``."""
+    n = REF_WLM["tokens"] // REF_WLM["batch"]
+    return len(range(0, n - 1 - REF_WLM["bptt"], REF_WLM["bptt"]))
+
+
+def run_reference_script(script, args, timeout):
+    """``python -m mxnet_tpu_torch.examples.run_reference SCRIPT ARGS``
+    on the card in a child process; returns ``(lines, stamps, counts,
+    wall)``: its standard output, each line's arrival in seconds after
+    the start, and the launch counts it printed last. Fails unless the
+    script exits 0 (its own assertions held)."""
+    import tempfile
+
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.examples.run_reference",
+           os.path.join(HERE, script), *args]
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(cmd, cwd=HERE, env=env, text=True,
+                                stdout=subprocess.PIPE, stderr=err)
+        lines, stamps = [], []
+        timer = threading.Timer(timeout, proc.kill)
+        timer.start()
+        try:
+            for line in proc.stdout:
+                lines.append(line.rstrip("\n"))
+                stamps.append(time.perf_counter() - t0)
+            rc = proc.wait()
+        finally:
+            timer.cancel()
+        err.seek(0)
+        tail = err.read()[-3000:]
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{script} {args} exited {rc}:\n"
+                             + "\n".join(lines[-20:]) + "\n" + tail)
+    counts = json.loads(lines[-1])["launch_counts"]
+    return lines, stamps, counts, wall
+
+
+def _epoch_lines(lines, stamps, key):
+    rows = [(s, line) for s, line in zip(stamps, lines)
+            if line.startswith("epoch ") and key in line]
+    secs = [b[0] - a[0] for a, b in zip(rows, rows[1:])]
+    return [line for _, line in rows], [rows[0][0]] + secs if rows else []
+
+
+# The script's own optimizer for ``--quick``. Its default, SGD at lr
+# 1.0, scales each step by 1 / (bptt * batch) on top of a loss already
+# averaged over the bptt steps: an lr of 1/35 per token, under which
+# neither package learns in 2 epochs (the JAX package's script fails
+# its own assertion there too).
+REF_WLM_ARGS = ["--optimizer", "adam", "--lr", "0.002"]
+
+
+def reference_word_lm(power_line):
+    """``example/word_lm.py`` at its default widths, data and schedule
+    with ``REF_WLM_ARGS`` through the runner: its own gate (perplexity
+    below vocab / 2), and K6a/K6b launched exactly 2 + 2 + 2 times a
+    segment."""
+    lines, stamps, counts, wall = run_reference_script(
+        "example/word_lm.py", REF_WLM_ARGS, timeout=600)
+    segs = ref_wordlm_segments() * REF_WLM["epochs"]
+    want = {k: REF_WLM["layers"] * segs
+            for k in ("lstm_fwd", "lstm_bwd", "lstm_bwd_dw")}
+    got = {k: n for k, n in counts.items() if n}
+    if got != want:
+        raise AssertionError(f"example/word_lm.py launches {got}, want "
+                             f"{want} ({segs} segments)")
+    epochs, secs = _epoch_lines(lines, stamps, "perplexity")
+    ppl = [float(e.split("perplexity ")[1].split()[0]) for e in epochs]
+    log(f"reference word_lm.py {' '.join(REF_WLM_ARGS)}: perplexity by "
+        f"epoch {ppl} (vocab "
+        f"{REF_WLM['vocab']}); seconds by epoch {[round(s, 2) for s in secs]}"
+        f" (epoch 0 from the child's start, set-up included); "
+        f"{ref_wordlm_segments()} segments an epoch; launches {got}; "
+        f"wall {wall:.1f} s [{power_line}]")
+    return {"args": REF_WLM_ARGS, "perplexity": ppl, "epoch_s": secs,
+            "launches": got, "wall_s": wall}
+
+
+def _mlp(lib_nn):
+    net = lib_nn.HybridSequential()
+    net.add(lib_nn.Flatten(), lib_nn.Dense(256, activation="relu"),
+            lib_nn.Dense(128, activation="relu"), lib_nn.Dense(10))
+    return net
+
+
+def reference_mnist(dev, power_line, tmp):
+    """``example/mnist_gluon.py --epochs 2 --save``: its own gate
+    (accuracy > 0.8); the ``.params`` it wrote load into a fresh MLP on
+    the card and on the CPU (the card's forward of those weights is the
+    trained net's logits), which agree within 1e-5 of scale on a fixed
+    batch; its ``.states`` load into a fresh Trainer and take a step."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon import nn
+
+    prefix = os.path.join(tmp, "mnist")
+    lines, stamps, counts, wall = run_reference_script(
+        "example/mnist_gluon.py", ["--epochs", "2", "--save", prefix],
+        timeout=600)
+    if any(counts.values()):
+        raise AssertionError(f"the MNIST script launched port kernels: "
+                             f"{counts}")
+    epochs, secs = _epoch_lines(lines, stamps, "accuracy")
+    x = np.random.RandomState(11).rand(64, 1, 28, 28).astype(np.float32)
+    logits = {}
+    for where, ctx in (("card", mx.Context.of(dev)), ("cpu", mx.cpu())):
+        with ctx:
+            net = _mlp(nn)
+            net.load_parameters(prefix + ".params")
+            logits[where] = net(
+                mx.nd.array(x)).asnumpy().astype(np.float64)
+    scale = max(1.0, float(np.abs(logits["cpu"]).max()))
+    gap = float(np.abs(logits["card"] - logits["cpu"]).max()) / scale
+    if not gap <= 1e-5:
+        raise AssertionError(f"MNIST .params: card vs CPU logits differ by "
+                             f"{gap:.3g} of scale")
+    with mx.Context.of(dev):
+        net = _mlp(nn)
+        net.load_parameters(prefix + ".params")
+        trainer = gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": 1e-3})
+        trainer.load_states(prefix + ".states")
+        states = trainer._updater.states
+        if len(states) != 6 or not all(
+                m.device == dev and v.device == dev
+                for m, v in states.values()):
+            raise AssertionError(f"MNIST .states: {len(states)} states, "
+                                 f"want 6 on the card")
+        with autograd.record():
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(
+                net(mx.nd.array(x)), mx.nd.zeros((64,)))
+        loss.backward()
+        trainer.step(64)
+        if not np.isfinite(loss.mean().asscalar()):
+            raise AssertionError("MNIST: a step after load_states gave a "
+                                 "non-finite loss")
+    log(f"reference mnist_gluon.py: {epochs}; seconds by epoch "
+        f"{[round(s, 2) for s in secs]} (epoch 0 from the child's start, "
+        f"set-up included); .params card vs CPU logits {gap:.3g} of scale; "
+        f".states: {len(states)} Adam states loaded on the card, one step "
+        f"taken; wall {wall:.1f} s [{power_line}]")
+    return {"epochs": epochs, "epoch_s": secs, "logit_gap": gap}
+
+
+def _resume_mlp(dev, mode, ckpt):
+    """The MNIST MLP (deferred widths, Xavier, Adam 1e-3) on fixed
+    batches of the example's data: mode ``a`` takes RESUME_STEPS[0]
+    steps, saves, takes RESUME_STEPS[1] more; mode ``b`` loads the save
+    and takes the same last steps. Returns the final ``.params``
+    bytes."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, initializer
+    from mxnet_tpu_torch.examples.mnist_gluon import synthetic_mnist
+    from mxnet_tpu_torch.gluon import nn
+
+    k, m = RESUME_STEPS
+    x, y = synthetic_mnist(64 * (k + m))
+    with mx.Context.of(dev):
+        net = _mlp(nn)
+        net.initialize(init=initializer.Xavier(), seed=3)
+        trainer = gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": 1e-3})
+        if mode == "b":
+            net.load_parameters(ckpt + ".params")
+            trainer.load_states(ckpt + ".states")
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        for i in range(k + m) if mode == "a" else range(k, k + m):
+            xb = mx.nd.array(x[64 * i:64 * (i + 1)])
+            yb = mx.nd.array(y[64 * i:64 * (i + 1)])
+            with autograd.record():
+                loss = loss_fn(net(xb), yb)
+            loss.backward()
+            trainer.step(64)
+            if mode == "a" and i == k - 1:
+                net.save_parameters(ckpt + ".params")
+                trainer.save_states(ckpt + ".states")
+    return mx.nd.save_bytes(dict(net.named_parameters()))
+
+
+def _resume_wordlm(dev, mode, ckpt, vocab=REF_WLM["vocab"]):
+    """The word LM at the example's defaults (vocab 10000, 2 x 650,
+    bptt 35, batch 32, SGD lr 1.0, clip 0.25), dropout 0: mode ``a``
+    trains RESUME_SEGMENTS[0] segments, saves the weights, the states
+    file and the carried hidden states, trains RESUME_SEGMENTS[1] more;
+    mode ``b`` loads them and trains the same last segments. Returns
+    the final ``.params`` bytes."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.examples.word_lm import (WordLM, batchify,
+                                                  synthetic_corpus)
+    from mxnet_tpu_torch.gluon.utils import clip_global_norm
+    from mxnet_tpu_torch.initializer import Xavier
+
+    k, m = RESUME_SEGMENTS
+    bptt, batch = REF_WLM["bptt"], REF_WLM["batch"]
+    data = torch.as_tensor(batchify(synthetic_corpus(
+        batch * (bptt * (k + m) + 2), vocab), batch), device=dev).long()
+    net = WordLM(vocab, 650, 650, REF_WLM["layers"],
+                 dropout=0.0, device=dev)
+    net.initialize(init=Xavier(), seed=4)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 1.0})
+    states = net.begin_state(batch, dev)
+    if mode == "b":
+        net.load_parameters(ckpt + ".params")
+        trainer.load_states(ckpt + ".states")
+        states = [s.as_subclass(torch.Tensor) for s in
+                  mx.nd.load(ckpt + ".hidden.params", ctx=dev)]
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    for s in range(k + m) if mode == "a" else range(k, k + m):
+        i = s * bptt
+        xb, yb = data[:, i:i + bptt], data[:, i + 1:i + 1 + bptt]
+        states = [h.detach() for h in states]
+        with autograd.record():
+            logits, states = net(xb, states)
+            loss = loss_fn(logits, yb)
+        autograd.backward(loss)
+        clip_global_norm([p.grad() for p in params], 0.25 * bptt * batch)
+        trainer.step(bptt * batch)
+        if mode == "a" and s == k - 1:
+            net.save_parameters(ckpt + ".params")
+            trainer.save_states(ckpt + ".states")
+            mx.nd.save(ckpt + ".hidden.params", [h.detach() for h in states])
+    return mx.nd.save_bytes(dict(net.named_parameters()))
+
+
+RESUMERS = {"mlp": _resume_mlp, "wordlm": _resume_wordlm}
+
+
+def resume_child(spec):
+    """``--resume-child``: the ``b`` leg of one resume check in a fresh
+    process; writes the final ``.params`` bytes to ``spec['out']``."""
+    from mxnet_tpu_torch.context import resolve_device
+
+    dev = resolve_device(spec["device"])
+    payload = RESUMERS[spec["model"]](dev, "b", spec["ckpt"], **spec["kw"])
+    with open(spec["out"], "wb") as f:
+        f.write(payload)
+    return 0
+
+
+def resume_on_the_card(dev, power_line, tmp):
+    """Train, save, train on (this process); a fresh process loads the
+    save and takes the same steps. The MLP's final weights must be equal
+    bit for bit; the word LM's too when its own run repeats bit for bit
+    (an ``a`` leg run twice), else within 1e-6 relative."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    children, finals = {}, {}
+    kws = {"mlp": {}, "wordlm": {"vocab": REF_WLM["vocab"]}}
+    for model, fn in RESUMERS.items():
+        ckpt = os.path.join(tmp, f"resume_{model}")
+        finals[model] = fn(dev, "a", ckpt, **kws[model])
+        spec = {"model": model, "ckpt": ckpt, "out": ckpt + ".b.params",
+                "device": str(dev), "kw": kws[model]}
+        children[model] = (spec, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--resume-child",
+             json.dumps(spec)], cwd=HERE,
+            env=dict(os.environ, PYTHONPATH=HERE), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    repeat = RESUMERS["wordlm"](dev, "a", os.path.join(tmp, "repeat"),
+                                **kws["wordlm"])
+    verdicts = {}
+    for model, (spec, proc) in children.items():
+        out, _ = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"resume child {model} exited "
+                                 f"{proc.returncode}:\n{out[-3000:]}")
+        with open(spec["out"], "rb") as f:
+            resumed = f.read()
+        if resumed == finals[model]:
+            verdicts[model] = "bit for bit"
+            continue
+        if model == "mlp" or repeat == finals["wordlm"]:
+            raise AssertionError(f"resume {model}: the resumed run's "
+                                 f"weights differ from the uninterrupted "
+                                 f"run's")
+        a = mx.nd.load_bytes(finals[model], ctx="cpu")
+        b = mx.nd.load_bytes(resumed, ctx="cpu")
+        rel = max(float(np.abs(a[n].asnumpy() - b[n].asnumpy()).max())
+                  / max(float(np.abs(a[n].asnumpy()).max()), 1e-30)
+                  for n in a)
+        if not rel <= 1e-6:
+            raise AssertionError(f"resume {model}: {rel:.3g} relative")
+        verdicts[model] = f"within {rel:.3g} relative (the run itself " \
+                          f"does not repeat bit for bit)"
+    log(f"resume on the card: MLP {RESUME_STEPS[0]} + {RESUME_STEPS[1]} "
+        f"Adam steps: {verdicts['mlp']}; word LM (vocab "
+        f"{REF_WLM['vocab']}, 2 x 650, dropout 0) {RESUME_SEGMENTS[0]} + "
+        f"{RESUME_SEGMENTS[1]} SGD segments: {verdicts['wordlm']} (an "
+        f"uninterrupted run repeats bit for bit: "
+        f"{repeat == finals['wordlm']}); {time.perf_counter() - t0:.1f} s "
+        f"[{power_line}]")
+    return verdicts
+
+
+def reference_scripts(dev, power_line):
+    """Phase 13 (module docstring)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="ref_scripts_") as tmp:
+        wlm = reference_word_lm(power_line)
+        mnist = reference_mnist(dev, power_line, tmp)
+        resume = resume_on_the_card(dev, power_line, tmp)
+    return {"word_lm": wlm, "mnist": mnist, "resume": resume}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2518,6 +2867,8 @@ def main():
                     help="trace the serving windows and one step of each "
                          "training path with torch.profiler (device time "
                          "by kernel, busy share)")
+    ap.add_argument("--resume-child", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "mxnet_tpu_torch")):
         print("chip_smoke.py: the mxnet_tpu_torch package is not beside "
@@ -2527,6 +2878,8 @@ def main():
     import numpy as np
     import torch
 
+    if args.resume_child:       # phase 13's fresh process, on its device
+        return resume_child(json.loads(args.resume_child))
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
@@ -2573,6 +2926,8 @@ def main():
         train_resnet_main_path(args.seed, args.profile, dev, power_line,
                                dtype)
     train_mnist_main_path(args.seed, dev, power_line)
+    # the JAX package's own scripts through the runner, then resume
+    reference_scripts(dev, power_line)
     for e in entries:
         name = e["name"]
         if name == "lstm_fwd":

@@ -22,15 +22,26 @@ ResNet-50 ImageNet-style and the MNIST MLP (``examples/``); its
 convolutions and pooling run in cuDNN through torch, as the JAX
 package leaves them to XLA (no hand-written kernel there).
 Module names mirror the JAX package's so each counterpart is found at
-the same relative path. This package imports ``torch`` and nothing of
-``jax`` or ``mxnet_tpu``.
+the same relative path, and the top-level names are the reference's
+(``mx.nd``, ``mx.cpu()``, ``mx.current_context()``, ...): the JAX
+package's own Gluon scripts run on the port as written
+(``examples/run_reference.py``). Parameters travel in the reference's
+``.params`` files (``nd.save``/``nd.load``, ``Block.save_parameters``,
+``checkpoint.CheckpointManager``). This package imports ``torch`` and
+nothing of ``jax`` or ``mxnet_tpu``.
 """
 from __future__ import annotations
 
-from . import autograd, gluon, initializer, lr_scheduler, metric, ndarray
-from . import optimizer
+from . import autograd, checkpoint, context, gluon, initializer
+from . import lr_scheduler, metric, ndarray, optimizer
+from . import initializer as init
 from . import ndarray as nd
+from .base import MXNetError
+from .context import Context, cpu, current_context, gpu, num_gpus
+from .ndarray import NDArray
 
 __version__ = "0.1.0"
-__all__ = ["autograd", "gluon", "initializer", "lr_scheduler", "metric",
-           "nd", "ndarray", "optimizer"]
+__all__ = ["Context", "MXNetError", "NDArray", "autograd", "checkpoint",
+           "context", "cpu", "current_context", "gluon", "gpu", "init",
+           "initializer", "lr_scheduler", "metric", "nd", "ndarray",
+           "num_gpus", "optimizer"]

@@ -21,9 +21,14 @@ this module keeps the two MXNet semantics torch does not have::
   ``zero_grad`` between them leave the second gradient, not the sum. A
   leaf the backward does not reach keeps its gradient, as in MXNet.
 
-``loss.backward()`` is torch's own method; a head with more than one
-element needs :func:`backward` (MXNet's default head gradient is ones,
-torch's implicit one exists only for a single element).
+A head's default gradient is ones of its shape, as MXNet's, for a
+head of any size: :func:`backward`, and ``NDArray.backward`` (a plain
+tensor's ``backward()`` is torch's own, whose implicit head gradient
+exists only for a single element). ``train_mode`` of :func:`backward`
+and :func:`grad` is the reference's argument: torch records each op's
+backward with its forward, so the mode the forward ran in decides, and
+the flag sets ``is_training()`` while the backward runs (it is read by
+nothing there, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import warnings
 import weakref
 
 import torch
+from torch.nn.parameter import UninitializedParameter
 
 __all__ = ["backward", "grad", "is_recording", "is_training",
            "mark_variables", "pause", "predict_mode", "record",
@@ -137,6 +143,8 @@ def set_grad_req(leaf, req):
         raise ValueError(f"grad_req must be one of {_GRAD_REQS}, got "
                          f"{req!r}")
     leaf._mx_grad_req = req
+    if isinstance(leaf, UninitializedParameter):
+        return leaf             # set again when it takes its shape
     leaf.requires_grad_(req != "null")
     if req == "null":
         leaf.grad = None
@@ -171,9 +179,15 @@ def _head_grads(heads, head_grads):
                          for h, g in zip(heads, head_grads)]
 
 
-def backward(heads, head_grads=None, retain_graph=False):
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     """Run the reverse sweep from ``heads`` (default head gradient:
-    ones); leaf gradients follow their ``grad_req``."""
+    ones); leaf gradients follow their ``grad_req``. ``train_mode``: see
+    the module docstring."""
+    with _Scope(None, bool(train_mode)):
+        _backward(heads, head_grads, retain_graph)
+
+
+def _backward(heads, head_grads, retain_graph):
     heads, head_grads = _head_grads(heads, head_grads)
     live = [(h, g) for h, g in zip(heads, head_grads) if h.requires_grad]
     if len(live) < len(heads):
@@ -182,26 +196,29 @@ def backward(heads, head_grads=None, retain_graph=False):
         warnings.warn("backward() head was not computed inside "
                       "autograd.record() from a leaf that takes a "
                       "gradient; no gradient flows through it",
-                      stacklevel=2)
+                      stacklevel=3)
     if live:
         torch.autograd.backward([h for h, _ in live], [g for _, g in live],
                                 retain_graph=bool(retain_graph))
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
-         create_graph=False):
+         create_graph=False, train_mode=True):
     """Gradients of ``heads`` with respect to ``variables``, returned
-    and not written into any ``.grad``."""
+    and not written into any ``.grad``. ``train_mode``: see the module
+    docstring."""
     heads, head_grads = _head_grads(heads, head_grads)
     single = isinstance(variables, torch.Tensor)
     variables = [variables] if single else list(variables)
     with _GRAD_LOCK:
         _GRAD_CALLS[0] += 1
     try:
-        out = torch.autograd.grad(
-            heads, variables, head_grads,
-            retain_graph=retain_graph if retain_graph is not None
-            else create_graph, create_graph=create_graph, allow_unused=True)
+        with _Scope(None, bool(train_mode)):
+            out = torch.autograd.grad(
+                heads, variables, head_grads,
+                retain_graph=retain_graph if retain_graph is not None
+                else create_graph, create_graph=create_graph,
+                allow_unused=True)
     finally:
         with _GRAD_LOCK:
             _GRAD_CALLS[0] -= 1

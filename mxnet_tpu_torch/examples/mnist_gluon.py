@@ -9,9 +9,11 @@ samples; each label the argmax of a fixed random projection).
     python -m mxnet_tpu_torch.examples.mnist_gluon --device cpu --quick
 
 Run as a script it fails unless the final accuracy passes 0.8, as the
-JAX example does. ``--save`` waits for parameter files (ROADMAP Queue
-1, 'Parameter files') and raises. :func:`train` is the loop
-``chip_smoke.py`` and the tests drive.
+JAX example does. ``--save PREFIX`` writes ``PREFIX.params`` (the
+``.params`` format, which the JAX package's ``load_parameters`` reads)
+and ``PREFIX.states`` (the Trainer's, port-native) after the last
+epoch. :func:`train` is the loop ``chip_smoke.py`` and the tests
+drive.
 """
 from __future__ import annotations
 
@@ -49,10 +51,6 @@ def parse_args(argv=None):
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--save", default=None, help="checkpoint prefix")
     args = ap.parse_args(argv)
-    if args.save:
-        raise NotImplementedError(
-            "--save: parameter files are not ported yet (ROADMAP Queue 1, "
-            "'Parameter files')")
     args.samples = 512 if args.quick else 60000
     if args.quick:
         args.epochs = min(args.epochs, 2)
@@ -81,7 +79,8 @@ def train(args):
     x, y = synthetic_mnist(args.samples)
     loader = gluon.data.DataLoader(
         gluon.data.ArrayDataset(x, y), batch_size=args.batch_size,
-        shuffle=True, device=dev, rng=np.random.default_rng(args.seed))
+        shuffle=True, device=dev, rng=np.random.default_rng(args.seed),
+        batchify_fn=gluon.data.dataloader.tensor_batchify_fn)
     net = build(dev, args.seed)
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     trainer = gluon.Trainer(net.collect_params(), "adam",
@@ -107,6 +106,10 @@ def train(args):
                        "seconds": dt, "samples_per_s": len(x) / dt})
         print(f"epoch {epoch}: loss={total_loss / batches:.4f} "
               f"{name}={value:.4f} ({len(x) / dt:.1f} samples/s)")
+    if args.save:
+        net.save_parameters(args.save + ".params")
+        trainer.save_states(args.save + ".states")
+        print(f"saved to {args.save}.params/.states")
     return {"accuracy": value, "epochs": epochs}
 
 

@@ -55,7 +55,10 @@ class WordLM(gluon.Block):
         return self.decoder(self.drop(out)), new_states
 
     def begin_state(self, batch_size, device=None):
-        return self.rnn.begin_state(batch_size, device=device)
+        """Zero states as plain tensors (the training loop passes
+        tensors, so no NDArray wraps its steps)."""
+        return self.rnn.begin_state(batch_size, func=torch.zeros,
+                                    device=device)
 
 
 def synthetic_corpus(n_tokens, vocab):

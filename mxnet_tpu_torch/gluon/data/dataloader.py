@@ -1,16 +1,22 @@
 """DataLoader (``mxnet_tpu/gluon/data/dataloader.py``'s counterpart).
 
 Batches are built on the host (numpy, or torch tensors a dataset or
-transform gives) and land as torch tensors on the loader's ``device``:
-``None`` is the current CUDA device and raises without one, as the
-JAX loader puts its batches on the current context; pass
-``device="cpu"`` for the CPU. Floating-point numpy data arrives as
-float32 (MXNet's default type). ``num_workers=0`` builds each batch in
-the caller's thread; ``num_workers > 0`` with ``thread_pool=True``
-builds ``prefetch`` batches ahead on that many threads. Process
-workers and ``DevicePrefetcher`` are not ported yet (ROADMAP Queue 1,
-'Vision remainders'). A shuffle draws from ``rng`` (a numpy generator;
-see ``sampler.RandomSampler``).
+transform gives) and land on the loader's ``device``: ``None`` is the
+current context's device (the card unless a ``with mx.cpu():`` scope
+is active) and raises without a card, as the JAX loader puts its
+batches on the current context; pass ``device="cpu"`` for the CPU.
+The default batchify gives ``NDArray`` batches, as the reference's;
+:func:`tensor_batchify_fn` gives plain tensors (the port's own
+training loops use it, so no NDArray dispatch enters their steps).
+Floating-point numpy data arrives as float32 (MXNet's default type).
+``num_workers=0`` builds each batch in the caller's thread;
+``num_workers > 0`` with ``thread_pool=True`` builds ``prefetch``
+batches ahead on that many threads, each awaited at most ``timeout``
+seconds. ``pin_memory`` stages each batch in page-locked host memory
+and copies it to the card asynchronously; one card has
+``pin_device_id`` 0 only. Process workers and ``DevicePrefetcher``
+are not ported yet (ROADMAP Queue 1, 'Vision remainders'). A shuffle
+draws from ``rng`` (a numpy generator; see ``sampler.RandomSampler``).
 """
 from __future__ import annotations
 
@@ -21,30 +27,46 @@ import numpy as np
 import torch
 
 from ...context import resolve_device
+from ...ndarray.ndarray import NDArray
 from .sampler import BatchSampler, RandomSampler, SequentialSampler
 
-__all__ = ["DataLoader", "default_batchify_fn"]
+__all__ = ["DataLoader", "default_batchify_fn", "tensor_batchify_fn"]
 
 
-def default_batchify_fn(data):
+def tensor_batchify_fn(data):
     """Stack samples into a batch: a tuple of fields gives a list of
     batches; numpy and numbers become a CPU tensor (float64 as
     float32)."""
     if isinstance(data[0], torch.Tensor):
-        return torch.stack(data, 0)
+        return torch.stack([d.as_subclass(torch.Tensor) for d in data], 0)
     if isinstance(data[0], tuple):
-        return [default_batchify_fn(list(field)) for field in zip(*data)]
+        return [tensor_batchify_fn(list(field)) for field in zip(*data)]
     arr = np.asarray(data)
     if arr.dtype == np.float64:
         arr = arr.astype(np.float32)
     return torch.from_numpy(arr)
 
 
-def _to_device(batch, device):
+def default_batchify_fn(data):
+    """:func:`tensor_batchify_fn`'s batches as NDArrays."""
+    return _as_nd(tensor_batchify_fn(data))
+
+
+def _as_nd(batch):
     if isinstance(batch, torch.Tensor):
+        return batch.as_subclass(NDArray)
+    if isinstance(batch, list):
+        return [_as_nd(b) for b in batch]
+    return batch
+
+
+def _to_device(batch, device, pin=False):
+    if isinstance(batch, torch.Tensor):
+        if pin and batch.device != device:
+            return batch.pin_memory().to(device, non_blocking=True)
         return batch.to(device)
     if isinstance(batch, (list, tuple)):
-        return [_to_device(b, device) for b in batch]
+        return [_to_device(b, device, pin) for b in batch]
     return batch
 
 
@@ -53,8 +75,12 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size=None, shuffle=False, sampler=None,
                  last_batch=None, batch_sampler=None, batchify_fn=None,
-                 num_workers=0, thread_pool=False, prefetch=None,
+                 num_workers=0, pin_memory=False, pin_device_id=0,
+                 prefetch=None, thread_pool=False, timeout=120,
                  device=None, rng=None):
+        if pin_device_id != 0:
+            raise ValueError(f"pin_device_id {pin_device_id!r}: one card "
+                             f"has pin_device_id 0 only")
         if num_workers > 0 and not thread_pool:
             raise NotImplementedError(
                 "process workers are not ported yet (ROADMAP Queue 1, "
@@ -62,6 +88,8 @@ class DataLoader:
                 "num_workers=0")
         self._dataset = dataset
         self._device = resolve_device(device)
+        self._pin = bool(pin_memory) and self._device.type == "cuda"
+        self._timeout = timeout
         self._num_workers = max(0, num_workers)
         self._prefetch = max(0, prefetch or 2 * self._num_workers)
         if batch_sampler is None:
@@ -89,7 +117,7 @@ class DataLoader:
 
     def __iter__(self):
         if self._num_workers == 0:
-            return (_to_device(self._batch(b), self._device)
+            return (_to_device(self._batch(b), self._device, self._pin)
                     for b in self._batch_sampler)
         return _ThreadedIter(self)
 
@@ -127,7 +155,9 @@ class _ThreadedIter:
         fut = self._pending.popleft()
         self._submit_next()
         try:
-            return _to_device(fut.result(), self._loader._device)
+            loader = self._loader
+            return _to_device(fut.result(timeout=loader._timeout),
+                              loader._device, loader._pin)
         except BaseException:
             self._pool.shutdown(wait=False, cancel_futures=True)
             raise

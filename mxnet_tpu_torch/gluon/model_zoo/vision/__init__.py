@@ -1,8 +1,9 @@
 """Vision models of the PyTorch port
 (``mxnet_tpu/gluon/model_zoo/vision``'s counterpart): the ResNets.
 AlexNet, DenseNet, Inception, MobileNet, SqueezeNet and VGG are not
-ported yet (ROADMAP Queue 1, 'Vision remainders'); pretrained weights
-wait for parameter files."""
+ported yet (ROADMAP Queue 1, 'Vision remainders'); ``pretrained=True``
+raises (the reference downloads the weights: load a ``.params`` file
+instead)."""
 from __future__ import annotations
 
 from . import resnet

@@ -9,16 +9,19 @@ Parameters carry the JAX model's Gluon names without the model prefix
 name scope: the model's scope holds the stem, the stages, the last
 BatchNorm and the Dense, and each stage's scope holds the layers of
 all its blocks, counted on across them (the blocks have an empty
-prefix). The port has no name scopes, so :class:`_Names` hands out the
-same counters explicitly. Each layer takes its bias as the JAX one
+prefix). :class:`_Names` hands out the same counters explicitly (the
+containers take the empty prefix). Each layer takes its bias as the JAX one
 does: ``BottleneckV1``'s first and last 1x1 convolutions have one, the
 3x3 convolutions, the downsample convolutions and ``BottleneckV2``'s
 do not.
 
 Shapes are given at construction: ``in_channels`` is the images'
-channel count (3), where the JAX model infers it from the first batch.
+channel count (3), where the JAX model infers it from the first batch;
+the structural names (``features.0.weight``, ...) are the JAX model's,
+so ``save_parameters``/``load_parameters`` files pass between the two.
 ``remat_stages`` (activation recompute) is not ported yet.
-``device=None`` is the current CUDA device and raises without one.
+``device=None`` is the current context's device and raises without a
+card.
 """
 from __future__ import annotations
 
@@ -129,7 +132,7 @@ class _Residual(Block):
         self._kw = {"device": resolve_device(device)}
 
     def _downsample(self, channels, stride, in_channels, with_bn):
-        ds = nn.HybridSequential()
+        ds = nn.HybridSequential(prefix="")
         ds.add(_conv(self._names, channels, 1, stride, 0, in_channels,
                      False, self._kw))
         if with_bn:
@@ -145,7 +148,7 @@ class BasicBlockV1(_Residual):
                  names=None, prefix="", device=None):
         super().__init__(names, prefix, device)
         n, kw = self._names, self._kw
-        self.body = nn.HybridSequential().add(
+        self.body = nn.HybridSequential(prefix="").add(
             _conv3x3(n, channels, stride, in_channels, kw),
             _bn(n, channels, kw), _relu(n),
             _conv3x3(n, channels, 1, channels, kw),
@@ -166,7 +169,7 @@ class BottleneckV1(_Residual):
                  names=None, prefix="", device=None):
         super().__init__(names, prefix, device)
         n, kw, mid = self._names, self._kw, channels // 4
-        self.body = nn.HybridSequential().add(
+        self.body = nn.HybridSequential(prefix="").add(
             _conv(n, mid, 1, stride, 0, in_channels, True, kw),
             _bn(n, mid, kw), _relu(n),
             _conv3x3(n, mid, 1, mid, kw),
@@ -250,7 +253,7 @@ class _ResNet(Block):
         super().__init__(prefix)
         self._names = _Names()
         self._kw = {"device": resolve_device(device)}
-        self.features = nn.HybridSequential()
+        self.features = nn.HybridSequential(prefix="")
 
     def _add_stem(self, channels, thumbnail, stem, in_channels):
         n, kw = self._names, self._kw
@@ -347,8 +350,9 @@ resnet_block_versions = [
 def get_resnet(version, num_layers, pretrained=False, **kwargs):
     """ResNet ``version`` (1 or 2) of ``num_layers`` (18, 34, 50, 101,
     152); ``kwargs`` go to the net (``classes``, ``thumbnail``,
-    ``stem``, ``device``, ...). Pretrained weights raise: parameter
-    files are not ported yet (ROADMAP Queue 1, 'Parameter files')."""
+    ``stem``, ``device``, ...). ``pretrained=True`` raises: the
+    reference's ``model_store.py`` downloads the weights; load a
+    ``.params`` file with ``load_parameters`` instead."""
     if num_layers not in resnet_spec:
         raise ValueError(f"Invalid number of layers: {num_layers}. Options "
                          f"are {sorted(resnet_spec)}")
@@ -356,8 +360,9 @@ def get_resnet(version, num_layers, pretrained=False, **kwargs):
         raise ValueError(f"Invalid resnet version: {version}.")
     if pretrained:
         raise NotImplementedError(
-            "pretrained weights: parameter files are not ported yet "
-            "(ROADMAP Queue 1, 'Parameter files')")
+            "pretrained=True: the reference's model_store.py downloads the "
+            "weights, which the port does not do; build the model and "
+            "load_parameters() a local .params file instead")
     block_type, layers, channels = resnet_spec[num_layers]
     block = resnet_block_versions[version - 1][block_type]
     return resnet_net_versions[version - 1](block, layers, channels,

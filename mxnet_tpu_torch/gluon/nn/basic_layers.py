@@ -3,20 +3,25 @@ BatchNorm, LayerNorm, Dropout, Activation, Flatten, Identity, Lambda,
 HybridLambda.
 
 Port of those layers of ``mxnet_tpu/gluon/nn/basic_layers.py``, as
-``nn.Module``s with Gluon's parameter names and layouts (Dense's
-weight is (units, in_units), as ``nn.Linear``'s). Shapes are given at
-construction (``in_units``, ``in_channels``): the port has no deferred
-initialization, and no name scopes: a child's Gluon prefix is given
-explicitly. All are differentiable inside ``autograd.record()``: Dense
-and Embedding through torch's own gradients (the embedding keeps its
-clamping gather), LayerNorm through the K3a/K3b Function, BatchNorm
-through the JAX op's own backward (``op_impl_nn.batch_norm_train``).
-``Dropout`` drops and ``BatchNorm`` takes batch statistics only in
-train mode (``autograd.is_training()``). ``device=None`` is the
-current CUDA device and raises without one; pass ``device="cpu"`` for
-the CPU.
+``nn.Module``s with Gluon's parameter names, layouts and arguments
+(Dense's weight is (units, in_units), as ``nn.Linear``'s; the
+``*_initializer`` arguments are each parameter's own initializer).
+Input widths may be left out (``in_units``, ``in_channels``): the
+weights are then deferred and take their shapes at the first forward
+(``gluon.parameter``). ``Embedding`` keeps its given widths, as in
+the reference. A child's prefix comes from the parent's
+``name_scope`` or is given (``gluon.block``). All are differentiable
+inside ``autograd.record()``: Dense and Embedding through torch's own
+gradients (the embedding keeps its clamping gather), LayerNorm through
+the K3a/K3b Function, BatchNorm through the JAX op's own backward
+(``op_impl_nn.batch_norm_train``). ``Dropout`` drops and ``BatchNorm``
+takes batch statistics only in train mode (``autograd.is_training()``).
+``device=None`` is the current context's device (the card unless a
+``with mx.cpu():`` scope is active) and raises without a card.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -37,10 +42,11 @@ def _dtype(dtype):
 
 class Sequential(Block):
     """Children run in the order added. Each keeps the Gluon prefix it
-    was made with (``nn.Dense(..., prefix="dense0_")``)."""
+    was made with (``nn.Dense(..., prefix="dense0_")``, or one from a
+    name scope)."""
 
-    def __init__(self, prefix=""):
-        super().__init__(prefix)
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix, params)
 
     def add(self, *blocks):
         for block in blocks:
@@ -65,28 +71,36 @@ class Sequential(Block):
         return iter(self._modules.values())
 
 
-HybridSequential = Sequential
+class HybridSequential(Sequential):
+    """``Sequential`` (the port runs eagerly), named as the reference's
+    (``hybridsequential0_``)."""
 
 
 class Dense(Block):
     """Fully-connected layer: ``act(x @ weight.T + bias)``. With
-    ``flatten`` the input is first reshaped to (batch, -1)."""
+    ``flatten`` the input is first reshaped to (batch, -1). Without
+    ``in_units`` the weight takes its width at the first forward."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
-                 dtype="float32", in_units=0, prefix="", device=None):
-        super().__init__(prefix)
-        if in_units < 1:
-            raise ValueError("Dense needs in_units (the port has no "
-                             "deferred shapes)")
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, prefix=None,
+                 params=None, device=None):
+        super().__init__(prefix, params)
         dev, dt = resolve_device(device), _dtype(dtype)
         self._units = int(units)
         self._flatten = flatten
-        self.weight = self._param((units, in_units), dt, dev)
-        self.bias = self._param((units,), dt, dev) if use_bias else None
+        self.weight = self._param((units, in_units), dt, dev,
+                                  init=weight_initializer)
+        self.bias = self._param((units,), dt, dev, init=bias_initializer) \
+            if use_bias else None
         self.act = (Activation(activation, prefix=activation + "_")
                     if activation is not None else None)
 
     def forward(self, x):
+        if self._deferred:
+            in_units = math.prod(x.shape[1:]) if self._flatten \
+                else x.shape[-1]
+            self._finish_deferred(weight=(self._units, in_units))
         if self._flatten:
             x = x.reshape(x.shape[0], -1)
         out = F.linear(x, self.weight, self.bias)
@@ -96,32 +110,46 @@ class Dense(Block):
 class Embedding(Block):
     """Lookup table (input_dim, output_dim); out-of-range ids clip."""
 
-    def __init__(self, input_dim, output_dim, dtype="float32", prefix="",
-                 device=None):
-        super().__init__(prefix)
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, prefix=None,
+                 params=None, device=None):
+        super().__init__(prefix, params)
+        if sparse_grad:
+            raise ValueError("sparse_grad=True: the port's gradients are "
+                             "dense (row_sparse waits for ROADMAP 'Long "
+                             "tail')")
         self.weight = self._param((input_dim, output_dim), _dtype(dtype),
-                                  resolve_device(device))
+                                  resolve_device(device),
+                                  init=weight_initializer)
 
     def forward(self, x):
         return _nn.embedding(x, self.weight)
 
 
 class LayerNorm(Block):
-    """LayerNorm over ``axis``; the last axis runs the fused kernel."""
+    """LayerNorm over ``axis``; the last axis runs the fused kernel.
+    ``scale=False`` keeps gamma at its initial ones (no gradient),
+    ``center=False`` beta at its zeros."""
 
-    def __init__(self, axis=-1, epsilon=1e-5, in_channels=0,
-                 dtype="float32", prefix="", device=None):
-        super().__init__(prefix)
-        if in_channels < 1:
-            raise ValueError("LayerNorm needs in_channels (the port has no "
-                             "deferred shapes)")
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, dtype="float32", prefix=None, params=None,
+                 device=None):
+        super().__init__(prefix, params)
         dev, dt = resolve_device(device), _dtype(dtype)
         self._axis = axis
         self._epsilon = epsilon
-        self.gamma = self._param((in_channels,), dt, dev, fill=1.0)
-        self.beta = self._param((in_channels,), dt, dev)
+        self.gamma = self._param((in_channels,), dt, dev, fill=1.0,
+                                 grad_req="write" if scale else "null",
+                                 init=gamma_initializer)
+        self.beta = self._param((in_channels,), dt, dev,
+                                grad_req="write" if center else "null",
+                                init=beta_initializer)
 
     def forward(self, x):
+        if self._deferred:
+            c = (x.shape[self._axis],)
+            self._finish_deferred(gamma=c, beta=c)
         return _nn.layer_norm(x, self.gamma, self.beta, axis=self._axis,
                               eps=self._epsilon)
 
@@ -146,12 +174,12 @@ class BatchNorm(Block):
       own type."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
-                 scale=True, use_global_stats=False, in_channels=0,
-                 prefix="", device=None):
-        super().__init__(prefix)
-        if in_channels < 1:
-            raise ValueError("BatchNorm needs in_channels (the port has no "
-                             "deferred shapes)")
+                 scale=True, use_global_stats=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 prefix=None, params=None, device=None):
+        super().__init__(prefix, params)
         dev, dt = resolve_device(device), torch.float32
         self._axis = axis
         self._momentum = float(momentum)
@@ -159,14 +187,17 @@ class BatchNorm(Block):
         self._fix_gamma = not scale
         self._use_global_stats = use_global_stats
         shape = (in_channels,)
-        self.gamma = self._param(shape, dt, dev, fill=1.0, init="ones",
+        self.gamma = self._param(shape, dt, dev, fill=1.0,
+                                 init=gamma_initializer,
                                  grad_req="write" if scale else "null")
-        self.beta = self._param(shape, dt, dev, init="zeros",
+        self.beta = self._param(shape, dt, dev, init=beta_initializer,
                                 grad_req="write" if center else "null")
-        self.running_mean = self._param(shape, dt, dev, init="zeros",
+        self.running_mean = self._param(shape, dt, dev,
+                                        init=running_mean_initializer,
                                         grad_req="null")
         self.running_var = self._param(shape, dt, dev, fill=1.0,
-                                       init="ones", grad_req="null")
+                                       init=running_variance_initializer,
+                                       grad_req="null")
 
     def cast(self, dtype):
         dt = _dtype(dtype)
@@ -175,6 +206,10 @@ class BatchNorm(Block):
         return super().cast(dt)
 
     def forward(self, x):
+        if self._deferred:
+            c = (x.shape[self._axis],)
+            self._finish_deferred(gamma=c, beta=c, running_mean=c,
+                                  running_var=c)
         if autograd.is_training() and not self._use_global_stats:
             out, mean, var = _nn.batch_norm_train(
                 x, self.gamma, self.beta, self.running_mean,
@@ -193,23 +228,35 @@ class BatchNorm(Block):
 
 class Dropout(Block):
     """Dropout in train mode (``autograd.is_training()``, as the JAX
-    layer reads it); the identity otherwise."""
+    layer reads it); the identity otherwise. ``axes``: the mask is drawn
+    with those axes of size one and broadcast along them (one draw kept
+    or dropped for a whole row of them), as the reference's."""
 
-    def __init__(self, rate, prefix=""):
-        super().__init__(prefix)
+    def __init__(self, rate, axes=(), prefix=None, params=None):
+        super().__init__(prefix, params)
         self._rate = float(rate)
+        self._axes = tuple(int(a) for a in (
+            (axes,) if isinstance(axes, int) else axes or ()))
 
     def forward(self, x):
-        if autograd.is_training() and self._rate > 0:
+        if not (autograd.is_training() and self._rate > 0):
+            return x
+        if not self._axes:
             return F.dropout(x, self._rate, training=True)
-        return x
+        shape = list(x.shape)
+        for a in self._axes:
+            shape[a] = 1
+        keep = 1.0 - self._rate
+        mask = torch.empty(shape, dtype=x.dtype, device=x.device) \
+            .bernoulli_(keep)
+        return x * mask / keep
 
 
 class Activation(Block):
     """``Activation`` op by name (``ndarray.op_impl_nn.activation``)."""
 
-    def __init__(self, activation, prefix=""):
-        super().__init__(prefix)
+    def __init__(self, activation, prefix=None, params=None):
+        super().__init__(prefix, params)
         if activation not in _nn._ACT:
             raise ValueError(f"unknown activation {activation!r}")
         self._act_type = activation
@@ -236,8 +283,8 @@ class Lambda(Block):
     """A function as a block: a callable, or the name of an op of
     ``ndarray`` (``ndarray.op_impl_nn``'s included)."""
 
-    def __init__(self, function, prefix=""):
-        super().__init__(prefix)
+    def __init__(self, function, prefix=None, params=None):
+        super().__init__(prefix, params)
         if isinstance(function, str):
             fn = getattr(ndarray, function, None) \
                 or getattr(ndarray.op_impl_nn, function, None)
@@ -255,9 +302,9 @@ class HybridLambda(Lambda):
     ``hybrid_forward`` does: ``fn(F, x, *args)`` with ``F`` the port's
     ``ndarray``. A name is an op called as ``op(x, *args)``."""
 
-    def __init__(self, function, prefix=""):
+    def __init__(self, function, prefix=None, params=None):
         if isinstance(function, str):
-            super().__init__(function, prefix)
+            super().__init__(function, prefix, params)
         else:
             super().__init__(
-                lambda *args: function(ndarray, *args), prefix)
+                lambda *args: function(ndarray, *args), prefix, params)

@@ -5,12 +5,13 @@ Port of ``_Conv``, ``Conv1D/2D/3D`` and the pooling layers of
 ``Pooling`` ops (``ndarray.op_impl_nn``; cuDNN on the card). The
 weight is (channels, in_channels / groups, *kernel), named ``weight``,
 and the bias ``bias``, as Gluon's; float32 until ``Block.cast``.
-``in_channels`` is given at construction: the port has no deferred
-shapes. Layouts are
+Without ``in_channels`` the weight takes its width at the first
+forward (a deferred shape, ``gluon.parameter``). Layouts are
 channels-first (``NCW``, ``NCHW``, ``NCDHW``) only, as the JAX layers
 compute them. The transposed convolutions and ``ReflectionPad2D`` are
-not ported yet (ROADMAP). ``device=None`` is the current CUDA device
-and raises without one; pass ``device="cpu"`` for the CPU.
+not ported yet (ROADMAP 'Vision remainders'). ``device=None`` is the
+current context's device and raises without a card; pass
+``device="cpu"`` (or use ``with mx.cpu():``) for the CPU.
 """
 from __future__ import annotations
 
@@ -40,31 +41,43 @@ class _Conv(Block):
 
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None,
-                 use_bias=True, prefix="", device=None):
-        super().__init__(prefix)
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", prefix=None, params=None,
+                 device=None):
+        super().__init__(prefix, params)
         nd_ = len(kernel_size)
         if layout != _LAYOUTS[nd_]:
             raise NotImplementedError(f"layout {layout!r}: the port's "
                                       f"convolutions are channels-first")
-        if in_channels < 1:
-            raise ValueError(f"{type(self).__name__} needs in_channels (the "
-                             f"port has no deferred shapes)")
-        if in_channels % groups or channels % groups:
-            raise ValueError(f"channels {channels} and in_channels "
-                             f"{in_channels} must divide by groups {groups}")
+        self._check_groups(channels, in_channels, groups)
         dev, dt = resolve_device(device), torch.float32
         self._channels = channels
         self._in_channels = in_channels
+        self._kernel = tuple(kernel_size)
         self._kwargs = {"kernel": kernel_size, "stride": strides,
                         "dilate": dilation, "pad": padding,
                         "num_group": groups}
         self.weight = self._param(
-            (channels, in_channels // groups) + tuple(kernel_size), dt, dev)
-        self.bias = self._param((channels,), dt, dev) if use_bias else None
+            (channels, in_channels // groups) + self._kernel, dt, dev,
+            init=weight_initializer)
+        self.bias = self._param((channels,), dt, dev, init=bias_initializer) \
+            if use_bias else None
         self.act = (Activation(activation, prefix=activation + "_")
                     if activation is not None else None)
 
+    @staticmethod
+    def _check_groups(channels, in_channels, groups):
+        if in_channels % groups or channels % groups:
+            raise ValueError(f"channels {channels} and in_channels "
+                             f"{in_channels} must divide by groups {groups}")
+
     def forward(self, x):
+        if self._deferred:
+            groups = self._kwargs["num_group"]
+            self._in_channels = x.shape[1]
+            self._check_groups(self._channels, self._in_channels, groups)
+            self._finish_deferred(weight=(
+                self._channels, self._in_channels // groups) + self._kernel)
         out = _nn.convolution(x, self.weight, self.bias, **self._kwargs)
         return self.act(out) if self.act is not None else out
 
@@ -106,8 +119,9 @@ class _Pooling(Block):
     pool size, ``ceil_mode`` the ``"full"`` convention."""
 
     def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
-                 pool_type, layout, count_include_pad=True, prefix=""):
-        super().__init__(prefix)
+                 pool_type, layout, count_include_pad=True, prefix=None,
+                 params=None):
+        super().__init__(prefix, params)
         if layout != _LAYOUTS[len(pool_size)]:
             raise NotImplementedError(f"layout {layout!r}: the port's "
                                       f"pooling is channels-first")

@@ -159,21 +159,25 @@ class TransformerEncoder(Block):
                  pre_norm=False, causal=False, layer_norm_eps=1e-12,
                  dtype="float32", prefix="", device=None):
         super().__init__(prefix)
-        self.cells = torch.nn.ModuleList(
+        # the cells are children "0", "1", ... as the JAX encoder's, so
+        # the structural names (``encoder.0.ffn.ffn_1.weight``) agree
+        self._cells = [
             TransformerEncoderCell(
                 units, hidden_size, num_heads, dropout=dropout,
                 attention_dropout=attention_dropout, activation=activation,
                 pre_norm=pre_norm, causal=causal,
                 layer_norm_eps=layer_norm_eps, dtype=dtype,
                 prefix=f"layer{i}_", device=device)
-            for i in range(num_layers))
+            for i in range(num_layers)]
+        for i, cell in enumerate(self._cells):
+            self.add_module(str(i), cell)
         self.final_ln = (LayerNorm(epsilon=layer_norm_eps, in_channels=units,
                                    dtype=dtype, prefix="final_ln_",
                                    device=device)
                          if pre_norm else None)
 
     def forward(self, x, mask=None, valid_length=None, segment_ids=None):
-        for cell in self.cells:
+        for cell in self._cells:
             x = cell(x, mask, valid_length, segment_ids)
         if self.final_ln is not None:
             x = self.final_ln(x)

@@ -8,8 +8,11 @@ layer's ``collect_params`` as they are. Layouts ``TNC`` and ``NTC``;
 called without states the layer starts from zeros and returns the
 output only, with states it returns ``(output, [h, c])``.
 
-The port has no deferred shapes, so ``input_size`` is required. The
-JAX layer packs every weight into one flat vector each forward
+Without ``input_size`` the first layer's ``i2h_weight`` (both
+directions') takes its width at the first forward (a deferred shape,
+``gluon.parameter``). :meth:`begin_state` gives NDArrays, as the
+reference's, on ``ctx`` (default: the layer's device). The JAX layer
+packs every weight into one flat vector each forward
 (``_flat_params``); here the layer hands its per-layer tensors to
 ``ndarray.op_impl_rnn.rnn_layers`` directly, which saves that copy and
 its backward (the packed ``rnn`` op is still there). Dropout between
@@ -22,6 +25,7 @@ import torch
 from ... import autograd
 from ...context import resolve_device
 from ...ndarray import op_impl_rnn
+from ...ndarray.ndarray import NDArray
 from ..block import Block
 
 __all__ = ["LSTM"]
@@ -31,15 +35,12 @@ class _RNNLayer(Block):
     def __init__(self, hidden_size, num_layers, layout, dropout,
                  bidirectional, input_size, i2h_weight_initializer,
                  h2h_weight_initializer, i2h_bias_initializer,
-                 h2h_bias_initializer, mode, dtype="float32", prefix="",
-                 device=None):
-        super().__init__(prefix)
+                 h2h_bias_initializer, mode, dtype="float32", prefix=None,
+                 params=None, device=None):
+        super().__init__(prefix, params)
         if layout not in ("TNC", "NTC"):
             raise ValueError(f"Invalid layout {layout}; must be one of "
                              f"['TNC' or 'NTC']")
-        if input_size < 1:
-            raise ValueError(f"{type(self).__name__} needs input_size (the "
-                             f"port has no deferred shapes)")
         op_impl_rnn._check_mode(mode)
         dev = resolve_device(device)
         dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
@@ -66,11 +67,20 @@ class _RNNLayer(Block):
     def state_info(self, batch_size=0):
         raise NotImplementedError
 
-    def begin_state(self, batch_size=0, func=None, **kwargs):
-        """Initial states of the state_info shapes (zeros by default);
-        ``kwargs`` (``device``, ``dtype``) go to ``func``."""
-        func = torch.zeros if func is None else func
-        return [func(info["shape"], **kwargs)
+    def begin_state(self, batch_size=0, func=None, ctx=None, **kwargs):
+        """Initial states of the state_info shapes: ``func(shape,
+        **kwargs)``, by default NDArray zeros on ``ctx`` (a context or
+        device; default the layer's). ``kwargs`` (``dtype``, ...) go to
+        ``func``; a ``device`` among them stands for ``ctx``."""
+        dev = self.l0_h2h_weight.device \
+            if ctx is None and "device" not in kwargs \
+            else resolve_device(kwargs.pop("device", ctx))
+        if func is None:
+            dtype = kwargs.pop("dtype", None) or torch.float32
+            return [torch.zeros(info["shape"], dtype=dtype, device=dev)
+                    .as_subclass(NDArray)
+                    for info in self.state_info(batch_size)]
+        return [func(info["shape"], device=dev, **kwargs)
                 for info in self.state_info(batch_size)]
 
     def layer_params(self):
@@ -83,11 +93,19 @@ class _RNNLayer(Block):
                 for j in ["l", "r"][:self._dir]]
 
     def forward(self, inputs, states=None):
+        if self._deferred:
+            ng = op_impl_rnn._GATES[self._mode]
+            self._input_size = inputs.shape[2]
+            self._finish_deferred(**{
+                f"{j}0_i2h_weight": (ng * self._hidden_size,
+                                     self._input_size)
+                for j in ["l", "r"][:self._dir]})
         skip_states = states is None
         if skip_states:
             batch = inputs.shape[self._layout.find("N")]
-            states = self.begin_state(batch, device=inputs.device,
-                                      dtype=inputs.dtype)
+            states = [torch.zeros(info["shape"], dtype=inputs.dtype,
+                                  device=inputs.device)
+                      for info in self.state_info(batch)]
         if isinstance(states, torch.Tensor):
             states = [states]
         if self._layout == "NTC":
@@ -103,18 +121,20 @@ class _RNNLayer(Block):
 
 class LSTM(_RNNLayer):
     """Fused multi-layer LSTM (the cuDNN-LSTM analog; the WikiText-2
-    word LM's layer). ``device=None`` is the current CUDA device and
-    raises without one; pass ``device="cpu"`` for the CPU."""
+    word LM's layer). ``device=None`` is the current context's device
+    and raises without a card; pass ``device="cpu"`` (or use ``with
+    mx.cpu():``) for the CPU."""
 
     def __init__(self, hidden_size, num_layers=1, layout="TNC", dropout=0,
                  bidirectional=False, input_size=0,
                  i2h_weight_initializer=None, h2h_weight_initializer=None,
                  i2h_bias_initializer="zeros", h2h_bias_initializer="zeros",
-                 dtype="float32", prefix="", device=None):
+                 dtype="float32", prefix=None, params=None, device=None):
         super().__init__(hidden_size, num_layers, layout, dropout,
                          bidirectional, input_size, i2h_weight_initializer,
                          h2h_weight_initializer, i2h_bias_initializer,
-                         h2h_bias_initializer, "lstm", dtype, prefix, device)
+                         h2h_bias_initializer, "lstm", dtype, prefix, params,
+                         device)
 
     def state_info(self, batch_size=0):
         shape = (self._num_layers * self._dir, batch_size,

@@ -10,13 +10,27 @@ TOP of whatever normalisation the loss already did (``scale`` is the
 One card holds one replica, so ``kvstore`` of ``None``, ``"device"`` or
 ``"local"`` reduces nothing, as the JAX ``_allreduce_grads`` does with
 one replica. The distributed stores (``dist_sync``, ``dist_async``,
-...) are not ported yet and raise (ROADMAP, Queue 1, item 4:
-multi-GPU).
+...) are not ported yet and raise (ROADMAP 'Multi-GPU').
+``ignore_stale_grad`` is taken and, as in the JAX package, checks
+nothing: every parameter with a gradient is updated.
+
+:meth:`Trainer.save_states` writes the port's own ``.states`` file: a
+pickle of the optimizer states (as CPU tensors, so a file written on
+the card loads on the CPU and the reverse) and the optimizer with its
+update counts. :meth:`Trainer.load_states` puts each state on its
+weight's device. The JAX package's ``.states`` pickles its own classes
+and cannot be read without importing it: loading one raises
+``MXNetError``. Parameters whose shapes are deferred take their
+optimizer states at the first ``step``, after the forward gave them
+shapes.
 """
 from __future__ import annotations
 
+import torch
+
 from .. import optimizer as opt
-from .parameter import Parameter, ParameterDict
+from .parameter import (DeferredInitializationError, Parameter,
+                        ParameterDict, is_deferred)
 
 __all__ = ["Trainer"]
 
@@ -43,8 +57,8 @@ class Trainer:
             if isinstance(kvstore, str) and kvstore.startswith("dist"):
                 raise NotImplementedError(
                     f"kvstore {kvstore!r}: the distributed key-value stores "
-                    f"are not ported yet (ROADMAP, Queue 1, item 4: "
-                    f"multi-GPU); use kvstore='device' on one card")
+                    f"are not ported yet (ROADMAP 'Multi-GPU'); use "
+                    f"kvstore='device' on one card")
             raise ValueError(f"unknown kvstore {kvstore!r}: one card takes "
                              f"None, 'device' or 'local'")
         self._params = list(params)
@@ -73,7 +87,7 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
-    def step(self, batch_size):
+    def step(self, batch_size, ignore_stale_grad=False):
         """Reduce the gradients (nothing to reduce on one card), then
         update with ``rescale_grad = scale / batch_size``."""
         self._optimizer.rescale_grad = self._scale / batch_size
@@ -83,7 +97,7 @@ class Trainer:
     def allreduce_grads(self):
         """Sum the gradients across replicas: one card has one."""
 
-    def update(self, batch_size):
+    def update(self, batch_size, ignore_stale_grad=False):
         """The optimizer step alone (after :meth:`allreduce_grads`)."""
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update()
@@ -93,9 +107,16 @@ class Trainer:
         for i, p in enumerate(self._params):
             if p.grad_req == "null":
                 continue
+            w = p._tensor
+            if is_deferred(w):
+                raise DeferredInitializationError(
+                    f"Parameter '{p.name}' has no shape yet: run a "
+                    f"forward before the first step")
+            if w.grad is None:
+                w.grad = torch.zeros_like(w)
             idx.append(i)
-            weights.append(p.data())
-            grads.append(p.grad())
+            weights.append(w)
+            grads.append(w.grad)
         if idx:
             self._updater.update_multi(idx, grads, weights)
 
@@ -106,8 +127,13 @@ class Trainer:
             f.write(self._updater.get_states(dump_optimizer=True))
 
     def load_states(self, fname):
+        """Read a file of :meth:`save_states`; each state goes to its
+        weight's device."""
         with open(fname, "rb") as f:
             self._updater.set_states(f.read())
+        for i, state in self._updater.states.items():
+            self._updater.states[i] = opt.optimizer.move_state(
+                state, self._params[i]._tensor.device)
         # adopt the restored optimizer: its update counts carry Adam's
         # bias correction and the lr schedule on
         self._optimizer = self._updater.optimizer

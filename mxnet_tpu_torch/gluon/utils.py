@@ -11,6 +11,8 @@ import warnings
 
 import torch
 
+from ..ndarray.ndarray import NDArray
+
 __all__ = ["clip_global_norm", "split_and_load"]
 
 
@@ -34,6 +36,11 @@ def clip_global_norm(arrays, max_norm, check_isfinite=True):
     host sync, not one per array."""
     if not arrays:
         raise ValueError("clip_global_norm needs at least one array")
+    # NDArray views (``Parameter.grad()``) share storage with the
+    # gradients: scale their plain tensors, away from the subclass's
+    # dispatch
+    arrays = [a.as_subclass(torch.Tensor) if isinstance(a, NDArray) else a
+              for a in arrays]
     norms = torch.stack([a.detach().float().norm() for a in arrays])
     total = math.sqrt(float((norms * norms).sum().item()))
     if check_isfinite and not math.isfinite(total):

@@ -24,7 +24,7 @@ layers, in training only; ``lstm_state_clip_min/max`` clip the final c.
 :func:`rnn_layers` takes the per-(layer, direction) tensors directly,
 so ``gluon.rnn.LSTM`` never packs its weights; :func:`rnn` is the op on
 the packed vector. GRU and vanilla RNN modes are not ported yet and
-raise (ROADMAP, Queue 1, item 4).
+raise (ROADMAP Queue 1, 'RNN remainders').
 """
 from __future__ import annotations
 
@@ -44,8 +44,8 @@ def _check_mode(mode):
         raise ValueError(f"unknown RNN mode {mode!r}")
     if mode != "lstm":
         raise NotImplementedError(
-            f"RNN mode {mode!r} is not ported yet (ROADMAP, Queue 1, item "
-            f"4: the GRU and vanilla RNN modes); mode='lstm' is")
+            f"RNN mode {mode!r} is not ported yet (ROADMAP Queue 1, 'RNN "
+            f"remainders': the GRU and vanilla RNN modes); mode='lstm' is")
 
 
 def rnn_param_size(num_layers, input_size, state_size, bidirectional, mode):

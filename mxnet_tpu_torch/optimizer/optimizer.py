@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import math
 import pickle
+import pickletools
 
 import torch
 
@@ -237,6 +238,17 @@ class Updater:
         self.optimizer.update_multi(indices, weights, grads, states)
 
     def set_states(self, states):
+        """Load :meth:`get_states`'s bytes (the states come as CPU
+        tensors). Raises ``MXNetError`` for the JAX package's states,
+        which pickle its own classes: the port reads them only by
+        importing that package, which it never does."""
+        foreign = _jax_package_globals(states)
+        if foreign:
+            raise MXNetError(
+                f"these optimizer states were written by the JAX package "
+                f"(they pickle {sorted(foreign)[:3]}): its .states files "
+                f"pickle its own classes and cannot be read by the port; "
+                f"carry the weights in a .params file instead")
         self.states, second = pickle.loads(states)
         if isinstance(second, Optimizer):
             self.optimizer = second
@@ -244,9 +256,34 @@ class Updater:
             self.optimizer.num_update = second
 
     def get_states(self, dump_optimizer=False):
+        """The states (as CPU tensors, so the bytes load on any
+        device) and the optimizer or its update count, pickled."""
+        states = {i: move_state(s, "cpu") for i, s in self.states.items()}
         return pickle.dumps(
-            (self.states, self.optimizer) if dump_optimizer
-            else (self.states, self.optimizer.num_update))
+            (states, self.optimizer) if dump_optimizer
+            else (states, self.optimizer.num_update))
+
+
+def move_state(state, device):
+    """An optimizer state (a tensor, a tuple or list of them, or None)
+    as plain tensors on ``device``."""
+    if isinstance(state, torch.Tensor):
+        return state.detach().as_subclass(torch.Tensor).to(device)
+    if isinstance(state, (tuple, list)):
+        return type(state)(move_state(s, device) for s in state)
+    return state
+
+
+def _jax_package_globals(payload):
+    """The JAX package's module names among a pickle's globals (read
+    from its opcodes, importing nothing)."""
+    found = set()
+    for _, arg, _ in pickletools.genops(payload):
+        if isinstance(arg, str):
+            mod = arg.split(" ")[0]
+            if mod == "mxnet_tpu" or mod.startswith("mxnet_tpu."):
+                found.add(mod)
+    return found
 
 
 def get_updater(optimizer):

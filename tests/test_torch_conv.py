@@ -338,8 +338,11 @@ def test_sequential_lambda_identity_and_names():
     torch.testing.assert_close(net(x), net[4](h))
     assert net.hybridize(static_alloc=True) is net
     assert net[0]._hybridize == (True, {"static_alloc": True})
-    clash = nn.Sequential().add(nn.Dense(2, in_units=2, device="cpu"),
-                                nn.Dense(2, in_units=2, device="cpu"))
+    # children left without prefixes are named by the name manager
+    # (dense0_, dense1_, ...); two given the empty prefix clash
+    clash = nn.Sequential().add(
+        nn.Dense(2, in_units=2, prefix="", device="cpu"),
+        nn.Dense(2, in_units=2, prefix="", device="cpu"))
     with pytest.raises(ValueError, match="two parameters named"):
         clash.gluon_params()
 

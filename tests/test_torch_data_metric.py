@@ -17,7 +17,7 @@ against the JAX package's, on the CPU.
 - ``examples/mnist_gluon.py`` and ``examples/train_imagenet.py`` with
   ``--device cpu --quick``; without ``--device`` and without a card
   they raise, and the options that are not ported raise with their
-  ROADMAP items.
+  ROADMAP items; MNIST's ``--save`` writes files that load back.
 """
 import numpy as np
 import pytest
@@ -27,7 +27,7 @@ import mxnet_tpu as mx
 from mxnet_tpu import metric as jmetric
 from mxnet_tpu.gluon import data as jdata
 from mxnet_tpu.gluon.data.vision import transforms as jtransforms
-from mxnet_tpu_torch import metric
+from mxnet_tpu_torch import gluon, metric
 from mxnet_tpu_torch.examples import mnist_gluon, train_imagenet
 from mxnet_tpu_torch.gluon import data
 from mxnet_tpu_torch.gluon.data.vision import transforms
@@ -201,7 +201,7 @@ def test_imagenet_example_quick_on_the_cpu():
 
 
 def test_examples_default_to_the_card_and_refuse_what_is_not_ported(
-        monkeypatch):
+        monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_imagenet.main(["--quick"])
@@ -212,8 +212,16 @@ def test_examples_default_to_the_card_and_refuse_what_is_not_ported(
                        (["--kv-store", "dist_sync"], "Multi-GPU")):
         with pytest.raises(NotImplementedError, match=item):
             train_imagenet.parse_args(argv)
-    with pytest.raises(NotImplementedError, match="Parameter files"):
-        mnist_gluon.parse_args(["--save", "ckpt"])
+    # --save writes a .params and a .states file that load back
+    prefix = str(tmp_path / "mlp")
+    mnist_gluon.main(["--device", "cpu", "--quick", "--save", prefix])
+    net = mnist_gluon.build("cpu", seed=1)
+    net.load_parameters(prefix + ".params")
+    assert sorted(mx.nd.load(prefix + ".params")) == sorted(
+        k for k, _ in net.named_parameters())
+    trainer = gluon.Trainer(net.collect_params(), "adam")
+    trainer.load_states(prefix + ".states")
+    assert trainer.optimizer.num_update == 16    # 2 epochs of 8 batches
     args = train_imagenet.parse_args([])
     assert (args.network, args.batch_size, args.image_shape, args.lr,
             args.dtype, args.classes) == ("resnet50_v1", 128, 224, 0.1,

@@ -74,6 +74,39 @@ def test_import_leaves_jax_out_of_the_process():
     assert out.stdout.strip() == "clean"
 
 
+def test_run_reference_child_imports_neither_jax_nor_the_jax_package(
+        tmp_path):
+    """A script that imports ``mxnet_tpu`` through ``run_reference``
+    binds the port: the child's ``sys.modules`` holds no ``jax`` and no
+    module file of the JAX package."""
+    script = tmp_path / "probe.py"
+    script.write_text(
+        "import sys\n"
+        "import mxnet_tpu as mx\n"
+        "from mxnet_tpu.gluon import nn\n"
+        "from mxnet_tpu.gluon.utils import clip_global_norm\n"
+        "assert mx.__name__ == 'mxnet_tpu_torch', mx.__name__\n"
+        "assert nn.Dense.__module__.startswith('mxnet_tpu_torch.')\n"
+        "files = {n: getattr(m, '__file__', '') or '' "
+        "for n, m in list(sys.modules.items())}\n"
+        "bad = [n for n, f in files.items() if n.split('.')[0] in "
+        "('jax', 'jaxlib') or '/mxnet_tpu/' in f]\n"
+        "print('BAD', bad)\n"
+        "try:\n"
+        "    import mxnet_tpu.symbol\n"
+        "except ModuleNotFoundError as e:\n"
+        "    print('MISSING', e.name)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-m", "mxnet_tpu_torch.examples.run_reference",
+         "--ctx", "cpu", str(script)], cwd=str(ROOT), env=env,
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout
+    assert "MISSING mxnet_tpu.symbol" in out.stdout
+    assert '"launch_counts"' in out.stdout.splitlines()[-1]
+
+
 def test_resolve_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for dev in (None, "cuda", "cuda:0"):

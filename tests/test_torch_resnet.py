@@ -287,7 +287,7 @@ def test_model_zoo_entry_points():
         vision.get_model("mobilenet1.0")
     with pytest.raises(NotImplementedError, match="Vision remainders"):
         vision.resnet18_v1(remat_stages=(3,), device="cpu")
-    with pytest.raises(NotImplementedError, match="Parameter files"):
+    with pytest.raises(NotImplementedError, match="downloads"):
         vision.resnet18_v1(pretrained=True, device="cpu")
     with pytest.raises(ValueError):
         vision.get_resnet(3, 18)

@@ -104,7 +104,7 @@ def test_pack_and_unpack_round_trip_and_modes_not_ported():
     assert torch.equal(op_impl_rnn.pack_rnn_params(sets),
                        torch.from_numpy(params))
     for mode in ("gru", "rnn_tanh", "rnn_relu"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+        with pytest.raises(NotImplementedError, match="RNN remainders"):
             op_impl_rnn.rnn(*(torch.from_numpy(a) for a in (x, params, h0)),
                             state_size=H, num_layers=L, mode=mode)
     with pytest.raises(ValueError, match="packed RNN parameters"):
@@ -159,8 +159,19 @@ def test_gluon_lstm_matches_jax_with_carried_weights(layout, with_states):
 
 
 def test_gluon_lstm_layer_contract():
-    with pytest.raises(ValueError, match="input_size"):
-        rnn.LSTM(H, device="cpu")
+    # deferred input_size: the first forward gives the input width, as
+    # the JAX layer's deferred shape does
+    lazy = rnn.LSTM(H, device="cpu")
+    assert lazy.collect_params()["l0_i2h_weight"].shape == (4 * H, 0)
+    lazy.initialize(init="xavier", seed=1)
+    x = np.random.RandomState(3).randn(T, N, I).astype(np.float32)
+    assert tuple(lazy(torch.from_numpy(x)).shape) == (T, N, H)
+    jlazy = jgluon.rnn.LSTM(H)
+    jlazy.initialize(init=mx.initializer.Xavier())
+    jlazy(mx.nd.array(x))
+    jshapes = {k[len(jlazy.prefix):]: v.shape
+               for k, v in jlazy.collect_params().items()}
+    assert {k: p.shape for k, p in lazy.collect_params().items()} == jshapes
     with pytest.raises(ValueError, match="layout"):
         rnn.LSTM(H, layout="NCT", input_size=I, device="cpu")
     net = rnn.LSTM(H, num_layers=L, bidirectional=True, input_size=I,
