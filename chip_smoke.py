@@ -133,7 +133,27 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
     states saved too) train, save, and train on here, while a fresh
     process (``--resume-child``) loads the files and takes the same
     last steps: final weights equal bit for bit (the word LM within
-    1e-6 relative only if its own run does not repeat bit for bit).
+    1e-6 relative only if its own run does not repeat bit for bit);
+14. ``mx.nd`` and user HybridBlocks: ``nd.LayerNorm``,
+    ``nd.flash_attention``, ``nd.softmax_cross_entropy`` and ``nd.RNN``
+    on CUDA NDArrays at the main paths' shapes (the training batch's
+    64 x 128 x 768 rows, its 64 x 12 x 128 x 64 heads with its valid
+    lengths, its valid positions x 30522 logits; the word LM's
+    T=35, N=32, 2 x LSTM(650)), forward and backward, against the op
+    functions on plain tensors: the same bits and exactly 1 + 1
+    launches each (the RNN 2 + 2 + 2); every op case of
+    ``tests/nd_op_cases.py`` on the card and on the CPU in float32
+    (outputs within ``test_utils``' float32 tolerances, integer,
+    comparison and ordering results exact); then
+    ``mxnet_tpu_torch/examples/hybrid_bert.py`` (a BERT-base trunk and
+    MLM head written in F-ops) with the weights of phase 7's model zoo
+    pair: step-1 loss within 1e-5 relative and gradients within 1e-3
+    of scale of the model zoo's, then phase 7's batch, 2 warm-up and 10
+    Adam steps at lr 1e-4 with phase 7's gates (12 + 12, 26 + 26, 1 + 1
+    launches a step), its step p50 and valid tokens/s printed beside
+    phase 7's p50; and the F-op model at 2 layers card vs CPU as phase
+    9 holds the model zoo's (losses 1e-4 relative, step-1 gradients
+    1e-3 of scale).
 
 The op-dispatch phase also times one
 ``F.scaled_dot_product_attention`` call beside K1, K2 and K5 at head
@@ -143,6 +163,10 @@ dims past 256 (264 and 512; K5 also 320): forward and backward apart.
 busy share) of both serving windows and of one step of each training
 path; the ResNet steps also by layer kind (convolutions, BatchNorm,
 ReLU, pooling, Dense, loss, optimizer).
+
+In the ``kernels`` line, ``launches_by_path["nd"]`` counts phase 14's
+launches: the F-op model's 10 steps for K1, K2, K3a, K3b, K4a and K4b,
+the registry's ``nd.RNN`` call for K6a and K6b.
 
 The last three lines of standard output are ``{"kernels": [...]}``,
 then the card's name and power limit as ``nvidia-smi --query-gpu=
@@ -1919,7 +1943,7 @@ def train_main_path(seed, profile, dev, power_line, steps=10, warmup=2):
          "slot_tokens_per_s": slots / p50, "valid_tokens": n_valid,
          "loss_per_token": losses, "peak_memory_bytes": peak,
          "params": n_params, "launches": counts, "card": power_line}))
-    return counts
+    return counts, p50
 
 
 def cross_device_train(seed, dev, steps=3):
@@ -2859,6 +2883,335 @@ def reference_scripts(dev, power_line):
     return {"word_lm": wlm, "mnist": mnist, "resume": resume}
 
 
+# -- phase 14: mx.nd and user HybridBlocks ------------------------------------
+def _grad_gap(got, want):
+    """Largest ``|got - want|`` over ``want``'s largest magnitude."""
+    gap = (got.float().cpu() - want.float().cpu()).abs().max().item()
+    return gap / max(want.float().abs().max().item(), 1e-30)
+
+
+def nd_registry_on_the_card(seed, dev):
+    """``nd.LayerNorm``, ``nd.flash_attention``,
+    ``nd.softmax_cross_entropy`` and ``nd.RNN`` on CUDA NDArrays at the
+    main paths' shapes, forward and backward, against the op functions
+    on plain tensors from the same inputs and head: exact launch counts
+    each way and the same bits. Returns the registry runs' launches by
+    kernel."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import autograd, nd, ops
+    from mxnet_tpu_torch.ndarray import op_impl_nn, op_impl_rnn
+
+    rng = np.random.RandomState(seed + 14)
+    lens, _, labels, _ = train_batch(seed)
+
+    def t(shape, lo=-1.0, hi=1.0):
+        return torch.tensor(rng.uniform(lo, hi, shape), dtype=torch.float32,
+                            device=dev)
+
+    u, heads = BERT_BASE["units"], BERT_BASE["num_heads"]
+    vl = torch.tensor(lens, device=dev)
+    lab = torch.tensor(labels, device=dev)
+    h, n, layers = WLM["hid"], WLM["batch"], WLM["layers"]
+    size = op_impl_rnn.rnn_param_size(layers, WLM["emb"], h, False, "lstm")
+    rnn_kw = dict(state_size=h, num_layers=layers, mode="lstm",
+                  state_outputs=True)
+    cases = [
+        ("LayerNorm", [t((TRAIN_B, TRAIN_S, u)), t((u,), 0.5, 1.5),
+                       t((u,))],
+         lambda a: op_impl_nn.layer_norm(*a, eps=1e-12),
+         lambda a: nd.LayerNorm(*a, axis=-1, eps=1e-12),
+         {"layer_norm": 1, "layer_norm_bwd": 1}),
+        ("flash_attention",
+         [t((TRAIN_B, heads, TRAIN_S, u // heads)) for _ in range(3)],
+         lambda a: op_impl_nn.flash_attention_op(*a, vl),
+         lambda a: nd.flash_attention(*a, vl.as_subclass(nd.NDArray)),
+         {"flash_attention": 1, "flash_attention_bwd": 1}),
+        ("softmax_cross_entropy", [t((len(labels), VOCAB), -4, 4)],
+         lambda a: op_impl_nn.softmax_cross_entropy(a[0], lab),
+         lambda a: nd.softmax_cross_entropy(a[0],
+                                            lab.as_subclass(nd.NDArray)),
+         {"softmax_xent_fwd": 1, "softmax_xent_bwd": 1}),
+        ("RNN", [t((WLM["bptt"], n, WLM["emb"])),
+                 t((size,), -0.05, 0.05), t((layers, n, h)),
+                 t((layers, n, h))],
+         lambda a: op_impl_rnn.rnn(*a, **rnn_kw)[0],
+         lambda a: nd.RNN(*a, **rnn_kw)[0],
+         {"lstm_fwd": layers, "lstm_bwd": layers, "lstm_bwd_dw": layers}),
+    ]
+    total = collections.Counter()
+    for name, args, direct, reg, want in cases:
+        runs, head = [], None
+        for fn in (direct, reg):
+            xs = [a.clone() if fn is direct else
+                  a.clone().as_subclass(nd.NDArray) for a in args]
+            for x in xs:
+                x.requires_grad_(True)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            with autograd.record():
+                out = fn(xs)
+            plain = out.as_subclass(torch.Tensor)
+            if head is None:            # one head for both runs
+                head = torch.tensor(rng.uniform(-1, 1, tuple(plain.shape)),
+                                    dtype=plain.dtype, device=dev)
+            out.backward(head if fn is direct else head.as_subclass(
+                nd.NDArray))
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            runs.append((plain.detach(), [x.grad.as_subclass(torch.Tensor)
+                                          for x in xs], counts))
+        (o_d, g_d, n_d), (o_r, g_r, n_r) = runs
+        if n_d != want or n_r != want:
+            raise AssertionError(f"nd.{name}: launches {n_r} (direct "
+                                 f"{n_d}), want {want}")
+        same = torch.equal(o_r, o_d) and all(
+            torch.equal(a, b) for a, b in zip(g_r, g_d))
+        if not same:
+            raise AssertionError(f"nd.{name}: not the direct call's bits")
+        total.update(n_r)
+        log(f"nd.{name} on CUDA NDArrays: launches {n_r}, forward and "
+            f"{len(g_r)} gradients bit for bit the op function's")
+    return dict(total)
+
+
+def nd_sweep_card_vs_cpu(dev):
+    """Every registered op of the CPU parity tests' table
+    (``tests/nd_op_cases.py``) on the card and on the CPU in float32:
+    outputs within ``test_utils``' float32 tolerances (rtol 1e-4, atol
+    1e-6), integer, comparison and ordering results exact."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from nd_op_cases import SPECS, rs_for
+
+    from mxnet_tpu_torch import nd, test_utils
+    from mxnet_tpu_torch.context import Context
+
+    rtol, atol = test_utils.device_tols("float32")
+    worst, n_out = 0.0, 0
+    for name in sorted(SPECS):
+        inputs, params, _, exact = SPECS[name]
+        arrays = inputs(rs_for(name))
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            with Context.of(d):
+                xs = [nd.array(a, dtype=a.dtype) for a in arrays]
+                got = getattr(nd, name)(*xs, **params)
+            outs.append(list(got) if isinstance(got, (list, tuple))
+                        else [got])
+        for g, w in zip(*outs):
+            if g.device.type != "cuda":
+                raise AssertionError(f"nd.{name}: output on {g.device}")
+            g = g.as_subclass(torch.Tensor).cpu()
+            w = w.as_subclass(torch.Tensor)
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"nd.{name}: {g.shape} {g.dtype} on "
+                                     f"the card, {w.shape} {w.dtype}")
+            n_out += 1
+            if exact or not g.is_floating_point():
+                if not torch.equal(g, w):
+                    raise AssertionError(f"nd.{name}: card and CPU differ")
+                continue
+            gd, wd = g.double().numpy(), w.double().numpy()
+            if not np.allclose(gd, wd, rtol=rtol, atol=atol,
+                               equal_nan=True):
+                raise AssertionError(
+                    f"nd.{name}: card vs CPU gap "
+                    f"{np.nanmax(np.abs(gd - wd))} past rtol {rtol} atol "
+                    f"{atol}")
+            fin = np.isfinite(wd)
+            if fin.any():
+                worst = max(worst, float(np.max(
+                    np.abs(gd - wd)[fin] / (atol + rtol * np.abs(wd[fin])))))
+    log(f"registry sweep: {len(SPECS)} ops, {n_out} outputs, card vs CPU "
+        f"within rtol {rtol} / atol {atol} (worst {worst:.3f} of the "
+        f"allowance), exact ones bit for bit")
+
+
+def build_hybrid(seed, dev, num_layers):
+    """``examples/hybrid_bert.py`` at BERT-base width on ``dev`` with the
+    weights of phase 7's model zoo pair (``build_trainer``'s, from
+    ``seed``); returns ``(hybrid, zoo trunk, zoo head)``."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.context import Context
+    from mxnet_tpu_torch.examples import hybrid_bert
+
+    net, head, _, _ = build_trainer(seed, dev, num_layers)
+    cfg = dict(BERT_BASE, num_layers=num_layers)
+    with Context.of(dev):
+        hyb = hybrid_bert.build(gluon, layer_norm_eps=1e-12, **cfg)
+    hybrid_bert.load_weights(hyb, net, head)
+    return hyb, net, head
+
+
+def hybrid_step(hyb, trainer, batch):
+    """One MLM step of the F-op model; returns its loss tensor."""
+    from mxnet_tpu_torch import autograd
+
+    ids, tt, lens, pos, labels, n_valid = batch
+    with autograd.record():
+        loss = hyb(ids, tt, lens, pos, labels)
+    loss.backward()
+    if trainer is not None:
+        trainer.step(n_valid)
+    return loss
+
+
+def train_hybrid_main_path(seed, dev, power_line, zoo_p50, steps=10,
+                           warmup=2):
+    """The F-op BERT-base MLM model on ``train-bertbase-mlm-b64s128``:
+    step 1 against the model zoo pair with the same weights (loss
+    within 1e-5 relative, every gradient within 1e-3 of its largest),
+    then 2 warm-up and 10 Adam steps with exact launches a step.
+    Returns the measured steps' launches."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import gluon, nd, ops
+
+    layers, u = BERT_BASE["num_layers"], BERT_BASE["units"]
+    t0 = time.perf_counter()
+    hyb, net, head = build_hybrid(seed, dev, layers)
+    log(f"F-op BERT-base: {len(hyb.collect_params())} parameters from "
+        f"the model zoo pair ({time.perf_counter() - t0:.1f} s)")
+    batch = to_device(train_batch(seed), dev)
+    ids, tt, lens, pos, labels, n_valid = batch
+    from mxnet_tpu_torch import autograd
+    with autograd.record():
+        seq = net(ids, tt, lens)
+        zloss = nd.softmax_cross_entropy(head(seq.reshape(-1, u)[pos]),
+                                         labels)
+    zloss.backward()
+    hloss = hybrid_step(hyb, None, batch)
+    rel = abs(hloss.item() - zloss.item()) / abs(zloss.item())
+    zoo = {"trunk": net.collect_params(), "head": head.collect_params()}
+    from mxnet_tpu_torch.examples.hybrid_bert import zoo_name
+    worst, worst_name = 0.0, None
+    for name, p in hyb.collect_params().items():
+        part, z = zoo_name(name)
+        gap = _grad_gap(p.grad(), zoo[part][z].grad())
+        if gap > worst:
+            worst, worst_name = gap, name
+    log(f"F-op vs model zoo, step 1: loss {hloss.item():.6f} vs "
+        f"{zloss.item():.6f} (relative gap {rel:.3e}, tol 1e-5); largest "
+        f"gradient gap {worst:.3e} of scale ({worst_name}, tol 1e-3)")
+    if not rel <= 1e-5:
+        raise AssertionError(f"F-op loss differs by {rel}")
+    if not worst <= 1e-3:
+        raise AssertionError(f"F-op gradient of {worst_name} differs by "
+                             f"{worst} of its scale")
+    del net, head, zoo, seq, zloss
+    params = hyb.collect_params()
+    for p in params.values():
+        p.zero_grad()
+    trainer = gluon.Trainer(params, "adam", {"learning_rate": 1e-4})
+    for _ in range(warmup):
+        hybrid_step(hyb, trainer, batch)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = hybrid_step(hyb, trainer, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item() / n_valid)
+    counts = ops.launch_counts()
+    per_step = {"flash_attention": layers, "flash_attention_bwd": layers,
+                "layer_norm": 2 * layers + 2,
+                "layer_norm_bwd": 2 * layers + 2,
+                "softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
+    for name, k in per_step.items():
+        if counts[name] != k * steps:
+            raise AssertionError(f"F-op model: {name} launched "
+                                 f"{counts[name]} times in {steps} steps, "
+                                 f"want {k} a step")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"F-op model: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"F-op model: loss did not fall: {losses}")
+    for name, p in params.items():
+        g = p.grad()
+        if not bool(torch.isfinite(g).all()) or g.abs().max().item() == 0:
+            raise AssertionError(f"F-op model: {name} gradient not finite "
+                                 f"or all zero")
+    p50 = float(np.median(times))
+    log(f"F-op BERT-base trained {steps} steps (+{warmup} warm-up): step "
+        f"p50 {p50 * 1e3:.2f} ms, {n_valid / p50:.1f} valid tokens/s; "
+        f"model zoo (phase 7, this run) {zoo_p50 * 1e3:.2f} ms: ratio "
+        f"{p50 / zoo_p50:.4f}; loss per token {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}; launches {counts} [{power_line}]")
+    log("F-op training metrics: " + json.dumps(
+        {"step_ms_p50": p50 * 1e3, "step_ms": [x * 1e3 for x in times],
+         "valid_tokens_per_s": n_valid / p50,
+         "zoo_step_ms_p50": zoo_p50 * 1e3, "ratio_to_zoo": p50 / zoo_p50,
+         "loss_per_token": losses, "launches": counts,
+         "card": power_line}))
+    return counts
+
+
+def cross_device_hybrid(seed, dev, steps=3):
+    """The F-op model at 2 layers, BERT-base width, from one seed on the
+    card and on the CPU: three Adam steps, losses within 1e-4 relative
+    and step-1 gradients within 1e-3 of each parameter's largest CPU
+    gradient."""
+    import torch
+
+    from mxnet_tpu_torch import gluon
+
+    batch = train_batch(seed + 5, b=4, s=32)
+    runs = {}
+    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        hyb, _, _ = build_hybrid(seed, device, 2)
+        params = hyb.collect_params()
+        trainer = gluon.Trainer(params, "adam", {"learning_rate": 1e-4})
+        data = to_device(batch, device)
+        losses, grads = [], None
+        for i in range(steps):
+            losses.append(hybrid_step(hyb, trainer, data).item())
+            if i == 0:
+                grads = {k: p.grad().detach().cpu().clone()
+                         for k, p in params.items()}
+        runs[name] = losses, grads
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    worst, worst_name = 0.0, None
+    for k, g_cpu in runs["cpu"][1].items():
+        gap = (runs["cuda"][1][k] - g_cpu).abs().max().item()
+        scale = g_cpu.abs().max().item()
+        if gap > 1e-3 * scale + 1e-7 and gap / max(scale, 1e-30) > worst:
+            worst, worst_name = gap / max(scale, 1e-30), k
+    log(f"cross-device F-op training: losses {runs['cuda'][0]} (card) vs "
+        f"{runs['cpu'][0]} (cpu), max relative gap {rel:.3e} (tol 1e-4); "
+        f"step-1 gradients of {len(runs['cpu'][1])} parameters "
+        f"{'within' if worst_name is None else 'NOT within'} 1e-3 of each "
+        f"parameter's largest CPU gradient")
+    if not rel <= 1e-4:
+        raise AssertionError(f"F-op training losses differ by {rel}")
+    if worst_name is not None:
+        raise AssertionError(f"F-op gradient of {worst_name} differs by "
+                             f"{worst} of its scale")
+
+
+def nd_and_hybrid_blocks(seed, dev, power_line, zoo_p50):
+    """Phase 14; returns ``{kernel: launches}`` of its registry runs and
+    of the F-op model's measured steps."""
+    t0 = time.perf_counter()
+    reg = nd_registry_on_the_card(seed, dev)
+    nd_sweep_card_vs_cpu(dev)
+    train = train_hybrid_main_path(seed, dev, power_line, zoo_p50)
+    cross_device_hybrid(seed, dev)
+    log(f"phase 14 (mx.nd and user HybridBlocks): "
+        f"{time.perf_counter() - t0:.1f} s")
+    counts = {k: v for k, v in train.items() if v}
+    for k in ("lstm_fwd", "lstm_bwd", "lstm_bwd_dw"):
+        counts[k] = reg[k]
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2918,7 +3271,8 @@ def main():
     # each path's launches, counted from 0 over its own run
     decode = serve_main_path(args.seed, args.profile, dev, power_line)
     encoder = serve_encoder(args.seed, args.profile, dev, power_line)
-    train = train_main_path(args.seed, args.profile, dev, power_line)
+    train, zoo_p50 = train_main_path(args.seed, args.profile, dev,
+                                     power_line)
     wordlm = train_wordlm_main_path(args.seed, args.profile, dev,
                                     power_line)
     # the vision paths: no port kernel on them (cuDNN and torch's own)
@@ -2951,6 +3305,15 @@ def main():
     cross_device_train(args.seed, dev)
     cross_device_wordlm(args.seed, dev)
     cross_device_resnet(args.seed, dev)
+    # mx.nd and user HybridBlocks: the registry's kernel calls, then the
+    # F-op BERT's training (launches counted from 0 over its own steps)
+    by_nd = nd_and_hybrid_blocks(args.seed, dev, power_line, zoo_p50)
+    for e in entries:
+        if e["name"] in by_nd:
+            e.setdefault("launches_by_path", {})["nd"] = by_nd[e["name"]]
+        if e["name"] == "lstm_bwd":
+            e["launches_by_path"]["nd_by_kernel"] = {
+                k: by_nd[k] for k in ("lstm_bwd", "lstm_bwd_dw")}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(power_line)

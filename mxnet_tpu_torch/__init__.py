@@ -27,13 +27,19 @@ the same relative path, and the top-level names are the reference's
 package's own Gluon scripts run on the port as written
 (``examples/run_reference.py``). Parameters travel in the reference's
 ``.params`` files (``nd.save``/``nd.load``, ``Block.save_parameters``,
-``checkpoint.CheckpointManager``). This package imports ``torch`` and
+``checkpoint.CheckpointManager``). ``mx.nd`` holds the reference's op
+registry (``mx.nd.FullyConnected``, ``mx.nd.broadcast_add``, ...:
+``ndarray/register.py``), and a user's ``HybridBlock`` runs its
+``hybrid_forward(F, x, ...)`` with ``F`` that namespace; ``random``,
+``engine``, ``name``, ``attribute``, ``util`` and ``test_utils`` are
+the reference's runtime modules. This package imports ``torch`` and
 nothing of ``jax`` or ``mxnet_tpu``.
 """
 from __future__ import annotations
 
 from . import autograd, checkpoint, context, gluon, initializer
 from . import lr_scheduler, metric, ndarray, optimizer
+from . import attribute, engine, name, random, test_utils, util
 from . import initializer as init
 from . import ndarray as nd
 from .base import MXNetError
@@ -41,7 +47,8 @@ from .context import Context, cpu, current_context, gpu, num_gpus
 from .ndarray import NDArray
 
 __version__ = "0.1.0"
-__all__ = ["Context", "MXNetError", "NDArray", "autograd", "checkpoint",
-           "context", "cpu", "current_context", "gluon", "gpu", "init",
-           "initializer", "lr_scheduler", "metric", "nd", "ndarray",
-           "num_gpus", "optimizer"]
+__all__ = ["Context", "MXNetError", "NDArray", "attribute", "autograd",
+           "checkpoint", "context", "cpu", "current_context", "engine",
+           "gluon", "gpu", "init", "initializer", "lr_scheduler", "metric",
+           "name", "nd", "ndarray", "num_gpus", "optimizer", "random",
+           "test_utils", "util"]

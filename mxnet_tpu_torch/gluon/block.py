@@ -55,7 +55,14 @@ Normal(0, ``sigma``), ``gamma`` and running variances ones,
 ``bias``/``beta`` and running means zeros. A parameter initialized
 once is left as it is unless ``force_reinit``.
 
-``HybridBlock`` is another name for :class:`Block`: PyTorch runs
+**User blocks.** ``HybridBlock`` is another name for :class:`Block`. A
+subclass that defines ``hybrid_forward(self, F, x, ...)`` instead of
+``forward`` runs as the reference's: ``F`` is ``mx.nd`` (the op
+registry) and the parameters it assigned as attributes from
+``self.params.get(...)``/``get_constant(...)`` come as keyword
+arguments, plain tensors, by attribute name (:meth:`Block.forward`).
+Inside it the F-ops see and give plain tensors. Layers that define
+``forward`` (all of the port's) keep their own path. PyTorch runs
 eagerly, and :meth:`Block.hybridize` records its arguments and
 compiles nothing (a CUDA graph of the step is ROADMAP Queue 1,
 'Hybridize').
@@ -78,11 +85,13 @@ import torch
 from torch import nn
 
 from .. import autograd, initializer
+from .. import ndarray as _F
 from ..base import MXNetError
 from ..context import resolve_device
 from ..ndarray import serialization
 from ..ndarray.ndarray import NDArray
-from .parameter import (Parameter, ParameterDict, is_deferred, materialize,
+from .parameter import (DeferredInitializationError, Parameter,
+                        ParameterDict, is_deferred, materialize,
                         new_parameter)
 
 __all__ = ["Block", "HybridBlock"]
@@ -179,6 +188,8 @@ def init_params(items, init=None, ctx=None, verbose=False,
     skipped = []
     for k, (name, p) in enumerate(items):
         p = p._tensor if isinstance(p, Parameter) else p
+        if getattr(p, "_mx_constant", False):
+            continue                    # a Constant keeps its value
         if getattr(p, "_mx_initialized", False) and not force_reinit:
             skipped.append(name)
             continue
@@ -220,6 +231,7 @@ class Block(nn.Module):
         else:
             self._shared = None
         self._scope = _BlockScope(self)
+        self._reg_params = {}           # attribute name -> Parameter view
 
     def __setattr__(self, name, value):
         shared = self.__dict__.get("_shared")
@@ -227,6 +239,17 @@ class Block(nn.Module):
             pd, path = shared
             if path + name in pd:
                 value = pd[path + name]._tensor
+        if isinstance(value, Parameter):
+            # ``self.weight = self.params.get("weight", ...)``: the tensor
+            # is registered (under the name given to ``get``, or this
+            # one) and the attribute is the Gluon view, which
+            # ``hybrid_forward`` receives as a keyword argument
+            if all(t is not value._tensor for t in self._parameters.values()):
+                self.register_parameter(name, value._tensor)
+                self._deferred = self._deferred or is_deferred(value._tensor)
+            self._reg_params[name] = value
+            self.__dict__[name] = value
+            return
         super().__setattr__(name, value)
 
     def __call__(self, *args, **kwargs):
@@ -250,6 +273,69 @@ class Block(nn.Module):
     @property
     def prefix(self):
         return self._prefix
+
+    @property
+    def params(self):
+        """This block's own :class:`~.parameter.ParameterDict` (its
+        prefix, its parameters by their local names): ``get`` and
+        ``get_constant`` make parameters on it, as in the reference.
+        ``collect_params`` gathers the whole tree."""
+        pd = self.__dict__.get("_params_dict")
+        if pd is None:
+            pd = ParameterDict(self._prefix, owner=self)
+            for name, p in self.named_parameters(recurse=False):
+                pd._params[name] = Parameter.of(name, p)
+            self.__dict__["_params_dict"] = pd
+        return pd
+
+    def forward(self, x, *args, **kwargs):
+        """``hybrid_forward(F, x, *args, **params)`` with ``F`` the
+        ``mx.nd`` namespace and ``params`` the tensors of the
+        parameters assigned as attributes (``self.weight =
+        self.params.get(...)``), by attribute name, as the reference's
+        ``HybridBlock.forward``. A block that defines ``forward``
+        itself (every layer of the port) never comes here. Deferred
+        shapes are given by the block's ``infer_shape(x, *args)`` on
+        the first call."""
+        if type(self).hybrid_forward is Block.hybrid_forward:
+            raise NotImplementedError(
+                f'Module [{type(self).__name__}] is missing the required '
+                f'"forward" function (or "hybrid_forward")')
+        if self._deferred:
+            self._infer_param_shapes(x, *args)
+        params = {k: v._tensor for k, v in self._reg_params.items()}
+        return self.hybrid_forward(_F, x, *args, **kwargs, **params)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        """The reference's ``hybrid_forward``; subclasses define it
+        (see :meth:`forward`)."""
+        raise NotImplementedError
+
+    def infer_shape(self, *args):
+        """Give the deferred parameters their shapes from the first
+        inputs (set ``param.shape``); blocks whose ``hybrid_forward``
+        reads deferred parameters define it, as in the reference."""
+        raise MXNetError(f"{type(self).__name__} has deferred-initialized "
+                         f"parameters but does not implement infer_shape")
+
+    def _infer_param_shapes(self, *args):
+        deferred = [(k, v) for k, v in self._reg_params.items()
+                    if is_deferred(v._tensor)]
+        if deferred:
+            self.infer_shape(*args)
+            for k, v in deferred:
+                t = v._tensor
+                if not hasattr(t, "_mx_pending"):
+                    raise MXNetError(
+                        f"Parameter '{self._prefix}{k}' has not been "
+                        f"initialized: call initialize() before the "
+                        f"first forward")
+                if 0 in tuple(v.shape):
+                    raise DeferredInitializationError(
+                        f"Parameter '{self._prefix}{k}': infer_shape "
+                        f"left its shape {v.shape} unknown")
+                materialize(t, v.shape, self._prefix + k)
+        self._deferred = False
 
     @property
     def name(self):

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 from collections import OrderedDict
 
+import numpy as np
 import torch
 from torch.nn.parameter import UninitializedParameter
 
@@ -38,8 +39,9 @@ from ..base import MXNetError
 from ..context import resolve_device
 from ..ndarray.ndarray import NDArray, to_dtype
 
-__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict",
-           "is_deferred", "materialize", "new_parameter"]
+__all__ = ["Constant", "DeferredInitializationError", "Parameter",
+           "ParameterDict", "is_deferred", "materialize", "new_constant",
+           "new_parameter"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -138,6 +140,20 @@ class Parameter:
             return self._tensor._mx_shape
         return tuple(self._tensor.shape)
 
+    @shape.setter
+    def shape(self, new_shape):
+        """Fill in a deferred parameter's unknown (0) dimensions (a
+        block's ``infer_shape``); a known shape may only be restated."""
+        new_shape = tuple(int(s) for s in new_shape)
+        if not _compatible(self.shape, new_shape) and \
+                not _compatible(new_shape, self.shape):
+            raise ValueError(f"Parameter '{self.name}': shape "
+                             f"{new_shape} is incompatible with "
+                             f"{self.shape}")
+        if is_deferred(self._tensor):
+            self._tensor._mx_shape = tuple(
+                n if n else o for n, o in zip(new_shape, self.shape))
+
     @property
     def dtype(self):
         return getattr(self._tensor, "_mx_dtype", None) or self._tensor.dtype
@@ -175,7 +191,7 @@ class Parameter:
         """Copy ``data`` (a tensor, an NDArray or an array) into the
         weight; a deferred weight takes its shape from ``data``."""
         src = data if isinstance(data, torch.Tensor) else \
-            torch.as_tensor(data)
+            torch.tensor(np.asarray(data))
         if is_deferred(self._tensor):
             materialize(self._tensor, src.shape, self.name)
         elif tuple(src.shape) != self.shape:
@@ -193,16 +209,49 @@ class Parameter:
         self._tensor.grad = None
 
 
+class Constant(Parameter):
+    """A parameter that holds a fixed value and takes no gradient
+    (``ParameterDict.get_constant``); ``initialize`` leaves it as it
+    is."""
+
+    def __init__(self, name, tensor, value):
+        super().__init__(name, tensor)
+        self.value = value
+
+
+def new_constant(name, value, device=None):
+    """The ``nn.Parameter`` of a :class:`Constant` holding ``value``
+    (array-like; Python floats as float32), with its view."""
+    src = value.detach().as_subclass(torch.Tensor) \
+        if isinstance(value, torch.Tensor) else torch.as_tensor(value)
+    if src.dtype == torch.float64 and not isinstance(value, torch.Tensor):
+        src = src.float()
+    t = torch.nn.Parameter(src.to(resolve_device(device)).clone(),
+                           requires_grad=False)
+    autograd.set_grad_req(t, "null")
+    t._mx_initialized = t._mx_constant = True
+    t._mx_param = Constant(name, t, value)
+    return t
+
+
 class ParameterDict:
     """Ordered ``{name: Parameter}``. The port's names carry no model
     prefix (``embed_word_weight``, ``enc_layer0_attn_qkv_weight``); the
     dict's ``prefix`` is the model's. ``shared`` is another dict whose
-    parameters :meth:`get` hands out by name (parameter sharing)."""
+    parameters :meth:`get` hands out by name (parameter sharing).
 
-    def __init__(self, prefix="", shared=None):
+    A block's own dict (``Block.params``, ``owner`` the block) holds
+    the parameters :meth:`get` and :meth:`get_constant` make for it by
+    the names given (the reference's ``self.params.get("weight", ...)``)
+    and registers each on the block under that name, so the block's
+    ``named_parameters``, ``collect_params``, ``initialize`` and
+    parameter files see it as they see a layer's own weights."""
+
+    def __init__(self, prefix="", shared=None, owner=None):
         self._prefix = prefix
         self._params = OrderedDict()
         self._shared = shared
+        self._owner = owner
 
     def __repr__(self):
         body = "\n".join(f"  {v}" for v in self._params.values())
@@ -239,13 +288,33 @@ class ParameterDict:
         if self._shared is not None and name in self._shared._params:
             self._params[name] = self._shared._params[name]
             return self._params[name]
+        owner = self._owner
+        if owner is not None and owner._shared is not None:
+            pd, path = owner._shared        # Block(params=...) sharing
+            if path + name in pd:
+                self._params[name] = pd[path + name]
+                self._adopt(name, self._params[name])
+                return self._params[name]
         return None
 
+    def _adopt(self, name, param):
+        """Register ``param``'s tensor on the owner block as ``name``."""
+        owner = self._owner
+        if owner is not None and name.isidentifier() and \
+                name not in owner._parameters and \
+                not hasattr(owner, name):
+            owner.register_parameter(name, param._tensor)
+            owner._deferred = owner._deferred or is_deferred(param._tensor)
+
     def get(self, name, shape=None, dtype="float32", init=None,
-            grad_req="write", ctx=None):
+            grad_req="write", ctx=None, **kwargs):
         """The parameter ``name`` (the shared dict's, if it has one),
         else a new one of ``shape`` (0 or ``None`` for a dimension not
-        known yet) on ``ctx`` (default: the current context)."""
+        known yet) on ``ctx`` (default: the current context). Given a
+        ``shape`` with more known dimensions than the existing
+        parameter's, the parameter takes them (deferred ones).
+        ``lr_mult``/``wd_mult`` set those attributes;
+        ``allow_deferred_init`` is accepted (a 0 always defers here)."""
         param = self._get_impl(name)
         if param is None:
             shape = (0,) if shape is None else tuple(
@@ -254,6 +323,33 @@ class ParameterDict:
                 shape, to_dtype(dtype), resolve_device(ctx),
                 grad_req=grad_req, init=init))
             self._params[name] = param
+            self._adopt(name, param)
+        elif shape is not None and is_deferred(param._tensor):
+            param.shape = tuple(0 if s is None else s for s in shape)
+        for k in ("lr_mult", "wd_mult"):
+            if k in kwargs:
+                setattr(param, k, kwargs.pop(k))
+        # every 0 dimension defers here; the port's arrays are dense
+        kwargs.pop("allow_deferred_init", None)
+        if kwargs.pop("stype", "default") != "default":
+            raise MXNetError("the port's parameters are dense (ROADMAP "
+                             "Queue 1, 'Long tail')")
+        if kwargs:
+            raise TypeError(f"ParameterDict.get: unexpected arguments "
+                            f"{sorted(kwargs)}")
+        return param
+
+    def get_constant(self, name, value=None):
+        """The constant ``name``, made from ``value`` (array-like) the
+        first time: a parameter with ``grad_req="null"`` that
+        ``initialize`` leaves alone."""
+        param = self._get_impl(name)
+        if param is None:
+            if value is None:
+                raise MXNetError(f"No constant named '{name}'")
+            param = new_constant(name, value)._mx_param
+            self._params[name] = param
+            self._adopt(name, param)
         return param
 
     def update(self, other):

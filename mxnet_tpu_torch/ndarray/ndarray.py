@@ -28,7 +28,7 @@ from ..base import MXNetError
 from ..context import Context, resolve_device
 
 __all__ = ["NDArray", "arange", "array", "empty", "full", "ones",
-           "ones_like", "waitall", "zeros", "zeros_like"]
+           "waitall", "zeros"]
 
 # MXNet's dtype codes (mshadow kFloat32 = 0, ...), as the JAX package's
 # ``base.DTYPE_CODE_TO_NAME``
@@ -174,12 +174,212 @@ class NDArray(torch.Tensor):
         autograd.backward(self, out_grad, retain_graph=retain_graph,
                           train_mode=train_mode)
 
+    # -- MXNet's methods, each through the registered op of its meaning
+    # (the JAX NDArray's; where torch has a method of the same name with
+    # another meaning, MXNet's wins: ``flatten`` keeps the first axis,
+    # ``max(axis)`` gives an array, ``reshape`` reads MXNet's codes,
+    # ``transpose(*axes)`` permutes, ``repeat`` repeats elements,
+    # ``split`` takes a number of outputs, ``take`` works along axis 0,
+    # ``sort``/``topk`` give arrays). A torch-style ``dim``/``keepdim``
+    # is read as ``axis``/``keepdims``.
+    @property
+    def T(self):
+        return self.transpose()
+
+    def as_in_ctx(self, ctx):
+        return self.as_in_context(ctx)
+
+    def cast(self, dtype):
+        return self.astype(dtype)
+
+    def zero_grad(self):
+        g = torch.Tensor.grad.__get__(self)
+        if g is not None:
+            g.zero_()
+
+    def tostype(self, stype):
+        if stype != "default":
+            raise MXNetError(f"stype {stype!r}: the port's arrays are "
+                             f"dense (ROADMAP Queue 1, 'Long tail')")
+        return self
+
+    def slice(self, begin, end, step=None):
+        return _op("slice", [self], begin=begin, end=end, step=step)
+
+    def slice_axis(self, axis, begin, end):
+        return _op("slice_axis", [self], axis=axis, begin=begin, end=end)
+
+    def take(self, indices, axis=0, mode="clip"):
+        return _op("take", [self, indices], axis=axis, mode=mode)
+
+    def pick(self, index, axis=-1, keepdims=False):
+        return _op("pick", [self, index], axis=axis, keepdims=keepdims)
+
+    def reshape(self, *shape, **kwargs):
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        shape = kwargs.get("shape", shape)
+        return _op("reshape", [self], shape=shape,
+                   reverse=kwargs.get("reverse", False))
+
+    def reshape_like(self, other):
+        return _op("reshape_like", [self, other])
+
+    def transpose(self, *axes, **kwargs):
+        if len(axes) == 1 and isinstance(axes[0], (tuple, list)):
+            axes = tuple(axes[0])
+        axes = kwargs.get("axes", axes)
+        return _op("transpose", [self], axes=tuple(axes) or None)
+
+    def swapaxes(self, dim1, dim2):
+        return _op("swapaxes", [self], dim1=dim1, dim2=dim2)
+
+    def flatten(self):
+        return _op("Flatten", [self])
+
+    def expand_dims(self, axis):
+        return _op("expand_dims", [self], axis=axis)
+
+    def squeeze(self, axis=None):
+        return _op("squeeze", [self], axis=axis)
+
+    def broadcast_to(self, shape):
+        return _op("broadcast_to", [self], shape=shape)
+
+    def broadcast_like(self, other):
+        return _op("broadcast_like", [self, other])
+
+    def tile(self, reps):
+        return _op("tile", [self], reps=reps)
+
+    def repeat(self, repeats, axis=None):
+        return _op("repeat", [self], repeats=repeats, axis=axis)
+
+    def flip(self, axis):
+        return _op("flip", [self], axis=axis)
+
+    def split(self, num_outputs, axis=1, squeeze_axis=False):
+        return _op("split", [self], num_outputs=num_outputs, axis=axis,
+                   squeeze_axis=squeeze_axis)
+
+    def sum(self, axis=None, keepdims=False, **kw):
+        return _reduce("sum", self, axis, keepdims, kw)
+
+    def nansum(self, axis=None, keepdims=False, **kw):
+        return _reduce("nansum", self, axis, keepdims, kw)
+
+    def mean(self, axis=None, keepdims=False, **kw):
+        return _reduce("mean", self, axis, keepdims, kw)
+
+    def max(self, axis=None, keepdims=False, **kw):
+        return _reduce("max", self, axis, keepdims, kw)
+
+    def min(self, axis=None, keepdims=False, **kw):
+        return _reduce("min", self, axis, keepdims, kw)
+
+    def prod(self, axis=None, keepdims=False, **kw):
+        return _reduce("prod", self, axis, keepdims, kw)
+
+    def argmax(self, axis=None, keepdims=False, **kw):
+        return _reduce("argmax", self, axis, keepdims, kw)
+
+    def argmin(self, axis=None, keepdims=False, **kw):
+        return _reduce("argmin", self, axis, keepdims, kw)
+
+    def argsort(self, axis=-1, is_ascend=True):
+        return _op("argsort", [self], axis=axis, is_ascend=is_ascend)
+
+    def sort(self, axis=-1, is_ascend=True):
+        return _op("sort", [self], axis=axis, is_ascend=is_ascend)
+
+    def topk(self, axis=-1, k=1, ret_typ="indices", is_ascend=False):
+        return _op("topk", [self], axis=axis, k=k, ret_typ=ret_typ,
+                   is_ascend=is_ascend)
+
+    def norm(self, ord=2, axis=None, keepdims=False):
+        return _op("norm", [self], ord=ord, axis=axis, keepdims=keepdims)
+
+    def abs(self):
+        return _op("abs", [self])
+
+    def exp(self):
+        return _op("exp", [self])
+
+    def log(self):
+        return _op("log", [self])
+
+    def sqrt(self):
+        return _op("sqrt", [self])
+
+    def square(self):
+        return _op("square", [self])
+
+    def sigmoid(self):
+        return _op("sigmoid", [self])
+
+    def relu(self):
+        return _op("relu", [self])
+
+    def softmax(self, axis=-1):
+        return _op("softmax", [self], axis=axis)
+
+    def log_softmax(self, axis=-1):
+        return _op("log_softmax", [self], axis=axis)
+
+    def tanh(self):
+        return _op("tanh", [self])
+
+    def clip(self, a_min, a_max):
+        return _op("clip", [self], a_min=a_min, a_max=a_max)
+
+    def round(self):
+        return _op("round", [self])
+
+    def floor(self):
+        return _op("floor", [self])
+
+    def ceil(self):
+        return _op("ceil", [self])
+
+    def sign(self):
+        return _op("sign", [self])
+
+    def one_hot(self, depth, on_value=1.0, off_value=0.0, dtype="float32"):
+        return _op("one_hot", [self], depth=depth, on_value=on_value,
+                   off_value=off_value, dtype=dtype)
+
+    def dot(self, other, transpose_a=False, transpose_b=False):
+        return _op("dot", [self, other], transpose_a=transpose_a,
+                   transpose_b=transpose_b)
+
+    def zeros_like(self):
+        return _op("zeros_like", [self])
+
+    def ones_like(self):
+        return _op("ones_like", [self])
+
     def __reduce_ex__(self, protocol):
         return (_unpickle, raw_numpy(self))
 
     def __repr__(self, *, tensor_contents=None):
         return (f"\n{self.asnumpy()}\n<NDArray "
                 f"{'x'.join(map(str, self.shape))} @{self.context}>")
+
+
+def _op(name, inputs, **params):
+    from .register import get_op, invoke
+    return invoke(get_op(name), inputs, params)
+
+
+def _reduce(name, x, axis, keepdims, kw):
+    """A reduction method; a torch-style ``dim``/``keepdim`` is read as
+    ``axis``/``keepdims``."""
+    if "dim" in kw:
+        axis = kw.pop("dim")
+    keepdims = kw.pop("keepdim", keepdims)
+    if kw:
+        raise TypeError(f"{name}() got unexpected arguments {sorted(kw)}")
+    return _op(name, [x], axis=axis, keepdims=keepdims)
 
 
 def _dev(ctx):
@@ -238,15 +438,8 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
     return out.as_subclass(NDArray)
 
 
-def zeros_like(data, **kwargs):
-    return torch.zeros_like(data).as_subclass(NDArray)
-
-
-def ones_like(data, **kwargs):
-    return torch.ones_like(data).as_subclass(NDArray)
-
-
 def waitall():
-    """Wait for every queued operation on the card."""
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+    """Wait for every queued operation on the card
+    (``engine.wait_all``)."""
+    from ..engine import engine
+    engine.wait_all()

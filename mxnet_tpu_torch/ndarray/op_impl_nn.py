@@ -1,21 +1,28 @@
-"""The neural-network ops of the port's models, as plain functions on
-tensors.
+"""The neural-network ops, as plain functions on tensors, each
+registered under the JAX op's name.
 
-Port of the parts of ``mxnet_tpu/ndarray/op_impl_nn.py`` (and ``pick``
-of ``op_impl_basic.py``) the BERT forward, its MLM loss, the Gluon
-losses and the vision models reach: the activations (erf GELU, tanh
-for the pooler, relu), the embedding gather, LayerNorm, fused flash
-attention, the attention mask helpers of the composed (additive-mask)
-path, ``log_softmax``, ``pick`` and ``softmax_cross_entropy``; and
-``convolution``, ``pooling``, ``batch_norm_train`` and ``batch_norm``,
-which the JAX package leaves to XLA and the port to cuDNN and torch's
-own kernels (no hand-written kernel: the reference wrote none).
-Flash attention, last-axis LayerNorm and ``softmax_cross_entropy`` go
-to the hand-written CUDA kernels for CUDA tensors
-(``ops.flash_attention``, ``ops.layer_norm``, ``ops.softmax_xent``;
-each differentiable through its backward kernel) and to their plain
-versions for CPU tensors; the rest is plain PyTorch, as the JAX
-package leaves it to XLA.
+Port of ``mxnet_tpu/ndarray/op_impl_nn.py`` (and ``pick`` of
+``op_impl_basic.py``): ``FullyConnected``, the activations
+(``Activation``, ``LeakyReLU``, ``gelu``, ``swish``), the softmax family
+(``softmax``, ``log_softmax``, ``softmin``, ``SoftmaxActivation``,
+``SoftmaxOutput``), ``Embedding``, ``Dropout``, the normalizations
+(``LayerNorm``, ``BatchNorm``/``BatchNormTrain``, ``InstanceNorm``,
+``GroupNorm``), fused flash attention and the attention mask helpers of
+the composed (additive-mask) path, ``softmax_cross_entropy`` and the
+loss heads (``MakeLoss``, the ``*RegressionOutput`` ops), and
+``Convolution`` and ``Pooling``, which the JAX package leaves to XLA
+and the port to cuDNN and torch's own kernels (no hand-written kernel:
+the reference wrote none). Flash attention, last-axis LayerNorm and
+``softmax_cross_entropy`` go to the hand-written CUDA kernels for CUDA
+tensors (``ops.flash_attention``, ``ops.layer_norm``,
+``ops.softmax_xent``; each differentiable through its backward kernel)
+and to their plain versions for CPU tensors; the rest is plain
+PyTorch, as the JAX package leaves it to XLA. The port's layers call
+these functions directly; ``mx.nd.<name>`` reaches the same ones
+through the registry. The JAX file's vision ops (``Deconvolution``,
+``UpSampling``, ``BilinearSampler``, ``LRN``, ``ROIPooling``,
+``GridGenerator``, ``SpatialTransformer``) and ``ctc_loss`` are not
+ported yet (``ndarray.WAITING``).
 
 Each fused op decides from device, shape and type alone, before any
 launch, whether its kernel takes the call, as the JAX ops ask
@@ -37,27 +44,43 @@ import torch.nn.functional as F
 from ..ops import flash_attention as _fa
 from ..ops import layer_norm as _ln
 from ..ops.softmax_xent import softmax_xent_fused
+from .ndarray import to_dtype
+from .register import register_op
 
 __all__ = ["activation", "attention_length_mask", "attention_segment_mask",
            "attention_zero_empty_rows", "attention_zero_pad_rows",
            "batch_dot_attention_apply", "batch_dot_attention_scores",
-           "batch_norm", "batch_norm_train", "causal_mask_scores",
-           "convolution", "embedding", "flash_attention_op", "layer_norm",
-           "log_softmax", "pick", "pooling", "relu", "segment_valid_len",
-           "softmax_cross_entropy"]
+           "batch_norm", "batch_norm_op", "batch_norm_train",
+           "causal_mask_scores", "convolution", "dropout", "embedding",
+           "flash_attention_op", "fully_connected", "gelu", "group_norm",
+           "instance_norm", "layer_norm", "leaky_relu",
+           "linear_regression_output", "log_softmax",
+           "logistic_regression_output", "mae_regression_output",
+           "make_loss", "pick", "pooling", "segment_valid_len",
+           "softmax", "softmax_activation", "softmax_cross_entropy",
+           "softmax_output", "softmin", "swish"]
 
 _NEG = -1e30
 
 _ACT = {
     "relu": F.relu,
+    "sigmoid": torch.sigmoid,
+    "log_sigmoid": F.logsigmoid,
     "tanh": torch.tanh,
+    "softrelu": F.softplus,
+    "softsign": F.softsign,
+    "mish": lambda x: x * torch.tanh(F.softplus(x)),
     "gelu": lambda x: F.gelu(x, approximate="none"),   # erf, not tanh
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "silu": F.silu,
 }
 
 
+@register_op("Activation")
 def activation(data, act_type="relu"):
-    """``Activation`` op: ``relu``, ``tanh`` (BERT's pooler) or
-    ``gelu`` (the exact erf form, BERT's FFN)."""
+    """``Activation`` op by name: ``relu``, ``tanh`` (BERT's pooler),
+    ``gelu`` (the exact erf form, BERT's FFN), ``sigmoid``,
+    ``softrelu``, ... (the JAX op's table)."""
     try:
         fn = _ACT[act_type]
     except KeyError:
@@ -65,12 +88,9 @@ def activation(data, act_type="relu"):
     return fn(data)
 
 
-def relu(data):
-    """``relu`` op."""
-    return F.relu(data)
-
-
-def embedding(data, weight):
+@register_op("Embedding")
+def embedding(data, weight, input_dim=None, output_dim=None,
+              dtype="float32", sparse_grad=False):
     """Rows of ``weight`` at the ids in ``data``. Out-of-range ids clip
     to the table, as the JAX package's take does (an unchecked
     out-of-range gather would fault the card)."""
@@ -79,16 +99,19 @@ def embedding(data, weight):
 
 
 # -- composed attention (the additive-mask path) ----------------------------
+@register_op("batch_dot_attention_scores")
 def batch_dot_attention_scores(query, key):
     """(B,H,Sq,D),(B,H,Sk,D) -> (B,H,Sq,Sk) scores (unscaled)."""
     return torch.einsum("bhqd,bhkd->bhqk", query, key)
 
 
+@register_op("batch_dot_attention_apply")
 def batch_dot_attention_apply(probs, value):
     """(B,H,Sq,Sk),(B,H,Sk,D) -> (B,H,Sq,D)."""
     return torch.einsum("bhqk,bhkd->bhqd", probs, value)
 
 
+@register_op("attention_length_mask")
 def attention_length_mask(scores, valid_len):
     """Score columns at/after each example's valid length to -1e30."""
     sk = scores.shape[-1]
@@ -98,6 +121,7 @@ def attention_length_mask(scores, valid_len):
                                              device=scores.device))
 
 
+@register_op("attention_zero_empty_rows")
 def attention_zero_empty_rows(probs, valid_len):
     """Zero the probs of examples with ``valid_len == 0`` (their
     all-masked rows softmax to uniform; the kernel gives zeros)."""
@@ -105,6 +129,7 @@ def attention_zero_empty_rows(probs, valid_len):
     return probs * ok[:, None, None, None].to(probs.dtype)
 
 
+@register_op("attention_segment_mask")
 def attention_segment_mask(scores, segment_ids):
     """Cross-segment score pairs to -1e30 (packed rows, Sq == Sk)."""
     seg = segment_ids.to(torch.int64)
@@ -113,18 +138,21 @@ def attention_segment_mask(scores, segment_ids):
                                              device=scores.device))
 
 
+@register_op("attention_zero_pad_rows")
 def attention_zero_pad_rows(probs, segment_ids):
     """Zero the probs of packed padding query rows (segment id 0)."""
     ok = segment_ids > 0
     return probs * ok[:, None, :, None].to(probs.dtype)
 
 
+@register_op("segment_valid_len", differentiable=False)
 def segment_valid_len(segment_ids):
     """(B,) int32 count of non-padding slots per packed row: the used
     length, since packers lay segments contiguously from slot 0."""
     return (segment_ids > 0).sum(dim=-1, dtype=torch.int32)
 
 
+@register_op("causal_mask_scores")
 def causal_mask_scores(scores):
     """End-aligned causal mask over the last two axes of (...,Sq,Sk)."""
     sq, sk = scores.shape[-2], scores.shape[-1]
@@ -135,6 +163,7 @@ def causal_mask_scores(scores):
 
 
 # -- fused ops ---------------------------------------------------------------
+@register_op("flash_attention")
 def flash_attention_op(query, key, value, valid_len=None, segment_ids=None,
                        causal=False, sm_scale=None):
     """softmax(Q K^T * scale) V over (B, H, S, D) inputs, with the
@@ -168,6 +197,7 @@ def flash_attention_op(query, key, value, valid_len=None, segment_ids=None,
     return batch_dot_attention_apply(p, value.float()).to(query.dtype)
 
 
+@register_op("LayerNorm")
 def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
     """LayerNorm over ``axis``. A last-axis call the kernel takes
     (``ops.layer_norm.kernel_takes``) without ``output_mean_var`` goes
@@ -192,13 +222,18 @@ def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
 
 
 # -- losses ------------------------------------------------------------------
-def log_softmax(data, axis=-1, temperature=None):
-    """``log_softmax`` op (``temperature`` divides the input first)."""
+@register_op("log_softmax")
+def log_softmax(data, axis=-1, temperature=None, dtype=None,
+                use_length=False):
+    """``log_softmax`` op (``temperature`` divides the input first;
+    ``dtype`` casts the result)."""
     x = data if temperature in (None, 1.0) else data / temperature
-    return torch.log_softmax(x, dim=int(axis))
+    out = torch.log_softmax(x, dim=int(axis))
+    return out if dtype is None else out.to(to_dtype(dtype))
 
 
-def pick(data, index, axis=-1, keepdims=False):
+@register_op("pick")
+def pick(data, index, axis=-1, keepdims=False, mode="clip"):
     """``pick`` op: the entries of ``data`` at ``index`` along ``axis``;
     out-of-range indices clip, as MXNet's default ``mode="clip"``."""
     ax = int(axis) % data.ndim
@@ -207,6 +242,7 @@ def pick(data, index, axis=-1, keepdims=False):
     return out if keepdims else out.squeeze(ax)
 
 
+@register_op("softmax_cross_entropy")
 def softmax_cross_entropy(data, label):
     """``softmax_cross_entropy`` op: the SUM over rows of
     ``-log softmax(data)[label]`` for (N, V) ``data`` and (N,) labels of
@@ -235,9 +271,11 @@ def _tup(v, n):
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
+@register_op("Convolution")
 def convolution(data, weight, bias=None, kernel=None, stride=None,
                 dilate=None, pad=None, num_filter=None, num_group=1,
-                no_bias=False):
+                no_bias=False, workspace=1024, cudnn_tune=None,
+                cudnn_off=False, layout=None):
     """``Convolution`` op over (N, C, *spatial) data and an (O, C /
     num_group, *kernel) weight, 1-, 2- or 3-D, symmetric zero ``pad``,
     in the data's type (cuDNN on the card)."""
@@ -265,9 +303,10 @@ def _avg_pool(x, k, s, divisor=None):
                              divisor_override=divisor)
 
 
+@register_op("Pooling")
 def pooling(data, kernel=None, pool_type="max", global_pool=False,
             pooling_convention="valid", stride=None, pad=None,
-            count_include_pad=True):
+            count_include_pad=True, cudnn_off=False, layout=None):
     """``Pooling`` op: ``max``, ``avg`` or ``sum`` windows over the
     spatial axes of (N, C, *spatial) data, or over all of them with
     ``global_pool`` (kept as size-1 axes). ``"valid"`` pads ``pad`` on
@@ -396,8 +435,9 @@ class _BatchNormTrain(torch.autograd.Function):
         return dx, dgamma, dbeta.to(ctx.beta_dtype), None, None, None, None
 
 
+@register_op("BatchNormTrain", num_visible_outputs=3)
 def batch_norm_train(data, gamma, beta, shift=None, eps=1e-5, axis=1,
-                     fix_gamma=False):
+                     fix_gamma=False, momentum=0.9):
     """Training-mode BatchNorm: ``(out, batch_mean, batch_var)``, the
     statistics float32 (float64 for float64 data) and the variance
     biased (the JAX op's; the
@@ -428,3 +468,228 @@ def batch_norm(data, gamma, beta, mean, var, eps=1e-5, fix_gamma=True,
         * torch.rsqrt(var.to(acc).reshape(shp) + eps)
     out = x_hat * g.to(acc).reshape(shp) + beta.to(acc).reshape(shp)
     return out.to(data.dtype)
+
+
+@register_op("BatchNorm")
+def batch_norm_op(data, gamma, beta, mean, var, eps=1e-5, momentum=0.9,
+                  fix_gamma=True, use_global_stats=False,
+                  output_mean_var=False, axis=1, cudnn_off=False):
+    """The registered ``BatchNorm``: :func:`batch_norm` with the given
+    statistics (``nd.BatchNorm`` picks and updates them)."""
+    return batch_norm(data, gamma, beta, mean, var, eps=eps,
+                      fix_gamma=fix_gamma, axis=axis)
+
+
+# -- the rest of the JAX file's ops ------------------------------------------
+@register_op("FullyConnected")
+def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
+                    flatten=True):
+    """``data @ weight^T + bias``; ``flatten`` first folds every axis
+    after the first (torch.matmul: cuBLAS on the card)."""
+    x = data.reshape(data.shape[0], -1) if flatten and data.ndim > 2 \
+        else data
+    return F.linear(x, weight, None if no_bias else bias)
+
+
+@register_op("LeakyReLU")
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334):
+    """The LeakyReLU family: leaky, prelu, elu, selu, gelu (erf) and
+    rrelu (its mean slope, as the JAX op)."""
+    if act_type == "leaky":
+        return torch.where(data > 0, data, slope * data)
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.ndim - 2))
+        return torch.where(data > 0, data, g * data)
+    if act_type == "elu":
+        return torch.where(data > 0, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        alpha, lam = 1.6732632423543772, 1.0507009873554805
+        return lam * torch.where(data > 0, data, alpha * torch.expm1(data))
+    if act_type == "gelu":
+        return F.gelu(data, approximate="none")
+    if act_type == "rrelu":
+        mid = (lower_bound + upper_bound) / 2.0
+        return torch.where(data > 0, data, mid * data)
+    raise ValueError(f"unknown act_type {act_type}")
+
+
+@register_op("gelu")
+def gelu(data, approximate=False):
+    return F.gelu(data, approximate="tanh" if approximate else "none")
+
+
+@register_op("swish")
+def swish(data, beta=1.0):
+    return data * torch.sigmoid(beta * data)
+
+
+@register_op("softmax")
+def softmax(data, axis=-1, temperature=None, length=None, dtype=None,
+            use_length=False):
+    """Softmax over ``axis``; ``length`` (the leading axes' shape) masks
+    the positions at or past each length, which come out 0."""
+    ax = int(axis)
+    x = data if temperature in (None, 1.0) else data / temperature
+    if length is not None:
+        mshape = [1] * x.ndim
+        mshape[ax] = x.shape[ax]
+        steps = torch.arange(x.shape[ax], device=x.device).reshape(mshape)
+        lens = length.reshape(tuple(length.shape)
+                              + (1,) * (x.ndim - length.ndim))
+        mask = steps < lens
+        out = torch.softmax(x.masked_fill(~mask, -math.inf), dim=ax)
+        return torch.where(mask, out, torch.zeros((), dtype=out.dtype,
+                                                  device=out.device))
+    out = torch.softmax(x, dim=ax)
+    return out if dtype is None else out.to(to_dtype(dtype))
+
+
+@register_op("softmin")
+def softmin(data, axis=-1, temperature=None, dtype=None):
+    return softmax(-data, axis=axis, temperature=temperature, dtype=dtype)
+
+
+@register_op("SoftmaxActivation")
+def softmax_activation(data, mode="instance"):
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1) \
+        .reshape(data.shape)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """The legacy loss head: softmax forward, ``(p - onehot) *
+    grad_scale`` backward whatever the head gradient (MXNet's
+    ``softmax_output.cc``, the JAX op's custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, data, label, cfg):
+        ax = 1 if cfg["multi_output"] else -1
+        out = torch.softmax(data, dim=ax)
+        ctx.save_for_backward(out, label)
+        ctx.cfg = cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, _g):
+        out, lab = ctx.saved_tensors
+        cfg = ctx.cfg
+        ax = 1 if cfg["multi_output"] else -1
+        n_class = out.shape[ax]
+        if cfg["multi_output"] and \
+                tuple(lab.shape) != out.shape[:1] + out.shape[2:]:
+            lab = lab.reshape(out.shape[:1] + out.shape[2:])
+        oh = F.one_hot(lab.to(torch.int64).clamp(0, n_class - 1), n_class) \
+            .to(out.dtype)
+        oh = oh * (lab.to(torch.int64) >= 0)[..., None].to(out.dtype)
+        if cfg["multi_output"]:
+            oh = oh.movedim(-1, 1)
+        alpha = cfg["smooth_alpha"]
+        if alpha:
+            oh = oh * (1.0 - alpha) + alpha / (n_class - 1) * (1.0 - oh)
+        grad = out - oh
+        if cfg["use_ignore"]:
+            keep = (lab != cfg["ignore_label"]).to(out.dtype)
+            if keep.ndim < out.ndim:
+                keep = keep.unsqueeze(ax)
+            grad = grad * keep
+        if cfg["normalization"] == "batch":
+            grad = grad / out.shape[0]
+        elif cfg["normalization"] == "valid" and cfg["use_ignore"]:
+            grad = grad / (lab != cfg["ignore_label"]).sum().clamp(min=1)
+        return grad * cfg["grad_scale"], None, None
+
+
+@register_op("SoftmaxOutput", aliases=("Softmax",))
+def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                   use_ignore=False, preserve_shape=False,
+                   multi_output=False, out_grad=False, normalization="null",
+                   smooth_alpha=0.0):
+    """Softmax forward, ``p - onehot(label)`` backward (module
+    :class:`_SoftmaxOutput`)."""
+    cfg = dict(grad_scale=grad_scale, ignore_label=ignore_label,
+               use_ignore=use_ignore, multi_output=multi_output,
+               normalization=normalization, smooth_alpha=smooth_alpha)
+    return _SoftmaxOutput.apply(data, label, cfg)
+
+
+@register_op("InstanceNorm")
+def instance_norm(data, gamma, beta, eps=1e-3):
+    ax = tuple(range(2, data.ndim))
+    mean = data.mean(dim=ax, keepdim=True)
+    var = ((data - mean) ** 2).mean(dim=ax, keepdim=True)
+    shape = (1, -1) + (1,) * (data.ndim - 2)
+    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape) \
+        + beta.reshape(shape)
+
+
+@register_op("GroupNorm")
+def group_norm(data, gamma, beta, num_groups=1, eps=1e-5):
+    n, c = data.shape[:2]
+    g = int(num_groups)
+    x = data.reshape((n, g, c // g) + tuple(data.shape[2:]))
+    ax = tuple(range(2, x.ndim))
+    mean = x.mean(dim=ax, keepdim=True)
+    var = ((x - mean) ** 2).mean(dim=ax, keepdim=True)
+    x = ((x - mean) * torch.rsqrt(var + eps)).reshape(data.shape)
+    shape = (1, -1) + (1,) * (data.ndim - 2)
+    return x * gamma.reshape(shape) + beta.reshape(shape)
+
+
+@register_op("Dropout")
+def dropout(data, p=0.5, mode="training", axes=None, _training=True):
+    """Inverted dropout when training (or ``mode="always"``), else the
+    identity. ``axes`` get a mask of size one, broadcast along them.
+    Draws from the device's generator (``mx.random``)."""
+    if (not _training and mode != "always") or p <= 0.0:
+        return data + 0
+    if not axes:
+        return F.dropout(data, p, training=True)
+    shape = list(data.shape)
+    for a in (axes if isinstance(axes, (tuple, list)) else (axes,)):
+        shape[int(a)] = 1
+    keep = 1.0 - p
+    mask = torch.empty(shape, dtype=data.dtype, device=data.device) \
+        .bernoulli_(keep)
+    return data * mask / keep
+
+
+@register_op("MakeLoss")
+def make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
+    return data * 1.0
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """Identity (sigmoid for ``logistic``) forward; the backward is
+    ``(out - label)`` (its sign for ``mae``) times ``grad_scale /
+    batch``, whatever the head gradient, as MXNet's regression heads."""
+
+    @staticmethod
+    def forward(ctx, data, label, kind, grad_scale):
+        out = torch.sigmoid(data) if kind == "logistic" else data + 0
+        ctx.save_for_backward(out, label)
+        ctx.kind, ctx.grad_scale = kind, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, _g):
+        out, lab = ctx.saved_tensors
+        diff = out - lab.reshape(out.shape).to(out.dtype)
+        grad = torch.sign(diff) if ctx.kind == "mae" else diff
+        return grad * ctx.grad_scale / out.shape[0], None, None, None
+
+
+@register_op("LinearRegressionOutput")
+def linear_regression_output(data, label, grad_scale=1.0):
+    return _RegressionOutput.apply(data, label, "linear", grad_scale)
+
+
+@register_op("MAERegressionOutput")
+def mae_regression_output(data, label, grad_scale=1.0):
+    return _RegressionOutput.apply(data, label, "mae", grad_scale)
+
+
+@register_op("LogisticRegressionOutput")
+def logistic_regression_output(data, label, grad_scale=1.0):
+    return _RegressionOutput.apply(data, label, "logistic", grad_scale)

@@ -10,6 +10,10 @@ weight and the state tensors IN PLACE (no second copy of the model per
 step) and return the weight. The JAX package leaves these to XLA, so
 the port owes no hand kernel for them.
 
+The registry (``mx.nd.sgd_update``, ...) holds these six under the
+JAX ops' signatures and results (the end of this file); the JAX
+package's other update ops are not ported yet (``ndarray.WAITING``).
+
 MXNet's conventions, kept here: the gradient is first scaled by
 ``rescale_grad`` and clipped to ``[-clip_gradient, clip_gradient]``
 when that is positive; Adam adds ``wd * weight`` to the GRADIENT and
@@ -20,6 +24,8 @@ correction folded into ``lr`` by the optimizer; AdamW adds
 from __future__ import annotations
 
 import torch
+
+from .register import register_op
 
 __all__ = ["adam_update", "adamw_update", "multi_sgd_mom_update",
            "multi_sgd_update", "sgd_mom_update", "sgd_update"]
@@ -109,3 +115,74 @@ def multi_sgd_mom_update(weights, grads, moms, lrs=(), wds=(), momentum=0.0,
                        _per_weight(wds, i, 0.0), rescale_grad,
                        clip_gradient)
     return list(weights)
+
+
+# -- the registered ops: the JAX ops' signatures and results ----------------
+# These return new arrays, as the JAX ops do: the weight comes back as
+# the result (``out=weight`` writes it in place) and the states are
+# written back into their inputs through the ``mutates`` pairs.
+def _copies(*tensors):
+    return [t.detach().clone() for t in tensors]
+
+
+@register_op("sgd_update", differentiable=False)
+def _sgd_update_op(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
+                   clip_gradient=-1.0, lazy_update=True):
+    (w,) = _copies(weight)
+    return sgd_update(w, grad, lr, wd, rescale_grad, clip_gradient)
+
+
+@register_op("sgd_mom_update", differentiable=False, num_visible_outputs=1,
+             mutates=((1, 2),))
+def _sgd_mom_update_op(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
+                       rescale_grad=1.0, clip_gradient=-1.0,
+                       lazy_update=True):
+    w, m = _copies(weight, mom)
+    sgd_mom_update(w, grad, m, lr, momentum, wd, rescale_grad,
+                   clip_gradient)
+    return w, m
+
+
+@register_op("adam_update", differentiable=False, num_visible_outputs=1,
+             mutates=((1, 2), (2, 3)))
+def _adam_update_op(weight, grad, mean, var, lr=0.001, beta1=0.9,
+                    beta2=0.999, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                    clip_gradient=-1.0, lazy_update=True):
+    w, m, v = _copies(weight, mean, var)
+    adam_update(w, grad, m, v, lr, beta1, beta2, epsilon, wd, rescale_grad,
+                clip_gradient)
+    return w, m, v
+
+
+@register_op("adamw_update", differentiable=False, num_visible_outputs=1,
+             mutates=((1, 2), (2, 3)))
+def _adamw_update_op(weight, grad, mean, var, lr=0.001, beta1=0.9,
+                     beta2=0.999, epsilon=1e-8, wd=0.0, eta=1.0,
+                     rescale_grad=1.0, clip_gradient=-1.0):
+    w, m, v = _copies(weight, mean, var)
+    adamw_update(w, grad, m, v, lr, beta1, beta2, epsilon, wd, eta,
+                 rescale_grad, clip_gradient)
+    return w, m, v
+
+
+@register_op("multi_sgd_update", differentiable=False)
+def _multi_sgd_update_op(*args, lrs=(), wds=(), rescale_grad=1.0,
+                         clip_gradient=-1.0, num_weights=None):
+    """args = (w0, g0, w1, g1, ...); the updated weights."""
+    n = int(num_weights) if num_weights is not None else len(args) // 2
+    ws = _copies(*args[0:2 * n:2])
+    return tuple(multi_sgd_update(ws, args[1:2 * n:2], lrs, wds,
+                                  rescale_grad, clip_gradient))
+
+
+@register_op("multi_sgd_mom_update", differentiable=False)
+def _multi_sgd_mom_update_op(*args, lrs=(), wds=(), momentum=0.0,
+                             rescale_grad=1.0, clip_gradient=-1.0,
+                             num_weights=None):
+    """args = (w0, g0, m0, w1, g1, m1, ...); (w0', m0', w1', m1', ...)."""
+    n = int(num_weights) if num_weights is not None else len(args) // 3
+    ws = _copies(*args[0:3 * n:3])
+    ms = _copies(*args[2:3 * n:3])
+    multi_sgd_mom_update(ws, args[1:3 * n:3], ms, lrs, wds, momentum,
+                         rescale_grad, clip_gradient)
+    return tuple(t for pair in zip(ws, ms) for t in pair)

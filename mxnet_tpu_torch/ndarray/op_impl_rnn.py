@@ -23,8 +23,9 @@ layers, in training only; ``lstm_state_clip_min/max`` clip the final c.
 
 :func:`rnn_layers` takes the per-(layer, direction) tensors directly,
 so ``gluon.rnn.LSTM`` never packs its weights; :func:`rnn` is the op on
-the packed vector. GRU and vanilla RNN modes are not ported yet and
-raise (ROADMAP Queue 1, 'RNN remainders').
+the packed vector, registered as ``RNN`` (``mx.nd.RNN``). GRU and
+vanilla RNN modes are not ported yet and raise (ROADMAP Queue 1, 'RNN
+remainders').
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import torch.nn.functional as F
 
 from ..ops import lstm as _lstm
 from ..ops._build import DTYPE_CODES
+from .register import register_op
 
 __all__ = ["pack_rnn_params", "rnn", "rnn_layers", "rnn_param_size"]
 
@@ -172,6 +174,7 @@ def rnn_layers(data, layer_params, state, state_cell, num_layers=1,
     return x, h_out, c_out
 
 
+@register_op("RNN")
 def rnn(data, parameters, state, state_cell=None, sequence_length=None,
         state_size=0, num_layers=1, bidirectional=False, mode="lstm", p=0.0,
         state_outputs=False, projection_size=None, lstm_state_clip_min=None,

@@ -1162,3 +1162,79 @@ def test_grad_req_write_overwrites_on_the_card(cuda):
             autograd.backward(y)
         want = torch.ones(5, 3, device=cuda).t() @ x
         assert torch.allclose(layer.weight.grad, factor * want, atol=1e-5)
+
+
+# -- mx.nd.<op> on CUDA NDArrays: the registry reaches the same kernels ----
+def _nd_vs_direct(cuda, dtype, case):
+    """``(name, direct(tensors), registry(ndarrays), inputs, kernels)``:
+    forward and backward through ``mx.nd.<op>`` on NDArrays and through
+    the op function on plain tensors, from the same inputs and head."""
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.ndarray import op_impl_nn, op_impl_rnn
+
+    rng = np.random.RandomState(3)
+
+    def t(shape, lo=-1.0, hi=1.0):
+        return torch.tensor(rng.uniform(lo, hi, shape), dtype=dtype,
+                            device=cuda)
+
+    if case == "LayerNorm":
+        args = [t((4, 33, 96)), t((96,), 0.5, 1.5), t((96,))]
+        direct = lambda a: op_impl_nn.layer_norm(*a, eps=1e-12)  # noqa
+        reg = lambda a: nd.LayerNorm(*a, axis=-1, eps=1e-12)  # noqa
+        kernels = ("layer_norm", "layer_norm_bwd")
+    elif case == "flash_attention":
+        args = [t((2, 3, 40, 64)) for _ in range(3)]
+        vl = torch.tensor([40, 17], dtype=torch.int32, device=cuda)
+        direct = lambda a: op_impl_nn.flash_attention_op(*a, vl)  # noqa
+        reg = lambda a: nd.flash_attention(  # noqa
+            *a, vl.as_subclass(nd.NDArray))
+        kernels = ("flash_attention", "flash_attention_bwd")
+    elif case == "softmax_cross_entropy":
+        args = [t((37, 1000))]
+        lab = torch.tensor(rng.randint(0, 1000, 37), dtype=torch.int32,
+                           device=cuda)
+        direct = lambda a: op_impl_nn.softmax_cross_entropy(a[0], lab)  # noqa
+        reg = lambda a: nd.softmax_cross_entropy(  # noqa
+            a[0], lab.as_subclass(nd.NDArray))
+        kernels = ("softmax_xent_fwd", "softmax_xent_bwd")
+    else:                                                   # RNN
+        tt, n, i, h = 5, 3, 16, 32
+        size = op_impl_rnn.rnn_param_size(2, i, h, False, "lstm")
+        args = [t((tt, n, i)), t((size,), -0.2, 0.2), t((2, n, h)),
+                t((2, n, h))]
+        kw = dict(state_size=h, num_layers=2, mode="lstm",
+                  state_outputs=True)
+        direct = lambda a: op_impl_rnn.rnn(*a, **kw)[0]  # noqa
+        reg = lambda a: nd.RNN(*a, **kw)[0]  # noqa
+        kernels = ("lstm_fwd", "lstm_bwd", "lstm_bwd_dw")
+    runs = []
+    for fn in (direct, reg):
+        xs = [a.clone() if fn is direct else
+              a.clone().as_subclass(nd.NDArray) for a in args]
+        for x in xs:
+            x.requires_grad_(True)
+        before = launch_counts()
+        with autograd.record():
+            out = fn(xs)
+        head = torch.ones_like(out.detach().as_subclass(torch.Tensor))
+        out.backward(head)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        runs.append((out.detach().as_subclass(torch.Tensor),
+                     [x.grad.as_subclass(torch.Tensor) for x in xs],
+                     {k: after[k] - before[k] for k in kernels}))
+    return runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["LayerNorm", "flash_attention",
+                                  "softmax_cross_entropy", "RNN"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_nd_registry_reaches_the_kernels_bit_for_bit(cuda, case, dtype):
+    (out_d, g_d, n_d), (out_r, g_r, n_r) = _nd_vs_direct(cuda, dtype, case)
+    assert n_r == n_d and all(v > 0 for v in n_d.values()), (n_d, n_r)
+    assert torch.equal(out_r, out_d)
+    for a, b in zip(g_r, g_d):
+        assert torch.equal(a, b)

@@ -62,6 +62,15 @@ def test_import_leaves_jax_out_of_the_process():
         "import mxnet_tpu_torch.examples.mnist_gluon\n"
         "import mxnet_tpu_torch.metric, mxnet_tpu_torch.gluon.data\n"
         "import mxnet_tpu_torch.gluon.model_zoo.vision\n"
+        "import mxnet_tpu_torch.random, mxnet_tpu_torch.engine\n"
+        "import mxnet_tpu_torch.name, mxnet_tpu_torch.attribute\n"
+        "import mxnet_tpu_torch.util, mxnet_tpu_torch.test_utils\n"
+        "import mxnet_tpu_torch.ndarray.register\n"
+        "import mxnet_tpu_torch.ndarray.op_impl_basic\n"
+        "import mxnet_tpu_torch.ndarray.op_impl_random\n"
+        "import mxnet_tpu_torch.ndarray.random\n"
+        "import mxnet_tpu_torch.ndarray.linalg\n"
+        "import mxnet_tpu_torch.examples.hybrid_bert\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mxnet_tpu')]\n"
         "assert not bad, bad\n"
