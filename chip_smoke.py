@@ -46,9 +46,11 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    walking two work blocks a step);
 5. decode serving at GPT-2-small width (vocab 50257, 768 units, 12
    layers, 12 heads, random weights from ``--seed``): a
-   ``DecodeEngine`` serves 8 greedy requests; results, streams, solo
-   parity and the kernel launch counts are checked, serving metrics
-   printed;
+   ``DecodeEngine`` serves 8 greedy requests, each model step a CUDA
+   graph per shape (as the JAX model's steps are ``jax.jit``s);
+   results, streams, solo parity and the kernel launch counts (K5
+   exactly layers x (decode iterations + prefill chunks)) are checked,
+   serving metrics printed;
 6. encoder serving at BERT-base width (vocab 30522, 768 units, 3072
    hidden, 12 layers, 12 heads, max_length 512, random weights from
    ``--seed``): a ``ServingEngine`` (mean pool, buckets 64/256/512, 8
@@ -153,7 +155,40 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
     launches a step), its step p50 and valid tokens/s printed beside
     phase 7's p50; and the F-op model at 2 layers card vs CPU as phase
     9 holds the model zoo's (losses 1e-4 relative, step-1 gradients
-    1e-3 of scale).
+    1e-3 of scale);
+15. hybridize: the paths again as CUDA graphs (``HybridBlock.
+    hybridize``, the decode model's step graphs, ``engine.chain_steps``),
+    beside their eager runs: the decode burst of phase 5 (a graph per
+    bucket) beside the same model with its steps' bodies called
+    directly (greedy streams of both equal to phase 5's token for
+    token);
+    the encoder burst of phase 6 through ``bert_serving_entry(...,
+    hybridize=True)`` (every batch's output equal to the eager entry's
+    on the same batch to the bit, exactly 12 + 25 launches a forward,
+    no capture after the warm-up); BERT-base MLM (phase 7's trunk and
+    head, each a forward and a backward graph) and the F-op BERT-base
+    (phase 14's model, one pair of graphs): step 1's loss and gradients
+    against the eager model's (bit for bit, or within 1e-6 relative and
+    1e-5 of scale, said which), then 2 + 10 Adam steps with phase 7's
+    gates; the word LM at its widths, dropout 0 (embedding, LSTM and
+    decoder each a graph): 6 segments' losses and weights equal to the
+    eager model's to the bit, K6a/K6b and the dW kernel 2 + 2 + 2 a
+    segment, every one a replay; ``chain_steps`` of 10 momentum-SGD
+    steps of an MLP at the MNIST example's widths, equal to 200 single
+    steps to the bit; the vision examples' models with their
+    ``hybridize()`` undone (ResNet-50 f32 and bf16 step p50, an MNIST
+    epoch), beside phases 10 and 11, which now run graphed; every
+    running mean and variance of the graphed ResNet-50 equal to the
+    eager one's to the bit after 13 steps. Every kernel K1-K6 must have
+    launched inside a graph replay (hard gate). Rates, latencies,
+    capture times and the memory the graphs hold (BERT-base MLM also
+    at a second training shape, b32s128) are printed beside the eager
+    ones; step 1 of each BERT side is repeated, to tell a difference of
+    the graph from the run-to-run spread of eager; then, after every
+    timed run, profiled bursts (decode, encoder) and profiled training
+    steps (BERT-base MLM) of both for the busy shares, the graphed
+    step's kernels in the trace held against its replayed launch
+    counts. The empty graphs captured in the run are named.
 
 The op-dispatch phase also times one
 ``F.scaled_dot_product_attention`` call beside K1, K2 and K5 at head
@@ -166,7 +201,8 @@ ReLU, pooling, Dense, loss, optimizer).
 
 In the ``kernels`` line, ``launches_by_path["nd"]`` counts phase 14's
 launches: the F-op model's 10 steps for K1, K2, K3a, K3b, K4a and K4b,
-the registry's ``nd.RNN`` call for K6a and K6b.
+the registry's ``nd.RNN`` call for K6a and K6b; ``launches_in_graph``
+counts phase 15's launches made by graph replays.
 
 The last three lines of standard output are ``{"kernels": [...]}``,
 then the card's name and power limit as ``nvidia-smi --query-gpu=
@@ -179,6 +215,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -1539,7 +1576,8 @@ def report_profile(prof, wall, ranges=()):
                   key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in rows) / 1e6
     log(f"profile: device busy {busy:.4f} s of {wall:.4f} s wall "
-        f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
+        f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%; "
+        f"{sum(e.count for e in rows)} device events")
     # the 15 largest, then the port's own kernels below them (those of
     # its sources' anonymous namespaces)
     for i, e in enumerate(rows):
@@ -1547,30 +1585,44 @@ def report_profile(prof, wall, ranges=()):
         if i < 15 or ours:
             log(f"  {dev_us(e) / 1e3:10.3f} ms  {e.count:6d}x  "
                 f"{e.key[:90]}")
+    return busy / wall
 
 
-def serve_main_path(seed, profile, dev, power_line, layers=12, new=32):
+def serve_main_path(seed, profile, dev, power_line, layers=12, new=32,
+                    model=None):
     """GPT-2-small width (``layers`` deep) through DecodeEngine, ``new``
-    tokens per request; returns the launch counts of the serving run."""
+    tokens per request; ``model``: a built one (phase 15 passes phase
+    5's, graphed or under :func:`eager_steps`). Returns the launch
+    counts of the serving run and ``{"model", "outs", "metrics",
+    "busy"}``."""
     import numpy as np
+    import torch
 
     from mxnet_tpu_torch import ops
     from mxnet_tpu_torch.serving import DecodeEngine, PagedCausalLM
 
     t0 = time.perf_counter()
-    model = PagedCausalLM(vocab=50257, units=768, layers=layers,
-                          heads=12, max_len=1024, seed=seed, device=dev)
-    log(f"model: GPT-2-small width, {layers} layers, "
-        f"{sum(p.numel() for p in model.params.values())} params "
-        f"({time.perf_counter() - t0:.1f} s to build)")
+    if model is not None:
+        layers = model.layers
+    else:
+        model = PagedCausalLM(vocab=50257, units=768, layers=layers,
+                              heads=12, max_len=1024, seed=seed,
+                              device=dev)
+        log(f"model: GPT-2-small width, {layers} layers, "
+            f"{sum(p.numel() for p in model.params.values())} params "
+            f"({time.perf_counter() - t0:.1f} s to build)")
     rng = np.random.RandomState(seed)
     lens = [5, 17, 40, 64, 65, 100, 150, 200]
     prompts = [rng.randint(0, 50257, n).tolist() for n in lens]
     with DecodeEngine(model, max_rows=8, page_size=16,
                       n_pages=1024) as eng:
         t0 = time.perf_counter()
+        mem0 = torch.cuda.memory_allocated(dev)
         eng.warmup()
-        log(f"warmup: {time.perf_counter() - t0:.1f} s")
+        warm_s = time.perf_counter() - t0
+        graph_mem = torch.cuda.memory_allocated(dev) - mem0
+        log(f"warmup: {warm_s:.1f} s; "
+            f"{eng.snapshot()['compile_cache']['miss']} captures")
         eng.reset_stats()
         ops.reset_launch_counts()
         with _profiler(profile) as prof:
@@ -1584,8 +1636,7 @@ def serve_main_path(seed, profile, dev, power_line, layers=12, new=32):
             outs = [f.result(timeout=600).tolist() for f in futs]
             wall = time.perf_counter() - t0
         counts = ops.launch_counts()
-        if prof is not None:
-            report_profile(prof, wall)
+        busy = report_profile(prof, wall) if prof is not None else None
         snap = eng.snapshot()
         for i, o in enumerate(outs):
             if len(o) != new:
@@ -1599,6 +1650,13 @@ def serve_main_path(seed, profile, dev, power_line, layers=12, new=32):
                 f"paged_attention launched {counts['paged_attention']} "
                 f"times, want >= layers x iterations = "
                 f"{layers} x {iters}")
+        steps = iters + snap["decode"]["prefill_chunks"]
+        graphed = "_run" not in vars(model)
+        if graphed and counts["paged_attention"] != layers * steps:
+            raise AssertionError(
+                f"graphed: paged_attention launched "
+                f"{counts['paged_attention']} times, want layers x (decode "
+                f"iterations + prefill chunks) = {layers} x {steps}")
         solo_i = 5
         solo = eng.infer(prompts[solo_i], max_new_tokens=new,
                          timeout=600).tolist()
@@ -1616,12 +1674,16 @@ def serve_main_path(seed, profile, dev, power_line, layers=12, new=32):
         f"{dec['inter_token']['p99_ms']} ms; {iters} decode iterations, "
         f"{dec['prefill_chunks']} prefill chunks; launches {counts} "
         f"[{power_line}]")
-    log("serving metrics: " + json.dumps(
-        {"tokens_per_s": gen / wall, "wall_s": wall, "generated": gen,
-         "ttft_ms": dec["ttft"], "inter_token_ms": dec["inter_token"],
-         "iterations": iters, "prefill_chunks": dec["prefill_chunks"],
-         "launches": counts, "card": power_line}))
-    return counts
+    metrics = {"tokens_per_s": gen / wall, "wall_s": wall,
+               "generated": gen, "ttft_ms": dec["ttft"],
+               "inter_token_ms": dec["inter_token"], "iterations": iters,
+               "prefill_chunks": dec["prefill_chunks"], "launches": counts,
+               "graphed": graphed, "warmup_s": warm_s,
+               "compile_cache": snap["compile_cache"],
+               "graph_memory_bytes": graph_mem, "card": power_line}
+    log("serving metrics: " + json.dumps(metrics))
+    return counts, {"model": model, "outs": outs, "metrics": metrics,
+                    "busy": busy, "new": new}
 
 
 def cross_device(seed, dev):
@@ -1694,8 +1756,9 @@ def encoder_requests(rng, n=48):
 
 
 def serve_encoder(seed, profile, dev, power_line, clients=8):
-    """BERT-base width through ServingEngine; returns the launch counts
-    of the run (warmup, traffic and solo runs)."""
+    """BERT-base width through ServingEngine, the entry eager; returns
+    the launch counts of the run (warmup, traffic and solo runs) and
+    ``{"net", "metrics"}``."""
     import numpy as np
 
     from mxnet_tpu_torch import ops
@@ -1709,7 +1772,7 @@ def serve_encoder(seed, profile, dev, power_line, clients=8):
     log(f"model: BERT-base width, {layers} layers, "
         f"{sum(p.numel() for p in net.parameters())} params "
         f"({time.perf_counter() - t0:.1f} s to build)")
-    entry = bert_serving_entry(net)
+    entry = bert_serving_entry(net, hybridize=False)
     forwards = collections.Counter()
 
     def counted(ids, tt, vl, seg, pos):
@@ -1783,15 +1846,15 @@ def serve_encoder(seed, profile, dev, power_line, clients=8):
         f"efficiency {snap['packing_efficiency']}; batches by rows x "
         f"row_len {by_shape}; {n_fwd} forwards ({n_warm} warmup, "
         f"{len(reqs)} solo); launches {counts} [{power_line}]")
-    log("encoder serving metrics: " + json.dumps(
-        {"requests_per_s": len(reqs) / wall, "tokens_per_s": toks / wall,
-         "wall_s": wall, "requests": len(reqs), "tokens": toks,
-         "latency_ms": lat, "packing_efficiency":
-             snap["packing_efficiency"], "batches": by_shape,
-         "warmup_forwards": n_warm,
-         "forwards": n_fwd, "solo_max_gap": gap, "launches": counts,
-         "card": power_line}))
-    return counts
+    metrics = {"requests_per_s": len(reqs) / wall,
+               "tokens_per_s": toks / wall, "wall_s": wall,
+               "requests": len(reqs), "tokens": toks, "latency_ms": lat,
+               "packing_efficiency": snap["packing_efficiency"],
+               "batches": by_shape, "warmup_forwards": n_warm,
+               "forwards": n_fwd, "solo_max_gap": gap, "launches": counts,
+               "card": power_line}
+    log("encoder serving metrics: " + json.dumps(metrics))
+    return counts, {"net": net, "metrics": metrics}
 
 
 def cross_device_encoder(seed, dev):
@@ -2163,11 +2226,14 @@ def forward_flops(net, x):
 
     hooks = [m.register_forward_hook(count) for m in net.modules()
              if isinstance(m, (_Conv, Dense))]
+    active = net._active
+    net.hybridize(False)        # the hooks count one eager forward
     try:
         net(x)
     finally:
         for h in hooks:
             h.remove()
+        net.hybridize(active)
     return total[0]
 
 
@@ -3212,6 +3278,871 @@ def nd_and_hybrid_blocks(seed, dev, power_line, zoo_p50):
     return counts
 
 
+# -- phase 15: hybridize (CUDA graphs) ----------------------------------------
+def _captures_of(*blocks):
+    """(captures, capture ms) of the hybridized blocks' CachedOps."""
+    n, ms = 0, 0.0
+    for b in blocks:
+        for e in b._cached_graph.values():
+            n += sum(1 + (i.bwd is not None) for i in e.instances)
+            ms += e.capture_ms
+    return n, ms
+
+
+def _busy(x):
+    return "not measured" if x is None else f"{100 * x:.1f}%"
+
+
+def _median(xs):
+    import numpy as np
+
+    return float(np.median(xs))
+
+
+def _p(m, key, q):
+    return m[key][f"{q}_ms"]
+
+
+@contextlib.contextmanager
+def eager_steps(model):
+    """Within it, ``model`` (a ``PagedCausalLM``) calls its steps'
+    bodies directly, outside its graphs: the eager side of phase 15
+    (the package has no switch for it)."""
+    import numpy as np
+    import torch
+
+    def run(name, caches, arrays, body):
+        return body(caches, *[torch.as_tensor(np.asarray(a, np.int64),
+                                              device=model.device)
+                              for a in arrays])
+
+    model._run = run
+    try:
+        yield model
+    finally:
+        del model._run
+
+
+def hybrid_decode(seed, dev, power_line, graphed, profiles, rounds=3):
+    """The decode burst of phase 5 (``graphed``: one graph per prefill,
+    chunk and decode bucket, K5 inside) and the same model with its
+    steps' bodies called directly (eager), in turns, ``rounds`` of
+    each: every burst's greedy streams equal to phase 5's token for
+    token, K5 launched exactly layers x steps in the graphed ones;
+    medians of each side's rates. Adds to ``profiles`` a profiled burst
+    of each, for the busy shares."""
+    model, new = graphed["model"], graphed["new"]
+    runs = {"eager": [], "graphed": []}
+    caps, n_graphs = [0.0], 0
+    for _ in range(rounds):
+        for mode in ("eager", "graphed"):
+            with eager_steps(model) if mode == "eager" \
+                    else contextlib.nullcontext():
+                _, got = serve_main_path(seed, False, dev, power_line,
+                                         new=new, model=model)
+            if got["outs"] != graphed["outs"]:
+                raise AssertionError(f"{mode} decode streams differ from "
+                                     f"phase 5's")
+            runs[mode].append(got["metrics"])
+            if mode == "graphed":
+                # a burst's own captures; the model holds those of every
+                # engine still alive (a closed engine's pool stays)
+                n_graphs = got["metrics"]["compile_cache"]["miss"]
+                caps = sorted(g.capture_ms for r, g in model._graphs
+                              .values() if r() is not None) or [0.0]
+
+    def side(ms):
+        return {"tokens_per_s": _median([x["tokens_per_s"] for x in ms]),
+                "ttft_p50_ms": _median([_p(x, "ttft_ms", "p50") for x in ms]),
+                "ttft_p99_ms": _median([_p(x, "ttft_ms", "p99") for x in ms]),
+                "inter_token_p50_ms": _median(
+                    [_p(x, "inter_token_ms", "p50") for x in ms]),
+                "inter_token_p99_ms": _median(
+                    [_p(x, "inter_token_ms", "p99") for x in ms]),
+                "tokens_per_s_runs": [x["tokens_per_s"] for x in ms],
+                "warmup_s": _median([x["warmup_s"] for x in ms]),
+                "memory_after_warmup_bytes": ms[-1]["graph_memory_bytes"]}
+
+    m = {"graphed": side(runs["graphed"]), "eager": side(runs["eager"]),
+         "graphs": n_graphs, "capture_ms": caps}
+
+    def line(k):
+        x = m[k]
+        return (f"{k} {x['tokens_per_s']:.1f} tokens/s (runs "
+                f"{', '.join(f'{v:.1f}' for v in x['tokens_per_s_runs'])}),"
+                f" TTFT p50 {x['ttft_p50_ms']:.2f} p99 {x['ttft_p99_ms']:.2f}"
+                f" ms, inter-token p50 {x['inter_token_p50_ms']:.2f} p99 "
+                f"{x['inter_token_p99_ms']:.2f} ms")
+
+    log(f"hybridize decode ({rounds} bursts a side, in turns, medians): "
+        f"streams of both equal to phase 5's token for token; "
+        f"{line('graphed')}; "
+        f"{line('eager')}; {n_graphs} graphs a burst, capture ms per bucket "
+        f"median "
+        f"{caps[len(caps) // 2]:.1f} (max {caps[-1]:.1f}), warm-up "
+        f"{m['graphed']['warmup_s']:.1f} s vs eager "
+        f"{m['eager']['warmup_s']:.1f} s; memory held after the warm-up "
+        f"{m['graphed']['memory_after_warmup_bytes'] / 2**20:.1f} MiB vs "
+        f"eager {m['eager']['memory_after_warmup_bytes'] / 2**20:.1f} MiB "
+        f"[{power_line}]")
+
+    def profile():
+        m["busy"] = {}
+        for mode in ("eager", "graphed"):
+            with eager_steps(model) if mode == "eager" \
+                    else contextlib.nullcontext():
+                m["busy"][mode] = serve_main_path(
+                    seed, True, dev, power_line, new=new,
+                    model=model)[1]["busy"]
+        log(f"hybridize decode, busy share: graphed "
+            f"{_busy(m['busy']['graphed'])}, eager "
+            f"{_busy(m['busy']['eager'])} (profiled bursts)")
+
+    profiles.append(profile)
+    return m
+
+
+def hybrid_encoder(seed, dev, power_line, eager, profiles, clients=8,
+                   rounds=3):
+    """The encoder burst of phase 6 through ``bert_serving_entry``, the
+    eager model (phase 6's) and a second one from the seed with
+    ``hybridize=True`` (one graph per (rows, row_len) bucket, K1 and
+    K3a inside), ``rounds`` bursts each in turns: every graphed batch's
+    output equal to the eager model's on the same batch, to the bit;
+    launches exactly 12 + 25 a forward; no capture after the warm-up;
+    medians of each side's rates. Adds to ``profiles`` a profiled
+    burst of each."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.gluon.model_zoo.bert import (BERTModel,
+                                                      bert_serving_entry)
+    from mxnet_tpu_torch.serving import ServingEngine
+
+    layers = BERT_BASE["num_layers"]
+    eager_net = eager["net"]
+    net = BERTModel(device=dev, seed=seed, **BERT_BASE)
+    entries = {"eager": bert_serving_entry(eager_net, hybridize=False),
+               "graphed": bert_serving_entry(net, hybridize=True)}
+    seen = []
+
+    def recorded(*args):
+        out = entries["graphed"](*args)
+        seen.append(([a.clone() for a in args], out.clone()))
+        return out
+
+    reqs = encoder_requests(np.random.RandomState(seed + 2))
+
+    def burst(eng, profile):
+        results = [None] * len(reqs)
+        eng.reset_stats()
+        go = threading.Barrier(clients + 1)
+
+        def client(c):
+            go.wait()
+            futs = [(i, eng.submit(*reqs[i]))
+                    for i in range(c, len(reqs), clients)]
+            for i, f in futs:
+                results[i] = f.result(timeout=600)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(clients)]
+        for t in threads:
+            t.start()
+        with _profiler(profile) as prof:
+            go.wait()
+            t0 = time.perf_counter()
+            for t in threads:
+                t.join(600)
+            wall = time.perf_counter() - t0
+        if any(r is None for r in results):
+            raise AssertionError("encoder: requests unanswered")
+        busy = report_profile(prof, wall) if prof is not None else None
+        snap = eng.snapshot()
+        return {"requests_per_s": len(reqs) / wall, "wall_s": wall,
+                "latency_ms": snap["latency"]["total"],
+                "compile_cache": snap["compile_cache"], "busy": busy}
+
+    def engine(mode):
+        fn = recorded if mode == "graphed" else entries["eager"]
+        return ServingEngine(fn, device=dev, pool="mean",
+                             bucket_lens=(64, 256, 512), max_rows=8)
+
+    runs = {"eager": [], "graphed": []}
+    with engine("eager") as e_eng, engine("graphed") as g_eng:
+        ops.reset_launch_counts()
+        mem0 = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        g_eng.warmup()
+        warm_s = time.perf_counter() - t0
+        graph_mem = torch.cuda.memory_allocated(dev) - mem0
+        warm_cc = g_eng.snapshot()["compile_cache"]
+        n_fwd = warm_cc["miss"] + warm_cc["memory_hit"]
+        counts = ops.launch_counts()
+        e_eng.warmup()
+        for _ in range(rounds):
+            for mode, eng in (("eager", e_eng), ("graphed", g_eng)):
+                before, n0 = ops.launch_counts(), len(seen)
+                runs[mode].append(burst(eng, False))
+                if mode == "graphed":
+                    after = ops.launch_counts()
+                    counts = {k: n + after[k] - before[k]
+                              for k, n in counts.items()}
+                    n_fwd += len(seen) - n0
+        cc = g_eng.snapshot()["compile_cache"]
+    want = {"flash_attention": layers * n_fwd,
+            "layer_norm": (2 * layers + 1) * n_fwd}
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"graphed encoder: {name} launched "
+                                 f"{counts[name]} times in {n_fwd} "
+                                 f"forwards, want {n}")
+    if cc["miss"] != warm_cc["miss"]:
+        raise AssertionError(f"graphed encoder: traffic captured "
+                             f"{cc['miss'] - warm_cc['miss']} graphs after "
+                             f"the warm-up")
+    with torch.inference_mode():
+        for args, out in seen:
+            if not torch.equal(entries["eager"](*args), out):
+                raise AssertionError("graphed encoder: a batch's output "
+                                     "differs from the eager model's")
+    caps = _captures_of(net)
+
+    def side(ms):
+        return {"requests_per_s": _median([x["requests_per_s"] for x in ms]),
+                "latency_p50_ms": _median([_p(x, "latency_ms", "p50")
+                                           for x in ms]),
+                "latency_p99_ms": _median([_p(x, "latency_ms", "p99")
+                                           for x in ms]),
+                "requests_per_s_runs": [x["requests_per_s"] for x in ms]}
+
+    m = {"graphed": side(runs["graphed"]), "eager": side(runs["eager"]),
+         "warmup_s": warm_s, "compile_cache": cc,
+         "graph_memory_bytes": graph_mem, "captures": caps[0],
+         "capture_ms": caps[1], "batches_checked": len(seen),
+         "launches": counts, "card": power_line}
+
+    def line(k):
+        x = m[k]
+        return (f"{k} {x['requests_per_s']:.2f} requests/s (runs "
+                f"{', '.join(f'{v:.2f}' for v in x['requests_per_s_runs'])})"
+                f", latency p50 {x['latency_p50_ms']:.2f} p99 "
+                f"{x['latency_p99_ms']:.2f} ms")
+
+    log(f"hybridize encoder ({rounds} bursts a side, in turns, medians): "
+        f"{len(seen)} graphed batches equal to the eager model's to the "
+        f"bit; launches exact ({n_fwd} graphed forwards); "
+        f"{line('graphed')}; {line('eager')}; {caps[0]} graphs captured in "
+        f"{caps[1]:.0f} ms, warm-up {warm_s:.1f} s; memory held by the "
+        f"graphs {graph_mem / 2**20:.1f} MiB [{power_line}]")
+
+    def profile():
+        m["busy"] = {}
+        for mode in ("eager", "graphed"):
+            with engine(mode) as eng:
+                eng.warmup()
+                m["busy"][mode] = burst(eng, True)["busy"]
+        log(f"hybridize encoder, busy share: graphed "
+            f"{_busy(m['busy']['graphed'])}, eager "
+            f"{_busy(m['busy']['eager'])} (profiled bursts)")
+
+    profiles.append(profile)
+    return m
+
+
+def _grads(params):
+    return {k: p.grad().detach().clone() for k, p in params.items()}
+
+
+def _step_one(make, step, hybrid):
+    """Step 1 (forward, backward, no update) of a model from ``make``:
+    the model, its parameters, its loss and its gradients."""
+    objs, params = make(hybrid)
+    loss = step(objs, None).detach().clone()
+    return objs, params, loss, _grads(params)
+
+
+#: the kernels each launch counter stands for, one kernel a launch at
+#: the shapes phase 15 profiles (K2 fused: Skv <= 128; K3b: its fold)
+KERNEL_SYMBOLS = {
+    "paged_attention": ("paged_attention_kernel",),
+    "flash_attention": ("flash_fwd_kernel", "flash_fwd_wide_kernel"),
+    "flash_attention_bwd": ("flash_bwd_fused_kernel",
+                            "flash_bwd_fused_wide_kernel"),
+    "layer_norm": ("layer_norm_fwd_kernel", "layer_norm_fwd_long_kernel"),
+    "layer_norm_bwd": ("layer_norm_bwd_fold_kernel",),
+    "softmax_xent_fwd": ("xent_fwd_kernel",),
+    "softmax_xent_bwd": ("xent_bwd_kernel",),
+    "lstm_fwd": ("lstm_fwd_kernel",), "lstm_bwd": ("lstm_bwd_kernel",),
+    "lstm_bwd_dw": ("lstm_bwd_dw_kernel",)}
+
+
+def traced_launches(prof):
+    """``{launch counter: kernels of it in the trace}`` (the port's
+    kernels by their symbols, :data:`KERNEL_SYMBOLS`)."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    by_symbol = {sym: name for name, syms in KERNEL_SYMBOLS.items()
+                 for sym in syms}
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        m = re.search(r"::(\w+)[<(]", e.key)
+        name = by_symbol.get(m.group(1)) if m else None
+        if name is not None:
+            out[name] = out.get(name, 0) + e.count
+    return out
+
+
+def _trainer_of(objs):
+    from mxnet_tpu_torch import gluon
+
+    params = {k: p for o in objs if hasattr(o, "collect_params")
+              for k, p in o.collect_params().items()}
+    for p in params.values():
+        p.zero_grad()
+    return gluon.Trainer(params, "adam", {"learning_rate": 1e-4})
+
+
+def graphed_training(label, make, step, batch_valid, profiles, steps=10,
+                     warmup=2, second=None):
+    """A training path, eager and hybridized, from the same seed: step 1
+    of each (the loss and every gradient, bit for bit or within 1e-6
+    relative / 1e-5 of scale, said which), then ``warmup`` Adam steps
+    each and ``steps`` rounds of one eager and one graphed step in
+    turns: the graphed steps' launches exact (12/12, 26/26, 1/1 a
+    step) and their loss falling; each side's step p50. Step 1 runs
+    twice on each side, which tells the run-to-run spread of each
+    gradient (eager against eager, graphed against graphed) from a
+    difference between the two. ``second(objs)``: one step at a second
+    training shape, on the graphed side; the memory its graphs hold is
+    measured. With ``profiles`` (a list) adds a profiled forward +
+    backward of each, its port kernels in the trace held against the
+    launch counts. Returns the metrics."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import ops
+
+    layers = BERT_BASE["num_layers"]
+    held = {}
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    eager_objs, pe, le, ge = _step_one(make, step, False)
+    gc.collect()
+    held["eager"] = torch.cuda.memory_allocated() - mem0
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    objs, pg, lg, gg = _step_one(make, step, True)
+    first_s = time.perf_counter() - t0
+    gc.collect()
+    # less the step-1 copies of the loss and gradients held here
+    held["graphed"] = torch.cuda.memory_allocated() - mem0 - sum(
+        g.numel() * g.element_size() for g in (lg, *gg.values()))
+    held["eager"] -= sum(g.numel() * g.element_size()
+                         for g in (le, *ge.values()))
+    same = torch.equal(le, lg) and all(torch.equal(ge[k], gg[k])
+                                       for k in ge)
+    rel = abs(lg.item() - le.item()) / abs(le.item())
+    gaps = {k: _grad_gap(gg[k], ge[k]) for k in ge}
+    worst_name = max(gaps, key=gaps.get)
+    worst = gaps[worst_name]
+    unequal = sorted(k for k in ge if not torch.equal(ge[k], gg[k]))
+    # step 1 again on each side (no update yet: the same weights)
+    spread = {}
+    for mode, o, ps, g1 in (("eager", eager_objs, pe, ge),
+                            ("graphed", objs, pg, gg)):
+        step(o, None)
+        g2 = _grads(ps)
+        spread[mode] = {k: _grad_gap(g2[k], g1[k]) for k in g1
+                        if not torch.equal(g2[k], g1[k])}
+        del g2
+    if not (rel <= 1e-6 and worst <= 1e-5):
+        raise AssertionError(f"{label}: graphed step 1 off the eager one: "
+                             f"loss {rel}, gradient of {worst_name} "
+                             f"{worst} of its scale")
+    del le, ge, lg, gg
+    trainers = {"eager": _trainer_of(eager_objs), "graphed": _trainer_of(objs)}
+    sides = {"eager": eager_objs, "graphed": objs}
+    for mode in sides:
+        for _ in range(warmup):
+            step(sides[mode], trainers[mode])
+    torch.cuda.synchronize()
+    times = {"eager": [], "graphed": []}
+    losses = []
+    counts = {}
+    for _ in range(steps):
+        for mode in ("eager", "graphed"):
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            loss = step(sides[mode], trainers[mode])
+            torch.cuda.synchronize()
+            times[mode].append(time.perf_counter() - t0)
+            if mode == "graphed":
+                after = ops.launch_counts()
+                for k in after:
+                    counts[k] = counts.get(k, 0) + after[k] - before[k]
+                losses.append(loss.item() / batch_valid)
+    per_step = {"flash_attention": layers, "flash_attention_bwd": layers,
+                "layer_norm": 2 * layers + 2,
+                "layer_norm_bwd": 2 * layers + 2,
+                "softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
+    for name, k in per_step.items():
+        if counts[name] != k * steps:
+            raise AssertionError(f"{label}: {name} launched {counts[name]} "
+                                 f"times in {steps} graphed steps, want "
+                                 f"{k} a step")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: graphed loss did not fall: "
+                             f"{losses}")
+    if second is not None:
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        second(objs)
+        gc.collect()
+        torch.cuda.synchronize()
+        held["graphed_second_shape"] = torch.cuda.memory_allocated() - mem0
+    caps = _captures_of(*[o for o in objs if hasattr(o, "_cached_graph")])
+    p50 = {k: _median(v) for k, v in times.items()}
+    m = {"step_ms_p50": p50["graphed"] * 1e3,
+         "eager_step_ms_p50": p50["eager"] * 1e3,
+         "ratio_to_eager": p50["graphed"] / p50["eager"],
+         "step_ms": [t * 1e3 for t in times["graphed"]],
+         "eager_step_ms": [t * 1e3 for t in times["eager"]],
+         "step1_bit_equal": same, "step1_loss_rel_gap": rel,
+         "step1_grad_gap": worst, "step1_grad_gap_param": worst_name,
+         "step1_grads_not_bit_equal": unequal,
+         "step1_repeat_unequal": spread, "first_step_s": first_s,
+         "captures": caps[0], "capture_ms": caps[1],
+         "memory_after_step1_bytes": held, "loss_per_token": losses,
+         "launches": counts}
+    log(f"hybridize {label}: step 1 {'bit for bit' if same else 'NOT bit'}"
+        f" equal to eager (loss gap {rel:.3e}; {len(unequal)} gradients "
+        f"differ, the largest gap {worst:.3e} of scale in {worst_name}); "
+        f"{steps} steps a side in turns: step p50 "
+        f"{p50['graphed'] * 1e3:.2f} ms graphed vs {p50['eager'] * 1e3:.2f}"
+        f" ms eager (ratio {p50['graphed'] / p50['eager']:.4f}), "
+        f"{batch_valid / p50['graphed']:.1f} valid tokens/s graphed; loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}; launches exact; {caps[0]} "
+        f"graphs captured in {caps[1]:.0f} ms (first step {first_s:.1f} s);"
+        f" memory held after step 1 (weights, gradients and, graphed, the "
+        f"graphs' pool) {held['graphed'] / 2**30:.3f} GiB graphed vs "
+        f"{held['eager'] / 2**30:.3f} GiB eager"
+        + (f"; a second training shape's graphs hold "
+           f"{held['graphed_second_shape'] / 2**30:.3f} GiB more"
+           if second is not None else ""))
+    log(f"hybridize {label}, step 1 repeated on the same weights: "
+        + "; ".join(f"{k} against {k}: " + (
+            ", ".join(f"{n} ({g:.3e} of scale)" for n, g in v.items())
+            or "every gradient equal to the bit")
+            for k, v in spread.items()))
+    log(f"hybridize {label} metrics: " + json.dumps(m))
+    if profiles is None:
+        del objs, eager_objs, trainers, sides
+        gc.collect()
+        return m
+
+    def profile():
+        m["profile"] = {}
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        for mode in ("eager", "graphed"):
+            step(sides[mode], None)
+            torch.cuda.synchronize()
+            # one step traced but not kept first: the trace's first
+            # kernels can go missing while the tracer starts
+            with _profiler(True) as prof:
+                t0 = time.perf_counter()
+                step(sides[mode], None)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            log(f"hybridize {label}, {mode} forward + backward:")
+            m["profile"][mode] = {"wall_ms": wall * 1e3,
+                                  "busy": report_profile(prof, wall)}
+            # the port's kernels in the trace of one more step; a step
+            # traced first is dropped, since a trace's first kernels can
+            # go missing while the tracer starts (its device times are
+            # not read: a scheduled trace's sums ran past its wall)
+            with torch.profiler.profile(
+                    activities=acts, acc_events=True,
+                    schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                     active=1)) as prof:
+                step(sides[mode], None)
+                torch.cuda.synchronize()
+                prof.step()
+                before = ops.launch_counts()
+                step(sides[mode], None)
+                torch.cuda.synchronize()
+                after = ops.launch_counts()
+                prof.step()
+            counted = {k: after[k] - before[k] for k in after
+                       if after[k] != before[k]}
+            traced = traced_launches(prof)
+            if traced != counted:
+                raise AssertionError(f"{label}, {mode}: the port's kernels "
+                                     f"in the trace {traced} differ from "
+                                     f"the launches counted {counted}")
+            log(f"hybridize {label}, {mode}: the trace's port kernels "
+                f"equal the launches counted, {counted}")
+
+    profiles.append(profile)
+    return m
+
+
+def hybrid_bert_mlm(seed, dev, power_line, profiles):
+    """``train-bertbase-mlm-b64s128`` with the trunk and the MLM head
+    hybridized (each a forward and a backward graph a step) beside the
+    eager pair."""
+    batch = to_device(train_batch(seed), dev)
+
+    def make(hybrid):
+        net, head, params, _ = build_trainer(seed, dev,
+                                             BERT_BASE["num_layers"])
+        if hybrid:
+            net.hybridize()
+            head.hybridize()
+        return (net, head), params
+
+    def step(objs, trainer, batch=batch):
+        from mxnet_tpu_torch import autograd, nd
+
+        net, head = objs
+        ids, tt, lens, pos, labels, n_valid = batch
+        with autograd.record():
+            seq = net(ids, tt, lens)
+            flat = seq.reshape(-1, seq.shape[-1])[pos]
+            loss = nd.softmax_cross_entropy(head(flat), labels)
+        loss.backward()
+        if trainer is not None:
+            trainer.step(n_valid)
+        return loss
+
+    other = to_device(train_batch(seed, b=TRAIN_B // 2), dev)
+    return graphed_training("BERT-base MLM", make, step, batch[-1],
+                            profiles, second=lambda objs: step(
+                                objs, None, batch=other))
+
+
+def hybrid_fop_bert(seed, dev, power_line, profiles):
+    """``examples/hybrid_bert.py``'s F-op BERT-base MLM hybridized (one
+    forward and one backward graph a step) beside the eager model."""
+    batch = to_device(train_batch(seed), dev)
+
+    def make(hybrid):
+        hyb, _, _ = build_hybrid(seed, dev, BERT_BASE["num_layers"])
+        if hybrid:
+            hyb.hybridize()
+        return (hyb,), hyb.collect_params()
+
+    def step(objs, trainer):
+        return hybrid_step(objs[0], trainer, batch)
+
+    return graphed_training("F-op BERT-base", make, step, batch[-1],
+                            profiles)
+
+
+def hybrid_wordlm(seed, dev, power_line, segments=8):
+    """The word LM at its widths, dropout 0, eager and hybridized (its
+    embedding, LSTM and decoder each a graph; K6a/K6b inside), one
+    segment of each in turns: each segment's loss and the final weights
+    equal to the eager model's to the bit, exactly 2 + 2 + 2 LSTM
+    launches a graphed segment, every one a replay; each side's segment
+    p50 (the first segment, the capture's, left out)."""
+    import gc
+
+    import torch
+
+    from mxnet_tpu_torch import graphs, ops
+    from mxnet_tpu_torch.examples.word_lm import train_segments
+
+    data = wordlm_data(WLM["vocab"], WLM["batch"], segments + 1)
+    nets, segs = {}, {}
+    for mode in ("eager", "graphed"):
+        net, trainer = build_wordlm(seed, dev, WLM["vocab"], 0.0)
+        if mode == "graphed":
+            net.hybridize()
+        nets[mode] = net
+        segs[mode] = train_segments(net, trainer, data, WLM["bptt"],
+                                    WLM["clip"])
+    losses = {"eager": [], "graphed": []}
+    times = {"eager": [], "graphed": []}
+    counts, replayed = {}, {}
+    for _ in range(segments):
+        for mode in ("eager", "graphed"):
+            before, rb = ops.launch_counts(), graphs.replayed_launches()
+            t0 = time.perf_counter()
+            losses[mode].append(next(segs[mode]).detach().clone())
+            torch.cuda.synchronize()
+            times[mode].append(time.perf_counter() - t0)
+            if mode == "graphed":
+                after, ra = ops.launch_counts(), graphs.replayed_launches()
+                for k in after:
+                    counts[k] = counts.get(k, 0) + after[k] - before[k]
+                    replayed[k] = (replayed.get(k, 0) + ra.get(k, 0)
+                                   - rb.get(k, 0))
+    same = all(torch.equal(a, b) for a, b in zip(losses["graphed"],
+                                                  losses["eager"])) and \
+        all(torch.equal(a, b) for a, b in zip(nets["graphed"].parameters(),
+                                              nets["eager"].parameters()))
+    if not same:
+        raise AssertionError("graphed word LM differs from the eager one")
+    for k in ("lstm_fwd", "lstm_bwd", "lstm_bwd_dw"):
+        want = WLM["layers"] * segments
+        if counts[k] != want or replayed[k] != want:
+            raise AssertionError(f"graphed word LM: {k} launched "
+                                 f"{counts[k]} times ({replayed[k]} "
+                                 f"replayed), want {want}")
+    p50 = {k: _median(v[1:]) for k, v in times.items()}
+    log(f"hybridize word LM ({segments} segments a side, in turns): losses "
+        f"and weights equal to eager to the bit; LSTM launches 2 + 2 + 2 a "
+        f"segment, all replays; segment p50 {p50['graphed'] * 1e3:.2f} ms "
+        f"graphed vs {p50['eager'] * 1e3:.2f} ms eager (ratio "
+        f"{p50['graphed'] / p50['eager']:.4f}) [{power_line}]")
+    del nets, segs
+    gc.collect()
+    return {"step_ms_p50": p50["graphed"] * 1e3,
+            "eager_step_ms_p50": p50["eager"] * 1e3, "launches": counts}
+
+
+def hybrid_chain_steps(dev, power_line, k=10, rounds=20):
+    """``engine.chain_steps`` on the MNIST MLP's widths (784-128-64-10,
+    batch 64, momentum SGD written on tensors): ``k`` steps as one
+    graph, ``rounds`` chained calls equal to ``k * rounds`` single
+    steps to the bit; time a step both ways."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.engine import chain_steps
+
+    def step(w1, w2, w3, m1, m2, m3, x, y):
+        ws = [w.detach().requires_grad_(True) for w in (w1, w2, w3)]
+        with torch.enable_grad():
+            h = torch.relu(x @ ws[0])
+            h = torch.relu(h @ ws[1])
+            loss = torch.nn.functional.cross_entropy(h @ ws[2], y)
+            gs = torch.autograd.grad(loss, ws)
+        ms = [0.9 * m + g for m, g in zip((m1, m2, m3), gs)]
+        new = [w - 0.01 * m for w, m in zip((w1, w2, w3), ms)]
+        return (*new, *ms, loss.detach())
+
+    rng = np.random.RandomState(0)
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape) * 0.05,
+                            dtype=torch.float32, device=dev)
+
+    ws = [t(784, 128), t(128, 64), t(64, 10)]
+    carry = ws + [torch.zeros_like(w) for w in ws]
+    x = torch.tensor(rng.rand(64, 784), dtype=torch.float32, device=dev)
+    y = torch.tensor(rng.randint(0, 10, 64), device=dev)
+    single = [c.clone() for c in carry]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(k * rounds):
+        *single, loss = step(*single, x, y)
+    torch.cuda.synchronize()
+    single_s = (time.perf_counter() - t0) / (k * rounds)
+    chained = chain_steps(step, k, donate_argnums=range(6))
+    out = chained(*[c.clone() for c in carry], x, y)      # the capture
+    state = [c.clone() for c in carry]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        out = chained(*state, x, y)
+        state = list(out[:6])
+    torch.cuda.synchronize()
+    chain_s = (time.perf_counter() - t0) / (k * rounds)
+    if not all(torch.equal(a, b) for a, b in zip(out, (*single, loss))):
+        raise AssertionError("chain_steps differs from single steps")
+    log(f"hybridize chain_steps: {rounds} calls of {k} steps equal to "
+        f"{k * rounds} single steps to the bit; {chain_s * 1e6:.1f} us a "
+        f"step chained vs {single_s * 1e6:.1f} us single [{power_line}]")
+    return {"chained_us": chain_s * 1e6, "single_us": single_s * 1e6}
+
+
+def vision_both(seed, dev, power_line, steps=10, warmup=3, epochs=2):
+    """The vision examples' models (which ``hybridize()``) beside the
+    same models with that undone: ResNet-50 in f32 and bf16, one model
+    of each kind from the seed, ``warmup`` steps each then ``steps``
+    rounds of one eager and one graphed step in turns (step 1's loss
+    equal, within 1e-6 relative, and each side's step p50; after the
+    last step every BatchNorm running mean and variance of the graphed
+    model, updated inside its graph at every replay, equal to the eager
+    model's write-backs to the bit); then ``epochs`` MNIST epochs of
+    each kind, in turns."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.examples import mnist_gluon
+    from mxnet_tpu_torch.examples import train_imagenet as ex
+
+    out = {}
+    r = RESNET
+    for dtype in ("float32", "bfloat16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        models = {}
+        for mode in ("eager", "graphed"):
+            models[mode] = ex.build(r["network"], r["classes"], dev, dtype,
+                                    seed)
+            if mode == "eager":
+                models[mode][0].hybridize(False)
+        x, y = ex.synthetic_batch(r["batch"], r["image"], r["classes"],
+                                  seed, dev, dtype)
+        times = {"eager": [], "graphed": []}
+        losses = {"eager": [], "graphed": []}
+        for i in range(warmup + steps):
+            for mode in ("eager", "graphed"):
+                net, loss_fn, trainer = models[mode]
+                t0 = time.perf_counter()
+                _, loss = ex.train_step(net, loss_fn, trainer, x, y)
+                torch.cuda.synchronize()
+                if i >= warmup:
+                    times[mode].append(time.perf_counter() - t0)
+                losses[mode].append(loss.double().mean().item())
+        rel = abs(losses["graphed"][0] - losses["eager"][0]) / \
+            abs(losses["eager"][0])
+        if not rel <= 1e-6:
+            raise AssertionError(f"ResNet-50 {dtype}: graphed step-1 loss "
+                                 f"off the eager one by {rel}")
+        same = next((i for i, (a, b) in enumerate(zip(losses["graphed"],
+                                                       losses["eager"]))
+                     if a != b), None)
+        stats = {mode: {n: t for n, t in models[mode][0]
+                        .gluon_params().items() if "running" in n}
+                 for mode in models}
+        off = sorted(n for n, t in stats["eager"].items()
+                     if not torch.equal(stats["graphed"][n], t))
+        if not stats["eager"] or off:
+            raise AssertionError(f"ResNet-50 {dtype}: running statistics "
+                                 f"of the graphed model differ from the "
+                                 f"eager one's after {warmup + steps} "
+                                 f"steps: {off[:4]} ({len(off)} of "
+                                 f"{len(stats['eager'])})")
+        out[dtype] = {k: _median(v) * 1e3 for k, v in times.items()}
+        out[dtype]["first_unequal_step"] = same
+        n_stats = len(stats["eager"])
+        del models, x, y, stats
+        log(f"hybridize ResNet-50 {dtype} ({steps} steps a side, in turns): "
+            f"step p50 {out[dtype]['graphed']:.2f} ms graphed vs "
+            f"{out[dtype]['eager']:.2f} ms eager (ratio "
+            f"{out[dtype]['graphed'] / out[dtype]['eager']:.4f}); losses "
+            + ("equal to eager to the bit" if same is None else
+               f"equal to eager up to step {same + 1} (step 1 within "
+               f"{rel:.1e})") + f"; all {n_stats} running "
+            f"means and variances equal to eager's to the bit "
+            f"[{power_line}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = mnist_gluon.parse_args(["--seed", str(seed), "--epochs", "1"])
+    args.device = str(dev)
+    build = mnist_gluon.build
+    rates = {"eager": [], "graphed": []}
+    try:
+        for _ in range(epochs):
+            for mode in ("eager", "graphed"):
+                # the example's own model; eager: its hybridize() undone
+                mnist_gluon.build = build if mode == "graphed" else (
+                    lambda device, seed=0: build(device, seed)
+                    .hybridize(False))
+                res = mnist_gluon.train(args)
+                rates[mode].append(res["epochs"][0]["samples_per_s"])
+    finally:
+        mnist_gluon.build = build
+    out["mnist_samples_per_s"] = rates
+    log(f"hybridize MNIST (an epoch of each, {epochs} in turns): samples/s "
+        f"graphed {[round(v, 1) for v in rates['graphed']]} vs eager "
+        f"{[round(v, 1) for v in rates['eager']]} [{power_line}]")
+    return out
+
+
+def embedding_probe(dev, units=768):
+    """The token-type embedding's weight gradient alone
+    (``aten.embedding_dense_backward``) at the training batch's shape,
+    every id 0 of 2 rows as in phases 7 and 15: twice eagerly and twice
+    from one CUDA graph, each pair and the two sides compared bit for
+    bit. Returns ``{"eager_repeat", "graphed_repeat", "eager_vs_graphed"}``
+    (each True when equal) and the gap of the last, of scale."""
+    import torch
+
+    from mxnet_tpu_torch import graphs
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dy = torch.randn(TRAIN_B, TRAIN_S, units, device=dev, generator=gen)
+    ids = torch.zeros(TRAIN_B, TRAIN_S, dtype=torch.long, device=dev)
+
+    def grad(dy, ids):
+        return torch.ops.aten.embedding_dense_backward(dy, ids, 2, -1,
+                                                       False)
+
+    e = [grad(dy, ids) for _ in range(2)]
+    graph = graphs.capture(grad, [dy, ids], dev,
+                           torch.cuda.graph_pool_handle(),
+                           "embedding backward probe")
+    g = [graph([dy, ids]).clone() for _ in range(2)]
+    torch.cuda.synchronize()
+    out = {"eager_repeat": torch.equal(e[0], e[1]),
+           "graphed_repeat": torch.equal(g[0], g[1]),
+           "eager_vs_graphed": torch.equal(e[0], g[0]),
+           "gap_of_scale": _grad_gap(g[0], e[0])}
+    log(f"embedding backward probe ({TRAIN_B}x{TRAIN_S} ids, all 0, "
+        f"{units} units): eager twice equal {out['eager_repeat']}, "
+        f"graphed twice equal {out['graphed_repeat']}, eager vs graphed "
+        f"equal {out['eager_vs_graphed']} (gap {out['gap_of_scale']:.3e} "
+        f"of scale)")
+    return out
+
+
+def hybridize_phase(seed, dev, power_line, eager):
+    """Phase 15; returns ``{kernel: launches inside graph replays}``
+    over its paths. Every profiled run comes after every timed one."""
+    from mxnet_tpu_torch import graphs
+
+    t0 = time.perf_counter()
+    graphs.reset_replayed_launches()
+    profiles = []
+    m = {"decode": hybrid_decode(seed, dev, power_line, eager["decode"],
+                                 profiles),
+         "encoder": hybrid_encoder(seed, dev, power_line,
+                                   eager["encoder"], profiles),
+         "bert_mlm": hybrid_bert_mlm(seed, dev, power_line, profiles),
+         "fop_bert": hybrid_fop_bert(seed, dev, power_line, None),
+         "embedding_probe": embedding_probe(dev)}
+    in_graph = graphs.replayed_launches()
+    m["wordlm"] = hybrid_wordlm(seed, dev, power_line)
+    for k, n in graphs.replayed_launches().items():
+        in_graph[k] = in_graph.get(k, 0) + n
+    m["chain_steps"] = hybrid_chain_steps(dev, power_line)
+    m["vision"] = vision_both(seed, dev, power_line)
+    missing = [k for k in KERNEL_NAMES if not in_graph.get(k)]
+    if missing:
+        raise AssertionError(f"kernels never launched inside a graph: "
+                             f"{missing}")
+    for profile in profiles:
+        profile()
+    log(f"phase 15 (hybridize): every kernel launched inside a graph "
+        f"{in_graph}; {time.perf_counter() - t0:.1f} s")
+    log(f"empty graphs captured in this run (phases 1-15): "
+        f"{graphs.empty_captures() or 'none'}")
+    log("hybridize metrics: " + json.dumps(
+        m, default=lambda o: None))
+    return in_graph
+
+
+KERNEL_NAMES = ("paged_attention", "flash_attention", "flash_attention_bwd",
+                "layer_norm", "layer_norm_bwd", "softmax_xent_fwd",
+                "softmax_xent_bwd", "lstm_fwd", "lstm_bwd", "lstm_bwd_dw")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3269,8 +4200,10 @@ def main():
                *check_lstm(rng, dev)]
     check_op_dispatch(args.seed, dev)
     # each path's launches, counted from 0 over its own run
-    decode = serve_main_path(args.seed, args.profile, dev, power_line)
-    encoder = serve_encoder(args.seed, args.profile, dev, power_line)
+    decode, decode_info = serve_main_path(args.seed, args.profile, dev,
+                                          power_line)
+    encoder, encoder_info = serve_encoder(args.seed, args.profile, dev,
+                                          power_line)
     train, zoo_p50 = train_main_path(args.seed, args.profile, dev,
                                      power_line)
     wordlm = train_wordlm_main_path(args.seed, args.profile, dev,
@@ -3314,6 +4247,14 @@ def main():
         if e["name"] == "lstm_bwd":
             e["launches_by_path"]["nd_by_kernel"] = {
                 k: by_nd[k] for k in ("lstm_bwd", "lstm_bwd_dw")}
+    # hybridize: the paths again as CUDA graphs, beside their eager runs
+    in_graph = hybridize_phase(args.seed, dev, power_line, {
+        "decode": decode_info, "encoder": encoder_info})
+    for e in entries:
+        e["launches_in_graph"] = {
+            k: in_graph.get(k, 0) for k in (
+                ("lstm_bwd", "lstm_bwd_dw") if e["name"] == "lstm_bwd"
+                else (e["name"],))}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(power_line)

@@ -168,6 +168,23 @@ def mark_variables(variables, gradients, grad_reqs="write"):
             v.grad = g
 
 
+class hooks_off:
+    """Scope in which the ``"write"`` hooks leave every ``.grad`` alone:
+    gradients computed and returned (:func:`grad`, a hybridized block's
+    captured backward) must not clear the gradients a later
+    ``backward()`` writes over."""
+
+    def __enter__(self):
+        with _GRAD_LOCK:
+            _GRAD_CALLS[0] += 1
+        return self
+
+    def __exit__(self, *exc):
+        with _GRAD_LOCK:
+            _GRAD_CALLS[0] -= 1
+        return False
+
+
 def _head_grads(heads, head_grads):
     if isinstance(heads, torch.Tensor):
         heads = [heads]
@@ -210,17 +227,11 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     heads, head_grads = _head_grads(heads, head_grads)
     single = isinstance(variables, torch.Tensor)
     variables = [variables] if single else list(variables)
-    with _GRAD_LOCK:
-        _GRAD_CALLS[0] += 1
-    try:
-        with _Scope(None, bool(train_mode)):
-            out = torch.autograd.grad(
-                heads, variables, head_grads,
-                retain_graph=retain_graph if retain_graph is not None
-                else create_graph, create_graph=create_graph,
-                allow_unused=True)
-    finally:
-        with _GRAD_LOCK:
-            _GRAD_CALLS[0] -= 1
+    with hooks_off(), _Scope(None, bool(train_mode)):
+        out = torch.autograd.grad(
+            heads, variables, head_grads,
+            retain_graph=retain_graph if retain_graph is not None
+            else create_graph, create_graph=create_graph,
+            allow_unused=True)
     return [torch.zeros_like(v) if g is None else g
             for v, g in zip(variables, out)]

@@ -5,8 +5,9 @@ Sequential, the Transformer encoder) as ``torch.nn.Module``s with
 Gluon's parameter names, ``rnn.LSTM``, ``model_zoo`` (BERT and the
 vision ResNets), ``data`` (datasets, samplers, ``DataLoader``, the
 vision datasets and transforms), ``Parameter``/``ParameterDict``,
-``loss``, ``utils`` and the ``Trainer``. ``HybridBlock`` is another
-name for ``Block``: the port runs eagerly."""
+``loss``, ``utils`` and the ``Trainer``. A ``HybridBlock`` hybridizes
+into CUDA graphs (``block``'s module docstring); a plain ``Block`` runs
+eagerly."""
 from __future__ import annotations
 
 from . import data, loss, model_zoo, nn, rnn, utils

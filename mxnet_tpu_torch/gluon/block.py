@@ -2,7 +2,7 @@
 parameter naming, MXNet's recording rule and the reference's Block
 API.
 
-Port of ``mxnet_tpu/gluon/block.py`` for eager training and serving.
+Port of ``mxnet_tpu/gluon/block.py``.
 
 **Names.** Each :class:`Block` keeps its own Gluon prefix. Given as
 ``prefix=``, it is used as it is (``""`` for none). Left ``None``, a
@@ -55,36 +55,73 @@ Normal(0, ``sigma``), ``gamma`` and running variances ones,
 ``bias``/``beta`` and running means zeros. A parameter initialized
 once is left as it is unless ``force_reinit``.
 
-**User blocks.** ``HybridBlock`` is another name for :class:`Block`. A
-subclass that defines ``hybrid_forward(self, F, x, ...)`` instead of
-``forward`` runs as the reference's: ``F`` is ``mx.nd`` (the op
-registry) and the parameters it assigned as attributes from
-``self.params.get(...)``/``get_constant(...)`` come as keyword
-arguments, plain tensors, by attribute name (:meth:`Block.forward`).
-Inside it the F-ops see and give plain tensors. Layers that define
-``forward`` (all of the port's) keep their own path. PyTorch runs
-eagerly, and :meth:`Block.hybridize` records its arguments and
-compiles nothing (a CUDA graph of the step is ROADMAP Queue 1,
-'Hybridize').
-:meth:`Block.cast` changes the parameters' type in place, as the JAX
-block's does. A block records a graph only inside
+**User blocks.** A subclass that defines ``hybrid_forward(self, F,
+x, ...)`` instead of ``forward`` runs as the reference's: ``F`` is
+``mx.nd`` (the op registry) and the parameters it assigned as
+attributes from ``self.params.get(...)``/``get_constant(...)`` come as
+keyword arguments, plain tensors, by attribute name
+(:meth:`Block.forward`). Inside it the F-ops see and give plain
+tensors. Layers that define ``forward`` (all of the port's) keep their
+own path. :meth:`Block.cast` changes the parameters' type in place, as
+the JAX block's does. A block records a graph only inside
 ``autograd.record()``: called anywhere else it runs with torch's
 gradient mode off, as an MXNet block records nothing outside
 ``record()``. Train/predict mode is ``autograd.is_training()``, not
 ``nn.Module.training``.
+
+**Hybridize.** :class:`HybridBlock` is the reference's: after
+:meth:`HybridBlock.hybridize` a call goes through its CachedOp, which
+keeps one entry per key (the JAX key: the structure, shapes and types
+of the arguments and ``autograd.is_training()``; here also whether
+the call records, torch's inference mode and the device; the port has
+no AMP, whose cast generation is the rest of the JAX key, and
+:meth:`Block.cast` clears the cache). On CUDA tensors an entry is a
+CUDA graph (``graphs``): the first call of a key warms up eagerly on
+a side stream and captures the forward, later calls copy their inputs
+into the entry's static inputs and replay. Under ``autograd.record()``
+the entry is two graphs, the forward and its backward (captured with
+``torch.autograd.grad`` over the parameters and the inputs that take
+gradients), joined by a ``torch.autograd.Function``: ``backward()``,
+``grad_req`` and ``Trainer.step`` see gradients as from an eager
+forward. A second call of one key before the first call's backward
+takes a second pair of graphs, so no call's saved activations are
+overwritten. All graphs of one root block share one memory pool. A
+recorded entry holds its forward's activations for as long as it
+lives, so a block keeps at most four of them, dropping the least
+recently used (:meth:`HybridBlock.hybridize` gives the cost). Each
+call's outputs (and gradients) are copies out of the static buffers,
+so they stay valid after the next call: one device copy of every
+output (and gradient) a call. A hybridized block inside a hybridized
+parent runs inside the parent's graph (nothing nests); a ``Block``
+that is not a ``HybridBlock`` (``Sequential``, ``Lambda``, a user's
+``gluon.Block``) only passes ``hybridize`` on to its children.
+BatchNorm's running statistics update inside the graph at every
+replay; dropout draws from torch's CUDA generator, which the capture
+registers, so every replay draws a new mask and ``mx.random.seed``
+after a capture takes effect. On CPU tensors there are no graphs: the
+same CachedOp (keys, static input copies, output structure) runs the
+eager body where the card would replay. A capture that fails raises
+``MXNetError`` naming the block and the key; nothing runs eagerly in
+its place. ``hybridize(remat=True)`` recomputes the block's
+activations in the backward (``torch.utils.checkpoint``, non-reentrant)
+when an ancestor's CachedOp (or the block's own) runs it; see
+:meth:`HybridBlock.hybridize`. :func:`functionalize` gives a block as a
+function of its parameters (``torch.func.functional_call``).
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import re
 import threading
 import warnings
+import weakref
 
 import numpy as np
 import torch
 from torch import nn
 
-from .. import autograd, initializer
+from .. import autograd, graphs, initializer
 from .. import ndarray as _F
 from ..base import MXNetError
 from ..context import resolve_device
@@ -94,9 +131,13 @@ from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, is_deferred, materialize,
                         new_parameter)
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "aux_updates_on", "functionalize"]
 
 _LOG = logging.getLogger(__name__)
+
+# a block's CachedOp keeps at most this many recorded entries (each
+# holds its forward's activations), the least recently used going first
+_RECORDED_KEYS = 4
 
 # parameter names the default fill sets to one (the rest but weights: 0)
 _ONES = ("gamma", "running_var", "moving_var")
@@ -139,6 +180,198 @@ class _BlockScope:
     def __exit__(self, *exc):
         _BlockScope._current.value = self._old
         return False
+
+
+# -- the CachedOp's guards ---------------------------------------------------
+# Inside a CachedOp's body (its warm-up, capture or CPU run) every block
+# runs eagerly, so a parent's graph holds its hybridized children: the
+# JAX package's trace guard, which keeps jit from nesting.
+_GUARD = threading.local()
+
+
+def _in_cached_call():
+    return getattr(_GUARD, "depth", 0) > 0
+
+
+class _trace_guard:
+    def __enter__(self):
+        _GUARD.depth = getattr(_GUARD, "depth", 0) + 1
+        return self
+
+    def __exit__(self, *exc):
+        _GUARD.depth -= 1
+        return False
+
+
+def aux_updates_on():
+    """Whether a layer with running state (``BatchNorm``) writes it
+    now: not while remat recomputes a forward in the backward (the
+    forward already wrote it) and not inside :func:`functionalize`'s
+    function (which drops the updates, as the JAX package's does)."""
+    return not getattr(_GUARD, "no_aux", False)
+
+
+class _no_aux:
+    def __enter__(self):
+        self._prev = getattr(_GUARD, "no_aux", False)
+        _GUARD.no_aux = True
+        return self
+
+    def __exit__(self, *exc):
+        _GUARD.no_aux = self._prev
+        return False
+
+
+class _Const:
+    """A non-tensor argument in a key: it stands as itself."""
+
+
+def _spec(obj, leaves):
+    """The structure of ``obj`` for a cache key, its tensors appended to
+    ``leaves``: a tensor stands as its shape, type, device and
+    ``requires_grad``; lists, tuples and dicts recurse; anything else
+    (``None``, numbers, strings) stands as itself and must hash."""
+    if isinstance(obj, torch.Tensor):
+        leaves.append(obj)
+        return (torch.Tensor, tuple(obj.shape), obj.dtype, obj.device,
+                obj.requires_grad)
+    kind = type(obj)
+    if kind in (list, tuple):
+        return (kind, tuple(_spec(v, leaves) for v in obj))
+    if kind is dict:
+        return (dict, tuple((k, _spec(v, leaves)) for k, v in obj.items()))
+    try:
+        hash(obj)
+    except TypeError:
+        raise MXNetError(f"a hybridized block takes tensors, lists, tuples, "
+                         f"dicts and hashable constants; got a "
+                         f"{kind.__name__}") from None
+    return (_Const, obj)
+
+
+def _build(spec, it):
+    """``spec`` rebuilt with the tensors of the iterator ``it``."""
+    kind = spec[0]
+    if kind is torch.Tensor:
+        return next(it)
+    if kind in (list, tuple):
+        return kind(_build(s, it) for s in spec[1])
+    if kind is dict:
+        return {k: _build(s, it) for k, s in spec[1]}
+    return spec[1]
+
+
+def _has_dropout(block):
+    return any(type(m).__name__ == "Dropout" and getattr(m, "_rate", 0) > 0
+               for m in block.modules())
+
+
+def _checkpoint(fn, policy, block):
+    """``fn()`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward. The recompute writes no
+    running statistics (:func:`aux_updates_on`). Outside a capture the
+    RNG state is kept, so the recompute draws the forward's dropout
+    masks; inside one torch cannot read it (a capture's generator
+    offset is known only at replay), so a block with dropout in train
+    mode raises there."""
+    from torch.utils.checkpoint import checkpoint
+    capturing = torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+    if capturing and autograd.is_training() and _has_dropout(block):
+        raise MXNetError(f"remat of {block.name or type(block).__name__}: "
+                         f"dropout's recompute inside a CUDA graph would "
+                         f"draw other masks than its forward")
+    calls = [0]
+    # the recompute runs in the backward, outside this call's scopes:
+    # it re-enters them (recording, train mode, the trace guard, the
+    # remat claim and any parameter aliases of a capture)
+    training, swap = autograd.is_training(), getattr(_GUARD, "swap", None)
+
+    def run():
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn()
+        prev_rec = autograd.set_recording(True)
+        prev_train = autograd.set_training(training)
+        prev_remat = getattr(_GUARD, "remat", False)
+        _GUARD.remat = True
+        aliases = _swap_params(*swap) if swap else contextlib.nullcontext()
+        try:
+            with _trace_guard(), _no_aux(), torch.enable_grad(), aliases:
+                return fn()
+        finally:
+            _GUARD.remat = prev_remat
+            autograd.set_training(prev_train)
+            autograd.set_recording(prev_rec)
+
+    kw = {}
+    if policy is not None:
+        from torch.utils.checkpoint import \
+            create_selective_checkpoint_contexts
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            policy)
+    return checkpoint(run, use_reentrant=False,
+                      preserve_rng_state=not capturing, **kw)
+
+
+def _saved_ops(names):
+    import torch.ops as _ops
+    aten = _ops.aten
+    table = {
+        "dots": (aten.mm.default, aten.bmm.default, aten.addmm.default,
+                 aten.baddbmm.default, aten.convolution.default),
+        "dots_no_batch": (aten.mm.default, aten.addmm.default),
+        "conv_out": (aten.convolution.default,),
+    }
+    return frozenset(op for n in names for op in table[n])
+
+
+# JAX's checkpoint policy names that mean something in torch: what the
+# forward keeps (the rest is recomputed). "nothing_saveable" is plain
+# checkpointing (None here).
+_POLICIES = {
+    "nothing_saveable": None,
+    "everything_saveable": "all",
+    "dots_saveable": ("dots",),
+    "checkpoint_dots": ("dots",),
+    "dots_with_no_batch_dims_saveable": ("dots_no_batch",),
+    "checkpoint_dots_with_no_batch_dims": ("dots_no_batch",),
+}
+
+
+def checkpoint_policy(name):
+    """The selective-checkpoint policy of a JAX policy name, or of
+    ``"names:conv_out"`` (keep the convolutions' outputs, recompute the
+    elementwise chain between them; the JAX ``Convolution`` op tags its
+    output ``conv_out``). ``None`` for plain checkpointing. Raises
+    ``ValueError`` naming any other name."""
+    if name is None or callable(name):
+        return name
+    if name.startswith("names:"):
+        names = name[len("names:"):].split(",")
+        bad = [n for n in names if n != "conv_out"]
+        if bad:
+            raise ValueError(f"remat_policy {name!r}: no torch counterpart "
+                             f"for the checkpoint names {bad} (only "
+                             f"'conv_out')")
+        keep = _saved_ops(["conv_out"])
+    elif name in _POLICIES:
+        what = _POLICIES[name]
+        if what is None:
+            return None
+        keep = "all" if what == "all" else _saved_ops(what)
+    else:
+        raise ValueError(f"remat_policy {name!r} has no torch meaning: "
+                         f"use one of {sorted(_POLICIES)} or "
+                         f"'names:conv_out'")
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    def policy(ctx, op, *args, **kwargs):
+        if keep == "all" or op in keep:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
 
 
 def _nd_in(x):
@@ -232,6 +465,16 @@ class Block(nn.Module):
             self._shared = None
         self._scope = _BlockScope(self)
         self._reg_params = {}           # attribute name -> Parameter view
+        self._reg_keys = {}             # attribute name -> _parameters key
+        # hybridize: the CachedOp is on (HybridBlock), remat and its
+        # policy; _routed is any of them, the one test a call makes
+        self._active = False
+        self._remat = False
+        self._remat_policy = None
+        self._routed = False
+        self._hybridize = (False, {})
+        self._cached_graph = {}
+        self._graph_pool = None
 
     def __setattr__(self, name, value):
         shared = self.__dict__.get("_shared")
@@ -244,10 +487,14 @@ class Block(nn.Module):
             # is registered (under the name given to ``get``, or this
             # one) and the attribute is the Gluon view, which
             # ``hybrid_forward`` receives as a keyword argument
-            if all(t is not value._tensor for t in self._parameters.values()):
+            key = next((k for k, t in self._parameters.items()
+                        if t is value._tensor), None)
+            if key is None:
                 self.register_parameter(name, value._tensor)
                 self._deferred = self._deferred or is_deferred(value._tensor)
+                key = name
             self._reg_params[name] = value
+            self._reg_keys[name] = key
             self.__dict__[name] = value
             return
         super().__setattr__(name, value)
@@ -261,14 +508,36 @@ class Block(nn.Module):
         if kwargs and any(_nd_in(v) for v in kwargs.values()):
             return self._call_nd(args, kwargs)
         with torch.set_grad_enabled(autograd.is_recording()):
+            if self._routed:
+                return self._call_routed(args, kwargs)
             return super().__call__(*args, **kwargs)
 
     def _call_nd(self, args, kwargs):
         """NDArray in, NDArray out (module docstring)."""
         args = _unwrap(args)
         kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
-        with torch.set_grad_enabled(autograd.is_recording()):
-            return _wrap(super().__call__(*args, **kwargs))
+        return _wrap(self.__call__(*args, **kwargs))
+
+    def _call_routed(self, args, kwargs):
+        """A hybridized call goes through the CachedOp unless an
+        ancestor's is running it; a remat block inside one runs under
+        checkpointing unless an outer block already claimed it."""
+        if self._active and not _in_cached_call():
+            return self._call_cached_op(args, kwargs)
+        if self._remat and _in_cached_call() and torch.is_grad_enabled() \
+                and not getattr(_GUARD, "remat", False):
+            return self._remat_call(args, kwargs)
+        return nn.Module.__call__(self, *args, **kwargs)
+
+    def _remat_call(self, args, kwargs):
+        prev = getattr(_GUARD, "remat", False)
+        _GUARD.remat = True
+        try:
+            return _checkpoint(
+                lambda: nn.Module.__call__(self, *args, **kwargs),
+                checkpoint_policy(self._remat_policy), self)
+        finally:
+            _GUARD.remat = prev
 
     @property
     def prefix(self):
@@ -303,7 +572,10 @@ class Block(nn.Module):
                 f'"forward" function (or "hybrid_forward")')
         if self._deferred:
             self._infer_param_shapes(x, *args)
-        params = {k: v._tensor for k, v in self._reg_params.items()}
+        # read through _parameters, where a CachedOp's capture swaps in
+        # its aliases
+        params = {k: self._parameters.get(self._reg_keys[k], v._tensor)
+                  for k, v in self._reg_params.items()}
         return self.hybrid_forward(_F, x, *args, **kwargs, **params)
 
     def hybrid_forward(self, F, x, *args, **kwargs):
@@ -368,13 +640,13 @@ class Block(nn.Module):
         self._deferred = False
 
     def hybridize(self, active=True, **kwargs):
-        """Accepted for the API (``static_alloc``, ``static_shape``,
-        ...) and recorded on the block and its children; nothing is
-        compiled: the port runs eagerly (a CUDA graph of the step is
-        ROADMAP Queue 1, 'Hybridize')."""
-        for mod in self.modules():
-            if isinstance(mod, Block):
-                mod._hybridize = (bool(active), dict(kwargs))
+        """Pass ``hybridize`` and its arguments on to the children (a
+        plain ``Block`` itself stays eager, as the reference's); the
+        arguments are recorded on each block as ``_hybridize``."""
+        self._hybridize = (bool(active), dict(kwargs))
+        for child in self.children():
+            if isinstance(child, Block):
+                child.hybridize(active, **kwargs)
         return self
 
     @torch.no_grad()
@@ -384,6 +656,7 @@ class Block(nn.Module):
         A layer may keep some of its own in another type: ``BatchNorm``
         keeps float32 for float16 and bfloat16."""
         dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        self._cached_graph = {}
         for child in self.children():
             if isinstance(child, Block):
                 child.cast(dt)
@@ -550,4 +823,419 @@ class Block(nn.Module):
         return self
 
 
-HybridBlock = Block
+class HybridBlock(Block):
+    """A block that :meth:`hybridize` turns into CUDA graphs (module
+    docstring, "Hybridize")."""
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  remat=None, remat_policy=None, **kwargs):
+        """Turn the CachedOp on (``active``) or off, here and in every
+        child, and empty this block's cache. ``static_alloc`` and
+        ``static_shape`` are recorded: a CUDA graph always holds its
+        memory and shapes.
+
+        What an entry of the cache holds on the card: its static inputs
+        and outputs; under ``autograd.record()`` also every activation
+        its forward saves for the backward and the gradients' static
+        buffers, for as long as the entry lives (BERT-base MLM at batch
+        64 x 128 tokens: several GiB an entry). So the cache keeps at
+        most four recorded entries (keys called under ``record()`` with
+        parameters or inputs that take gradients): a fifth shape drops
+        the least recently used one and its graphs, whose memory goes
+        back to the block's graph pool for the next capture, and that
+        shape captures again when it comes back. Predict-mode
+        entries are not bounded, as the JAX package's jit cache is not.
+
+        ``remat=True`` recomputes the block's activations in the
+        backward instead of keeping them (``torch.utils.checkpoint``,
+        non-reentrant), when its own CachedOp or an ancestor's runs it:
+        hybridize the root with it for the whole net, or mark children
+        with ``child.hybridize(active=False, remat=True)``. ``remat``
+        and ``remat_policy`` left ``None`` keep the block's setting, so
+        a later ``net.hybridize()`` keeps the children's marks;
+        ``remat=False`` clears it. ``remat_policy`` says what the
+        forward keeps: a JAX checkpoint policy name with a torch meaning
+        (``nothing_saveable``, ``everything_saveable``,
+        ``dots_saveable``/``checkpoint_dots``: matrix products and
+        convolutions, ``dots_with_no_batch_dims_saveable``/
+        ``checkpoint_dots_with_no_batch_dims``: unbatched products) or
+        ``"names:conv_out"`` (the convolutions' outputs); any other name
+        raises ``ValueError``."""
+        kw = dict(kwargs)
+        if static_alloc:
+            kw["static_alloc"] = static_alloc
+        if static_shape:
+            kw["static_shape"] = static_shape
+        if remat_policy is not None:
+            checkpoint_policy(remat_policy)   # an unknown name raises now
+            self._remat_policy = remat_policy
+        if remat is not None:
+            self._remat = bool(remat)
+        self._active = bool(active)
+        self._routed = self._active or self._remat
+        self._cached_graph = {}
+        # the children keep their own remat marks
+        return Block.hybridize(self, active, **kw)
+
+    def _call_cached_op(self, args, kwargs):
+        leaves = []
+        spec = _spec((args, kwargs), leaves)
+        key = (spec, autograd.is_training(), torch.is_grad_enabled(),
+               torch.is_inference_mode_enabled())
+        params = list(self.parameters())
+        cache = self._cached_graph
+        entry = cache.get(key)
+        if entry is not None and entry.psig == _psig(params):
+            if entry.grad:
+                cache[key] = cache.pop(key)     # the most recently used
+            return entry(leaves)
+        if any(is_deferred(p) for p in params):
+            # deferred shapes: one eager pass in predict mode, recording
+            # nothing, gives them (the JAX CachedOp's dry run)
+            with autograd.pause(), _trace_guard():
+                nn.Module.__call__(self, *args, **kwargs)
+            params = list(self.parameters())
+        # a new key, or parameters moved or retyped in place (a graph
+        # holds their addresses)
+        entry = _Entry(self, key, spec, leaves, params, _psig(params))
+        cache.pop(key, None)
+        cache[key] = entry
+        if entry.grad:
+            recorded = [k for k, e in cache.items() if e.grad]
+            for k in recorded[:-_RECORDED_KEYS]:
+                del cache[k]        # its graphs and activations go
+        return entry(leaves)
+
+    def _body(self, spec, tensors):
+        """The block's eager forward on ``tensors`` (laid out as
+        ``spec``), inside the trace guard; under the block's own remat
+        when it has one."""
+        args, kwargs = _build(spec, iter(tensors))
+        with _trace_guard():
+            if self._remat and torch.is_grad_enabled():
+                return self._remat_call(args, kwargs)
+            return nn.Module.__call__(self, *args, **kwargs)
+
+    def _pool(self):
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._graph_pool
+
+
+def _psig(params):
+    return tuple((p.data_ptr(), p.requires_grad) for p in params)
+
+
+def _describe(block, spec):
+    shapes = []
+
+    def walk(sp):
+        if sp[0] is torch.Tensor:
+            shapes.append(f"{tuple(sp[1])} {str(sp[2]).replace('torch.', '')}")
+        elif sp[0] in (list, tuple):
+            for x in sp[1]:
+                walk(x)
+        elif sp[0] is dict:
+            for _, x in sp[1]:
+                walk(x)
+
+    walk(spec[0])
+    return (f"block '{block.name or type(block).__name__}' at key "
+            f"(inputs {', '.join(shapes) or 'none'}; training "
+            f"{spec[1]}, recording {spec[2]})")
+
+
+class _swap_params:
+    """Within it, each parameter of ``block``'s tree that ``aliases``
+    holds (by ``id``) reads as its alias. A recorded capture runs the
+    block on aliases (``p.detach()`` leaves sharing ``p``'s memory): the
+    captured backward differentiates to them, so the parameters' own
+    ``AccumulateGrad`` nodes (made on the default stream, held by their
+    ``grad_req`` hooks) never enter a capture, whose stream they would
+    join; the eager autograd outside the graph then accumulates into
+    the parameters."""
+
+    def __init__(self, block, aliases):
+        self._block, self._aliases, self._undo = block, aliases, []
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = getattr(_GUARD, "swap", None)
+        _GUARD.swap = (self._block, self._aliases)
+        for mod in self._block.modules():
+            for name, t in mod._parameters.items():
+                if t is not None and id(t) in self._aliases:
+                    self._undo.append((mod, name, t))
+        for mod, name, t in self._undo:
+            mod._parameters[name] = self._aliases[id(t)]
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, t in self._undo:
+            mod._parameters[name] = t
+        self._undo = []
+        _GUARD.swap = self._prev
+        return False
+
+
+class _Token:
+    """Lives as long as a recorded call's autograd node."""
+
+
+class _Instance:
+    """One captured forward (and, recording, its backward) of an entry:
+    ``fwd``/``bwd`` are ``graphs.Graph``s, ``out`` the forward's static
+    outputs flattened."""
+
+    __slots__ = ("fwd", "out", "diff", "bwd", "pending", "gen")
+
+    def __init__(self):
+        self.bwd = None
+        self.pending = None
+        self.gen = 0
+
+    def busy(self):
+        return self.pending is not None and self.pending() is not None
+
+
+class _Entry:
+    """One key of a block's CachedOp: on CUDA its captured graphs, on
+    the CPU its static inputs and the eager body (module docstring)."""
+
+    def __init__(self, block, key, spec, leaves, params, psig):
+        self.block = block
+        self.spec = spec
+        self.psig = psig
+        self.grad = key[2] and (any(t.requires_grad for t in leaves)
+                                or any(p.requires_grad for p in params))
+        self.in_req = [t.requires_grad for t in leaves]
+        self.params = [p for p in params if p.requires_grad] \
+            if self.grad else []
+        # tensors the forward updates in place (running statistics):
+        # the warm-up puts them back
+        self.state = [p for p in params if not p.requires_grad] + \
+            list(block.buffers())
+        dev = leaves[0].device if leaves else \
+            (params[0].device if params else torch.device("cpu"))
+        self.device = dev
+        self.cuda = dev.type == "cuda"
+        self.what = _describe(block, key)
+        self.out_spec = None
+        self.instances = []
+        self.capture_ms = 0.0
+        # calls from several threads take turns: they share the static
+        # buffers
+        self.lock = threading.Lock()
+        if not self.cuda:
+            with torch.no_grad():
+                self.static_in = [torch.empty_like(t).copy_(t)
+                                  for t in leaves]
+            graphs.count_capture()      # the CPU entry stands for one
+
+    # -- CUDA -------------------------------------------------------------
+    def _capture(self, leaves):
+        inst = _Instance()
+        with torch.no_grad():
+            static = [torch.empty_like(t).copy_(t) for t in leaves]
+        for s, r in zip(static, self.in_req):
+            if r and self.grad:
+                s.requires_grad_(True)
+        block, dev, pool = self.block, self.device, self.block._pool()
+        aliases = {id(p): p.detach().requires_grad_(True)
+                   for p in self.params}
+
+        def forward(*static):
+            with torch.set_grad_enabled(self.grad), \
+                    _swap_params(block, aliases):
+                return block._body(self.spec, static)
+
+        surface = [s for s in static if s.requires_grad] + \
+            [aliases[id(p)] for p in self.params]
+
+        def differentiable(out):
+            flat = []
+            _spec(out, flat)
+            return [o for o in flat if o.requires_grad]
+
+        def warm():
+            req = differentiable(forward(*static))
+            if self.grad and req:
+                with autograd.hooks_off():
+                    torch.autograd.grad(req, surface,
+                                        [torch.ones_like(o) for o in req],
+                                        allow_unused=True)
+
+        inst.fwd = graphs.capture(forward, static, dev, pool, self.what,
+                                  warm=warm, state=self.state)
+        flat = []
+        out_spec = _spec(inst.fwd.out, flat)
+        inst.out = flat
+        inst.diff = [o.requires_grad for o in flat]
+        req = [o for o in flat if o.requires_grad]
+        if self.grad and req:
+            def backward(*grad_out):
+                # retain_graph: the saved activations stay allocated
+                # (the forward's replays write them), so no later
+                # capture in the pool takes their memory
+                with autograd.hooks_off():
+                    return torch.autograd.grad(req, surface, grad_out,
+                                               retain_graph=True,
+                                               allow_unused=True)
+
+            inst.bwd = graphs.capture(
+                backward, [torch.empty_like(o) for o in req], dev, pool,
+                self.what + " (backward)", warm=False)
+        self.out_spec = out_spec
+        self.capture_ms += inst.fwd.capture_ms + (
+            inst.bwd.capture_ms if inst.bwd is not None else 0.0)
+        self.instances.append(inst)
+        return inst
+
+    def _free_instance(self, leaves):
+        for inst in self.instances:
+            if not inst.busy():
+                return inst
+        return self._capture(leaves)
+
+    def _replay(self, inst, leaves):
+        inst.fwd(leaves)
+        with torch.no_grad():
+            return [o.clone() for o in inst.out]
+
+    # -- a call -----------------------------------------------------------
+    def __call__(self, leaves):
+        with self.lock:
+            if self.grad:
+                outs = _GraphFn.apply(self, len(leaves), *leaves,
+                                      *self.params)
+            elif self.cuda:
+                outs = self._replay(self._free_instance(leaves), leaves)
+            else:
+                with torch.no_grad():
+                    for s, t in zip(self.static_in, leaves):
+                        s.copy_(t)
+                out = self.block._body(self.spec, self.static_in)
+                flat = []
+                self.out_spec = _spec(out, flat)
+                with torch.no_grad():
+                    outs = [o.clone() for o in flat]
+            return _build(self.out_spec, iter(outs))
+
+    def forward_recorded(self, ctx, leaves):
+        if self.cuda:
+            inst = self._free_instance(leaves)
+            outs = self._replay(inst, leaves)
+            inst.gen += 1
+            ctx.inst, ctx.gen = inst, inst.gen
+            ctx.token = _Token()
+            inst.pending = weakref.ref(ctx.token)
+            return outs, inst.diff
+        # the CPU: the eager body on fresh copies of the inputs and on
+        # parameter aliases, as a capture runs it; its autograd graph
+        # is kept for this call's backward
+        statics = [t.detach().clone().requires_grad_(r)
+                   for t, r in zip(leaves, self.in_req)]
+        aliases = {id(p): p.detach().requires_grad_(True)
+                   for p in self.params}
+        with torch.enable_grad(), _swap_params(self.block, aliases):
+            out = self.block._body(self.spec, statics)
+        flat = []
+        self.out_spec = _spec(out, flat)
+        ctx.inner = (flat, [s for s in statics if s.requires_grad]
+                     + [aliases[id(p)] for p in self.params])
+        with torch.no_grad():
+            return [o.clone() for o in flat], [o.requires_grad
+                                               for o in flat]
+
+    def backward_recorded(self, ctx, grads):
+        if self.cuda:
+            inst = ctx.inst
+            if ctx.gen != inst.gen:
+                raise MXNetError(f"{self.what}: its graph ran again since "
+                                 f"this call's forward, whose activations "
+                                 f"are gone (a second backward through a "
+                                 f"retained graph)")
+            if inst.bwd is None:
+                return [None] * (len(self.in_req) + len(self.params))
+            grad_in = inst.bwd([g for g, d in zip(grads, inst.diff) if d])
+            inst.pending = None
+            with torch.no_grad():
+                got = [None if g is None else g.clone() for g in grad_in]
+        else:
+            flat, surface = ctx.inner
+            pairs = [(o, g) for o, g in zip(flat, grads) if o.requires_grad]
+            if not pairs or not surface:
+                got = [None] * len(surface)
+            else:
+                with autograd.hooks_off():
+                    got = list(torch.autograd.grad(
+                        [o for o, _ in pairs], surface,
+                        [g for _, g in pairs], allow_unused=True))
+        it = iter(got)
+        return [next(it) if r else None for r in self.in_req] + \
+            [next(it) for _ in self.params]
+
+
+class _GraphFn(torch.autograd.Function):
+    """A recorded call of a hybridized block: the forward graph's
+    replay, and the backward graph's (on the CPU the eager body and
+    ``torch.autograd.grad``)."""
+
+    @staticmethod
+    def forward(ctx, entry, n_in, *tensors):
+        ctx.entry = entry
+        outs, diff = entry.forward_recorded(ctx, tensors[:n_in])
+        ctx.mark_non_differentiable(*[o for o, d in zip(outs, diff)
+                                      if not d])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *ctx.entry.backward_recorded(ctx, grads))
+
+
+def functionalize(block, training=False, ctx=None):
+    """A block as a function of its parameters: ``(fn, params)``, where
+    ``fn(param_arrays, rng_key, *inputs)`` runs the block with the
+    tensors of ``param_arrays`` (``{name: tensor}``, the names of
+    ``params``: :meth:`Block.gluon_params`'s) in place of its own,
+    through ``torch.func.functional_call``, and ``params`` holds the
+    block's current tensors. ``training`` is the mode ``fn`` runs in;
+    ``fn`` is differentiable when torch's gradient mode is on (or
+    under ``torch.func.grad``). ``rng_key``: ``None`` draws dropout from
+    the device's generator as it stands; an int draws from a generator
+    forked and seeded with it, leaving the device's as it was (the JAX
+    function takes a key there). ``None`` inputs pass through. Running
+    statistics are not updated (the JAX function drops them), and
+    hybridized children run eagerly inside ``fn``. ``ctx``: a device
+    to move the parameters to first."""
+    if ctx is not None:
+        dev = resolve_device(ctx)
+        for p in block.parameters():
+            if p.device != dev:
+                p.data = p.data.to(dev)
+                p.grad = None
+    names = {id(p): n for n, p in
+             block.named_parameters(remove_duplicate=False)}
+    gluon = block.gluon_params()
+    structural = {g: names[id(p)] for g, p in gluon.items()}
+
+    def fn(param_arrays, rng_key, *inputs):
+        tensors = {structural[g]: t for g, t in param_arrays.items()}
+        prev_train = autograd.set_training(training)
+        prev_rec = autograd.set_recording(torch.is_grad_enabled())
+        devices = sorted({t.device.index for t in tensors.values()
+                          if t.device.type == "cuda"})
+        try:
+            with _trace_guard(), _no_aux(), torch.random.fork_rng(
+                    devices=devices, enabled=rng_key is not None):
+                if rng_key is not None:
+                    torch.manual_seed(int(rng_key))
+                return torch.func.functional_call(
+                    block, tensors, tuple(inputs), strict=False)
+        finally:
+            autograd.set_recording(prev_rec)
+            autograd.set_training(prev_train)
+
+    return fn, {g: p.detach() for g, p in gluon.items()}
+

@@ -10,7 +10,7 @@ kernel there either); the fused kernel path is the
 from __future__ import annotations
 
 from ..ndarray import op_impl_nn as _nn
-from .block import Block
+from .block import HybridBlock
 
 __all__ = ["L2Loss", "Loss", "SoftmaxCELoss", "SoftmaxCrossEntropyLoss"]
 
@@ -28,7 +28,7 @@ def _batch_mean(loss, batch_axis):
     return loss.mean(dim=axes) if axes else loss
 
 
-class Loss(Block):
+class Loss(HybridBlock):
     """Base of the losses: ``weight`` scales, ``batch_axis`` is kept."""
 
     def __init__(self, weight, batch_axis, prefix=""):

@@ -22,7 +22,7 @@ import re
 import torch
 
 from ...context import resolve_device
-from ..block import Block
+from ..block import HybridBlock
 from ..nn import (Activation, Dense, Dropout, Embedding, LayerNorm,
                   TransformerEncoder)
 
@@ -46,7 +46,7 @@ def _strip_prefix(params, anchor):
     return {k[len(prefix):]: v for k, v in params.items()}
 
 
-class BERTEmbeddings(Block):
+class BERTEmbeddings(HybridBlock):
     """token + position + segment embeddings, LN, dropout."""
 
     def __init__(self, vocab_size, units, max_length, token_types=2,
@@ -97,7 +97,7 @@ class BERTEmbeddings(Block):
         return x
 
 
-class BERTModel(Block):
+class BERTModel(HybridBlock):
     """Trunk: embeddings -> TransformerEncoder -> (seq_out, pooled_out).
 
     ``seed`` draws the weights (see :meth:`~..block.Block.initialize`);
@@ -174,7 +174,7 @@ class BERTModel(Block):
         return net.load_gluon_params(p)
 
 
-class BERTMLMHead(Block):
+class BERTMLMHead(HybridBlock):
     """Masked-LM head: transform (Dense + erf GELU + LayerNorm), then
     the decoder to vocabulary logits."""
 
@@ -209,7 +209,7 @@ class BERTMLMHead(Block):
         return head.load_gluon_params(p)
 
 
-class BERTNSPHead(Block):
+class BERTNSPHead(HybridBlock):
     """Next-sentence head: Dense(2) over the pooled output."""
 
     def __init__(self, units=768, dtype="float32", prefix="", device=None,
@@ -265,9 +265,14 @@ def bert_serving_entry(model, head=None, hybridize=True):
     ``entry(ids, token_types, valid_length, segment_ids, positions) ->
     (B, S, U)`` per-token outputs on packed rows. Only the sequence
     output rides (the packed pooled output is meaningless); ``head``,
-    if given, applies to it. ``hybridize`` has no counterpart here
-    (PyTorch runs eagerly) and is ignored."""
-    del hybridize
+    if given, applies to it. ``hybridize`` hybridizes the trunk (and
+    the head): each (rows, row_len) shape bucket then captures one CUDA
+    graph at its first forward and replays it after, the serving fast
+    path."""
+    if hybridize:
+        model.hybridize()
+        if head is not None:
+            head.hybridize()
 
     def entry(ids, token_types, valid_length, segment_ids, positions):
         out = model(ids, token_types, valid_length, None, segment_ids,

@@ -19,7 +19,12 @@ Shapes are given at construction: ``in_channels`` is the images'
 channel count (3), where the JAX model infers it from the first batch;
 the structural names (``features.0.weight``, ...) are the JAX model's,
 so ``save_parameters``/``load_parameters`` files pass between the two.
-``remat_stages`` (activation recompute) is not ported yet.
+``remat_stages`` marks each residual block of those stages (1-based)
+for activation recompute: when the hybridized net runs under
+``record()``, each such block's activations are recomputed in the
+backward (``torch.utils.checkpoint``; ``remat_policy`` as
+``HybridBlock.hybridize``'s, ``"names:conv_out"`` keeping the
+convolutions' outputs).
 ``device=None`` is the current context's device and raises without a
 card.
 """
@@ -30,7 +35,7 @@ import torch.nn.functional as F
 
 from ....context import resolve_device
 from ....ndarray import op_impl_nn as _nn
-from ...block import Block
+from ...block import HybridBlock
 from ... import nn
 
 __all__ = ["BasicBlockV1", "BasicBlockV2", "BottleneckV1", "BottleneckV2",
@@ -82,7 +87,7 @@ def space_to_depth(x, block_size):
     return y.reshape(n, c * b * b, h // b, w // b)
 
 
-class SpaceToDepthStem(Block):
+class SpaceToDepthStem(HybridBlock):
     """The ``Conv2D(channels, 7, strides=2, padding=3)`` stem computed
     exactly as a 2x2 space-to-depth and a 4x4 stride-1 convolution over
     ``4 * in_channels`` channels. The weight keeps the plain stem's
@@ -122,7 +127,7 @@ def _stem_conv(names, channels, stem, in_channels, kw):
     return _conv(names, channels, 7, 2, 3, in_channels, False, kw)
 
 
-class _Residual(Block):
+class _Residual(HybridBlock):
     """A residual block's layers, named in the stage's scope (``names``;
     a fresh scope when None)."""
 
@@ -238,14 +243,15 @@ class BottleneckV2(_Residual):
         return x + residual
 
 
-def _check_remat(remat_stages, remat_policy):
-    if remat_stages or remat_policy is not None:
-        raise NotImplementedError(
-            "remat_stages: activation recompute is not ported yet (ROADMAP "
-            "Queue 1, 'Vision remainders')")
+def _mark_remat(stage, policy=None):
+    """Flag every residual block of a stage for activation recompute
+    when an ancestor's CachedOp runs it (``active=False``: the blocks
+    keep no CachedOp of their own)."""
+    for blk in stage.children():
+        blk.hybridize(active=False, remat=True, remat_policy=policy)
 
 
-class _ResNet(Block):
+class _ResNet(HybridBlock):
     """The stem, four stages, global pooling and the Dense classifier,
     named in the model's scope."""
 
@@ -292,12 +298,13 @@ class ResNetV1(_ResNet):
         super().__init__(prefix, device)
         if len(layers) != len(channels) - 1:
             raise ValueError("len(layers) must be len(channels) - 1")
-        _check_remat(remat_stages, remat_policy)
         self._add_stem(channels[0], thumbnail, stem, in_channels)
         for i, num_layer in enumerate(layers):
-            self.features.add(self._make_layer(
-                block, num_layer, channels[i + 1], 1 if i == 0 else 2,
-                i + 1, channels[i]))
+            stage = self._make_layer(block, num_layer, channels[i + 1],
+                                     1 if i == 0 else 2, i + 1, channels[i])
+            if (i + 1) in remat_stages:
+                _mark_remat(stage, remat_policy)
+            self.features.add(stage)
         self.features.add(nn.GlobalAvgPool2D(prefix=self._names("pool")))
         self.output = nn.Dense(classes, in_units=channels[-1],
                                prefix=self._names("dense"), **self._kw)
@@ -315,16 +322,17 @@ class ResNetV2(_ResNet):
         super().__init__(prefix, device)
         if len(layers) != len(channels) - 1:
             raise ValueError("len(layers) must be len(channels) - 1")
-        _check_remat(remat_stages, remat_policy)
         n, kw = self._names, self._kw
         self.features.add(_bn(n, in_channels, kw, scale=False,
                               center=False))
         self._add_stem(channels[0], thumbnail, stem, in_channels)
         in_c = channels[0]
         for i, num_layer in enumerate(layers):
-            self.features.add(self._make_layer(
-                block, num_layer, channels[i + 1], 1 if i == 0 else 2,
-                i + 1, in_c))
+            stage = self._make_layer(block, num_layer, channels[i + 1],
+                                     1 if i == 0 else 2, i + 1, in_c)
+            if (i + 1) in remat_stages:
+                _mark_remat(stage, remat_policy)
+            self.features.add(stage)
             in_c = channels[i + 1]
         self.features.add(_bn(n, in_c, kw), _relu(n),
                           nn.GlobalAvgPool2D(prefix=n("pool")),

@@ -22,6 +22,7 @@ takes batch statistics only in train mode (``autograd.is_training()``).
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 from ... import autograd, ndarray
 from ...context import resolve_device
 from ...ndarray import op_impl_nn as _nn
-from ..block import Block
+from ..block import Block, HybridBlock, aux_updates_on
 
 __all__ = ["Activation", "BatchNorm", "Dense", "Dropout", "Embedding",
            "Flatten", "HybridLambda", "HybridSequential", "Identity",
@@ -70,13 +71,25 @@ class Sequential(Block):
     def __iter__(self):
         return iter(self._modules.values())
 
+    def hybridize(self, active=True, **kwargs):
+        """Hybridize the children, each its own graph (a ``Sequential``
+        stays eager itself); warns when all of them could run as one
+        ``HybridSequential`` graph, as the reference does."""
+        children = list(self.children())
+        if children and all(isinstance(c, HybridBlock) for c in children):
+            warnings.warn(
+                f"All children of this Sequential layer '{self.prefix}' are "
+                "HybridBlocks, so it is recommended to use HybridSequential "
+                "for the best performance.", stacklevel=2)
+        return super().hybridize(active, **kwargs)
 
-class HybridSequential(Sequential):
-    """``Sequential`` (the port runs eagerly), named as the reference's
-    (``hybridsequential0_``)."""
+
+class HybridSequential(HybridBlock, Sequential):
+    """``Sequential`` that hybridizes into one graph, named as the
+    reference's (``hybridsequential0_``)."""
 
 
-class Dense(Block):
+class Dense(HybridBlock):
     """Fully-connected layer: ``act(x @ weight.T + bias)``. With
     ``flatten`` the input is first reshaped to (batch, -1). Without
     ``in_units`` the weight takes its width at the first forward."""
@@ -107,7 +120,7 @@ class Dense(Block):
         return self.act(out) if self.act is not None else out
 
 
-class Embedding(Block):
+class Embedding(HybridBlock):
     """Lookup table (input_dim, output_dim); out-of-range ids clip."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
@@ -126,7 +139,7 @@ class Embedding(Block):
         return _nn.embedding(x, self.weight)
 
 
-class LayerNorm(Block):
+class LayerNorm(HybridBlock):
     """LayerNorm over ``axis``; the last axis runs the fused kernel.
     ``scale=False`` keeps gamma at its initial ones (no gradient),
     ``center=False`` beta at its zeros."""
@@ -154,7 +167,7 @@ class LayerNorm(Block):
                               eps=self._epsilon)
 
 
-class BatchNorm(Block):
+class BatchNorm(HybridBlock):
     """BatchNorm over ``axis`` (channels) with running statistics, the
     JAX layer's semantics:
 
@@ -216,17 +229,18 @@ class BatchNorm(Block):
                 eps=self._epsilon, axis=self._axis,
                 fix_gamma=self._fix_gamma)
             m = self._momentum
-            with torch.no_grad():
-                rm, rv = self.running_mean, self.running_var
-                rm.copy_(rm * m + mean.detach().to(rm.dtype) * (1 - m))
-                rv.copy_(rv * m + var.detach().to(rv.dtype) * (1 - m))
+            if aux_updates_on():
+                with torch.no_grad():
+                    rm, rv = self.running_mean, self.running_var
+                    rm.copy_(rm * m + mean.detach().to(rm.dtype) * (1 - m))
+                    rv.copy_(rv * m + var.detach().to(rv.dtype) * (1 - m))
             return out
         return _nn.batch_norm(x, self.gamma, self.beta, self.running_mean,
                               self.running_var, eps=self._epsilon,
                               fix_gamma=self._fix_gamma, axis=self._axis)
 
 
-class Dropout(Block):
+class Dropout(HybridBlock):
     """Dropout in train mode (``autograd.is_training()``, as the JAX
     layer reads it); the identity otherwise. ``axes``: the mask is drawn
     with those axes of size one and broadcast along them (one draw kept
@@ -252,7 +266,7 @@ class Dropout(Block):
         return x * mask / keep
 
 
-class Activation(Block):
+class Activation(HybridBlock):
     """``Activation`` op by name (``ndarray.op_impl_nn.activation``)."""
 
     def __init__(self, activation, prefix=None, params=None):
@@ -265,14 +279,14 @@ class Activation(Block):
         return _nn.activation(x, self._act_type)
 
 
-class Flatten(Block):
+class Flatten(HybridBlock):
     """(N, ...) -> (N, -1)."""
 
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
 
 
-class Identity(Block):
+class Identity(HybridBlock):
     """The input itself."""
 
     def forward(self, x):
@@ -297,7 +311,7 @@ class Lambda(Block):
         return self._func(*args)
 
 
-class HybridLambda(Lambda):
+class HybridLambda(HybridBlock, Lambda):
     """``Lambda`` whose callable takes the op namespace first, as a
     ``hybrid_forward`` does: ``fn(F, x, *args)`` with ``F`` the port's
     ``ndarray``. A name is an op called as ``op(x, *args)``."""

@@ -19,7 +19,7 @@ import torch
 
 from ...context import resolve_device
 from ...ndarray import op_impl_nn as _nn
-from ..block import Block
+from ..block import HybridBlock
 from .basic_layers import Activation
 
 __all__ = ["AvgPool1D", "AvgPool2D", "AvgPool3D", "Conv1D", "Conv2D",
@@ -36,7 +36,7 @@ def _tup(v, n):
     return tuple(int(x) for x in v)
 
 
-class _Conv(Block):
+class _Conv(HybridBlock):
     """``act(Convolution(x, weight, bias))``."""
 
     def __init__(self, channels, kernel_size, strides, padding, dilation,
@@ -114,7 +114,7 @@ class Conv3D(_Conv):
                          in_channels, activation, use_bias, **kwargs)
 
 
-class _Pooling(Block):
+class _Pooling(HybridBlock):
     """``Pooling`` op with fixed arguments; ``strides=None`` is the
     pool size, ``ceil_mode`` the ``"full"`` convention."""
 

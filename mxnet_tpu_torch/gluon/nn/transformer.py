@@ -19,14 +19,14 @@ import torch
 
 from ... import autograd
 from ...ndarray import op_impl_nn as _nn
-from ..block import Block
+from ..block import HybridBlock
 from .basic_layers import Activation, Dense, Dropout, LayerNorm
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoder",
            "TransformerEncoderCell"]
 
 
-class MultiHeadAttention(Block):
+class MultiHeadAttention(HybridBlock):
     """Self-attention with a fused QKV projection (units = num_heads *
     head_dim)."""
 
@@ -91,7 +91,7 @@ class MultiHeadAttention(Block):
         return self.out_proj(out)
 
 
-class PositionwiseFFN(Block):
+class PositionwiseFFN(HybridBlock):
     """Dense(hidden, act) -> Dense(units), with dropout."""
 
     def __init__(self, units, hidden_size, activation="gelu", dropout=0.0,
@@ -112,7 +112,7 @@ class PositionwiseFFN(Block):
         return out
 
 
-class TransformerEncoderCell(Block):
+class TransformerEncoderCell(HybridBlock):
     """One encoder layer: MHA + residual + LN, FFN + residual + LN."""
 
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
@@ -151,7 +151,7 @@ class TransformerEncoderCell(Block):
         return self.ffn_ln(x + self.ffn(x))
 
 
-class TransformerEncoder(Block):
+class TransformerEncoder(HybridBlock):
     """Stack of encoder cells (+ a final LN when ``pre_norm``)."""
 
     def __init__(self, num_layers, units, hidden_size, num_heads,

@@ -26,12 +26,12 @@ from ... import autograd
 from ...context import resolve_device
 from ...ndarray import op_impl_rnn
 from ...ndarray.ndarray import NDArray
-from ..block import Block
+from ..block import HybridBlock
 
 __all__ = ["LSTM"]
 
 
-class _RNNLayer(Block):
+class _RNNLayer(HybridBlock):
     def __init__(self, hidden_size, num_layers, layout, dropout,
                  bidirectional, input_size, i2h_weight_initializer,
                  h2h_weight_initializer, i2h_bias_initializer,

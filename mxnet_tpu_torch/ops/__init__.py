@@ -21,11 +21,11 @@ from .lstm import lstm_forward_reference, lstm_layer_fused
 from .paged_attention import paged_attention_reference, paged_flash_attention
 from .softmax_xent import softmax_xent_fused, softmax_xent_reference
 
-__all__ = ["launch_counts", "layer_norm_fused", "layer_norm_reference",
-           "lstm_forward_reference", "lstm_layer_fused",
-           "paged_attention_reference", "paged_flash_attention",
-           "reset_launch_counts", "softmax_xent_fused",
-           "softmax_xent_reference"]
+__all__ = ["add_launch_counts", "launch_counts", "layer_norm_fused",
+           "layer_norm_reference", "lstm_forward_reference",
+           "lstm_layer_fused", "paged_attention_reference",
+           "paged_flash_attention", "reset_launch_counts",
+           "softmax_xent_fused", "softmax_xent_reference"]
 
 # each wrapper module keeps its own {kernel name: launches}
 _COUNTS = (_paged.LAUNCHES, _flash.LAUNCHES, _layer_norm.LAUNCHES,
@@ -41,3 +41,14 @@ def reset_launch_counts():
     for counts in _COUNTS:
         for name in counts:
             counts[name] = 0
+
+
+def add_launch_counts(delta):
+    """Add ``{kernel name: launches}`` to the counts: a CUDA graph's
+    replay launches what its capture launched, which the wrappers'
+    host counters do not see (``graphs.Graph.replay``)."""
+    for table in _COUNTS:
+        for name in table:
+            n = delta.get(name)
+            if n:
+                table[name] += n

@@ -12,6 +12,7 @@ The sources share ``csrc/common.cuh``; the wrappers share
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,7 +23,7 @@ import threading
 import torch
 
 __all__ = ["ARCH_FLAGS", "BUILD_DIR", "DTYPE_CODES", "SOURCES", "build_all",
-           "launch", "load", "nvcc_path"]
+           "launch", "load", "nvcc_path", "tally"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -42,6 +43,9 @@ _libs = {}
 _fns = {}
 #: ``-Xptxas -v`` report (registers, shared memory, spills) per build
 BUILD_LOGS = {}
+#: ``{cudaStream_t: {kernel name: launches}}`` of the streams whose
+#: launches are tallied apart (:func:`tally`)
+_TALLIES = {}
 
 
 def nvcc_path():
@@ -116,13 +120,16 @@ def load(name):
     return lib
 
 
-def launch(name, symbol, argtypes, device, *args):
+def launch(name, symbol, argtypes, device, *args, count=None):
     """Call the C entry point ``symbol`` of kernel ``name`` (built on
     first use) with ``args`` and ``device``'s current stream; each entry
     point takes the stream last and returns a ``cudaError_t``. Raises
     ``RuntimeError`` when that is not 0. The call switches the current
     device only when ``device`` is not already current: a launch on the
-    current device costs no device switch."""
+    current device costs no device switch. ``count``: ``(table,
+    kernel)``, the wrapper's launch counts and the name to add one to
+    once the launch went out (to the stream's tally instead, when it
+    has one: :func:`tally`)."""
     fn = _fns.get(symbol)
     if fn is None:
         fn = getattr(load(name), symbol)
@@ -134,9 +141,32 @@ def launch(name, symbol, argtypes, device, *args):
     # the current stream's cudaStream_t, without building a
     # torch.cuda.Stream object (the call Triton's launcher makes)
     if index == current:
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        err = fn(*args, stream)
     else:
         with torch.cuda.device(index):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+            stream = torch._C._cuda_getCurrentRawStream(index)
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    if count is not None:
+        table, kernel = count
+        tallied = _TALLIES.get(stream)
+        if tallied is None:
+            table[kernel] += 1
+        else:
+            tallied[kernel] = tallied.get(kernel, 0) + 1
+
+
+@contextlib.contextmanager
+def tally(stream):
+    """Within it, the launches on ``stream`` (a ``cudaStream_t``) count
+    into the dict it yields, not into their wrappers' tables: a CUDA
+    graph's warm-up and capture run there (``graphs``), and a replay
+    adds the capture's tally to the tables. Launches on other streams,
+    from any thread, count as before."""
+    own = _TALLIES[stream] = {}
+    try:
+        yield own
+    finally:
+        del _TALLIES[stream]

@@ -228,8 +228,8 @@ def _launch(q, k, v, sm_scale, causal, q_offset, kv_lens, segment_ids):
                   else None,
                   o.data_ptr(), lse.data_ptr(), ctypes.addressof(strides),
                   b, h, sq, skv, d, float(sm_scale), int(bool(causal)),
-                  int(q_offset), _build.DTYPE_CODES[q.dtype])
-    LAUNCHES["flash_attention"] += 1
+                  int(q_offset), _build.DTYPE_CODES[q.dtype],
+                  count=(LAUNCHES, "flash_attention"))
     return o, lse
 
 
@@ -257,8 +257,8 @@ def _launch_bwd(q, k, v, o, lse, do, dlse, sm_scale, causal, q_offset,
                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                   ctypes.addressof(strides), b, h, sq, skv, d,
                   float(sm_scale), int(bool(causal)), int(q_offset),
-                  _build.DTYPE_CODES[q.dtype])
-    LAUNCHES["flash_attention_bwd"] += 1
+                  _build.DTYPE_CODES[q.dtype],
+                  count=(LAUNCHES, "flash_attention_bwd"))
     return dq, dk, dv
 
 

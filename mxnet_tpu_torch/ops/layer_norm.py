@@ -135,8 +135,8 @@ def _forward(x, gamma, beta, eps, return_stats):
                       x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                       y.data_ptr(), stats[0].data_ptr() if stats else None,
                       stats[1].data_ptr() if stats else None, r, d,
-                      float(eps), _build.DTYPE_CODES[x.dtype])
-        LAUNCHES["layer_norm"] += 1
+                      float(eps), _build.DTYPE_CODES[x.dtype],
+                      count=(LAUNCHES, "layer_norm"))
     return (y, *stats) if return_stats else y
 
 
@@ -172,8 +172,8 @@ def layer_norm_backward(x, gamma, mean, rstd, dy):
                       x.device, x.data_ptr(), gamma.data_ptr(),
                       mean.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
                       dx.data_ptr(), part.data_ptr(), dgb.data_ptr(), r, d,
-                      blocks, _build.DTYPE_CODES[x.dtype])
-        LAUNCHES["layer_norm_bwd"] += 1
+                      blocks, _build.DTYPE_CODES[x.dtype],
+                      count=(LAUNCHES, "layer_norm_bwd"))
     return dx, dgb[0], dgb[1]
 
 

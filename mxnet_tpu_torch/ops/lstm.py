@@ -340,8 +340,8 @@ def lstm_forward(gin, w, h0, c0):
                       else None, steps, n, hid,
                       _build.DTYPE_CODES[gin.dtype], plan["blocks"],
                       plan["units_per_block"], plan["row_groups"],
-                      plan["w_row"], plan["h_row"], plan["smem_bytes"])
-        LAUNCHES["lstm_fwd"] += 1
+                      plan["w_row"], plan["h_row"], plan["smem_bytes"],
+                      count=(LAUNCHES, "lstm_fwd"))
     return out, cseq, gates
 
 
@@ -386,13 +386,13 @@ def lstm_backward(gates, cseq, out, w, h0, c0, dout, dcseq):
                       wg.data_ptr() if wg is not None else None, steps, n,
                       hid, code,
                       plan["blocks"], plan["units_per_block"],
-                      plan["row_groups"], plan["w_row"], plan["smem_bytes"])
-        LAUNCHES["lstm_bwd"] += 1
+                      plan["row_groups"], plan["w_row"], plan["smem_bytes"],
+                      count=(LAUNCHES, "lstm_bwd"))
         _build.launch("lstm", "mxtt_lstm_bwd_dw", _DW_ARGS, gates.device,
                       out.data_ptr(), h0.data_ptr(), dgin.data_ptr(),
                       dw.data_ptr(), dw.stride(0), dw.stride(1), steps, n,
-                      hid, code)
-        LAUNCHES["lstm_bwd_dw"] += 1
+                      hid, code,
+                      count=(LAUNCHES, "lstm_bwd_dw"))
     else:
         dw.zero_()
     return dgin, dh0, dc0, dw

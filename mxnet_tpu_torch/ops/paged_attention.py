@@ -194,6 +194,6 @@ def paged_flash_attention(q, k_pages, v_pages, page_table, kv_lens,
                   _tickets(q.device, b * h * sq * nz).data_ptr(), b, h, sq,
                   d,
                   page_size, n_table, vec, float(sm_scale),
-                  _build.DTYPE_CODES[q.dtype])
-    LAUNCHES["paged_attention"] += 1
+                  _build.DTYPE_CODES[q.dtype],
+                  count=(LAUNCHES, "paged_attention"))
     return out

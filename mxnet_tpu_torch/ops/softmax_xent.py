@@ -108,8 +108,8 @@ def softmax_xent_forward(logits, labels):
         _build.launch("softmax_xent", "mxtt_softmax_xent_fwd", _FWD_ARGS,
                       x.device, x.data_ptr(), lab.data_ptr(),
                       loss.data_ptr(), lse.data_ptr(), n, v,
-                      _build.DTYPE_CODES[x.dtype])
-        LAUNCHES["softmax_xent_fwd"] += 1
+                      _build.DTYPE_CODES[x.dtype],
+                      count=(LAUNCHES, "softmax_xent_fwd"))
     return loss, lse
 
 
@@ -132,8 +132,8 @@ def softmax_xent_backward(logits, labels, lse, g):
         _build.launch("softmax_xent", "mxtt_softmax_xent_bwd", _BWD_ARGS,
                       x.device, x.data_ptr(), lab.data_ptr(),
                       lse.data_ptr(), g.data_ptr(), dx.data_ptr(), n, v,
-                      _build.DTYPE_CODES[x.dtype])
-        LAUNCHES["softmax_xent_bwd"] += 1
+                      _build.DTYPE_CODES[x.dtype],
+                      count=(LAUNCHES, "softmax_xent_bwd"))
     return dx
 
 

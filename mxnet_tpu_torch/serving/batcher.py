@@ -11,10 +11,11 @@
   :class:`PrefillChunks` (chunk x page-table width) bound the decode
   loop's shapes.
 
-A port of ``mxnet_tpu/serving/batcher.py``. PyTorch runs eagerly, so
-no executable is compiled per bucket; the buckets still bound the
-shapes the kernels and the engines' cost ledgers see, and keep the
-scheduling identical to the JAX package's.
+A port of ``mxnet_tpu/serving/batcher.py``. The buckets bound the
+shapes the kernels and the engines' cost ledgers see (a hybridized
+model captures one CUDA graph per bucket, as the JAX package compiles
+one executable), and keep the scheduling identical to the JAX
+package's.
 """
 from __future__ import annotations
 

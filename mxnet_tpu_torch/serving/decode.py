@@ -57,10 +57,16 @@ engine runs on its model's device; its worker thread binds that device
 explicitly and reads each step's tokens back once. Not ported yet: the
 HTTP/wire exposition (``expose``), SLO evaluation and alerts, traffic
 capture, the watchdog and flight-recorder/incident/profiler hooks.
-PyTorch compiles nothing per shape, so the JAX engine's compile-cache
-counters are dropped: the per-shape buckets stay (they shape the
-kernel calls and the cost ledger), and every step bills as a device
-step, never as a compile.
+On the card the model (``PagedCausalLM``) captures one CUDA graph per
+step shape (a prefill bucket, a chunk bucket, a decode bucket) at its
+first step and replays it after, as the JAX model compiles its
+``jax.jit`` steps: the JAX engine's compile-cache counters count
+captures (``miss``) and replays (``memory_hit``; ``persistent_hit``
+stays 0, a graph does not outlive its process), a first visit of a
+shape emits ``compile_begin`` and ``compile_end``, and a step that
+captured counts in ``stats.compiles``/``compile_ms`` and bills as a
+compile (``metrics.CaptureCounters``). A step captured if the
+worker thread's capture count (``graphs.captures``) moved across it.
 """
 from __future__ import annotations
 
@@ -73,14 +79,14 @@ import numpy as np
 
 import torch
 
-from .. import envvars
+from .. import envvars, graphs
 from ..telemetry import attribution as _attribution
 from ..telemetry import events as _events
 from . import tenancy
 from .batcher import DecodeSlots, PrefillChunks
 from .kvcache import PagedKVPool
-from .metrics import (CostLedger, DecodeStats, ServingStats,
-                      exemplar_gate, slow_exemplar)
+from .metrics import (CaptureCounters, CostLedger, DecodeStats,
+                      ServingStats, exemplar_gate, slow_exemplar)
 from .queue import (DeadlineExceededError, EngineStoppedError,
                     QueueFullError, Request, RequestQueue,
                     RequestTooLongError, ServingError,
@@ -256,6 +262,10 @@ class DecodeEngine:
                        tenant_class=cls).set_function(
                 lambda c=cls: self._queue.depths().get(c, 0))
         self.costs = CostLedger(self.engine_id)
+        self.captures = CaptureCounters(self.engine_id)
+        # step shapes visited: a first visit is a compile window
+        self._seen_shapes = set()
+        self._shapes_lock = threading.Lock()
         # one lock serializes model steps + pool swap: the worker loop
         # and warmup on the caller's thread must never interleave two
         # steps writing the same cache tensors
@@ -535,6 +545,7 @@ class DecodeEngine:
             time.monotonic() - self._beat, 3)
         out["device"] = str(self.device)
         out["costs"] = self.costs.totals()
+        out["compile_cache"] = self.captures.snapshot()
         return out
 
     def scheduler_state(self):
@@ -586,14 +597,36 @@ class DecodeEngine:
         return agg.snapshot()
 
     # -- step timing -------------------------------------------------------
-    def _step(self, fn):
-        """Run one model step; returns (result, wall_s). The steps end
-        in a host read of their tokens, so the wall covers the device
-        work. (The JAX engine classifies each shape's first visit as a
-        compile here; eager PyTorch has none.)"""
+    def _step_compiled(self, shape_key, fn):
+        """Run one model step of shape ``shape_key`` ((0, bucket) a
+        prefill, (-chunk, width) a chunk, (rows, width) a decode step)
+        and classify it as the JAX engine does: a first visit opens a
+        compile window (``compile_begin``/``compile_end``), and a step
+        that captured a CUDA graph (on this thread) is a ``miss``, any
+        other a ``memory_hit``. Returns (result, wall_s, captured). The
+        steps end in a host read of their tokens, so the wall covers the
+        device work."""
+        with self._shapes_lock:
+            first = shape_key not in self._seen_shapes
+        if first:
+            _events.emit("compile_begin", engine_id=self.engine_id,
+                         shape=list(shape_key))
+        before = graphs.captures()
         t0 = time.perf_counter()
         out = fn()
-        return out, time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        captured = graphs.captures() != before
+        result = self.captures.observe(captured)
+        if captured:
+            self.stats.bump("compiles")
+            self.stats.compile_ms.observe(dt * 1e3)
+        if first:
+            with self._shapes_lock:
+                self._seen_shapes.add(shape_key)
+            _events.emit("compile_end", engine_id=self.engine_id,
+                         shape=list(shape_key), result=result,
+                         ms=round(dt * 1e3, 3))
+        return out, dt, captured
 
     # -- warmup forwards ---------------------------------------------------
     def _forward_prefill_shape(self, bucket):
@@ -608,8 +641,8 @@ class DecodeEngine:
                 self.pool.swap(caches)
             return int(tok)
 
-        _out, dt = self._step(run)
-        self.costs.observe_warmup(bucket, dt, compiled=False)
+        _out, dt, compiled = self._step_compiled((0, bucket), run)
+        self.costs.observe_warmup(bucket, dt, compiled=compiled)
 
     def _forward_chunk_shape(self, chunk, width):
         ids = np.zeros(chunk, np.int32)
@@ -622,11 +655,11 @@ class DecodeEngine:
                 self.pool.swap(caches)
             return int(tok)
 
-        _out, dt = self._step(run)
+        _out, dt, compiled = self._step_compiled((-chunk, width), run)
         # chunk warmups bill into the positive token-count bucket —
         # they may merge with a same-sized dense prefill bucket, which
         # is fine: both are "prompt tokens prefilled" entries
-        self.costs.observe_warmup(chunk, dt, compiled=False)
+        self.costs.observe_warmup(chunk, dt, compiled=compiled)
 
     def _forward_decode_shape(self, rows, width):
         ids = np.zeros(rows, np.int32)
@@ -641,8 +674,8 @@ class DecodeEngine:
                 self.pool.swap(caches)
             return toks.cpu()
 
-        _out, dt = self._step(run)
-        self.costs.observe_warmup(-rows, dt, compiled=False)
+        _out, dt, compiled = self._step_compiled((rows, width), run)
+        self.costs.observe_warmup(-rows, dt, compiled=compiled)
 
     # -- worker ------------------------------------------------------------
     def _run(self):
@@ -895,7 +928,7 @@ class DecodeEngine:
                 self.pool.swap(caches)
             return int(tok)
 
-        tok, dt = self._step(run)
+        tok, dt, compiled = self._step_compiled((neg_chunk, width), run)
         now = time.monotonic()
         self._beat = now
         # stage stamps: the chunk's full residency, with the COW copy
@@ -919,7 +952,7 @@ class DecodeEngine:
         # ledger token-for-token, exactly as the dense path does
         self.costs.observe_decode(chunk, dt, tokens=take + int(final),
                                   completed=int(done_now),
-                                  compiled=False)
+                                  compiled=compiled)
         return tok
 
     def _finish_prefill(self, req, tok):
@@ -974,7 +1007,7 @@ class DecodeEngine:
                 self.pool.swap(caches)
             return int(tok)
 
-        tok, dt = self._step(run)
+        tok, dt, compiled = self._step_compiled((0, bucket), run)
         # prefill always carries exactly one live request, so its wall
         # lands in request_s (observe_decode) — what keeps
         # sum(per-request bills) == ledger request_s exact; the
@@ -987,7 +1020,7 @@ class DecodeEngine:
         self.costs.observe_decode(bucket, dt,
                                   tokens=req.prompt_len + 1,
                                   completed=int(done_now),
-                                  compiled=False)
+                                  compiled=compiled)
         now = time.monotonic()
         req.t_first = req.t_last = now
         req.device_s += dt
@@ -1087,7 +1120,7 @@ class DecodeEngine:
             # ONE read-back of the whole step's tokens
             return toks.cpu().numpy()
 
-        toks, dt = self._step(run)
+        toks, dt, compiled = self._step_compiled((rows_b, width_b), run)
         now = time.monotonic()
         self._beat = now
         n_active = len(active)
@@ -1114,10 +1147,11 @@ class DecodeEngine:
                 _attribution.stamp_interval(req, "cow_copy",
                                             cow_ival[0])
         self.decode_stats.observe_iteration(rows_b, n_active)
-        self.stats.compute_ms.observe(dt * 1e3)
+        if not compiled:
+            self.stats.compute_ms.observe(dt * 1e3)
         self.costs.observe_decode(-rows_b, dt, tokens=n_active,
                                   completed=completed,
-                                  compiled=False)
+                                  compiled=compiled)
         if leavers:
             left = {req.id for req, _ in leavers}
             self._active = [r for r in active if r.id not in left]

@@ -17,11 +17,27 @@ contract:
 
 On CUDA tensors the chunk and decode steps launch the hand-written
 paged-attention kernel (``ops.paged_attention``); on CPU tensors its
-plain version. PyTorch runs eagerly, so nothing is compiled per shape.
-The JAX steps thread the cache through ``jax.jit`` with donated
-buffers; here the K/V writes are in-place indexed assignments into
-the pool's tensors, which is what the donation achieved: no per-step
-cache-sized allocation.
+plain version. The JAX steps thread the cache through ``jax.jit`` with
+donated buffers; here the K/V writes are in-place indexed assignments
+into the pool's tensors, which is what the donation achieved: no
+per-step cache-sized allocation.
+
+Each step is split into host preparation (the page coordinates,
+position ids, table rows and history lengths, computed in numpy and
+packed into one int64 tensor that goes to the device in one copy) and
+a body of tensor operations. On CUDA the body is a CUDA graph, the
+counterpart of the JAX model's ``jax.jit`` steps: one per step kind
+and shape (a decode step per (rows, table width), a prefill per padded
+length, a chunk per (chunk, width)), keyed also on the pool's cache
+tensors (addresses, shapes and types), since the graph writes K/V into
+them; an entry whose cache tensors are gone is dropped. The first call
+of a key warms up and captures (``graphs``), later calls copy the
+packed inputs into the graph's static buffer and replay; the outputs
+are copies. Greedy argmax runs inside the decode body; a prefill's
+token, and any sampled token, is drawn after the body from its logits
+(``_sample_row``). On the CPU the body runs eagerly, and the first
+call of each key counts as a capture (``graphs.captures``), as a CPU
+CachedOp entry does.
 
 Sampling is greedy argmax by default. Seeded temperature / top-k /
 top-p sampling keeps the JAX package's kept-set rule exactly, and its
@@ -33,12 +49,14 @@ from __future__ import annotations
 
 import hashlib
 import struct
+import weakref
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import graphs
 from ..context import resolve_device
 from ..ops.paged_attention import paged_flash_attention
 
@@ -158,6 +176,50 @@ class PagedCausalLM(nn.Module):
                                          device=self.device),
                             requires_grad=False)
             for k, v in params.items()})
+        self._graphs = {}
+        self._graph_pool = None
+
+    def _run(self, name, caches, arrays, body):
+        """``body(caches, *tensors)`` with ``arrays`` (host integer
+        arrays) as int64 tensors of their shapes on the model's device,
+        copied in one transfer; on CUDA through the step's graph
+        (module docstring). Returns the body's tuple of tensors."""
+        shapes = tuple(np.shape(a) for a in arrays)
+        host = torch.from_numpy(np.concatenate(
+            [np.asarray(a, np.int64).ravel() for a in arrays]))
+
+        def step(buf):
+            out, i = [], 0
+            for shape in shapes:
+                n = int(np.prod(shape, dtype=np.int64))
+                out.append(buf[i:i + n].view(shape))
+                i += n
+            return body(caches, *out)
+
+        key = (name, shapes, tuple((c.data_ptr(), tuple(c.shape), c.dtype)
+                                   for c in caches))
+        entry = self._graphs.get(key)
+        if entry is None or entry[0]() is None:
+            # a new key, or the caches it was captured on are gone and
+            # new ones took their addresses
+            self._graphs = {k: e for k, e in self._graphs.items()
+                            if e[0]() is not None}
+            graph = None
+            if self.device.type == "cuda":
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                # the warm-up writes the K/V that the first replay
+                # writes again
+                graph = graphs.capture(
+                    step, [host.to(self.device)], self.device,
+                    self._graph_pool, f"PagedCausalLM {name} step at "
+                    f"{shapes}")
+            else:
+                graphs.count_capture()      # the CPU stands for one
+            entry = self._graphs[key] = (weakref.ref(caches[0]), graph)
+        if entry[1] is None:
+            return step(host)
+        return tuple(o.clone() for o in entry[1]([host]))
 
     @classmethod
     def from_jax_params(cls, params, heads, device=None, dtype="float32"):
@@ -179,9 +241,6 @@ class PagedCausalLM(nn.Module):
                 "max_len": self.max_len}
 
     # -- shared pieces ------------------------------------------------------
-    def _ids(self, x):
-        return torch.as_tensor(np.asarray(x, np.int64), device=self.device)
-
     def _qkv(self, h, i):
         """(..., U) -> three (..., H, D) projections."""
         p = self.params
@@ -217,35 +276,45 @@ class PagedCausalLM(nn.Module):
         phys/off (Lp,) page coordinates. Returns (first generated token
         as a 0-d int32 tensor, caches). Dense causal self-attention;
         K/V land in the pages for the decode steps to read back."""
-        p = self.params
         length = int(length)
-        ids = self._ids(ids)
+        ids = np.asarray(ids, np.int64)
         lp = ids.shape[0]
-        positions = torch.clamp(torch.arange(lp, device=self.device),
-                                max=self.max_len - 1)
-        x = p["embed"][ids] + p["pos"][positions]
-        col = torch.arange(lp, device=self.device)[None, :]
-        row = torch.arange(lp, device=self.device)[:, None]
-        causal = col <= row
-        phys, off = self._ids(phys), self._ids(off)
+        pos = np.minimum(np.arange(lp), self.max_len - 1)
+        (logits,) = self._run(
+            "prefill", caches, (ids, pos, np.asarray(phys, np.int64),
+                                np.asarray(off, np.int64), [length - 1]),
+            self._prefill_body)
+        tok = _sample_row(logits, temperature, top_k, top_p, seed,
+                          length - 1)
+        return tok, caches
+
+    def _prefill_body(self, caches, ids, pos, phys, off, last):
+        p = self.params
+        lp = ids.shape[0]
+        x = p["embed"][ids] + p["pos"][pos]
+        col = torch.arange(lp, device=ids.device)[None, :]
+        row = torch.arange(lp, device=ids.device)[:, None]
+        masked = col > row
         scale = float(np.float32(1.0 / np.sqrt(self.head_dim)))
         for i in range(self.layers):
             h = self._ln(x, f"l{i}_ln1")
             q, k, v = self._qkv(h, i)          # (Lp, H, D)
             self._write(caches, i, phys, off, k, v)
             s = torch.einsum("qhd,khd->hqk", q.float() * scale, k.float())
-            s = torch.where(causal[None], s,
-                            torch.tensor(_NEG, device=self.device))
+            s = s.masked_fill(masked[None], _NEG)
             s = s - s.amax(dim=-1, keepdim=True)
             w_ = torch.exp(s)
             w_ = w_ / w_.sum(dim=-1, keepdim=True)
             o = torch.einsum("hqk,khd->qhd", w_, v.float())
             x = x + o.reshape(lp, self.units).to(x.dtype) @ p[f"l{i}_wo"]
             x = x + self._mlp(self._ln(x, f"l{i}_ln2"), i)
-        logits = self._ln(x[length - 1], "lnf") @ p["head"]
-        tok = _sample_row(logits, temperature, top_k, top_p, seed,
-                          length - 1)
-        return tok, caches
+        return self._last_logits(x, last)
+
+    def _last_logits(self, x, last):
+        """``((vocab,) logits of row last,)``: ``last`` is a 1-element
+        index."""
+        return (self._ln(x.index_select(0, last)[0], "lnf")
+                @ self.params["head"],)
 
     # -- chunked prefill ----------------------------------------------------
     @torch.no_grad()
@@ -262,10 +331,9 @@ class PagedCausalLM(nn.Module):
         Padding rows attend into unwritten (zeroed or stale) columns;
         row-wise ops keep that in the discarded rows. Returns (token
         sampled at position ``start + valid - 1``, caches)."""
-        p = self.params
         start, valid = int(start), int(valid)
         ids_np = np.asarray(ids, np.int64)
-        table_np = np.asarray(table, np.int32)
+        table_np = np.asarray(table, np.int64)
         c = ids_np.shape[0]
         width = table_np.shape[0]
         page_size = caches[0].shape[2]
@@ -273,13 +341,21 @@ class PagedCausalLM(nn.Module):
         pos = start + np.arange(c)
         live = np.arange(c) < valid
         page_idx = np.minimum(pos // page_size, width - 1)
-        phys = self._ids(np.where(live, table_np[page_idx], scratch))
-        off = self._ids(pos % page_size)
-        x = p["embed"][self._ids(ids_np)] \
-            + p["pos"][self._ids(np.minimum(pos, self.max_len - 1))]
-        tbl = torch.as_tensor(table_np[None], device=self.device)
-        kvl = torch.tensor([start + c], dtype=torch.int32,
-                           device=self.device)
+        phys = np.where(live, table_np[page_idx], scratch)
+        (logits,) = self._run(
+            "chunk", caches,
+            (ids_np, np.minimum(pos, self.max_len - 1), phys,
+             pos % page_size, table_np[None], [start + c], [valid - 1]),
+            self._chunk_body)
+        tok = _sample_row(logits, temperature, top_k, top_p, seed,
+                          start + valid - 1)
+        return tok, caches
+
+    def _chunk_body(self, caches, ids, pos, phys, off, table, kv_len, last):
+        p = self.params
+        c = ids.shape[0]
+        x = p["embed"][ids] + p["pos"][pos]
+        tbl, kvl = table.to(torch.int32), kv_len.to(torch.int32)
         for i in range(self.layers):
             h = self._ln(x, f"l{i}_ln1")
             q, k, v = self._qkv(h, i)               # (C, H, D)
@@ -290,10 +366,7 @@ class PagedCausalLM(nn.Module):
             o = o[0].transpose(0, 1).reshape(c, self.units)
             x = x + o.to(x.dtype) @ p[f"l{i}_wo"]
             x = x + self._mlp(self._ln(x, f"l{i}_ln2"), i)
-        logits = self._ln(x[valid - 1], "lnf") @ p["head"]
-        tok = _sample_row(logits, temperature, top_k, top_p, seed,
-                          start + valid - 1)
-        return tok, caches
+        return self._last_logits(x, last)
 
     # -- decode -------------------------------------------------------------
     @torch.no_grad()
@@ -304,18 +377,27 @@ class PagedCausalLM(nn.Module):
         ``positions[r] + 1`` — rows are numerically independent, which
         is what makes join/leave invisible to the sequences already
         running. Returns ((R, vocab) logits, caches)."""
-        p = self.params
+        return self._decode(caches, ids, positions, tables)[0], caches
+
+    def _decode(self, caches, ids, positions, tables):
+        """(logits, greedy tokens) of one decode step."""
         positions = np.asarray(positions, np.int64)
-        tables_np = np.asarray(tables, np.int32)
+        tables_np = np.asarray(tables, np.int64)
         r = positions.shape[0]
         page_size = caches[0].shape[2]
-        phys = self._ids(tables_np[np.arange(r), positions // page_size])
-        off = self._ids(positions % page_size)
-        x = p["embed"][self._ids(ids)] \
-            + p["pos"][self._ids(np.minimum(positions, self.max_len - 1))]
-        tbl = torch.as_tensor(tables_np, device=self.device)
-        kvl = torch.as_tensor((positions + 1).astype(np.int32),
-                              device=self.device)
+        return self._run(
+            "decode", caches,
+            (np.asarray(ids, np.int64),
+             np.minimum(positions, self.max_len - 1),
+             tables_np[np.arange(r), positions // page_size],
+             positions % page_size, tables_np, positions + 1),
+            self._decode_body)
+
+    def _decode_body(self, caches, ids, pos, phys, off, tables, kv_lens):
+        p = self.params
+        r = ids.shape[0]
+        x = p["embed"][ids] + p["pos"][pos]
+        tbl, kvl = tables.to(torch.int32), kv_lens.to(torch.int32)
         for i in range(self.layers):
             h = self._ln(x, f"l{i}_ln1")
             q, k, v = self._qkv(h, i)               # (R, H, D)
@@ -326,7 +408,8 @@ class PagedCausalLM(nn.Module):
             x = x + o[:, :, 0, :].reshape(r, self.units).to(x.dtype) \
                 @ p[f"l{i}_wo"]
             x = x + self._mlp(self._ln(x, f"l{i}_ln2"), i)
-        return self._ln(x, "lnf") @ p["head"], caches
+        logits = self._ln(x, "lnf") @ p["head"]
+        return logits, torch.argmax(logits, dim=-1).to(torch.int32)
 
     @torch.no_grad()
     def decode_step(self, caches, ids, positions, tables,
@@ -335,14 +418,13 @@ class PagedCausalLM(nn.Module):
         """One continuous-batch iteration (:meth:`decode_logits`, then
         per-row sampling). Returns ((R,) int32 tokens on the model's
         device, caches)."""
-        logits, caches = self.decode_logits(caches, ids, positions, tables)
+        logits, toks = self._decode(caches, ids, positions, tables)
         positions = np.asarray(positions, np.int64)
         r = positions.shape[0]
 
         def _vec(vals, fill):
             return [fill] * r if vals is None else np.asarray(vals).tolist()
 
-        toks = torch.argmax(logits, dim=-1).to(torch.int32)
         temps = _vec(temperatures, 0.0)
         for j, (t, kk, pp, sd) in enumerate(zip(
                 temps, _vec(top_ks, 0), _vec(top_ps, 1.0),

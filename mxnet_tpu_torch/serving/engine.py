@@ -25,12 +25,17 @@ gate), snapshot, ``reset_stats``, ``cost_table`` and
 ``scheduler_state``. The engine runs on ``device`` (``None`` is the
 current CUDA device, and raises without one); its worker thread binds
 that device, and each forward copies its output to the host once.
-PyTorch compiles nothing per shape, so, as in the decode port, the
-shape buckets stay (they bound the kernels' shapes and the cost
-ledger's rows) and every batch bills as compute, never as a compile.
-Not ported yet: ``expose`` and the wire listener, SLO and alerts,
-history, capture, the watchdog, the incident/recorder/profiling hooks
-and ``warmup(manifest=)``.
+A hybridized model (``bert_serving_entry(..., hybridize=True)``)
+captures one CUDA graph per (rows, row_len) shape bucket at its first
+forward and replays it after: the JAX engine's compile-cache counters
+count captures (``miss``) and replays (``memory_hit``), with the
+``compile_begin``/``compile_end`` events around a first visit, and a
+batch whose forward captured bills as a compile
+(``metrics.CaptureCounters``; ``persistent_hit`` stays 0, since a graph
+does not outlive its process). A forward captured if the worker
+thread's capture count (``graphs.captures``) moved across it. Not ported yet: ``expose`` and the
+wire listener, SLO and alerts, history, capture, the watchdog, the
+incident/recorder/profiling hooks and ``warmup(manifest=)``.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ import time
 import numpy as np
 import torch
 
+from .. import graphs
 from ..context import resolve_device
 from ..telemetry import attribution as _attribution
 from ..telemetry import events as _events
@@ -49,8 +55,8 @@ from ..telemetry import spans as _spans
 from ..telemetry.trace import trace_context as _trace_context
 from . import tenancy
 from .batcher import ContinuousBatcher, PackedPlan
-from .metrics import (CostLedger, ServingStats, exemplar_gate,
-                      slow_exemplar)
+from .metrics import (CaptureCounters, CostLedger, ServingStats,
+                      exemplar_gate, slow_exemplar)
 from .queue import (DeadlineExceededError, EngineStoppedError,
                     QueueFullError, Request, RequestQueue,
                     RequestTooLongError, ServingError, UnknownModelError)
@@ -143,6 +149,7 @@ class ServingEngine:
         # per-bucket cost ledger, process-cumulative (reset_stats swaps
         # the stats window, never the ledger)
         self.costs = CostLedger(self.engine_id)
+        self.captures = CaptureCounters(self.engine_id)
         # visited (model_id, rows, row_len) buckets: swap_model warms a
         # new version over the shapes its model has served
         self._seen_shapes = set()
@@ -365,6 +372,7 @@ class ServingEngine:
         out["seconds_since_beat"] = round(time.monotonic() - self._beat, 3)
         with self._shapes_lock:
             out["visited_shapes"] = len(self._seen_shapes)
+        out["compile_cache"] = self.captures.snapshot()
         out["device"] = str(self.device)
         out["costs"] = self.costs.totals()
         out["models"] = self._models.versions()
@@ -482,18 +490,42 @@ class ServingEngine:
                                mono_end=req.t_drain,
                                attrs={"engine": self.engine_id})
 
-    def _dispatch(self, plan, model_id=None, pack_interval=None):
-        mid, fn = self._models.resolve(model_id)
+    def _counted_forward(self, plan, fn, shape):
+        """The forward, with the compile events around a first visit of
+        ``shape`` and the capture counters; returns (output, t0, t1,
+        whether it captured)."""
+        with self._shapes_lock:
+            first = shape is not None and shape not in self._seen_shapes
+        if first:
+            _events.emit("compile_begin", engine_id=self.engine_id,
+                         shape=list(shape[1:]))
+        before = graphs.captures()
         t0 = time.perf_counter()
         seq = self._forward(plan, fn)
         t1 = time.perf_counter()
+        captured = graphs.captures() != before
+        result = self.captures.observe(captured)
+        if captured:
+            self.stats.bump("compiles")
+            self.stats.compile_ms.observe((t1 - t0) * 1e3)
+        if first:
+            _events.emit("compile_end", engine_id=self.engine_id,
+                         shape=list(shape[1:]), result=result,
+                         ms=round((t1 - t0) * 1e3, 3))
+        return seq, t0, t1, captured
+
+    def _dispatch(self, plan, model_id=None, pack_interval=None):
+        mid, fn = self._models.resolve(model_id)
+        shape = (mid, plan.rows, plan.row_len)
+        seq, t0, t1, captured = self._counted_forward(plan, fn, shape)
         dt_s = t1 - t0
         dt_ms = dt_s * 1e3
         with self._shapes_lock:
-            self._seen_shapes.add((mid, plan.rows, plan.row_len))
-        self.stats.compute_ms.observe(dt_ms)
+            self._seen_shapes.add(shape)
+        if not captured:
+            self.stats.compute_ms.observe(dt_ms)
         self.costs.observe_batch(plan.row_len, dt_s, len(plan.entries),
-                                 plan.valid_tokens, compiled=False)
+                                 plan.valid_tokens, compiled=captured)
         self.stats.observe_batch(plan.rows, plan.row_len,
                                  plan.valid_tokens, len(plan.entries),
                                  plan.row_len)
@@ -519,7 +551,7 @@ class ServingEngine:
                                "tenant": req.tenant,
                                "tenant_class": req.tenant_class,
                                "device_s": dt_s * share,
-                               "compiled": False,
+                               "compiled": captured,
                                "tokens": pl.length,
                                "batch_requests": len(plan.entries)}
             self.tenants.observe_cost(req.tenant, req.tenant_class,
@@ -534,7 +566,8 @@ class ServingEngine:
                         start_us=int(pack_interval[0] * 1e6),
                         end_us=int(pack_interval[1] * 1e6),
                         attrs={"engine": self.engine_id})
-                _spans.record_span("serving/forward", req.trace_id,
+                _spans.record_span("serving/compile" if captured
+                                   else "serving/forward", req.trace_id,
                                    parent_id=req.span.span_id,
                                    start_us=int(t0 * 1e6),
                                    end_us=int(t1 * 1e6),
@@ -548,7 +581,8 @@ class ServingEngine:
                         _spans.perf_to_mono(pack_interval[0]),
                         _spans.perf_to_mono(pack_interval[1]),
                         span=False)
-                _attribution.stamp(req, "compute", _spans.perf_to_mono(t0),
+                _attribution.stamp(req, "compile" if captured else "compute",
+                                   _spans.perf_to_mono(t0),
                                    _spans.perf_to_mono(t1), span=False)
             try:
                 out = self._pool(
@@ -617,10 +651,9 @@ class ServingEngine:
         mid = None
         if fn is None:
             mid, fn = self._models.resolve(model_id)
-        t0 = time.perf_counter()
-        self._forward(plan, fn)
-        self.costs.observe_warmup(row_len, time.perf_counter() - t0,
-                                  compiled=False)
+        _, t0, t1, captured = self._counted_forward(
+            plan, fn, None if mid is None else (mid, rows, row_len))
+        self.costs.observe_warmup(row_len, t1 - t0, compiled=captured)
         if mid is not None:
             with self._shapes_lock:
                 self._seen_shapes.add((mid, rows, row_len))

@@ -395,6 +395,44 @@ class CostLedger:
         return self._derive(merge_cost_buckets(rows))
 
 
+class CaptureCounters:
+    """Graph-capture outcomes of an engine's forwards: the JAX engines'
+    compile-cache counters (``mxnet_tpu_serving_compile_cache_total``,
+    labels ``engine_id`` and ``result``). A forward that captured a
+    CUDA graph (a hybridized model's first forward of a shape bucket)
+    is a ``miss``, any other a ``memory_hit`` (a replay, or a model that
+    captures nothing). ``persistent_hit`` stays 0 by design: a CUDA
+    graph does not outlive its process, where the JAX package's
+    executables can come back from its disk cache."""
+
+    RESULTS = ("memory_hit", "persistent_hit", "miss")
+
+    def __init__(self, engine_id, registry=None):
+        reg = registry if registry is not None else REGISTRY
+        family = reg.counter(
+            "mxnet_tpu_serving_compile_cache_total",
+            "per-shape graph cache outcomes at dispatch: memory_hit (a "
+            "replay, or nothing to capture), persistent_hit (always 0: "
+            "CUDA graphs do not outlive the process), miss (a capture)",
+            ("engine_id", "result"))
+        self._children = {r: family.labels(engine_id=engine_id, result=r)
+                          for r in self.RESULTS}
+        self._counts = {r: 0 for r in self.RESULTS}
+        self._lock = threading.Lock()
+
+    def observe(self, captured):
+        """Count one forward; returns its result name."""
+        result = "miss" if captured else "memory_hit"
+        with self._lock:
+            self._counts[result] += 1
+        self._children[result].inc()
+        return result
+
+    def snapshot(self):
+        with self._lock:
+            return dict(self._counts)
+
+
 def merge_cost_buckets(rows):
     """Sum cost-ledger rows field-by-field (a router folding N
     engines' buckets, or totals across buckets)."""

@@ -1238,3 +1238,467 @@ def test_nd_registry_reaches_the_kernels_bit_for_bit(cuda, case, dtype):
     assert torch.equal(out_r, out_d)
     for a, b in zip(g_r, g_d):
         assert torch.equal(a, b)
+
+
+# -- CUDA graphs: every kernel captured in a hybridized block's graph -----
+def _graph_case(cuda, dtype, case, seed):
+    """``(inputs that take gradients, other inputs, fn, kernels)`` of
+    one kernel's op at a small shape; every tensor the op reads is an
+    input, so a replay with new inputs computes a new result."""
+    from mxnet_tpu_torch.ndarray import op_impl_nn, op_impl_rnn
+
+    rng = np.random.RandomState(seed)
+
+    def t(shape, lo=-1.0, hi=1.0):
+        return torch.tensor(rng.uniform(lo, hi, shape), dtype=dtype,
+                            device=cuda)
+
+    if case == "layer_norm":
+        return ([t((4, 33, 96)), t((96,), 0.5, 1.5), t((96,))], [],
+                lambda x, g, b: op_impl_nn.layer_norm(x, g, b, eps=1e-12),
+                ("layer_norm", "layer_norm_bwd"))
+    if case == "flash_attention":
+        vl = torch.tensor([40, 1 + seed % 39], dtype=torch.int32,
+                          device=cuda)
+        return ([t((2, 3, 40, 64)) for _ in range(3)], [vl],
+                op_impl_nn.flash_attention_op,
+                ("flash_attention", "flash_attention_bwd"))
+    if case == "softmax_xent":
+        lab = torch.tensor(rng.randint(0, 1000, 37), dtype=torch.int32,
+                           device=cuda)
+        return ([t((37, 1000))], [lab], op_impl_nn.softmax_cross_entropy,
+                ("softmax_xent_fwd", "softmax_xent_bwd"))
+    tt, n, i, h = 5, 3, 16, 32                              # lstm
+    size = op_impl_rnn.rnn_param_size(2, i, h, False, "lstm")
+    kw = dict(state_size=h, num_layers=2, mode="lstm", state_outputs=True)
+    return ([t((tt, n, i)), t((size,), -0.2, 0.2), t((2, n, h)),
+             t((2, n, h))], [],
+            lambda *a: op_impl_rnn.rnn(*a, **kw)[0],
+            ("lstm_fwd", "lstm_bwd", "lstm_bwd_dw"))
+
+
+def _op_block(fn):
+    from mxnet_tpu_torch.gluon import HybridBlock
+
+    class Op(HybridBlock):
+        def forward(self, *xs):
+            return fn(*xs)
+
+    return Op(prefix="")
+
+
+def _recorded_call(block, case):
+    from mxnet_tpu_torch import autograd
+
+    grad_in, const_in, _, kernels = case
+    xs = [a.clone().requires_grad_(True) for a in grad_in]
+    before = launch_counts()
+    with autograd.record():
+        out = block(*xs, *const_in)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    after = launch_counts()
+    return (out.detach(), [x.grad for x in xs],
+            {k: after[k] - before[k] for k in kernels})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["layer_norm", "flash_attention",
+                                  "softmax_xent", "lstm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graph_kernels_replay_as_eager(cuda, case, dtype):
+    """A hybridized block around each kernel's op: forward and backward
+    captured once, then replayed on new inputs; outputs, gradients and
+    launch counts the same as the eager block's, to the bit (the
+    kernels use no float atomics)."""
+    fn = _graph_case(cuda, dtype, case, 0)[2]
+    eager, graphed = _op_block(fn), _op_block(fn).hybridize()
+    for seed in (1, 2, 3):
+        c = _graph_case(cuda, dtype, case, seed)
+        c = (c[0], c[1], fn, c[3])
+        out_e, g_e, n_e = _recorded_call(eager, c)
+        out_g, g_g, n_g = _recorded_call(graphed, c)
+        assert n_g == n_e and all(v > 0 for v in n_e.values()), (n_e, n_g)
+        assert torch.equal(out_g, out_e)
+        for a, b in zip(g_g, g_e):
+            assert torch.equal(a, b)
+    (entry,) = graphed._cached_graph.values()
+    assert len(entry.instances) == 1 and entry.instances[0].bwd is not None
+
+
+@pytest.mark.cuda
+def test_graph_paged_attention_replays_leave_tickets_at_zero(cuda):
+    """K5 captured once and replayed 1000 times on new queries and
+    histories: every replay equals the plain version, and the ticket
+    counters of the capture stream stay 0 (the last block of a tile
+    resets its ticket)."""
+    from mxnet_tpu_torch import graphs
+
+    q, k, v, table, kvl = _case(0, 1, (5, 17, 24), 64, cuda, torch.float32)
+    rng = np.random.RandomState(5)
+    pool = torch.cuda.graph_pool_handle()
+    graph = graphs.capture(pa.paged_flash_attention, [q, k, v, table, kvl],
+                           cuda, pool, "paged attention")
+    out = graph.out
+    assert graph.launches == {"paged_attention": 1}
+    before = launch_counts()["paged_attention"]
+    worst = 0.0
+    for i in range(1000):
+        q.copy_(torch.from_numpy(rng.randn(*q.shape).astype(np.float32)))
+        kvl.copy_(torch.from_numpy(rng.randint(0, 25, 3).astype(np.int32)))
+        graph.replay()
+        want = pa.paged_attention_reference(q, k, v, table, kvl)
+        worst = max(worst, (out - want).abs().max().item())
+    assert launch_counts()["paged_attention"] == before + 1000
+    assert worst <= 1e-4, worst
+    stream = graphs.capture_stream(cuda)
+    tickets = [b for (_, s), b in pa._TICKETS.items()
+               if s == stream.cuda_stream]
+    assert tickets and all(int(b.abs().sum()) == 0 for b in tickets)
+
+
+@pytest.mark.cuda
+def test_graph_hybridized_bert_step_matches_eager(cuda):
+    """A 2-layer BERT with the MLM head, hybridized: three recorded steps
+    (forward graph, backward graph, Adam) give the eager model's losses
+    and weights; the launches of each step are the eager step's."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTMLMHead, BERTModel
+    from mxnet_tpu_torch.ndarray import op_impl_nn
+
+    def build():
+        net = BERTModel(vocab_size=100, units=64, hidden_size=128,
+                        num_layers=2, num_heads=4, max_length=32,
+                        dropout=0.0, attention_dropout=0.0,
+                        use_pooler=False, device=cuda, seed=1)
+        head = BERTMLMHead(100, 64, device=cuda, seed=2)
+        params = {**{"n" + k: p for k, p in net.collect_params().items()},
+                  **{"h" + k: p for k, p in head.collect_params().items()}}
+        tr = gluon.Trainer(params, "adam", {"learning_rate": 1e-3})
+        return net, head, tr
+
+    rng = np.random.RandomState(0)
+    ids = torch.tensor(rng.randint(0, 100, (4, 32)), device=cuda)
+    tt = torch.zeros_like(ids)
+    vl = torch.tensor([32, 20, 9, 31], dtype=torch.int32, device=cuda)
+    lab = torch.tensor(rng.randint(0, 100, (4 * 32,)), dtype=torch.int32,
+                       device=cuda)
+    runs = []
+    for hybrid in (False, True):
+        net, head, tr = build()
+        if hybrid:
+            net.hybridize()
+            head.hybridize()
+        losses, counts = [], []
+        for _ in range(3):
+            before = launch_counts()
+            with autograd.record():
+                seq = net(ids, tt, vl)
+                seq = seq[0] if isinstance(seq, (list, tuple)) else seq
+                logits = head(seq).reshape(-1, 100)
+                loss = op_impl_nn.softmax_cross_entropy(logits, lab)
+            loss.backward()
+            tr.step(1)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            losses.append(loss.detach().clone())
+            counts.append({k: after[k] - before[k] for k in after
+                           if after[k] != before[k]})
+        runs.append((losses, counts, [p.detach().clone()
+                                      for p in net.parameters()]))
+    (le, ce, we), (lg, cg, wg) = runs
+    assert cg == ce and ce[0]
+    for a, b in zip(lg, le):
+        assert torch.equal(a, b)
+    for a, b in zip(wg, we):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_graph_decode_engine_streams_match_eager(cuda):
+    """``PagedCausalLM`` on the card (one graph per prefill, chunk and
+    decode bucket, K5 inside) serves the greedy streams of its steps'
+    bodies called directly token for token; every bucket of the
+    warm-up is a capture, every later step a replay."""
+    from mxnet_tpu_torch.serving import DecodeEngine, PagedCausalLM
+
+    def eager(model):
+        def run(name, caches, arrays, body):
+            return body(caches, *[torch.as_tensor(np.asarray(a, np.int64),
+                                                  device=model.device)
+                                  for a in arrays])
+
+        model._run = run
+        return model
+
+    geom = dict(vocab=64, units=32, layers=2, heads=4, max_len=128, seed=7)
+    eng_kw = dict(prefill_bucket_lens=(8, 16), max_rows=4, page_size=8,
+                  n_pages=24, max_new_tokens=6)
+    prompts = [[1, 2, 3], [9, 8, 7, 6, 5], [4], [11, 12],
+               [3, 1, 4, 1, 5, 9, 2, 6], [5, 6, 7, 8, 9, 10, 11, 12, 13]]
+    streams, snaps = [], []
+    for graphed in (False, True):
+        model = PagedCausalLM(device=cuda, **geom)
+        if not graphed:
+            eager(model)
+        with DecodeEngine(model, **eng_kw) as eng:
+            eng.warmup()
+            futs = [eng.submit(p, max_new_tokens=7) for p in prompts]
+            streams.append([f.result(timeout=120).tolist() for f in futs])
+            snaps.append(eng.snapshot()["compile_cache"])
+    assert streams[1] == streams[0]
+    assert snaps[0]["miss"] == 0 and snaps[1]["miss"] > 0
+    assert snaps[1]["persistent_hit"] == 0
+
+
+@pytest.mark.cuda
+def test_graph_encoder_engine_answers_match_eager(cuda):
+    """``bert_serving_entry(hybridize=True)``: one graph per (rows,
+    row_len) bucket, K1 and K3a inside; answers equal the eager
+    entry's to the bit, and traffic after the warm-up only replays."""
+    from mxnet_tpu_torch.gluon.model_zoo.bert import (BERTModel,
+                                                      bert_serving_entry)
+    from mxnet_tpu_torch.serving import ServingEngine
+
+    net = BERTModel(vocab_size=120, units=64, hidden_size=128,
+                    num_layers=2, num_heads=4, max_length=64, dropout=0.0,
+                    attention_dropout=0.0, use_pooler=False, device=cuda,
+                    seed=3)
+    rng = np.random.RandomState(0)
+    reqs = [rng.randint(1, 120, n).astype(np.int32)
+            for n in (3, 9, 17, 30, 5, 12, 40, 7)]
+    answers, snaps = [], []
+    for hybrid in (False, True):
+        eng = ServingEngine(bert_serving_entry(net, hybridize=hybrid),
+                            device=cuda, bucket_lens=(16, 64), max_rows=4,
+                            pool="mean")
+        with eng:
+            eng.warmup()
+            warm = eng.snapshot()["compile_cache"]
+            futs = [eng.submit(t) for t in reqs]
+            answers.append([f.result(timeout=120) for f in futs])
+            snap = eng.snapshot()["compile_cache"]
+        snaps.append((warm, snap))
+        net.hybridize(False)
+    for a, b in zip(answers[1], answers[0]):
+        assert np.array_equal(a, b)
+    (_, eager), (warm, graphed) = snaps
+    assert eager["miss"] == 0 and warm["miss"] > 0
+    assert graphed["miss"] == warm["miss"]
+
+
+@pytest.mark.cuda
+def test_graph_chain_steps_match_single_steps(cuda):
+    """``engine.chain_steps`` on the card: 4 momentum-SGD steps captured
+    as one graph; two chained calls equal 8 single steps to the bit, a
+    donated carry is updated in place."""
+    from mxnet_tpu_torch.engine import chain_steps
+
+    def step(w, b, mw, mb, x, y):
+        w_, b_ = (w.detach().requires_grad_(True),
+                  b.detach().requires_grad_(True))
+        with torch.enable_grad():
+            loss = ((x @ w_ + b_ - y) ** 2).mean()
+            gw, gb = torch.autograd.grad(loss, (w_, b_))
+        mw, mb = 0.9 * mw + gw, 0.9 * mb + gb
+        return w - 0.05 * mw, b - 0.05 * mb, mw, mb, loss.detach()
+
+    rng = np.random.RandomState(0)
+    t = lambda *s: torch.tensor(rng.rand(*s), dtype=torch.float32,  # noqa
+                                device=cuda)
+    args = [t(64, 32), t(32), torch.zeros(64, 32, device=cuda),
+            torch.zeros(32, device=cuda), t(128, 64), t(128, 32)]
+    carry = [a.clone() for a in args[:4]]
+    for _ in range(8):
+        *carry, loss = step(*carry, *args[4:])
+    chained = chain_steps(step, 4, donate_argnums=(0, 1, 2, 3))
+    out = chained(*args)
+    w_buf = out[0]
+    out = chained(*out[:4], *args[4:])
+    torch.cuda.synchronize()
+    assert out[0] is w_buf
+    for a, c in zip(out, (*carry, loss)):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_graph_remat_resnet_matches_plain(cuda):
+    """A small ResNet with ``remat_stages=(2, 3)``, hybridized on the
+    card: the recompute is captured in the backward graph; loss,
+    gradients and running statistics as the same model's without
+    remat (1e-5 of scale: the recompute centres BatchNorm's variance
+    on the updated running mean)."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+
+    rng = np.random.RandomState(1)
+    x = torch.tensor(rng.rand(8, 3, 32, 32), dtype=torch.float32,
+                     device=cuda)
+    y = torch.tensor(rng.randint(0, 4, 8), dtype=torch.float32, device=cuda)
+    runs = []
+    for stages in ((), (2, 3)):
+        net = resnet.ResNetV1(resnet.BasicBlockV1, [1, 1, 1, 1],
+                              [8, 8, 16, 32, 64], classes=4,
+                              remat_stages=stages, device=cuda)
+        net.initialize(init="xavier", seed=3)
+        net.hybridize()
+        for _ in range(2):
+            with autograd.record():
+                loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+            autograd.backward(loss)
+        runs.append((loss.detach(), {n: (p.grad if p.requires_grad else p)
+                                     .detach().clone()
+                                     for n, p in net.gluon_params().items()}))
+    (l0, g0), (l1, g1) = runs
+    torch.testing.assert_close(l1, l0, rtol=1e-5, atol=1e-6)
+    for n in g0:
+        scale = g0[n].abs().max().item() or 1.0
+        assert (g1[n] - g0[n]).abs().max().item() <= 1e-5 * scale, n
+
+
+@pytest.mark.cuda
+def test_graph_dropout_draws_new_masks_and_follows_the_seed(cuda):
+    """Dropout inside a graph: each replay draws a new mask, and
+    ``mx.random.seed`` after the capture makes the replays repeat."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn
+
+    net = nn.HybridSequential()
+    net.add(nn.Dense(64, in_units=64, device=cuda), nn.Dropout(0.5))
+    net.initialize(seed=1)
+    net.hybridize()
+    x = torch.ones(16, 64, device=cuda)
+
+    def masks(n):
+        out = []
+        for _ in range(n):
+            with autograd.train_mode():
+                out.append((net(x) == 0).clone())
+        return out
+
+    masks(1)                                   # the capture
+    a = masks(3)
+    assert not torch.equal(a[0], a[1]) and not torch.equal(a[1], a[2])
+    mx.random.seed(7)
+    b = masks(2)
+    mx.random.seed(7)
+    c = masks(2)
+    assert all(torch.equal(u, v) for u, v in zip(b, c))
+
+
+@pytest.mark.cuda
+def test_graph_batchnorm_statistics_after_replays_equal_eager(cuda):
+    """``HybridSequential(Dense, BatchNorm, Activation, Dense)``: after
+    five recorded calls and two predict calls on new inputs, the
+    running statistics updated inside the graph at every replay equal
+    the eager block's write-backs to the bit, and so do the outputs."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn
+
+    def build():
+        net = nn.HybridSequential()
+        net.add(nn.Dense(64, in_units=32, device=cuda),
+                nn.BatchNorm(in_channels=64, device=cuda),
+                nn.Activation("relu"), nn.Dense(8, in_units=64,
+                                                device=cuda))
+        net.initialize(seed=4)
+        return net
+
+    rng = np.random.RandomState(2)
+    xs = [torch.tensor(rng.randn(16, 32), dtype=torch.float32,
+                       device=cuda) for _ in range(7)]
+    runs = []
+    for graphed in (False, True):
+        net = build()
+        if graphed:
+            net.hybridize()
+        outs = []
+        for i, x in enumerate(xs):
+            if i < 5:
+                with autograd.record():
+                    out = net(x)
+                out.backward(torch.ones_like(out))
+            else:
+                out = net(x)
+            outs.append(out.detach().clone())
+        bn = net[1]
+        runs.append((outs, bn.running_mean.detach().clone(),
+                     bn.running_var.detach().clone()))
+    (oe, me, ve), (og, mg, vg) = runs
+    assert not torch.equal(me, torch.zeros_like(me))
+    assert torch.equal(mg, me) and torch.equal(vg, ve)
+    for a, b in zip(og, oe):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_graph_capture_keeps_other_threads_launches(cuda):
+    """Another thread launches K3a eagerly, on its own stream, while this
+    one warms up, captures and replays a hybridized K3a block: every
+    launch of both counts once (the warm-up's and the capture's are not
+    launches that ran)."""
+    import threading
+
+    from mxnet_tpu_torch.ndarray import op_impl_nn
+
+    x = torch.randn(64, 256, device=cuda)
+    g, b = torch.ones(256, device=cuda), torch.zeros(256, device=cuda)
+    block = _op_block(lambda x, g, b: op_impl_nn.layer_norm(x, g, b))
+    block.hybridize()
+    stop, theirs = threading.Event(), [0]
+
+    def other():
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            while not stop.is_set() or theirs[0] < 100:
+                ln.layer_norm_fused(x, g, b)
+                theirs[0] += 1
+            torch.cuda.synchronize()
+
+    before = launch_counts()["layer_norm"]
+    t = threading.Thread(target=other)
+    t.start()
+    for _ in range(20):
+        block(x, g, b)
+    stop.set()
+    t.join()
+    torch.cuda.synchronize()
+    (entry,) = block._cached_graph.values()
+    assert entry.instances[0].fwd.launches == {"layer_norm": 1}
+    assert launch_counts()["layer_norm"] - before == theirs[0] + 20
+
+
+@pytest.mark.cuda
+def test_graph_dropped_recorded_entry_frees_its_memory(cuda, monkeypatch):
+    """With the bound at one recorded entry, a second training shape
+    drops the first entry: the memory held afterwards is the second
+    entry's alone, not both."""
+    import gc
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import block as blk
+    from mxnet_tpu_torch.gluon import nn
+
+    monkeypatch.setattr(blk, "_RECORDED_KEYS", 1)
+    net = nn.HybridSequential()
+    for _ in range(4):
+        net.add(nn.Dense(1024, in_units=1024, device=cuda),
+                nn.Activation("tanh"))
+    net.initialize(seed=1)
+    net.hybridize()
+
+    def held(rows):
+        with autograd.record():
+            out = net(torch.ones(rows, 1024, device=cuda))
+        out.backward(torch.ones_like(out))
+        del out
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated(cuda)
+
+    base = torch.cuda.memory_allocated(cuda)
+    one = held(4096) - base
+    two = held(4095) - base
+    assert len(net._cached_graph) == 1
+    # at least the four saved tanh outputs of 16 MiB each
+    assert one > 4 * 4096 * 1024 * 4 and two < 1.5 * one, (one, two)

@@ -70,6 +70,7 @@ def test_import_leaves_jax_out_of_the_process():
         "import mxnet_tpu_torch.ndarray.op_impl_random\n"
         "import mxnet_tpu_torch.ndarray.random\n"
         "import mxnet_tpu_torch.ndarray.linalg\n"
+        "import mxnet_tpu_torch.graphs\n"
         "import mxnet_tpu_torch.examples.hybrid_bert\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mxnet_tpu')]\n"

@@ -285,8 +285,14 @@ def test_model_zoo_entry_points():
         net.gluon_params()["conv2d0_weight"].shape == (64, 3, 3, 3)
     with pytest.raises(ValueError, match="not supported"):
         vision.get_model("mobilenet1.0")
-    with pytest.raises(NotImplementedError, match="Vision remainders"):
-        vision.resnet18_v1(remat_stages=(3,), device="cpu")
+    marked = vision.resnet18_v1(remat_stages=(3,), device="cpu")
+    stages = [m for m in marked.features.children()
+              if m.prefix.startswith("stage")]
+    assert [all(b._remat for b in st.children()) for st in stages] == \
+        [False, False, True, False]
+    with pytest.raises(ValueError, match="names:bn_out"):
+        vision.resnet18_v1(remat_stages=(3,), remat_policy="names:bn_out",
+                           device="cpu")
     with pytest.raises(NotImplementedError, match="downloads"):
         vision.resnet18_v1(pretrained=True, device="cpu")
     with pytest.raises(ValueError):
