@@ -188,7 +188,36 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
     timed run, profiled bursts (decode, encoder) and profiled training
     steps (BERT-base MLM) of both for the busy shares, the graphed
     step's kernels in the trace held against its replayed launch
-    counts. The empty graphs captured in the run are named.
+    counts. The empty graphs captured in the run are named;
+16. Wide&Deep and row_sparse, which launch no port kernel (gate:
+    ``ops.launch_counts()`` all 0 over the phase): the cell
+    ``train-widedeep-criteo-b1024`` (``examples/wide_deep.py``'s
+    building blocks: ``wide_deep()`` at wide_dim 100000, 26 fields of
+    10000 ids, embed 16, MLP 256-128-64-2, Xavier weights from
+    ``--seed``, one synthetic batch of 1024, Adam 1e-3), 3 warm-up + 20
+    steps eager, then hybridized (forward and backward graphs) twice:
+    the mean of the last 5 losses below that of the first 5, every
+    gradient finite and not all zero (both tables and the MLP),
+    captures in the warm-up and none after, the second graphed model
+    equal to the first bit for bit and the graphed losses within 1e-6
+    relative of eager's (bit for bit said), five profiled steps of each
+    (busy share; the graphed trace holds the tables' ``segment_reduce``
+    kernels with no host call of it: the embedding backward replays
+    inside the graph); the per-field layout with the fused model's
+    weights gives its output and gradients within 1e-6 of scale; card
+    vs CPU at wide_dim 5000 and fields of 500 (step-1 loss and three
+    Adam steps' losses within 1e-4 relative, step-1 gradients within
+    1e-3 of scale, phase 9's gates); ``cast_storage``, ``retain``,
+    ``dot(csr, dense)`` and ``dot(csr.T, dense)``, ``row_sparse_pull``
+    to a dense and a row_sparse destination and row_sparse pushes with
+    repeated ids through SGD, momentum, Adam and AdaGrad on the card
+    against the CPU (moves exact, sums within 1e-6 of scale, a second
+    card run bit for bit, rows not pushed unchanged); then
+    ``example/wide_deep.py`` and ``example/sparse_linear.py``
+    unmodified at their defaults through ``run_reference`` in child
+    processes (their own gates: accuracy > 0.65 and > 0.8). Step p50 and
+    examples/s eager and graphed, busy shares, peak memory and the
+    sparse-linear step time printed.
 
 The op-dispatch phase also times one
 ``F.scaled_dot_product_attention`` call beside K1, K2 and K5 at head
@@ -3766,31 +3795,37 @@ def graphed_training(label, make, step, batch_valid, profiles, steps=10,
             log(f"hybridize {label}, {mode} forward + backward:")
             m["profile"][mode] = {"wall_ms": wall * 1e3,
                                   "busy": report_profile(prof, wall)}
-            # the port's kernels in the trace of one more step; a step
-            # traced first is dropped, since a trace's first kernels can
-            # go missing while the tracer starts (its device times are
-            # not read: a scheduled trace's sums ran past its wall)
-            with torch.profiler.profile(
-                    activities=acts, acc_events=True,
-                    schedule=torch.profiler.schedule(wait=0, warmup=1,
-                                                     active=1)) as prof:
-                step(sides[mode], None)
+            # the port's kernels in the trace of one more step. In a
+            # process that has traced before, a new trace can lose its
+            # first ~20 device events whatever precedes them in time
+            # (the smoke's BERT-base step lost its first LayerNorm and
+            # attention kernels after a 50 ms wait and a warm-up step;
+            # a fresh process lost none), so the trace opens with `pad`
+            # spin kernels that take that loss before the step starts
+            pad = 500
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(pad):
+                    torch.cuda._sleep(100)
                 torch.cuda.synchronize()
-                prof.step()
                 before = ops.launch_counts()
                 step(sides[mode], None)
-                torch.cuda.synchronize()
                 after = ops.launch_counts()
-                prof.step()
+                torch.cuda.synchronize()
             counted = {k: after[k] - before[k] for k in after
                        if after[k] != before[k]}
             traced = traced_launches(prof)
+            spins = sum(e.count for e in prof.key_averages()
+                        if "spin_kernel" in e.key)
             if traced != counted:
                 raise AssertionError(f"{label}, {mode}: the port's kernels "
                                      f"in the trace {traced} differ from "
-                                     f"the launches counted {counted}")
+                                     f"the launches counted {counted} "
+                                     f"({spins} of {pad} padding kernels "
+                                     f"traced)")
+            m["profile"][mode]["padding_kernels_traced"] = spins
             log(f"hybridize {label}, {mode}: the trace's port kernels "
-                f"equal the launches counted, {counted}")
+                f"equal the launches counted, {counted} ({spins} of {pad} "
+                f"padding kernels traced)")
 
     profiles.append(profile)
     return m
@@ -4138,6 +4173,457 @@ def hybridize_phase(seed, dev, power_line, eager):
     return in_graph
 
 
+# -- phase 16: Wide&Deep and row_sparse ---------------------------------------
+#: ``train-widedeep-criteo-b1024``: the model zoo's ``wide_deep()`` widths
+#: and ``example/wide_deep.py``'s training defaults
+WD = dict(wide_dim=100000, field_dim=10000, batch=1024, lr=1e-3, warmup=3,
+          steps=20)
+#: card against CPU: the tables cut so the CPU side takes a second
+WD_SMALL = dict(wide_dim=5000, field_dim=500, steps=3)
+
+
+def _wd_build(seed, dev, hybridize, fused=True, **widths):
+    from mxnet_tpu_torch.examples import wide_deep as ex
+
+    w = dict(WD, **widths)
+    return ex.build(dev, w["wide_dim"], w["field_dim"], lr=WD["lr"],
+                    seed=seed, fused_fields=fused, hybridize=hybridize)
+
+
+def _wd_batch(seed, dev, **widths):
+    from mxnet_tpu_torch.examples import wide_deep as ex
+
+    w = dict(WD, **widths)
+    return ex.synthetic_batch(WD["batch"], w["wide_dim"], w["field_dim"],
+                              seed, dev)
+
+
+def _wd_grads_live(params, where):
+    """Every gradient finite and not all zero (both tables, the MLP)."""
+    import torch
+
+    dead = []
+    for name, p in params.items():
+        g = p.grad()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{where}: {name}: non-finite gradient")
+        if g.abs().max().item() == 0.0:
+            dead.append(name)
+    if dead:
+        raise AssertionError(f"{where}: all-zero gradients: {dead}")
+
+
+def wd_train(seed, dev, hybridize, batch):
+    """``WD['warmup']`` + ``WD['steps']`` Adam steps of a model built
+    from ``seed`` on ``batch``; the losses, step times, captures (during
+    the warm-up and after it), the peak memory the run added to what
+    was allocated before it, and the final weights."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import graphs
+    from mxnet_tpu_torch.examples import wide_deep as ex
+
+    base = torch.cuda.memory_allocated(dev)
+    net, loss_fn, trainer = _wd_build(seed, dev, hybridize)
+    c0 = graphs.captures()
+    warm = [ex.train_step(net, loss_fn, trainer, batch)[1].double().mean()
+            for _ in range(WD["warmup"])]
+    warm = torch.stack(warm).tolist()
+    torch.cuda.synchronize()
+    c1 = graphs.captures()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [], []
+    for _ in range(WD["steps"]):
+        t0 = time.perf_counter()
+        _, loss = ex.train_step(net, loss_fn, trainer, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.double().mean().item())
+    params = net.collect_params()
+    run = {"net": net, "loss_fn": loss_fn, "trainer": trainer,
+           "params": params, "warm": warm, "losses": losses,
+           "times": times, "p50": float(np.median(times)),
+           "captures_warmup": c1 - c0,
+           "captures_after": graphs.captures() - c1,
+           "peak": torch.cuda.max_memory_allocated(dev) - base,
+           "weights": {k: p.data().detach().clone()
+                       for k, p in params.items()}}
+    return run
+
+
+def wd_profile(run, batch, graphed, steps=5):
+    """``steps`` profiled steps: the device's busy share of their wall;
+    for the graphed model also that the tables' gradient
+    (``segment_sum``'s ``segment_reduce``) ran on the device while no
+    host call made it: inside the backward graph's replays."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from mxnet_tpu_torch.examples import wide_deep as ex
+
+    torch.cuda.synchronize()
+    with _profiler(True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            ex.train_step(run["net"], run["loss_fn"], run["trainer"],
+                          batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(f"wide&deep {'graphed' if graphed else 'eager'}: {steps} steps "
+        f"profiled, {wall / steps * 1e3:.3f} ms a step under the "
+        f"profiler:")
+    busy = report_profile(prof, wall)
+    on_dev = on_host = 0
+    for e in prof.key_averages():
+        if "segment_reduce" in e.key:
+            if e.device_type == DeviceType.CUDA:
+                on_dev += e.count
+            else:
+                on_host += e.count
+    if not on_dev:
+        raise AssertionError("the tables' gradient kernel is not in the "
+                             "trace")
+    if graphed and on_host:
+        raise AssertionError(f"graphed step: the host called "
+                             f"segment_reduce {on_host} times (the "
+                             f"embedding backward ran outside the graph)")
+    if not graphed and not on_host:
+        raise AssertionError("eager step: no host call of segment_reduce")
+    return busy, on_dev
+
+
+def _same_bits(a, b):
+    import torch
+
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _gap(got, want):
+    """The largest gap of each array, over its own largest magnitude."""
+    return max(float((got[k].double() - want[k].double()).abs().max())
+               / max(float(want[k].double().abs().max()), 1e-30)
+               for k in want)
+
+
+def wd_layouts_agree(seed, dev):
+    """The per-field layout with the fused model's weights (its table
+    split by field) gives the fused model's output, loss and gradients
+    (the tables' split likewise): the same bits or within 1e-6 of each
+    array's scale, said which."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+
+    batch = _wd_batch(seed, dev)
+    out = {}
+    for fused in (True, False):
+        net, loss_fn, _ = _wd_build(seed, dev, False, fused=fused)
+        net(*batch[:3])                 # the MLP's deferred shapes
+        if not fused:
+            src = out[True]["weights"]
+            nfield = WD["field_dim"]
+            with torch.no_grad():
+                for name, p in net.named_parameters():
+                    if name.split(".")[0].isdigit():
+                        i = int(name.split(".")[0]) - 1
+                        p.copy_(src["field_embed.weight"][
+                            i * nfield:(i + 1) * nfield])
+                    else:
+                        p.copy_(src[name])
+        with autograd.record():
+            o = net(*batch[:3])
+            loss = loss_fn(o, batch[3])
+        autograd.backward(loss)
+        grads = {n: p.grad.detach().clone()
+                 for n, p in net.named_parameters()}
+        if not fused:
+            grads["field_embed.weight"] = torch.cat(
+                [grads.pop(f"{i + 1}.weight") for i in range(26)])
+        out[fused] = {"out": o.detach(), "loss": loss.detach(),
+                      "grads": grads,
+                      "weights": {n: p.detach().clone()
+                                  for n, p in net.named_parameters()}}
+    a, b = out[True], out[False]
+    same = torch.equal(a["out"], b["out"]) and _same_bits(a["grads"],
+                                                          b["grads"])
+    gap = max(_gap({"o": b["out"]}, {"o": a["out"]}),
+              _gap(b["grads"], a["grads"]))
+    if gap > 1e-6:
+        raise AssertionError(f"layouts disagree: {gap:.3g} of scale")
+    log(f"layouts: per-field with the fused weights gives the fused "
+        f"output and gradients {'bit for bit' if same else f'within {gap:.3g} of scale'}")
+    return {"same_bits": same, "gap": gap}
+
+
+def wd_card_vs_cpu(seed, dev, steps=WD_SMALL["steps"]):
+    """wide_dim 5000, fields of 500, the same weights and batch on the
+    card and the CPU: step 1's loss within 1e-4 relative and gradients
+    within 1e-3 of each parameter's largest CPU gradient (phase 9's
+    gates), then ``steps`` Adam steps, losses within 1e-4 relative."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+
+    small = {k: WD_SMALL[k] for k in ("wide_dim", "field_dim")}
+    res = {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        net, loss_fn, trainer = _wd_build(seed, device, False, **small)
+        batch = _wd_batch(seed, device, **small)
+        net(*batch[:3])                 # the MLP's deferred shapes
+        if side == "cpu":
+            with torch.no_grad():
+                for n, p in net.named_parameters():
+                    p.copy_(res["card"]["init"][n])
+        init = {n: p.detach().cpu().clone()
+                for n, p in net.named_parameters()}
+        losses, grads = [], None
+        for _ in range(steps + 1):
+            with autograd.record():
+                loss = loss_fn(net(*batch[:3]), batch[3])
+            autograd.backward(loss)
+            losses.append(loss.double().mean().item())
+            if grads is None:
+                grads = {n: p.grad.detach().cpu().clone()
+                         for n, p in net.named_parameters()}
+            trainer.step(batch[0].shape[0])
+        res[side] = {"init": init, "losses": losses, "grads": grads}
+    card, cpu = res["card"], res["cpu"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                               cpu["losses"])]
+    ggap = {n: float((card["grads"][n] - g).abs().max())
+            / max(float(g.abs().max()), 1e-30)
+            for n, g in cpu["grads"].items()}
+    if max(rel) > 1e-4 or max(ggap.values()) > 1e-3:
+        raise AssertionError(f"card vs CPU: losses {rel}, gradients "
+                             f"{ggap}")
+    log(f"card vs CPU (wide_dim {small['wide_dim']}, fields of "
+        f"{small['field_dim']}): losses of step 1 and {steps} Adam steps "
+        f"within {max(rel):.3g} relative; step-1 gradients within "
+        f"{max(ggap.values()):.3g} of scale")
+    return {"loss_rel": rel, "grad_gap": ggap}
+
+
+def sparse_card_vs_cpu(seed, dev):
+    """The sparse machinery on the card against the same calls on the
+    CPU: ``cast_storage`` both ways, ``retain``, ``dot(csr, dense)`` and
+    ``dot(csr.T, dense)`` (a 256 x 10000 batch of 16 nnz a row, the
+    sparse linear example's widths), ``row_sparse_pull`` to a dense and
+    a row_sparse destination (the wide table, 51200 ids), and row_sparse
+    pushes with repeated ids (the fields' table, 26624 ids) through the
+    SGD, momentum, Adam and AdaGrad updaters. Moves exact, sums within
+    1e-6 of scale, a second card run the same bits, rows not pushed
+    unchanged bit for bit."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    rs = np.random.RandomState(seed)
+    dense = np.zeros((2000, 64), np.float32)
+    rows = rs.choice(2000, 600, replace=False)
+    dense[rows] = rs.randn(600, 64).astype(np.float32)
+    nnz = np.zeros((256, 10000), np.float32)
+    for r in range(256):
+        nnz[r, rs.choice(10000, 16, replace=False)] = rs.rand(16) + 0.1
+    rhs = rs.randn(10000, 4).astype(np.float32)
+    rhs_t = rs.randn(256, 4).astype(np.float32)
+    table = rs.randn(WD["wide_dim"], 2).astype(np.float32)
+    pull_ids = rs.randint(0, WD["wide_dim"], 51200)
+    fields = 26 * WD["field_dim"]
+    w0 = rs.randn(fields, 16).astype(np.float32)
+    push_ids = [rs.randint(0, fields, 26624) for _ in range(2)]
+    push_g = [rs.randn(26624, 16).astype(np.float32) for _ in range(2)]
+    optimizers = {"sgd": dict(learning_rate=0.1, wd=1e-4),
+                  "sgd_momentum": dict(learning_rate=0.1, momentum=0.9),
+                  "adam": dict(learning_rate=1e-3),
+                  "adagrad": dict(learning_rate=0.1)}
+
+    def run(ctx):
+        out = {}
+        with ctx:
+            x = mx.nd.array(dense)
+            rsp = sp.cast_storage(x, "row_sparse")
+            csr = sp.cast_storage(x, "csr")
+            out["rsp_ids"], out["rsp_vals"] = rsp.indices, rsp.data
+            out["csr_ids"], out["csr_ptr"] = csr.indices, csr.indptr
+            out["rsp_back"] = sp.cast_storage(rsp, "default")
+            out["csr_back"] = csr.tostype("default")
+            kept = sp.retain(rsp, mx.nd.array(rows[::3].astype(np.int64)))
+            out["retain"] = kept.todense()
+            batch = sp.csr_matrix(nnz)
+            out["dot"] = sp.dot(batch, mx.nd.array(rhs))
+            out["dot_t"] = sp.dot(batch, mx.nd.array(rhs_t),
+                                  transpose_a=True)
+            kv = mx.kv.create("local")
+            kv.init("wide", mx.nd.array(table))
+            dst = mx.nd.zeros(table.shape)
+            kv.row_sparse_pull("wide", out=dst, row_ids=mx.nd.array(pull_ids))
+            out["pull_dense"] = dst
+            rdst = sp.zeros("row_sparse", table.shape)
+            kv.row_sparse_pull("wide", out=rdst,
+                               row_ids=mx.nd.array(pull_ids))
+            out["pull_ids"], out["pull_vals"] = rdst.indices, rdst.data
+            for name, kw in optimizers.items():
+                kv = mx.kv.create("local")
+                kv.init("weight", mx.nd.array(w0))
+                opt = "sgd" if name.startswith("sgd") else name
+                kv.set_optimizer(mx.optimizer.create(opt, **kw))
+                for ids, g in zip(push_ids, push_g):
+                    kv.push("weight", sp.row_sparse_array(
+                        (g, ids), shape=w0.shape))
+                w = mx.nd.zeros(w0.shape)
+                kv.pull("weight", out=w)
+                out["push_" + name] = w
+        return {k: v.detach().cpu() if isinstance(v, torch.Tensor)
+                else v for k, v in out.items()}
+
+    card, again = run(mx.gpu(dev.index)), run(mx.gpu(dev.index))
+    cpu = run(mx.cpu())
+    exact = [k for k in card if not k.startswith(("dot", "push"))]
+    bad = [k for k in exact if not torch.equal(card[k], cpu[k])]
+    if bad:
+        raise AssertionError(f"card vs CPU: not the same values: {bad}")
+    gaps = {k: _gap({k: card[k]}, {k: cpu[k]}) for k in card
+            if k not in exact}
+    if max(gaps.values()) > 1e-6:
+        raise AssertionError(f"card vs CPU: {gaps}")
+    unequal = [k for k in card if not torch.equal(card[k], again[k])]
+    if unequal:
+        raise AssertionError(f"a second card run gave other bits: "
+                             f"{unequal}")
+    untouched = np.setdiff1d(np.arange(fields), np.concatenate(push_ids))
+    w0_t = torch.from_numpy(w0)
+    for name in optimizers:
+        if not torch.equal(card["push_" + name][untouched], w0_t[untouched]):
+            raise AssertionError(f"{name}: rows not pushed moved")
+    log(f"sparse ops on the card vs the CPU: moves exact ({', '.join(exact)}"
+        f"), sums within {max(gaps.values()):.3g} of scale "
+        f"({', '.join(f'{k} {v:.2g}' for k, v in gaps.items())}); a second "
+        f"card run bit for bit; {untouched.size} rows not pushed unchanged "
+        f"under each updater")
+    return {"gaps": gaps, "exact": exact}
+
+
+#: steps an epoch of ``example/sparse_linear.py`` at its defaults
+SPARSE_LINEAR_STEPS = 4096 // 256
+
+
+def reference_sparse_scripts(power_line):
+    """``example/wide_deep.py`` and ``example/sparse_linear.py`` at their
+    defaults through the runner: their own gates (accuracy > 0.65, >
+    0.8) and no launch of a port kernel."""
+    import numpy as np
+
+    out = {}
+    for script, key in (("example/wide_deep.py", "accuracy="),
+                        ("example/sparse_linear.py", "train accuracy")):
+        lines, stamps, counts, wall = run_reference_script(script, [],
+                                                           timeout=600)
+        got = {k: n for k, n in counts.items() if n}
+        if got:
+            raise AssertionError(f"{script} launched port kernels: {got}")
+        epochs, secs = _epoch_lines(lines, stamps, key)
+        out[script] = {"epochs": epochs, "epoch_s": secs, "wall_s": wall}
+        log(f"reference {script} (defaults): {epochs[-1]}; seconds by "
+            f"epoch {[round(s, 3) for s in secs]} (epoch 0 from the "
+            f"child's start); wall {wall:.1f} s [{power_line}]")
+    secs = out["example/sparse_linear.py"]["epoch_s"][1:]
+    step = float(np.median(secs)) / SPARSE_LINEAR_STEPS
+    out["sparse_linear_step_ms"] = step * 1e3
+    log(f"sparse_linear.py: {step * 1e3:.2f} ms a step (the median epoch "
+        f"over {SPARSE_LINEAR_STEPS} steps: csr_to_ell and np.unique on "
+        f"the host, row_sparse_pull, forward, backward, push) "
+        f"[{power_line}]")
+    return out
+
+
+def wide_deep_phase(seed, dev, power_line):
+    """Phase 16 (module docstring); returns its metrics."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import ops
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()       # the whole phase launches none
+    batch = _wd_batch(seed, dev)
+    eager = wd_train(seed, dev, False, batch)
+    graphed = wd_train(seed, dev, True, batch)
+    again = wd_train(seed, dev, True, batch)
+    for name, r in (("eager", eager), ("graphed", graphed)):
+        _wd_grads_live(r["params"], name)
+        first, last = np.mean(r["losses"][:5]), np.mean(r["losses"][-5:])
+        if not np.all(np.isfinite(r["warm"] + r["losses"])):
+            raise AssertionError(f"{name}: non-finite loss")
+        if not last < first:
+            raise AssertionError(f"{name}: loss did not fall: "
+                                 f"{r['losses']}")
+    if not graphed["captures_warmup"] or graphed["captures_after"]:
+        raise AssertionError(
+            f"graphed: {graphed['captures_warmup']} captures in the "
+            f"warm-up, {graphed['captures_after']} after it")
+    if again["warm"] + again["losses"] != graphed["warm"] + \
+            graphed["losses"] or not _same_bits(again["weights"],
+                                                graphed["weights"]):
+        raise AssertionError("a second graphed model from the seed gave "
+                             "other bits")
+    lrel = max(abs(a - b) / abs(b) for a, b in zip(
+        eager["warm"] + eager["losses"], graphed["warm"] + graphed["losses"]))
+    same = lrel == 0.0 and _same_bits(eager["weights"], graphed["weights"])
+    if lrel > 1e-6:
+        raise AssertionError(f"graphed vs eager losses: {lrel:.3g}")
+    busy_e, _ = wd_profile(eager, batch, False)
+    busy_g, seg = wd_profile(graphed, batch, True)
+    b = WD["batch"]
+    log(f"train-widedeep-criteo-b1024 (wide_dim {WD['wide_dim']}, 26 "
+        f"fields of {WD['field_dim']}, embed 16, MLP 256-128-64-2, Adam "
+        f"{WD['lr']}, {WD['warmup']} + {WD['steps']} steps on one "
+        f"batch): eager p50 {eager['p50'] * 1e3:.3f} ms "
+        f"({b / eager['p50']:.0f} examples/s), graphed p50 "
+        f"{graphed['p50'] * 1e3:.3f} ms ({b / graphed['p50']:.0f} "
+        f"examples/s; {graphed['captures_warmup']} captures in the "
+        f"warm-up, none after); busy {_busy(busy_e)} eager, "
+        f"{_busy(busy_g)} graphed (profiled steps; {seg} segment_reduce "
+        f"kernels in the graphed trace, no host call); peak memory added "
+        f"{eager['peak'] / 2 ** 30:.3f} GiB eager, "
+        f"{graphed['peak'] / 2 ** 30:.3f} GiB graphed; loss "
+        f"{graphed['losses'][0]:.6f} -> {graphed['losses'][-1]:.6f}; "
+        f"second graphed model bit for bit; graphed vs eager "
+        f"{'bit for bit' if same else f'losses within {lrel:.3g}'} "
+        f"[{power_line}]")
+    layouts = wd_layouts_agree(seed, dev)
+    cross = wd_card_vs_cpu(seed, dev)
+    sparse = sparse_card_vs_cpu(seed, dev)
+    scripts = reference_sparse_scripts(power_line)
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    if counts:
+        raise AssertionError(f"the Wide&Deep phase launched port kernels: "
+                             f"{counts}")
+    m = {"eager_step_ms": eager["times"], "graphed_step_ms":
+         graphed["times"], "eager_p50_ms": eager["p50"] * 1e3,
+         "graphed_p50_ms": graphed["p50"] * 1e3,
+         "examples_per_s": {"eager": b / eager["p50"],
+                            "graphed": b / graphed["p50"]},
+         "busy": {"eager": busy_e, "graphed": busy_g},
+         "peak_memory_bytes": {"eager": eager["peak"],
+                               "graphed": graphed["peak"]},
+         "losses": graphed["losses"], "graphed_vs_eager_bits": same,
+         "layouts": layouts, "card_vs_cpu": cross, "sparse": sparse,
+         "scripts": scripts, "card": power_line}
+    log(f"phase 16 (Wide&Deep and row_sparse): no port kernel launched; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    log("widedeep metrics: " + json.dumps(m, default=lambda o: None))
+    for r in (eager, graphed, again):
+        r.clear()
+    return m
+
+
 KERNEL_NAMES = ("paged_attention", "flash_attention", "flash_attention_bwd",
                 "layer_norm", "layer_norm_bwd", "softmax_xent_fwd",
                 "softmax_xent_bwd", "lstm_fwd", "lstm_bwd", "lstm_bwd_dw")
@@ -4255,6 +4741,8 @@ def main():
             k: in_graph.get(k, 0) for k in (
                 ("lstm_bwd", "lstm_bwd_dw") if e["name"] == "lstm_bwd"
                 else (e["name"],))}
+    # Wide&Deep and row_sparse: no port kernel on this path
+    wide_deep_phase(args.seed, dev, power_line)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(power_line)

@@ -1,5 +1,5 @@
 """PyTorch/CUDA port of ``mxnet_tpu``: decode and encoder serving, and
-BERT, LSTM word-LM, ResNet and MNIST training.
+BERT, LSTM word-LM, ResNet, MNIST and Wide & Deep training.
 
 ``serving.DecodeEngine`` drives ``serving.PagedCausalLM`` over a paged
 KV pool; the paged attention both prefill chunks and decode
@@ -20,7 +20,13 @@ whole-sequence LSTM through ``ops/csrc/lstm.cu``. The vision path
 pooling and BatchNorm layers, ``gluon.data``, ``metric``) trains
 ResNet-50 ImageNet-style and the MNIST MLP (``examples/``); its
 convolutions and pooling run in cuDNN through torch, as the JAX
-package leaves them to XLA (no hand-written kernel there).
+package leaves them to XLA (no hand-written kernel there). The
+Wide & Deep recommender (``gluon.model_zoo.wide_deep``) trains on the
+sparse machinery: ``ndarray.sparse`` (row_sparse and csr arrays, the
+sparse ``dot``, the optimizers' lazy row updates), the single-process
+``kvstore`` (``mx.kv``: push, pull, ``row_sparse_pull``) and ``io``'s
+``LibSVMIter``; its gathers, sums and GEMMs are torch's, as the JAX
+package leaves them to XLA.
 Module names mirror the JAX package's so each counterpart is found at
 the same relative path, and the top-level names are the reference's
 (``mx.nd``, ``mx.cpu()``, ``mx.current_context()``, ...): the JAX
@@ -38,9 +44,10 @@ nothing of ``jax`` or ``mxnet_tpu``.
 from __future__ import annotations
 
 from . import autograd, checkpoint, context, gluon, initializer
-from . import lr_scheduler, metric, ndarray, optimizer
+from . import io, kvstore, lr_scheduler, metric, ndarray, optimizer
 from . import attribute, engine, name, random, test_utils, util
 from . import initializer as init
+from . import kvstore as kv
 from . import ndarray as nd
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
@@ -49,6 +56,6 @@ from .ndarray import NDArray
 __version__ = "0.1.0"
 __all__ = ["Context", "MXNetError", "NDArray", "attribute", "autograd",
            "checkpoint", "context", "cpu", "current_context", "engine",
-           "gluon", "gpu", "init", "initializer", "lr_scheduler", "metric",
-           "name", "nd", "ndarray", "num_gpus", "optimizer", "random",
-           "test_utils", "util"]
+           "gluon", "gpu", "init", "initializer", "io", "kv", "kvstore",
+           "lr_scheduler", "metric", "name", "nd", "ndarray", "num_gpus",
+           "optimizer", "random", "test_utils", "util"]

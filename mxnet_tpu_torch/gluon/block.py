@@ -539,6 +539,13 @@ class Block(nn.Module):
         finally:
             _GUARD.remat = prev
 
+    def register_child(self, block, name=None):
+        """Register ``block`` as a child under ``name`` (by default its
+        position among the children, as the reference names it)."""
+        self.add_module(str(len(self._modules)) if name is None else name,
+                        block)
+        return block
+
     @property
     def prefix(self):
         return self._prefix

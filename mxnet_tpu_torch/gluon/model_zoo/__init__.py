@@ -1,11 +1,14 @@
 """Model zoo of the PyTorch port (``mxnet_tpu/gluon/model_zoo``'s
 counterpart): the BERT trunk, its MLM/NSP heads and its serving entry,
-and the vision ResNets (``vision``)."""
+the vision ResNets (``vision``) and the Wide & Deep recommender."""
 from __future__ import annotations
 
 from . import bert, vision
 from .bert import (BERTMLMHead, BERTModel, BERTNSPHead, bert_base,
                    bert_large, bert_serving_entry, get_bert)
+from . import wide_deep as wide_deep_zoo
+from .wide_deep import WideDeep, wide_deep
 
-__all__ = ["BERTMLMHead", "BERTModel", "BERTNSPHead", "bert", "bert_base",
-           "bert_large", "bert_serving_entry", "get_bert", "vision"]
+__all__ = ["BERTMLMHead", "BERTModel", "BERTNSPHead", "WideDeep", "bert",
+           "bert_base", "bert_large", "bert_serving_entry", "get_bert",
+           "vision", "wide_deep", "wide_deep_zoo"]

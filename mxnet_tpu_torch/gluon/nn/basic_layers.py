@@ -121,19 +121,21 @@ class Dense(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Lookup table (input_dim, output_dim); out-of-range ids clip."""
+    """Lookup table (input_dim, output_dim); out-of-range ids clip.
+    ``sparse_grad=True`` gives the weight ``grad_stype="row_sparse"``,
+    as the JAX layer does, and its gradient stays dense (the JAX
+    ``take``'s), so an optimizer updates every row, as there."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, prefix=None,
                  params=None, device=None):
         super().__init__(prefix, params)
-        if sparse_grad:
-            raise ValueError("sparse_grad=True: the port's gradients are "
-                             "dense (row_sparse waits for ROADMAP 'Long "
-                             "tail')")
+        self._sparse_grad = bool(sparse_grad)
         self.weight = self._param((input_dim, output_dim), _dtype(dtype),
                                   resolve_device(device),
                                   init=weight_initializer)
+        if sparse_grad:
+            self.weight._mx_grad_stype = "row_sparse"
 
     def forward(self, x):
         return _nn.embedding(x, self.weight)

@@ -158,6 +158,20 @@ class Parameter:
     def dtype(self):
         return getattr(self._tensor, "_mx_dtype", None) or self._tensor.dtype
 
+    @property
+    def stype(self):
+        """The storage type asked for (``ParameterDict.get(stype=)``);
+        the weight is stored dense whatever it says, as in the JAX
+        package."""
+        return getattr(self._tensor, "_mx_stype", "default")
+
+    @property
+    def grad_stype(self):
+        """The gradient's storage type asked for (``"row_sparse"`` for
+        ``Embedding(sparse_grad=True)``); the gradient is dense, as the
+        JAX package's is."""
+        return getattr(self._tensor, "_mx_grad_stype", "default")
+
     def _check_initialized(self):
         if is_deferred(self._tensor):
             raise DeferredInitializationError(
@@ -181,6 +195,22 @@ class Parameter:
         if self._tensor.grad is None:
             self._tensor.grad = torch.zeros_like(self._tensor)
         return self._tensor.grad.as_subclass(NDArray)
+
+    def list_data(self):
+        """The weight on each context: one card holds one."""
+        return [self.data()]
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def row_sparse_data(self, row_id):
+        """The weight as a RowSparseNDArray of its nonzero rows;
+        ``row_id`` is taken and, as in the JAX package, not read."""
+        from ..ndarray import sparse
+        return sparse.cast_storage(self.data(), "row_sparse")
+
+    def list_row_sparse_data(self, row_id):
+        return [self.row_sparse_data(row_id)]
 
     def zero_grad(self):
         if not is_deferred(self._tensor) and self._tensor.grad is not None:
@@ -313,7 +343,8 @@ class ParameterDict:
         known yet) on ``ctx`` (default: the current context). Given a
         ``shape`` with more known dimensions than the existing
         parameter's, the parameter takes them (deferred ones).
-        ``lr_mult``/``wd_mult`` set those attributes;
+        ``lr_mult``/``wd_mult`` set those attributes; ``stype`` and
+        ``grad_stype`` are recorded (storage stays dense);
         ``allow_deferred_init`` is accepted (a 0 always defers here)."""
         param = self._get_impl(name)
         if param is None:
@@ -329,11 +360,14 @@ class ParameterDict:
         for k in ("lr_mult", "wd_mult"):
             if k in kwargs:
                 setattr(param, k, kwargs.pop(k))
-        # every 0 dimension defers here; the port's arrays are dense
+        # every 0 dimension defers here
         kwargs.pop("allow_deferred_init", None)
-        if kwargs.pop("stype", "default") != "default":
-            raise MXNetError("the port's parameters are dense (ROADMAP "
-                             "Queue 1, 'Long tail')")
+        # storage types are recorded (Parameter.stype/grad_stype); the
+        # weight and its gradient stay dense, as in the JAX package
+        for k in ("stype", "grad_stype"):
+            v = kwargs.pop(k, "default")
+            if v != "default":
+                setattr(param._tensor, "_mx_" + k, v)
         if kwargs:
             raise TypeError(f"ParameterDict.get: unexpected arguments "
                             f"{sorted(kwargs)}")

@@ -76,7 +76,7 @@ WAITING = {
         "ROIPooling", "GridGenerator", "SpatialTransformer"),
     "Losses, optimizers and initializers": (
         "ctc_loss", "CTCLoss", "_contrib_ctc_loss", "Custom",
-        "adadelta_update", "adagrad_update", "ftrl_update",
+        "adadelta_update", "ftrl_update",
         "lamb_update_phase1", "lamb_update_phase2", "mp_sgd_mom_update",
         "mp_sgd_update", "multi_mp_sgd_mom_update", "multi_mp_sgd_update",
         "nag_mom_update", "rmsprop_update", "rmspropalex_update",
@@ -206,4 +206,4 @@ def add_n(*data):
 
 ElementWiseSum = add_n
 
-from . import linalg, random  # noqa: E402
+from . import linalg, random, sparse  # noqa: E402

@@ -109,11 +109,12 @@ class NDArray(torch.Tensor):
 
     def asnumpy(self):
         """A numpy copy on the host (bfloat16 as float32: numpy has no
-        bfloat16)."""
+        bfloat16); a CPU array's copy too, not a view of its memory."""
         t = self.detach().as_subclass(torch.Tensor)
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.cpu().numpy()
+        return t.numpy().copy() if t.device.type == "cpu" \
+            else t.cpu().numpy()
 
     def asscalar(self):
         if self.numel() != 1:
@@ -197,11 +198,17 @@ class NDArray(torch.Tensor):
         if g is not None:
             g.zero_()
 
+    @property
+    def stype(self):
+        """Storage type: a dense NDArray's is ``"default"``."""
+        return "default"
+
     def tostype(self, stype):
-        if stype != "default":
-            raise MXNetError(f"stype {stype!r}: the port's arrays are "
-                             f"dense (ROADMAP Queue 1, 'Long tail')")
-        return self
+        """This array in storage ``stype`` (``ndarray.sparse``)."""
+        if stype == "default":
+            return self
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
 
     def slice(self, begin, end, step=None):
         return _op("slice", [self], begin=begin, end=end, step=step)

@@ -134,12 +134,24 @@ def cast(x, dtype="float32"):
     return x.to(_dt(dtype))
 
 
+_CONSTANTS = {}
+
+
 @register_op("_constant", differentiable=False)
 def _constant(value=None, dtype="float32", device=None):
     """A small constant given as a parameter (the symbolic frontend's
-    way to embed one)."""
-    return torch.as_tensor(np.asarray(value), dtype=_dt(dtype),
-                           device=device)
+    way to embed one). Each value, type and device is copied from the
+    host once and kept; a call returns a device copy of it, so a CUDA
+    graph's capture (which cannot hold a copy from the host) copies the
+    tensor its warm-up made."""
+    npv = np.asarray(value)
+    dt = _dt(dtype)
+    key = (npv.tobytes(), npv.shape, npv.dtype.str, dt, str(device))
+    kept = _CONSTANTS.get(key)
+    if kept is None:
+        kept = _CONSTANTS[key] = torch.as_tensor(npv, dtype=dt,
+                                                 device=device)
+    return kept.clone()
 
 
 @register_op("amp_cast")
@@ -603,14 +615,66 @@ def slice_like(x, shape_like, axes=()):
     return x[tuple(idx)]
 
 
+def segment_sum(values, ids, num_segments):
+    """``out[i] = sum of values[j] where ids[j] == i`` for ``i <
+    num_segments``, summed in a fixed order: a stable sort by id, then
+    each id's rows added in their order (``torch.segment_reduce``), so
+    no atomic adds and the same bits on every run, on the card and in a
+    CUDA graph (no host read, no size that depends on the data). Half
+    types are summed in float32. ``ids`` must lie in ``[0,
+    num_segments)``."""
+    ids = ids.reshape(-1).to(torch.int64)
+    order = torch.sort(ids, stable=True).indices
+    counts = torch.zeros(num_segments, dtype=torch.int64,
+                         device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+    acc = values if values.dtype in (_F32, torch.float64) else \
+        values.float()
+    out = torch.segment_reduce(acc.index_select(0, order), "sum",
+                               lengths=counts, axis=0, unsafe=True)
+    return out.to(values.dtype)
+
+
+class _TakeRows(torch.autograd.Function):
+    """Rows of a table at in-range int64 ids; the table's gradient is
+    :func:`segment_sum` of the output's (torch's own backward for a
+    gather, an atomic ``index_add``, gives new bits on each call when
+    ids repeat)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.shape = table.shape
+        flat = table.reshape(table.shape[0], -1)
+        out = torch.index_select(flat, 0, ids.reshape(-1))
+        return out.reshape(ids.shape + table.shape[1:])
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        rows = ctx.shape[0]
+        g = grad.reshape(ids.numel(), -1)
+        return segment_sum(g, ids, rows).reshape(ctx.shape), None
+
+
+def take_rows(table, ids):
+    """``table[ids]`` along the first axis for in-range int64 ``ids``,
+    differentiable to ``table`` through :func:`segment_sum`."""
+    return _TakeRows.apply(table, ids)
+
+
 @register_op("take")
 def take(x, indices, axis=0, mode="clip"):
     """Slices of ``x`` at ``indices`` along ``axis`` (not a flat take);
-    out-of-range indices clip, or wrap with ``mode="wrap"``."""
+    out-of-range indices clip, or wrap with ``mode="wrap"``. Along the
+    first axis the gradient to ``x`` sums in a fixed order
+    (:func:`take_rows`)."""
     ax = int(axis) % x.ndim
     n = x.shape[ax]
     idx = indices.to(torch.int64)
     idx = idx.clamp(0, n - 1) if mode == "clip" else torch.remainder(idx, n)
+    if ax == 0:
+        return take_rows(x, idx)
     out = torch.index_select(x, ax, idx.reshape(-1))
     return out.reshape(x.shape[:ax] + idx.shape + x.shape[ax + 1:])
 

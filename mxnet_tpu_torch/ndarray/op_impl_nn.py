@@ -45,6 +45,7 @@ from ..ops import flash_attention as _fa
 from ..ops import layer_norm as _ln
 from ..ops.softmax_xent import softmax_xent_fused
 from .ndarray import to_dtype
+from .op_impl_basic import take_rows
 from .register import register_op
 
 __all__ = ["activation", "attention_length_mask", "attention_segment_mask",
@@ -93,9 +94,13 @@ def embedding(data, weight, input_dim=None, output_dim=None,
               dtype="float32", sparse_grad=False):
     """Rows of ``weight`` at the ids in ``data``. Out-of-range ids clip
     to the table, as the JAX package's take does (an unchecked
-    out-of-range gather would fault the card)."""
+    out-of-range gather would fault the card). The table's gradient is
+    dense, as the JAX ``take``'s VJP gives it (``sparse_grad`` is
+    recorded by the layer, not acted on), and sums the rows of each id
+    in a fixed order (``op_impl_basic.segment_sum``: the same bits on
+    every run and inside a CUDA graph)."""
     idx = data.to(torch.int64).clamp(0, weight.shape[0] - 1)
-    return F.embedding(idx, weight)
+    return take_rows(weight, idx)
 
 
 # -- composed attention (the additive-mask path) ----------------------------

@@ -2,15 +2,15 @@
 
 Port of the updates of ``mxnet_tpu/ndarray/op_impl_optimizer.py`` that
 the port's optimizers call: ``sgd_update``, ``sgd_mom_update``,
-``adam_update``, ``adamw_update`` and the multi-tensor
-``multi_sgd_update`` / ``multi_sgd_mom_update``. The math is the JAX
-package's, written as plain torch under ``no_grad``; where the JAX ops
-return new arrays (written back through ``out=``), these update the
-weight and the state tensors IN PLACE (no second copy of the model per
-step) and return the weight. The JAX package leaves these to XLA, so
+``adam_update``, ``adamw_update``, ``adagrad_update`` and the
+multi-tensor ``multi_sgd_update`` / ``multi_sgd_mom_update``. The math
+is the JAX package's, written as plain torch under ``no_grad``; where
+the JAX ops return new arrays (written back through ``out=``), these
+update the weight and the state tensors IN PLACE (no second copy of the
+model per step) and return the weight. The JAX package leaves these to XLA, so
 the port owes no hand kernel for them.
 
-The registry (``mx.nd.sgd_update``, ...) holds these six under the
+The registry (``mx.nd.sgd_update``, ...) holds these seven under the
 JAX ops' signatures and results (the end of this file); the JAX
 package's other update ops are not ported yet (``ndarray.WAITING``).
 
@@ -27,7 +27,8 @@ import torch
 
 from .register import register_op
 
-__all__ = ["adam_update", "adamw_update", "multi_sgd_mom_update",
+__all__ = ["adagrad_update", "adam_update", "adamw_update",
+           "multi_sgd_mom_update",
            "multi_sgd_update", "sgd_mom_update", "sgd_update"]
 
 
@@ -83,6 +84,17 @@ def adamw_update(weight, grad, mean, var, lr=0.001, beta1=0.9, beta2=0.999,
     var.copy_(beta2 * var + (1.0 - beta2) * g * g)
     upd = mean / (torch.sqrt(var) + epsilon) + wd * weight
     weight.sub_(eta * lr * upd)
+    return weight
+
+
+@torch.no_grad()
+def adagrad_update(weight, grad, history, lr=0.01, epsilon=1e-7, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=-1.0):
+    """AdaGrad: ``history += g * g``; ``weight -= lr * (g /
+    sqrt(history + epsilon) + wd * weight)``."""
+    g = _rescale_clip(grad, rescale_grad, clip_gradient)
+    history.add_(g * g)
+    weight.sub_(lr * (g / torch.sqrt(history + epsilon) + wd * weight))
     return weight
 
 
@@ -163,6 +175,15 @@ def _adamw_update_op(weight, grad, mean, var, lr=0.001, beta1=0.9,
     adamw_update(w, grad, m, v, lr, beta1, beta2, epsilon, wd, eta,
                  rescale_grad, clip_gradient)
     return w, m, v
+
+
+@register_op("adagrad_update", differentiable=False, num_visible_outputs=1,
+             mutates=((1, 2),))
+def _adagrad_update_op(weight, grad, history, lr=0.01, epsilon=1e-7, wd=0.0,
+                       rescale_grad=1.0, clip_gradient=-1.0):
+    w, h = _copies(weight, history)
+    adagrad_update(w, grad, h, lr, epsilon, wd, rescale_grad, clip_gradient)
+    return w, h
 
 
 @register_op("multi_sgd_update", differentiable=False)

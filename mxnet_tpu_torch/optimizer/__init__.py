@@ -2,8 +2,8 @@
 counterpart)."""
 from __future__ import annotations
 
-from .optimizer import (SGD, Adam, AdamW, Optimizer, Updater, create,
-                        get_updater, register)
+from .optimizer import (SGD, AdaGrad, Adam, AdamW, Optimizer, Updater,
+                        create, get_updater, register)
 
-__all__ = ["Adam", "AdamW", "Optimizer", "SGD", "Updater", "create",
-           "get_updater", "register"]
+__all__ = ["AdaGrad", "Adam", "AdamW", "Optimizer", "SGD", "Updater",
+           "create", "get_updater", "register"]

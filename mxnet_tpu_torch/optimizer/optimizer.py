@@ -1,14 +1,19 @@
-"""Optimizers: ``Optimizer``, ``SGD``, ``Adam``, ``AdamW``, the registry
-and the ``Updater``.
+"""Optimizers: ``Optimizer``, ``SGD``, ``Adam``, ``AdamW``, ``AdaGrad``,
+the registry and the ``Updater``.
 
-Port of ``mxnet_tpu/optimizer/optimizer.py`` (the optimizers BERT
-training uses). Same surface and semantics: a name registry
+Port of ``mxnet_tpu/optimizer/optimizer.py`` (the optimizers the
+training paths use). Same surface and semantics: a name registry
 (``create("adam", ...)``), per-parameter state made on first update,
 index-keyed ``update`` with per-index update counts (``num_update`` is
 their maximum, and what ``lr_scheduler`` reads), ``rescale_grad``,
 ``wd``, ``clip_gradient``, per-parameter ``lr_mult``/``wd_mult`` (from
 the Trainer's Parameters, else from ``set_lr_mult``/``set_wd_mult``).
-The updates are the in-place ops of ``ndarray.op_impl_optimizer``.
+The updates are the in-place ops of ``ndarray.op_impl_optimizer``. A
+``RowSparseNDArray`` gradient (a row_sparse push through the kvstore)
+takes the lazy row update of ``ndarray.sparse`` (``sgd_update_rsp``,
+``sgd_mom_update_rsp``, ``adam_update_rsp``, ``adagrad_update_rsp``):
+only its rows move. Indices may be any hashable key (the Trainer's are
+integers, a kvstore's may be strings such as ``"weight"``).
 
 MXNet's Adam is not ``torch.optim.Adam``: it folds the bias correction
 into the learning rate (``lr * sqrt(1 - beta2**t) / (1 - beta1**t)``),
@@ -26,9 +31,10 @@ import torch
 
 from ..base import MXNetError
 from ..ndarray import op_impl_optimizer as _ops
+from ..ndarray import sparse as _sparse
 
-__all__ = ["Adam", "AdamW", "Optimizer", "SGD", "Updater", "create",
-           "get_updater", "register"]
+__all__ = ["AdaGrad", "Adam", "AdamW", "Optimizer", "SGD", "Updater",
+           "create", "get_updater", "register"]
 
 _REGISTRY = {}
 
@@ -142,11 +148,14 @@ class Optimizer:
 
 @register
 class SGD(Optimizer):
-    """SGD with optional momentum (``sgd_update`` / ``sgd_mom_update``)."""
+    """SGD with optional momentum (``sgd_update`` / ``sgd_mom_update``;
+    a row_sparse gradient: ``sgd_update_rsp`` / ``sgd_mom_update_rsp``,
+    ``lazy_update`` taken as the JAX optimizer takes it)."""
 
-    def __init__(self, momentum=0.0, **kwargs):
+    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
+        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:
@@ -156,6 +165,15 @@ class SGD(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         kw = self._common_kwargs(index)
+        if isinstance(grad, _sparse.RowSparseNDArray):
+            if state is None:
+                _sparse.sgd_update_rsp(weight, grad, **kw)
+            else:
+                _sparse.sgd_mom_update_rsp(weight, grad, state,
+                                           momentum=self.momentum,
+                                           lazy_update=self.lazy_update,
+                                           **kw)
+            return
         if state is None:
             _ops.sgd_update(weight, grad, **kw)
         else:
@@ -164,7 +182,10 @@ class SGD(Optimizer):
 
     def update_multi(self, indices, weights, grads, states):
         """One multi-tensor op over the whole list
-        (``multi_sgd_update`` / ``multi_sgd_mom_update``)."""
+        (``multi_sgd_update`` / ``multi_sgd_mom_update``); sparse
+        gradients take the per-index path."""
+        if any(isinstance(g, _sparse.BaseSparseNDArray) for g in grads):
+            return super().update_multi(indices, weights, grads, states)
         self._update_count(list(indices))
         kw = {"lrs": [self._get_lr(i) for i in indices],
               "wds": [self._get_wd(i) for i in indices],
@@ -184,9 +205,10 @@ class Adam(Optimizer):
     wd added to the gradient."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, **kwargs):
+                 epsilon=1e-8, lazy_update=True, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         return torch.zeros_like(weight), torch.zeros_like(weight)
@@ -203,7 +225,12 @@ class Adam(Optimizer):
 
     def update(self, index, weight, grad, state):
         mean, var = state
-        _ops.adam_update(weight, grad, mean, var, **self._adam_kwargs(index))
+        kw = self._adam_kwargs(index)
+        if isinstance(grad, _sparse.RowSparseNDArray):
+            _sparse.adam_update_rsp(weight, grad, mean, var,
+                                    lazy_update=self.lazy_update, **kw)
+            return
+        _ops.adam_update(weight, grad, mean, var, **kw)
 
 
 @register
@@ -214,6 +241,29 @@ class AdamW(Adam):
         mean, var = state
         _ops.adamw_update(weight, grad, mean, var,
                           **self._adam_kwargs(index))
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (``adagrad_update``; a row_sparse gradient:
+    ``adagrad_update_rsp``): the squared gradients summed per element,
+    ``eps`` inside the square root."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = self._common_kwargs(index)
+        kw["epsilon"] = self.float_stable_eps
+        if isinstance(grad, _sparse.RowSparseNDArray):
+            _sparse.adagrad_update_rsp(weight, grad, state, **kw)
+            return
+        _ops.adagrad_update(weight, grad, state, **kw)
 
 
 class Updater:

@@ -232,8 +232,9 @@ def _specs():
 SPECS = _specs()
 # covered by their own tests below (eager wrappers, state, randomness)
 OWN_TESTS = {"BatchNorm", "Dropout", "RNN", "sgd_update", "sgd_mom_update",
-             "adam_update", "adamw_update", "multi_sgd_update",
-             "multi_sgd_mom_update", "random_uniform", "_random_uniform",
+             "adam_update", "adagrad_update", "adamw_update",
+             "multi_sgd_update", "multi_sgd_mom_update", "random_uniform",
+             "_random_uniform",
              "uniform", "random_normal", "_random_normal", "normal",
              "random_gamma", "_random_gamma", "random_exponential",
              "_random_exponential", "exponential", "random_poisson",

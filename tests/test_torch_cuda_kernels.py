@@ -1702,3 +1702,126 @@ def test_graph_dropped_recorded_entry_frees_its_memory(cuda, monkeypatch):
     assert len(net._cached_graph) == 1
     # at least the four saved tanh outputs of 16 MiB each
     assert one > 4 * 4096 * 1024 * 4 and two < 1.5 * one, (one, two)
+
+
+# -- the Wide&Deep / row_sparse slice (no port kernel: torch's own) ----------
+def _sparse_calls(ctx, seed=0):
+    """The sparse ops of ``ndarray.sparse`` and the local store on one
+    context, at small widths; their results as CPU tensors."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    rs = np.random.RandomState(seed)
+    dense = np.zeros((300, 8), np.float32)
+    dense[rs.choice(300, 90, replace=False)] = rs.randn(90, 8)
+    batch = np.zeros((32, 500), np.float32)
+    for r in range(32):
+        batch[r, rs.choice(500, 6, replace=False)] = rs.rand(6) + 0.1
+    out = {}
+    with ctx:
+        x = mx.nd.array(dense)
+        rsp, csr = x.tostype("row_sparse"), x.tostype("csr")
+        out["rsp_back"], out["csr_back"] = rsp.todense(), csr.todense()
+        out["retain"] = sp.retain(rsp, np.arange(0, 300, 7)).todense()
+        c = sp.csr_matrix(batch)
+        out["dot"] = sp.dot(c, mx.nd.array(rs.randn(500, 3)))
+        out["dot_t"] = sp.dot(c, mx.nd.array(rs.randn(32, 3)),
+                              transpose_a=True)
+        kv = mx.kv.create("local")
+        kv.init("t", x)
+        dst = sp.zeros("row_sparse", (300, 8))
+        kv.row_sparse_pull("t", out=dst,
+                           row_ids=mx.nd.array(rs.randint(0, 300, 200)))
+        out["pull"] = dst.todense()
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+@pytest.mark.cuda
+def test_sparse_ops_on_the_card_match_the_cpu(cuda):
+    card = _sparse_calls(_ctx(cuda))
+    cpu = _sparse_calls(_ctx(None))
+    again = _sparse_calls(_ctx(cuda))
+    for k in card:
+        assert torch.equal(card[k], again[k]), k
+        if k.startswith("dot"):
+            assert (card[k] - cpu[k]).abs().max() <= 1e-6 * \
+                cpu[k].abs().max(), k
+        else:
+            assert torch.equal(card[k], cpu[k]), k
+
+
+def _ctx(dev):
+    import mxnet_tpu_torch as mx
+    return mx.cpu() if dev is None else mx.gpu(dev.index or 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n_states,kw", [
+    ("sgd_update_rsp", 0, dict(lr=0.1, wd=0.01)),
+    ("sgd_mom_update_rsp", 1, dict(lr=0.1, momentum=0.9)),
+    ("adam_update_rsp", 2, dict(lr=0.01, wd=0.01)),
+    ("adagrad_update_rsp", 1, dict(lr=0.1)),
+])
+def test_sparse_rsp_updates_on_the_card_match_the_cpu(cuda, name, n_states,
+                                                      kw):
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    rs = np.random.RandomState(1)
+    w0 = rs.randn(1000, 16).astype(np.float32)
+    states = [rs.rand(1000, 16).astype(np.float32) for _ in range(n_states)]
+    rows = np.sort(rs.choice(1000, 300, replace=False))
+    g = rs.randn(300, 16).astype(np.float32)
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        w = torch.tensor(w0, device=dev)
+        st = [torch.tensor(s, device=dev) for s in states]
+        grad = sp.row_sparse_array((g, rows), shape=(1000, 16), ctx=dev)
+        getattr(sp, name)(w, grad, *st, **kw)
+        res.append([t.cpu() for t in [w] + st])
+    for a, b in zip(*res):
+        assert (a - b).abs().max() <= 1e-6 * b.abs().max()
+    untouched = np.setdiff1d(np.arange(1000), rows)
+    assert torch.equal(res[0][0][untouched], torch.tensor(w0[untouched]))
+
+
+@pytest.mark.cuda
+def test_sparse_segment_sum_repeats_bit_for_bit_under_collisions(cuda):
+    """The tables' gradient: 8192 ids all on one row (torch's own
+    embedding backward gives new bits each call there)."""
+    from mxnet_tpu_torch.ndarray.op_impl_basic import segment_sum
+
+    g = torch.randn(8192, 16, device=cuda)
+    ids = torch.zeros(8192, dtype=torch.int64, device=cuda)
+    first = segment_sum(g, ids, 2)
+    for _ in range(5):
+        assert torch.equal(segment_sum(g, ids, 2), first)
+    want = g.double().sum(0)
+    assert (first[0].double() - want).abs().max() <= 1e-3
+    assert first[1].abs().max() == 0
+
+
+@pytest.mark.cuda
+def test_sparse_wide_deep_captured_step_matches_eager(cuda):
+    """A Wide & Deep step hybridized (forward and backward graphs)
+    against the same model eager: the same losses and weights to the bit
+    over 4 Adam steps, one capture pair, no port kernel."""
+    from mxnet_tpu_torch import graphs
+    from mxnet_tpu_torch.examples import wide_deep as ex
+
+    batch = ex.synthetic_batch(256, 2000, 300, 3, cuda)
+    runs = []
+    before = dict(launch_counts())
+    for hybridize in (False, True):
+        net, loss_fn, trainer = ex.build(cuda, 2000, 300, seed=3,
+                                         hybridize=hybridize)
+        c0 = graphs.captures()
+        losses = [ex.train_step(net, loss_fn, trainer, batch)[1]
+                  .double().mean().item() for _ in range(4)]
+        runs.append((losses, {k: p.data().clone() for k, p in
+                              net.collect_params().items()},
+                     graphs.captures() - c0))
+    (le, we, ce), (lg, wg, cg) = runs
+    assert ce == 0 and cg == 2
+    assert le == lg
+    assert all(torch.equal(we[k], wg[k]) for k in we)
+    assert dict(launch_counts()) == before

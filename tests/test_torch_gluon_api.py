@@ -229,8 +229,12 @@ def test_dense_and_embedding_initializers():
     for j, t in ((jd, td), (je, te)):
         for k, v in _jvals(j).items():
             np.testing.assert_array_equal(_tvals(t)[k], v)
-    with pytest.raises(ValueError, match="sparse_grad"):
-        nn.Embedding(5, 2, sparse_grad=True, device="cpu")
+    # sparse_grad=True: the JAX layer's meaning (a row_sparse grad_stype
+    # recorded, the gradient dense)
+    sparse = nn.Embedding(5, 2, sparse_grad=True, device="cpu")
+    jsparse = jnn.Embedding(5, 2, sparse_grad=True)
+    assert sparse.collect_params()["weight"].grad_stype == "row_sparse" \
+        == jsparse.weight._grad_stype
 
 
 @pytest.mark.parametrize("center,scale", [(True, True), (False, True),

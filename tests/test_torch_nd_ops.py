@@ -232,6 +232,8 @@ def test_rnn_op_matches_jax():
     ("adam_update", 2, {"lr": 0.01, "beta1": 0.8, "wd": 0.01,
                         "clip_gradient": 0.3}),
     ("adamw_update", 2, {"lr": 0.01, "wd": 0.1, "eta": 0.5}),
+    ("adagrad_update", 1, {"lr": 0.1, "epsilon": 1e-6, "wd": 0.01,
+                           "rescale_grad": 0.5}),
 ])
 def test_update_op_matches_jax_results_and_state_writes(name, n_states,
                                                         params):

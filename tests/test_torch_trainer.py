@@ -34,7 +34,8 @@ from mxnet_tpu.gluon.model_zoo.bert import BERTMLMHead as JaxMLM
 from mxnet_tpu.gluon.model_zoo.bert import BERTModel as JaxBERT
 from mxnet_tpu.gluon.model_zoo.bert import BERTNSPHead as JaxNSP
 from mxnet_tpu_torch import autograd as ag
-from mxnet_tpu_torch import gluon, nd
+from mxnet_tpu_torch import gluon, kvstore, nd
+from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon.model_zoo.bert import (BERTMLMHead, BERTModel,
                                                   BERTNSPHead)
 
@@ -219,11 +220,11 @@ def test_null_grad_req_parameters_are_not_updated():
 
 def test_kvstore_rules():
     _, params = _tiny_dense()
-    for kv in (None, "device", "local"):
+    for kv in (None, "device", "local", "nccl", kvstore.create("local")):
         gluon.Trainer(params, "sgd", kvstore=kv)
     with pytest.raises(NotImplementedError, match="Multi-GPU"):
         gluon.Trainer(params, "sgd", kvstore="dist_sync")
-    with pytest.raises(ValueError, match="kvstore"):
+    with pytest.raises(MXNetError, match="kvstore"):
         gluon.Trainer(params, "sgd", kvstore="nccl2")
     with pytest.raises(ValueError, match="Parameters"):
         gluon.Trainer([torch.zeros(2)], "sgd")
