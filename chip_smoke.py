@@ -217,7 +217,38 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
     unmodified at their defaults through ``run_reference`` in child
     processes (their own gates: accuracy > 0.65 and > 0.8). Step p50 and
     examples/s eager and graphed, busy shares, peak memory and the
-    sparse-linear step time printed.
+    sparse-linear step time printed;
+17. the symbolic API: the word LM as an ``mx.sym`` graph
+    (``train-wordlm-wt2-b32t35-sym``: ``sym.Embedding`` -> ``sym.RNN``
+    (2 x 650) -> ``Reshape`` -> ``FullyConnected`` (33278) ->
+    ``SoftmaxOutput``, time-major, phase 8's Xavier weights carried
+    over, dropout 0) bound with ``simple_bind`` on the card with every
+    shape given: its step-1 softmax within 1e-5 and every weight's
+    gradient within 1e-3 of scale of the Gluon model's
+    (``SoftmaxOutput`` with normalization ``"null"`` and grad_scale
+    1/35 gives the Gluon loss's gradient), then 2 warm-up and 20
+    segments through ``mx.optimizer.get_updater`` (phase 8's SGD and
+    clip) on the executor's arrays, the final states carried: losses
+    finite, the last 5's mean below the first 5's, 2 + 2 + 2 LSTM
+    launches a segment, the training key's two graphs captured at the
+    first call and none after, and the same segments through the eager
+    walk (``MXNET_TPU_SYMBOLIC_JIT=0``) within 1e-6 relative (bit for
+    bit said); ``mx.model.save_checkpoint`` of the trained LM, then
+    ``SymbolBlock.imports`` and ``Module.load`` on the card give the
+    executor's outputs bit for bit, K6a launched by each; the LM at 2 x
+    200, vocab 1000, card vs CPU (phase 9's gates);
+    ``sym.LayerNorm``, ``sym.flash_attention`` and
+    ``sym.softmax_cross_entropy`` at phase 14's shapes in one bound
+    graph: forward and backward give the ``nd`` calls' bits, one launch
+    of each kernel a call; ``example/mnist_module.py`` and
+    ``example/rnn_bucketing.py`` unmodified at their defaults through
+    ``run_reference`` in child processes (their gates: accuracy > 0.8;
+    the bucketing script's printed final accuracy >= 0.75, its
+    ``--quick`` gate), no port kernel, and the graphs captured: 3 for
+    the module (its training key's pair and its predict key), a pair
+    per bucket for the bucketing module. Step p50 graphed and eager,
+    tokens/s, beside phase 8's Gluon p50, and the scripts' seconds by
+    epoch printed.
 
 The op-dispatch phase also times one
 ``F.scaled_dot_product_attention`` call beside K1, K2 and K5 at head
@@ -231,7 +262,10 @@ ReLU, pooling, Dense, loss, optimizer).
 In the ``kernels`` line, ``launches_by_path["nd"]`` counts phase 14's
 launches: the F-op model's 10 steps for K1, K2, K3a, K3b, K4a and K4b,
 the registry's ``nd.RNN`` call for K6a and K6b; ``launches_in_graph``
-counts phase 15's launches made by graph replays.
+counts phase 15's launches made by graph replays;
+``launches_by_path["sym"]`` counts phase 17's: the symbolic LM's 20
+measured segments for K6a and K6b, one replay of the registry ops'
+graph for K1, K2, K3a, K3b, K4a and K4b.
 
 The last three lines of standard output are ``{"kernels": [...]}``,
 then the card's name and power limit as ``nvidia-smi --query-gpu=
@@ -2103,7 +2137,7 @@ def wordlm_data(vocab, batch, segments):
 def train_wordlm_main_path(seed, profile, dev, power_line, steps=20,
                            warmup=2):
     """``train-wordlm-wt2-b32t35`` on the card; returns the launch counts
-    of the measured segments."""
+    of the measured segments and the step p50 in seconds."""
     import gc
     import math
 
@@ -2180,7 +2214,7 @@ def train_wordlm_main_path(seed, profile, dev, power_line, steps=20,
          "tokens_per_s": tokens / p50, "loss_per_token": losses,
          "perplexity": ppl, "peak_memory_bytes": peak, "params": n_params,
          "launches": counts, "card": power_line}))
-    return counts
+    return counts, p50
 
 
 def cross_device_wordlm(seed, dev, steps=3):
@@ -4624,6 +4658,560 @@ def wide_deep_phase(seed, dev, power_line):
     return m
 
 
+# -- phase 17: the symbolic API -----------------------------------------------
+#: the arguments of the symbolic word LM that are inputs, not weights
+SYM_INPUTS = ("data", "softmax_label", "lstm_state", "lstm_state_cell")
+#: its weights, in the updater's index order
+SYM_WEIGHTS = ("embed_weight", "lstm_parameters", "decoder_weight",
+               "decoder_bias")
+#: card against CPU: 2 layers at small widths
+SYM_SMALL = dict(vocab=1000, emb=200, hid=200, layers=2, batch=8, bptt=35,
+                 steps=3)
+
+
+def sym_wordlm(mx, vocab, emb, hid, layers, bptt):
+    """``train-wordlm-wt2-b32t35-sym``'s graph: ``sym.Embedding`` ->
+    ``sym.RNN`` (lstm, the final states out) -> ``Reshape`` ->
+    ``FullyConnected`` -> ``SoftmaxOutput``, time-major (data (T, N),
+    labels (T * N,)), the final states as ``BlockGrad`` outputs to carry
+    into the next segment. ``SoftmaxOutput`` with normalization
+    ``"null"`` and ``grad_scale`` 1 / T gives each position ``(p -
+    onehot) / T``: the gradient of the Gluon loop's loss (each row's
+    mean over its T tokens, summed over the rows)."""
+    with mx.name.NameManager():
+        e = mx.sym.Embedding(mx.sym.var("data"), input_dim=vocab,
+                             output_dim=emb, name="embed")
+        r = mx.sym.RNN(e, state_size=hid, num_layers=layers, mode="lstm",
+                       state_outputs=True, name="lstm")
+        flat = mx.sym.Reshape(r[0], shape=(-1, hid), name="flat")
+        fc = mx.sym.FullyConnected(flat, num_hidden=vocab, name="decoder")
+        out = mx.sym.SoftmaxOutput(fc, mx.sym.var("softmax_label"),
+                                   grad_scale=1.0 / bptt,
+                                   normalization="null", name="softmax")
+        return mx.sym.Group([out, mx.sym.BlockGrad(r[1], name="h"),
+                             mx.sym.BlockGrad(r[2], name="c")])
+
+
+def sym_shapes(vocab, emb, hid, layers, bptt, batch):
+    """Every argument's shape, given explicitly (``infer_shape`` has no
+    rule for the RNN op's flat parameters, as the JAX package's has
+    none)."""
+    from mxnet_tpu_torch.ndarray.op_impl_rnn import rnn_param_size
+
+    return dict(data=(bptt, batch), softmax_label=(bptt * batch,),
+                embed_weight=(vocab, emb),
+                lstm_parameters=(rnn_param_size(layers, emb, hid, False,
+                                                "lstm"),),
+                lstm_state=(layers, batch, hid),
+                lstm_state_cell=(layers, batch, hid),
+                decoder_weight=(vocab, hid), decoder_bias=(vocab,))
+
+
+def sym_bind(sym, ctx, shapes, weights):
+    """``simple_bind`` with every shape, gradients for the weights only,
+    then the weights copied in."""
+    req = {n: "null" if n in SYM_INPUTS else "write"
+           for n in sym.list_arguments()}
+    ex = sym.simple_bind(ctx, grad_req=req, **shapes)
+    for n, w in weights.items():
+        ex.arg_dict[n][:] = w
+    return ex
+
+
+def sym_segments(data, bptt, device):
+    """The word LM's BPTT segments, time-major: ``(data (T, N) float32,
+    labels (T * N,) float32)`` for the symbol, and the same rows
+    batch-major as int64 for the Gluon model."""
+    import torch
+
+    d = torch.as_tensor(data, device=device).long()
+    out = []
+    for i in range(0, d.shape[1] - 1 - bptt, bptt):
+        xb, yb = d[:, i:i + bptt], d[:, i + 1:i + 1 + bptt]
+        out.append((xb.t().float().contiguous(),
+                    yb.t().reshape(-1).float().contiguous(), xb, yb))
+    return out
+
+
+def sym_step(ex, upd, x, y, clip_norm):
+    """One BPTT segment through the bound graph: forward, backward,
+    ``clip_global_norm``, the updater on every weight in place, the final
+    states into the next segment's; returns the loss per token (on the
+    card)."""
+    import torch
+
+    from mxnet_tpu_torch.gluon.utils import clip_global_norm
+
+    outs = ex.forward(is_train=True, data=x, softmax_label=y)
+    ex.backward()
+    clip_global_norm([ex.grad_dict[n] for n in SYM_WEIGHTS], clip_norm)
+    for i, n in enumerate(SYM_WEIGHTS):
+        upd(i, ex.grad_dict[n], ex.arg_dict[n])
+    with torch.no_grad():
+        ex.arg_dict["lstm_state"].copy_(outs[1])
+        ex.arg_dict["lstm_state_cell"].copy_(outs[2])
+        p = outs[0].as_subclass(torch.Tensor)
+        return -p.gather(1, y.long()[:, None]).log().mean()
+
+
+def sym_updater(bptt, batch):
+    """The word LM's SGD (lr 1.0, the step's gradient over bptt x batch,
+    as ``trainer.step(bptt * batch)``)."""
+    from mxnet_tpu_torch import optimizer
+
+    return optimizer.get_updater(optimizer.create(
+        "sgd", learning_rate=WLM["lr"], rescale_grad=1.0 / (bptt * batch)))
+
+
+def sym_weights_of(net):
+    """The Gluon word LM's weights under the symbol's names (the LSTM's
+    packed by ``pack_rnn_params``)."""
+    from mxnet_tpu_torch.ndarray.op_impl_rnn import pack_rnn_params
+
+    return {"embed_weight": net.embed.weight.detach(),
+            "lstm_parameters": pack_rnn_params(
+                [tuple(t.detach() for t in lp)
+                 for lp in net.rnn.layer_params()]),
+            "decoder_weight": net.decoder.weight.detach(),
+            "decoder_bias": net.decoder.bias.detach()}
+
+
+def sym_against_gluon(seed, dev, ex, net, seg):
+    """Step 1 of the bound graph against the Gluon word LM it took its
+    weights from (dropout 0, zero states): softmax outputs within 1e-5
+    and every weight's gradient within 1e-3 of scale."""
+    import torch
+
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.ndarray.op_impl_rnn import pack_rnn_params
+
+    x, y, xb, yb = seg
+    vocab = WLM["vocab"]
+    with autograd.record():
+        logits, _ = net(xb, net.begin_state(xb.shape[0], dev))
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(logits, yb)
+    autograd.backward(loss)
+    want_p = torch.softmax(logits.detach().float(), -1).transpose(0, 1) \
+        .reshape(-1, vocab)
+    want_g = {"embed_weight": net.embed.weight.grad,
+              "lstm_parameters": pack_rnn_params(
+                  [tuple(t.grad for t in lp)
+                   for lp in net.rnn.layer_params()]),
+              "decoder_weight": net.decoder.weight.grad,
+              "decoder_bias": net.decoder.bias.grad}
+    outs = ex.forward(is_train=True, data=x, softmax_label=y)
+    ex.backward()
+    out_gap = _grad_gap(outs[0], want_p)
+    grad_gaps = {n: _grad_gap(ex.grad_dict[n], g) for n, g in want_g.items()}
+    if out_gap > 1e-5 or max(grad_gaps.values()) > 1e-3:
+        raise AssertionError(f"symbolic LM vs the Gluon model: outputs "
+                             f"{out_gap:.3g} of scale (tol 1e-5), "
+                             f"gradients {grad_gaps} (tol 1e-3)")
+    return out_gap, grad_gaps
+
+
+def _sym_train(ex, upd, segs, clip_norm, warmup, steps):
+    """``warmup`` then ``steps`` segments; returns the losses, the
+    measured segments' wall times, launches and the captures in the
+    warm-up and after it."""
+    import torch
+
+    from mxnet_tpu_torch import graphs, ops
+
+    c0 = graphs.captures()
+    losses = [sym_step(ex, upd, x, y, clip_norm)
+              for x, y, _, _ in segs[:warmup]]
+    torch.cuda.synchronize()
+    c1 = graphs.captures()
+    ops.reset_launch_counts()
+    times = []
+    for x, y, _, _ in segs[warmup:warmup + steps]:
+        t0 = time.perf_counter()
+        losses.append(sym_step(ex, upd, x, y, clip_norm))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    return ([loss.double().item() for loss in losses], times, counts,
+            c1 - c0, graphs.captures() - c1)
+
+
+@contextlib.contextmanager
+def symbolic_jit(on):
+    """``MXNET_TPU_SYMBOLIC_JIT`` for the executors bound inside."""
+    prev = os.environ.get("MXNET_TPU_SYMBOLIC_JIT")
+    os.environ["MXNET_TPU_SYMBOLIC_JIT"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ["MXNET_TPU_SYMBOLIC_JIT"]
+        else:
+            os.environ["MXNET_TPU_SYMBOLIC_JIT"] = prev
+
+
+def sym_wordlm_main_path(seed, dev, power_line, gluon_p50, tmp, steps=20,
+                         warmup=2):
+    """``train-wordlm-wt2-b32t35-sym`` on the card (phase 17a and b);
+    returns the measured segments' launch counts."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import graphs
+
+    v, e, h, n_l = WLM["vocab"], WLM["emb"], WLM["hid"], WLM["layers"]
+    b, t = WLM["batch"], WLM["bptt"]
+    net, _ = build_wordlm(seed, dev, v, 0.0)
+    weights = {k: w.clone() for k, w in sym_weights_of(net).items()}
+    sym = sym_wordlm(mx, v, e, h, n_l, t)
+    shapes = sym_shapes(v, e, h, n_l, t, b)
+    segs = sym_segments(wordlm_data(v, b, warmup + steps + 1), t, dev)
+    clip_norm = WLM["clip"] * t * b
+    ex = sym_bind(sym, mx.gpu(dev.index), shapes, weights)
+    c0 = graphs.captures()
+    out_gap, grad_gaps = sym_against_gluon(seed, dev, ex, net, segs[0])
+    del net
+    runs = {}
+    for name, on in (("graphed", True), ("eager", False)):
+        with symbolic_jit(on):
+            run_ex = ex if on else sym_bind(sym, mx.gpu(dev.index), shapes,
+                                            weights)
+        losses, times, counts, cap_w, cap_a = _sym_train(
+            run_ex, sym_updater(t, b), segs, clip_norm, warmup, steps)
+        runs[name] = dict(losses=losses, times=times, counts=counts,
+                          p50=float(np.median(times)), ex=run_ex,
+                          captures=(cap_w, cap_a))
+    g, eg = runs["graphed"], runs["eager"]
+    per_seg = {"lstm_fwd": n_l, "lstm_bwd": n_l, "lstm_bwd_dw": n_l}
+    for name, r in runs.items():
+        got = {k: r["counts"][k] for k in per_seg}
+        if got != {k: m * steps for k, m in per_seg.items()}:
+            raise AssertionError(f"{name} symbolic LM launches {got} in "
+                                 f"{steps} segments, want {per_seg} each")
+        if not np.all(np.isfinite(r["losses"])):
+            raise AssertionError(f"{name}: non-finite loss {r['losses']}")
+        first = float(np.mean(r["losses"][warmup:warmup + 5]))
+        last = float(np.mean(r["losses"][-5:]))
+        if not last < first:
+            raise AssertionError(f"{name}: loss did not fall: {r['losses']}")
+    # the step-1 check captured the training key's forward and backward
+    # graphs; nothing is captured after it
+    captured = graphs.captures() - c0
+    if captured != 2 or g["captures"] != (0, 0) or eg["captures"] != (0, 0):
+        raise AssertionError(f"captures: {captured} in all, graphed run "
+                             f"{g['captures']}, eager {eg['captures']} "
+                             f"(warm-up, after); want 2 at the first call")
+    lrel = max(abs(a - c) / abs(c) for a, c in zip(g["losses"],
+                                                    eg["losses"]))
+    same = lrel == 0.0 and all(
+        torch.equal(g["ex"].arg_dict[k], eg["ex"].arg_dict[k])
+        for k in SYM_WEIGHTS)
+    if lrel > 1e-6:
+        raise AssertionError(f"graphed vs eager losses differ by {lrel:.3g}")
+    tokens = t * b
+    log(f"train-wordlm-wt2-b32t35-sym (vocab {v}, embed {e}, {n_l} x "
+        f"RNN lstm {h}, dropout 0, phase 8's Xavier weights, SGD lr "
+        f"{WLM['lr']}, clip {WLM['clip']}): step 1 against the Gluon model "
+        f"softmax within {out_gap:.3g} of scale, gradients within "
+        f"{max(grad_gaps.values()):.3g} ({', '.join(f'{k} {x:.2g}' for k, x in grad_gaps.items())}); "
+        f"{warmup} + {steps} segments: loss per token "
+        f"{g['losses'][0]:.6f} -> {g['losses'][-1]:.6f}; step p50 "
+        f"graphed {g['p50'] * 1e3:.3f} ms ({tokens / g['p50']:.0f} "
+        f"tokens/s), eager walk {eg['p50'] * 1e3:.3f} ms "
+        f"({tokens / eg['p50']:.0f} tokens/s), the Gluon model (phase 8, "
+        f"dropout 0.2) {gluon_p50 * 1e3:.3f} ms; graphed vs eager "
+        f"{'bit for bit' if same else f'losses within {lrel:.3g}'}; "
+        f"launches {per_seg} a segment each way; 2 captures at the first "
+        f"call, none after [{power_line}]")
+    metrics = {"graphed_step_ms": [x * 1e3 for x in g["times"]],
+               "eager_step_ms": [x * 1e3 for x in eg["times"]],
+               "graphed_p50_ms": g["p50"] * 1e3,
+               "eager_p50_ms": eg["p50"] * 1e3,
+               "gluon_p50_ms": gluon_p50 * 1e3,
+               "tokens_per_s": {"graphed": tokens / g["p50"],
+                                "eager": tokens / eg["p50"]},
+               "losses": g["losses"], "graphed_vs_eager_bits": same,
+               "step1_output_gap": out_gap, "step1_grad_gaps": grad_gaps,
+               "card": power_line}
+    log("symbolic word LM metrics: " + json.dumps(metrics))
+    sym_checkpoints(g["ex"], sym, dev, tmp, segs[0], steps + warmup)
+    counts = g["counts"]
+    for r in runs.values():
+        r.clear()
+    return counts
+
+
+def sym_checkpoints(ex, sym, dev, tmp, seg, epoch):
+    """Phase 17b: ``mx.model.save_checkpoint`` of the trained LM, then
+    ``SymbolBlock.imports`` and ``Module.load`` on the card: their
+    predict-mode outputs on one segment from zero states equal the
+    executor's to the bit, each with its K6a launches."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd, ops
+
+    x, y, _, _ = seg
+    prefix = os.path.join(tmp, "sym-wordlm")
+    mx.model.save_checkpoint(prefix, epoch, sym,
+                             {n: ex.arg_dict[n] for n in SYM_WEIGHTS}, {})
+    zeros = torch.zeros_like(ex.arg_dict["lstm_state"])
+    want = [o.clone() for o in ex.forward(
+        is_train=False, data=x, softmax_label=y, lstm_state=zeros,
+        lstm_state_cell=zeros)]
+    layers = WLM["layers"]
+    ops.reset_launch_counts()
+    block = mx.gluon.SymbolBlock.imports(
+        prefix + "-symbol.json", list(SYM_INPUTS),
+        f"{prefix}-{epoch:04d}.params", ctx=mx.gpu(dev.index))
+    got_b = block(*[a.as_subclass(nd.NDArray) for a in (x, y, zeros,
+                                                         zeros)])
+    torch.cuda.synchronize()
+    n_b = ops.launch_counts()["lstm_fwd"]
+    ops.reset_launch_counts()
+    mod = mx.mod.Module.load(prefix, epoch, data_names=[
+        "data", "lstm_state", "lstm_state_cell"],
+        label_names=["softmax_label"], context=mx.gpu(dev.index))
+    shapes = sym_shapes(WLM["vocab"], WLM["emb"], WLM["hid"], layers,
+                        WLM["bptt"], WLM["batch"])
+    mod.bind(data_shapes=[(n, shapes[n]) for n in (
+        "data", "lstm_state", "lstm_state_cell", "lstm_parameters")],
+        label_shapes=[("softmax_label", shapes["softmax_label"])],
+        for_training=False)
+    mod.init_params(arg_params=mod._preloaded_params[0],
+                    aux_params=mod._preloaded_params[1])
+    mod.forward(mx.io.DataBatch(data=[x, zeros, zeros], label=[y]),
+                is_train=False)
+    got_m = mod.get_outputs()
+    torch.cuda.synchronize()
+    n_m = ops.launch_counts()["lstm_fwd"]
+    for name, got in (("SymbolBlock", got_b), ("Module.load", got_m)):
+        if not all(torch.equal(a.as_subclass(torch.Tensor),
+                               b.as_subclass(torch.Tensor))
+                   for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: not the executor's bits")
+    if n_b != layers or n_m != layers:
+        raise AssertionError(f"K6a launches: SymbolBlock {n_b}, "
+                             f"Module {n_m}, want {layers} each")
+    log(f"checkpoint {os.path.basename(prefix)}-symbol.json + "
+        f"-{epoch:04d}.params: SymbolBlock.imports and Module.load on the "
+        f"card give the executor's outputs bit for bit ({len(want)} "
+        f"outputs), K6a launched {layers} times by each")
+
+
+def sym_card_vs_cpu(seed, dev):
+    """The symbolic LM at 2 layers and small widths, card against CPU
+    (phase 9's gates): three SGD segments' losses within 1e-4 relative,
+    step-1 gradients within 1e-3 of scale."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    s = SYM_SMALL
+    sym = sym_wordlm(mx, s["vocab"], s["emb"], s["hid"], s["layers"],
+                     s["bptt"])
+    shapes = sym_shapes(s["vocab"], s["emb"], s["hid"], s["layers"],
+                        s["bptt"], s["batch"])
+    rng = np.random.RandomState(seed + 17)
+    weights = {n: torch.tensor(rng.uniform(-0.1, 0.1, shapes[n]),
+                               dtype=torch.float32) for n in SYM_WEIGHTS}
+    data = wordlm_data(s["vocab"], s["batch"], s["steps"])
+    runs = {}
+    for name, device, ctx in (("cuda", dev, mx.gpu(dev.index)),
+                              ("cpu", torch.device("cpu"), mx.cpu())):
+        ex = sym_bind(sym, ctx, shapes, weights)
+        upd = sym_updater(s["bptt"], s["batch"])
+        runs[name] = [
+            sym_step(ex, upd, x, y, WLM["clip"] * s["bptt"] * s["batch"])
+            .double().item() for x, y, _, _ in sym_segments(
+                data, s["bptt"], device)[:s["steps"]]]
+        # step-1 gradients: a fresh binding's first backward
+        ex1 = sym_bind(sym, ctx, shapes, weights)
+        x, y, _, _ = sym_segments(data, s["bptt"], device)[0]
+        ex1.forward(is_train=True, data=x, softmax_label=y)
+        ex1.backward()
+        runs[name + "_grads"] = {n: ex1.grad_dict[n].detach().cpu().clone()
+                                 for n in SYM_WEIGHTS}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"],
+                                                  runs["cpu"]))
+    gaps = {n: _grad_gap(runs["cuda_grads"][n], g)
+            for n, g in runs["cpu_grads"].items()}
+    log(f"cross-device symbolic LM ({s['layers']} x {s['hid']}, vocab "
+        f"{s['vocab']}, batch {s['batch']}): losses {runs['cuda']} (card) "
+        f"vs {runs['cpu']} (cpu), max relative gap {rel:.3e} (tol 1e-4); "
+        f"step-1 gradients within {max(gaps.values()):.3g} of scale (tol "
+        f"1e-3)")
+    if not rel <= 1e-4 or max(gaps.values()) > 1e-3:
+        raise AssertionError(f"symbolic LM card vs CPU: losses {rel}, "
+                             f"gradients {gaps}")
+
+
+def sym_registry_ops(seed, dev):
+    """Phase 17c: ``sym.LayerNorm``, ``sym.flash_attention`` and
+    ``sym.softmax_cross_entropy`` at phase 14's shapes in one graph bound
+    on the card: forward and backward (the first call captures, the
+    second replays) give the ``nd`` calls' bits and exactly one launch
+    of each kernel each way. Returns the replay's launches."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd, ops
+
+    rng = np.random.RandomState(seed + 17)
+    lens, _, labels, _ = train_batch(seed)
+
+    def t(shape, lo=-1.0, hi=1.0):
+        return torch.tensor(rng.uniform(lo, hi, shape), dtype=torch.float32,
+                            device=dev)
+
+    u, heads = BERT_BASE["units"], BERT_BASE["num_heads"]
+    args = dict(x=t((TRAIN_B, TRAIN_S, u)), g=t((u,), 0.5, 1.5), b=t((u,)),
+                q=t((TRAIN_B, heads, TRAIN_S, u // heads)),
+                k=t((TRAIN_B, heads, TRAIN_S, u // heads)),
+                v=t((TRAIN_B, heads, TRAIN_S, u // heads)),
+                vl=torch.tensor(lens, device=dev),
+                logits=t((len(labels), VOCAB), -4, 4),
+                lab=torch.tensor(labels, device=dev).float())
+    with mx.name.NameManager():
+        s = {n: mx.sym.var(n) for n in args}
+        sym = mx.sym.Group([
+            mx.sym.LayerNorm(s["x"], s["g"], s["b"], axis=-1, eps=1e-12,
+                             name="ln"),
+            mx.sym.flash_attention(s["q"], s["k"], s["v"], s["vl"],
+                                   name="att"),
+            mx.sym.softmax_cross_entropy(s["logits"], s["lab"],
+                                         name="xent")])
+    req = {n: "null" if n in ("vl", "lab") else "write" for n in args}
+    ex = sym.bind(mx.gpu(dev.index), {n: a.clone().as_subclass(nd.NDArray)
+                                      for n, a in args.items()},
+                  grad_req=req)
+    want_n = {"layer_norm": 1, "layer_norm_bwd": 1, "flash_attention": 1,
+              "flash_attention_bwd": 1, "softmax_xent_fwd": 1,
+              "softmax_xent_bwd": 1}
+    head = None
+    for _ in range(2):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        outs = ex.forward(is_train=True)
+        if head is None:
+            head = [t(tuple(o.shape)) for o in outs]
+        ex.backward(head)
+        torch.cuda.synchronize()
+        got_n = {k: n for k, n in ops.launch_counts().items() if n}
+        if got_n != want_n:
+            raise AssertionError(f"sym registry ops: launches {got_n}, want "
+                                 f"{want_n}")
+    leaves = {n: a.clone().as_subclass(nd.NDArray).requires_grad_(
+        req[n] == "write") for n, a in args.items()}
+    with autograd.record():
+        want = [nd.LayerNorm(leaves["x"], leaves["g"], leaves["b"], axis=-1,
+                             eps=1e-12),
+                nd.flash_attention(leaves["q"], leaves["k"], leaves["v"],
+                                   leaves["vl"]),
+                nd.softmax_cross_entropy(leaves["logits"], leaves["lab"])]
+    autograd.backward(want, [h.as_subclass(nd.NDArray) for h in head])
+    same = all(torch.equal(o.as_subclass(torch.Tensor),
+                           w.detach().as_subclass(torch.Tensor))
+               for o, w in zip(outs, want)) and all(
+        torch.equal(ex.grad_dict[n].as_subclass(torch.Tensor),
+                    leaves[n].grad.as_subclass(torch.Tensor))
+        for n in args if req[n] == "write")
+    if not same:
+        raise AssertionError("sym registry ops: not the nd calls' bits")
+    log(f"sym.LayerNorm / flash_attention / softmax_cross_entropy bound "
+        f"on the card at phase 14's shapes: forward and "
+        f"{sum(r == 'write' for r in req.values())} gradients bit for bit "
+        f"the nd calls', launches {want_n} a call (graph replay)")
+    return want_n
+
+
+def reference_symbolic_scripts(power_line):
+    """Phase 17d: ``example/mnist_module.py`` and
+    ``example/rnn_bucketing.py`` at their defaults through the runner:
+    their own gates (accuracy > 0.8; the bucketing script's printed final
+    accuracy held to its ``--quick`` gate, 0.75), no port kernel, and the
+    graphs captured: the module's training key (a forward and a backward
+    graph) and its predict key; one pair per bucket the batches draw,
+    which every epoch replays."""
+    import numpy as np
+
+    out = {}
+    lines, stamps, counts, wall = run_reference_script(
+        "example/mnist_module.py", [], timeout=600)
+    acc = float([ln for ln in lines if ln.startswith(
+        "final accuracy")][0].split(": ")[1])
+    caps = json.loads(lines[-1])["captures"]
+    got = {k: n for k, n in counts.items() if n}
+    if got or caps != 3 or not acc > 0.8:
+        raise AssertionError(f"mnist_module.py: accuracy {acc}, captures "
+                             f"{caps} (want 3), launches {got}")
+    out["mnist_module"] = {"accuracy": acc, "captures": caps,
+                           "wall_s": wall}
+    log(f"reference mnist_module.py (defaults: 60000 synthetic, batch 64, "
+        f"8 epochs of Module.fit, SGD 0.05): final accuracy {acc:.4f}; "
+        f"3 captures (train forward + backward, predict); wall {wall:.1f} "
+        f"s, {wall / 8:.2f} s an epoch with the child's start-up "
+        f"[{power_line}]")
+    # the buckets the script's batches draw (its own RandomState(7))
+    rs = np.random.RandomState(7)
+    buckets = (8, 16, 24)
+    drawn = set()
+    for _ in range(24):
+        blen = buckets[rs.randint(3)]
+        drawn.add(blen)
+        rs.randn(16, blen, 4)
+        rs.randint(0, 2, (16, 1, 1))
+    drawn.add(buckets[-1])                  # the bound default bucket
+    lines, stamps, counts, wall = run_reference_script(
+        "example/rnn_bucketing.py", [], timeout=600)
+    acc = float([ln for ln in lines if ln.startswith(
+        "final train accuracy")][0].split(": ")[1])
+    caps = json.loads(lines[-1])["captures"]
+    got = {k: n for k, n in counts.items() if n}
+    epochs, secs = _epoch_lines(lines, stamps, "train")
+    if got or caps != 2 * len(drawn) or not acc >= 0.75:
+        raise AssertionError(f"rnn_bucketing.py: accuracy {acc} (gate "
+                             f"0.75), captures {caps} (want "
+                             f"{2 * len(drawn)}), launches {got}")
+    out["rnn_bucketing"] = {"accuracy": acc, "captures": caps,
+                            "epoch_s": secs, "wall_s": wall}
+    log(f"reference rnn_bucketing.py (defaults: buckets 8/16/24, hidden "
+        f"32, batch 16, 10 epochs of 24 batches, Adam 5e-3): final train "
+        f"accuracy {acc:.3f}; {caps} captures, a forward and a backward "
+        f"graph for each of the {len(drawn)} buckets, none after the "
+        f"first epoch; seconds by epoch {[round(s, 3) for s in secs]} "
+        f"(epoch 0 from the child's start); wall {wall:.1f} s "
+        f"[{power_line}]")
+    return out
+
+
+def symbolic_phase(seed, dev, power_line, gluon_p50):
+    """Phase 17 (module docstring); returns its launches by kernel: the
+    symbolic LM's measured segments (K6a/K6b) and the registry graph's
+    replay (K1/K2, K3a/K3b, K4a/K4b)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        counts = sym_wordlm_main_path(seed, dev, power_line, gluon_p50, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sym_card_vs_cpu(seed, dev)
+    counts = {k: n for k, n in counts.items() if n}
+    counts.update(sym_registry_ops(seed, dev))
+    reference_symbolic_scripts(power_line)
+    log(f"phase 17 (the symbolic API): {time.perf_counter() - t_phase:.1f} "
+        f"s")
+    return counts
+
+
 KERNEL_NAMES = ("paged_attention", "flash_attention", "flash_attention_bwd",
                 "layer_norm", "layer_norm_bwd", "softmax_xent_fwd",
                 "softmax_xent_bwd", "lstm_fwd", "lstm_bwd", "lstm_bwd_dw")
@@ -4692,8 +5280,8 @@ def main():
                                           power_line)
     train, zoo_p50 = train_main_path(args.seed, args.profile, dev,
                                      power_line)
-    wordlm = train_wordlm_main_path(args.seed, args.profile, dev,
-                                    power_line)
+    wordlm, wordlm_p50 = train_wordlm_main_path(args.seed, args.profile,
+                                                dev, power_line)
     # the vision paths: no port kernel on them (cuDNN and torch's own)
     for dtype in ("float32", "bfloat16"):
         train_resnet_main_path(args.seed, args.profile, dev, power_line,
@@ -4743,6 +5331,15 @@ def main():
                 else (e["name"],))}
     # Wide&Deep and row_sparse: no port kernel on this path
     wide_deep_phase(args.seed, dev, power_line)
+    # the symbolic API: the LM's bound graph (K6a/K6b), the registry
+    # ops' graph (K1/K2, K3a/K3b, K4a/K4b), checkpoints, the scripts
+    by_sym = symbolic_phase(args.seed, dev, power_line, wordlm_p50)
+    for e in entries:
+        if e["name"] in by_sym:
+            e.setdefault("launches_by_path", {})["sym"] = by_sym[e["name"]]
+        if e["name"] == "lstm_bwd":
+            e["launches_by_path"]["sym_by_kernel"] = {
+                k: by_sym[k] for k in ("lstm_bwd", "lstm_bwd_dw")}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(power_line)

@@ -27,6 +27,11 @@ sparse ``dot``, the optimizers' lazy row updates), the single-process
 ``kvstore`` (``mx.kv``: push, pull, ``row_sparse_pull``) and ``io``'s
 ``LibSVMIter``; its gathers, sums and GEMMs are torch's, as the JAX
 package leaves them to XLA.
+The symbolic API (``mx.sym``, ``Executor``, ``mx.mod``'s ``Module`` and
+``BucketingModule``, ``mx.rnn``'s legacy cells, ``model``,
+``callback``, ``monitor`` and ``gluon.SymbolBlock``) binds a Symbol
+graph over the same op registry; on the card a bound graph runs as
+CUDA graphs, as hybridized blocks do.
 Module names mirror the JAX package's so each counterpart is found at
 the same relative path, and the top-level names are the reference's
 (``mx.nd``, ``mx.cpu()``, ``mx.current_context()``, ...): the JAX
@@ -46,16 +51,23 @@ from __future__ import annotations
 from . import autograd, checkpoint, context, gluon, initializer
 from . import io, kvstore, lr_scheduler, metric, ndarray, optimizer
 from . import attribute, engine, name, random, test_utils, util
+from . import callback, executor, model, module, monitor, rnn, symbol
 from . import initializer as init
 from . import kvstore as kv
+from . import module as mod
 from . import ndarray as nd
+from . import symbol as sym
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
+from .executor import Executor
 from .ndarray import NDArray
+from .symbol import Symbol
 
 __version__ = "0.1.0"
-__all__ = ["Context", "MXNetError", "NDArray", "attribute", "autograd",
-           "checkpoint", "context", "cpu", "current_context", "engine",
-           "gluon", "gpu", "init", "initializer", "io", "kv", "kvstore",
-           "lr_scheduler", "metric", "name", "nd", "ndarray", "num_gpus",
-           "optimizer", "random", "test_utils", "util"]
+__all__ = ["Context", "Executor", "MXNetError", "NDArray", "Symbol",
+           "attribute", "autograd", "callback", "checkpoint", "context",
+           "cpu", "current_context", "engine", "executor", "gluon", "gpu",
+           "init", "initializer", "io", "kv", "kvstore", "lr_scheduler",
+           "metric", "mod", "model", "module", "monitor", "name", "nd",
+           "ndarray", "num_gpus", "optimizer", "random", "rnn", "sym",
+           "symbol", "test_utils", "util"]

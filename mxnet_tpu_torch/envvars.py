@@ -112,6 +112,10 @@ def all_vars():
 # the registry: only what the port reads
 # ---------------------------------------------------------------------------
 
+register("MXNET_TPU_SYMBOLIC_JIT", "bool", True,
+         "compiled symbolic executor for Module/simple_bind (on the card "
+         "one CUDA graph per binding key); ``0`` falls back to the eager "
+         "per-op DAG walk (bug-bisection ladder)", scope="runtime")
 register("MXNET_TPU_KV_PAGE_SIZE", "int", 16,
          "tokens per paged-KV-cache page (``serving/kvcache.py``): the "
          "allocation granule of the decode engine's attention memory",

@@ -14,9 +14,11 @@ nothing ever resolves to the JAX package's files. The script runs as
 cpu`` (before or right after the script's path) runs it inside ``with
 mx.cpu():``, and ``--ctx gpu`` (the default) on the card.
 
-At the end it prints the kernels' launch counts as one JSON line
-(``{"launch_counts": {...}}``) and exits non-zero if the script failed,
-or if ``jax`` or a module file of the JAX package is in ``sys.modules``.
+At the end it prints one JSON line, the kernels' launch counts and the
+graphs captured (``{"launch_counts": {...}, "captures": N}``:
+``graphs.captures()``, which also counts the CPU's stand-in entries),
+and exits non-zero if the script failed, or if ``jax`` or a module file
+of the JAX package is in ``sys.modules``.
 """
 from __future__ import annotations
 
@@ -94,7 +96,7 @@ def main(argv=None):
     ctx, script, args = _parse(sys.argv[1:] if argv is None else argv)
     sys.meta_path.insert(0, PortFinder())
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch import graphs, ops
 
     sys.argv = [script] + args
     failed = None
@@ -108,7 +110,8 @@ def main(argv=None):
         failed = exc
         import traceback
         traceback.print_exc()
-    print(json.dumps({"launch_counts": ops.launch_counts()}), flush=True)
+    print(json.dumps({"launch_counts": ops.launch_counts(),
+                      "captures": graphs.captures()}), flush=True)
     bad = forbidden_modules()
     if bad:
         print(f"run_reference: the JAX package or jax was imported: "

@@ -7,13 +7,15 @@ vision ResNets), ``data`` (datasets, samplers, ``DataLoader``, the
 vision datasets and transforms), ``Parameter``/``ParameterDict``,
 ``loss``, ``utils`` and the ``Trainer``. A ``HybridBlock`` hybridizes
 into CUDA graphs (``block``'s module docstring); a plain ``Block`` runs
-eagerly."""
+eagerly. ``SymbolBlock`` runs an ``mx.sym`` graph (an export) as a
+block."""
 from __future__ import annotations
 
 from . import data, loss, model_zoo, nn, rnn, utils
-from .block import Block, HybridBlock
+from .block import Block, HybridBlock, SymbolBlock
 from .parameter import Parameter, ParameterDict
 from .trainer import Trainer
 
-__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Trainer",
-           "data", "loss", "model_zoo", "nn", "rnn", "utils"]
+__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict",
+           "SymbolBlock", "Trainer", "data", "loss", "model_zoo", "nn", "rnn",
+           "utils"]

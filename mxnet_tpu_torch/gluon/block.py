@@ -107,6 +107,17 @@ activations in the backward (``torch.utils.checkpoint``, non-reentrant)
 when an ancestor's CachedOp (or the block's own) runs it; see
 :meth:`HybridBlock.hybridize`. :func:`functionalize` gives a block as a
 function of its parameters (``torch.func.functional_call``).
+
+**Export.** A block called with an ``mx.sym`` Symbol builds its graph:
+a block whose ``hybrid_forward`` is written in F-ops runs it with ``F =
+mx.sym`` and each parameter a variable of its full Gluon name; a
+container (``Sequential``, ``HybridSequential``, a user block whose
+``forward`` calls children) passes the Symbol on. The port's built-in
+layers are torch ``forward``s with no symbolic form yet: one given a
+Symbol raises ``MXNetError`` naming it. :meth:`HybridBlock.export`
+writes that graph and the parameters; :class:`SymbolBlock` runs a
+graph as a block (``SymbolBlock.imports`` reads an export, of either
+package).
 """
 from __future__ import annotations
 
@@ -121,17 +132,19 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import autograd, graphs, initializer
+from .. import autograd, graphs, initializer, symbol
 from .. import ndarray as _F
 from ..base import MXNetError
 from ..context import resolve_device
 from ..ndarray import serialization
-from ..ndarray.ndarray import NDArray
+from ..ndarray.ndarray import NDArray, dtype_name
+from ..symbol import Symbol
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, is_deferred, materialize,
                         new_parameter)
 
-__all__ = ["Block", "HybridBlock", "aux_updates_on", "functionalize"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "aux_updates_on",
+           "functionalize"]
 
 _LOG = logging.getLogger(__name__)
 
@@ -503,8 +516,11 @@ class Block(nn.Module):
         # a plain tensor argument costs one type test: nested calls and
         # callers that pass tensors pay nothing more
         for a in args:
-            if type(a) is not torch.Tensor and _nd_in(a):
-                return self._call_nd(args, kwargs)
+            if type(a) is not torch.Tensor:
+                if _nd_in(a):
+                    return self._call_nd(args, kwargs)
+                if isinstance(a, Symbol):
+                    return self._call_symbolic(args, kwargs)
         if kwargs and any(_nd_in(v) for v in kwargs.values()):
             return self._call_nd(args, kwargs)
         with torch.set_grad_enabled(autograd.is_recording()):
@@ -517,6 +533,34 @@ class Block(nn.Module):
         args = _unwrap(args)
         kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
         return _wrap(self.__call__(*args, **kwargs))
+
+    def _call_symbolic(self, args, kwargs):
+        """A Symbol in, the block's graph out (module docstring,
+        "Export"): ``hybrid_forward`` with ``F = mx.sym`` and each
+        parameter a variable of its full Gluon name; a container's
+        ``forward`` passes the Symbol on to its children. A layer whose
+        ``forward`` is torch code raises ``MXNetError`` naming it."""
+        if type(self).forward is Block.forward and \
+                type(self).hybrid_forward is not Block.hybrid_forward:
+            names = getattr(_GUARD, "export_names", None) or {}
+            params = {}
+            for k, v in self._reg_params.items():
+                t = v._tensor
+                params[k] = symbol.var(
+                    names.get(id(t), self._prefix + self._reg_keys[k]),
+                    shape=tuple(t.shape), dtype=dtype_name(t.dtype),
+                    lr_mult=v.lr_mult, wd_mult=v.wd_mult)
+            return self.hybrid_forward(symbol, *args, **kwargs, **params)
+        try:
+            return nn.Module.__call__(self, *args, **kwargs)
+        except MXNetError:
+            raise
+        except (AttributeError, TypeError, RuntimeError, ValueError) as e:
+            raise MXNetError(
+                f"{type(self).__name__} '{self.name}' has no symbolic form "
+                f"yet: its forward is torch code, which a Symbol cannot go "
+                f"through (ROADMAP Queue 1, the built-in layers' symbolic "
+                f"forms); {type(e).__name__}: {e}") from e
 
     def _call_routed(self, args, kwargs):
         """A hybridized call goes through the CachedOp unless an
@@ -904,7 +948,8 @@ class HybridBlock(Block):
             params = list(self.parameters())
         # a new key, or parameters moved or retyped in place (a graph
         # holds their addresses)
-        entry = _Entry(self, key, spec, leaves, params, _psig(params))
+        entry = _Entry(self, key, spec, leaves, params, _psig(params),
+                       _describe(self, key))
         cache.pop(key, None)
         cache[key] = entry
         if entry.grad:
@@ -927,6 +972,38 @@ class HybridBlock(Block):
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         return self._graph_pool
+
+    def _swapped(self, aliases):
+        return _swap_params(self, aliases)
+
+    def _graph_state(self, params):
+        return [p for p in params if not p.requires_grad] + \
+            list(self.buffers())
+
+    def export(self, path, epoch=0, remove_amp_cast=True):
+        """Write ``path-symbol.json`` (the graph of ``self(data)`` traced
+        with ``mx.sym.var("data")``) and ``path-%04d.params`` (every
+        parameter under ``arg:`` and its full Gluon name, the model
+        prefix included, as the JAX package's export names it). Returns
+        both file names. Blocks whose ``hybrid_forward`` is written in
+        F-ops export; a layer whose ``forward`` is torch code raises
+        ``MXNetError`` naming it."""
+        params = self.gluon_params()
+        names = {id(t): self._prefix + n for n, t in params.items()}
+        prev = getattr(_GUARD, "export_names", None)
+        _GUARD.export_names = names
+        try:
+            with autograd.pause():
+                out = self(symbol.var("data"))
+        finally:
+            _GUARD.export_names = prev
+        if isinstance(out, (list, tuple)):
+            out = symbol.Group(list(out))
+        out.save(f"{path}-symbol.json")
+        serialization.save(f"{path}-{epoch:04d}.params",
+                           {f"arg:{names[id(t)]}": t.detach()
+                            for t in params.values()})
+        return f"{path}-symbol.json", f"{path}-{epoch:04d}.params"
 
 
 def _psig(params):
@@ -1006,11 +1083,23 @@ class _Instance:
 
 
 class _Entry:
-    """One key of a block's CachedOp: on CUDA its captured graphs, on
-    the CPU its static inputs and the eager body (module docstring)."""
+    """One key of a CachedOp: on CUDA its captured graphs, on the CPU
+    its static inputs and the eager body (module docstring).
 
-    def __init__(self, block, key, spec, leaves, params, psig):
-        self.block = block
+    ``owner`` runs the body: a :class:`HybridBlock`, or a bound symbolic
+    graph (``executor``). It gives ``_body(spec, tensors)`` (the eager
+    forward on ``tensors``, laid out as ``spec``), ``_pool()`` (the
+    graph memory pool), ``_swapped(aliases)`` (a scope in which the body
+    reads each parameter ``p`` as ``aliases[id(p)]``) and
+    ``_graph_state(params)`` (the tensors the body updates in place,
+    which the warm-up puts back). ``leaves`` are copied into static
+    inputs at each call; ``params`` are read where they are. ``what``
+    names the entry in errors; ``device`` places an entry with neither
+    leaves nor parameters."""
+
+    def __init__(self, owner, key, spec, leaves, params, psig, what,
+                 device=None):
+        self.owner = owner
         self.spec = spec
         self.psig = psig
         self.grad = key[2] and (any(t.requires_grad for t in leaves)
@@ -1020,13 +1109,12 @@ class _Entry:
             if self.grad else []
         # tensors the forward updates in place (running statistics):
         # the warm-up puts them back
-        self.state = [p for p in params if not p.requires_grad] + \
-            list(block.buffers())
+        self.state = owner._graph_state(params)
         dev = leaves[0].device if leaves else \
-            (params[0].device if params else torch.device("cpu"))
+            (params[0].device if params else torch.device(device or "cpu"))
         self.device = dev
         self.cuda = dev.type == "cuda"
-        self.what = _describe(block, key)
+        self.what = what
         self.out_spec = None
         self.instances = []
         self.capture_ms = 0.0
@@ -1047,14 +1135,14 @@ class _Entry:
         for s, r in zip(static, self.in_req):
             if r and self.grad:
                 s.requires_grad_(True)
-        block, dev, pool = self.block, self.device, self.block._pool()
+        owner, dev, pool = self.owner, self.device, self.owner._pool()
         aliases = {id(p): p.detach().requires_grad_(True)
                    for p in self.params}
 
         def forward(*static):
             with torch.set_grad_enabled(self.grad), \
-                    _swap_params(block, aliases):
-                return block._body(self.spec, static)
+                    owner._swapped(aliases):
+                return owner._body(self.spec, static)
 
         surface = [s for s in static if s.requires_grad] + \
             [aliases[id(p)] for p in self.params]
@@ -1121,7 +1209,7 @@ class _Entry:
                 with torch.no_grad():
                     for s, t in zip(self.static_in, leaves):
                         s.copy_(t)
-                out = self.block._body(self.spec, self.static_in)
+                out = self.owner._body(self.spec, self.static_in)
                 flat = []
                 self.out_spec = _spec(out, flat)
                 with torch.no_grad():
@@ -1144,8 +1232,8 @@ class _Entry:
                    for t, r in zip(leaves, self.in_req)]
         aliases = {id(p): p.detach().requires_grad_(True)
                    for p in self.params}
-        with torch.enable_grad(), _swap_params(self.block, aliases):
-            out = self.block._body(self.spec, statics)
+        with torch.enable_grad(), self.owner._swapped(aliases):
+            out = self.owner._body(self.spec, statics)
         flat = []
         self.out_spec = _spec(out, flat)
         ctx.inner = (flat, [s for s in statics if s.requires_grad]
@@ -1246,3 +1334,72 @@ def functionalize(block, training=False, ctx=None):
 
     return fn, {g: p.detach() for g, p in gluon.items()}
 
+
+class SymbolBlock(HybridBlock):
+    """A Symbol graph as a block (the reference's ``SymbolBlock``):
+    ``outputs`` a Symbol (or a list of them), ``inputs`` the variables
+    the call gives, every other argument of the graph a parameter of
+    that name (deferred until ``params``, a ``{name: array}`` with or
+    without ``arg:``/``aux:`` prefixes, gives it its shape and value).
+    A call evaluates the graph eagerly (``Symbol._eval``); hybridized,
+    through the CachedOp like any block."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=None)
+        if isinstance(outputs, (list, tuple)):
+            outputs = symbol.Group(list(outputs))
+        if isinstance(inputs, Symbol):
+            inputs = [inputs]
+        self._symbol = outputs
+        self._input_names = [i.name for i in inputs]
+        self._arg_names = [n for n in outputs.list_arguments()
+                           if n not in self._input_names]
+        given = {}
+        for name, arr in (params or {}).items():
+            for pfx in ("arg:", "aux:"):
+                if name.startswith(pfx):
+                    name = name[len(pfx):]
+            given[name] = arr
+        for name in self._arg_names + [n for n in given
+                                       if n not in self._arg_names]:
+            if not name.isidentifier():
+                raise MXNetError(f"SymbolBlock: argument name {name!r} "
+                                 f"cannot name a parameter")
+            arr = given.get(name)
+            if arr is None:
+                self.params.get(name, allow_deferred_init=True)
+                continue
+            p = self.params.get(name, shape=tuple(arr.shape),
+                                dtype=dtype_name(arr.dtype))
+            p.set_data(arr)
+            p._tensor._mx_initialized = True
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock of an exported ``-symbol.json`` and its
+        ``.params`` file, its parameters on ``ctx`` (default: the
+        current context)."""
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        with contextlib.ExitStack() as stack:
+            if ctx is not None:
+                stack.enter_context(ctx)
+            graph = symbol.load(symbol_file)
+            inputs = [symbol.var(n) for n in input_names]
+            params = serialization.load(param_file, ctx="cpu") \
+                if param_file else None
+            return SymbolBlock(graph, inputs, params)
+
+    def forward(self, x, *args):
+        bindings = dict(zip(self._input_names, (x,) + args))
+        for name in self._arg_names:
+            # read through _parameters, where a CachedOp's capture swaps
+            # in its aliases
+            t = self._parameters[name]
+            if is_deferred(t):
+                raise DeferredInitializationError(
+                    f"Parameter '{name}' of the SymbolBlock has no value: "
+                    f"give it in params, or pass it as an input")
+            bindings[name] = t
+        outs = self._symbol._eval(bindings)
+        return outs[0] if len(outs) == 1 else outs

@@ -13,17 +13,22 @@ weights on every device. The JAX package derives its generator from
 ``jax.random`` keys, so the bits differ from it by design; the scales
 and the dispatch do not. Ported: ``Zero``, ``One``, ``Constant``,
 ``Uniform``, ``Normal``, ``Xavier``, ``LSTMBias``, ``create`` and
-``register``.
+``register``. For the symbolic API (``Module.init_params``): an
+:class:`InitDesc` name may carry a variable's attributes, whose
+``__init__`` (an initializer's :meth:`Initializer.dumps`, as
+``mx.sym.Variable(init=...)`` writes it) overrides the initializer
+called, and :func:`create` reads that JSON form back.
 """
 from __future__ import annotations
 
+import json
 import math
 
 import numpy as np
 import torch
 
-__all__ = ["Constant", "Initializer", "LSTMBias", "Normal", "One", "Uniform",
-           "Xavier", "Zero", "create", "register"]
+__all__ = ["Constant", "InitDesc", "Initializer", "LSTMBias", "Normal", "One",
+           "Uniform", "Xavier", "Zero", "create", "register"]
 
 _REGISTRY = {}
 
@@ -36,6 +41,16 @@ def register(name):
     return deco
 
 
+class InitDesc(str):
+    """A parameter's name with its variable's attributes (``attrs``)."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        obj = super().__new__(cls, name)
+        obj.attrs = attrs or {}
+        obj.global_init = global_init
+        return obj
+
+
 class Initializer:
     """Base: ``init(name, tensor, rng)`` fills ``tensor`` in place."""
 
@@ -44,6 +59,10 @@ class Initializer:
 
     def __call__(self, name, arr, rng=None):
         rng = np.random.default_rng(0) if rng is None else rng
+        init = getattr(name, "attrs", {}).get("__init__", "")
+        if init:
+            create(init)._init_weight(name, arr, rng)
+            return
         name = str(name).lower()
         if name.endswith("weight"):
             self._init_weight(name, arr, rng)
@@ -82,6 +101,10 @@ class Initializer:
 
     def _init_weight(self, name, arr, rng):
         raise NotImplementedError
+
+    def dumps(self):
+        """``[name, kwargs]`` as JSON, which :func:`create` reads."""
+        return json.dumps([type(self).__name__.lower(), self._kwargs])
 
     def __repr__(self):
         return f"{type(self).__name__}({self._kwargs})"
@@ -185,11 +208,13 @@ class LSTMBias(Initializer):
 
 
 def create(name, **kwargs):
-    """An initializer by registered name; an ``Initializer`` (or any
-    other callable) passes through."""
+    """An initializer by registered name (or its :meth:`Initializer.dumps`
+    JSON); an ``Initializer`` (or any other callable) passes through."""
     if isinstance(name, Initializer) or (not isinstance(name, str)
                                          and callable(name)):
         return name
+    if name.startswith("["):
+        name, kwargs = json.loads(name)
     try:
         klass = _REGISTRY[name.lower()]
     except KeyError:

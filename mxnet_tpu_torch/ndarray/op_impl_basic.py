@@ -772,7 +772,7 @@ def _squeezed(parts, axis, squeeze_axis):
     return tuple(parts)
 
 
-@register_op("split", aliases=("SliceChannel",))
+@register_op("split", aliases=("SliceChannel",), dynamic_arity=True)
 def split(x, num_outputs=1, axis=1, squeeze_axis=False):
     """``num_outputs`` equal parts along ``axis``."""
     ax, n = int(axis), int(num_outputs)

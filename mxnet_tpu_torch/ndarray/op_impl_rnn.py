@@ -174,7 +174,8 @@ def rnn_layers(data, layer_params, state, state_cell, num_layers=1,
     return x, h_out, c_out
 
 
-@register_op("RNN")
+@register_op("RNN", infer_num_outputs=lambda params: 3 if str(
+    params.get("mode", "lstm")) == "lstm" else 2)
 def rnn(data, parameters, state, state_cell=None, sequence_length=None,
         state_size=0, num_layers=1, bidirectional=False, mode="lstm", p=0.0,
         state_outputs=False, projection_size=None, lstm_state_clip_min=None,

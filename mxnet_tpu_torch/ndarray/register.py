@@ -51,26 +51,34 @@ class Op:
     """A registered operator: ``fn(*tensors, **params)`` and its
     metadata (see ``mxnet_tpu/ndarray/register.py``'s ``Op``).
     ``num_visible_outputs`` is how many leading outputs the eager call
-    returns (None: all); ``mutates`` the in-place write-backs."""
+    returns (None: all); ``mutates`` the in-place write-backs. Two
+    fields serve ``mx.sym``'s output count: ``dynamic_arity`` (the
+    ``num_outputs`` param is the count: ``split``) and
+    ``infer_num_outputs`` (``params -> count``: ``RNN``)."""
 
     __slots__ = ("name", "fn", "differentiable", "aliases",
-                 "num_visible_outputs", "mutates")
+                 "num_visible_outputs", "mutates", "dynamic_arity",
+                 "infer_num_outputs")
 
     def __init__(self, name, fn, differentiable=True, aliases=(),
-                 num_visible_outputs=None, mutates=()):
+                 num_visible_outputs=None, mutates=(), dynamic_arity=False,
+                 infer_num_outputs=None):
         self.name = name
         self.fn = fn
         self.differentiable = differentiable
         self.aliases = tuple(aliases)
         self.num_visible_outputs = num_visible_outputs
         self.mutates = tuple(mutates)
+        self.dynamic_arity = bool(dynamic_arity)
+        self.infer_num_outputs = infer_num_outputs
 
     def __repr__(self):
         return f"<Op {self.name}>"
 
 
 def register_op(name=None, *, differentiable=True, aliases=(),
-                num_visible_outputs=None, mutates=()):
+                num_visible_outputs=None, mutates=(), dynamic_arity=False,
+                infer_num_outputs=None):
     """Decorator: register a torch function as an operator (and its
     aliases)."""
 
@@ -79,7 +87,9 @@ def register_op(name=None, *, differentiable=True, aliases=(),
         if not isinstance(fn, types.FunctionType):
             fn = _py_function(fn)       # a builtin takes no attributes
         op = Op(op_name, fn, differentiable=differentiable, aliases=aliases,
-                num_visible_outputs=num_visible_outputs, mutates=mutates)
+                num_visible_outputs=num_visible_outputs, mutates=mutates,
+                dynamic_arity=dynamic_arity,
+                infer_num_outputs=infer_num_outputs)
         for nm in (op_name,) + tuple(aliases):
             _OPS[nm] = op
             _POS_PARAM_NAMES.pop(nm, None)

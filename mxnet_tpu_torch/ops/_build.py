@@ -8,7 +8,11 @@ where one through ``torch.utils.cpp_extension`` takes minutes. Builds
 happen at first use, never at import; :func:`build_all` starts one
 ``nvcc`` per source at once, so the whole set costs one compile's time.
 The sources share ``csrc/common.cuh``; the wrappers share
-:data:`DTYPE_CODES` and :func:`launch`.
+:data:`DTYPE_CODES`, :func:`launch` and :func:`plain`: a CUDA tensor
+launches its kernel or raises, a CPU tensor takes the plain version,
+and a ``meta`` tensor (``mx.sym``'s shape inference) takes the plain
+version too, which only computes shapes there: nothing runs and
+nothing is counted.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import threading
 import torch
 
 __all__ = ["ARCH_FLAGS", "BUILD_DIR", "DTYPE_CODES", "SOURCES", "build_all",
-           "launch", "load", "nvcc_path", "tally"]
+           "launch", "load", "nvcc_path", "plain", "tally"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -46,6 +50,12 @@ BUILD_LOGS = {}
 #: ``{cudaStream_t: {kernel name: launches}}`` of the streams whose
 #: launches are tallied apart (:func:`tally`)
 _TALLIES = {}
+
+
+def plain(t):
+    """Whether ``t`` takes a kernel's plain version: a CPU tensor, or a
+    ``meta`` one, on which the plain version only computes shapes."""
+    return t.device.type in ("cpu", "meta")
 
 
 def nvcc_path():

@@ -283,7 +283,7 @@ def flash_attention_backward(q, k, v, o, lse, do, sm_scale=None,
                         f"{tuple(lse.shape)} {lse.dtype}")
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
-    if q.device.type == "cpu":
+    if _build.plain(q):
         delta = (do.float() * o.float()).sum(-1)
         if dlse is not None:
             delta = delta - dlse.float()
@@ -303,7 +303,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, sm_scale, causal, q_offset, kv_lens,
                 segment_ids):
-        if q.device.type == "cpu":
+        if _build.plain(q):
             o, lse = flash_attention_reference(q, k, v, sm_scale, causal,
                                                q_offset, kv_lens,
                                                segment_ids)
@@ -333,7 +333,7 @@ def flash_attention_with_lse(q, k, v, sm_scale=None, causal=False,
     differentiable in both. CUDA tensors launch the CUDA kernels or
     raise; CPU tensors take the plain versions. On the card ``o`` is a
     (B, H, Sq, D) view of a (B, Sq, H, D) buffer."""
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash attention runs on cuda or cpu tensors, "
                          f"got {q.device}")
     _check(q, k, v, kv_lens, segment_ids)

@@ -122,7 +122,7 @@ def _check(x, gamma, beta):
 def _forward(x, gamma, beta, eps, return_stats):
     """K3a (CPU tensors: the plain version)."""
     dev = x.device
-    if dev.type == "cpu":
+    if _build.plain(x):
         return layer_norm_reference(x, gamma, beta, eps, return_stats)
     d = x.shape[-1]
     r = x.numel() // d
@@ -155,7 +155,7 @@ def layer_norm_backward(x, gamma, mean, rstd, dy):
     if mean.shape != (r,) or rstd.shape != (r,) \
             or mean.dtype != torch.float32 or rstd.dtype != torch.float32:
         raise TypeError(f"mean/rstd must be ({r},) float32")
-    if x.device.type == "cpu":
+    if _build.plain(x):
         return layer_norm_backward_reference(x, gamma, mean, rstd, dy)
     dy = dy.contiguous()
     dx = torch.empty_like(x)
@@ -200,7 +200,7 @@ def layer_norm_fused(x, gamma, beta, eps=1e-5, return_stats=False):
     kernels or raise; CPU tensors take the plain versions. With
     ``return_stats`` returns ``(y, mean, rstd)``, the stats (R,)
     float32; that form is forward only."""
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"layer norm runs on cuda or cpu tensors, got "
                          f"{x.device}")
     _check(x, gamma, beta)

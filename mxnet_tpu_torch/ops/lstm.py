@@ -150,7 +150,7 @@ def _check(gin, w, h0, c0):
     if len(devs) != 1:
         raise ValueError(f"lstm operands on several devices: "
                          f"{sorted(map(str, devs))}")
-    if gin.device.type not in ("cpu", "cuda"):
+    if gin.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"lstm runs on cuda or cpu tensors, got "
                          f"{gin.device}")
 
@@ -317,7 +317,7 @@ def lstm_forward(gin, w, h0, c0):
     the kernel or raise; CPU tensors take
     :func:`lstm_forward_reference`."""
     _check(gin, w, h0, c0)
-    if gin.device.type == "cpu":
+    if _build.plain(gin):
         return lstm_forward_reference(gin, w, h0, c0)
     steps, n, g4 = gin.shape
     hid = g4 // 4
@@ -361,7 +361,7 @@ def lstm_backward(gates, cseq, out, w, h0, c0, dout, dcseq):
                              f"{h0.shape[1]} {gates.dtype} on "
                              f"{gates.device}, got {tuple(t.shape)} "
                              f"{t.dtype} on {t.device}")
-    if gates.device.type == "cpu":
+    if _build.plain(gates):
         return lstm_backward_reference(gates, cseq, out, w, h0, c0, dout,
                                        dcseq)
     steps, n, g4 = gates.shape

@@ -161,7 +161,7 @@ def paged_flash_attention(q, k_pages, v_pages, page_table, kv_lens,
     """Decode-path attention over a paged KV pool (shapes in the module
     docstring). CUDA tensors launch the CUDA kernel or raise; CPU
     tensors take :func:`paged_attention_reference`."""
-    if q.device.type == "cpu":
+    if _build.plain(q):
         return paged_attention_reference(q, k_pages, v_pages, page_table,
                                          kv_lens, sm_scale)
     if q.device.type != "cuda":

@@ -86,7 +86,7 @@ def _check(logits, labels):
     if labels.device != logits.device:
         raise ValueError(f"logits on {logits.device}, labels on "
                          f"{labels.device}")
-    if logits.device.type not in ("cpu", "cuda"):
+    if logits.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"softmax cross-entropy runs on cuda or cpu "
                          f"tensors, got {logits.device}")
     if logits.shape[1] >= 2 ** 31 or logits.shape[0] >= 2 ** 31:
@@ -97,7 +97,7 @@ def softmax_xent_forward(logits, labels):
     """``(loss, lse)`` per row, each (N,) float32. CUDA tensors launch
     K4a or raise; CPU tensors take :func:`softmax_xent_reference`."""
     _check(logits, labels)
-    if logits.device.type == "cpu":
+    if _build.plain(logits):
         return softmax_xent_reference(logits, labels)
     n, v = logits.shape
     x = logits.contiguous()
@@ -121,7 +121,7 @@ def softmax_xent_backward(logits, labels, lse, g):
     n = logits.shape[0]
     if lse.shape != (n,) or g.shape != (n,):
         raise ValueError(f"lse and g must be ({n},)")
-    if logits.device.type == "cpu":
+    if _build.plain(logits):
         return softmax_xent_backward_reference(logits, labels, lse, g)
     v = logits.shape[1]
     x = logits.contiguous()

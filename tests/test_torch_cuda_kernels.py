@@ -1825,3 +1825,256 @@ def test_sparse_wide_deep_captured_step_matches_eager(cuda):
     assert le == lg
     assert all(torch.equal(we[k], wg[k]) for k in we)
     assert dict(launch_counts()) == before
+
+
+def _sym_lm(vocab, emb, hid, layers, bptt):
+    """The symbolic word LM (``chip_smoke.py`` phase 17's graph):
+    Embedding -> RNN (lstm) -> Reshape -> FullyConnected ->
+    SoftmaxOutput, the final states as BlockGrad outputs."""
+    import mxnet_tpu_torch as mx
+
+    with mx.name.NameManager():
+        e = mx.sym.Embedding(mx.sym.var("data"), input_dim=vocab,
+                             output_dim=emb, name="embed")
+        r = mx.sym.RNN(e, state_size=hid, num_layers=layers, mode="lstm",
+                       state_outputs=True, name="lstm")
+        flat = mx.sym.Reshape(r[0], shape=(-1, hid), name="flat")
+        fc = mx.sym.FullyConnected(flat, num_hidden=vocab, name="decoder")
+        out = mx.sym.SoftmaxOutput(fc, mx.sym.var("softmax_label"),
+                                   grad_scale=1.0 / bptt, name="softmax")
+        return mx.sym.Group([out, mx.sym.BlockGrad(r[1], name="h"),
+                             mx.sym.BlockGrad(r[2], name="c")])
+
+
+def _sym_lm_bind(cuda, seed=0, vocab=200, emb=32, hid=32, layers=2,
+                 bptt=7, batch=4):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray.op_impl_rnn import rnn_param_size
+
+    sym = _sym_lm(vocab, emb, hid, layers, bptt)
+    shapes = dict(data=(bptt, batch), softmax_label=(bptt * batch,),
+                  lstm_parameters=(rnn_param_size(layers, emb, hid, False,
+                                                  "lstm"),),
+                  lstm_state=(layers, batch, hid),
+                  lstm_state_cell=(layers, batch, hid))
+    req = {n: ("null" if n in ("data", "softmax_label", "lstm_state",
+                               "lstm_state_cell") else "write")
+           for n in sym.list_arguments()}
+    ex = sym.simple_bind(mx.gpu(0), grad_req=req, **shapes)
+    rng = np.random.RandomState(seed)
+    for n, a in ex.arg_dict.items():
+        if req[n] == "write":
+            a[:] = torch.tensor(rng.uniform(-0.1, 0.1, tuple(a.shape)),
+                                dtype=torch.float32)
+    return ex, req
+
+
+def _sym_lm_batch(rng, vocab=200, bptt=7, batch=4):
+    x = rng.randint(0, vocab, (bptt, batch)).astype(np.float32)
+    y = rng.randint(0, vocab, (bptt * batch,)).astype(np.float32)
+    return x, y
+
+
+@pytest.mark.cuda
+def test_symbol_lm_graphs_match_the_eager_walk(cuda, monkeypatch):
+    """The symbolic word LM bound on the card: three SGD steps of its
+    forward and backward graphs (the final states carried into the
+    next step in place) against the eager walk
+    (``MXNET_TPU_SYMBOLIC_JIT=0``) from the same weights: the same
+    outputs, gradients and weights to the bit, 2 + 2 + 2 LSTM launches a
+    step each way, one capture pair, in the first step only."""
+    from mxnet_tpu_torch import graphs, optimizer
+
+    runs = []
+    for jit in ("1", "0"):
+        monkeypatch.setenv("MXNET_TPU_SYMBOLIC_JIT", jit)
+        ex, req = _sym_lm_bind(cuda)
+        upd = optimizer.get_updater(optimizer.create("sgd",
+                                                     learning_rate=0.5))
+        rng = np.random.RandomState(1)
+        outs, counts, caps = [], [], []
+        for _ in range(3):
+            x, y = _sym_lm_batch(rng)
+            before, c0 = dict(launch_counts()), graphs.captures()
+            o = ex.forward(is_train=True, data=torch.tensor(x),
+                           softmax_label=torch.tensor(y))
+            ex.backward()
+            for i, n in enumerate(n for n in ex.arg_dict
+                                  if req[n] == "write"):
+                upd(i, ex.grad_dict[n], ex.arg_dict[n])
+            ex.arg_dict["lstm_state"][:] = o[1]
+            ex.arg_dict["lstm_state_cell"][:] = o[2]
+            torch.cuda.synchronize()
+            after = launch_counts()
+            counts.append({k: after[k] - before[k] for k in after
+                           if after[k] != before[k]})
+            caps.append(graphs.captures() - c0)
+            outs.append([t.clone() for t in o] +
+                        [g.clone() for g in ex.grad_dict.values()])
+        runs.append((outs, counts, caps,
+                     {n: a.clone() for n, a in ex.arg_dict.items()}))
+    (og, cg, capg, wg), (oe, ce, cape, we) = runs
+    assert capg == [2, 0, 0] and cape == [0, 0, 0]
+    assert cg == ce == [{"lstm_fwd": 2, "lstm_bwd": 2,
+                         "lstm_bwd_dw": 2}] * 3
+    for a, b in zip(og, oe):
+        assert all(torch.equal(s, t) for s, t in zip(a, b))
+    assert all(torch.equal(wg[n], we[n]) for n in we)
+
+
+@pytest.mark.cuda
+def test_symbol_predict_batches_match_the_eager_walk(cuda, monkeypatch):
+    """``Module.predict`` on the card over three batches, unmerged and
+    merged: every batch's outputs (copies out of the predict graph's
+    static buffers) equal the eager walk's forward on that batch."""
+    import mxnet_tpu_torch as mx
+
+    def module(jit):
+        monkeypatch.setenv("MXNET_TPU_SYMBOLIC_JIT", jit)
+        with mx.name.NameManager():
+            net = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=16,
+                                        name="fc1")
+            net = mx.sym.Activation(net, act_type="relu", name="relu")
+            net = mx.sym.FullyConnected(net, num_hidden=10, name="fc2")
+            sym = mx.sym.SoftmaxOutput(net, name="softmax")
+        mod = mx.mod.Module(sym, context=mx.gpu(0))
+        mod.bind(data_shapes=[("data", (8, 12))],
+                 label_shapes=[("softmax_label", (8,))], for_training=False)
+        rs = np.random.RandomState(2)
+        mod.init_params(arg_params={
+            n: mx.nd.array(rs.randn(*a.shape).astype(np.float32))
+            for n, a in mod._exec.arg_dict.items()
+            if n in mod._param_names})
+        return mod
+
+    rs = np.random.RandomState(3)
+    x = rs.randn(24, 12).astype(np.float32)
+    y = rs.randint(0, 10, 24).astype(np.float32)
+    graphed, eager = module("1"), module("0")
+    with mx.gpu(0):
+        it = mx.io.NDArrayIter(x, y, batch_size=8, label_name="softmax_label")
+        per_batch = graphed.predict(it, merge_batches=False)
+        merged = graphed.predict(it)
+        want = eager.predict(it, merge_batches=False)
+    assert len(per_batch) == len(want) == 3
+    for (a,), (b,) in zip(per_batch, want):
+        assert torch.equal(a, b)
+    assert torch.equal(merged, torch.cat([b for (b,) in want]))
+
+
+@pytest.mark.cuda
+def test_symbol_in_place_updates_reach_the_graphs(cuda, monkeypatch):
+    """``Module.update`` and ``BucketingModule``'s shared arrays on the
+    card: three momentum-SGD steps alternating two buckets of an
+    unrolled ``mx.rnn.LSTMCell``, graphed against the eager walk, give
+    the same outputs and weights to the bit (each bucket's graphs read
+    the one storage the updates write in place)."""
+    import mxnet_tpu_torch as mx
+
+    def gen(seq_len):
+        with mx.name.NameManager():
+            cell = mx.rnn.LSTMCell(num_hidden=8, prefix="lstm_")
+            outs, _ = cell.unroll(seq_len, mx.sym.var("data"),
+                                  layout="NTC", merge_outputs=False)
+            fc = mx.sym.FullyConnected(outs[-1], num_hidden=2, name="fc")
+            return (mx.sym.SoftmaxOutput(fc, name="softmax"), ["data"],
+                    ["softmax_label"])
+
+    runs = []
+    for jit in ("1", "0"):
+        monkeypatch.setenv("MXNET_TPU_SYMBOLIC_JIT", jit)
+        mod = mx.mod.BucketingModule(gen, default_bucket_key=6,
+                                     context=mx.gpu(0))
+        mod.bind(data_shapes=[("data", (4, 6, 3))],
+                 label_shapes=[("softmax_label", (4,))])
+        mx.random.seed(0)
+        mod.init_params(mx.initializer.Xavier())
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.1, "momentum": 0.9})
+        rs = np.random.RandomState(4)
+        outs = []
+        for blen in (6, 4, 6, 4):
+            x = rs.randn(4, blen, 3).astype(np.float32)
+            y = rs.randint(0, 2, 4).astype(np.float32)
+            batch = mx.io.DataBatch(
+                data=[mx.nd.array(x, ctx=mx.gpu(0))],
+                label=[mx.nd.array(y, ctx=mx.gpu(0))], bucket_key=blen,
+                provide_data=[("data", (4, blen, 3))],
+                provide_label=[("softmax_label", (4,))])
+            mod.forward_backward(batch)
+            mod.update()
+            outs.append(mod.get_outputs()[0].clone())
+        b = mod._buckets
+        assert b[4]._exec.arg_dict["fc_weight"] is \
+            b[6]._exec.arg_dict["fc_weight"]
+        runs.append((outs, {n: a.clone() for n, a in
+                            b[6]._exec.arg_dict.items()}))
+    (og, wg), (oe, we) = runs
+    assert all(torch.equal(a, b) for a, b in zip(og, oe))
+    assert all(torch.equal(wg[n], we[n]) for n in we)
+
+
+@pytest.mark.cuda
+def test_symbol_registry_ops_match_nd(cuda):
+    """``sym.LayerNorm``, ``sym.flash_attention`` and
+    ``sym.softmax_cross_entropy`` in one graph bound on the card: its
+    forward and backward give the ``nd`` calls' bits, with one launch
+    of each kernel (K3a/K3b, K1/K2, K4a/K4b) each way."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+
+    rng = np.random.RandomState(5)
+
+    def t(shape, lo=-1.0, hi=1.0):
+        return torch.tensor(rng.uniform(lo, hi, shape), dtype=torch.float32,
+                            device=cuda)
+
+    x, g, b = t((2, 16, 64)), t((64,), 0.5, 1.5), t((64,))
+    q, k, v = (t((2, 4, 16, 16)) for _ in range(3))
+    vl = torch.tensor([16, 9], dtype=torch.int32, device=cuda)
+    logits = t((40, 100), -3, 3)
+    lab = torch.tensor(rng.randint(0, 100, 40), dtype=torch.float32,
+                       device=cuda)
+    with mx.name.NameManager():
+        v_ = {n: mx.sym.var(n) for n in ("x", "g", "b", "q", "k", "v", "vl",
+                                         "logits", "lab")}
+        sym = mx.sym.Group([
+            mx.sym.LayerNorm(v_["x"], v_["g"], v_["b"], eps=1e-12,
+                             name="ln"),
+            mx.sym.flash_attention(v_["q"], v_["k"], v_["v"], v_["vl"],
+                                   name="att"),
+            mx.sym.softmax_cross_entropy(v_["logits"], v_["lab"],
+                                         name="xent")])
+    args = dict(x=x, g=g, b=b, q=q, k=k, v=v, vl=vl, logits=logits, lab=lab)
+    req = {n: "null" if n in ("vl", "lab") else "write" for n in args}
+    ex = sym.bind(mx.gpu(0), {n: a.clone().as_subclass(nd.NDArray)
+                              for n, a in args.items()}, grad_req=req)
+    heads = None
+    for _ in range(2):                   # the capture, then a replay
+        before = dict(launch_counts())
+        outs = ex.forward(is_train=True)
+        if heads is None:
+            heads = [t(tuple(o.shape)) for o in outs]
+        ex.backward(heads)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        assert {k_: after[k_] - before[k_] for k_ in after
+                if after[k_] != before[k_]} == {
+            "layer_norm": 1, "layer_norm_bwd": 1, "flash_attention": 1,
+            "flash_attention_bwd": 1, "softmax_xent_fwd": 1,
+            "softmax_xent_bwd": 1}
+    leaves = {n: a.clone().requires_grad_(req[n] == "write")
+              for n, a in args.items()}
+    with autograd.record():
+        want = [nd.LayerNorm(leaves["x"], leaves["g"], leaves["b"],
+                             eps=1e-12),
+                nd.flash_attention(leaves["q"], leaves["k"], leaves["v"],
+                                   leaves["vl"]),
+                nd.softmax_cross_entropy(leaves["logits"], leaves["lab"])]
+    torch.autograd.backward(want, heads)
+    for o, w in zip(outs, want):
+        assert torch.equal(o.as_subclass(torch.Tensor), w.detach())
+    for n in args:
+        if req[n] == "write":
+            assert torch.equal(ex.grad_dict[n].as_subclass(torch.Tensor),
+                               leaves[n].grad), n

@@ -128,9 +128,13 @@ def test_wrappers_check_their_operands():
         tl.lstm_layer_fused(gin, w, h0[:3], c0)
     with pytest.raises(TypeError, match="one dtype"):
         tl.lstm_layer_fused(gin, w.double(), h0, c0)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        tl.lstm_forward(gin.to("meta"), w.to("meta"), h0.to("meta"),
-                        c0.to("meta"))
+    # meta tensors (mx.sym's shape inference) take the plain version:
+    # shapes only, nothing launched
+    meta = tl.lstm_forward(gin.to("meta"), w.to("meta"), h0.to("meta"),
+                           c0.to("meta"))
+    assert [(t.device.type, tuple(t.shape)) for t in meta] == [
+        ("meta", tuple(gin.shape[:2]) + (H,)),
+        ("meta", tuple(gin.shape[:2]) + (H,)), ("meta", tuple(gin.shape))]
     empty = tl.lstm_forward(gin[:0], w, h0, c0)
     assert [tuple(t.shape) for t in empty] == [(0, N, H), (0, N, H),
                                                (0, N, 4 * H)]

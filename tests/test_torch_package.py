@@ -102,8 +102,10 @@ def test_run_reference_child_imports_neither_jax_nor_the_jax_package(
         "bad = [n for n, f in files.items() if n.split('.')[0] in "
         "('jax', 'jaxlib') or '/mxnet_tpu/' in f]\n"
         "print('BAD', bad)\n"
+        "import mxnet_tpu.symbol\n"
+        "assert mx.symbol.__name__ == 'mxnet_tpu_torch.symbol'\n"
         "try:\n"
-        "    import mxnet_tpu.symbol\n"
+        "    import mxnet_tpu.numpy_extension\n"
         "except ModuleNotFoundError as e:\n"
         "    print('MISSING', e.name)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -113,7 +115,7 @@ def test_run_reference_child_imports_neither_jax_nor_the_jax_package(
         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout
-    assert "MISSING mxnet_tpu.symbol" in out.stdout
+    assert "MISSING mxnet_tpu.numpy_extension" in out.stdout
     assert '"launch_counts"' in out.stdout.splitlines()[-1]
 
 
@@ -187,9 +189,14 @@ def test_wrapper_on_cpu_takes_the_plain_version_without_building():
     assert out.shape == q.shape
     assert launch_counts() == before
     assert "paged_attention" not in _build._libs   # nothing was loaded
-    with pytest.raises(ValueError):
-        paged_attention.paged_flash_attention(q.to("meta"), k, k, tbl,
-                                              kvl)
+    # a meta q (mx.sym's shape inference): the plain version's shape,
+    # nothing launched or built
+    meta = paged_attention.paged_flash_attention(
+        q.to("meta"), k.to("meta"), k.to("meta"), tbl.to("meta"),
+        kvl.to("meta"))
+    assert meta.device.type == "meta" and meta.shape == q.shape
+    assert launch_counts() == before
+    assert "paged_attention" not in _build._libs
 
 
 def test_k1_and_k3a_wrappers_on_cpu_take_the_plain_version_unbuilt():
@@ -220,10 +227,14 @@ def test_k1_and_k3a_wrappers_on_cpu_take_the_plain_version_unbuilt():
     assert torch.equal(y, layer_norm.layer_norm_reference(x, g, b, 1e-12))
     assert launch_counts() == before
     assert not {"flash_attention", "layer_norm"} & set(_build._libs)
-    with pytest.raises(ValueError):
-        flash_attention.flash_attention(q.to("meta"), q, q)
-    with pytest.raises(ValueError):
-        layer_norm.layer_norm_fused(x.to("meta"), g, b)
+    # meta tensors (mx.sym's shape inference): the plain versions'
+    # shapes, nothing launched or built
+    qm = q.to("meta")
+    assert flash_attention.flash_attention(qm, qm, qm).shape == q.shape
+    assert layer_norm.layer_norm_fused(
+        x.to("meta"), g.to("meta"), b.to("meta")).shape == x.shape
+    assert launch_counts() == before
+    assert not {"flash_attention", "layer_norm"} & set(_build._libs)
 
 
 def test_k6_wrappers_on_cpu_take_the_plain_version_unbuilt():
@@ -240,9 +251,14 @@ def test_k6_wrappers_on_cpu_take_the_plain_version_unbuilt():
     assert dgin.shape == gin.shape and dw.shape == w.shape
     assert launch_counts() == before
     assert "lstm" not in _build._libs
-    with pytest.raises(ValueError):
-        lstm.lstm_layer_fused(gin.to("meta"), w.to("meta"), h0.to("meta"),
-                              c0.to("meta"))
+    # meta tensors (mx.sym's shape inference): the plain version's
+    # shapes, nothing launched or built
+    out_m = lstm.lstm_layer_fused(gin.to("meta"), w.to("meta"),
+                                  h0.to("meta"), c0.to("meta"))
+    assert [tuple(t.shape) for t in out_m] == [tuple(t.shape)
+                                               for t in (out, cseq)]
+    assert launch_counts() == before
+    assert "lstm" not in _build._libs
 
 
 def test_nvcc_missing_is_an_error(monkeypatch):

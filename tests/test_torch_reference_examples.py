@@ -5,8 +5,15 @@
   the 60000 synthetic samples; the script asserts accuracy > 0.8) and
   ``example/word_lm.py --quick`` (the script asserts perplexity below
   half the vocabulary) exit 0 in subprocesses;
+- ``example/mnist_module.py --quick`` (the symbolic API: ``Module.fit``
+  and ``predict``; the script asserts accuracy > 0.8) and
+  ``example/rnn_bucketing.py --quick`` (``mx.rnn.LSTMCell`` through
+  ``BucketingModule``; the script exits non-zero below accuracy 0.75)
+  exit 0 in subprocesses, each bucket's and key's graph entry made
+  once;
 - neither child imports ``jax`` or a file of the JAX package (the
-  runner exits 3 if one does) and each prints its launch counts;
+  runner exits 3 if one does) and each prints its launch counts and
+  the graphs captured;
 - the ``.params`` the MNIST script wrote load into the JAX package's
   MLP, which gives the port's logits on a fixed batch within 1e-5.
 """
@@ -36,8 +43,9 @@ def _run(*args, timeout=600):
          "--ctx", "cpu", *args], cwd=str(ROOT), env=env,
         capture_output=True, text=True, timeout=timeout)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
-    last = out.stdout.strip().splitlines()[-1]
-    return out.stdout, json.loads(last)["launch_counts"]
+    last = json.loads(out.stdout.strip().splitlines()[-1])
+    assert isinstance(last["captures"], int)
+    return out.stdout, last["launch_counts"]
 
 
 def _mlp(lib):
@@ -72,3 +80,26 @@ def test_word_lm_script_quick_runs():
            for line in stdout.splitlines() if "perplexity" in line]
     assert len(ppl) == 4                  # the script asserts ppl < 100
     assert set(counts) >= {"lstm_fwd", "lstm_bwd", "lstm_bwd_dw"}
+
+
+def _captures(stdout):
+    return json.loads(stdout.strip().splitlines()[-1])["captures"]
+
+
+def test_mnist_module_script_quick_runs():
+    stdout, counts = _run("example/mnist_module.py", "--quick")
+    acc = float(stdout.split("final accuracy: ")[1].split()[0])
+    assert acc > 0.8
+    assert not any(counts.values())
+    # on the CPU an executor's entry stands for its graphs: one for the
+    # training key, one for predict's
+    assert _captures(stdout) == 2
+
+
+def test_rnn_bucketing_script_quick_runs():
+    stdout, counts = _run("example/rnn_bucketing.py", "--quick")
+    accs = [float(line.rsplit("=", 1)[1]) for line in stdout.splitlines()
+            if line.startswith("epoch ")]
+    assert len(accs) == 4 and accs[-1] >= 0.75
+    assert not any(counts.values())
+    assert _captures(stdout) == 2           # buckets 3 and 5, one entry each
