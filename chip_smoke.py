@@ -248,7 +248,25 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
     the module (its training key's pair and its predict key), a pair
     per bucket for the bucketing module. Step p50 graphed and eager,
     tokens/s, beside phase 8's Gluon p50, and the scripts' seconds by
-    epoch printed.
+    epoch printed;
+18. losses, optimizers, custom ops and RNN modes, which launch no port
+    kernel (gate: ``ops.launch_counts()`` all 0 over the phase):
+    ``example/custom_op.py`` unmodified at its defaults through
+    ``run_reference`` in a child process (its gate: both accuracies >
+    0.8; graphs captured; the wall of each API printed); the GRU word
+    LM ``train-wordlm-wt2-b32t35-gru`` (phase 8's widths and loop with
+    2 x ``gluon.rnn.GRU(650)``, cuDNN through torch), 2 warm-up + 20
+    segments: losses finite and falling (last-5 vs first-5 mean),
+    gradients finite and not all zero, hybridized vs eager at dropout 0
+    over 5 segments bit for bit, card vs CPU (phase 9's gates), step
+    p50 beside phase 8's LSTM p50; every optimizer of the registry (and
+    ``multi_precision`` SGD and Adam on bfloat16 weights with float32
+    masters), 3 updates card vs CPU within 1e-6 of scale, SGLD by its
+    step variance, every update op of the registry once card vs CPU,
+    and each optimizer's device ms for one step over BERT-base's 155
+    parameter shapes; ``CTCLoss`` at T=100, N=32, C=512, labels up to
+    40: card vs CPU losses within 1e-5 relative and gradients 1e-4 of
+    scale, forward + backward device ms.
 
 The op-dispatch phase also times one
 ``F.scaled_dot_product_attention`` call beside K1, K2 and K5 at head
@@ -340,13 +358,16 @@ def device_ms(fn, iters=20, warmup=3, by_kernel=False):
             torch.profiler.ProfilerActivity.CUDA]
     # Now and then the device tracing misses the first launches after it
     # starts (on an H100 the first few calls of a window, whatever ran
-    # on the device before them): the host waits 50 ms before launching
-    # anything, and a ~1 ms spin kernel (torch.cuda._sleep) on each side
-    # of the calls, left out of the sums, keeps the window's edges off
-    # the calls' events.
+    # on the device before them; late in the smoke's process up to ~20
+    # events): the host waits 50 ms before launching anything, 500 tiny
+    # spin kernels take that loss, and a ~1 ms spin kernel
+    # (torch.cuda._sleep) on each side of the calls keeps the window's
+    # edges off the calls' events; the spins are left out of the sums.
     for attempt in range(2):
         with torch.profiler.profile(activities=acts) as prof:
             time.sleep(0.05)
+            for _ in range(500):
+                torch.cuda._sleep(100)
             torch.cuda._sleep(2_000_000)
             for _ in range(iters):
                 fn()
@@ -2110,15 +2131,16 @@ def cross_device_train(seed, dev, steps=3):
                              f"of its scale")
 
 
-def build_wordlm(seed, dev, vocab, dropout):
-    """``WordLM`` at 2 x 650 with Xavier weights from ``seed`` and a
-    ``Trainer`` with the example's SGD at lr 1.0."""
+def build_wordlm(seed, dev, vocab, dropout, mode="lstm"):
+    """``WordLM`` at 2 x 650 (``mode``: its LSTM or a GRU) with Xavier
+    weights from ``seed`` and a ``Trainer`` with the example's SGD at lr
+    1.0."""
     from mxnet_tpu_torch import gluon
     from mxnet_tpu_torch.examples.word_lm import WordLM
     from mxnet_tpu_torch.initializer import Xavier
 
     net = WordLM(vocab, WLM["emb"], WLM["hid"], WLM["layers"],
-                 dropout=dropout, device=dev)
+                 dropout=dropout, device=dev, mode=mode)
     net.initialize(init=Xavier(), seed=seed)
     trainer = gluon.Trainer(net.collect_params(), "sgd",
                             {"learning_rate": WLM["lr"]})
@@ -2217,10 +2239,10 @@ def train_wordlm_main_path(seed, profile, dev, power_line, steps=20,
     return counts, p50
 
 
-def cross_device_wordlm(seed, dev, steps=3):
+def cross_device_wordlm(seed, dev, steps=3, mode="lstm"):
     """Same seed, 2 x 650 at vocab 10000, batch 8, bptt 35, dropout 0:
-    three SGD steps of the word LM's loop on the card and on the CPU
-    (plain versions there)."""
+    three SGD steps of the word LM's loop (``mode``: its LSTM or a GRU)
+    on the card and on the CPU (plain versions there)."""
     import torch
 
     from mxnet_tpu_torch.examples.word_lm import train_segments
@@ -2229,7 +2251,7 @@ def cross_device_wordlm(seed, dev, steps=3):
     data = wordlm_data(vocab, 8, steps)
     runs = {}
     for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
-        net, trainer = build_wordlm(seed, device, vocab, 0.0)
+        net, trainer = build_wordlm(seed, device, vocab, 0.0, mode)
         params = net.collect_params()
         losses, grads = [], None
         for i, loss in enumerate(train_segments(
@@ -2247,8 +2269,8 @@ def cross_device_wordlm(seed, dev, steps=3):
         scale = g_cpu.abs().max().item()
         if gap > 1e-3 * scale + 1e-7 and gap / max(scale, 1e-30) > worst:
             worst, worst_name = gap / max(scale, 1e-30), k
-    log(f"cross-device word LM: losses {runs['cuda'][0]} (card) vs "
-        f"{runs['cpu'][0]} (cpu), max relative gap {rel:.3e} (tol 1e-4); "
+    log(f"cross-device word LM ({mode}): losses {runs['cuda'][0]} (card) "
+        f"vs {runs['cpu'][0]} (cpu), max relative gap {rel:.3e} (tol 1e-4); "
         f"step-1 gradients of {len(runs['cpu'][1])} parameters "
         f"{'within' if worst_name is None else 'NOT within'} 1e-3 of each "
         f"parameter's largest CPU gradient")
@@ -5212,6 +5234,377 @@ def symbolic_phase(seed, dev, power_line, gluon_p50):
     return counts
 
 
+# -- phase 18: losses, optimizers, custom ops and RNN modes ------------------
+#: the registry's optimizers card vs CPU (and timed at BERT-base's
+#: parameter shapes), each with its own arguments
+OPTIMIZERS = {
+    "sgd": dict(momentum=0.9), "nag": dict(momentum=0.9),
+    "adam": dict(), "adamw": dict(), "adagrad": dict(),
+    "adadelta": dict(), "rmsprop": dict(),
+    "rmsprop-centered": dict(centered=True), "ftrl": dict(),
+    "signum": dict(wd_lh=0.01), "lamb": dict(), "dcasgd": dict(momentum=0.9),
+    "lbsgd": dict(momentum=0.9), "test": dict(),
+    "sgd-mp": dict(momentum=0.9, multi_precision=True),
+    "adam-mp": dict(multi_precision=True),
+}
+#: CTCLoss on the card: frames, batch, alphabet (blank 0), longest label
+CTC = dict(T=100, N=32, C=512, L=40)
+
+
+def reference_custom_op(power_line):
+    """Phase 18a: ``example/custom_op.py`` at its defaults through the
+    runner in a child process: its own gate (both accuracies > 0.8), no
+    port kernel, graphs captured (the Module's keys and the hybridized
+    Gluon net's); the wall of each API from the lines' arrival."""
+    lines, stamps, counts, wall = run_reference_script(
+        "example/custom_op.py", [], timeout=600)
+    accs = {}
+    for line, t in zip(lines, stamps):
+        if "custom-op accuracy" in line:
+            accs[line.split(" ")[0]] = (float(line.rsplit(": ", 1)[1]), t)
+    caps = json.loads(lines[-1])["captures"]
+    got = {k: n for k, n in counts.items() if n}
+    if set(accs) != {"module-api", "gluon"} or got or not caps or \
+            not min(a for a, _ in accs.values()) > 0.8:
+        raise AssertionError(f"custom_op.py: accuracies {accs}, captures "
+                             f"{caps}, launches {got}")
+    module_s = accs["module-api"][1]
+    gluon_s = accs["gluon"][1] - module_s
+    log(f"reference custom_op.py (defaults: 4096 samples, 15 epochs of "
+        f"64, Adam 5e-3; a registered softmax-loss op): Module (sym.Custom) "
+        f"accuracy {accs['module-api'][0]:.3f} in {module_s:.1f} s (the "
+        f"child's start-up included), Gluon (nd.Custom, hybridized net) "
+        f"accuracy {accs['gluon'][0]:.3f} in {gluon_s:.1f} s; {caps} "
+        f"captures; wall {wall:.1f} s [{power_line}]")
+    return {"accuracy": {k: a for k, (a, _) in accs.items()},
+            "module_s": module_s, "gluon_s": gluon_s, "captures": caps,
+            "wall_s": wall}
+
+
+def gru_wordlm(seed, dev, power_line, lstm_p50, steps=20, warmup=2,
+               repeat=5):
+    """Phase 18b: ``train-wordlm-wt2-b32t35-gru``: phase 8's word LM
+    with 2 x ``gluon.rnn.GRU(650)`` (cuDNN through torch), 2 warm-up +
+    20 SGD segments: losses finite and falling, gradients finite and not
+    all zero; the same LM at dropout 0, eager and hybridized (the GRU's
+    forward and backward graphs), ``repeat`` segments each from the
+    seed: losses and weights bit for bit; card vs CPU (phase 9's
+    gates)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.examples.word_lm import train_segments
+
+    gc.collect()
+    net, trainer = build_wordlm(seed, dev, WLM["vocab"], WLM["dropout"],
+                                "gru")
+    params = net.collect_params()
+    data = wordlm_data(WLM["vocab"], WLM["batch"], warmup + steps + 1)
+    segs = train_segments(net, trainer, data, WLM["bptt"], WLM["clip"])
+    for _ in range(warmup):
+        next(segs)
+    torch.cuda.synchronize()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = next(segs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.double().mean().item())
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"GRU LM: non-finite loss: {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first:
+        raise AssertionError(f"GRU LM: loss did not fall: first 5 mean "
+                             f"{first}, last 5 mean {last}: {losses}")
+    for name, p in params.items():
+        g = p.grad()
+        if not bool(torch.isfinite(g).all()) or g.abs().max().item() == 0:
+            raise AssertionError(f"GRU LM: {name}: gradient non-finite or "
+                                 f"all zero")
+    p50 = float(np.median(times))
+    tokens = WLM["batch"] * WLM["bptt"]
+    del net, trainer, segs
+    # eager and hybridized from the seed at dropout 0: the same bits
+    runs = {}
+    small = wordlm_data(WLM["vocab"], WLM["batch"], repeat)
+    for mode in ("eager", "graphed"):
+        net, trainer = build_wordlm(seed, dev, WLM["vocab"], 0.0, "gru")
+        if mode == "graphed":
+            net.hybridize()
+        ls = [loss.double().mean().item() for loss in train_segments(
+            net, trainer, small, WLM["bptt"], WLM["clip"], repeat)]
+        runs[mode] = (ls, [p.data().detach().clone()
+                           for p in net.collect_params().values()])
+        del net, trainer
+    same = runs["eager"][0] == runs["graphed"][0] and all(
+        torch.equal(a, b) for a, b in zip(runs["eager"][1],
+                                          runs["graphed"][1]))
+    if not same:
+        raise AssertionError(f"GRU LM hybridized vs eager: losses "
+                             f"{runs['graphed'][0]} vs {runs['eager'][0]}, "
+                             f"not bit for bit")
+    log(f"train-wordlm-wt2-b32t35-gru (vocab {WLM['vocab']}, emb "
+        f"{WLM['emb']}, {WLM['layers']} x GRU({WLM['hid']}), dropout "
+        f"{WLM['dropout']}, SGD {WLM['lr']}, clip {WLM['clip']}): "
+        f"{steps} segments (+{warmup} warm-up): step p50 {p50 * 1e3:.2f} "
+        f"ms, {tokens / p50:.1f} tokens/s, beside the LSTM LM's (phase 8, "
+        f"K6a/K6b) {lstm_p50 * 1e3:.2f} ms; loss per token "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f} (first 5 mean {first:.6f}, "
+        f"last 5 mean {last:.6f}); hybridized vs eager at dropout 0, "
+        f"{repeat} segments: bit for bit [{power_line}]")
+    cross_device_wordlm(seed, dev, mode="gru")
+    return {"step_ms": [t * 1e3 for t in times], "p50_ms": p50 * 1e3,
+            "lstm_p50_ms": lstm_p50 * 1e3, "losses": losses,
+            "tokens_per_s": tokens / p50}
+
+
+def _opt_params(shapes, seed, device, dtype):
+    """Weights and three gradients of ``shapes`` from ``seed`` (numpy,
+    so the card and the CPU get the same values)."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    ws = [torch.tensor(rs.randn(*s).astype(np.float32), device=device)
+          .to(dtype) for s in shapes]
+    gs = [[torch.tensor(rs.randn(*s).astype(np.float32), device=device)
+           .to(dtype) for s in shapes] for _ in range(3)]
+    return ws, gs
+
+
+def _optimizer(name, **extra):
+    from mxnet_tpu_torch import optimizer
+
+    kw = dict(learning_rate=0.01, wd=0.01, rescale_grad=0.5)
+    kw.update(OPTIMIZERS[name])
+    kw.update(extra)
+    return optimizer.create(name.split("-")[0], **kw)
+
+
+def optimizers_card_vs_cpu(seed, dev):
+    """Phase 18c: every optimizer of the registry (``mp``: bfloat16
+    weights with float32 masters), three updates of three parameters
+    through ``Updater.update_multi`` on the card and on the CPU: the
+    weights (the masters under ``mp``) within 1e-6 of scale, the
+    bfloat16 weights within one bfloat16 step; SGLD (its noise is the
+    device generator's) by property: a step of variance ``lr``. Then
+    every update op of the registry once, card vs CPU (1e-6 of
+    scale)."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import nd, optimizer
+
+    shapes = ((64, 32), (128,), (16, 8, 4))
+    worst = {}
+    for name in OPTIMIZERS:
+        mp = name.endswith("-mp")
+        dtype = torch.bfloat16 if mp else torch.float32
+        out = {}
+        for where, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            ws, gs = _opt_params(shapes, seed, device, dtype)
+            up = optimizer.get_updater(_optimizer(name))
+            for g in gs:
+                up.update_multi([0, 1, 2], g, ws)
+            masters = [up.states[i][1] for i in range(3)] if mp else ws
+            out[where] = ([m.float().cpu() for m in masters],
+                          [w.float().cpu() for w in ws])
+        gap = max(((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip(out["cuda"][0], out["cpu"][0]))
+        worst[name] = gap
+        if not gap <= 1e-6:
+            raise AssertionError(f"optimizer {name}: card vs CPU "
+                                 f"{gap:.3g} of scale")
+        if mp:
+            for a, b in zip(out["cuda"][1], out["cpu"][1]):
+                if not torch.allclose(a, b, rtol=2 ** -8, atol=0):
+                    raise AssertionError(f"optimizer {name}: bfloat16 "
+                                         f"weights differ past one step")
+    torch.manual_seed(seed)
+    w = torch.zeros(512, 512, device=dev)
+    optimizer.get_updater(optimizer.create("sgld", learning_rate=0.04))(
+        0, torch.zeros_like(w), w)
+    var = float(w.var())
+    if not abs(var - 0.04) < 0.04 * 0.02:
+        raise AssertionError(f"SGLD step variance {var}, want 0.04")
+    # the registry's update ops, one call each
+    rs = np.random.RandomState(seed + 1)
+    ops = {"sgd_update": 0, "sgd_mom_update": 1, "nag_mom_update": 1,
+           "adam_update": 2, "adamw_update": 2, "adagrad_update": 1,
+           "rmsprop_update": 1, "rmspropalex_update": 3, "ftrl_update": 2,
+           "signsgd_update": 0, "signum_update": 1, "adadelta_update": 2,
+           "lamb_update_phase1": 2, "lamb_update_phase2": 2,
+           "mp_sgd_update": 1, "mp_sgd_mom_update": 2}
+    for op, n_state in ops.items():
+        arrays = [rs.randn(32, 16).astype(np.float32) for _ in range(2)] + [
+            np.abs(rs.randn(32, 16)).astype(np.float32) * 0.1
+            for _ in range(n_state)]
+        if op == "rmspropalex_update":
+            arrays[3] = np.zeros_like(arrays[3])    # g: n - g * g > 0
+        fn = getattr(nd, op)
+        kw = {k: v for k, v in (("lr", 0.01), ("wd", 0.01)) if k in
+              inspect.signature(fn._op.fn).parameters}
+        res = {}
+        for where, ctx in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            xs = [nd.array(a, ctx=ctx) for a in arrays]
+            r = fn(*xs, **kw)
+            res[where] = [r.cpu()] + [x.cpu() for x in xs]
+        gap = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                  .item() for a, b in zip(res["cuda"], res["cpu"]))
+        worst[op] = gap
+        if not gap <= 1e-6:
+            raise AssertionError(f"{op}: card vs CPU {gap:.3g} of scale")
+    for op, per in (("multi_mp_sgd_update", 3),
+                    ("multi_mp_sgd_mom_update", 4)):
+        arrays = [rs.randn(32, 16).astype(np.float32) for _ in range(2 * per)]
+        res = {}
+        for where, ctx in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            xs = [nd.array(a, ctx=ctx) for a in arrays]
+            r = getattr(nd, op)(*xs, lrs=(0.01, 0.02), wds=(0.0, 0.01),
+                                momentum=0.9, num_weights=2) \
+                if "mom" in op else getattr(nd, op)(
+                    *xs, lrs=(0.01, 0.02), wds=(0.0, 0.01), num_weights=2)
+            res[where] = [t.cpu() for t in r]
+        gap = max(((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip(res["cuda"], res["cpu"]))
+        worst[op] = gap
+        if not gap <= 1e-6:
+            raise AssertionError(f"{op}: card vs CPU {gap:.3g} of scale")
+    log(f"optimizers card vs CPU ({len(OPTIMIZERS)} optimizers, 3 updates "
+        f"of {len(shapes)} parameters; {len(ops) + 2} update ops): worst "
+        f"{max(worst.values()):.3g} of scale (tol 1e-6); SGLD step "
+        f"variance {var:.5f} (lr 0.04)")
+    return worst
+
+
+def optimizer_times(seed, dev, power_line):
+    """Phase 18c: each optimizer's device time for one step over a
+    parameter set of BERT-base's shapes (phase 7's trunk and MLM head:
+    155 tensors, the attention's q, k and v in one), weights and
+    gradients from the seed."""
+    import torch
+
+    from mxnet_tpu_torch import optimizer
+
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTMLMHead, BERTModel
+
+    # the shapes alone: the model on the meta device holds no data
+    net = BERTModel(use_pooler=False, device="meta", **BERT_BASE)
+    head = BERTMLMHead(BERT_BASE["vocab_size"], BERT_BASE["units"],
+                       device="meta")
+    shapes = [tuple(p.data().shape) for blk in (net, head)
+              for p in blk.collect_params().values()]
+    del net, head
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ms = {}
+    for name in OPTIMIZERS:
+        dtype = torch.bfloat16 if name.endswith("-mp") else torch.float32
+        ws = [torch.randn(s, generator=g, device=dev).to(dtype)
+              for s in shapes]
+        gs = [torch.randn(s, generator=g, device=dev).to(dtype)
+              for s in shapes]
+        up = optimizer.get_updater(_optimizer(name))
+        idx = list(range(len(shapes)))
+        ms[name] = device_ms(lambda: up.update_multi(idx, gs, ws), iters=2,
+                             warmup=1)
+        del ws, gs, up
+    n = sum(int(torch.tensor(s).prod()) for s in shapes)
+    log(f"optimizer step, device ms over {len(shapes)} parameters of "
+        f"BERT-base's shapes ({n} weights; -mp: bfloat16 weights with "
+        f"float32 masters): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in ms.items()) + f" [{power_line}]")
+    return {"params": len(shapes), "weights": n, "device_ms": ms}
+
+
+def ctc_card_vs_cpu(seed, dev, power_line):
+    """Phase 18d: ``gluon.loss.CTCLoss`` at T=100, N=32, C=512 and labels
+    of 1 to 40 (``label_lengths`` given, data lengths 60 to 100): the
+    card against the CPU, losses within 1e-5 relative and the logits'
+    gradients within 1e-4 of scale; forward + backward device ms."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import loss as gloss
+
+    rs = np.random.RandomState(seed)
+    t, n, c, lmax = CTC["T"], CTC["N"], CTC["C"], CTC["L"]
+    logits = rs.randn(n, t, c).astype(np.float32)
+    lens = rs.randint(1, lmax + 1, n)
+    labels = np.zeros((n, lmax), np.float32)
+    for i, k in enumerate(lens):
+        labels[i, :k] = rs.randint(1, c, k)
+    data_lens = rs.randint(60, t + 1, n).astype(np.float32)
+    loss_fn = gloss.CTCLoss()
+    res = {}
+    for where, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        x = torch.tensor(logits, device=device, requires_grad=True)
+        args = [torch.tensor(a, device=device) for a in
+                (labels, data_lens, lens.astype(np.float32))]
+
+        def step():
+            x.grad = None
+            with autograd.record():
+                out = loss_fn(x, *args)
+            out.backward(torch.ones_like(out))
+            return out
+        out = step()
+        res[where] = (out.detach().cpu(), x.grad.cpu())
+        if where == "cuda":
+            ms = device_ms(step, iters=2, warmup=1)
+    rel = ((res["cuda"][0] - res["cpu"][0]).abs()
+           / res["cpu"][0].abs()).max().item()
+    ggap = ((res["cuda"][1] - res["cpu"][1]).abs().max()
+            / res["cpu"][1].abs().max()).item()
+    if not (torch.isfinite(res["cuda"][0]).all() and rel <= 1e-5
+            and ggap <= 1e-4):
+        raise AssertionError(f"CTCLoss card vs CPU: losses {rel:.3g} "
+                             f"relative, gradients {ggap:.3g} of scale")
+    log(f"CTCLoss (T={t}, N={n}, C={c}, labels 1..{lmax}): card vs CPU "
+        f"losses within {rel:.3g} relative (tol 1e-5), gradients "
+        f"{ggap:.3g} of scale (tol 1e-4); forward + backward {ms:.3f} ms "
+        f"on the device [{power_line}]")
+    return {"loss_rel": rel, "grad_gap": ggap, "fwd_bwd_device_ms": ms}
+
+
+def losses_optimizers_phase(seed, dev, power_line, lstm_p50):
+    """Phase 18 (module docstring); launches no port kernel (gate)."""
+    import gc
+
+    import torch
+
+    from mxnet_tpu_torch import ops
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    m, secs = {"card": power_line}, {}
+    for key, run in (
+            ("custom_op", lambda: reference_custom_op(power_line)),
+            ("gru_lm", lambda: gru_wordlm(seed, dev, power_line, lstm_p50)),
+            ("optimizers", lambda: optimizers_card_vs_cpu(seed, dev)),
+            ("optimizer_times",
+             lambda: optimizer_times(seed, dev, power_line)),
+            ("ctc", lambda: ctc_card_vs_cpu(seed, dev, power_line))):
+        t0 = time.perf_counter()
+        m[key] = run()
+        secs[key] = round(time.perf_counter() - t0, 1)
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    if counts:
+        raise AssertionError(f"phase 18 launched port kernels: {counts}")
+    log(f"phase 18 (losses, optimizers, custom ops and RNN modes): no port "
+        f"kernel launched; {time.perf_counter() - t_phase:.1f} s "
+        f"(by part: {secs})")
+    log("phase 18 metrics: " + json.dumps(m, default=lambda o: None))
+    return m
+
+
 KERNEL_NAMES = ("paged_attention", "flash_attention", "flash_attention_bwd",
                 "layer_norm", "layer_norm_bwd", "softmax_xent_fwd",
                 "softmax_xent_bwd", "lstm_fwd", "lstm_bwd", "lstm_bwd_dw")
@@ -5340,6 +5733,8 @@ def main():
         if e["name"] == "lstm_bwd":
             e["launches_by_path"]["sym_by_kernel"] = {
                 k: by_sym[k] for k in ("lstm_bwd", "lstm_bwd_dw")}
+    # custom ops, the GRU word LM, the optimizers and CTC: no port kernel
+    losses_optimizers_phase(args.seed, dev, power_line, wordlm_p50)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(power_line)

@@ -52,6 +52,7 @@ from . import autograd, checkpoint, context, gluon, initializer
 from . import io, kvstore, lr_scheduler, metric, ndarray, optimizer
 from . import attribute, engine, name, random, test_utils, util
 from . import callback, executor, model, module, monitor, rnn, symbol
+from . import operator
 from . import initializer as init
 from . import kvstore as kv
 from . import module as mod
@@ -69,5 +70,5 @@ __all__ = ["Context", "Executor", "MXNetError", "NDArray", "Symbol",
            "cpu", "current_context", "engine", "executor", "gluon", "gpu",
            "init", "initializer", "io", "kv", "kvstore", "lr_scheduler",
            "metric", "mod", "model", "module", "monitor", "name", "nd",
-           "ndarray", "num_gpus", "optimizer", "random", "rnn", "sym",
-           "symbol", "test_utils", "util"]
+           "ndarray", "num_gpus", "operator", "optimizer", "random", "rnn",
+           "sym", "symbol", "test_utils", "util"]

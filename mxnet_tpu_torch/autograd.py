@@ -29,6 +29,11 @@ and :func:`grad` is the reference's argument: torch records each op's
 backward with its forward, so the mode the forward ran in decides, and
 the flag sets ``is_training()`` while the backward runs (it is read by
 nothing there, as in the JAX package).
+
+:class:`Function` is MXNet's custom differentiable function: its
+``forward`` and ``backward`` take and give NDArrays, and under
+:func:`record` a ``torch.autograd.Function`` calls the user's
+``backward`` in place of differentiating the ``forward``.
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ import weakref
 import torch
 from torch.nn.parameter import UninitializedParameter
 
-__all__ = ["backward", "grad", "is_recording", "is_training",
+__all__ = ["Function", "backward", "grad", "is_recording", "is_training",
            "mark_variables", "pause", "predict_mode", "record",
            "set_grad_req", "set_recording", "set_training", "train_mode"]
 
@@ -235,3 +240,94 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
             allow_unused=True)
     return [torch.zeros_like(v) if g is None else g
             for v, g in zip(variables, out)]
+
+
+class Function:
+    """Custom differentiable function (``mx.autograd.Function``).
+
+    Subclass and implement ``forward(self, *inputs)`` and
+    ``backward(self, *output_grads)`` on NDArrays; ``forward`` returns
+    one array or several, ``backward`` one gradient an input. Calling
+    the function runs ``forward`` with recording paused; under
+    :func:`record`, when an input takes a gradient, the outputs hang on
+    a ``torch.autograd.Function`` whose backward runs the user's
+    ``backward`` (recording paused too)."""
+
+    def __init__(self):
+        self._saved = ()
+
+    def save_for_backward(self, *arrays):
+        self._saved = arrays
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+
+        wrap = any(isinstance(x, NDArray) for x in inputs)
+        if is_recording() and any(isinstance(x, torch.Tensor)
+                                  and x.requires_grad for x in inputs):
+            box = []
+            outs = list(_FunctionBridge.apply(
+                self, box, *[_untyped(x) for x in inputs]))
+            single = box[0]
+        else:
+            with pause():
+                outputs = self.forward(*inputs)
+            single = isinstance(outputs, torch.Tensor)
+            outs = [outputs] if single else list(outputs)
+        if wrap:
+            outs = [o.as_subclass(NDArray) if isinstance(o, torch.Tensor)
+                    and not isinstance(o, NDArray) else o for o in outs]
+        return outs[0] if single else outs
+
+
+def _untyped(x):
+    from .ndarray.ndarray import NDArray
+    return x.as_subclass(torch.Tensor) if isinstance(x, NDArray) else x
+
+
+def _typed(x):
+    from .ndarray.ndarray import NDArray
+    return x.as_subclass(NDArray) if isinstance(x, torch.Tensor) else x
+
+
+class _FunctionBridge(torch.autograd.Function):
+    """The graph node of a recorded :class:`Function` call: forward runs
+    the user's ``forward`` on NDArrays, backward the user's
+    ``backward``; an input of a type that takes no gradient gets
+    none."""
+
+    @staticmethod
+    def forward(ctx, func, box, *inputs):
+        ctx.func = func
+        ctx.kinds = [(x.dtype.is_floating_point or x.dtype.is_complex)
+                     if isinstance(x, torch.Tensor) else None
+                     for x in inputs]
+        with pause():
+            outputs = func.forward(*[_typed(x) for x in inputs])
+        single = isinstance(outputs, torch.Tensor)
+        box.append(single)
+        outs = [outputs] if single else list(outputs)
+        return tuple(_untyped(o) for o in outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with pause():
+            got = ctx.func.backward(*[_typed(g) for g in grads])
+        got = [got] if isinstance(got, torch.Tensor) else list(got)
+        if len(got) != len(ctx.kinds):
+            raise ValueError(
+                f"{type(ctx.func).__name__}.backward returned {len(got)} "
+                f"gradients for {len(ctx.kinds)} inputs")
+        return (None, None) + tuple(
+            _untyped(g) if kind else None
+            for g, kind in zip(got, ctx.kinds))

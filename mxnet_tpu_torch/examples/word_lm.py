@@ -2,6 +2,7 @@
 """LSTM word language model, the port's copy of ``example/word_lm.py``:
 embed -> dropout -> stacked fused LSTM -> dropout -> decoder, truncated
 BPTT over contiguous text, gradient clipping, perplexity.
+``WordLM(mode="gru")`` puts a stacked fused GRU in the LSTM's place.
 
     python -m mxnet_tpu_torch.examples.word_lm            # on the card
     python -m mxnet_tpu_torch.examples.word_lm --device cpu --quick
@@ -31,20 +32,22 @@ __all__ = ["WordLM", "batchify", "synthetic_corpus", "train_segments"]
 
 
 class WordLM(gluon.Block):
-    """Embedding -> Dropout -> LSTM (NTC) -> Dropout -> Dense decoder.
-    Children carry the JAX example's Gluon prefixes, so its weights load
-    by name (``load_gluon_params``)."""
+    """Embedding -> Dropout -> LSTM (NTC) -> Dropout -> Dense decoder
+    (``mode="gru"``: a GRU in the LSTM's place). Children carry the JAX
+    example's Gluon prefixes, so its weights load by name
+    (``load_gluon_params``)."""
 
     def __init__(self, vocab, emb, hid, layers, dropout=0.2, prefix="",
-                 device=None):
+                 device=None, mode="lstm"):
         super().__init__(prefix)
         dev = resolve_device(device)
         self.embed = nn.Embedding(vocab, emb, prefix="embedding0_",
                                   device=dev)
         self.drop = nn.Dropout(dropout, prefix="dropout0_")
-        self.rnn = rnn.LSTM(hid, num_layers=layers, layout="NTC",
-                            dropout=dropout, input_size=emb,
-                            prefix="lstm0_", device=dev)
+        layer = {"lstm": rnn.LSTM, "gru": rnn.GRU}[mode]
+        self.rnn = layer(hid, num_layers=layers, layout="NTC",
+                         dropout=dropout, input_size=emb,
+                         prefix=f"{mode}0_", device=dev)
         self.decoder = nn.Dense(vocab, flatten=False, in_units=hid,
                                 prefix="dense0_", device=dev)
 

@@ -465,7 +465,7 @@ class Block(nn.Module):
         self._deferred = False          # a parameter waits for its shape
         scope = _BlockScope.current()
         if prefix is None:
-            hint = type(self).__name__.lower()
+            hint = self._alias()
             prefix = scope.next_prefix(hint) if scope is not None \
                 else _BlockScope.global_prefix(hint)
         self._prefix = prefix
@@ -488,6 +488,12 @@ class Block(nn.Module):
         self._hybridize = (False, {})
         self._cached_graph = {}
         self._graph_pool = None
+
+    def _alias(self):
+        """The name hint of the block's prefix (the reference's): the
+        class name in lower case unless a class says otherwise (the
+        recurrent cells: ``lstm``, ``gru``, ...)."""
+        return type(self).__name__.lower()
 
     def __setattr__(self, name, value):
         shared = self.__dict__.get("_shared")

@@ -1,4 +1,4 @@
-"""Loss layers: ``Loss``, ``L2Loss``, ``L1Loss``,
+"""Loss layers: ``Loss``, ``L2Loss``, ``L1Loss``, ``CTCLoss``,
 ``SoftmaxCrossEntropyLoss``, ``SigmoidBinaryCrossEntropyLoss``,
 ``KLDivLoss``, ``HuberLoss``, ``HingeLoss``, ``SquaredHingeLoss``,
 ``LogisticLoss``, ``TripletLoss`` and ``CosineEmbeddingLoss``.
@@ -10,17 +10,18 @@ every axis but ``batch_axis``. ``SoftmaxCrossEntropyLoss`` is
 kernel there either); the fused kernel path is the
 ``ndarray.softmax_cross_entropy`` op. The losses after it are the JAX
 classes' ``hybrid_forward`` bodies over ``F`` (``mx.nd``), as written
-there (the JAX package has no kernel in them). ``CTCLoss`` is not
-ported yet (ROADMAP Queue 1, 'Losses, optimizers and initializers').
+there (the JAX package has no kernel in them). ``CTCLoss`` runs the
+registered ``ctc_loss`` op (``ops/ctc.py``: the log-domain recursion
+over time, blank 0).
 """
 from __future__ import annotations
 
 from ..ndarray import op_impl_nn as _nn
 from .block import HybridBlock
 
-__all__ = ["CosineEmbeddingLoss", "HingeLoss", "HuberLoss", "KLDivLoss",
-           "L1Loss", "L2Loss", "LogisticLoss", "Loss", "SigmoidBCELoss",
-           "SigmoidBinaryCrossEntropyLoss", "SoftmaxCELoss",
+__all__ = ["CTCLoss", "CosineEmbeddingLoss", "HingeLoss", "HuberLoss",
+           "KLDivLoss", "L1Loss", "L2Loss", "LogisticLoss", "Loss",
+           "SigmoidBCELoss", "SigmoidBinaryCrossEntropyLoss", "SoftmaxCELoss",
            "SoftmaxCrossEntropyLoss", "SquaredHingeLoss", "TripletLoss"]
 
 
@@ -254,4 +255,34 @@ class CosineEmbeddingLoss(Loss):
             F.norm(input1, axis=1) * F.norm(input2, axis=1) + 1e-12)
         label = label.reshape((-1,))
         loss = F.where(label == 1, 1.0 - cos, F.relu(cos - self._margin))
+        return _apply_weighting(loss, self._weight, sample_weight)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification: ``pred`` in ``layout``
+    (``"NTC"`` or ``"TNC"``), ``label`` in ``label_layout`` (``"NT"`` or
+    ``"TN"``), 0 the blank and the padding; optional ``pred_lengths``
+    and ``label_lengths`` (else every frame, and the labels above 0)."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 prefix=""):
+        batch_axis = label_layout.find("N")
+        super().__init__(weight, batch_axis, prefix)
+        if layout not in ("NTC", "TNC"):
+            raise ValueError(f"layout must be NTC or TNC, got {layout}")
+        if label_layout not in ("NT", "TN"):
+            raise ValueError(f"label_layout must be NT or TN, got "
+                             f"{label_layout}")
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        from ..ops.ctc import ctc_loss_nd
+
+        if self._layout == "NTC":
+            pred = pred.swapaxes(0, 1)
+        if self._label_layout == "TN":
+            label = label.swapaxes(0, 1)
+        loss = ctc_loss_nd(pred, label, pred_lengths, label_lengths)
         return _apply_weighting(loss, self._weight, sample_weight)

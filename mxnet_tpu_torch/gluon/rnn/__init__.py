@@ -1,9 +1,16 @@
-"""Recurrent layers of the PyTorch port (``mxnet_tpu/gluon/rnn``'s
-counterpart): the fused multi-layer ``LSTM``. The GRU and vanilla RNN
-layers and the cells of ``rnn_cell.py`` are not ported yet (ROADMAP
-Queue 1, 'RNN remainders')."""
+"""Recurrent layers and cells of the PyTorch port
+(``mxnet_tpu/gluon/rnn``'s counterpart): the fused multi-layer ``RNN``,
+``LSTM`` and ``GRU`` (``rnn_layer``) and the step-at-a-time cells with
+``unroll`` (``rnn_cell``)."""
 from __future__ import annotations
 
-from .rnn_layer import LSTM
+from .rnn_cell import (BidirectionalCell, DropoutCell, GRUCell,
+                       HybridRecurrentCell, LSTMCell, ModifierCell, RNNCell,
+                       RecurrentCell, ResidualCell, SequentialRNNCell,
+                       ZoneoutCell)
+from .rnn_layer import GRU, LSTM, RNN
 
-__all__ = ["LSTM"]
+__all__ = ["GRU", "LSTM", "RNN", "BidirectionalCell", "DropoutCell",
+           "GRUCell", "HybridRecurrentCell", "LSTMCell", "ModifierCell",
+           "RNNCell", "RecurrentCell", "ResidualCell", "SequentialRNNCell",
+           "ZoneoutCell"]

@@ -1,12 +1,17 @@
-"""Fused recurrent layers: ``LSTM`` over the ``RNN`` op.
+"""Fused recurrent layers: ``RNN``, ``LSTM`` and ``GRU`` over the ``RNN``
+op.
 
-Port of ``mxnet_tpu/gluon/rnn/rnn_layer.py`` (``_RNNLayer``, ``LSTM``).
-Parameters carry the reference's names and shapes,
-``{l,r}{i}_{i2h,h2h}_{weight,bias}`` with ``i2h_weight`` (4H, I) and
-``h2h_weight`` (4H, H), so ``Block.load_gluon_params`` takes the JAX
-layer's ``collect_params`` as they are. Layouts ``TNC`` and ``NTC``;
-called without states the layer starts from zeros and returns the
-output only, with states it returns ``(output, [h, c])``.
+Port of ``mxnet_tpu/gluon/rnn/rnn_layer.py`` (``_RNNLayer``, ``RNN``,
+``LSTM``, ``GRU``). Parameters carry the reference's names and shapes,
+``{l,r}{i}_{i2h,h2h}_{weight,bias}`` with ``i2h_weight`` (G*H, I) and
+``h2h_weight`` (G*H, H), G the mode's gates (4, 3 or 1), so
+``Block.load_gluon_params`` takes the JAX layer's ``collect_params`` as
+they are. Layouts ``TNC`` and ``NTC``; called without states the layer
+starts from zeros and returns the output only, with states it returns
+``(output, [h, c])`` (LSTM) or ``(output, [h])``. The LSTM runs on the
+K6 kernels, GRU and vanilla RNN on torch's (cuDNN's) recurrences (see
+``ndarray.op_impl_rnn``). ``LSTM(projection_size=...)`` raises: the
+JAX layer accepts and ignores it.
 
 Without ``input_size`` the first layer's ``i2h_weight`` (both
 directions') takes its width at the first forward (a deferred shape,
@@ -28,7 +33,7 @@ from ...ndarray import op_impl_rnn
 from ...ndarray.ndarray import NDArray
 from ..block import HybridBlock
 
-__all__ = ["LSTM"]
+__all__ = ["GRU", "LSTM", "RNN"]
 
 
 class _RNNLayer(HybridBlock):
@@ -110,13 +115,37 @@ class _RNNLayer(HybridBlock):
             states = [states]
         if self._layout == "NTC":
             inputs = inputs.transpose(0, 1)
+        lstm = self._mode == "lstm"
         out, h, c = op_impl_rnn.rnn_layers(
-            inputs, self.layer_params(), states[0], states[1],
-            self._num_layers, self._dir == 2, self._dropout,
-            autograd.is_training())
+            inputs, self.layer_params(), states[0],
+            states[1] if lstm else None, self._num_layers, self._dir == 2,
+            self._dropout, autograd.is_training(), mode=self._mode)
         if self._layout == "NTC":
             out = out.transpose(0, 1)
-        return out if skip_states else (out, [h, c])
+        if skip_states:
+            return out
+        return out, ([h, c] if lstm else [h])
+
+
+class RNN(_RNNLayer):
+    """Vanilla (Elman) multi-layer RNN, ``activation`` ``"relu"`` or
+    ``"tanh"``. ``device`` as :class:`LSTM`'s."""
+
+    def __init__(self, hidden_size, num_layers=1, activation="relu",
+                 layout="TNC", dropout=0, bidirectional=False,
+                 i2h_weight_initializer=None, h2h_weight_initializer=None,
+                 i2h_bias_initializer="zeros", h2h_bias_initializer="zeros",
+                 input_size=0, dtype="float32", prefix=None, params=None,
+                 device=None):
+        super().__init__(hidden_size, num_layers, layout, dropout,
+                         bidirectional, input_size, i2h_weight_initializer,
+                         h2h_weight_initializer, i2h_bias_initializer,
+                         h2h_bias_initializer, "rnn_" + activation, dtype,
+                         prefix, params, device)
+
+    def state_info(self, batch_size=0):
+        return [{"shape": (self._num_layers * self._dir, batch_size,
+                           self._hidden_size), "__layout__": "LNC"}]
 
 
 class LSTM(_RNNLayer):
@@ -129,7 +158,12 @@ class LSTM(_RNNLayer):
                  bidirectional=False, input_size=0,
                  i2h_weight_initializer=None, h2h_weight_initializer=None,
                  i2h_bias_initializer="zeros", h2h_bias_initializer="zeros",
-                 dtype="float32", prefix=None, params=None, device=None):
+                 projection_size=None, dtype="float32", prefix=None,
+                 params=None, device=None):
+        if projection_size is not None:
+            raise NotImplementedError(
+                "LSTM projection_size is not implemented (the JAX layer "
+                "accepts and ignores it, which would give a wrong answer)")
         super().__init__(hidden_size, num_layers, layout, dropout,
                          bidirectional, input_size, i2h_weight_initializer,
                          h2h_weight_initializer, i2h_bias_initializer,
@@ -141,3 +175,23 @@ class LSTM(_RNNLayer):
                  self._hidden_size)
         return [{"shape": shape, "__layout__": "LNC"},
                 {"shape": shape, "__layout__": "LNC"}]
+
+
+class GRU(_RNNLayer):
+    """Fused multi-layer GRU (gates r, z, n). ``device`` as
+    :class:`LSTM`'s."""
+
+    def __init__(self, hidden_size, num_layers=1, layout="TNC", dropout=0,
+                 bidirectional=False, input_size=0,
+                 i2h_weight_initializer=None, h2h_weight_initializer=None,
+                 i2h_bias_initializer="zeros", h2h_bias_initializer="zeros",
+                 dtype="float32", prefix=None, params=None, device=None):
+        super().__init__(hidden_size, num_layers, layout, dropout,
+                         bidirectional, input_size, i2h_weight_initializer,
+                         h2h_weight_initializer, i2h_bias_initializer,
+                         h2h_bias_initializer, "gru", dtype, prefix, params,
+                         device)
+
+    def state_info(self, batch_size=0):
+        return [{"shape": (self._num_layers * self._dir, batch_size,
+                           self._hidden_size), "__layout__": "LNC"}]

@@ -11,24 +11,30 @@ caller (``Block.initialize`` makes one from its ``seed`` and passes it
 to every parameter in registration order), so one seed gives the same
 weights on every device. The JAX package derives its generator from
 ``jax.random`` keys, so the bits differ from it by design; the scales
-and the dispatch do not. Ported: ``Zero``, ``One``, ``Constant``,
-``Uniform``, ``Normal``, ``Xavier``, ``LSTMBias``, ``create`` and
-``register``. For the symbolic API (``Module.init_params``): an
-:class:`InitDesc` name may carry a variable's attributes, whose
-``__init__`` (an initializer's :meth:`Initializer.dumps`, as
-``mx.sym.Variable(init=...)`` writes it) overrides the initializer
-called, and :func:`create` reads that JSON form back.
+and the dispatch do not. All of the JAX module is here: ``Zero``,
+``One``, ``Constant``, ``Uniform``, ``Normal``, ``Orthogonal``,
+``Xavier``, ``MSRAPrelu``, ``Bilinear``, ``LSTMBias``, ``Mixed``,
+``create`` and ``register``. ``Bilinear`` computes a row ``y = (i /
+shape[3]) % shape[2]`` with true division, as the JAX package does
+(MXNet divides integers); the port keeps the JAX package's values.
+For the symbolic API (``Module.init_params``): an :class:`InitDesc`
+name may carry a variable's attributes, whose ``__init__`` (an
+initializer's :meth:`Initializer.dumps`, as ``mx.sym.Variable(init=...)``
+writes it) overrides the initializer called, and :func:`create` reads
+that JSON form back.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 
 import numpy as np
 import torch
 
-__all__ = ["Constant", "InitDesc", "Initializer", "LSTMBias", "Normal", "One",
-           "Uniform", "Xavier", "Zero", "create", "register"]
+__all__ = ["Bilinear", "Constant", "InitDesc", "Initializer", "LSTMBias",
+           "MSRAPrelu", "Mixed", "Normal", "One", "Orthogonal", "Uniform",
+           "Xavier", "Zero", "create", "register"]
 
 _REGISTRY = {}
 
@@ -189,6 +195,56 @@ class Xavier(Initializer):
             self._set(arr, rng.normal(0.0, scale, shape))
 
 
+@register("orthogonal")
+class Orthogonal(Initializer):
+    """An orthogonal matrix (of the SVD of a uniform or normal draw,
+    the rows' shape ``(shape[0], prod(shape[1:]))``) times ``scale``."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr, rng):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = rng.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = rng.normal(0.0, 1.0, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        self._set(arr, self.scale * q.reshape(arr.shape))
+
+
+@register("msraprelu")
+class MSRAPrelu(Xavier):
+    """He initialization for PReLU: a normal Xavier of magnitude ``2 /
+    (1 + slope ** 2)``."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__("gaussian", factor_type, magnitude)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register("bilinear")
+class Bilinear(Initializer):
+    """An upsampling filter: ``(1 - |x / f - c|) * (1 - |y / f - c|)``
+    over the last two axes (``y`` as the module docstring says)."""
+
+    def _init_weight(self, _, arr, rng):
+        shape = arr.shape
+        weight = np.zeros(int(np.prod(shape)), dtype=np.float32)
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(int(np.prod(shape))):
+            x = i % shape[3]
+            y = (i / shape[3]) % shape[2]
+            weight[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        self._set(arr, weight.reshape(shape))
+
+
 @register("lstmbias")
 class LSTMBias(Initializer):
     """Zeros with the forget gate's quarter (gate order i, f, g, o) at
@@ -205,6 +261,23 @@ class LSTMBias(Initializer):
         self._set(arr, b)
 
     _init_bias = _init_weight
+
+
+class Mixed:
+    """The first of ``initializers`` whose pattern (a regular
+    expression, matched at the name's start) matches the parameter's
+    name initializes it."""
+
+    def __init__(self, patterns, initializers):
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, name, arr, rng=None):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr, rng)
+                return
+        raise ValueError(f"parameter {name} did not match any pattern")
 
 
 def create(name, **kwargs):

@@ -33,6 +33,7 @@ from __future__ import annotations
 from . import ndarray, register, serialization
 from . import op_impl_basic, op_impl_nn, op_impl_optimizer, op_impl_random
 from . import op_impl_rnn
+from .. import operator as _operator  # noqa: F401  (registers Custom)
 from .ndarray import NDArray, arange, array, empty, full, ones, waitall, zeros
 
 _GENERATED = register.populate_namespace(__name__)
@@ -74,13 +75,6 @@ WAITING = {
     "Vision remainders": (
         "Deconvolution", "UpSampling", "BilinearSampler", "LRN", "lrn",
         "ROIPooling", "GridGenerator", "SpatialTransformer"),
-    "Losses, optimizers and initializers": (
-        "ctc_loss", "CTCLoss", "_contrib_ctc_loss", "Custom",
-        "adadelta_update", "ftrl_update",
-        "lamb_update_phase1", "lamb_update_phase2", "mp_sgd_mom_update",
-        "mp_sgd_update", "multi_mp_sgd_mom_update", "multi_mp_sgd_update",
-        "nag_mom_update", "rmsprop_update", "rmspropalex_update",
-        "signsgd_update", "signum_update"),
     "Long tail": _NUMPY_OPS + (
         # ops/detection.py
         "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",

@@ -698,3 +698,26 @@ def mae_regression_output(data, label, grad_scale=1.0):
 @register_op("LogisticRegressionOutput")
 def logistic_regression_output(data, label, grad_scale=1.0):
     return _RegressionOutput.apply(data, label, "logistic", grad_scale)
+
+
+@register_op("ctc_loss", aliases=("CTCLoss", "_contrib_ctc_loss"))
+def ctc_loss_op(data, label, data_lengths=None, label_lengths=None,
+                use_data_lengths=False, use_label_lengths=False,
+                blank_label="first"):
+    """Connectionist temporal classification loss (``ops.ctc``): data
+    (T, N, C) unnormalized, label (N, L); (N,) losses. ``blank_label``
+    ``"first"``: index 0 is the blank and labels use 1..C-1;
+    ``"last"``: index C-1 is the blank and labels use 0..C-2, padded
+    with -1 (the alphabet is rolled onto the first form)."""
+    from ..ops.ctc import ctc_loss as _ctc
+
+    if blank_label not in ("first", "last"):
+        raise ValueError(f"blank_label must be first|last, got "
+                         f"{blank_label}")
+    if blank_label == "last":
+        data = torch.cat([data[..., -1:], data[..., :-1]], dim=-1)
+        label = torch.where(label < 0, torch.full_like(label, -1),
+                            label) + 1
+    dl = data_lengths if use_data_lengths else None
+    ll = label_lengths if use_label_lengths else None
+    return _ctc(data, label, dl, ll)

@@ -1,33 +1,47 @@
-"""Fused RNN operator, LSTM mode: the op behind ``gluon.rnn.LSTM``.
+"""Fused RNN operator: the op behind ``gluon.rnn.LSTM``, ``GRU`` and
+``RNN``.
 
 Port of ``mxnet_tpu/ndarray/op_impl_rnn.py`` (the ``RNN`` op, MXNet's
 ``src/operator/rnn.cc`` analog). The packed parameter layout is kept:
 every (layer, direction)'s ``W_i2h`` then ``W_h2h``, layer-major, then
 every ``b_i2h`` then ``b_h2h`` (cuDNN's canonical order), so the op's
-signature and a packed weight vector match the JAX op's. Gate order
-(i, f, g, o).
+signature and a packed weight vector match the JAX op's. Gate order:
+LSTM (i, f, g, o), GRU (r, z, n), vanilla one gate.
 
-Each layer and direction computes its input projections for the whole
-sequence in one product, ``gin = x @ W_i2h^T + b_i2h + b_h2h`` (plain
-torch, as the JAX package leaves it to XLA), then runs the recurrence in
-``ops.lstm.lstm_layer_fused``: K6a forward and K6b backward on the
-card, their plain per-step versions on the CPU. The op takes that path
-for every layer of the kernels' types (float32/bfloat16/float16, any
-H: past one unit group an SM the kernels' blocks walk several), decided
-before any launch. A float64 layer, which the kernels do not take, runs the
-JAX op's ``lax.scan`` cell as a per-step loop in the input's type,
-differentiable by autograd. A reverse direction
-flips the sequence before and after; its final state is the last step
-it PROCESSED (``out[-1]`` before the flip back). Dropout falls between
-layers, in training only; ``lstm_state_clip_min/max`` clip the final c.
+``mode="lstm"``: each layer and direction computes its input
+projections for the whole sequence in one product, ``gin = x @ W_i2h^T
++ b_i2h + b_h2h`` (plain torch, as the JAX package leaves it to XLA),
+then runs the recurrence in ``ops.lstm.lstm_layer_fused``: K6a forward
+and K6b backward on the card, their plain per-step versions on the CPU.
+The op takes that path for every layer of the kernels' types
+(float32/bfloat16/float16, any H: past one unit group an SM the
+kernels' blocks walk several), decided before any launch. A float64
+layer, which the kernels do not take, runs the JAX op's ``lax.scan``
+cell as a per-step loop in the input's type, differentiable by
+autograd.
+
+``mode="gru"``, ``"rnn_tanh"`` and ``"rnn_relu"``: the JAX op computes
+them with composed XLA math and no Pallas kernel, so the port runs each
+layer and direction through torch's own one-layer RNN
+(``torch._VF.gru``/``rnn_tanh``/``rnn_relu``: cuDNN on the card). Its
+equations are the JAX cell's: GRU ``r, z = sigmoid(x_{r,z} + h_{r,z})``,
+``n = tanh(x_n + r * (W_hn h + b_hn))``, ``h' = (1 - z) * n + z * h``;
+vanilla ``h' = act(x W_i2h^T + b_i2h + h W_h2h^T + b_h2h)``.
+
+A reverse direction flips the sequence before and after; its final
+state is the last step it PROCESSED (``out[-1]`` before the flip back).
+Dropout falls between layers, in training only; ``lstm_state_clip_min/
+max`` clip the final c. ``projection_size`` and
+``use_sequence_length`` raise: the JAX op accepts and ignores them,
+which would give a wrong answer silently.
 
 :func:`rnn_layers` takes the per-(layer, direction) tensors directly,
-so ``gluon.rnn.LSTM`` never packs its weights; :func:`rnn` is the op on
-the packed vector, registered as ``RNN`` (``mx.nd.RNN``). GRU and
-vanilla RNN modes are not ported yet and raise (ROADMAP Queue 1, 'RNN
-remainders').
+so the Gluon layers never pack their weights; :func:`rnn` is the op on
+the packed vector, registered as ``RNN`` (``mx.nd.RNN``).
 """
 from __future__ import annotations
+
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -41,13 +55,21 @@ __all__ = ["pack_rnn_params", "rnn", "rnn_layers", "rnn_param_size"]
 _GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
 
 
+# the one-layer torch RNN of each mode that is not LSTM's
+_VF_RNN = {"gru": "gru", "rnn_tanh": "rnn_tanh", "rnn_relu": "rnn_relu"}
+# cuDNN gathers the four tensors of a layer into its own buffer at each
+# call, and says so; they are the Gluon layer's parameters, which keep
+# their own storage by design. torch names the calling file, not the
+# module, as the warning's origin.
+warnings.filterwarnings(
+    "ignore", message="RNN module weights are not part of single",
+    category=UserWarning,
+    module=r".*mxnet_tpu_torch[./]ndarray[./]op_impl_rnn")
+
+
 def _check_mode(mode):
     if mode not in _GATES:
         raise ValueError(f"unknown RNN mode {mode!r}")
-    if mode != "lstm":
-        raise NotImplementedError(
-            f"RNN mode {mode!r} is not ported yet (ROADMAP Queue 1, 'RNN "
-            f"remainders': the GRU and vanilla RNN modes); mode='lstm' is")
 
 
 def rnn_param_size(num_layers, input_size, state_size, bidirectional, mode):
@@ -121,12 +143,20 @@ def _scan(gx, w_h2h, b_h2h, h0, c0):
     return torch.stack(outs), c
 
 
-def _run_layer(x, w_i2h, w_h2h, b_i2h, b_h2h, h0, c0, reverse=False):
+def _run_layer(x, w_i2h, w_h2h, b_i2h, b_h2h, h0, c0, reverse=False,
+               mode="lstm"):
     """One direction of one layer. x (T, N, I) -> out (T, N, H), h_last,
-    c_last."""
+    c_last (None but for LSTM)."""
     if reverse:
         x = torch.flip(x, dims=(0,))
-    if x.dtype in DTYPE_CODES:
+    if mode != "lstm":
+        fn = getattr(torch._VF, _VF_RNN[mode])
+        # train: cuDNN keeps what its backward needs only in training
+        # mode; no dropout inside the one layer
+        out, h_n = fn(x, h0.unsqueeze(0), [w_i2h, w_h2h, b_i2h, b_h2h],
+                      True, 1, 0.0, torch.is_grad_enabled(), False, False)
+        h_last, c_last = h_n[0], None
+    elif x.dtype in DTYPE_CODES:
         gin = (F.linear(x, w_i2h, b_i2h) + b_h2h).to(x.dtype)
         out, cseq = _lstm.lstm_layer_fused(gin, w_h2h.t(), h0, c0)
         h_last, c_last = out[-1], cseq[-1].to(c0.dtype)
@@ -141,16 +171,20 @@ def _run_layer(x, w_i2h, w_h2h, b_i2h, b_h2h, h0, c0, reverse=False):
 
 def rnn_layers(data, layer_params, state, state_cell, num_layers=1,
                bidirectional=False, p=0.0, training=False,
-               lstm_state_clip_min=None, lstm_state_clip_max=None):
-    """The LSTM over ``data`` (T, N, I) from per-(layer, direction)
-    ``(w_i2h, w_h2h, b_i2h, b_h2h)`` (layer-major, as packed) and the
-    (L * D, N, H) states. Returns ``(output, h_out, c_out)``."""
+               lstm_state_clip_min=None, lstm_state_clip_max=None,
+               mode="lstm"):
+    """The RNN of ``mode`` over ``data`` (T, N, I) from per-(layer,
+    direction) ``(w_i2h, w_h2h, b_i2h, b_h2h)`` (layer-major, as packed)
+    and the (L * D, N, H) states (``state_cell`` for LSTM alone).
+    Returns ``(output, h_out, c_out)``, ``c_out`` None but for LSTM."""
+    _check_mode(mode)
     dirs = 2 if bidirectional else 1
     if len(layer_params) != num_layers * dirs:
         raise ValueError(f"{num_layers} layers x {dirs} directions need "
                          f"{num_layers * dirs} parameter sets, got "
                          f"{len(layer_params)}")
-    if state_cell is None:
+    lstm = mode == "lstm"
+    if lstm and state_cell is None:
         raise ValueError("LSTM mode needs state_cell")
     x = data
     h_states, c_states = [], []
@@ -159,8 +193,9 @@ def rnn_layers(data, layer_params, state, state_cell, num_layers=1,
         for d in range(dirs):
             sidx = layer * dirs + d
             out, h_last, c_last = _run_layer(
-                x, *layer_params[sidx], state[sidx], state_cell[sidx],
-                reverse=d == 1)
+                x, *layer_params[sidx], state[sidx],
+                state_cell[sidx] if lstm else None, reverse=d == 1,
+                mode=mode)
             outs.append(out)
             h_states.append(h_last)
             c_states.append(c_last)
@@ -168,6 +203,8 @@ def rnn_layers(data, layer_params, state, state_cell, num_layers=1,
         if p > 0.0 and training and layer < num_layers - 1:
             x = F.dropout(x, p, training=True)
     h_out = torch.stack(h_states)
+    if not lstm:
+        return x, h_out, None
     c_out = torch.stack(c_states)
     if lstm_state_clip_min is not None and lstm_state_clip_max is not None:
         c_out = c_out.clamp(lstm_state_clip_min, lstm_state_clip_max)
@@ -182,8 +219,9 @@ def rnn(data, parameters, state, state_cell=None, sequence_length=None,
         lstm_state_clip_max=None, lstm_state_clip_nan=False,
         use_sequence_length=False, _training=False):
     """The ``RNN`` op. data (T, N, I); parameters the packed vector;
-    state, state_cell (L * D, N, H). Returns ``(output, state_out,
-    statecell_out)``."""
+    state, state_cell (L * D, N, H; state_cell for LSTM alone). Returns
+    ``(output, state_out, statecell_out)`` for LSTM, ``(output,
+    state_out)`` for the other modes."""
     _check_mode(mode)
     if projection_size is not None or use_sequence_length:
         raise NotImplementedError("RNN projection_size and "
@@ -192,6 +230,7 @@ def rnn(data, parameters, state, state_cell=None, sequence_length=None,
     _, _, input_size = data.shape
     layer_params = _unpack_params(parameters, int(num_layers), input_size,
                                   int(state_size), bidirectional, mode)
-    return rnn_layers(data, layer_params, state, state_cell,
-                      int(num_layers), bidirectional, p, _training,
-                      lstm_state_clip_min, lstm_state_clip_max)
+    out, h, c = rnn_layers(data, layer_params, state, state_cell,
+                           int(num_layers), bidirectional, p, _training,
+                           lstm_state_clip_min, lstm_state_clip_max, mode)
+    return (out, h, c) if mode == "lstm" else (out, h)

@@ -51,18 +51,21 @@ class Op:
     """A registered operator: ``fn(*tensors, **params)`` and its
     metadata (see ``mxnet_tpu/ndarray/register.py``'s ``Op``).
     ``num_visible_outputs`` is how many leading outputs the eager call
-    returns (None: all); ``mutates`` the in-place write-backs. Two
-    fields serve ``mx.sym``'s output count: ``dynamic_arity`` (the
-    ``num_outputs`` param is the count: ``split``) and
-    ``infer_num_outputs`` (``params -> count``: ``RNN``)."""
+    returns (None: all); ``mutates`` the in-place write-backs. Three
+    fields serve ``mx.sym``: ``dynamic_arity`` (the ``num_outputs``
+    param is the output count: ``split``), ``infer_num_outputs``
+    (``params -> count``: ``RNN``, ``Custom``) and
+    ``infer_input_names`` (``params -> [name]``: ``Custom``'s
+    arguments, which bind tensor keywords by name and create the
+    missing ones as variables)."""
 
     __slots__ = ("name", "fn", "differentiable", "aliases",
                  "num_visible_outputs", "mutates", "dynamic_arity",
-                 "infer_num_outputs")
+                 "infer_num_outputs", "infer_input_names")
 
     def __init__(self, name, fn, differentiable=True, aliases=(),
                  num_visible_outputs=None, mutates=(), dynamic_arity=False,
-                 infer_num_outputs=None):
+                 infer_num_outputs=None, infer_input_names=None):
         self.name = name
         self.fn = fn
         self.differentiable = differentiable
@@ -71,6 +74,7 @@ class Op:
         self.mutates = tuple(mutates)
         self.dynamic_arity = bool(dynamic_arity)
         self.infer_num_outputs = infer_num_outputs
+        self.infer_input_names = infer_input_names
 
     def __repr__(self):
         return f"<Op {self.name}>"
@@ -78,7 +82,7 @@ class Op:
 
 def register_op(name=None, *, differentiable=True, aliases=(),
                 num_visible_outputs=None, mutates=(), dynamic_arity=False,
-                infer_num_outputs=None):
+                infer_num_outputs=None, infer_input_names=None):
     """Decorator: register a torch function as an operator (and its
     aliases)."""
 
@@ -89,7 +93,8 @@ def register_op(name=None, *, differentiable=True, aliases=(),
         op = Op(op_name, fn, differentiable=differentiable, aliases=aliases,
                 num_visible_outputs=num_visible_outputs, mutates=mutates,
                 dynamic_arity=dynamic_arity,
-                infer_num_outputs=infer_num_outputs)
+                infer_num_outputs=infer_num_outputs,
+                infer_input_names=infer_input_names)
         for nm in (op_name,) + tuple(aliases):
             _OPS[nm] = op
             _POS_PARAM_NAMES.pop(nm, None)

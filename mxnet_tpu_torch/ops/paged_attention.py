@@ -56,6 +56,9 @@ _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float] \
 #: per (device, stream), the kernel's ticket counters: zeros between
 #: calls (the last block of a query tile resets its own)
 _TICKETS = {}
+#: counters that a larger buffer replaced: a graph captured earlier
+#: still launches on them, so they are never freed
+_RETIRED = []
 
 
 def paged_attention_reference(q, k_pages, v_pages, page_table, kv_lens,
@@ -147,10 +150,14 @@ def split_count(n_table, page_size):
 def _tickets(device, n):
     """The current stream's ticket counters on ``device``, at least
     ``n``: calls on other streams may run at the same time, so each
-    stream has its own."""
+    stream has its own. A buffer that grows keeps the old one alive
+    (``_RETIRED``): a CUDA graph that captured a call holds its
+    address."""
     key = (device, torch._C._cuda_getCurrentRawStream(device.index))
     buf = _TICKETS.get(key)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _RETIRED.append(buf)
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _TICKETS[key] = buf
     return buf

@@ -2,8 +2,12 @@
 counterpart)."""
 from __future__ import annotations
 
-from .optimizer import (SGD, AdaGrad, Adam, AdamW, Optimizer, Updater,
-                        create, get_updater, register)
+from .optimizer import (DCASGD, LAMB, LBSGD, NAG, SGD, SGLD, AdaDelta,
+                        AdaGrad, Adam, AdamW, Ftrl, Optimizer, RMSProp,
+                        Signum, Test, Updater, create, get_updater,
+                        register)
 
-__all__ = ["AdaGrad", "Adam", "AdamW", "Optimizer", "SGD", "Updater",
-           "create", "get_updater", "register"]
+__all__ = ["DCASGD", "LAMB", "LBSGD", "NAG", "SGD", "SGLD", "AdaDelta",
+           "AdaGrad", "Adam", "AdamW", "Ftrl", "Optimizer", "RMSProp",
+           "Signum", "Test", "Updater", "create", "get_updater",
+           "register"]

@@ -97,6 +97,11 @@ __all__ = ["DecodeEngine", "DecodeRequest"]
 _engine_seq = itertools.count()
 
 
+def _zero():
+    """A stopped engine's gauge reading."""
+    return 0
+
+
 class DecodeRequest(Request):
     """One generation request: the prompt plus decode bookkeeping —
     generated tokens so far, the sequence's write position, chunked-
@@ -250,17 +255,10 @@ class DecodeEngine:
         self._reserved_pages = 0
         self._defer_logged = False
         self.stats = ServingStats(stats_window, engine_id=self.engine_id)
-        self.stats.set_queue_depth_fn(lambda: len(self._queue))
         self.decode_stats = DecodeStats(self.engine_id,
                                         window=stats_window)
-        self.decode_stats.set_split_fns(lambda: len(self._queue),
-                                        lambda: len(self._active))
         self.tenants = tenancy.TenantStats(self.engine_id)
-        wfq = tenancy.wfq_depth_gauge()
-        for cls in tenancy.TENANT_CLASSES:
-            wfq.labels(engine_id=self.engine_id,
-                       tenant_class=cls).set_function(
-                lambda c=cls: self._queue.depths().get(c, 0))
+        self._register_gauges()
         self.costs = CostLedger(self.engine_id)
         self.captures = CaptureCounters(self.engine_id)
         # step shapes visited: a first visit is a compile window
@@ -322,9 +320,30 @@ class DecodeEngine:
             r.span.end(error="cancelled: engine stopped")
             r.future.set_exception(
                 EngineStoppedError("engine stopped before request ran"))
-        self.stats.set_queue_depth_fn(lambda: 0)
+        self._register_gauges()
         if timed_out:
             raise ServingError("decode worker did not stop in time")
+
+    def _register_gauges(self):
+        """Set the scrape-time gauges: the queue depth, the
+        prefill/decode split and each tenant class's WFQ depth. Their
+        functions hold the engine, so a stopped engine sets constants
+        instead and is collected once dropped."""
+        wfq = tenancy.wfq_depth_gauge()
+        if self._queue.closed:
+            self.stats.set_queue_depth_fn(_zero)
+            self.decode_stats.set_split_fns(_zero, _zero)
+            for cls in tenancy.TENANT_CLASSES:
+                wfq.labels(engine_id=self.engine_id,
+                           tenant_class=cls).set_function(_zero)
+            return
+        self.stats.set_queue_depth_fn(lambda: len(self._queue))
+        self.decode_stats.set_split_fns(lambda: len(self._queue),
+                                        lambda: len(self._active))
+        for cls in tenancy.TENANT_CLASSES:
+            wfq.labels(engine_id=self.engine_id,
+                       tenant_class=cls).set_function(
+                lambda c=cls: self._queue.depths().get(c, 0))
 
     def __enter__(self):
         return self.start()
@@ -520,11 +539,9 @@ class DecodeEngine:
         bench legs' warmup/measure split."""
         self.stats = ServingStats(self.stats.window,
                                   engine_id=self.engine_id)
-        self.stats.set_queue_depth_fn(lambda: len(self._queue))
         self.decode_stats = DecodeStats(self.engine_id,
                                         window=self.decode_stats.window)
-        self.decode_stats.set_split_fns(lambda: len(self._queue),
-                                        lambda: len(self._active))
+        self._register_gauges()
         return self
 
     # -- observability surfaces --------------------------------------------

@@ -66,6 +66,11 @@ __all__ = ["ServingEngine"]
 _engine_seq = itertools.count()
 
 
+def _zero():
+    """A stopped engine's gauge reading."""
+    return 0
+
+
 def _join_trace_ids(requests, cap=16):
     """One contextvar value for a whole batch: the member requests'
     trace ids, comma-joined and capped; None for an empty batch."""
@@ -139,13 +144,8 @@ class ServingEngine:
                                     or max_rows * self._batcher.max_len)
         self._pool = _POOLERS[pool] if isinstance(pool, str) else pool
         self.stats = ServingStats(stats_window, engine_id=self.engine_id)
-        self.stats.set_queue_depth_fn(lambda: len(self._queue))
         self.tenants = tenancy.TenantStats(self.engine_id)
-        wfq = tenancy.wfq_depth_gauge()
-        for cls in tenancy.TENANT_CLASSES:
-            wfq.labels(engine_id=self.engine_id, tenant_class=cls) \
-               .set_function(
-                   lambda c=cls: self._queue.depths().get(c, 0))
+        self._register_gauges()
         # per-bucket cost ledger, process-cumulative (reset_stats swaps
         # the stats window, never the ledger)
         self.costs = CostLedger(self.engine_id)
@@ -210,9 +210,27 @@ class ServingEngine:
             r.span.end(error="cancelled: engine stopped")
             r.future.set_exception(
                 EngineStoppedError("engine stopped before request ran"))
-        self.stats.set_queue_depth_fn(lambda: 0)
+        self._register_gauges()
         if timed_out:
             raise ServingError("serving worker did not stop in time")
+
+    def _register_gauges(self):
+        """Set the scrape-time gauges: the queue depth and each tenant
+        class's WFQ depth. Their functions hold the engine, so a
+        stopped engine sets constants instead and is collected once
+        dropped."""
+        wfq = tenancy.wfq_depth_gauge()
+        if self._queue.closed:
+            self.stats.set_queue_depth_fn(_zero)
+            for cls in tenancy.TENANT_CLASSES:
+                wfq.labels(engine_id=self.engine_id,
+                           tenant_class=cls).set_function(_zero)
+            return
+        self.stats.set_queue_depth_fn(lambda: len(self._queue))
+        for cls in tenancy.TENANT_CLASSES:
+            wfq.labels(engine_id=self.engine_id, tenant_class=cls) \
+               .set_function(
+                   lambda c=cls: self._queue.depths().get(c, 0))
 
     def __enter__(self):
         return self.start()
@@ -359,7 +377,7 @@ class ServingEngine:
         the measured one (the cost ledger keeps counting)."""
         self.stats = ServingStats(self.stats.window,
                                   engine_id=self.engine_id)
-        self.stats.set_queue_depth_fn(lambda: len(self._queue))
+        self._register_gauges()
         return self
 
     def snapshot(self):

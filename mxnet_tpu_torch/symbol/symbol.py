@@ -836,6 +836,14 @@ def _populate_symbol_ops(module):
                 extra.update(kwargs)
                 kwargs = extra
             input_names = static_input_names
+            if input_names is None and op.infer_input_names is not None:
+                # input names that depend on the params (Custom: the
+                # prop's list_arguments()): tensor keywords bind by
+                # name in the declared order, and the missing ones
+                # become variables (the label Module binds)
+                input_names = op.infer_input_names(
+                    {k: v for k, v in kwargs.items()
+                     if not isinstance(v, Symbol)})
             rest = {}
             named_inputs = {}
             inputs = list(args)

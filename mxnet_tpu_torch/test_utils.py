@@ -123,13 +123,18 @@ def rand_shape_nd(ndim, dim=10):
 
 def rand_ndarray(shape, stype="default", density=None, dtype=None,
                  ctx=None):
-    if stype != "default":
-        raise NotImplementedError(
-            f"stype {stype!r}: the port's arrays are dense (ROADMAP "
-            f"Queue 1, 'Long tail')")
+    """A uniform draw in [-1, 1) of ``shape``; a sparse ``stype``
+    zeroes the rows outside a ``density`` mask and casts to it."""
+    ctx = ctx or default_context()
     arr = np.random.uniform(-1.0, 1.0, size=shape) \
         .astype(dtype or np.float32)
-    return array(arr, ctx=ctx or default_context())
+    if stype == "default":
+        return array(arr, ctx=ctx)
+    from .ndarray import sparse
+    if density is not None:
+        mask = np.random.uniform(size=shape[:1]) < density
+        arr = arr * mask.reshape((-1,) + (1,) * (len(shape) - 1))
+    return sparse.cast_storage(array(arr, ctx=ctx), stype)
 
 
 def list_gpus():

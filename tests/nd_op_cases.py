@@ -233,7 +233,13 @@ SPECS = _specs()
 # covered by their own tests below (eager wrappers, state, randomness)
 OWN_TESTS = {"BatchNorm", "Dropout", "RNN", "sgd_update", "sgd_mom_update",
              "adam_update", "adagrad_update", "adamw_update",
-             "multi_sgd_update", "multi_sgd_mom_update", "random_uniform",
+             "multi_sgd_update", "multi_sgd_mom_update", "nag_mom_update",
+             "mp_sgd_update", "mp_sgd_mom_update", "rmsprop_update",
+             "rmspropalex_update", "ftrl_update", "signsgd_update",
+             "signum_update", "adadelta_update", "lamb_update_phase1",
+             "lamb_update_phase2", "multi_mp_sgd_update",
+             "multi_mp_sgd_mom_update", "Custom", "ctc_loss", "CTCLoss",
+             "_contrib_ctc_loss", "random_uniform",
              "_random_uniform",
              "uniform", "random_normal", "_random_normal", "normal",
              "random_gamma", "_random_gamma", "random_exponential",

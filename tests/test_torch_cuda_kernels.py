@@ -1358,6 +1358,45 @@ def test_graph_paged_attention_replays_leave_tickets_at_zero(cuda):
 
 
 @pytest.mark.cuda
+def test_graph_paged_attention_survives_a_larger_ticket_buffer(cuda):
+    """A K5 call captured at a few counters, then a call on the same
+    stream that needs more than 4096 (a new ticket buffer) and an
+    allocation of the size of the old one filled with non-zeros: the
+    first graph's replay still equals the plain version (the counters it
+    captured stay alive and zero), and so does the large call."""
+    from mxnet_tpu_torch import graphs
+
+    small = dict(p=24, h=4, psize=16, npg=8)
+    q, k, v, table, kvl = _case(0, 1, (100, 120, 90), 64, cuda,
+                                torch.float32, **small)
+    pool = torch.cuda.graph_pool_handle()
+    graph = graphs.capture(pa.paged_flash_attention, [q, k, v, table, kvl],
+                           cuda, pool, "paged attention")
+    assert pa.split_count(8, 16) > 1
+    stream = graphs.capture_stream(cuda)
+    big = _case(1, 160, (160, 170, 200, 250), 64, cuda, torch.float32,
+                p=64, h=8, psize=16, npg=16)
+    assert 4 * 8 * 160 > 4096
+    with torch.cuda.stream(stream):
+        got_big = pa.paged_flash_attention(*big)
+        junk = torch.full((4096,), 7, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    want_big = pa.paged_attention_reference(*big)
+    assert (got_big - want_big).abs().max().item() <= 1e-4
+    rng = np.random.RandomState(6)
+    for _ in range(3):
+        q.copy_(torch.from_numpy(rng.randn(*q.shape).astype(np.float32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = pa.paged_attention_reference(q, k, v, table, kvl)
+        assert (graph.out - want).abs().max().item() <= 1e-4
+    assert int(junk.ne(7).sum()) == 0
+    tickets = [b for (_, s), b in pa._TICKETS.items()
+               if s == stream.cuda_stream]
+    assert tickets and all(int(b.abs().sum()) == 0 for b in tickets)
+
+
+@pytest.mark.cuda
 def test_graph_hybridized_bert_step_matches_eager(cuda):
     """A 2-layer BERT with the MLM head, hybridized: three recorded steps
     (forward graph, backward graph, Adam) give the eager model's losses
@@ -2078,3 +2117,228 @@ def test_symbol_registry_ops_match_nd(cuda):
         if req[n] == "write":
             assert torch.equal(ex.grad_dict[n].as_subclass(torch.Tensor),
                                leaves[n].grad), n
+
+
+# -- custom ops, GRU and vanilla RNN, CTC, the optimizers ---------------------
+def _register_custom_sqr():
+    import mxnet_tpu_torch as mx
+
+    if "card_sqr" in mx.operator.get_all_registered_operators():
+        return
+
+    @mx.operator.register("card_sqr")
+    class SqrProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            class Sqr(mx.operator.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    self.assign(out_data[0], req[0],
+                                in_data[0] * in_data[0])
+
+                def backward(self, req, out_grad, in_data, out_data,
+                             in_grad, aux):
+                    self.assign(in_grad[0], req[0],
+                                2.5 * out_grad[0] * in_data[0])
+
+            return Sqr()
+
+    @mx.operator.register("card_host_read")
+    class HostProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            class Host(mx.operator.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    scale = float(in_data[0].asnumpy().max())
+                    self.assign(out_data[0], req[0], in_data[0] * scale)
+
+                def backward(self, req, out_grad, in_data, out_data,
+                             in_grad, aux):
+                    self.assign(in_grad[0], req[0], out_grad[0])
+
+            return Host()
+
+
+@pytest.mark.cuda
+def test_custom_op_hybridized_graphs_match_eager(cuda):
+    """A hybridized block holding a ``Custom`` op: its forward and the
+    user's backward captured into the block's graphs and replayed on
+    new inputs give the eager block's outputs and gradients bit for
+    bit; a callback that reads the host raises ``MXNetError`` naming
+    the op type at capture."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import HybridBlock, nn
+
+    _register_custom_sqr()
+
+    class Net(HybridBlock):
+        def __init__(self, op_type, **kw):
+            super().__init__(**kw)
+            self.op_type = op_type
+            with self.name_scope():
+                self.fc = nn.Dense(16, in_units=8, device=cuda)
+
+        def hybrid_forward(self, F, x):
+            return F.Custom(self.fc(x), op_type=self.op_type)
+
+    eager, graphed = Net("card_sqr"), Net("card_sqr")
+    eager.initialize(seed=1)
+    graphed.initialize(seed=1)
+    graphed.hybridize()
+    rng = np.random.RandomState(2)
+    for _ in range(3):
+        x = torch.tensor(rng.randn(4, 8).astype(np.float32), device=cuda)
+        res = []
+        for net in (eager, graphed):
+            xx = x.clone().requires_grad_()
+            net.zero_grad()
+            with autograd.record():
+                y = net(xx)
+            (y * y).sum().backward()
+            res.append((y.detach(), xx.grad, net.fc.weight.grad.clone()))
+        for a, b in zip(*res):
+            assert torch.equal(a, b)
+    assert len(graphed._cached_graph) == 1
+    host = Net("card_host_read")
+    host.initialize(seed=1)
+    host.hybridize()
+    with pytest.raises(mx.MXNetError, match="card_host_read"):
+        host(torch.ones(2, 8, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["gru", "rnn_tanh", "rnn_relu"])
+# float32: cuDNN's cells differ from torch's CPU cells by up to ~3e-5 of
+# scale (an H100, TF32 off), as phase 9 holds the LSTM LM within 1e-4
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-12)])
+def test_gru_and_vanilla_rnn_on_the_card_match_the_cpu(cuda, mode, dtype,
+                                                       tol):
+    """The ``RNN`` op's GRU and vanilla modes (cuDNN through torch), 2
+    bidirectional layers: outputs, final states and every gradient on
+    the card within ``tol`` of scale of the CPU's; a repeat bit for
+    bit; no port kernel launched."""
+    from mxnet_tpu_torch.context import resolve_device
+    from mxnet_tpu_torch.ndarray import op_impl_rnn
+
+    resolve_device(cuda)        # the port's precision: no TF32 in cuDNN
+    t_, n_, i_, h_, l_ = 7, 5, 12, 16, 2
+    rng = np.random.RandomState(3)
+    size = op_impl_rnn.rnn_param_size(l_, i_, h_, True, mode)
+    arrays = [rng.randn(t_, n_, i_), rng.randn(size) * 0.3,
+              rng.randn(2 * l_, n_, h_) * 0.5]
+    wo = rng.randn(t_, n_, 2 * h_)
+
+    def run(device):
+        leaves = [torch.tensor(a, dtype=dtype, device=device,
+                               requires_grad=True) for a in arrays]
+        out, h = op_impl_rnn.rnn(*leaves, state_size=h_, num_layers=l_,
+                                 bidirectional=True, mode=mode)
+        ((out * torch.tensor(wo, dtype=dtype, device=device)).sum()
+         + (h * h).sum()).backward()
+        return [t.detach().cpu() for t in (out, h)] + \
+            [x.grad.cpu() for x in leaves]
+
+    before = dict(launch_counts())
+    got, again, want = run(cuda), run(cuda), run("cpu")
+    assert launch_counts() == before
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert (a - w).abs().max().item() <= tol * w.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_gru_layer_hybridized_matches_eager_bit_for_bit(cuda):
+    """``gluon.rnn.GRU`` hybridized: the captured forward and backward
+    (cuDNN's RNN inside the graphs) give the eager layer's output and
+    gradients to the bit, over three calls."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import rnn
+
+    nets = [rnn.GRU(32, num_layers=2, input_size=16, device=cuda)
+            for _ in range(2)]
+    for net in nets:
+        net.initialize(seed=4)
+    nets[1].hybridize()
+    rng = np.random.RandomState(4)
+    for _ in range(3):
+        x = torch.tensor(rng.randn(6, 3, 16).astype(np.float32),
+                         device=cuda)
+        res = []
+        for net in nets:
+            net.zero_grad()
+            with autograd.record():
+                y = net(x)
+            (y * y).sum().backward()
+            res.append((y.detach(), net.l0_h2h_weight.grad.clone(),
+                        net.l1_i2h_weight.grad.clone()))
+        for a, b in zip(*res):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [False, True])
+def test_ctc_loss_on_the_card_matches_the_cpu(cuda, lengths):
+    """``ctc_loss`` (the torch recursion) on the card: losses within
+    1e-5 relative of the CPU's, the logits' gradients within 1e-4 of
+    scale, an infeasible sample finite (~1e30)."""
+    from mxnet_tpu_torch.ops import ctc
+
+    rng = np.random.RandomState(5)
+    t_, n_, c_, l_ = 30, 6, 20, 8
+    logits = rng.randn(t_, n_, c_).astype(np.float32)
+    labels = rng.randint(1, c_, (n_, l_)).astype(np.int32)
+    labels[1, 5:] = 0
+    labels[2, :] = [1, 1, 1, 1, 1, 1, 1, 1]
+    in_lens = np.array([30, 28, 5, 30, 17, 30], np.int32)
+    res = []
+    for device in (cuda, "cpu"):
+        x = torch.tensor(logits, device=device, requires_grad=True)
+        kw = {}
+        if lengths:
+            kw = dict(input_lengths=torch.tensor(in_lens, device=device),
+                      label_lengths=torch.tensor(
+                          (labels > 0).sum(1), device=device))
+        loss = ctc.ctc_loss(x, torch.tensor(labels, device=device), **kw)
+        loss.sum().backward()
+        res.append((loss.detach().cpu(), x.grad.cpu()))
+    (lc, gc), (lh, gh) = res
+    assert torch.isfinite(lc).all() and torch.isfinite(gc).all()
+    assert ((lc - lh).abs() / lh.abs()).max().item() <= 1e-5
+    assert (gc - gh).abs().max().item() <= 1e-4 * gh.abs().max().item()
+    if lengths:
+        assert lc[2].item() > 1e29
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [
+    ("sgd", dict(momentum=0.9)), ("nag", dict(momentum=0.9)),
+    ("adam", {}), ("adamw", {}), ("adagrad", {}), ("adadelta", {}),
+    ("rmsprop", {}), ("rmsprop", dict(centered=True)), ("ftrl", {}),
+    ("signum", dict(wd_lh=0.01)), ("lamb", {}),
+    ("dcasgd", dict(momentum=0.9)), ("lbsgd", dict(momentum=0.9)),
+    ("test", {}), ("sgd", dict(momentum=0.9, multi_precision=True)),
+    ("adam", dict(multi_precision=True))])
+def test_optimizer_updates_on_the_card_match_the_cpu(cuda, name, kw):
+    """Three updates of two parameters through ``Updater.update_multi``
+    on the card and the CPU: weights (float32 masters under
+    ``multi_precision``, with bfloat16 weights) within 1e-6 of scale."""
+    from mxnet_tpu_torch import optimizer
+
+    mp = kw.get("multi_precision", False)
+    dtype = torch.bfloat16 if mp else torch.float32
+    rng = np.random.RandomState(6)
+    shapes = ((24, 16), (40,))
+    ws0 = [rng.randn(*s).astype(np.float32) for s in shapes]
+    gs = [[rng.randn(*s).astype(np.float32) for s in shapes]
+          for _ in range(3)]
+    out = []
+    for device in (cuda, "cpu"):
+        ws = [torch.tensor(w, device=device).to(dtype) for w in ws0]
+        up = optimizer.get_updater(optimizer.create(
+            name, learning_rate=0.01, wd=0.01, rescale_grad=0.5, **kw))
+        for g in gs:
+            up.update_multi([0, 1], [torch.tensor(x, device=device)
+                                     .to(dtype) for x in g], ws)
+        keep = [up.states[i][1] for i in range(2)] if mp else ws
+        out.append([k.float().cpu() for k in keep])
+    for a, b in zip(*out):
+        assert (a - b).abs().max().item() <= 1e-6 * b.abs().max().item()

@@ -202,3 +202,23 @@ def test_stop_abort_fails_streams_loudly():
                                  name="pt_abort", daemon=True).start()
     assert len(got) >= 2
     assert eng.pool.occupancy()["pages_used"] == 0
+
+
+def test_stopped_engine_is_collected():
+    """``stop()`` unregisters every scrape-time function the engine set
+    (queue depth, the prefill/decode split, the WFQ depth of each tenant
+    class): a stopped and dropped engine is collected with its pool,
+    and ``reset_stats`` after ``stop`` registers nothing that holds
+    it."""
+    import gc
+    import weakref
+
+    eng = _engine()
+    eng.start()
+    assert len(eng.infer([1, 2, 3], max_new_tokens=2).tolist()) == 2
+    eng.stop(timeout=30)
+    eng.reset_stats()
+    ref = weakref.ref(eng)
+    del eng
+    gc.collect()
+    assert ref() is None

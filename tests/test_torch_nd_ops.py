@@ -234,6 +234,23 @@ def test_rnn_op_matches_jax():
     ("adamw_update", 2, {"lr": 0.01, "wd": 0.1, "eta": 0.5}),
     ("adagrad_update", 1, {"lr": 0.1, "epsilon": 1e-6, "wd": 0.01,
                            "rescale_grad": 0.5}),
+    ("nag_mom_update", 1, {"lr": 0.1, "momentum": 0.9, "wd": 0.01}),
+    ("mp_sgd_update", 1, {"lr": 0.1, "wd": 0.01, "clip_gradient": 0.4}),
+    ("mp_sgd_mom_update", 2, {"lr": 0.1, "momentum": 0.9, "wd": 0.01}),
+    ("rmsprop_update", 1, {"lr": 0.01, "gamma1": 0.9, "wd": 0.01,
+                           "clip_weights": 0.8}),
+    ("rmspropalex_update", 3, {"lr": 0.01, "gamma1": 0.9, "gamma2": 0.8,
+                               "epsilon": 1.0}),
+    ("ftrl_update", 2, {"lr": 0.1, "lamda1": 0.05, "beta": 1.0,
+                        "wd": 0.01}),
+    ("signsgd_update", 0, {"lr": 0.05, "wd": 0.01}),
+    ("signum_update", 1, {"lr": 0.05, "momentum": 0.9, "wd_lh": 0.01}),
+    ("adadelta_update", 2, {"rho": 0.9, "epsilon": 1e-5, "wd": 0.01}),
+    ("lamb_update_phase1", 2, {"beta1": 0.9, "beta2": 0.99, "t": 3,
+                               "wd": 0.01}),
+    # (weight, direction, r1, r2): the norms as arrays, elementwise
+    ("lamb_update_phase2", 2, {"lr": 0.05, "lower_bound": 0.5,
+                               "upper_bound": 1.5}),
 ])
 def test_update_op_matches_jax_results_and_state_writes(name, n_states,
                                                         params):
@@ -255,12 +272,14 @@ def test_update_op_matches_jax_results_and_state_writes(name, n_states,
 
 
 @pytest.mark.parametrize("name,per", [("multi_sgd_update", 2),
-                                      ("multi_sgd_mom_update", 3)])
+                                      ("multi_sgd_mom_update", 3),
+                                      ("multi_mp_sgd_update", 3),
+                                      ("multi_mp_sgd_mom_update", 4)])
 def test_multi_update_ops_match_jax(name, per):
     rs = rs_for(name)
     arrays = [U(rs, (2, 3)) for _ in range(2 * per)]
     params = {"lrs": (0.1, 0.2), "wds": (0.0, 0.01), "num_weights": 2}
-    if per == 3:
+    if "mom" in name:
         params["momentum"] = 0.9
     want = getattr(jmx.nd, name)(*[jmx.nd.array(a) for a in arrays],
                                  **params)

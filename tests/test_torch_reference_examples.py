@@ -103,3 +103,14 @@ def test_rnn_bucketing_script_quick_runs():
     assert len(accs) == 4 and accs[-1] >= 0.75
     assert not any(counts.values())
     assert _captures(stdout) == 2           # buckets 3 and 5, one entry each
+
+
+def test_custom_op_script_quick_runs():
+    """``example/custom_op.py`` unmodified: a registered softmax-loss op
+    trains under ``Module`` (``sym.Custom``) and a hybridized Gluon
+    loop (``nd.Custom``); the script asserts both accuracies > 0.8."""
+    stdout, counts = _run("example/custom_op.py", "--quick")
+    accs = [float(line.rsplit(":", 1)[1]) for line in stdout.splitlines()
+            if "custom-op accuracy" in line]
+    assert len(accs) == 2 and min(accs) > 0.8
+    assert not any(counts.values())

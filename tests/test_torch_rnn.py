@@ -103,10 +103,21 @@ def test_pack_and_unpack_round_trip_and_modes_not_ported():
                                                  (4 * H,)]
     assert torch.equal(op_impl_rnn.pack_rnn_params(sets),
                        torch.from_numpy(params))
+    # every mode packs and unpacks (GRU and vanilla RNN run since their
+    # port); what the port does not take, the JAX op ignores: those raise
     for mode in ("gru", "rnn_tanh", "rnn_relu"):
-        with pytest.raises(NotImplementedError, match="RNN remainders"):
-            op_impl_rnn.rnn(*(torch.from_numpy(a) for a in (x, params, h0)),
-                            state_size=H, num_layers=L, mode=mode)
+        size = op_impl_rnn.rnn_param_size(L, I, H, True, mode)
+        flat = torch.arange(size, dtype=torch.float32)
+        msets = op_impl_rnn._unpack_params(flat, L, I, H, True, mode)
+        assert torch.equal(op_impl_rnn.pack_rnn_params(msets, mode), flat)
+    for kw in ({"projection_size": 4}, {"use_sequence_length": True}):
+        with pytest.raises(NotImplementedError, match="JAX op ignores"):
+            op_impl_rnn.rnn(*(torch.from_numpy(a) for a in (x, params, h0,
+                                                            c0)),
+                            state_size=H, num_layers=L, bidirectional=True,
+                            **kw)
+    with pytest.raises(NotImplementedError, match="projection_size"):
+        rnn.LSTM(H, projection_size=4, device="cpu")
     with pytest.raises(ValueError, match="packed RNN parameters"):
         op_impl_rnn.rnn(*(torch.from_numpy(a) for a in (x, params[:-1], h0,
                                                         c0)),

@@ -164,3 +164,22 @@ def test_test_utils_match_jax():
     np.testing.assert_array_equal(b1, b2)
     with pytest.raises(NotImplementedError):
         test_utils.download("http://localhost/x")
+
+
+@pytest.mark.parametrize("stype,shape,density", [
+    ("default", (4, 3), None), ("row_sparse", (6, 3), 0.5),
+    ("row_sparse", (5, 2, 2), None), ("csr", (6, 4), 0.5),
+    ("csr", (3, 5), None)])
+def test_rand_ndarray_takes_sparse_stypes_as_jax(stype, shape, density):
+    """``rand_ndarray(stype=...)`` casts the uniform draw to ``stype``
+    after zeroing the rows of the ``density`` mask, as the JAX
+    function does: the same numpy seed gives the same dense values and
+    the same storage type (exact)."""
+    np.random.seed(3)
+    want = jtu.rand_ndarray(shape, stype=stype, density=density)
+    np.random.seed(3)
+    with tmx.cpu():
+        got = test_utils.rand_ndarray(shape, stype=stype, density=density)
+    assert got.stype == want.stype == stype
+    assert got.shape == tuple(want.shape)
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())

@@ -213,3 +213,22 @@ def test_swap_model_warms_the_new_fn_over_visited_shapes():
         assert eng.infer([9], timeout=30)[0, 0] == 9
     assert new.shapes[-1] == (1, 8)
     assert eng.snapshot()["models"] == {"default": "v1"}
+
+
+def test_stopped_engine_is_collected():
+    """``stop()`` unregisters every scrape-time function the engine set
+    (queue depth, the WFQ depth of each tenant class): a stopped and
+    dropped engine is collected, and ``reset_stats`` after ``stop``
+    registers nothing that holds it."""
+    import gc
+    import weakref
+
+    eng = ServingEngine(Stub(), device="cpu", bucket_lens=(8,), max_rows=2)
+    eng.start()
+    assert eng.infer([5, 6], timeout=30)[:, 0].tolist() == [5, 6]
+    eng.stop(timeout=30)
+    eng.reset_stats()
+    ref = weakref.ref(eng)
+    del eng
+    gc.collect()
+    assert ref() is None
