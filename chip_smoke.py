@@ -266,7 +266,48 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
     and each optimizer's device ms for one step over BERT-base's 155
     parameter shapes; ``CTCLoss`` at T=100, N=32, C=512, labels up to
     40: card vs CPU losses within 1e-5 relative and gradients 1e-4 of
-    scale, forward + backward device ms.
+    scale, forward + backward device ms;
+19. detection and RecordIO input, which launch no port kernel (gate:
+    ``ops.launch_counts()`` all 0 over the phase): (a) the detection
+    ops at SSD-300's shapes (``multibox_labels``: 8732
+    anchors, labels 32 x 8 x 5 with 1 to 6 objects, class predictions
+    32 x 21 x 8732), card against CPU: ``MultiBoxPrior`` bit for bit,
+    ``MultiBoxTarget`` (mining ratio 3) and ``MultiBoxDetection``
+    (threshold 0.01, NMS 0.45, top 400 on 32 images and the full N on
+    4) under the tie rule (an anchor or row that differs must sit, on
+    the CPU, within 1e-6 IoU of the threshold it crosses), continuous
+    outputs within 1e-5 of scale, ``box_nms``, ``box_iou`` and
+    ``bipartite_matching`` likewise; every vision contrib op
+    (``ROIAlign`` at 2 x 256 x 50 x 50 with 512 ROIs, ``BilinearResize2D``,
+    ``AdaptiveAvgPooling2D``, ``box_decode``, ``DeformableConvolution``,
+    ``PSROIPooling`` at R-FCN's 21 x 7 x 7 channels and 300 ROIs)
+    forward and backward within 1e-5 of scale; ``MultiBoxPrior``, ``MultiBoxTarget``,
+    ``box_iou`` and the vision ops under ``set_sync_debug_mode("error")``;
+    each op's device ms and NMS's rounds; (b) SSD-300 at VGG-16 widths
+    (``train-ssd300-vgg16-b32``: ``examples/ssd.py``, Xavier weights
+    from ``--seed``): 256 seeded scenes written through ``recordio`` and
+    read back by ``ImageDetIter`` (random crop and pad, mirror, mean
+    and std; its host ms a batch measured apart) in batches of 32 at 3 x
+    300 x 300, 2 warm-up + 20 eager SGD steps (lr 0.004, momentum 0.9,
+    wd 5e-4): losses finite, the last 5's mean below the first 5's,
+    every gradient finite and not all zero; a hybridized copy's step-1
+    loss within 1e-6 relative of eager's, then 5 steps each in turns;
+    step p50 eager and graphed, images/s, peak memory (busy shares
+    under ``--profile``); card vs CPU at batch 2 in float32 (loss 1e-4
+    relative, gradients 1e-3 of scale; the gap with cuDNN off printed
+    beside) and float64 (loss 1e-4, gradients 1e-9 of scale); (c)
+    softmax + ``MultiBoxDetection`` on 32 images of the trained net
+    (``infer-ssd300-vgg16-b32``): ms a batch, detections per image, the
+    op card vs CPU under the tie rule; the same detection hybridized
+    (its NMS makes the key run eagerly) and bound through
+    ``mx.sym.contrib`` on the card, each equal to eager bit for bit;
+    (d) ``example/ssd_detection.py`` unmodified at its defaults through
+    ``run_reference`` in a child process: exit 0, the last epoch's
+    ``cls_loss`` and ``loc_loss`` below epoch 0's, ``mean_top1_iou`` at
+    least 0.6, seconds by epoch; (e) ``examples/train_imagenet.py
+    --data-train`` on a seeded 256-image ``.rec`` (240 x 240, random 224
+    crops): two steps of ``resnet50_v1`` at batch 32 through
+    ``io.ImageRecordIter``, finite losses, the iterator's images/s.
 
 The op-dispatch phase also times one
 ``F.scaled_dot_product_attention`` call beside K1, K2 and K5 at head
@@ -5605,6 +5646,738 @@ def losses_optimizers_phase(seed, dev, power_line, lstm_p50):
     return m
 
 
+SSD = dict(batch=32, images=256, size=300, warmup=2, steps=20, graphed=5,
+           cross_batch=2)
+REC_IMAGENET = dict(images=256, stored=240, image=224, batch=32, steps=2)
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """``torch.cuda.set_sync_debug_mode("error")`` for the block: a host
+    read or a synchronizing copy inside it raises."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+# -- the tie rule of the detection ops, card against CPU --------------------
+# Card and CPU compute IoUs and decoded boxes with the same arithmetic,
+# but ``exp`` and ``log`` may differ in the last bit, so a value on a
+# threshold may fall either side of it. An anchor (a row) whose result
+# differs must show, on the CPU, an IoU within ``TIE`` of the threshold
+# it crosses (or of the competing best IoU, for an argmax); mining's
+# in-or-out of an image whose positive count differs (itself from a tie)
+# follows from it. The rest must be equal, continuous outputs within
+# 1e-5 of scale. ``tests/test_torch_cuda_kernels.py`` imports these.
+TIE = 1e-6
+
+
+def multibox_labels(seed, b=32, m=8, classes=20):
+    """SSD-300's training labels: (b, m, 5) rows [cls, x1, y1, x2, y2],
+    1 to 6 boxes of ``classes`` an image, -1 rows padding."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    lab = -np.ones((b, m, 5), np.float32)
+    for i in range(b):
+        k = rs.randint(1, 7)
+        xy = rs.rand(k, 2) * 0.7
+        wh = rs.rand(k, 2) * 0.4 + 0.05
+        lab[i, :k, 0] = rs.randint(0, classes, k)
+        lab[i, :k, 1:3] = xy
+        lab[i, :k, 3:5] = np.minimum(xy + wh, 1.0)
+    return lab
+
+
+def multibox_predictions(seed, n, b=32, classes=20):
+    """Class logits (b, classes + 1, n) and box offsets (b, n * 4)."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed + 1)
+    return ((rs.randn(b, classes + 1, n) * 2).astype(np.float32),
+            (rs.randn(b, n * 4) * 0.5).astype(np.float32))
+
+
+def _iou(a, b):
+    import torch
+
+    from mxnet_tpu_torch.ops.detection import _iou_corner
+    return _iou_corner(torch.as_tensor(a), torch.as_tensor(b)).numpy()
+
+
+def multibox_target_agree(got, want, anchor, label, thresh=0.5):
+    """``MultiBoxTarget``'s card outputs ``got`` against the CPU's
+    ``want`` (numpy triples) under the tie rule. Returns (anchors that
+    differ, anchors that differ by a tie, worst loc_target gap in units
+    of its scale); raises ``AssertionError`` otherwise."""
+    import numpy as np
+
+    loc_g, mask_g, cls_g = got
+    loc_w, mask_w, cls_w = want
+    b, n = cls_w.shape
+    anc = np.asarray(anchor).reshape(-1, 4)
+    diff = (cls_g != cls_w) | (mask_g.reshape(b, n, 4)[..., 0]
+                               != mask_w.reshape(b, n, 4)[..., 0])
+    ties = 0
+    for i in np.unique(np.nonzero(diff)[0]):
+        valid = label[i, :, 0] >= 0
+        iou = _iou(anc, label[i, valid, 1:5])                  # (N, G)
+        srt = np.sort(iou, 1)
+        best = srt[:, -1]
+        second = srt[:, -2] if iou.shape[1] > 1 else np.full(n, -1.0)
+        col = np.sort(iou, 0)                                  # per GT
+        near_top = np.abs(iou - col[-1]) <= TIE                 # (N, G)
+        gt_tie = (col[-1] - col[-2] <= TIE) if n > 1 else np.zeros(1, bool)
+        pos_differs = (mask_g.reshape(b, n, 4)[i, :, 0].sum()
+                       != mask_w.reshape(b, n, 4)[i, :, 0].sum())
+        for a in np.nonzero(diff[i])[0]:
+            tie = (abs(best[a] - thresh) <= TIE
+                   or best[a] - second[a] <= TIE
+                   or bool((near_top[a] & gt_tie).any()))
+            mined = {cls_g[i, a], cls_w[i, a]} <= {0.0, -1.0}
+            if not (tie or (mined and pos_differs)):
+                raise AssertionError(
+                    f"MultiBoxTarget: image {i} anchor {a} differs "
+                    f"(cls {cls_g[i, a]} vs {cls_w[i, a]}) with its best "
+                    f"IoU {best[a]:.9f}, not a tie")
+            ties += 1
+    same = ~diff
+    both = (same & (mask_w.reshape(b, n, 4)[..., 0] > 0))[..., None]
+    scale = max(float(np.abs(loc_w).max()), 1e-12)
+    gap = float(np.abs(np.where(both, loc_g.reshape(b, n, 4)
+                                - loc_w.reshape(b, n, 4), 0)).max()) / scale
+    if gap > 1e-5:
+        raise AssertionError(f"MultiBoxTarget: loc_target {gap:.3g} of scale")
+    return int(diff.sum()), ties, gap
+
+
+def nms_rows_agree(got, want, thresh, coord=2, cls_col=0, score_col=1):
+    """NMS outputs (B, N, W) of the card (``got``) and the CPU under
+    the tie rule: kept rows, in order, equal within 1e-5 of scale; a
+    row kept on one side only must have, on the CPU, a same-class row
+    kept on either side at an IoU within ``TIE`` of ``thresh``, or
+    overlap above ``thresh`` with another such row (a cascade).
+    Returns (rows that differ, worst gap in units of scale)."""
+    import numpy as np
+
+    scale = max(float(np.abs(want).max()), 1e-12)
+    worst, differ = 0.0, 0
+    for g, w in zip(got, want):
+        kg, kw = g[g[:, cls_col] >= 0], w[w[:, cls_col] >= 0]
+        if kg.shape == kw.shape and np.abs(kg - kw).max(initial=0) <= \
+                1e-5 * scale:
+            worst = max(worst, float(np.abs(kg - kw).max(initial=0)) / scale)
+            continue
+        key = lambda r: (r[cls_col], r[score_col])  # noqa: E731
+        sg, sw = {key(r): r for r in kg}, {key(r): r for r in kw}
+        only = [sg[k] for k in set(sg) - set(sw)] + \
+            [sw[k] for k in set(sw) - set(sg)]
+        kept = np.concatenate([kg, kw])
+        for r in only:
+            same = kept[(kept[:, cls_col] == r[cls_col])
+                        & (kept[:, score_col] > r[score_col])]
+            iou = _iou(r[None, coord:coord + 4], same[:, coord:coord + 4])[0] \
+                if len(same) else np.zeros(0)
+            flips = np.array([(s[cls_col], s[score_col]) in
+                              {key(o) for o in only} for s in same], bool)
+            if not ((np.abs(iou - thresh) <= TIE).any()
+                    or ((iou > thresh - TIE) & flips).any()):
+                raise AssertionError(
+                    f"NMS: a row (class {r[cls_col]}, score "
+                    f"{r[score_col]:.9f}) kept on one side only, no tie "
+                    f"at IoU {thresh}")
+        differ += len(only)
+        common = sorted(set(sg) & set(sw))
+        if common:
+            worst = max(worst, max(float(np.abs(sg[k] - sw[k]).max())
+                                   for k in common) / scale)
+    if worst > 1e-5:
+        raise AssertionError(f"NMS rows {worst:.3g} of scale apart")
+    return differ, worst
+
+
+def _vision_calls(rs, anchors):
+    """Phase 19a's vision contrib calls: (name, fn, numpy inputs)."""
+    import numpy as np
+
+    from mxnet_tpu_torch import nd
+
+    c = nd.contrib
+    fmap = rs.randn(2, 256, 50, 50).astype(np.float32)
+    xy = rs.rand(512, 2) * 600
+    rois = np.concatenate([rs.randint(0, 2, (512, 1)), xy,
+                           xy + rs.rand(512, 2) * 200 + 16], 1) \
+        .astype(np.float32)
+    off = (rs.randn(2, 18, 50, 50) * 1.5).astype(np.float32)
+    w = (rs.randn(64, 64, 3, 3) * 0.05).astype(np.float32)
+    ps = rs.randn(2, 21 * 49, 38, 50).astype(np.float32)
+    n = anchors.shape[1]
+    a = anchors.cpu().numpy()
+    return [
+        ("ROIAlign", lambda d, r: c.ROIAlign(d, r, (7, 7), 1 / 16,
+                                             sample_ratio=2), [fmap, rois]),
+        ("BilinearResize2D",
+         lambda d: c.BilinearResize2D(d, height=100, width=100), [fmap]),
+        ("AdaptiveAvgPooling2D",
+         lambda d: c.AdaptiveAvgPooling2D(d, output_size=(7, 7)), [fmap]),
+        ("box_decode", lambda d, an: c.box_decode(d, an),
+         [(rs.randn(32, n, 4) * 0.5).astype(np.float32), a]),
+        ("DeformableConvolution",
+         lambda d, o, k: c.DeformableConvolution(
+             d, o, k, kernel=(3, 3), pad=(1, 1), num_filter=64,
+             no_bias=True), [fmap[:, :64], off, w]),
+        # R-FCN's 300 ROIs a batch over 21 x 7 x 7 score maps
+        ("PSROIPooling", lambda d, r: c.PSROIPooling(
+            d, r, 1 / 16, output_dim=21, pooled_size=7),
+         [ps, rois[:300]]),
+    ]
+
+
+def detection_ops(seed, dev, power_line):
+    """Phase 19a: the detection and vision contrib ops at SSD-300's
+    shapes (``multibox_labels``/``multibox_predictions``),
+    card against CPU under the tie rule (``TIE``), device times,
+    rounds; no host read where the op has none."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.examples import ssd
+    from mxnet_tpu_torch.ops import detection
+
+    cpu = torch.device("cpu")
+    c = nd.contrib
+    m, ms = {}, {}
+    with no_host_reads():
+        anchors = ssd.anchors(mx, dev)
+    if not torch.equal(anchors.cpu(), ssd.anchors(mx, cpu)):
+        raise AssertionError("MultiBoxPrior: the card's anchors are not the "
+                             "CPU's bits")
+    n = anchors.shape[1]
+    if n != ssd.ANCHORS:
+        raise AssertionError(f"{n} anchors, want {ssd.ANCHORS}")
+    ms["MultiBoxPrior"] = device_ms(lambda: ssd.anchors(mx, dev), iters=10)
+    lab = multibox_labels(seed)
+    logits, loc = multibox_predictions(seed, n)
+    t_args = [torch.tensor(a, device=dev) for a in (lab, logits)]
+    with no_host_reads():
+        got = c.MultiBoxTarget(anchors, *t_args, **ssd.TARGET)
+    want = c.MultiBoxTarget(anchors.cpu(), torch.tensor(lab),
+                            torch.tensor(logits), **ssd.TARGET)
+    differ, ties, gap = multibox_target_agree(
+        [g.cpu().numpy() for g in got], [w.numpy() for w in want],
+        anchors.cpu().numpy(), lab)
+    m["MultiBoxTarget"] = {"differ": differ, "ties": ties, "loc_gap": gap}
+    ms["MultiBoxTarget"] = device_ms(
+        lambda: c.MultiBoxTarget(anchors, *t_args, **ssd.TARGET), iters=10)
+    prob = torch.softmax(torch.tensor(logits), 1)
+    loc_t = torch.tensor(loc)
+    prob_d, loc_d = prob.to(dev), loc_t.to(dev)
+    for topk, images in ((400, 32), (-1, 4)):
+        kw = dict(ssd.DEPLOY, nms_topk=topk)
+        with detection.nms_record() as calls:
+            got = c.MultiBoxDetection(prob_d, loc_d, anchors, **kw)
+        stats, = calls
+        want = c.MultiBoxDetection(prob[:images], loc_t[:images],
+                                   anchors.cpu(), **kw)
+        differ, gap = nms_rows_agree(
+            got[:images].cpu().numpy(), want.numpy(), kw["nms_threshold"])
+        key = f"MultiBoxDetection_top{topk}"
+        ms[key] = device_ms(lambda: c.MultiBoxDetection(
+            prob_d, loc_d, anchors, **kw), iters=3, warmup=1)
+        kept = (got[:, :, 0] >= 0).sum(1).float()
+        m[key] = {"differ": differ, "gap": gap, "compared_images": images,
+                  "rounds": stats["rounds"], "reads": stats["reads"],
+                  "candidates": stats["candidates"],
+                  "kept_mean": float(kept.mean())}
+    # box_nms on MultiBoxDetection-style rows, box_iou, bipartite
+    rs = np.random.RandomState(seed + 2)
+    xy = rs.rand(8, 4000, 2) * 0.8
+    rows = np.concatenate([rs.randint(0, 20, (8, 4000, 1)),
+                           rs.rand(8, 4000, 1), xy,
+                           xy + rs.rand(8, 4000, 2) * 0.2 + 0.01],
+                          -1).astype(np.float32)
+    nms_kw = dict(overlap_thresh=0.45, id_index=0, topk=1000)
+    rows_d = torch.tensor(rows, device=dev)
+    with detection.nms_record() as calls:
+        got = c.box_nms(rows_d, **nms_kw)
+    stats, = calls
+    differ, gap = nms_rows_agree(
+        got.cpu().numpy(), c.box_nms(torch.tensor(rows), **nms_kw).numpy(),
+        0.45)
+    m["box_nms"] = {"differ": differ, "gap": gap, "rounds": stats["rounds"]}
+    ms["box_nms"] = device_ms(lambda: c.box_nms(rows_d, **nms_kw), iters=3,
+                              warmup=1)
+    gt = torch.tensor(lab[:, :, 1:].reshape(-1, 4))
+    gt_d = gt.to(dev)
+    with no_host_reads():
+        iou = c.box_iou(anchors[0], gt_d)
+    if not torch.equal(iou.cpu(), c.box_iou(anchors[0].cpu(), gt)):
+        raise AssertionError("box_iou: card and CPU differ")
+    ms["box_iou"] = device_ms(lambda: c.box_iou(anchors[0], gt_d))
+    dist = iou.reshape(n, 32, 8).transpose(0, 1)[:, :512]
+    got = c.bipartite_matching(dist, threshold=0.1)
+    want = c.bipartite_matching(dist.cpu(), threshold=0.1)
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        raise AssertionError("bipartite_matching: card and CPU differ")
+    ms["bipartite_matching"] = device_ms(
+        lambda: c.bipartite_matching(dist, threshold=0.1), iters=5)
+    # the vision contrib ops, forward and backward
+    worst = {}
+    for name, fn, arrays in _vision_calls(rs, anchors):
+        res, cot = [], None
+        for device in (cpu, dev):       # the CPU's output shape gives cot
+            ts = [torch.tensor(a, device=device, requires_grad=True)
+                  for a in arrays]
+            ctx = no_host_reads() if device.type == "cuda" \
+                else contextlib.nullcontext()
+            cot_d = None if cot is None else cot.to(device)
+            with ctx:
+                out = fn(*ts)
+                if cot_d is None:
+                    cot = cot_d = torch.randn(
+                        out.shape, generator=torch.Generator()
+                        .manual_seed(seed))
+                (out * cot_d).sum().backward()
+            # an input the output does not differentiate through (PSROI's
+            # ROIs: rounded corners) has no gradient: zeros
+            res.append([out.detach().cpu()] + [
+                (t.grad if t.grad is not None else torch.zeros_like(t)).cpu()
+                for t in ts])
+        gaps = [((g - w).abs().max() / w.abs().max().clamp(min=1e-12)).item()
+                for g, w in zip(res[1], res[0])]
+        worst[name] = max(gaps)
+        if not worst[name] <= 1e-5:
+            raise AssertionError(f"{name}: card vs CPU {gaps} of scale")
+        ts = [torch.tensor(a, device=dev, requires_grad=True) for a in arrays]
+        cot_d = cot.to(dev)
+
+        def fwd_bwd(fn=fn, ts=ts, cot_d=cot_d):
+            (fn(*ts) * cot_d).sum().backward()
+        ms[name] = device_ms(lambda fn=fn, ts=ts: fn(*ts), iters=5)
+        ms[name + "_fwd_bwd"] = device_ms(fwd_bwd, iters=5)
+        del res, ts
+    m["vision_worst_of_scale"] = worst
+    m["device_ms"] = ms
+    log(f"detection ops at SSD-300's shapes (8732 anchors, labels 32 x 8 x "
+        f"5, class predictions 32 x 21 x 8732): MultiBoxPrior bit for bit; "
+        f"MultiBoxTarget {m['MultiBoxTarget']}; MultiBoxDetection top 400 "
+        f"{m['MultiBoxDetection_top400']}, full N "
+        f"{m['MultiBoxDetection_top-1']}; box_nms (8 x 4000 rows, top 1000) "
+        f"{m['box_nms']}; box_iou, bipartite_matching equal; vision ops "
+        f"forward + backward card vs CPU (tol 1e-5 of scale): "
+        + ", ".join(f"{k} {v:.2g}" for k, v in worst.items())
+        + "; no host read in MultiBoxPrior, MultiBoxTarget, box_iou and the "
+        "vision ops; device ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f" [{power_line}]")
+    return m
+
+
+def _ssd_grads(net):
+    return {k: p.grad.detach().clone() for k, p in net.named_parameters()}
+
+
+def _copy_weights(src, dst):
+    import torch
+
+    with torch.no_grad():
+        for (k, p), (k2, q) in zip(src.named_parameters(),
+                                   dst.named_parameters()):
+            assert k == k2
+            q.copy_(p.detach().to(q.device))
+
+
+def ssd_scene_batches(seed, dev, tmp):
+    """The SSD cell's data: 256 seeded scenes written through the port's
+    ``recordio`` into an indexed ``.rec``, read back by ``ImageDetIter``
+    with ``CreateDetAugmenter`` (random crop and pad, mirror, mean and
+    std) in batches of 32 on the card; the iterator's host ms a batch."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.examples import ssd
+
+    t0 = time.perf_counter()
+    images, labels = ssd.synthetic_scenes(SSD["images"], SSD["size"],
+                                          seed=seed)
+    path, _ = ssd.write_rec(mx, os.path.join(tmp, "scenes.rec"), images,
+                            labels)
+    write_s = time.perf_counter() - t0
+    it = ssd.det_iter(mx, path, SSD["batch"], SSD["size"],
+                      ctx=mx.Context.of(dev), seed=seed)
+    t0 = time.perf_counter()
+    batches = [(b.data[0].as_subclass(torch.Tensor),
+                b.label[0].as_subclass(torch.Tensor)) for b in it]
+    iter_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    return batches, {"codec": mx.recordio.image_codec(),
+                     "rec_mb": os.path.getsize(path) / 2 ** 20,
+                     "write_s": write_s, "iter_ms_per_batch": iter_ms,
+                     "batches": len(batches)}
+
+
+def _ssd_net(mx, dev, seed):
+    from mxnet_tpu_torch.examples import ssd
+
+    with mx.Context.of(dev):
+        net = ssd.build(mx)
+        net.initialize(init=mx.init.Xavier(), seed=seed)
+    return net
+
+
+def ssd_train(seed, dev, power_line, profile, batches):
+    """Phase 19b: SSD-300 at VGG-16 widths (``examples/ssd.py``), batch 32
+    at 3 x 300 x 300, upstream's SGD: 2 warm-up + 20 eager steps over
+    the iterator's batches, then a hybridized copy of the trained model
+    against the eager one, step 1 compared and 5 steps each in turns;
+    card vs CPU at batch 2."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.examples import ssd
+
+    net = _ssd_net(mx, dev, seed)
+    loss_fn, trainer = ssd.make_trainer(mx, net)
+    losses, times = [], []
+    for i in range(SSD["warmup"] + SSD["steps"]):
+        x, lab = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        if i == SSD["warmup"]:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss, lc, ll = ssd.train_step(mx, net, loss_fn, trainer, x, lab)
+        torch.cuda.synchronize()
+        if i >= SSD["warmup"]:
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss.detach()))
+    peak = torch.cuda.max_memory_allocated(dev)
+    grads = _ssd_grads(net)
+    bad = [k for k, g in grads.items()
+           if not torch.isfinite(g).all() or not g.abs().max() > 0]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not (np.isfinite(losses).all() and last < first) or bad:
+        raise AssertionError(f"SSD-300: losses {losses}, gradients not "
+                             f"finite or all zero: {bad}")
+    p50 = _median(times)
+    # the hybridized copy: step 1 against eager, then 5 steps each in turns
+    graphed = _ssd_net(mx, dev, seed)
+    _copy_weights(net, graphed)
+    graphed.hybridize()
+    x, lab = batches[0]
+    loss_e = float(ssd.forward_backward(mx, net, loss_fn, x, lab)[0].detach())
+    loss_g = float(ssd.forward_backward(mx, graphed, loss_fn, x,
+                                        lab)[0].detach())
+    rel = abs(loss_g - loss_e) / abs(loss_e)
+    if not rel <= 1e-6:
+        raise AssertionError(f"SSD-300 graphed step-1 loss {loss_g} vs "
+                             f"eager {loss_e}: {rel:.3g} relative")
+    g_loss_fn, g_trainer = ssd.make_trainer(mx, graphed)
+    turns = {"eager": [], "graphed": []}
+    for i in range(SSD["graphed"]):
+        x, lab = batches[i % len(batches)]
+        for name, model, lf, tr in (("graphed", graphed, g_loss_fn,
+                                     g_trainer),
+                                    ("eager", net, loss_fn, trainer)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ssd.train_step(mx, model, lf, tr, x, lab)
+            torch.cuda.synchronize()
+            turns[name].append(time.perf_counter() - t0)
+            if not np.isfinite(float(out[0].detach())):
+                raise AssertionError(f"SSD-300 {name}: loss not finite")
+    busy = {}
+    if profile:
+        for name, model, lf, tr in (("eager", net, loss_fn, trainer),
+                                    ("graphed", graphed, g_loss_fn,
+                                     g_trainer)):
+            x, lab = batches[0]
+            torch.cuda.synchronize()
+            with _profiler(True) as prof:
+                t0 = time.perf_counter()
+                ssd.train_step(mx, model, lf, tr, x, lab)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            log(f"SSD-300 {name} step, profiled:")
+            busy[name] = report_profile(prof, wall)
+    m = {"losses": losses, "first5": float(first), "last5": float(last),
+         "step_p50_ms": p50 * 1e3,
+         "images_per_s": SSD["batch"] / p50, "peak_gb": peak / 2 ** 30,
+         "graphed_step1_rel": rel,
+         "graphed_p50_ms": _median(turns["graphed"]) * 1e3,
+         "eager_turns_p50_ms": _median(turns["eager"]) * 1e3,
+         "busy": busy}
+    log(f"SSD-300 (VGG-16 widths, 8732 anchors, batch 32 x 3 x 300 x 300, "
+        f"SGD 0.004): {SSD['warmup']} + {SSD['steps']} steps, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (first-5 mean {first:.4f}, "
+        f"last-5 {last:.4f}); step p50 {p50 * 1e3:.2f} ms, "
+        f"{SSD['batch'] / p50:.1f} images/s, peak {peak / 2 ** 30:.2f} GiB; "
+        f"hybridized: step-1 loss {rel:.3g} relative of eager (tol 1e-6), "
+        f"p50 {m['graphed_p50_ms']:.2f} ms graphed vs "
+        f"{m['eager_turns_p50_ms']:.2f} ms eager in turns "
+        f"({SSD['graphed']} each); busy "
+        f"{ {k: _busy(v) for k, v in busy.items()} or 'not measured'} "
+        f"[{power_line}]")
+    return net, m
+
+
+def ssd_card_vs_cpu(seed, dev, net, batches):
+    """Phase 19b: the trained SSD-300's weights on the card and the CPU,
+    one step's loss and gradients at batch 2 (the first batch's first
+    two scenes): losses within 1e-4 relative, gradients within 1e-3 of
+    each parameter's largest CPU gradient in float32, the type the cell
+    trains in, and within 1e-9 in float64 (every layer computes in
+    float64, so a layer that quietly computed in float32 would show).
+    The float32 step runs on the card twice: with cuDNN as the port
+    runs it (algorithms picked by cuDNN's heuristics, deterministic),
+    which is gated, and with cuDNN off (PyTorch's own convolutions: no
+    FFT or Winograd sums), printed beside it, which tells how much of
+    the gap the choice of algorithm makes."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.examples import ssd
+
+    cpu = torch.device("cpu")
+    x, lab = (t[:SSD["cross_batch"]] for t in batches[0])
+
+    def step(device, dtype):
+        model = _ssd_net(mx, device, seed)
+        _copy_weights(net, model)
+        model.cast(dtype)
+        loss_fn, _ = ssd.make_trainer(mx, model)
+        dt = getattr(torch, dtype)
+        loss = ssd.forward_backward(mx, model, loss_fn, x.to(device, dt),
+                                    lab.to(device, dt))[0]
+        return (float(loss.detach()),
+                {k: g.cpu() for k, g in _ssd_grads(model).items()})
+
+    def gap(got, want):
+        rel = abs(got[0] - want[0]) / abs(want[0])
+        gaps = {k: ((g - want[1][k]).abs().max()
+                    / want[1][k].abs().max().clamp(min=1e-30)).item()
+                for k, g in got[1].items()}
+        worst = max(gaps, key=gaps.get)
+        return {"loss_rel": rel, "grad_gap": gaps[worst], "worst": worst}
+
+    out = {}
+    for dtype in ("float64", "float32"):
+        want = step(cpu, dtype)
+        out[dtype] = gap(step(dev, dtype), want)
+        if dtype == "float32":
+            with torch.backends.cudnn.flags(enabled=False):
+                out["float32_cudnn_off"] = gap(step(dev, dtype), want)
+    f64, f32, off = out["float64"], out["float32"], out["float32_cudnn_off"]
+    if not (f64["loss_rel"] <= 1e-4 and f64["grad_gap"] <= 1e-9
+            and f32["loss_rel"] <= 1e-4 and f32["grad_gap"] <= 1e-3):
+        raise AssertionError(f"SSD-300 card vs CPU: {out}")
+    log(f"SSD-300 card vs CPU at batch {SSD['cross_batch']}, the trained "
+        f"weights: float32 step-1 loss {f32['loss_rel']:.3g} relative (tol "
+        f"1e-4), gradients {f32['grad_gap']:.3g} of scale (tol 1e-3; "
+        f"largest at {f32['worst']}); float32 with cuDNN off (printed): "
+        f"loss {off['loss_rel']:.3g}, gradients {off['grad_gap']:.3g} of "
+        f"scale (largest at {off['worst']}); float64 loss "
+        f"{f64['loss_rel']:.3g} relative (tol 1e-4), gradients "
+        f"{f64['grad_gap']:.3g} of scale (tol 1e-9)")
+    return out
+
+
+def ssd_infer(dev, power_line, net, batches):
+    """Phase 19c: softmax + ``MultiBoxDetection`` (threshold 0.01, NMS
+    0.45, top 400) of 32 images from the trained net; the detection op
+    card vs CPU on the same inputs under the tie rule; the same
+    detection as a hybridized block around the net (NMS's host reads
+    make its key run eagerly: no capture) and bound through
+    ``mx.sym.contrib``, each equal to the eager result bit for bit."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import graphs
+    from mxnet_tpu_torch.examples import ssd
+
+    class Detector(mx.gluon.HybridBlock):
+        def __init__(self, body):
+            super().__init__()
+            self.body = body
+
+        def hybrid_forward(self, F, x):
+            anchors, cls_p, loc_p = self.body(x)
+            return F.contrib.MultiBoxDetection(F.softmax(cls_p, axis=1),
+                                               loc_p, anchors, **ssd.DEPLOY)
+
+    x = batches[0][0]
+
+    def run():
+        return ssd.detect(mx, net, x)
+    det = run()
+    ms = cuda_ms(run, iters=5, warmup=1)
+    with mx.autograd.predict_mode():
+        anchors, cls_p, loc_p = net(x)
+    prob = torch.softmax(cls_p, 1)
+    want = mx.nd.contrib.MultiBoxDetection(prob.cpu(), loc_p.cpu(),
+                                           anchors.cpu(), **ssd.DEPLOY)
+    differ, gap = nms_rows_agree(det.cpu().numpy(), want.numpy(),
+                                 ssd.DEPLOY["nms_threshold"])
+    kept = (det[:, :, 0] >= 0).sum(1).cpu().numpy()
+    if not (kept > 0).all():
+        raise AssertionError(f"SSD-300 detections per image {kept}")
+    block = Detector(net)
+    block.hybridize()
+    c0 = graphs.captures()
+    with mx.autograd.predict_mode():
+        hybrid = [block(x) for _ in range(2)]
+    cls_v, loc_v, anc_v = (mx.sym.var(n) for n in ("cls", "loc", "anchors"))
+    ex = mx.sym.contrib.MultiBoxDetection(
+        mx.sym.softmax(cls_v, axis=1), loc_v, anc_v, **ssd.DEPLOY).bind(
+        dev, {"cls": cls_p.as_subclass(mx.nd.NDArray),
+              "loc": loc_p.as_subclass(mx.nd.NDArray),
+              "anchors": anchors.as_subclass(mx.nd.NDArray)})
+    bound = [ex.forward()[0] for _ in range(2)]
+    if not (all(torch.equal(h, det) for h in hybrid + bound)
+            and graphs.captures() == c0):
+        raise AssertionError("SSD-300 detection: the hybridized block or "
+                             "the bound symbol differs from eager, or a "
+                             "graph was captured")
+    log(f"SSD-300 inference, 32 images: {ms:.2f} ms a batch (softmax + "
+        f"MultiBoxDetection included); detections per image mean "
+        f"{kept.mean():.1f} (min {kept.min()}, max {kept.max()}); card vs "
+        f"CPU: {differ} rows differ by a tie, rows within {gap:.2g} of "
+        f"scale; hybridized block and bound MultiBoxDetection equal to "
+        f"eager bit for bit, run eagerly (NMS reads the host) "
+        f"[{power_line}]")
+    return {"ms_per_batch": ms, "detections_mean": float(kept.mean()),
+            "differ": differ, "gap": gap}
+
+
+def reference_ssd_script(power_line):
+    """Phase 19d: ``example/ssd_detection.py`` unmodified at its defaults
+    through the runner: the last epoch's losses below epoch 0's, mean
+    top-1 IoU at least 0.6, no port kernel."""
+    lines, stamps, counts, wall = run_reference_script(
+        "example/ssd_detection.py", [], timeout=600)
+    epochs, secs = _epoch_lines(lines, stamps, "cls_loss")
+    cls = [float(e.split("cls_loss ")[1].split()[0]) for e in epochs]
+    loc = [float(e.split("loc_loss ")[1].split()[0]) for e in epochs]
+    iou = [float(line.split()[1]) for line in lines
+           if line.startswith("mean_top1_iou")]
+    got = {k: n for k, n in counts.items() if n}
+    if not (cls and cls[-1] < cls[0] and loc[-1] < loc[0] and iou
+            and iou[0] >= 0.6) or got:
+        raise AssertionError(f"ssd_detection.py: cls {cls}, loc {loc}, "
+                             f"iou {iou}, launches {got}")
+    log(f"reference ssd_detection.py (defaults: 256 scenes, 12 epochs of "
+        f"32): cls_loss {cls[0]:.4f} -> {cls[-1]:.4f}, loc_loss "
+        f"{loc[0]:.4f} -> {loc[-1]:.4f}, mean_top1_iou {iou[0]:.3f} (gate "
+        f">= 0.6); seconds by epoch {[round(s, 2) for s in secs]} (epoch 0 "
+        f"from the child's start); wall {wall:.1f} s [{power_line}]")
+    return {"cls": cls, "loc": loc, "mean_top1_iou": iou[0],
+            "epoch_s": secs, "wall_s": wall}
+
+
+def recordio_imagenet(seed, dev, power_line, tmp):
+    """Phase 19e: ``examples/train_imagenet.py --data-train`` on a seeded
+    256-image ``.rec`` (240 x 240 scenes, random 224 crops): two steps of
+    ``resnet50_v1`` at batch 32 through ``io.ImageRecordIter``; the
+    iterator's images/s measured apart."""
+    import io as _io
+
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.examples import train_imagenet
+
+    r = REC_IMAGENET
+    rs = np.random.RandomState(seed)
+    path = os.path.join(tmp, "imagenet.rec")
+    rec = mx.recordio.MXIndexedRecordIO(os.path.join(tmp, "imagenet.idx"),
+                                        path, "w")
+    for i in range(r["images"]):
+        img = rs.randint(0, 256, (r["stored"], r["stored"], 3)) \
+            .astype(np.uint8)
+        rec.write_idx(i, mx.recordio.pack_img(
+            mx.recordio.IRHeader(0, float(rs.randint(1000)), i, 0), img,
+            img_fmt=".png"))
+    rec.close()
+    it = train_imagenet.record_iter(path, r["batch"], r["image"], dev,
+                                    seed=seed)
+    t0 = time.perf_counter()
+    n = 0
+    for batch in it:
+        n += r["batch"] - (batch.pad or 0)
+    ips = n / (time.perf_counter() - t0)
+    out = _io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_imagenet.main(["--data-train", path, "--batch-size",
+                             str(r["batch"]), "--epochs", str(r["steps"]),
+                             "--steps-per-epoch", "1", "--seed", str(seed),
+                             "--device", str(dev)])
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in out.getvalue().splitlines() if "loss=" in line]
+    if len(losses) != r["steps"] or not np.isfinite(losses).all():
+        raise AssertionError(f"train_imagenet --data-train: {out.getvalue()}")
+    log(f"RecordIO input: train_imagenet.py --data-train ({r['images']} "
+        f"images of {r['stored']}^2, {mx.recordio.image_codec()} records), "
+        f"resnet50_v1 at batch {r['batch']}, {r['image']}^2 crops, bf16: "
+        f"losses {losses}; ImageRecordIter {ips:.1f} images/s on the host "
+        f"(an epoch, random crop, mirror, mean and std, one copy a batch) "
+        f"[{power_line}]")
+    return {"losses": losses, "iter_images_per_s": ips}
+
+
+def detection_phase(seed, dev, power_line, profile):
+    """Phase 19 (module docstring); launches no port kernel (gate)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from mxnet_tpu_torch import ops
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    m, secs = {"card": power_line}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        m["ops"] = detection_ops(seed, dev, power_line)
+        secs["ops"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        batches, m["data"] = ssd_scene_batches(seed, dev, tmp)
+        log(f"SSD data: {SSD['images']} scenes, {m['data']['codec']} "
+            f"records, {m['data']['rec_mb']:.1f} MiB .rec written in "
+            f"{m['data']['write_s']:.1f} s; ImageDetIter "
+            f"{m['data']['iter_ms_per_batch']:.1f} ms a batch of "
+            f"{SSD['batch']} on the host")
+        net, m["train"] = ssd_train(seed, dev, power_line, profile, batches)
+        m["cross"] = ssd_card_vs_cpu(seed, dev, net, batches)
+        m["infer"] = ssd_infer(dev, power_line, net, batches)
+        secs["ssd"] = round(time.perf_counter() - t0, 1)
+        del net, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        m["script"] = reference_ssd_script(power_line)
+        secs["script"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        m["recordio"] = recordio_imagenet(seed, dev, power_line, tmp)
+        secs["recordio"] = round(time.perf_counter() - t0, 1)
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    if counts:
+        raise AssertionError(f"phase 19 launched port kernels: {counts}")
+    log(f"phase 19 (detection and RecordIO input): no port kernel "
+        f"launched; {time.perf_counter() - t_phase:.1f} s (by part: {secs})")
+    log("phase 19 metrics: " + json.dumps(m, default=lambda o: None))
+    return m
+
+
 KERNEL_NAMES = ("paged_attention", "flash_attention", "flash_attention_bwd",
                 "layer_norm", "layer_norm_bwd", "softmax_xent_fwd",
                 "softmax_xent_bwd", "lstm_fwd", "lstm_bwd", "lstm_bwd_dw")
@@ -5735,6 +6508,8 @@ def main():
                 k: by_sym[k] for k in ("lstm_bwd", "lstm_bwd_dw")}
     # custom ops, the GRU word LM, the optimizers and CTC: no port kernel
     losses_optimizers_phase(args.seed, dev, power_line, wordlm_p50)
+    # detection, SSD-300 and RecordIO input: no port kernel
+    detection_phase(args.seed, dev, power_line, args.profile)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(power_line)

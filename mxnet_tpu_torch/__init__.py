@@ -31,7 +31,11 @@ The symbolic API (``mx.sym``, ``Executor``, ``mx.mod``'s ``Module`` and
 ``BucketingModule``, ``mx.rnn``'s legacy cells, ``model``,
 ``callback``, ``monitor`` and ``gluon.SymbolBlock``) binds a Symbol
 graph over the same op registry; on the card a bound graph runs as
-CUDA graphs, as hybridized blocks do.
+CUDA graphs, as hybridized blocks do. Detection (``nd.contrib``'s
+MultiBox, NMS and vision ops: ``ops/detection.py``,
+``ops/vision_contrib.py``) trains SSD over VGG-16
+(``examples/ssd.py``) from RecordIO input (``recordio``, ``image``'s
+augmenters and ``ImageDetIter``, ``io.ImageRecordIter``).
 Module names mirror the JAX package's so each counterpart is found at
 the same relative path, and the top-level names are the reference's
 (``mx.nd``, ``mx.cpu()``, ``mx.current_context()``, ...): the JAX
@@ -53,6 +57,7 @@ from . import io, kvstore, lr_scheduler, metric, ndarray, optimizer
 from . import attribute, engine, name, random, test_utils, util
 from . import callback, executor, model, module, monitor, rnn, symbol
 from . import operator
+from . import filesystem, image, recordio
 from . import initializer as init
 from . import kvstore as kv
 from . import module as mod
@@ -67,8 +72,9 @@ from .symbol import Symbol
 __version__ = "0.1.0"
 __all__ = ["Context", "Executor", "MXNetError", "NDArray", "Symbol",
            "attribute", "autograd", "callback", "checkpoint", "context",
-           "cpu", "current_context", "engine", "executor", "gluon", "gpu",
-           "init", "initializer", "io", "kv", "kvstore", "lr_scheduler",
+           "cpu", "current_context", "engine", "executor", "filesystem",
+           "gluon", "gpu", "image", "init", "initializer", "io", "kv", "kvstore", "lr_scheduler",
            "metric", "mod", "model", "module", "monitor", "name", "nd",
-           "ndarray", "num_gpus", "operator", "optimizer", "random", "rnn",
+           "ndarray", "num_gpus", "operator", "optimizer", "random", "recordio",
+           "rnn",
            "sym", "symbol", "test_utils", "util"]

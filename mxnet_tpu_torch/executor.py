@@ -19,9 +19,11 @@ that hybridized blocks use (``gluon.block``'s ``_Entry``):
   ``forward(**kwargs)``, ``copy_params_from``, ``Module.update`` and
   ``Module.set_params`` write into them in place. An entry also holds the arrays' addresses,
   so an array replaced in ``arg_dict`` makes that key capture again,
-  never a graph that reads the old one. A capture that fails raises
-  ``MXNetError`` (``graphs``' rule); nothing falls back to the eager
-  walk. Outputs and gradients are copies out of the graphs' static
+  never a graph that reads the old one. A key whose walk reads the
+  device back to the host (NMS: ``box_nms``, ``MultiBoxDetection``)
+  runs the walk eagerly on the card, as a block does (``graphs``' host
+  reads). Any other capture that fails raises ``MXNetError``
+  (``graphs``' rule); nothing falls back to the eager walk. Outputs and gradients are copies out of the graphs' static
   buffers, so each forward's outputs stay valid after the next.
 - **On CPU tensors** the same entry runs the walk eagerly where the
   card would replay (keys, parameter aliases and the ``Function``

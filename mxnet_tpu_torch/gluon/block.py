@@ -100,9 +100,12 @@ replay; dropout draws from torch's CUDA generator, which the capture
 registers, so every replay draws a new mask and ``mx.random.seed``
 after a capture takes effect. On CPU tensors there are no graphs: the
 same CachedOp (keys, static input copies, output structure) runs the
-eager body where the card would replay. A capture that fails raises
-``MXNetError`` naming the block and the key; nothing runs eagerly in
-its place. ``hybridize(remat=True)`` recomputes the block's
+eager body where the card would replay. A key whose forward reads the
+device back to the host (an op that calls ``graphs.host_read``: NMS,
+in ``box_nms`` and ``MultiBoxDetection``) is found at its warm-up and
+runs its forward eagerly on the card from then on, as ``graphs``
+says. Any other capture that fails raises ``MXNetError`` naming the
+block and the key; nothing runs eagerly in its place. ``hybridize(remat=True)`` recomputes the block's
 activations in the backward (``torch.utils.checkpoint``, non-reentrant)
 when an ancestor's CachedOp (or the block's own) runs it; see
 :meth:`HybridBlock.hybridize`. :func:`functionalize` gives a block as a
@@ -1124,6 +1127,9 @@ class _Entry:
         self.out_spec = None
         self.instances = []
         self.capture_ms = 0.0
+        # set when the forward reads the device back to the host
+        # (``graphs.NotCapturable``): the key then runs eagerly
+        self.eager = False
         # calls from several threads take turns: they share the static
         # buffers
         self.lock = threading.Lock()
@@ -1206,20 +1212,29 @@ class _Entry:
     # -- a call -----------------------------------------------------------
     def __call__(self, leaves):
         with self.lock:
-            if self.grad:
-                outs = _GraphFn.apply(self, len(leaves), *leaves,
-                                      *self.params)
-            elif self.cuda:
-                outs = self._replay(self._free_instance(leaves), leaves)
-            else:
-                with torch.no_grad():
-                    for s, t in zip(self.static_in, leaves):
-                        s.copy_(t)
-                out = self.owner._body(self.spec, self.static_in)
-                flat = []
-                self.out_spec = _spec(out, flat)
-                with torch.no_grad():
-                    outs = [o.clone() for o in flat]
+            if self.eager:
+                return self.owner._body(self.spec, leaves)
+            try:
+                if self.grad:
+                    outs = _GraphFn.apply(self, len(leaves), *leaves,
+                                          *self.params)
+                elif self.cuda:
+                    outs = self._replay(self._free_instance(leaves), leaves)
+                else:
+                    with torch.no_grad():
+                        for s, t in zip(self.static_in, leaves):
+                            s.copy_(t)
+                    out = self.owner._body(self.spec, self.static_in)
+                    flat = []
+                    self.out_spec = _spec(out, flat)
+                    with torch.no_grad():
+                        outs = [o.clone() for o in flat]
+            except graphs.NotCapturable:
+                # the forward reads the device back (NMS): it runs
+                # eagerly from now on (``graphs``' host reads)
+                self.eager = True
+                self.instances = []
+                return self.owner._body(self.spec, leaves)
             return _build(self.out_spec, iter(outs))
 
     def forward_recorded(self, ctx, leaves):

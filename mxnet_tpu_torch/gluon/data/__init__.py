@@ -4,10 +4,11 @@ from __future__ import annotations
 
 from . import vision
 from .dataloader import DataLoader
-from .dataset import ArrayDataset, Dataset, SimpleDataset
+from .dataset import (ArrayDataset, Dataset, RecordFileDataset,
+                      SimpleDataset)
 from .sampler import (BatchSampler, RandomSampler, Sampler,
                       SequentialSampler)
 
 __all__ = ["ArrayDataset", "BatchSampler", "DataLoader", "Dataset",
-           "RandomSampler", "Sampler", "SequentialSampler", "SimpleDataset",
+           "RandomSampler", "RecordFileDataset", "Sampler", "SequentialSampler", "SimpleDataset",
            "vision"]

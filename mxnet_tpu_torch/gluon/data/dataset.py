@@ -1,9 +1,9 @@
 """Datasets (``mxnet_tpu/gluon/data/dataset.py``'s counterpart, numpy
-only). ``RecordFileDataset`` waits for the RecordIO reader (ROADMAP
-Queue 1, 'Vision remainders')."""
+only), and ``RecordFileDataset``: the raw records of an indexed
+RecordIO file (``recordio.MXIndexedRecordIO``)."""
 from __future__ import annotations
 
-__all__ = ["ArrayDataset", "Dataset", "SimpleDataset"]
+__all__ = ["ArrayDataset", "Dataset", "RecordFileDataset", "SimpleDataset"]
 
 
 class Dataset:
@@ -119,3 +119,23 @@ class ArrayDataset(Dataset):
 
     def __len__(self):
         return self._length
+
+
+class RecordFileDataset(Dataset):
+    """The records of an indexed RecordIO file, in the ``.idx``'s order
+    (the ``.idx`` beside the ``.rec``): sample ``i`` is record ``i``'s
+    raw bytes."""
+
+    def __init__(self, filename):
+        from ... import recordio
+        self.idx_file = filename[:-4] + ".idx" if filename.endswith(".rec") \
+            else filename + ".idx"
+        self.filename = filename
+        self._record = recordio.MXIndexedRecordIO(self.idx_file,
+                                                  self.filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

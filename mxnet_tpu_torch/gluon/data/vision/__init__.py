@@ -2,7 +2,8 @@
 from __future__ import annotations
 
 from . import datasets, transforms
-from .datasets import CIFAR10, CIFAR100, MNIST, FashionMNIST
+from .datasets import (CIFAR10, CIFAR100, MNIST, FashionMNIST,
+                       ImageFolderDataset, ImageRecordDataset)
 
-__all__ = ["CIFAR10", "CIFAR100", "FashionMNIST", "MNIST", "datasets",
-           "transforms"]
+__all__ = ["CIFAR10", "CIFAR100", "FashionMNIST", "ImageFolderDataset",
+           "ImageRecordDataset", "MNIST", "datasets", "transforms"]

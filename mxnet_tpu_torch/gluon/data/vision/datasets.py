@@ -8,8 +8,11 @@ a deterministic synthetic set of the right shapes takes their place:
 the JAX package's, array for array (the same seeded numpy draws). A
 sample is ``(image, label)``: an HWC ``uint8`` numpy image and an
 ``int32`` label, or what ``transform(image, label)`` makes of them.
-``ImageRecordDataset`` and ``ImageFolderDataset`` wait for the image
-codecs and RecordIO (ROADMAP Queue 1, 'Vision remainders').
+``ImageRecordDataset`` reads packed images from an indexed RecordIO
+file (``image, header.label``) and ``ImageFolderDataset`` a
+``root/class/image`` tree (``image, class index``); their images are
+decoded HWC numpy arrays (``image.imdecode``'s codecs: PIL, or ``NPY0``
+records and ``.npy`` files).
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ import numpy as np
 from ....base import MXNetError
 from ..dataset import Dataset
 
-__all__ = ["CIFAR10", "CIFAR100", "FashionMNIST", "MNIST"]
+__all__ = ["CIFAR10", "CIFAR100", "FashionMNIST", "ImageFolderDataset",
+           "ImageRecordDataset", "MNIST"]
 
 
 class _DownloadedDataset(Dataset):
@@ -193,3 +197,68 @@ class CIFAR100(CIFAR10):
             raw = np.frombuffer(f.read(), dtype=np.uint8).reshape(-1, 3074)
         self._label = raw[:, 1 if self._fine_label else 0].astype(np.int32)
         self._data = raw[:, 2:].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+
+
+class ImageRecordDataset(Dataset):
+    """Packed images of an indexed RecordIO file (``recordio.pack_img``):
+    sample ``i`` is ``(image, label)``."""
+
+    def __init__(self, filename, flag=1, transform=None):
+        from ..dataset import RecordFileDataset
+        self._record = RecordFileDataset(filename)
+        self._flag = flag
+        self._transform = transform
+
+    def __getitem__(self, idx):
+        from .... import image, recordio
+        header, img_bytes = recordio.unpack(self._record[idx])
+        img = image._decode_np(img_bytes)
+        if self._transform is not None:
+            return self._transform(img, header.label)
+        return img, header.label
+
+    def __len__(self):
+        return len(self._record)
+
+
+class ImageFolderDataset(Dataset):
+    """Images arranged ``root/<class>/<image>`` (``.jpg``, ``.jpeg``,
+    ``.png``, ``.npy``); classes in sorted folder order (``synsets``),
+    sample ``i`` is ``(image, class index)``."""
+
+    def __init__(self, root, flag=1, transform=None):
+        self._root = os.path.expanduser(root)
+        self._flag = flag
+        self._transform = transform
+        self._exts = [".jpg", ".jpeg", ".png", ".npy"]
+        self._list_images(self._root)
+
+    def _list_images(self, root):
+        self.synsets = []
+        self.items = []
+        for folder in sorted(os.listdir(root)):
+            path = os.path.join(root, folder)
+            if not os.path.isdir(path):
+                continue
+            label = len(self.synsets)
+            self.synsets.append(folder)
+            for filename in sorted(os.listdir(path)):
+                ext = os.path.splitext(filename)[1]
+                if ext.lower() not in self._exts:
+                    continue
+                self.items.append((os.path.join(path, filename), label))
+
+    def __getitem__(self, idx):
+        from .... import image
+        path, label = self.items[idx]
+        if path.endswith(".npy"):
+            img = np.load(path)
+        else:
+            with open(path, "rb") as f:
+                img = image._decode_np(f.read())
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
+
+    def __len__(self):
+        return len(self.items)

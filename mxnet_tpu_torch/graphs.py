@@ -44,10 +44,18 @@ What surrounds a capture:
   torch warns about at the end of its capture. The capture takes that
   warning to itself, names the function in :func:`empty_captures`, and
   the graph's replay does nothing.
+- **Host reads.** An operation whose loop needs a scalar from the
+  device (NMS: its candidates' count and its convergence flag) reads
+  it through :func:`host_read`, which counts the read for the calling
+  thread and raises ``MXNetError`` while the current stream captures.
+  A function whose warm-up made such a read is refused before its
+  capture (:class:`NotCapturable`): the hybridized blocks' CachedOp
+  and the executor run that key's forward eagerly from then on, and
+  every other caller gets the error.
 - **Failures.** A capture that fails raises ``MXNetError`` naming what
   was captured. Nothing is retried eagerly: code whose capture fails
-  has a host read or an allocation pattern that a graph cannot hold,
-  and that is a fault to fix.
+  has an unmarked host read or an allocation pattern that a graph
+  cannot hold, and that is a fault to fix.
 - **Random numbers.** Operations that draw from torch's default CUDA
   generator (dropout) register it with the capture; each replay
   advances it and draws new numbers, and ``mx.random.seed`` after a
@@ -69,8 +77,9 @@ from . import ops
 from .base import MXNetError
 from .ops import _build
 
-__all__ = ["Graph", "capture", "capture_stream", "captures", "count_capture",
-           "empty_captures", "replayed_launches", "reset_replayed_launches"]
+__all__ = ["Graph", "NotCapturable", "capture", "capture_stream", "captures",
+           "count_capture", "empty_captures", "host_read", "replayed_launches",
+           "reset_replayed_launches"]
 
 _LOCAL = threading.local()
 _CAPTURE_LOCK = threading.RLock()
@@ -106,6 +115,27 @@ def replayed_launches():
 
 def reset_replayed_launches():
     _REPLAYED.clear()
+
+
+class NotCapturable(MXNetError):
+    """The function's warm-up read the device back to the host
+    (:func:`host_read`), which a CUDA graph cannot hold."""
+
+
+def _host_reads():
+    return getattr(_LOCAL, "host_reads", 0)
+
+
+def host_read(x):
+    """``x.item()`` for an operation's loop-control scalar, counted for
+    the calling thread (module docstring); raises ``MXNetError`` while
+    the current stream captures."""
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise MXNetError("an operation that reads the device back to the "
+                         "host (NMS's loop control) cannot run inside a "
+                         "CUDA graph capture")
+    _LOCAL.host_reads = _host_reads() + 1
+    return x.item()
 
 
 def capture_stream(device):
@@ -191,11 +221,17 @@ def capture(fn, static, device, pool, what, warm=None, state=()):
     graph's static outputs. First ``warm()`` runs once eagerly (by
     default ``fn(*static)``; ``warm=False`` skips the warm-up), and
     the tensors of ``state`` are put back after it. Raises
-    ``MXNetError`` naming ``what`` when the capture fails."""
+    :class:`NotCapturable` when the warm-up made a :func:`host_read`,
+    and ``MXNetError`` naming ``what`` when the capture fails."""
     graph = torch.cuda.CUDAGraph()
     with _CAPTURE_LOCK:
         if warm is not False:
+            reads = _host_reads()
             _warm_up(warm or (lambda: fn(*static)), device, state)
+            if _host_reads() != reads:
+                raise NotCapturable(f"{what} reads the device back to the "
+                                    f"host (graphs.host_read), which a CUDA "
+                                    f"graph cannot hold")
         t0 = time.perf_counter()
         try:
             with warnings.catch_warnings(record=True) as caught:

@@ -9,7 +9,10 @@ feature ids, the reference's ``iter_libsvm.cc`` contract) into CSR
 batches (``ndarray.sparse.CSRNDArray``) with ``round_batch``,
 ``num_parts``/``part_index`` sharding, a ``label_libsvm`` file and
 ``max_row_nnz`` (the densest row, for ``sparse.csr_to_ell``).
-``ImageRecordIter`` (RecordIO images) is not ported yet and raises.
+``ImageRecordIter`` reads RecordIO images through the Python pipeline,
+``image.ImageRecordIterPy``, for every request (the JAX package does
+too whenever its native reader is absent); the native reader,
+``ImageRecordIterNative``, is not ported and raises.
 """
 from __future__ import annotations
 
@@ -591,14 +594,18 @@ class MNISTIter(DataIter):
 
 
 def ImageRecordIter(**kwargs):
-    """RecordIO image batches: not ported yet."""
-    raise NotImplementedError(
-        "ImageRecordIter: RecordIO image input is not ported yet (ROADMAP "
-        "Queue 1, 'Long tail')")
+    """RecordIO image batches (``iter_image_recordio_2.cc`` analog): the
+    Python pipeline, ``image.ImageRecordIterPy``, with the reference
+    iterator's keywords (``path_imgrec``, ``data_shape``, ``batch_size``,
+    ``shuffle``, ``rand_crop``, ``rand_mirror``, ``mean_r``..., ``ctx``)."""
+    from ..image import ImageRecordIterPy
+    return ImageRecordIterPy(**kwargs)
 
 
 def ImageRecordIterNative(**kwargs):
-    """The native RecordIO image batcher: not ported yet."""
+    """The native RecordIO image batcher: not ported."""
     raise NotImplementedError(
-        "ImageRecordIterNative: RecordIO image input is not ported yet "
-        "(ROADMAP Queue 1, 'Long tail')")
+        "ImageRecordIterNative: the native RecordIO reader (io/native.py, "
+        "src/cc/image_batcher.cc built with -ljpeg) is not ported (ROADMAP "
+        "Queue 1, 'Long tail'); io.ImageRecordIter reads the same records "
+        "through the Python pipeline")

@@ -12,7 +12,10 @@ Then the eager wrappers the JAX file writes by hand: ``Dropout`` (reads
 ``autograd.is_training()``), ``BatchNorm`` (updates the moving
 statistics in place when training), ``concat``/``stack``/``add_n``
 (lists or varargs), ``split``/``split_v2``/``topk``, ``moveaxis`` and
-``waitall``; and the ``random`` and ``linalg`` sub-namespaces.
+``waitall``; and the ``random``, ``linalg``, ``sparse`` and ``contrib``
+sub-namespaces. The detection and vision contrib ops
+(``ops/detection.py``, ``ops/vision_contrib.py``) are registered under
+their plain and ``_contrib_`` names, and ``nd.contrib`` wraps them.
 
 The port's own names stay: ``nd.rnn``, ``nd.layer_norm``,
 ``nd.flash_attention_op``, ``nd.convolution``, ``nd.pooling``,
@@ -34,6 +37,8 @@ from . import ndarray, register, serialization
 from . import op_impl_basic, op_impl_nn, op_impl_optimizer, op_impl_random
 from . import op_impl_rnn
 from .. import operator as _operator  # noqa: F401  (registers Custom)
+from ..ops import detection as _detection  # noqa: F401  (SSD op family)
+from ..ops import vision_contrib as _vision_contrib  # noqa: F401
 from .ndarray import NDArray, arange, array, empty, full, ones, waitall, zeros
 
 _GENERATED = register.populate_namespace(__name__)
@@ -76,18 +81,6 @@ WAITING = {
         "Deconvolution", "UpSampling", "BilinearSampler", "LRN", "lrn",
         "ROIPooling", "GridGenerator", "SpatialTransformer"),
     "Long tail": _NUMPY_OPS + (
-        # ops/detection.py
-        "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
-        "_contrib_MultiBoxDetection", "_contrib_MultiBoxPrior",
-        "_contrib_MultiBoxTarget", "_contrib_bipartite_matching",
-        "_contrib_box_iou", "_contrib_box_nms", "bipartite_matching",
-        "box_iou", "box_nms",
-        # ops/vision_contrib.py
-        "AdaptiveAvgPooling2D", "BilinearResize2D", "DeformableConvolution",
-        "PSROIPooling", "ROIAlign", "_contrib_AdaptiveAvgPooling2D",
-        "_contrib_BilinearResize2D", "_contrib_DeformableConvolution",
-        "_contrib_PSROIPooling", "_contrib_ROIAlign", "_contrib_box_decode",
-        "_contrib_box_encode", "box_decode", "box_encode",
         # ndarray/op_impl_quant.py
         "dequantize_v2", "quantize_v2", "quantized_conv",
         "quantized_fully_connected"),
@@ -200,4 +193,4 @@ def add_n(*data):
 
 ElementWiseSum = add_n
 
-from . import linalg, random, sparse  # noqa: E402
+from . import contrib, linalg, random, sparse  # noqa: E402

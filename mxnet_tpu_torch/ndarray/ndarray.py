@@ -124,6 +124,14 @@ class NDArray(torch.Tensor):
     def item(self):
         return self.asscalar()
 
+    def __float__(self):
+        """``float()`` of a one-element array (a recorded one too:
+        the value, without autograd's warning)."""
+        return float(self.asscalar())
+
+    def __int__(self):
+        return int(self.asscalar())
+
     def wait_to_read(self):
         if self.is_cuda:
             torch.cuda.current_stream(self.device).synchronize()

@@ -13,8 +13,9 @@ A file written on the card is the same bytes as one written on the CPU
 or by the JAX package for the same values.
 
 :func:`load` places the arrays on ``ctx``, by default the current
-context. Paths are local files: other URIs wait for ``filesystem.py``
-(ROADMAP 'Long tail'). The sharded checkpoints of the JAX package
+context. Paths go through ``filesystem.open_uri``: local paths,
+``file://`` and ``memory://``, and any scheme a caller registers
+(``filesystem.register_scheme``). The sharded checkpoints of the JAX package
 (``save_sharded``/``load_sharded``) wait for ROADMAP 'Multi-GPU'.
 """
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from ..base import MXNetError
 from ..context import resolve_device
+from ..filesystem import open_uri
 from .ndarray import DTYPE_CODES, DTYPE_OF_CODE, NDArray, raw_numpy
 
 __all__ = ["load", "load_bytes", "load_sharded", "save", "save_bytes",
@@ -86,7 +88,7 @@ def save_bytes(data):
 def save(fname, data):
     """``mx.nd.save``: write an array, a list or a dict to ``fname``."""
     payload = save_bytes(data)
-    with open(_local(fname), "wb") as f:
+    with open_uri(fname, "wb") as f:
         f.write(payload)
 
 
@@ -152,21 +154,12 @@ def load_bytes(data, ctx=None):
 def load(fname, ctx=None):
     """``mx.nd.load``: a list, or a dict as the file was saved; the
     arrays on ``ctx`` (default: the current context)."""
-    with open(_local(fname), "rb") as f:
+    with open_uri(fname, "rb") as f:
         data = f.read()
     try:
         return load_bytes(data, ctx)
     except MXNetError as err:
         raise MXNetError(f"{fname!r}: {err}") from None
-
-
-def _local(fname):
-    fname = str(fname)
-    if "://" in fname and not fname.startswith("file://"):
-        raise NotImplementedError(
-            f"{fname!r}: only local paths; other URIs wait for "
-            f"filesystem.py (ROADMAP 'Long tail')")
-    return fname[len("file://"):] if fname.startswith("file://") else fname
 
 
 def save_sharded(prefix, data):

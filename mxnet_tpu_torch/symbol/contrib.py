@@ -1,7 +1,8 @@
-"""``mx.sym.contrib``: ``arange_like`` and the contrib ops (port of
-``mxnet_tpu/symbol/contrib.py``). The detection and vision contrib ops
-are not ported yet: calling one raises ``NotImplementedError`` naming
-its ROADMAP item."""
+"""``mx.sym.contrib``: ``arange_like`` and the detection and vision
+contrib ops (port of ``mxnet_tpu/symbol/contrib.py``): each builds a
+node of the registry's op (``ops/detection.py``,
+``ops/vision_contrib.py``), which binds and runs through ``Executor``
+as any other node."""
 from __future__ import annotations
 
 from ..ndarray.register import get_op

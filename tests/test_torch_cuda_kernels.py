@@ -5,6 +5,7 @@ not installed::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
+import contextlib
 import math
 
 import numpy as np
@@ -2342,3 +2343,342 @@ def test_optimizer_updates_on_the_card_match_the_cpu(cuda, name, kw):
         out.append([k.float().cpu() for k in keep])
     for a, b in zip(*out):
         assert (a - b).abs().max().item() <= 1e-6 * b.abs().max().item()
+
+
+# ----------------------------------------------------------------------
+# detection and vision contrib ops (no port kernel: torch ops on the card)
+# ----------------------------------------------------------------------
+def _anchors(device):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.examples import ssd
+    return ssd.anchors(mx, device)
+
+
+def _smoke():
+    """The repo root's ``chip_smoke.py``: SSD-300's seeded inputs
+    (``multibox_labels``/``multibox_predictions``) and the detection
+    ops' tie rule (``multibox_target_agree``/``nms_rows_agree``)."""
+    import importlib
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+class _no_sync:
+    """``torch.cuda.set_sync_debug_mode("error")`` for the block: any
+    host read or synchronizing copy raises."""
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_detection_prior_and_iou_card_vs_cpu_without_host_reads(cuda):
+    """SSD-300's 8732 anchors bit for bit; ``box_iou`` and
+    ``bipartite_matching`` card against CPU; the prior and the IoU make
+    no host read."""
+    from mxnet_tpu_torch import nd
+    cpu = _anchors(torch.device("cpu"))
+    maps = [torch.zeros(1, 1, h, h, device=cuda) for h in (38, 19, 10)]
+    with _no_sync():
+        card = _anchors(cuda)
+        nd.contrib.MultiBoxPrior(maps[0], sizes=(0.2, 0.3), clip=True)
+    assert card.shape == (1, 8732, 4) and torch.equal(card.cpu(), cpu)
+    lab = torch.tensor(_smoke().multibox_labels(3)[:, :, 1:])
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        a, l = cpu.to(dev), lab.to(dev)
+        with _no_sync() if dev.type == "cuda" else contextlib.nullcontext():
+            iou = nd.contrib.box_iou(a[0], l.reshape(-1, 4))
+        rows, cols = nd.contrib.bipartite_matching(
+            iou.reshape(-1, 32, 8)[:16].transpose(0, 1), threshold=0.1)
+        res[dev.type] = (iou.cpu(), rows.cpu(), cols.cpu())
+    assert torch.equal(res["cuda"][0], res["cpu"][0])
+    assert torch.equal(res["cuda"][1], res["cpu"][1])
+    assert torch.equal(res["cuda"][2], res["cpu"][2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mining", [3.0, -1.0])
+def test_detection_multibox_target_card_vs_cpu(cuda, mining):
+    """``MultiBoxTarget`` at SSD-300's training shapes (labels 32 x 8 x 5,
+    class predictions 32 x 21 x 8732) card against CPU under the tie
+    rule (``chip_smoke.multibox_target_agree``), no host read on the
+    card."""
+    from mxnet_tpu_torch import nd
+    smoke = _smoke()
+    cpu = torch.device("cpu")
+    anchors = _anchors(cpu)
+    lab = smoke.multibox_labels(4)
+    logits, _ = smoke.multibox_predictions(4, anchors.shape[1])
+    kw = dict(overlap_threshold=0.5, negative_mining_ratio=mining,
+              negative_mining_thresh=0.5, variances=(0.1, 0.1, 0.2, 0.2))
+    out = {}
+    for dev in (cuda, cpu):
+        args = [anchors.to(dev), torch.tensor(lab, device=dev),
+                torch.tensor(logits, device=dev)]
+        with _no_sync() if dev.type == "cuda" else contextlib.nullcontext():
+            res = nd.contrib.MultiBoxTarget(*args, **kw)
+        out[dev.type] = [r.cpu().numpy() for r in res]
+    differ, ties, gap = smoke.multibox_target_agree(
+        out["cuda"], out["cpu"], anchors.numpy(), lab)
+    assert differ == ties and gap <= 1e-5
+    assert (out["cpu"][2] > 0).sum() >= 32          # every image matched
+
+
+@pytest.mark.cuda
+def test_detection_stable_sorts_keep_ties_in_index_order(cuda):
+    """Tied scores and tied hardness: the card's stable sorts rank as the
+    CPU's (``box_nms`` topk and order, mining's ranks)."""
+    from mxnet_tpu_torch import nd
+    rs = np.random.RandomState(5)
+    n = 3000
+    xy = rs.rand(2, n, 2).astype(np.float32)
+    boxes = np.concatenate([xy, xy + 0.05], -1)
+    scores = (rs.randint(0, 4, (2, n, 1)) / 4).astype(np.float32)
+    data = np.concatenate([np.zeros((2, n, 1), np.float32), scores, boxes],
+                          -1)
+    out = [nd.contrib.box_nms(torch.tensor(data, device=d), topk=500,
+                              overlap_thresh=0.5).cpu()
+           for d in (cuda, "cpu")]
+    assert torch.equal(out[0], out[1])
+    anchors = torch.tensor(boxes[:1])
+    lab = torch.tensor([[[0, 0.1, 0.1, 0.3, 0.3]]], dtype=torch.float32)
+    cls = torch.zeros(1, 3, n)            # every hardness the same
+    res = [nd.contrib.MultiBoxTarget(anchors.to(d), lab.to(d), cls.to(d),
+                                     negative_mining_ratio=3.0)[2].cpu()
+           for d in (cuda, "cpu")]
+    assert torch.equal(res[0], res[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topk,images", [(400, 32), (-1, 4)])
+def test_detection_multibox_detection_card_vs_cpu(cuda, topk, images):
+    """``MultiBoxDetection`` at SSD-300's deploy settings (threshold 0.01,
+    NMS 0.45) over 8732 anchors, top 400 and the full N (all valid
+    rows, on 4 images: the CPU's reference takes ~1 s an image), card
+    against CPU under the tie rule."""
+    from mxnet_tpu_torch import nd
+    smoke = _smoke()
+    cpu = torch.device("cpu")
+    anchors = _anchors(cpu)
+    logits, loc = smoke.multibox_predictions(6, anchors.shape[1])
+    prob = torch.softmax(torch.tensor(logits[:images]), 1)
+    out = [nd.contrib.MultiBoxDetection(
+        prob.to(d), torch.tensor(loc[:images], device=d), anchors.to(d),
+        threshold=0.01, nms_threshold=0.45, nms_topk=topk).cpu().numpy()
+        for d in (cuda, cpu)]
+    _, gap = smoke.nms_rows_agree(out[0], out[1], 0.45)  # or raises
+    kept = (out[1][:, :, 0] >= 0).sum(1)
+    assert (kept > 0).all() and (topk < 0 or (kept <= topk).all())
+    assert gap <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"id_index": 0, "topk": 50},
+                                {"force_suppress": True,
+                                 "in_format": "center",
+                                 "out_format": "corner"}])
+def test_detection_box_nms_card_vs_cpu(cuda, kw):
+    from mxnet_tpu_torch import nd
+    rs = np.random.RandomState(7)
+    n = 2000
+    xy = rs.rand(4, n, 2) * 0.8
+    data = np.concatenate([rs.randint(0, 5, (4, n, 1)), rs.rand(4, n, 1),
+                           xy, xy + rs.rand(4, n, 2) * 0.2 + 0.01],
+                          -1).astype(np.float32)
+    out = [nd.contrib.box_nms(torch.tensor(data, device=d),
+                              overlap_thresh=0.4, **kw).cpu().numpy()
+           for d in (cuda, "cpu")]
+    differ, gap = _smoke().nms_rows_agree(out[0], out[1], 0.4)
+    assert differ == 0 and gap == 0.0
+
+
+def _detect_inputs(seed, images, device):
+    """SSD-300's anchors with seeded class logits and box offsets for
+    ``images`` images."""
+    anchors = _anchors(device)
+    logits, loc = _smoke().multibox_predictions(seed, anchors.shape[1])
+    return (anchors, torch.tensor(logits[:images], device=device),
+            torch.tensor(loc[:images], device=device))
+
+
+@pytest.mark.cuda
+def test_detection_hybridized_block_with_nms_runs_eagerly_on_the_card(cuda):
+    """A hybridized block whose forward runs NMS (``MultiBoxDetection``
+    and ``box_nms``, as GluonCV's SSD does at inference) on the card:
+    its warm-up finds NMS's host reads, so no graph is captured and the
+    key runs eagerly, equal bit for bit at every call to the same block
+    not hybridized; a block without NMS still captures."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, graphs
+
+    class Detect(gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.head = gluon.nn.Dense(21, in_units=21, flatten=False)
+
+        def hybrid_forward(self, F, cls, loc, anchors):
+            logits = F.transpose(self.head(F.transpose(cls, (0, 2, 1))),
+                                 (0, 2, 1))
+            det = F.contrib.MultiBoxDetection(
+                F.softmax(logits, axis=1), loc, anchors, threshold=0.01,
+                nms_threshold=0.45, nms_topk=400)
+            return det, F.contrib.box_nms(det, overlap_thresh=0.3,
+                                          id_index=0, topk=100)
+
+    anchors, logits, loc = _detect_inputs(9, 4, cuda)
+    with mx.Context.of(cuda):
+        net, ref = Detect(), Detect()
+    for block in (net, ref):
+        block.initialize()
+    with torch.no_grad():
+        for p, q in zip(net.parameters(), ref.parameters()):
+            q.copy_(p)
+    net.hybridize()
+    c0 = graphs.captures()
+    for scale in (1.0, 1.0, 0.5, 1.0):
+        got = net(logits * scale, loc, anchors)
+        want = ref(logits * scale, loc, anchors)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert (got[0][:, :, 0] >= 0).sum() > 0
+    assert graphs.captures() == c0
+    plain = gluon.nn.Dense(8, in_units=5, device=cuda)
+    plain.initialize()
+    plain.hybridize()
+    plain(torch.ones(2, 5, device=cuda))
+    assert graphs.captures() == c0 + 1
+
+
+@pytest.mark.cuda
+def test_detection_executor_binds_multibox_ops_on_the_card(cuda):
+    """``mx.sym.contrib.MultiBoxPrior/Target/Detection`` and ``box_nms``
+    bound on the card through the executor: the prior and the target
+    (no host read) capture a graph, the detection group runs its walk
+    eagerly (NMS); each equals ``nd``'s on the card bit for bit at every
+    forward, and the CPU's binding under the tie rule."""
+    from mxnet_tpu_torch import graphs, nd, sym
+
+    smoke = _smoke()
+    feat, lab, cls, loc = (sym.var(n) for n in ("feat", "label", "cls",
+                                                "loc"))
+    anchors = sym.contrib.MultiBoxPrior(feat, sizes=(0.2, 0.272),
+                                        ratios=(1.0, 2.0, 0.5),
+                                        steps=(8 / 300, 8 / 300))
+    target = sym.Group(list(sym.contrib.MultiBoxTarget(
+        anchors, lab, cls, negative_mining_ratio=3.0)))
+    det = sym.contrib.MultiBoxDetection(sym.softmax(cls, axis=1), loc,
+                                        anchors, nms_threshold=0.45,
+                                        nms_topk=400)
+    det = sym.Group([det, sym.contrib.box_nms(det, overlap_thresh=0.3,
+                                              id_index=0, topk=100)])
+    rs = np.random.RandomState(10)
+    n = 38 * 38 * 4
+    arrays = {"feat": np.zeros((1, 8, 38, 38), np.float32),
+              "label": smoke.multibox_labels(10, b=4),
+              "cls": (rs.randn(4, 21, n) * 2).astype(np.float32),
+              "loc": (rs.randn(4, n * 4) * 0.5).astype(np.float32)}
+    cpu = torch.device("cpu")
+    outs = {}
+    for dev in (cuda, cpu):
+        args = {k: nd.array(v, ctx=dev) for k, v in arrays.items()}
+        a = nd.contrib.MultiBoxPrior(args["feat"], sizes=(0.2, 0.272),
+                                     ratios=(1.0, 2.0, 0.5),
+                                     steps=(8 / 300, 8 / 300))
+        t = nd.contrib.MultiBoxTarget(a, args["label"], args["cls"],
+                                      negative_mining_ratio=3.0)
+        d = nd.contrib.MultiBoxDetection(nd.softmax(args["cls"], axis=1),
+                                         args["loc"], a, nms_threshold=0.45,
+                                         nms_topk=400)
+        d2 = nd.contrib.box_nms(d, overlap_thresh=0.3, id_index=0, topk=100)
+        ex_t = target.bind(dev, {k: args[k] for k in ("feat", "label",
+                                                      "cls")})
+        ex_d = det.bind(dev, {k: args[k] for k in ("feat", "cls", "loc")})
+        c0 = graphs.captures()
+        for _ in range(2):
+            got_t = [o.asnumpy() for o in ex_t.forward()]
+            got_d = [o.asnumpy() for o in ex_d.forward()]
+            for g, w in zip(got_t + got_d, [*t, d, d2]):
+                np.testing.assert_array_equal(g, w.asnumpy())
+        # the CPU's entries stand for one capture each; on the card the
+        # target's entry captures and the detection's runs eagerly
+        assert graphs.captures() - c0 == (1 if dev.type == "cuda" else 2)
+        outs[dev.type] = (got_t, got_d)
+    anc = nd.contrib.MultiBoxPrior(nd.array(arrays["feat"], ctx=cpu),
+                                   sizes=(0.2, 0.272), ratios=(1.0, 2.0, 0.5),
+                                   steps=(8 / 300, 8 / 300)).asnumpy()
+    differ, ties, gap = smoke.multibox_target_agree(
+        outs["cuda"][0], outs["cpu"][0], anc, arrays["label"])
+    assert differ == ties and gap <= 1e-5
+    for g, w in zip(outs["cuda"][1], outs["cpu"][1]):
+        smoke.nms_rows_agree(g, w, 0.45)            # or raises
+
+
+def _vision_cases(rs):
+    from mxnet_tpu_torch import nd
+    c = nd.contrib
+    x = rs.randn(2, 16, 20, 24).astype(np.float32)
+    rois = np.concatenate([rs.randint(0, 2, (64, 1)), rs.rand(64, 2) * 14,
+                           rs.rand(64, 2) * 14 + 8], 1).astype(np.float32)
+    rois[:, 3:] = np.maximum(rois[:, 3:], rois[:, 1:3] + 1)
+    off = (rs.randn(2, 18, 20, 24) * 1.5).astype(np.float32)
+    w = (rs.randn(8, 16, 3, 3) * 0.2).astype(np.float32)
+    ps = rs.randn(2, 2 * 9, 20, 24).astype(np.float32)
+    boxes = rs.rand(2, 50, 4).astype(np.float32)
+    anc = np.concatenate([rs.rand(1, 50, 2), rs.rand(1, 50, 2) + 1.0],
+                         -1).astype(np.float32)
+    return {
+        "ROIAlign": (lambda d, r: c.ROIAlign(d, r, (7, 7), 0.5), [x, rois]),
+        "BilinearResize2D": (lambda d: c.BilinearResize2D(d, 33, 17), [x]),
+        "AdaptiveAvgPooling2D": (
+            lambda d: c.AdaptiveAvgPooling2D(d, (5, 7)), [x]),
+        "box_decode": (lambda d, a: c.box_decode(d, a, clip=4.0),
+                       [boxes, anc]),
+        "DeformableConvolution": (
+            lambda d, o, k: c.DeformableConvolution(
+                d, o, k, kernel=(3, 3), pad=(1, 1), num_filter=8,
+                no_bias=True), [x, off, w]),
+        # integer corners: bins whose ends land on whole cells
+        "PSROIPooling": (lambda d, r: c.PSROIPooling(
+            d, r, 0.5, output_dim=2, pooled_size=3), [ps, np.round(rois)]),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ROIAlign", "BilinearResize2D",
+                                  "AdaptiveAvgPooling2D", "box_decode",
+                                  "DeformableConvolution", "PSROIPooling"])
+def test_detection_vision_ops_card_vs_cpu_without_host_reads(cuda, name):
+    """Each vision contrib op forward and backward on the card against
+    the CPU within 1e-5 of scale; forward and backward make no host
+    read on the card."""
+    rs = np.random.RandomState(8)
+    fn, arrays = _vision_cases(rs)[name]
+    cot = None
+    res = []
+    for dev in (torch.device("cpu"), cuda):     # the CPU's shape gives cot
+        ts = [torch.tensor(a, device=dev, requires_grad=True) for a in arrays]
+        cot_d = None if cot is None else cot.to(dev)
+        with _no_sync() if dev.type == "cuda" else contextlib.nullcontext():
+            out = fn(*ts)
+            if cot_d is None:
+                cot = cot_d = torch.tensor(
+                    rs.randn(*out.shape).astype(np.float32))
+            (out * cot_d).sum().backward()
+        # an input the output does not differentiate through (PSROI's
+        # ROIs: rounded corners) has no gradient: zeros
+        res.append([out.detach().cpu()] + [
+            (t.grad if t.grad is not None else torch.zeros_like(t)).cpu()
+            for t in ts])
+    for want, got in zip(*res):
+        scale = max(want.abs().max().item(), 1e-12)
+        assert (got - want).abs().max().item() <= 1e-5 * scale

@@ -207,8 +207,9 @@ def test_examples_default_to_the_card_and_refuse_what_is_not_ported(
         train_imagenet.main(["--quick"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mnist_gluon.main(["--quick"])
-    for argv, item in ((["--data-train", "x.rec"], "Vision remainders"),
-                       (["--num-devices", "2"], "Multi-GPU"),
+    assert train_imagenet.parse_args(["--data-train", "x.rec"]) \
+        .data_train == "x.rec"          # RecordIO input: io.ImageRecordIter
+    for argv, item in ((["--num-devices", "2"], "Multi-GPU"),
                        (["--kv-store", "dist_sync"], "Multi-GPU")):
         with pytest.raises(NotImplementedError, match=item):
             train_imagenet.parse_args(argv)

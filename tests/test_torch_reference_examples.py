@@ -11,7 +11,9 @@
   ``BucketingModule``; the script exits non-zero below accuracy 0.75)
   exit 0 in subprocesses, each bucket's and key's graph entry made
   once;
-- neither child imports ``jax`` or a file of the JAX package (the
+- ``example/ssd_detection.py --quick`` (the detection ops through
+  ``nd.contrib``) exits 0 in a subprocess, its losses falling;
+- no child imports ``jax`` or a file of the JAX package (the
   runner exits 3 if one does) and each prints its launch counts and
   the graphs captured;
 - the ``.params`` the MNIST script wrote load into the JAX package's
@@ -113,4 +115,19 @@ def test_custom_op_script_quick_runs():
     accs = [float(line.rsplit(":", 1)[1]) for line in stdout.splitlines()
             if "custom-op accuracy" in line]
     assert len(accs) == 2 and min(accs) > 0.8
+    assert not any(counts.values())
+
+
+def test_ssd_detection_script_quick_runs():
+    """``example/ssd_detection.py`` unmodified: ``MultiBoxPrior``,
+    ``MultiBoxTarget`` with hard-negative mining under
+    ``autograd.pause()`` and ``MultiBoxDetection`` through
+    ``nd.contrib``, the losses falling over its two epochs; no port
+    kernel on this path."""
+    stdout, counts = _run("example/ssd_detection.py", "--quick")
+    epochs = [line for line in stdout.splitlines()
+              if line.startswith("epoch ")]
+    cls = [float(line.split("cls_loss ")[1].split()[0]) for line in epochs]
+    assert len(cls) == 2 and cls[1] < cls[0]
+    assert "mean_top1_iou" in stdout
     assert not any(counts.values())

@@ -1,7 +1,8 @@
 """``Block.save_parameters``/``load_parameters`` of the port against the
 JAX package's, on the CPU, for the MNIST MLP, the word LM at small
 widths, ``resnet18_v1`` (float32, and bfloat16-cast with float32
-BatchNorm) and the BERT trunk at 2 layers:
+BatchNorm), ``vgg16`` (10 classes, its forward at 32 x 32 in predict
+mode) and the BERT trunk at 2 layers:
 
 - the JAX package's ``_collect_params_with_prefix()`` keys are the
   port's ``.params`` keys (``named_parameters()``);
@@ -92,6 +93,16 @@ def _case(name):
             return jnet, tnet, None, None, None
         return (jnet, tnet, lambda n: n(mx.nd.array(x)).asnumpy(),
                 lambda n: n(torch.from_numpy(x)).numpy(), 1e-5)
+    if name == "vgg16":
+        x = rs.rand(2, 3, 32, 32).astype(np.float32)
+        jnet = jvision.vgg16(classes=10)
+        jnet.initialize(init=mx.initializer.Xavier())
+        with tmx.cpu():
+            tnet = vision.get_model("vgg16", classes=10)   # deferred Dense
+        with mx.autograd.predict_mode():
+            jnet(mx.nd.array(x))
+        return (jnet, tnet, lambda n: n(mx.nd.array(x)).asnumpy(),
+                lambda n: n(torch.from_numpy(x)).detach().numpy(), 1e-5)
     assert name == "bert"
     kw = dict(vocab_size=120, units=32, hidden_size=64, num_layers=2,
               num_heads=4, max_length=40, dropout=0.0, attention_dropout=0.0)
@@ -114,7 +125,7 @@ def _case(name):
 
 
 @pytest.mark.parametrize("name", ["mlp", "word_lm", "resnet18_v1",
-                                  "resnet18_v1_bf16", "bert"])
+                                  "resnet18_v1_bf16", "vgg16", "bert"])
 def test_params_files_pass_both_ways(tmp_path, name):
     jnet, tnet, jfwd, tfwd, tol = _case(name)
     want = jfwd(jnet) if jfwd is not None else None

@@ -367,6 +367,12 @@ def test_data_iterators_match_jax(tmp_path, kind):
 
 
 def test_image_record_iter_is_not_ported_yet():
-    for fn in (tmx.io.ImageRecordIter, tmx.io.ImageRecordIterNative):
-        with pytest.raises(NotImplementedError, match="'Long tail'"):
-            fn(path_imgrec="x.rec", data_shape=(3, 8, 8), batch_size=2)
+    """The native reader is not ported and raises naming its item;
+    ``ImageRecordIter`` is the Python pipeline (``image.py``), which
+    opens the file (``tests/test_torch_image_io.py`` reads records)."""
+    with pytest.raises(NotImplementedError, match="'Long tail'"):
+        tmx.io.ImageRecordIterNative(path_imgrec="x.rec",
+                                     data_shape=(3, 8, 8), batch_size=2)
+    with pytest.raises(FileNotFoundError):
+        tmx.io.ImageRecordIter(path_imgrec="no-such.rec",
+                               data_shape=(3, 8, 8), batch_size=2)

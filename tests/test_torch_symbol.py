@@ -287,10 +287,10 @@ def test_waiting_names_raise_naming_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         tmx.sym.Deconvolution
     with pytest.raises(NotImplementedError, match="Long tail"):
-        tmx.sym.contrib.MultiBoxPrior(tmx.sym.var("x"), sizes=(0.5,))
-    js = jmx.sym.contrib.MultiBoxPrior(jmx.sym.var("x"), sizes=(0.5,),
-                                       name="prior")
-    with pytest.raises(NotImplementedError, match="Long tail"):
+        tmx.sym.quantize_v2(tmx.sym.var("x"))
+    js = jmx.sym.UpSampling(jmx.sym.var("x"), scale=2,
+                            sample_type="nearest", name="up")
+    with pytest.raises(NotImplementedError, match="Vision remainders"):
         tmx.sym.load_json(js.tojson())
 
 
