@@ -307,7 +307,30 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
     least 0.6, seconds by epoch; (e) ``examples/train_imagenet.py
     --data-train`` on a seeded 256-image ``.rec`` (240 x 240, random 224
     crops): two steps of ``resnet50_v1`` at batch 32 through
-    ``io.ImageRecordIter``, finite losses, the iterator's images/s.
+    ``io.ImageRecordIter``, finite losses, the iterator's images/s;
+20. deploying Gluon models: (a) ``resnet50_v1`` (Xavier weights from
+    ``--seed``, running statistics from two train-mode batches)
+    exported, then imported through a hybridized ``SymbolBlock`` and a
+    ``Module`` (``for_training=False``) at batch 32, 224 x 224: outputs
+    within 1e-5 of scale of the Gluon model's, the graph's replay equal
+    to its first call; (b) the BERT-base encoder's graph (``data``,
+    ``token_types``, ``valid_length``; the model zoo's weights from
+    ``--seed``) saved, imported and replayed as a CUDA graph at 8 x 128:
+    within 1e-5 of scale of the model zoo's, exactly 12 K1 and 25 K3a
+    launches a forward, no capture after the first call; (c)
+    ``contrib.quantization.quantize_net`` of (a)'s model with naive
+    calibration over 2 batches (every convolution folds its BatchNorm,
+    channel-wise int8 weights): the first convolution's int8 codes and
+    int32 sums on the card equal the CPU's bit for bit, logits card vs
+    CPU at batch 2 within 1e-5 of scale (the CPU net quantized and
+    loaded from the card's ``.params``), the hybridized net equal to
+    eager bit for bit, the int8-vs-float32 gap below 5% of scale; f32
+    and int8 ms a batch, eager and graphed; (d) ``nd.contrib.foreach``,
+    ``while_loop`` and ``cond`` card vs CPU within 1e-5 of scale, and a
+    hybridized ``foreach`` capturing one graph, a hybridized ``cond``
+    running its key eagerly, both eager's bits; (e)
+    ``mx.viz.print_summary`` of (a)'s export, whose parameter total
+    must equal the Gluon net's.
 
 The op-dispatch phase also times one
 ``F.scaled_dot_product_attention`` call beside K1, K2 and K5 at head
@@ -324,7 +347,9 @@ the registry's ``nd.RNN`` call for K6a and K6b; ``launches_in_graph``
 counts phase 15's launches made by graph replays;
 ``launches_by_path["sym"]`` counts phase 17's: the symbolic LM's 20
 measured segments for K6a and K6b, one replay of the registry ops'
-graph for K1, K2, K3a, K3b, K4a and K4b.
+graph for K1, K2, K3a, K3b, K4a and K4b; ``launches_by_path["deploy"]``
+counts phase 20's: one replay of the imported BERT-base graph for K1
+and K3a.
 
 The last three lines of standard output are ``{"kernels": [...]}``,
 then the card's name and power limit as ``nvidia-smi --query-gpu=
@@ -6378,6 +6403,323 @@ def detection_phase(seed, dev, power_line, profile):
     return m
 
 
+# -- phase 20: deploying Gluon models -----------------------------------------
+DEPLOY = {"batch": 32, "image": 224, "calib_batches": 2, "cross_batch": 2,
+          "bert_rows": 8, "bert_len": 128}
+
+
+def _rel_gap(got, want):
+    """Largest gap over the reference's largest magnitude."""
+    return float((got.double() - want.double()).abs().max()) / max(
+        float(want.double().abs().max()), 1e-30)
+
+
+def _images(seed, n, dev):
+    """``n`` seeded images, uniform [0, 1), drawn on the host."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand(n, 3, DEPLOY["image"], DEPLOY["image"],
+                      generator=g).to(dev)
+
+
+def deploy_resnet(seed, dev, power_line, tmp):
+    """Phase 20a and 20e: ``resnet50_v1`` exported and imported through
+    ``SymbolBlock.imports`` (hybridized) and ``Module``, each within
+    1e-5 of scale of the Gluon model; ``mx.viz.print_summary`` of the
+    export, whose parameter total is the Gluon net's."""
+    import io as _io
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    b = DEPLOY["batch"]
+    net = vision.resnet50_v1(prefix="resnetv10_", device=dev)
+    net.initialize(init=mx.init.Xavier(), seed=seed)
+    # running statistics as a trained net has them (train-mode forwards)
+    with mx.autograd.train_mode():
+        for k in range(2):
+            net(_images(seed + 10 + k, b, dev))
+    x = _images(seed, b, dev)
+    ref = net(x)
+    f32_ms = cuda_ms(lambda: net(x), iters=10, warmup=2)
+    sym_file, params_file = net.export(os.path.join(tmp, "resnet50"))
+    ctx = mx.Context.of(dev)
+    block = mx.gluon.SymbolBlock.imports(sym_file, ["data"], params_file,
+                                         ctx=ctx)
+    block.hybridize()
+    got_block = [block(x) for _ in range(2)]
+    graph_ms = cuda_ms(lambda: block(x), iters=10, warmup=2)
+    sym, args, auxs = mx.model.load_checkpoint(os.path.join(tmp, "resnet50"),
+                                               0)
+    mod = mx.mod.Module(sym, data_names=["data"], label_names=None,
+                        context=ctx)
+    mod.bind(data_shapes=[("data", tuple(x.shape))], for_training=False)
+    mod.set_params(args, auxs)
+    mod.forward(mx.io.DataBatch(data=[x]), is_train=False)
+    got_mod = mod.get_outputs()[0].as_subclass(torch.Tensor)
+    torch.cuda.synchronize()
+    gaps = {"SymbolBlock": max(_rel_gap(g, ref) for g in got_block),
+            "Module": _rel_gap(got_mod, ref)}
+    if not torch.equal(got_block[0], got_block[1]):
+        raise AssertionError("the imported graph's replay is not its first "
+                             "call's bits")
+    for name, gap in gaps.items():
+        if not gap <= 1e-5:
+            raise AssertionError(f"resnet50_v1 imported through {name}: "
+                                 f"{gap:.3e} of scale from the Gluon model")
+    n_params = sum(t.numel() for t in net.gluon_params().values())
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        total = mx.viz.print_summary(mx.sym.load(sym_file), shape={
+            "data": (1, 3, DEPLOY["image"], DEPLOY["image"])})
+    if total != n_params:
+        raise AssertionError(f"print_summary counts {total} parameters, "
+                             f"the Gluon net holds {n_params}")
+    nodes = json.load(open(sym_file))["nodes"]
+    kinds = collections.Counter(n["op"] for n in nodes if n["op"] != "null")
+    log(f"resnet50_v1 export: {len(nodes)} nodes ({dict(kinds)}); "
+        f"imported at batch {b}: SymbolBlock (hybridized) "
+        f"{gaps['SymbolBlock']:.2e}, Module {gaps['Module']:.2e} of scale "
+        f"from the Gluon model; f32 eager {f32_ms:.3f} ms a batch, the "
+        f"imported graph {graph_ms:.3f} ms; print_summary total {total} "
+        f"= the Gluon net's ({power_line})")
+    return net, x, ref, {"gaps": gaps, "f32_eager_ms": f32_ms,
+                         "f32_imported_graph_ms": graph_ms,
+                         "params": total, "ops": dict(kinds)}
+
+
+def deploy_bert(seed, dev, power_line, tmp):
+    """Phase 20b: the BERT-base encoder's graph (``data``,
+    ``token_types``, ``valid_length``) saved, imported and replayed as a
+    CUDA graph: within 1e-5 of scale of the model zoo's, exactly 12 K1
+    and 25 K3a launches a forward. Returns the launches of one
+    replay."""
+    import torch
+
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import graphs, ops
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+
+    net = bert.bert_base(prefix="bertmodel0_", device=dev, seed=seed)
+    rs = np.random.RandomState(seed)
+    rows, slots = DEPLOY["bert_rows"], DEPLOY["bert_len"]
+    ids = torch.tensor(rs.randint(0, 30522, (rows, slots)), device=dev)
+    types = torch.tensor(rs.randint(0, 2, (rows, slots)), device=dev)
+    vl = torch.tensor(rs.randint(slots // 2, slots + 1, rows)
+                      .astype(np.float32), device=dev)
+    ref = net(ids, types, vl)
+    names = ["data", "token_types", "valid_length"]
+    graph = mx.sym.Group(list(net(*[mx.sym.var(n) for n in names])))
+    prefix = os.path.join(tmp, "bert-base")
+    graph.save(prefix + "-symbol.json")
+    mx.nd.save(prefix + "-0000.params",
+               {f"arg:{net.prefix}{k}": v.detach()
+                for k, v in net.gluon_params().items()})
+    block = mx.gluon.SymbolBlock.imports(prefix + "-symbol.json", names,
+                                         prefix + "-0000.params",
+                                         ctx=mx.Context.of(dev))
+    block.hybridize()
+    block(ids, types, vl)               # warm-up and capture
+    c0 = graphs.captures()
+    ops.reset_launch_counts()
+    got = block(ids, types, vl)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    if graphs.captures() != c0:
+        raise AssertionError("the imported BERT graph captured again")
+    want = {"flash_attention": 12, "layer_norm": 25}
+    if counts != want:
+        raise AssertionError(f"imported BERT-base launches a forward: "
+                             f"{counts}, want {want}")
+    gaps = [_rel_gap(g, w) for g, w in zip(got, ref)]
+    if not max(gaps) <= 1e-5:
+        raise AssertionError(f"imported BERT-base: {gaps} of scale from "
+                             f"the model zoo's")
+    ops_ = [n["op"] for n in json.loads(graph.tojson())["nodes"]]
+    ms = cuda_ms(lambda: block(ids, types, vl), iters=20, warmup=2)
+    log(f"BERT-base graph: {len(ops_)} nodes, "
+        f"{ops_.count('flash_attention')} flash_attention, "
+        f"{ops_.count('LayerNorm')} LayerNorm; imported and replayed at "
+        f"{rows} x {slots}: {counts} launches a forward, seq/pooled "
+        f"{gaps[0]:.2e}/{gaps[1]:.2e} of scale from the model zoo's, "
+        f"{ms:.3f} ms a forward ({power_line})")
+    return counts, {"gaps": gaps, "launches": counts, "ms": ms}
+
+
+def deploy_int8(seed, dev, power_line, tmp, net, x, ref):
+    """Phase 20c: ``quantize_net`` of the phase's ResNet-50 with naive
+    calibration over 2 batches, eager and hybridized; the first
+    convolution's int32 sums card vs CPU bit for bit, logits card vs
+    CPU at batch 2 within 1e-5 of scale, graphed equal to eager, the
+    int8-vs-f32 gap below 5% of scale; ms a batch."""
+    import torch
+
+    from mxnet_tpu_torch.contrib import quantization as tq
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ndarray import op_impl_quant as quant
+
+    b = DEPLOY["batch"]
+    calib = [(_images(seed + 20 + k, b, dev),)
+             for k in range(DEPLOY["calib_batches"])]
+    t0 = time.perf_counter()
+    tq.quantize_net(net, calib_data=calib, num_calib_examples=b * len(calib))
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    eager = net(x)
+    eager_ms = cuda_ms(lambda: net(x), iters=10, warmup=2)
+    # the first convolution's codes and int32 sums, card and CPU
+    first = next(m for m in net.modules()
+                 if isinstance(m, tq.QuantizedConv2D))
+    kw = first._conv_kw
+    sums = []                           # (codes, int32 sums): card, CPU
+    for where in (dev, torch.device("cpu")):
+        amax = first._parameters["act_amax"].to(where)
+        q, _ = quant.quantize_act(x.to(where), amax)
+        acc = quant.int8_conv(q, first._parameters["weight_q"].to(where),
+                              kw["stride"], kw["pad"], kw["dilate"],
+                              kw["num_group"])
+        sums.append((q.cpu(), acc.cpu()))
+    if not (torch.equal(sums[0][0], sums[1][0])
+            and torch.equal(sums[0][1], sums[1][1])):
+        raise AssertionError("the first convolution's int8 codes or int32 "
+                             "sums differ between the card and the CPU")
+    # the quantized net on the CPU with the card's parameters
+    path = os.path.join(tmp, "resnet50-int8.params")
+    net.save_parameters(path)
+    cpu_net = vision.resnet50_v1(prefix="resnetv10_", device="cpu")
+    tq.quantize_net(cpu_net)
+    cpu_net.load_parameters(path)
+    nb = DEPLOY["cross_batch"]
+    cross = _rel_gap(net(x[:nb]).cpu(), cpu_net(x[:nb].cpu()))
+    if not cross <= 1e-5:
+        raise AssertionError(f"int8 resnet50_v1 card vs CPU at batch {nb}: "
+                             f"{cross:.3e} of scale")
+    net.hybridize()
+    graphed = [net(x) for _ in range(2)]
+    if not all(torch.equal(g, eager) for g in graphed):
+        raise AssertionError("the hybridized int8 net is not eager's bits")
+    graph_ms = cuda_ms(lambda: net(x), iters=10, warmup=2)
+    int8_err = _rel_gap(eager, ref)
+    if not int8_err < 0.05:
+        raise AssertionError(f"int8 resnet50_v1 is {int8_err:.3e} of scale "
+                             f"from float32")
+    n_q = sum(isinstance(m, tq.QuantizedConv2D) for m in net.modules())
+    log(f"int8 resnet50_v1: {n_q} convolutions (BatchNorm folded) and the "
+        f"Dense in int8, quantized in {quantize_s:.1f} s ({len(calib)} "
+        f"calibration batches); first convolution's codes and "
+        f"{sums[0][1].numel()} int32 sums card == CPU; logits card vs "
+        f"CPU at batch {nb} {cross:.2e} of scale; graphed == eager; "
+        f"int8 vs f32 {int8_err:.3e} of scale; {eager_ms:.3f} ms a batch "
+        f"of {b} eager, {graph_ms:.3f} graphed ({power_line})")
+    return {"quantize_s": quantize_s, "first_conv_sums_equal": True,
+            "card_vs_cpu": cross, "int8_vs_f32": int8_err,
+            "int8_eager_ms": eager_ms, "int8_graph_ms": graph_ms}
+
+
+def deploy_control_flow(seed, dev):
+    """Phase 20d: ``foreach``, ``while_loop`` and ``cond`` card vs CPU
+    within 1e-5 of scale; ``foreach`` in a hybridized block captures a
+    graph equal to eager, ``cond`` runs its key eagerly (its host
+    read)."""
+    import torch
+
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import graphs
+
+    rs = np.random.RandomState(seed)
+    data = rs.randn(16, 32, 256).astype(np.float32)
+    h0 = rs.randn(32, 256).astype(np.float32)
+    w = (rs.randn(256, 256) / 16).astype(np.float32)
+
+    def run(where):
+        d, h, m = (torch.tensor(a, device=where) for a in (data, h0, w))
+        nd = mx.nd
+        outs, states = nd.contrib.foreach(
+            lambda x, s: ([nd.tanh(x + nd.dot(s[0], m))],
+                          [nd.tanh(x + nd.dot(s[0], m))]), d, [h])
+        _, loop = nd.contrib.while_loop(
+            lambda i, s: i.sum() < 5, lambda i, s: (None, [i + 1, s * 0.9]),
+            [torch.zeros(1, device=where), h], max_iterations=8)
+        branch = nd.contrib.cond(lambda a: a.sum() > 0, lambda a: a * 2,
+                                 lambda a: -a, [h])
+        return [outs[0], states[0], loop[1], branch]
+
+    card, cpu = run(dev), run(torch.device("cpu"))
+    gaps = [_rel_gap(a.cpu(), b) for a, b in zip(card, cpu)]
+    if not max(gaps) <= 1e-5:
+        raise AssertionError(f"control flow card vs CPU: {gaps}")
+
+    class Scan(mx.gluon.HybridBlock):
+        def __init__(self, use_cond):
+            super().__init__(prefix="scan_")
+            self._cond = use_cond
+
+        def hybrid_forward(self, F, x, h):
+            if self._cond:
+                return F.contrib.cond(lambda a: a.sum() > 0,
+                                      lambda a: a * 2, lambda a: -a, [h])
+            return F.contrib.foreach(lambda x, s: (x + s, x + s), x, h)[0]
+
+    d, h = torch.tensor(data, device=dev), torch.tensor(h0, device=dev)
+    made = {}
+    for use_cond in (False, True):
+        blk = Scan(use_cond)
+        want = blk(d, h)
+        blk.hybridize()
+        c0 = graphs.captures()
+        got = [blk(d, h) for _ in range(2)]
+        made[use_cond] = graphs.captures() - c0
+        if not all(torch.equal(g, want) for g in got):
+            what = "cond" if use_cond else "foreach"
+            raise AssertionError(f"hybridized {what} is not eager's bits")
+    if made != {False: 1, True: 0}:
+        raise AssertionError(f"captures: foreach {made[False]} (want 1), "
+                             f"cond {made[True]} (want 0)")
+    log(f"control flow card vs CPU: foreach {gaps[0]:.2e}/{gaps[1]:.2e}, "
+        f"while_loop {gaps[2]:.2e}, cond {gaps[3]:.2e} of scale; "
+        f"hybridized foreach one graph, cond eager, both eager's bits")
+    return {"gaps": gaps}
+
+
+def deployment_phase(seed, dev, power_line):
+    """Phase 20 (module docstring). Returns the imported BERT-base
+    graph's launches a forward."""
+    import gc
+    import tempfile
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    m, secs = {"card": power_line}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        net, x, ref, m["resnet"] = deploy_resnet(seed, dev, power_line, tmp)
+        secs["resnet"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        bert_launches, m["bert"] = deploy_bert(seed, dev, power_line, tmp)
+        secs["bert"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        m["int8"] = deploy_int8(seed, dev, power_line, tmp, net, x, ref)
+        secs["int8"] = round(time.perf_counter() - t0, 1)
+    del net, x, ref
+    t0 = time.perf_counter()
+    m["control_flow"] = deploy_control_flow(seed, dev)
+    secs["control_flow"] = round(time.perf_counter() - t0, 1)
+    log(f"phase 20 (deployment): {time.perf_counter() - t_phase:.1f} s "
+        f"(by part: {secs})")
+    log("phase 20 metrics: " + json.dumps(m, default=lambda o: None))
+    return bert_launches
+
+
 KERNEL_NAMES = ("paged_attention", "flash_attention", "flash_attention_bwd",
                 "layer_norm", "layer_norm_bwd", "softmax_xent_fwd",
                 "softmax_xent_bwd", "lstm_fwd", "lstm_bwd", "lstm_bwd_dw")
@@ -6510,6 +6852,13 @@ def main():
     losses_optimizers_phase(args.seed, dev, power_line, wordlm_p50)
     # detection, SSD-300 and RecordIO input: no port kernel
     detection_phase(args.seed, dev, power_line, args.profile)
+    # deployment: export, import, int8, control flow; the imported
+    # BERT-base graph's launches a forward (counted from 0 over a replay)
+    by_deploy = deployment_phase(args.seed, dev, power_line)
+    for e in entries:
+        if e["name"] in by_deploy:
+            e.setdefault("launches_by_path", {})["deploy"] = \
+                by_deploy[e["name"]]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(power_line)

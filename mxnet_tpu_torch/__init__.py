@@ -35,7 +35,13 @@ CUDA graphs, as hybridized blocks do. Detection (``nd.contrib``'s
 MultiBox, NMS and vision ops: ``ops/detection.py``,
 ``ops/vision_contrib.py``) trains SSD over VGG-16
 (``examples/ssd.py``) from RecordIO input (``recordio``, ``image``'s
-augmenters and ``ImageDetIter``, ``io.ImageRecordIter``).
+augmenters and ``ImageDetIter``, ``io.ImageRecordIter``). Gluon models
+deploy as MXNet's do: ``export`` writes the built-in layers' symbolic
+forms (the JAX package's graph, letter for letter), ``SymbolBlock`` and
+``Module`` import it, ``contrib.quantization.quantize_net`` rewrites a
+net to int8 (exact int32 products), ``nd.contrib``'s
+``foreach``/``while_loop``/``cond`` are the control-flow ops and
+``mx.viz`` summarizes a graph.
 Module names mirror the JAX package's so each counterpart is found at
 the same relative path, and the top-level names are the reference's
 (``mx.nd``, ``mx.cpu()``, ``mx.current_context()``, ...): the JAX
@@ -58,6 +64,8 @@ from . import attribute, engine, name, random, test_utils, util
 from . import callback, executor, model, module, monitor, rnn, symbol
 from . import operator
 from . import filesystem, image, recordio
+from . import contrib, visualization
+from . import visualization as viz
 from . import initializer as init
 from . import kvstore as kv
 from . import module as mod
@@ -72,9 +80,9 @@ from .symbol import Symbol
 __version__ = "0.1.0"
 __all__ = ["Context", "Executor", "MXNetError", "NDArray", "Symbol",
            "attribute", "autograd", "callback", "checkpoint", "context",
-           "cpu", "current_context", "engine", "executor", "filesystem",
+           "contrib", "cpu", "current_context", "engine", "executor", "filesystem",
            "gluon", "gpu", "image", "init", "initializer", "io", "kv", "kvstore", "lr_scheduler",
            "metric", "mod", "model", "module", "monitor", "name", "nd",
            "ndarray", "num_gpus", "operator", "optimizer", "random", "recordio",
            "rnn",
-           "sym", "symbol", "test_utils", "util"]
+           "sym", "symbol", "test_utils", "util", "visualization", "viz"]

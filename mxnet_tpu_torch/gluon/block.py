@@ -112,15 +112,19 @@ when an ancestor's CachedOp (or the block's own) runs it; see
 function of its parameters (``torch.func.functional_call``).
 
 **Export.** A block called with an ``mx.sym`` Symbol builds its graph:
-a block whose ``hybrid_forward`` is written in F-ops runs it with ``F =
-mx.sym`` and each parameter a variable of its full Gluon name; a
-container (``Sequential``, ``HybridSequential``, a user block whose
-``forward`` calls children) passes the Symbol on. The port's built-in
-layers are torch ``forward``s with no symbolic form yet: one given a
-Symbol raises ``MXNetError`` naming it. :meth:`HybridBlock.export`
-writes that graph and the parameters; :class:`SymbolBlock` runs a
-graph as a block (``SymbolBlock.imports`` reads an export, of either
-package).
+a block whose class defines ``hybrid_forward`` runs it with ``F =
+mx.sym``, each parameter a variable of its full Gluon name, inside a
+``name.Prefix`` of its full prefix (the JAX block's name scope), so the
+graph's node names are the JAX package's: the full prefix is the
+outermost block's prefix and the local prefixes down the module tree.
+The built-in layers and the model zoo carry the JAX bodies as
+``hybrid_forward`` beside their torch ``forward`` (tensors keep the
+latter); a block without one (``Sequential``, a user ``Block``) runs
+its ``forward``, which passes the Symbol on to its children, and one
+whose ``forward`` is torch code raises ``MXNetError`` naming it (the
+fused recurrent layers). :meth:`HybridBlock.export` writes that graph
+and the parameters; :class:`SymbolBlock` runs a graph as a block
+(``SymbolBlock.imports`` reads an export, of either package).
 """
 from __future__ import annotations
 
@@ -140,6 +144,7 @@ from .. import ndarray as _F
 from ..base import MXNetError
 from ..context import resolve_device
 from ..ndarray import serialization
+from ..name import Prefix
 from ..ndarray.ndarray import NDArray, dtype_name
 from ..symbol import Symbol
 from .parameter import (DeferredInitializationError, Parameter,
@@ -236,6 +241,42 @@ class _no_aux:
     def __exit__(self, *exc):
         _GUARD.no_aux = self._prev
         return False
+
+
+class _SymbolicNames:
+    """The names of one symbolic call of ``root`` and of the blocks it
+    reaches: each block's full prefix (the root's prefix and the local
+    prefixes along the module tree, as the JAX blocks carry them) and
+    one variable a parameter, named by its full Gluon name."""
+
+    def __init__(self, root):
+        self.prefix = {}
+        self.param = {}
+        self._vars = {}
+
+        def walk(mod, prefix):
+            self.prefix.setdefault(id(mod), prefix)
+            for name, t in mod.named_parameters(recurse=False):
+                self.param.setdefault(id(t), prefix + name)
+            for child in mod.children():
+                walk(child, prefix + getattr(child, "_prefix", ""))
+
+        walk(root, root._prefix)
+
+    def var(self, t, name, view=None):
+        """The variable of parameter ``t`` (the first name it was given
+        here, as the JAX ``Parameter.var`` keeps one)."""
+        v = self._vars.get(id(t))
+        if v is None:
+            shape = getattr(t, "_mx_shape", None) if is_deferred(t) \
+                else tuple(t.shape)
+            v = symbol.var(self.param.get(id(t), name), shape=shape,
+                           dtype=dtype_name(getattr(t, "_mx_dtype", None)
+                                            or t.dtype),
+                           lr_mult=getattr(view, "lr_mult", 1.0),
+                           wd_mult=getattr(view, "wd_mult", 1.0))
+            self._vars[id(t)] = v
+        return v
 
 
 class _Const:
@@ -545,31 +586,45 @@ class Block(nn.Module):
 
     def _call_symbolic(self, args, kwargs):
         """A Symbol in, the block's graph out (module docstring,
-        "Export"): ``hybrid_forward`` with ``F = mx.sym`` and each
-        parameter a variable of its full Gluon name; a container's
-        ``forward`` passes the Symbol on to its children. A layer whose
-        ``forward`` is torch code raises ``MXNetError`` naming it."""
-        if type(self).forward is Block.forward and \
-                type(self).hybrid_forward is not Block.hybrid_forward:
-            names = getattr(_GUARD, "export_names", None) or {}
-            params = {}
-            for k, v in self._reg_params.items():
-                t = v._tensor
-                params[k] = symbol.var(
-                    names.get(id(t), self._prefix + self._reg_keys[k]),
-                    shape=tuple(t.shape), dtype=dtype_name(t.dtype),
-                    lr_mult=v.lr_mult, wd_mult=v.wd_mult)
+        "Export"). A block whose class defines ``hybrid_forward`` runs
+        it with ``F = mx.sym``, its parameters variables of their full
+        Gluon names, inside a ``Prefix`` of its full prefix (the JAX
+        block's ``name_scope``); a block without one (``Sequential``,
+        a user ``Block``) runs its ``forward``, which passes the Symbol
+        on to its children. A ``forward`` that is torch code raises
+        ``MXNetError`` naming the block."""
+        names = getattr(_GUARD, "sym_names", None)
+        if names is None:
+            _GUARD.sym_names = _SymbolicNames(self)
+            try:
+                return self._call_symbolic(args, kwargs)
+            finally:
+                _GUARD.sym_names = None
+        if type(self).hybrid_forward is Block.hybrid_forward:
+            try:
+                return nn.Module.__call__(self, *args, **kwargs)
+            except MXNetError:
+                raise
+            except (AttributeError, TypeError, RuntimeError,
+                    ValueError) as e:
+                raise MXNetError(
+                    f"{type(self).__name__} '{self.name}' has no symbolic "
+                    f"form: its forward is torch code, which a Symbol "
+                    f"cannot go through (ROADMAP Queue 1, 'Long tail'); "
+                    f"{type(e).__name__}: {e}") from e
+        prefix = names.prefix.get(id(self), self._prefix)
+        if self._reg_params:
+            own = {k: (self._reg_keys[k], v._tensor, v)
+                   for k, v in self._reg_params.items()}
+        else:
+            own = {k: (k, t, getattr(t, "_mx_param", None))
+                   for k, t in self._parameters.items() if t is not None}
+        params = {k: names.var(t, prefix + key, view)
+                  for k, (key, t, view) in own.items()}
+        # the JAX block enters its name scope, a fresh Prefix; an empty
+        # prefix keeps the enclosing one
+        with Prefix(prefix) if self._prefix else contextlib.nullcontext():
             return self.hybrid_forward(symbol, *args, **kwargs, **params)
-        try:
-            return nn.Module.__call__(self, *args, **kwargs)
-        except MXNetError:
-            raise
-        except (AttributeError, TypeError, RuntimeError, ValueError) as e:
-            raise MXNetError(
-                f"{type(self).__name__} '{self.name}' has no symbolic form "
-                f"yet: its forward is torch code, which a Symbol cannot go "
-                f"through (ROADMAP Queue 1, the built-in layers' symbolic "
-                f"forms); {type(e).__name__}: {e}") from e
 
     def _call_routed(self, args, kwargs):
         """A hybridized call goes through the CachedOp unless an
@@ -995,23 +1050,17 @@ class HybridBlock(Block):
         parameter under ``arg:`` and its full Gluon name, the model
         prefix included, as the JAX package's export names it). Returns
         both file names. Blocks whose ``hybrid_forward`` is written in
-        F-ops export; a layer whose ``forward`` is torch code raises
-        ``MXNetError`` naming it."""
-        params = self.gluon_params()
-        names = {id(t): self._prefix + n for n, t in params.items()}
-        prev = getattr(_GUARD, "export_names", None)
-        _GUARD.export_names = names
-        try:
-            with autograd.pause():
-                out = self(symbol.var("data"))
-        finally:
-            _GUARD.export_names = prev
+        F-ops and the built-in layers export (each its ``hybrid_forward``,
+        under its full prefix); a layer whose ``forward`` is torch code
+        raises ``MXNetError`` naming it."""
+        with autograd.pause():
+            out = self(symbol.var("data"))
         if isinstance(out, (list, tuple)):
             out = symbol.Group(list(out))
         out.save(f"{path}-symbol.json")
         serialization.save(f"{path}-{epoch:04d}.params",
-                           {f"arg:{names[id(t)]}": t.detach()
-                            for t in params.values()})
+                           {f"arg:{self._prefix}{n}": t.detach()
+                            for n, t in self.gluon_params().items()})
         return f"{path}-symbol.json", f"{path}-{epoch:04d}.params"
 
 

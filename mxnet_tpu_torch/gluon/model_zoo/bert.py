@@ -13,7 +13,12 @@ Weights are seeded (:meth:`~..block.Block.initialize`) or carried over
 from the JAX blocks with each class's ``from_gluon_params``. Dropout
 follows ``autograd.is_training()``: the identity outside
 ``autograd.record()``. ``device=None`` is the current CUDA device and
-raises without one.
+raises without one. Each block also has the JAX block's
+``hybrid_forward``, which Symbols go through: ``model(mx.sym.var(
+"data"), mx.sym.var("token_types"), mx.sym.var("valid_length"))``
+builds the encoder's graph (one ``flash_attention`` node a layer, on
+``valid_length``), named as the JAX model's when the prefixes agree
+(``prefix=``).
 """
 from __future__ import annotations
 
@@ -62,7 +67,8 @@ class BERTEmbeddings(HybridBlock):
                                         prefix="pos_", device=device)
         self.ln = LayerNorm(epsilon=layer_norm_eps, in_channels=units,
                             dtype=dtype, prefix="ln_", device=device)
-        self.dropout = Dropout(dropout) if dropout else None
+        with self.name_scope():
+            self.dropout = Dropout(dropout) if dropout else None
 
     def forward(self, inputs, token_types, positions=None):
         # the gather clips out-of-range ids, which would alias every
@@ -96,6 +102,18 @@ class BERTEmbeddings(HybridBlock):
             x = self.dropout(x)
         return x
 
+    def hybrid_forward(self, F, inputs, token_types, positions=None):
+        x = self.word_embed(inputs) + self.token_type_embed(token_types)
+        if positions is None:
+            pos = F.arange_like(inputs, axis=1)
+            x = x + F.expand_dims(self.position_embed(pos), 0)
+        else:
+            x = x + self.position_embed(positions)
+        x = self.ln(x)
+        if self.dropout is not None:
+            x = self.dropout(x)
+        return x
+
 
 class BERTModel(HybridBlock):
     """Trunk: embeddings -> TransformerEncoder -> (seq_out, pooled_out).
@@ -107,8 +125,8 @@ class BERTModel(HybridBlock):
                  num_layers=12, num_heads=12, max_length=512,
                  token_types=2, dropout=0.1, attention_dropout=0.1,
                  layer_norm_eps=1e-12, use_pooler=True, dtype="float32",
-                 device=None, seed=0):
-        super().__init__()
+                 device=None, seed=0, prefix=None):
+        super().__init__(prefix)
         self.device = resolve_device(device)
         self.units = units
         self.vocab_size = vocab_size
@@ -139,6 +157,16 @@ class BERTModel(HybridBlock):
         if self.pooler is None:
             return seq
         return seq, self.pooler(seq[:, 0])
+
+    def hybrid_forward(self, F, inputs, token_types, valid_length=None,
+                       mask=None, segment_ids=None, positions=None):
+        x = self.embeddings(inputs, token_types, positions)
+        seq = self.encoder(x, mask, valid_length, segment_ids)
+        if self.pooler is None:
+            return seq
+        pooled = self.pooler(F.slice_axis(seq, axis=1, begin=0, end=1)
+                             .reshape((0, -1)))
+        return seq, pooled
 
     @classmethod
     def from_gluon_params(cls, params, num_heads, device=None,
@@ -185,7 +213,8 @@ class BERTMLMHead(HybridBlock):
         self.transform = Dense(units, flatten=False, dtype=dtype,
                                in_units=units, prefix="transform_",
                                device=self.device)
-        self.act = Activation("gelu")
+        with self.name_scope():
+            self.act = Activation("gelu")
         self.ln = LayerNorm(epsilon=layer_norm_eps, in_channels=units,
                             dtype=dtype, prefix="ln_", device=self.device)
         self.decoder = Dense(vocab_size, flatten=False, dtype=dtype,
@@ -195,6 +224,9 @@ class BERTMLMHead(HybridBlock):
 
     def forward(self, seq):
         return self.decoder(self.ln(self.act(self.transform(seq))))
+
+    def hybrid_forward(self, F, seq):
+        return self.forward(seq)
 
     @classmethod
     def from_gluon_params(cls, params, device=None, layer_norm_eps=1e-12,
@@ -223,6 +255,9 @@ class BERTNSPHead(HybridBlock):
 
     def forward(self, pooled):
         return self.classifier(pooled)
+
+    def hybrid_forward(self, F, pooled):
+        return self.forward(pooled)
 
     @classmethod
     def from_gluon_params(cls, params, device=None, dtype="float32"):

@@ -26,7 +26,9 @@ backward (``torch.utils.checkpoint``; ``remat_policy`` as
 ``HybridBlock.hybridize``'s, ``"names:conv_out"`` keeping the
 convolutions' outputs).
 ``device=None`` is the current context's device and raises without a
-card.
+card. A Symbol goes through each block's ``hybrid_forward``, the JAX
+block's F-ops, so ``export`` writes the JAX model's graph (give the
+JAX model's ``prefix`` for its names).
 """
 from __future__ import annotations
 
@@ -117,6 +119,18 @@ class SpaceToDepthStem(HybridBlock):
         return _nn.convolution(y, w2, None, kernel=(4, 4), stride=(1, 1),
                                pad=(0, 0), no_bias=True)
 
+    def hybrid_forward(self, F, x, weight):
+        o, c = self._channels, self._in_channels
+        wp = F.pad(weight, mode="constant",
+                   pad_width=(0, 0, 0, 0, 1, 0, 1, 0))
+        w2 = wp.reshape((o, c, 4, 2, 4, 2)) \
+               .transpose((0, 3, 5, 1, 2, 4)) \
+               .reshape((o, 4 * c, 4, 4))
+        y = F.space_to_depth(x, block_size=2)
+        y = F.pad(y, mode="constant", pad_width=(0, 0, 0, 0, 2, 1, 2, 1))
+        return F.Convolution(y, w2, None, kernel=(4, 4), stride=(1, 1),
+                             pad=(0, 0), num_filter=o, no_bias=True)
+
 
 def _stem_conv(names, channels, stem, in_channels, kw):
     if stem == "s2d":
@@ -165,6 +179,13 @@ class BasicBlockV1(_Residual):
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(residual + self.body(x))
 
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample:
+            residual = self.downsample(residual)
+        return F.Activation(residual + x, act_type="relu")
+
 
 class BottleneckV1(_Residual):
     """1x1 (bias, stride) - 3x3 - 1x1 (bias) with BN and relu between,
@@ -187,6 +208,13 @@ class BottleneckV1(_Residual):
     def forward(self, x):
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(self.body(x) + residual)
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample:
+            residual = self.downsample(residual)
+        return F.Activation(x + residual, act_type="relu")
 
 
 class BasicBlockV2(_Residual):
@@ -211,6 +239,15 @@ class BasicBlockV2(_Residual):
             residual = self.downsample(x)
         x = self.conv1(x)
         x = self.conv2(F.relu(self.bn2(x)))
+        return x + residual
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample:
+            residual = self.downsample(x)
+        x = self.bn2(self.conv1(x))
+        x = self.conv2(F.Activation(x, act_type="relu"))
         return x + residual
 
 
@@ -242,6 +279,16 @@ class BottleneckV2(_Residual):
         x = self.conv3(F.relu(self.bn3(x)))
         return x + residual
 
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample:
+            residual = self.downsample(x)
+        x = self.bn2(self.conv1(x))
+        x = self.bn3(self.conv2(F.Activation(x, act_type="relu")))
+        x = self.conv3(F.Activation(x, act_type="relu"))
+        return x + residual
+
 
 def _mark_remat(stage, policy=None):
     """Flag every residual block of a stage for activation recompute
@@ -269,7 +316,7 @@ class _ResNet(HybridBlock):
             self.features.add(
                 _stem_conv(n, channels, stem, in_channels, kw),
                 _bn(n, channels, kw), _relu(n),
-                nn.MaxPool2D(3, 2, 1, prefix=n("pool")))
+                nn.MaxPool2D(3, 2, 1, prefix=n("maxpool2d")))
 
     def _make_layer(self, block, layers, channels, stride, stage_index,
                     in_channels):
@@ -283,6 +330,9 @@ class _ResNet(HybridBlock):
         return layer
 
     def forward(self, x):
+        return self.output(self.features(x))
+
+    def hybrid_forward(self, F, x):
         return self.output(self.features(x))
 
 
@@ -305,7 +355,7 @@ class ResNetV1(_ResNet):
             if (i + 1) in remat_stages:
                 _mark_remat(stage, remat_policy)
             self.features.add(stage)
-        self.features.add(nn.GlobalAvgPool2D(prefix=self._names("pool")))
+        self.features.add(nn.GlobalAvgPool2D(prefix=self._names("globalavgpool2d")))
         self.output = nn.Dense(classes, in_units=channels[-1],
                                prefix=self._names("dense"), **self._kw)
 
@@ -335,7 +385,7 @@ class ResNetV2(_ResNet):
             self.features.add(stage)
             in_c = channels[i + 1]
         self.features.add(_bn(n, in_c, kw), _relu(n),
-                          nn.GlobalAvgPool2D(prefix=n("pool")),
+                          nn.GlobalAvgPool2D(prefix=n("globalavgpool2d")),
                           nn.Flatten(prefix=n("flatten")))
         self.output = nn.Dense(classes, in_units=in_c, prefix=n("dense"),
                                **kw)

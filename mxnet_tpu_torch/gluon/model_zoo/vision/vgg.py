@@ -10,7 +10,8 @@ structural: ``features.0.weight``, ..., ``output.bias``), so
 ``.params`` files pass between the two. The first Dense takes its
 width from the first batch (512 x 7 x 7 at 224 x 224). ``device=None``
 is the current context's device. ``pretrained=True`` raises: load a
-``.params`` file instead.
+``.params`` file instead. ``export`` writes the JAX model's graph
+(each layer's ``hybrid_forward``).
 """
 from __future__ import annotations
 
@@ -61,6 +62,9 @@ class VGG(HybridBlock):
         return featurizer
 
     def forward(self, x):
+        return self.output(self.features(x))
+
+    def hybrid_forward(self, F, x):
         return self.output(self.features(x))
 
 

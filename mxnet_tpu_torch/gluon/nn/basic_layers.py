@@ -1,6 +1,7 @@
 """Basic layers: Sequential, HybridSequential, Dense, Embedding,
 BatchNorm, LayerNorm, Dropout, Activation, Flatten, Identity, Lambda,
-HybridLambda.
+HybridLambda, and InstanceNorm, GroupNorm, LeakyReLU, PReLU, ELU,
+SELU, GELU, Swish and SiLU.
 
 Port of those layers of ``mxnet_tpu/gluon/nn/basic_layers.py``, as
 ``nn.Module``s with Gluon's parameter names, layouts and arguments
@@ -18,6 +19,16 @@ the K3a/K3b Function, BatchNorm through the JAX op's own backward
 takes batch statistics only in train mode (``autograd.is_training()``).
 ``device=None`` is the current context's device (the card unless a
 ``with mx.cpu():`` scope is active) and raises without a card.
+
+Each layer also carries the JAX layer's ``hybrid_forward`` in F-ops,
+which a Symbol goes through (``export``, ``gluon.block``'s
+``_call_symbolic``): tensors keep the torch ``forward``. The layers
+added with their symbolic forms (InstanceNorm, GroupNorm and the
+activations from LeakyReLU on) have no torch ``forward`` of their
+own: on tensors they run that ``hybrid_forward`` over ``mx.nd``, as a
+user's block does, their parameters made with ``self.params.get``.
+``BatchNorm``'s symbolic form is its predict-mode op, the graph
+``export`` writes.
 """
 from __future__ import annotations
 
@@ -32,9 +43,11 @@ from ...context import resolve_device
 from ...ndarray import op_impl_nn as _nn
 from ..block import Block, HybridBlock, aux_updates_on
 
-__all__ = ["Activation", "BatchNorm", "Dense", "Dropout", "Embedding",
-           "Flatten", "HybridLambda", "HybridSequential", "Identity",
-           "Lambda", "LayerNorm", "Sequential"]
+__all__ = ["Activation", "BatchNorm", "Dense", "Dropout", "ELU", "Embedding",
+           "Flatten", "GELU", "GroupNorm", "HybridLambda",
+           "HybridSequential", "Identity", "InstanceNorm", "Lambda",
+           "LayerNorm", "LeakyReLU", "PReLU", "SELU", "SiLU", "Sequential",
+           "Swish"]
 
 
 def _dtype(dtype):
@@ -88,6 +101,11 @@ class HybridSequential(HybridBlock, Sequential):
     """``Sequential`` that hybridizes into one graph, named as the
     reference's (``hybridsequential0_``)."""
 
+    def hybrid_forward(self, F, x, *args):
+        for block in self._modules.values():
+            x = block(x)
+        return x
+
 
 class Dense(HybridBlock):
     """Fully-connected layer: ``act(x @ weight.T + bias)``. With
@@ -119,6 +137,13 @@ class Dense(HybridBlock):
         out = F.linear(x, self.weight, self.bias)
         return self.act(out) if self.act is not None else out
 
+    def hybrid_forward(self, F, x, weight, bias=None):
+        out = F.FullyConnected(x, weight, bias, no_bias=bias is None,
+                               num_hidden=self._units, flatten=self._flatten)
+        if self.act is not None:
+            out = self.act(out)
+        return out
+
 
 class Embedding(HybridBlock):
     """Lookup table (input_dim, output_dim); out-of-range ids clip.
@@ -130,6 +155,7 @@ class Embedding(HybridBlock):
                  weight_initializer=None, sparse_grad=False, prefix=None,
                  params=None, device=None):
         super().__init__(prefix, params)
+        self._input_dim, self._output_dim = input_dim, output_dim
         self._sparse_grad = bool(sparse_grad)
         self.weight = self._param((input_dim, output_dim), _dtype(dtype),
                                   resolve_device(device),
@@ -139,6 +165,11 @@ class Embedding(HybridBlock):
 
     def forward(self, x):
         return _nn.embedding(x, self.weight)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim,
+                           sparse_grad=self._sparse_grad)
 
 
 class LayerNorm(HybridBlock):
@@ -167,6 +198,9 @@ class LayerNorm(HybridBlock):
             self._finish_deferred(gamma=c, beta=c)
         return _nn.layer_norm(x, self.gamma, self.beta, axis=self._axis,
                               eps=self._epsilon)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._epsilon)
 
 
 class BatchNorm(HybridBlock):
@@ -241,6 +275,12 @@ class BatchNorm(HybridBlock):
                               self.running_var, eps=self._epsilon,
                               fix_gamma=self._fix_gamma, axis=self._axis)
 
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                           axis=self._axis, eps=self._epsilon,
+                           momentum=self._momentum, fix_gamma=self._fix_gamma,
+                           use_global_stats=self._use_global_stats)
+
 
 class Dropout(HybridBlock):
     """Dropout in train mode (``autograd.is_training()``, as the JAX
@@ -267,18 +307,30 @@ class Dropout(HybridBlock):
             .bernoulli_(keep)
         return x * mask / keep
 
+    def hybrid_forward(self, F, x):
+        if self._rate > 0:
+            return F.Dropout(x, p=self._rate, axes=self._axes)
+        return F.copy(x)
+
 
 class Activation(HybridBlock):
-    """``Activation`` op by name (``ndarray.op_impl_nn.activation``)."""
+    """``Activation`` op by name (``ndarray.op_impl_nn.activation``),
+    named after it (``relu0_``), as the reference's."""
 
     def __init__(self, activation, prefix=None, params=None):
-        super().__init__(prefix, params)
         if activation not in _nn._ACT:
             raise ValueError(f"unknown activation {activation!r}")
         self._act_type = activation
+        super().__init__(prefix, params)
+
+    def _alias(self):
+        return self._act_type
 
     def forward(self, x):
         return _nn.activation(x, self._act_type)
+
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type=self._act_type)
 
 
 class Flatten(HybridBlock):
@@ -287,12 +339,18 @@ class Flatten(HybridBlock):
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
 
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
+
 
 class Identity(HybridBlock):
     """The input itself."""
 
     def forward(self, x):
         return x
+
+    def hybrid_forward(self, F, x):
+        return F.copy(x)
 
 
 class Lambda(Block):
@@ -324,3 +382,138 @@ class HybridLambda(HybridBlock, Lambda):
         else:
             super().__init__(
                 lambda *args: function(ndarray, *args), prefix, params)
+        self._function = function
+
+    def hybrid_forward(self, F, x, *args):
+        if isinstance(self._function, str):
+            return getattr(F, self._function)(x, *args)
+        return self._function(F, x, *args)
+
+
+# -- the layers that run their hybrid_forward on tensors too --------------
+class _Norm(HybridBlock):
+    """gamma and beta of ``in_channels`` (0: from the first input's
+    channel axis), made with ``self.params.get`` as the JAX layers'."""
+
+    def __init__(self, axis, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, prefix, params, device):
+        super().__init__(prefix, params)
+        self._axis = axis
+        self.in_channels = in_channels
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer, ctx=device)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer, ctx=device)
+
+    def infer_shape(self, x, *args):
+        channels = x.shape[self._axis]
+        self.gamma.shape = (channels,)
+        self.beta.shape = (channels,)
+
+
+class InstanceNorm(_Norm):
+    """Normalises each (example, channel) over the spatial axes (the
+    ``InstanceNorm`` op); ``scale=False`` by default, as the JAX
+    layer's."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None, device=None):
+        super().__init__(axis, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix, params,
+                         device)
+        self._epsilon = epsilon
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
+class GroupNorm(_Norm):
+    """Normalises ``num_groups`` groups of channels of each example (the
+    ``GroupNorm`` op)."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None, device=None):
+        super().__init__(1, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix, params,
+                         device)
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                           eps=self._epsilon)
+
+
+class LeakyReLU(HybridBlock):
+    """``x`` where positive, ``alpha * x`` elsewhere."""
+
+    def __init__(self, alpha, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """LeakyReLU with a learnt slope a channel (``alpha``, zeros at
+    first as the JAX layer's)."""
+
+    def __init__(self, alpha_initializer="zeros", in_channels=1, prefix=None,
+                 params=None, device=None):
+        super().__init__(prefix, params)
+        with self.name_scope():
+            self.alpha = self.params.get("alpha", shape=(in_channels,),
+                                         init=alpha_initializer, ctx=device)
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, gamma=alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    """``x`` where positive, ``alpha * (exp(x) - 1)`` elsewhere."""
+
+    def __init__(self, alpha=1.0, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    """Scaled ELU (Klambauer et al. 2017)."""
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
+
+class GELU(HybridBlock):
+    """GELU, the erf form or (``approximation="tanh"``) the tanh one."""
+
+    def __init__(self, approximation="erf", prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._approx = approximation != "erf"
+
+    def hybrid_forward(self, F, x):
+        return F.gelu(x, approximate=self._approx)
+
+
+class Swish(HybridBlock):
+    """``x * sigmoid(beta * x)``."""
+
+    def __init__(self, beta=1.0, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        return F.swish(x, beta=self._beta)
+
+
+class SiLU(Swish):
+    """Swish with ``beta`` 1."""

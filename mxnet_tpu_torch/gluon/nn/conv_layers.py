@@ -11,7 +11,9 @@ channels-first (``NCW``, ``NCHW``, ``NCDHW``) only, as the JAX layers
 compute them. The transposed convolutions and ``ReflectionPad2D`` are
 not ported yet (ROADMAP 'Vision remainders'). ``device=None`` is the
 current context's device and raises without a card; pass
-``device="cpu"`` (or use ``with mx.cpu():``) for the CPU.
+``device="cpu"`` (or use ``with mx.cpu():``) for the CPU. A Symbol goes
+through each layer's ``hybrid_forward``, the JAX layer's F-ops
+(``export``).
 """
 from __future__ import annotations
 
@@ -81,6 +83,16 @@ class _Conv(HybridBlock):
         out = _nn.convolution(x, self.weight, self.bias, **self._kwargs)
         return self.act(out) if self.act is not None else out
 
+    def hybrid_forward(self, F, x, weight, bias=None):
+        k = self._kwargs
+        out = F.Convolution(x, weight, bias, kernel=k["kernel"],
+                            stride=k["stride"], dilate=k["dilate"],
+                            pad=k["pad"], num_filter=self._channels,
+                            num_group=k["num_group"], no_bias=bias is None)
+        if self.act is not None:
+            out = self.act(out)
+        return out
+
     def extra_repr(self):
         return (f"{self._in_channels} -> {self._channels}, kernel_size="
                 f"{self._kwargs['kernel']}, stride={self._kwargs['stride']}")
@@ -116,10 +128,12 @@ class Conv3D(_Conv):
 
 class _Pooling(HybridBlock):
     """``Pooling`` op with fixed arguments; ``strides=None`` is the
-    pool size, ``ceil_mode`` the ``"full"`` convention."""
+    pool size, ``ceil_mode`` the ``"full"`` convention;
+    ``count_include_pad`` left None is the op's default (True), and
+    not written into the graph, as the JAX layer leaves it out."""
 
     def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
-                 pool_type, layout, count_include_pad=True, prefix=None,
+                 pool_type, layout, count_include_pad=None, prefix=None,
                  params=None):
         super().__init__(prefix, params)
         if layout != _LAYOUTS[len(pool_size)]:
@@ -130,11 +144,15 @@ class _Pooling(HybridBlock):
             "stride": pool_size if strides is None else strides,
             "pad": padding, "global_pool": global_pool,
             "pool_type": pool_type,
-            "pooling_convention": "full" if ceil_mode else "valid",
-            "count_include_pad": count_include_pad}
+            "pooling_convention": "full" if ceil_mode else "valid"}
+        if count_include_pad is not None:
+            self._kwargs["count_include_pad"] = count_include_pad
 
     def forward(self, x):
         return _nn.pooling(x, **self._kwargs)
+
+    def hybrid_forward(self, F, x):
+        return F.Pooling(x, **self._kwargs)
 
     def extra_repr(self):
         k = self._kwargs

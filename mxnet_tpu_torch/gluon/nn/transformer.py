@@ -10,6 +10,13 @@ CUDA kernel on the card), which masks per-row key lengths and packed
 while training) it composes scores + masks + softmax in plain torch,
 as the JAX package composes batch_dot + softmax; the tests hold the
 two paths against each other.
+
+A Symbol goes through each block's ``hybrid_forward``, the JAX
+package's F-op body (``export``): attention emits ``flash_attention``
+on exactly the branches where the JAX block does. The children without
+parameters (activations, dropouts) are made in their parent's name
+scope, so their prefixes, and the graph's node names, are the JAX
+blocks'.
 """
 from __future__ import annotations
 
@@ -47,8 +54,9 @@ class MultiHeadAttention(HybridBlock):
         self.out_proj = Dense(units, flatten=False, use_bias=use_bias,
                               dtype=dtype, in_units=units, prefix="out_",
                               device=device)
-        self.dropout = (Dropout(attention_dropout) if attention_dropout
-                        else None)
+        with self.name_scope():
+            self.dropout = (Dropout(attention_dropout) if attention_dropout
+                            else None)
 
     def forward(self, x, mask=None, valid_length=None, segment_ids=None):
         b, s, c = x.shape
@@ -90,6 +98,55 @@ class MultiHeadAttention(HybridBlock):
         out = out.transpose(1, 2).reshape(b, s, c)
         return self.out_proj(out)
 
+    def _split_heads(self, F, x):
+        # (B, S, C) -> (B, H, S, D)
+        x = F.reshape(x, shape=(0, 0, self._heads, -1))
+        return F.transpose(x, axes=(0, 2, 1, 3))
+
+    def hybrid_forward(self, F, x, mask=None, valid_length=None,
+                       segment_ids=None):
+        c = self._units
+        qkv = self.qkv_proj(x)
+        q = self._split_heads(F, F.slice_axis(qkv, axis=-1, begin=0, end=c))
+        k = self._split_heads(F, F.slice_axis(qkv, axis=-1, begin=c,
+                                              end=2 * c))
+        v = self._split_heads(F, F.slice_axis(qkv, axis=-1, begin=2 * c,
+                                              end=3 * c))
+        if segment_ids is not None and valid_length is None:
+            valid_length = F.segment_valid_len(segment_ids)
+        need_drop = bool(self._attn_drop) and autograd.is_training()
+        if mask is None and not need_drop:
+            if segment_ids is not None:
+                out = F.flash_attention(q, k, v, valid_length, segment_ids,
+                                        causal=self._causal)
+            elif valid_length is not None:
+                out = F.flash_attention(q, k, v, valid_length,
+                                        causal=self._causal)
+            else:
+                out = F.flash_attention(q, k, v, causal=self._causal)
+        else:
+            scale = 1.0 / math.sqrt(c // self._heads)
+            scores = F.batch_dot_attention_scores(q, k) * scale
+            if mask is not None:
+                scores = F.broadcast_add(scores, mask)
+            if valid_length is not None:
+                scores = F.attention_length_mask(scores, valid_length)
+            if segment_ids is not None:
+                scores = F.attention_segment_mask(scores, segment_ids)
+            if self._causal:
+                scores = F.causal_mask_scores(scores)
+            probs = F.softmax(scores, axis=-1)
+            if valid_length is not None:
+                probs = F.attention_zero_empty_rows(probs, valid_length)
+            if segment_ids is not None:
+                probs = F.attention_zero_pad_rows(probs, segment_ids)
+            if self.dropout is not None:
+                probs = self.dropout(probs)
+            out = F.batch_dot_attention_apply(probs, v)
+        out = F.transpose(out, axes=(0, 2, 1, 3))    # (B, S, H, D)
+        out = F.reshape(out, shape=(0, 0, -1))       # (B, S, C)
+        return self.out_proj(out)
+
 
 class PositionwiseFFN(HybridBlock):
     """Dense(hidden, act) -> Dense(units), with dropout."""
@@ -99,17 +156,22 @@ class PositionwiseFFN(HybridBlock):
         super().__init__(prefix)
         self.ffn_1 = Dense(hidden_size, flatten=False, dtype=dtype,
                            in_units=units, prefix="ffn1_", device=device)
-        self.act = Activation(activation)
+        with self.name_scope():
+            self.act = Activation(activation)
         self.ffn_2 = Dense(units, flatten=False, dtype=dtype,
                            in_units=hidden_size, prefix="ffn2_",
                            device=device)
-        self.dropout = Dropout(dropout) if dropout else None
+        with self.name_scope():
+            self.dropout = Dropout(dropout) if dropout else None
 
     def forward(self, x):
         out = self.ffn_2(self.act(self.ffn_1(x)))
         if self.dropout is not None:
             out = self.dropout(out)
         return out
+
+    def hybrid_forward(self, F, x):
+        return self.forward(x)
 
 
 class TransformerEncoderCell(HybridBlock):
@@ -134,7 +196,8 @@ class TransformerEncoderCell(HybridBlock):
         self.ffn_ln = LayerNorm(epsilon=layer_norm_eps, in_channels=units,
                                 dtype=dtype, prefix="ffn_ln_",
                                 device=device)
-        self.dropout = Dropout(dropout) if dropout else None
+        with self.name_scope():
+            self.dropout = Dropout(dropout) if dropout else None
 
     def forward(self, x, mask=None, valid_length=None, segment_ids=None):
         if self._pre_norm:
@@ -149,6 +212,10 @@ class TransformerEncoderCell(HybridBlock):
             h = self.dropout(h)
         x = self.attn_ln(x + h)
         return self.ffn_ln(x + self.ffn(x))
+
+    def hybrid_forward(self, F, x, mask=None, valid_length=None,
+                       segment_ids=None):
+        return self.forward(x, mask, valid_length, segment_ids)
 
 
 class TransformerEncoder(HybridBlock):
@@ -182,3 +249,7 @@ class TransformerEncoder(HybridBlock):
         if self.final_ln is not None:
             x = self.final_ln(x)
         return x
+
+    def hybrid_forward(self, F, x, mask=None, valid_length=None,
+                       segment_ids=None):
+        return self.forward(x, mask, valid_length, segment_ids)

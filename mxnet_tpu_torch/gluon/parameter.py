@@ -65,8 +65,10 @@ def new_parameter(shape, dtype, device, fill=0.0, grad_req="write",
                                    dtype=dtype)
         p._mx_shape, p._mx_fill = shape, fill
     else:
+        # an integer parameter (int8 weights) takes no gradient
         p = torch.nn.Parameter(torch.full(shape, fill, dtype=dtype,
-                                          device=device))
+                                          device=device),
+                               requires_grad=dtype.is_floating_point)
     if init is not None:
         p._mx_init = init           # this parameter's own initializer
     return autograd.set_grad_req(p, grad_req)

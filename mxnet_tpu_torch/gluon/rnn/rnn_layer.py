@@ -21,13 +21,16 @@ packs every weight into one flat vector each forward
 (``_flat_params``); here the layer hands its per-layer tensors to
 ``ndarray.op_impl_rnn.rnn_layers`` directly, which saves that copy and
 its backward (the packed ``rnn`` op is still there). Dropout between
-layers follows ``autograd.is_training()``.
+layers follows ``autograd.is_training()``. A Symbol raises
+``MXNetError`` naming the layer: the fused layer has no symbolic form
+(nor has the JAX one, whose trace needs states and their shapes).
 """
 from __future__ import annotations
 
 import torch
 
 from ... import autograd
+from ...base import MXNetError
 from ...context import resolve_device
 from ...ndarray import op_impl_rnn
 from ...ndarray.ndarray import NDArray
@@ -125,6 +128,13 @@ class _RNNLayer(HybridBlock):
         if skip_states:
             return out
         return out, ([h, c] if lstm else [h])
+
+    def hybrid_forward(self, F, inputs, states=None, **params):
+        raise MXNetError(
+            f"{type(self).__name__} '{self.name}' has no symbolic form: "
+            f"the fused recurrent layer runs on tensors only (the JAX "
+            f"layer cannot trace a Symbol either; ROADMAP Queue 1, 'Long "
+            f"tail'); build the graph with mx.sym.RNN or mx.rnn's cells")
 
 
 class RNN(_RNNLayer):

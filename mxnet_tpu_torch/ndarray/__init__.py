@@ -7,7 +7,8 @@ from the registry (``register.populate_namespace``, MXNet's
 ``_init_op_module``): the tensor ops (``op_impl_basic``), the
 neural-network ops (``op_impl_nn``: ``FullyConnected``, ``LayerNorm``,
 ``flash_attention``, ``softmax_cross_entropy``, ...), ``RNN``, the
-optimizer updates and the samplers, with MXNet's names and arguments.
+optimizer updates, the int8 ops (``op_impl_quant``) and the samplers,
+with MXNet's names and arguments.
 Then the eager wrappers the JAX file writes by hand: ``Dropout`` (reads
 ``autograd.is_training()``), ``BatchNorm`` (updates the moving
 statistics in place when training), ``concat``/``stack``/``add_n``
@@ -35,7 +36,7 @@ from __future__ import annotations
 
 from . import ndarray, register, serialization
 from . import op_impl_basic, op_impl_nn, op_impl_optimizer, op_impl_random
-from . import op_impl_rnn
+from . import op_impl_quant, op_impl_rnn
 from .. import operator as _operator  # noqa: F401  (registers Custom)
 from ..ops import detection as _detection  # noqa: F401  (SSD op family)
 from ..ops import vision_contrib as _vision_contrib  # noqa: F401
@@ -80,10 +81,7 @@ WAITING = {
     "Vision remainders": (
         "Deconvolution", "UpSampling", "BilinearSampler", "LRN", "lrn",
         "ROIPooling", "GridGenerator", "SpatialTransformer"),
-    "Long tail": _NUMPY_OPS + (
-        # ndarray/op_impl_quant.py
-        "dequantize_v2", "quantize_v2", "quantized_conv",
-        "quantized_fully_connected"),
+    "Long tail": _NUMPY_OPS,
 }
 _WAITING_ITEM = {name: item for item, names in WAITING.items()
                  for name in names}

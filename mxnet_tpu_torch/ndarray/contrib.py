@@ -9,14 +9,15 @@ registry (``ops/detection.py``: ``MultiBoxPrior``, ``MultiBoxTarget``,
 ``BilinearResize2D``, ``AdaptiveAvgPooling2D``, ``box_decode``,
 ``box_encode``, ``DeformableConvolution``, ``PSROIPooling``), so
 ``mx.nd.contrib.<op>``, ``mx.nd.<op>`` and ``mx.nd._contrib_<op>`` are
-one function. The control-flow ops (``foreach``, ``while_loop``,
-``cond``: ``ops/control_flow.py``) are not ported yet and raise.
+one function. ``foreach``, ``while_loop`` and ``cond`` are
+``ops/control_flow.py``'s.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..ops.control_flow import cond, foreach, while_loop  # noqa: F401
 from .ndarray import NDArray
 from .register import get_op as _get_op
 from .register import invoke as _invoke
@@ -27,20 +28,6 @@ __all__ = ["AdaptiveAvgPooling2D", "BilinearResize2D",
            "bipartite_matching", "boolean_mask", "box_decode", "box_encode",
            "box_iou", "box_nms", "cond", "dequantize", "foreach", "getnnz",
            "index_array", "index_copy", "quantize", "while_loop"]
-
-
-def _waiting(name):
-    def f(*args, **kwargs):
-        raise NotImplementedError(
-            f"mx.nd.contrib.{name} (ops/control_flow.py) is not ported yet "
-            f"(ROADMAP Queue 1, 'Long tail')")
-    f.__name__ = name
-    return f
-
-
-foreach = _waiting("foreach")
-while_loop = _waiting("while_loop")
-cond = _waiting("cond")
 
 
 def _nd(t):

@@ -2682,3 +2682,233 @@ def test_detection_vision_ops_card_vs_cpu_without_host_reads(cuda, name):
     for want, got in zip(*res):
         scale = max(want.abs().max().item(), 1e-12)
         assert (got - want).abs().max().item() <= 1e-5 * scale
+
+
+# -- deployment: export and import, int8, control flow -------------------------
+def _rel(got, want):
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+def test_export_resnet_imports_on_the_card_equal_the_gluon_model(cuda,
+                                                                 tmp_path):
+    """``resnet18_v1`` exported on the card, then imported through a
+    hybridized ``SymbolBlock`` and a ``Module`` there and on the CPU:
+    each within 1e-5 of scale of the Gluon model; the graph's replay
+    equal to its first call bit for bit."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    net = vision.resnet18_v1(classes=10, prefix="resnetv10_", device=cuda)
+    net.initialize(init=mx.init.Xavier(), seed=1)
+    x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    with mx.autograd.train_mode():
+        net(x.to(cuda) * 2)             # running statistics moved
+    ref = net(x.to(cuda))
+    path = str(tmp_path / "r18")
+    sym_file, params_file = net.export(path)
+    for dev in (cuda, torch.device("cpu")):
+        ctx = mx.Context.of(dev)
+        block = mx.gluon.SymbolBlock.imports(sym_file, ["data"], params_file,
+                                             ctx=ctx)
+        block.hybridize()
+        got = [block(x.to(dev)) for _ in range(2)]
+        assert torch.equal(got[0], got[1])
+        assert _rel(got[0], ref) <= 1e-5
+        with ctx:
+            sym, args, auxs = mx.model.load_checkpoint(path, 0)
+        mod = mx.mod.Module(sym, data_names=["data"], label_names=None,
+                            context=ctx)
+        mod.bind(data_shapes=[("data", tuple(x.shape))], for_training=False)
+        mod.set_params(args, auxs)
+        mod.forward(mx.io.DataBatch(data=[x.to(dev)]), is_train=False)
+        assert _rel(mod.get_outputs()[0], ref) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_export_bert_graph_replays_on_k1_and_k3a(cuda, tmp_path):
+    """A 2-layer BERT's graph on ``data``, ``token_types`` and
+    ``valid_length``, imported and hybridized on the card: every replay
+    launches flash attention (K1) once a layer and LayerNorm (K3a) 2 x
+    layers + 1 times, and gives the model zoo's outputs within 1e-5 of
+    scale."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import graphs
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+
+    net = bert.BERTModel(vocab_size=100, units=64, hidden_size=128,
+                         num_layers=2, num_heads=4, max_length=64,
+                         prefix="bertmodel0_", device=cuda, seed=2)
+    rs = np.random.RandomState(2)
+    ids = torch.tensor(rs.randint(0, 100, (3, 40)), device=cuda)
+    types = torch.tensor(rs.randint(0, 2, (3, 40)), device=cuda)
+    vl = torch.tensor([40.0, 17.0, 1.0], device=cuda)
+    ref = net(ids, types, vl)
+    names = ["data", "token_types", "valid_length"]
+    graph = mx.sym.Group(list(net(*[mx.sym.var(n) for n in names])))
+    graph.save(str(tmp_path / "b-symbol.json"))
+    mx.nd.save(str(tmp_path / "b-0000.params"),
+               {f"arg:{net.prefix}{k}": v.detach()
+                for k, v in net.gluon_params().items()})
+    block = mx.gluon.SymbolBlock.imports(
+        str(tmp_path / "b-symbol.json"), names,
+        str(tmp_path / "b-0000.params"), ctx=mx.Context.of(cuda))
+    block.hybridize()
+    block(ids, types, vl)
+    c0 = graphs.captures()
+    for _ in range(2):
+        before = launch_counts()
+        got = block(ids, types, vl)
+        after = launch_counts()
+        assert after["flash_attention"] - before["flash_attention"] == 2
+        assert after["layer_norm"] - before["layer_norm"] == 5
+        for g, w in zip(got, ref):
+            assert _rel(g, w) <= 1e-5
+    assert graphs.captures() == c0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 8, 8), (16, 13, 3), (17, 147, 64),
+                                   (200, 2048, 1000), (4096, 576, 128)])
+def test_quant_int8_gemm_on_the_card_equals_the_cpu(cuda, m, k, n):
+    """cuBLASLt's int8 GEMM through ``int8_gemm``'s zero padding: exact
+    int32 sums at every shape, padded or not."""
+    from mxnet_tpu_torch.ndarray import op_impl_quant as quant
+
+    g = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=g)
+    b = torch.randint(-127, 128, (n, k), dtype=torch.int8, generator=g)
+    got = quant.int8_gemm(a.to(cuda), b.to(cuda))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+    assert torch.equal(got.cpu(), quant.int8_gemm(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kernel,stride,pad,dilate,groups", [
+    ((4, 3, 64, 64), 7, 2, 3, 1, 1), ((2, 64, 28, 28), 3, 1, 1, 1, 1),
+    ((2, 256, 14, 14), 1, 2, 0, 1, 1), ((2, 8, 13, 11), 3, 1, 2, 2, 4)])
+def test_quant_int8_conv_on_the_card_equals_the_cpu(cuda, shape, kernel,
+                                                    stride, pad, dilate,
+                                                    groups):
+    from mxnet_tpu_torch.ndarray import op_impl_quant as quant
+
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randint(-127, 128, shape, dtype=torch.int8, generator=g)
+    w = torch.randint(-127, 128, (16, shape[1] // groups, kernel, kernel),
+                      dtype=torch.int8, generator=g)
+    args = ((stride,) * 2, (pad,) * 2, (dilate,) * 2, groups)
+    got = quant.int8_conv(x.to(cuda), w.to(cuda), *args)
+    assert torch.equal(got.cpu(), quant.int8_conv(x, w, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s8", [False, True])
+def test_quant_net_on_the_card_equals_the_cpu(cuda, s8):
+    """A conv net (BatchNorm folded, a Dense) quantized on the card and on
+    the CPU from the same float weights and calibration batch: the int8
+    codes, scales and biases bit for bit, the ranges within 1e-6
+    relative (float activations of cuDNN and of the CPU); with the
+    CPU's parameters the card's outputs within 1e-6 of scale; the
+    hybridized net equal to eager bit for bit (a CUDA graph: the
+    dynamic-range choice and the int8 products need no host read)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import quantization as tq
+    from mxnet_tpu_torch.gluon import nn
+
+    def build(dev):
+        net = nn.HybridSequential(prefix="q_")
+        with net.name_scope():
+            net.add(nn.Conv2D(16, 3, padding=1, use_bias=False,
+                              in_channels=3, device=dev),
+                    nn.BatchNorm(in_channels=16, device=dev),
+                    nn.Activation("relu"),
+                    nn.Conv2D(16, 3, padding=1, in_channels=16, device=dev),
+                    nn.BatchNorm(in_channels=16, device=dev),
+                    nn.Activation("relu"),
+                    nn.Conv2D(8, 1, in_channels=16, device=dev),
+                    nn.Dense(10, in_units=8 * 16 * 16, device=dev))
+        net.initialize(init=mx.init.Xavier(), seed=3)
+        return net
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand(4, 3, 16, 16, generator=g)
+    calib = torch.rand(4, 3, 16, 16, generator=g)
+    nets, floats = [], None             # the CPU's, then the card's
+    for dev in (torch.device("cpu"), cuda):
+        net = build(dev)
+        with mx.autograd.train_mode():
+            net(x.to(dev) * 3)
+        if floats is None:
+            floats = {k: v.detach().cpu().numpy().copy()
+                      for k, v in net.gluon_params().items()}
+        else:                           # the CPU net's float weights
+            net.load_gluon_params(floats)
+        nets.append(tq.quantize_net(
+            net, calib_data=[(calib.to(dev),)], s8_interfaces=s8))
+    cpu_p = nets[0].gluon_params()
+    for name, t in nets[1].gluon_params().items():
+        want = cpu_p[name].detach()
+        if name.endswith("act_amax"):
+            assert _rel(t, want) <= 1e-6, name
+        else:
+            assert torch.equal(t.detach().cpu(), want), name
+    card = nets[1]
+    card.load_gluon_params({k: v.detach().numpy()
+                            for k, v in cpu_p.items()})
+    eager = card(x.to(cuda))
+    assert _rel(eager, nets[0](x)) <= 1e-6
+    card.hybridize()
+    for _ in range(2):
+        assert torch.equal(card(x.to(cuda)), eager)
+
+
+@pytest.mark.cuda
+def test_control_flow_on_the_card(cuda):
+    """``foreach``, ``while_loop`` and ``cond`` on the card against the
+    CPU within 1e-5 of scale; a hybridized block calling ``foreach``
+    captures one graph, equal to eager bit for bit; one calling
+    ``cond`` reads its predicate, so its key runs eagerly (no
+    capture), also eager's bits."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import graphs, nd
+
+    rs = np.random.RandomState(4)
+    data, h0 = rs.randn(6, 4, 8).astype(np.float32), \
+        rs.randn(4, 8).astype(np.float32)
+
+    def run(dev):
+        d, h = torch.tensor(data, device=dev), torch.tensor(h0, device=dev)
+        outs, st = nd.contrib.foreach(
+            lambda x, s: (nd.tanh(x + s[0]), [nd.tanh(x + s[0])]), d, [h])
+        _, loop = nd.contrib.while_loop(
+            lambda i, s: i.sum() < 3, lambda i, s: (None, [i + 1, s * 2]),
+            [torch.zeros(1, device=dev), h], max_iterations=5)
+        br = nd.contrib.cond(lambda a: a.sum() < 0, lambda a: a - 1,
+                             lambda a: a + 1, [h])
+        return [outs, st[0], loop[1], br]
+
+    for a, b in zip(run(cuda), run(torch.device("cpu"))):
+        assert _rel(a, b) <= 1e-5
+
+    class Scan(mx.gluon.HybridBlock):
+        def __init__(self, use_cond):
+            super().__init__(prefix="scan_")
+            self._cond = use_cond
+
+        def hybrid_forward(self, F, x, h):
+            if self._cond:
+                return F.contrib.cond(lambda a: a.sum() > 0,
+                                      lambda a: a * 2, lambda a: -a, [h])
+            return F.contrib.foreach(lambda x, s: (x * s, x + s), x, h)[0]
+
+    d, h = torch.tensor(data, device=cuda), torch.tensor(h0, device=cuda)
+    for use_cond, captures in ((False, 1), (True, 0)):
+        block = Scan(use_cond)
+        want = block(d, h)
+        block.hybridize()
+        c0 = graphs.captures()
+        for _ in range(2):
+            assert torch.equal(block(d, h), want)
+        assert graphs.captures() - c0 == captures

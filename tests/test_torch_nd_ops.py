@@ -359,9 +359,11 @@ def test_registry_covers_the_jax_registry_less_the_waiting_list():
     assert port <= _jax_names()
     # every registered op is held by a case above or by its own test
     # (the detection and vision contrib ops: tests/test_torch_detection.py
-    # and tests/test_torch_vision_contrib.py)
+    # and tests/test_torch_vision_contrib.py; the int8 ops:
+    # tests/test_torch_quantization.py)
     contrib = {n for n, op in treg._OPS.items() if op.fn.__module__ in (
-        "mxnet_tpu_torch.ops.detection", "mxnet_tpu_torch.ops.vision_contrib")}
+        "mxnet_tpu_torch.ops.detection", "mxnet_tpu_torch.ops.vision_contrib",
+        "mxnet_tpu_torch.ndarray.op_impl_quant")}
     assert port == set(SPECS) | OWN_TESTS | contrib
 
 
