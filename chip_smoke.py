@@ -330,7 +330,40 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
     hybridized ``foreach`` capturing one graph, a hybridized ``cond``
     running its key eagerly, both eager's bits; (e)
     ``mx.viz.print_summary`` of (a)'s export, whose parameter total
-    must equal the Gluon net's.
+    must equal the Gluon net's;
+21. mixed precision and the training extras (``contrib.amp``; AMP is
+    off again when the phase ends, whatever happens): (a)
+    ``train-bertbase-mlm-b64s128`` through phase 7's own run and gates
+    (``examples/bert_mlm.py``'s build and step, 2 warm-up + 10 Adam
+    steps, 12/12, 26/26, 1/1 launches a step, the loss falling,
+    gradients finite and non-zero) under ``amp.init("bfloat16")``,
+    ``init_trainer`` and ``scale_loss``, plus: step 1 within 1e-2
+    relative of the float32 step 1 from the same weights, K1/K2
+    launched on bfloat16 and K3a/K3b/K4a/K4b on float32 operands (the
+    dtype code each launch passes, ``launch_dtypes``), every gradient
+    float32; the step p50 beside phase 7's float32 p50; phase 15's
+    eager-against-hybridized run under AMP (step 1 within 1e-6 of the
+    loss and 1e-5 of scale, graphed launches exact, the loss falling);
+    card vs CPU at 2 layers under AMP, three steps (losses 1e-2
+    relative, step-1 gradients 3e-2 of scale: bfloat16 products summed
+    in another order); (b) ``train-wordlm-wt2-b32t35`` under bfloat16
+    AMP, 2 + 20 segments: 2 + 2 + 2 launches a segment on bfloat16,
+    last 5 losses' mean below the first 5's; (c) float16 loss scaling
+    on BERT-base with SGD from the scaler's default scale (2**16): the
+    steps that overflow move no weight and halve the scale; the first
+    that does not moves every weight, and its update is held against
+    the update at scale 1 from the same weights within 1e-2 of each
+    parameter's scale, and as a whole within a factor 1 +- 1e-3 (K1/K2
+    on float16, K3/K4 on float32); (d)
+    ``Estimator.fit`` of ``examples/mnist_gluon.py``'s MLP on its
+    synthetic MNIST, one epoch, with ``ValidationHandler`` (10000 held
+    out, accuracy > 0.8), ``MetricHandler``, ``StoppingHandler`` and
+    TensorBoard logging (``SummaryWriter`` and ``LogMetricsCallback``,
+    the event files read back equal to what was written), then
+    ``gluon.contrib.nn``'s layers card vs CPU within 1e-5 of scale.
+    Phase 3 times K1, K2 and K6a/K6b in bfloat16 at the AMP paths'
+    shapes (the training batch's padded rows, the word LM's N=32)
+    beside float32, bound at the bfloat16 tensor-core rate.
 
 The op-dispatch phase also times one
 ``F.scaled_dot_product_attention`` call beside K1, K2 and K5 at head
@@ -349,7 +382,11 @@ counts phase 15's launches made by graph replays;
 measured segments for K6a and K6b, one replay of the registry ops'
 graph for K1, K2, K3a, K3b, K4a and K4b; ``launches_by_path["deploy"]``
 counts phase 20's: one replay of the imported BERT-base graph for K1
-and K3a.
+and K3a; ``launches_by_path["amp"]`` counts phase 21's: the 10
+measured bfloat16 BERT-base steps for K1, K2, K3a, K3b, K4a and K4b,
+the 20 measured word LM segments for K6a and K6b. K2, K6a and K6b
+carry ``bf16``, their row at the AMP path's shapes; K1 carries it on
+its padded case in ``cases``.
 
 The last three lines of standard output are ``{"kernels": [...]}``,
 then the card's name and power limit as ``nvidia-smi --query-gpu=
@@ -822,7 +859,8 @@ def check_flash_attention(rng, dev, lens):
                                      f"{err}, lse err {lse_err}")
             if dtype != torch.float32:
                 out[(kind, s)]["bf16_max_abs_err"] = err
-                continue
+                if kind != "padded":   # timed at the AMP path's shape
+                    continue
             # yardstick only (never called by the port): SDPA with the
             # same visibility as a boolean mask built outside the timing
             col = torch.arange(s, device=dev)
@@ -840,8 +878,21 @@ def check_flash_attention(rng, dev, lens):
                       lambda: F.scaled_dot_product_attention(
                           q, k, v, attn_mask=mask),
                       plain_iters=10, lib_iters=20)
-            nbytes, flops = flash_work(b, h, s, d, 4, seg_np,
-                                       kind == "causal", used)
+            nbytes, flops = flash_work(b, h, s, d, q.element_size(),
+                                       seg_np, kind == "causal", used)
+            if dtype != torch.float32:
+                # the products on the bf16 tensor cores
+                bms, by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+                out[(kind, s)]["bf16"] = {
+                    "shape": f"{kind} B={b} H={h} S={s} D={d} bf16",
+                    "max_abs_err": err, **t, "bound_ms": bms,
+                    "bound_by": by,
+                    "library": "SDPA with a boolean mask, bf16"}
+                log(f"flash_attention {name}: {fmt_times(t)} (library: "
+                    f"SDPA, boolean mask, bf16), bound {bms * 1e3:.2f} us "
+                    f"({by}: {nbytes} B, {flops} flop on bf16 tensor "
+                    f"cores)")
+                continue
             # the products on the tensor cores, f32 kept by three TF32
             # terms each; the bound on CUDA cores beside it
             bms, by = bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)
@@ -971,18 +1022,12 @@ WAS_MS = {"layer_norm_bwd": 0.06840, "softmax_xent_bwd": 0.97009}
 
 
 def train_batch(seed, b=TRAIN_B, s=TRAIN_S, vocab=VOCAB):
-    """The training batch, as ``BENCH_PADDED=1`` draws it: valid lengths
-    uniform in [S/2, S], ids and labels uniform over the vocabulary, one
-    label per valid position; ``pos`` indexes the valid slots of the
-    flattened (B * S) rows."""
-    import numpy as np
+    """The training batch, as ``BENCH_PADDED=1`` draws it
+    (``examples/bert_mlm.py``'s ``synthetic_arrays`` from ``seed + 4``):
+    ``(lens, ids, labels, pos)``."""
+    from mxnet_tpu_torch.examples.bert_mlm import synthetic_arrays
 
-    rng = np.random.RandomState(seed + 4)
-    lens = rng.randint(s // 2, s + 1, b).astype(np.int32)
-    ids = rng.randint(0, vocab, (b, s)).astype(np.int32)
-    labels = rng.randint(0, vocab, int(lens.sum())).astype(np.int32)
-    pos = np.concatenate([r * s + np.arange(n) for r, n in enumerate(lens)])
-    return lens, ids, labels, pos
+    return synthetic_arrays(seed + 4, b, s, vocab)
 
 
 def check_flash_attention_bwd(rng, dev, lens):
@@ -1037,7 +1082,8 @@ def check_flash_attention_bwd(rng, dev, lens):
                                      f"{err}")
             if dtype != torch.float32:
                 out[kind]["bf16_max_abs_err"] = err
-                continue
+                if kind != "padded":   # timed at the AMP path's shape
+                    continue
             # yardstick only (never called by the port): the backward of
             # SDPA with the same visibility as a boolean mask
             col = torch.arange(s, device=dev)
@@ -1060,17 +1106,29 @@ def check_flash_attention_bwd(rng, dev, lens):
                                                   retain_graph=True),
                       plain_iters=10, lib_iters=20)
             del ref_o, leaves
-            nbytes, _ = flash_work(b, h, s, d, 4, seg_np, kind == "causal")
-            if kind == "padded":
-                pairs = h * s * int(used.astype(np.int64).sum())
-            else:
-                _, fwd_flops = flash_work(b, h, s, d, 4, seg_np,
-                                          kind == "causal")
-                pairs = fwd_flops // (4 * d)
             # read q, k, v, o, do and lse; write dq, dk, dv: the forward's
-            # bytes (q, k, v, o, lse) plus do and three gradients
-            nbytes += 4 * b * h * s * d * 4
-            flops = 10 * d * pairs          # s, dp, dq, dk, dv products
+            # bytes for these inputs (q, k and v up to the valid lengths,
+            # o, lse) plus do and three gradients
+            itemsize = q.element_size()
+            nbytes, fwd_flops = flash_work(b, h, s, d, itemsize, seg_np,
+                                           kind == "causal", used)
+            nbytes += 4 * b * h * s * d * itemsize
+            # s, dp, dq, dk, dv products a visible (query, key) pair
+            flops = 10 * d * (fwd_flops // (4 * d))
+            if dtype != torch.float32:
+                # the products on the bf16 tensor cores
+                bms, by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+                out[kind]["bf16"] = {
+                    "shape": f"{kind} B={b} H={h} S={s} D={d} bf16",
+                    "path": fa.backward_path(s, d), "max_abs_err": err,
+                    **t, "bound_ms": bms, "bound_by": by,
+                    "library": "SDPA backward (autograd), boolean mask, "
+                               "bf16"}
+                log(f"flash_attention_bwd {name}: {fmt_times(t)} (kernel: "
+                    f"{fa.backward_path(s, d)}; library: SDPA backward, "
+                    f"boolean mask, bf16), bound {bms * 1e3:.2f} us ({by}: "
+                    f"{nbytes} B, {flops} flop on bf16 tensor cores)")
+                continue
             # on the tensor cores, f32 kept by three TF32 products each
             bms, by = bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)
             out[kind] = {
@@ -1342,16 +1400,17 @@ def check_lstm(rng, dev):
                 key = "bf16_max_abs_err" if n == WLM["batch"] \
                     else "large_bf16_max_abs_err"
                 fwd[key], bwd[key] = err_f, err_b
-                continue
+                if n != WLM["batch"]:   # timed at the AMP path's shape
+                    continue
             iters = 20 if n <= 64 else 5
             # yardstick only (never called by the port): one cuDNN LSTM
             # layer with the same recurrent weight; it also does the
             # input projection (x @ W_i2h^T), here x of width H
-            ref = torch.nn.LSTM(h, h, device=dev)
+            ref = torch.nn.LSTM(h, h, device=dev, dtype=dtype)
             with torch.no_grad():
                 ref.weight_hh_l0.copy_(w4)
             x = torch.tensor(rng.randn(t, n, h).astype("float32"),
-                             device=dev)
+                             dtype=dtype, device=dev)
             xl = x.detach().requires_grad_()
             ref_out, (ref_h, ref_c) = ref(xl, (h0[None], c0[None]))
             leaves = [xl, *ref.parameters()]
@@ -1374,7 +1433,7 @@ def check_lstm(rng, dev):
                 gates, cseq, out, w, h0, c0, dout, dcseq), iters=iters,
                 warmup=1, by_kernel=True)[1]
             del ref_out, ref_h, ref_c, leaves, xl, ref
-            s = 4
+            s = gin.element_size()
             flops_f = 2 * t * n * h * 4 * h
             bytes_f = (t * n * 4 * h * 2 + 4 * h * h + 2 * n * h
                        + 2 * t * n * h) * s
@@ -1384,16 +1443,20 @@ def check_lstm(rng, dev):
                     (("fwd", False), ("bwd", True))}
             # both directions' products run on the tensor cores: f32
             # kept by three TF32 products each, so 3 x the flops at the
-            # TF32 rate
+            # TF32 rate; bf16 once at its own rate
+            f32 = dtype == torch.float32
+            terms, peak = (3, PEAK_TF32_FLOPS) if f32 \
+                else (1, PEAK_BF16_FLOPS)
+            half = "" if f32 else ", bf16"
             for entry, e, tm, nbytes, bms_ops, g, libname in (
                     (fwd, err_f, t_f, bytes_f,
-                     3 * flops_f / PEAK_TF32_FLOPS * 1e3, grid["fwd"],
-                     "torch.nn.LSTM forward (cuDNN), input "
-                     "projection included"),
+                     terms * flops_f / peak * 1e3, grid["fwd"],
+                     f"torch.nn.LSTM forward (cuDNN){half}, input "
+                     f"projection included"),
                     (bwd, err_b, t_b, bytes_b,
-                     3 * 2 * flops_f / PEAK_TF32_FLOPS * 1e3, grid["bwd"],
-                     "torch.nn.LSTM backward (cuDNN, "
-                     "autograd), input projection included")):
+                     terms * 2 * flops_f / peak * 1e3, grid["bwd"],
+                     f"torch.nn.LSTM backward (cuDNN, "
+                     f"autograd){half}, input projection included")):
                 bms_bytes = nbytes / PEAK_HBM_BPS * 1e3
                 bms = max(bms_bytes, bms_ops)
                 by = "bytes" if bms_bytes >= bms_ops else "operations"
@@ -1402,7 +1465,9 @@ def check_lstm(rng, dev):
                         "bound_ms": bms, "bound_by": by, "library": libname,
                         "grid": {k: v for k, v in g.items()
                                  if k not in ("sms", "smem_limit")}}
-                if n == WLM["batch"]:
+                if not f32:
+                    entry["bf16"] = nums
+                elif n == WLM["batch"]:
                     entry.update(nums)
                 else:
                     entry["large"] = nums
@@ -2039,57 +2104,43 @@ def cross_device_encoder(seed, dev):
 
 
 def build_trainer(seed, dev, num_layers):
-    """BERT-base width trunk (no pooler: the MLM loss never reads it)
-    + ``BERTMLMHead`` with random weights from ``seed``, dropout 0, and
-    a ``Trainer`` with Adam at lr 1e-4 over all their parameters."""
-    from mxnet_tpu_torch import gluon
-    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTMLMHead, BERTModel
+    """BERT-base width trunk + ``BERTMLMHead`` with random weights from
+    ``seed``, dropout 0, and a ``Trainer`` with Adam at lr 1e-4
+    (``examples/bert_mlm.py``'s ``build``): ``(net, head, params,
+    trainer)``."""
+    from mxnet_tpu_torch.examples.bert_mlm import build
 
-    cfg = dict(BERT_BASE, num_layers=num_layers)
-    net = BERTModel(dropout=0.0, attention_dropout=0.0, use_pooler=False,
-                    device=dev, seed=seed, **cfg)
-    head = BERTMLMHead(cfg["vocab_size"], cfg["units"], device=dev,
-                       seed=seed + 1)
-    params = dict(net.collect_params().items())
-    params.update(head.collect_params().items())
-    trainer = gluon.Trainer(params, "adam", {"learning_rate": 1e-4})
-    return net, head, params, trainer
+    return build(dev, seed=seed, **dict(BERT_BASE, num_layers=num_layers))
 
 
 def to_device(batch, dev):
-    import numpy as np
-    import torch
+    from mxnet_tpu_torch.examples.bert_mlm import on_device
 
-    lens, ids, labels, pos = batch
-    return (torch.tensor(ids, device=dev), torch.zeros(ids.shape,
-                                                       dtype=torch.int32,
-                                                       device=dev),
-            torch.tensor(lens, device=dev), torch.tensor(pos, device=dev),
-            torch.tensor(labels, device=dev), int(np.sum(lens)))
+    return on_device(batch, dev)
 
 
-def train_step(net, head, trainer, batch):
-    """One MLM step through the user's entry points; returns the loss
-    tensor (shape (1,), the sum over the valid positions)."""
-    from mxnet_tpu_torch import autograd, nd
+def train_step(net, head, trainer, batch, update=True):
+    """One MLM step through the user's entry points
+    (``examples/bert_mlm.py``'s: ``amp.scale_loss``, which passes the
+    loss through without ``amp.init_trainer``); returns the loss tensor
+    (shape (1,), the sum over the valid positions)."""
+    from mxnet_tpu_torch.examples.bert_mlm import train_step as step
 
-    ids, tt, lens, pos, labels, n_valid = batch
-    with autograd.record():
-        seq = net(ids, tt, lens)
-        flat = seq.reshape(-1, seq.shape[-1])[pos]   # the valid slots
-        loss = nd.softmax_cross_entropy(head(flat), labels)
-    loss.backward()
-    trainer.step(n_valid)
-    return loss
+    return step(net, head, trainer, batch, update)
 
 
-def train_main_path(seed, profile, dev, power_line, steps=10, warmup=2):
+def train_main_path(seed, profile, dev, power_line, steps=10, warmup=2,
+                    half=None):
     """``train-bertbase-mlm-b64s128`` on the card; returns the launch
-    counts of the measured steps."""
+    counts of the measured steps and the step p50. ``half``: train under
+    ``amp.init(half)`` and ``amp.init_trainer`` (left on: the caller
+    turns AMP off), with step 1 held against the float32 step 1 from
+    the same weights and every launch's operand type checked."""
     import numpy as np
     import torch
 
     from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.contrib import amp
 
     layers = BERT_BASE["num_layers"]
     t0 = time.perf_counter()
@@ -2099,69 +2150,92 @@ def train_main_path(seed, profile, dev, power_line, steps=10, warmup=2):
         f"params ({time.perf_counter() - t0:.1f} s to build)")
     batch = to_device(train_batch(seed), dev)
     n_valid = batch[-1]
+    label = "training" if half is None else f"training under {half} AMP"
+    if half is not None:
+        f32_loss = train_step(net, head, trainer, batch, False).item()
+        amp.init(half)
+        amp.init_trainer(trainer)
+        amp_loss = train_step(net, head, trainer, batch, False).item()
+        rel_f32 = abs(amp_loss - f32_loss) / abs(f32_loss)
+        log(f"{label}: step 1 loss per token {amp_loss / n_valid:.6f} vs "
+            f"{f32_loss / n_valid:.6f} in float32 from the same weights "
+            f"(relative gap {rel_f32:.3e}, tol {AMP_LOSS_VS_F32})")
+        if not rel_f32 <= AMP_LOSS_VS_F32:
+            raise AssertionError(f"{label}: step-1 loss {amp_loss} off the "
+                                 f"float32 one {f32_loss} by {rel_f32}")
     for _ in range(warmup):
         train_step(net, head, trainer, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
     losses, times = [], []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        loss = train_step(net, head, trainer, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(loss.item() / n_valid)
+    with launch_dtypes() as seen:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss = train_step(net, head, trainer, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss.item() / n_valid)
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
+    types = check_launch_dtypes(label, seen, bert_amp_types(
+        half or "float32"))
     per_step = {"flash_attention": layers, "flash_attention_bwd": layers,
                 "layer_norm": 2 * layers + 2,
                 "layer_norm_bwd": 2 * layers + 2,
                 "softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
     for name, n in per_step.items():
         if counts[name] != n * steps:
-            raise AssertionError(f"{name} launched {counts[name]} times in "
-                                 f"{steps} steps, want {n} per step")
+            raise AssertionError(f"{label}: {name} launched {counts[name]} "
+                                 f"times in {steps} steps, want {n} per "
+                                 f"step")
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss: {losses}")
+        raise AssertionError(f"{label}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
+        raise AssertionError(f"{label}: loss did not fall: {losses}")
     dead = []
     for name, p in params.items():
         g = p.grad()
-        if not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"{name}: non-finite gradient")
+        if g.dtype != torch.float32 or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label}, {name}: gradient {g.dtype}, "
+                                 f"finite {bool(torch.isfinite(g).all())}")
         if g.abs().max().item() == 0.0:
             dead.append(name)
     if dead:
-        raise AssertionError(f"all-zero gradients: {dead}")
+        raise AssertionError(f"{label}: all-zero gradients: {dead}")
     if profile:
         with _profiler(True) as prof:
             t0 = time.perf_counter()
             train_step(net, head, trainer, batch)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        log("training step profile:")
+        log(f"{label} step profile:")
         report_profile(prof, wall)
     p50 = float(np.median(times))
     slots = TRAIN_B * TRAIN_S
-    log(f"trained {steps} steps (+{warmup} warm-up) on {TRAIN_B} x "
+    log(f"{label}: {steps} steps (+{warmup} warm-up) on {TRAIN_B} x "
         f"{TRAIN_S} slots, {n_valid} valid: step p50 {p50 * 1e3:.2f} ms, "
         f"{n_valid / p50:.1f} valid tokens/s, {slots / p50:.1f} slot "
         f"tokens/s; loss per token {losses[0]:.6f} -> {losses[-1]:.6f}; "
-        f"peak memory {peak / 2 ** 30:.3f} GiB; launches {counts} "
-        f"[{power_line}]")
-    log("training metrics: " + json.dumps(
+        f"peak memory {peak / 2 ** 30:.3f} GiB; launches {counts}; kernels "
+        f"by operand type {types} [{power_line}]")
+    log(f"{label} metrics: " + json.dumps(
         {"step_ms_p50": p50 * 1e3, "step_ms": [t * 1e3 for t in times],
          "valid_tokens_per_s": n_valid / p50,
          "slot_tokens_per_s": slots / p50, "valid_tokens": n_valid,
          "loss_per_token": losses, "peak_memory_bytes": peak,
-         "params": n_params, "launches": counts, "card": power_line}))
+         "params": n_params, "launches": counts, "kernel_types": types,
+         "card": power_line}))
     return counts, p50
 
 
-def cross_device_train(seed, dev, steps=3):
+def cross_device_train(seed, dev, steps=3, loss_tol=1e-4, grad_tol=1e-3,
+                       label="training"):
     """Same seed, 2 layers at BERT-base width, a small batch: three Adam
-    steps on the card and on the CPU (plain versions there)."""
+    steps on the card and on the CPU (plain versions there): losses
+    within ``loss_tol`` relative, step-1 gradients within ``grad_tol``
+    of each parameter's largest CPU gradient. Returns the worst of
+    each."""
     import numpy as np
     import torch
 
@@ -2183,18 +2257,23 @@ def cross_device_train(seed, dev, steps=3):
     for k, g_cpu in runs["cpu"][1].items():
         gap = (runs["cuda"][1][k] - g_cpu).abs().max().item()
         scale = g_cpu.abs().max().item()
-        if gap > 1e-3 * scale + 1e-7 and gap / max(scale, 1e-30) > worst:
+        if gap > grad_tol * scale + 1e-7 and \
+                gap / max(scale, 1e-30) > worst:
             worst, worst_name = gap / max(scale, 1e-30), k
-    log(f"cross-device training: losses {runs['cuda'][0]} (card) vs "
-        f"{runs['cpu'][0]} (cpu), max relative gap {rel:.3e} (tol 1e-4); "
-        f"step-1 gradients of {len(runs['cpu'][1])} parameters "
-        f"{'within' if worst_name is None else 'NOT within'} 1e-3 of each "
-        f"parameter's largest CPU gradient")
-    if not rel <= 1e-4:
-        raise AssertionError(f"training losses differ by {rel}")
+    grads = {k: _grad_gap(runs["cuda"][1][k], g)
+             for k, g in runs["cpu"][1].items()}
+    log(f"cross-device {label}: losses {runs['cuda'][0]} (card) vs "
+        f"{runs['cpu'][0]} (cpu), max relative gap {rel:.3e} (tol "
+        f"{loss_tol}); step-1 gradients of {len(runs['cpu'][1])} parameters "
+        f"{'within' if worst_name is None else 'NOT within'} {grad_tol} "
+        f"of each parameter's largest CPU gradient (the worst "
+        f"{max(grads.values()):.3e})")
+    if not rel <= loss_tol:
+        raise AssertionError(f"{label} losses differ by {rel}")
     if worst_name is not None:
         raise AssertionError(f"gradient of {worst_name} differs by {worst} "
                              f"of its scale")
+    return {"loss_rel_gap": rel, "grad_gap": max(grads.values())}
 
 
 def build_wordlm(seed, dev, vocab, dropout, mode="lstm"):
@@ -3953,7 +4032,7 @@ def graphed_training(label, make, step, batch_valid, profiles, steps=10,
     return m
 
 
-def hybrid_bert_mlm(seed, dev, power_line, profiles):
+def hybrid_bert_mlm(seed, dev, power_line, profiles, label="BERT-base MLM"):
     """``train-bertbase-mlm-b64s128`` with the trunk and the MLM head
     hybridized (each a forward and a backward graph a step) beside the
     eager pair."""
@@ -3968,21 +4047,10 @@ def hybrid_bert_mlm(seed, dev, power_line, profiles):
         return (net, head), params
 
     def step(objs, trainer, batch=batch):
-        from mxnet_tpu_torch import autograd, nd
-
-        net, head = objs
-        ids, tt, lens, pos, labels, n_valid = batch
-        with autograd.record():
-            seq = net(ids, tt, lens)
-            flat = seq.reshape(-1, seq.shape[-1])[pos]
-            loss = nd.softmax_cross_entropy(head(flat), labels)
-        loss.backward()
-        if trainer is not None:
-            trainer.step(n_valid)
-        return loss
+        return train_step(*objs, trainer, batch, update=trainer is not None)
 
     other = to_device(train_batch(seed, b=TRAIN_B // 2), dev)
-    return graphed_training("BERT-base MLM", make, step, batch[-1],
+    return graphed_training(label, make, step, batch[-1],
                             profiles, second=lambda objs: step(
                                 objs, None, batch=other))
 
@@ -6720,6 +6788,436 @@ def deployment_phase(seed, dev, power_line):
     return bert_launches
 
 
+# -- phase 21: mixed precision and the training extras ------------------------
+@contextlib.contextmanager
+def launch_dtypes():
+    """Within it, ``{launch counter: {operand type}}`` of every kernel
+    launch (the graphs' warm-ups and captures included), read from the
+    dtype code each launch passes its kernel (``_build.launch``'s
+    ``count``)."""
+    from mxnet_tpu_torch.ops import _build
+
+    launch = _build.launch
+    dtypes = {code: dt for dt, code in _build.DTYPE_CODES.items()}
+    seen = {}
+
+    def spy(*args, count=None):
+        launch(*args, count=count)
+        if count is not None:
+            seen.setdefault(count[1], set()).add(dtypes[count[2]])
+
+    _build.launch = spy
+    try:
+        yield seen
+    finally:
+        _build.launch = launch
+
+
+def check_launch_dtypes(label, seen, want):
+    """Raise unless the kernels of ``want`` (``{counter: dtype}``)
+    launched, each on that operand type alone."""
+    got = {k: sorted(str(d)[6:] for d in seen.get(k, ()))
+           for k in want}
+    exp = {k: [str(d)[6:]] for k, d in want.items()}
+    if got != exp:
+        raise AssertionError(f"{label}: kernels launched on {got}, want "
+                             f"{exp}")
+    return got
+
+
+# the AMP path's tolerances: a bfloat16 step 1 against the float32 one
+# from the same weights (each product rounded to bfloat16 once); the
+# card against the CPU under AMP (the kernels against their plain
+# versions, each rounding bfloat16 products summed in its own order)
+AMP_LOSS_VS_F32 = 1e-2
+AMP_CPU_LOSS, AMP_CPU_GRAD = 1e-2, 3e-2
+BF16 = "bfloat16"
+
+
+def bert_amp_types(half):
+    import torch
+
+    h = getattr(torch, half)
+    return {"flash_attention": h, "flash_attention_bwd": h,
+            "layer_norm": torch.float32, "layer_norm_bwd": torch.float32,
+            "softmax_xent_fwd": torch.float32,
+            "softmax_xent_bwd": torch.float32}
+
+
+def amp_wordlm(seed, dev, power_line, f32_p50):
+    """21b: ``train-wordlm-wt2-b32t35`` as phase 8 runs it (its gates:
+    2 + 2 + 2 launches a segment, losses falling, gradients finite and
+    non-zero), under bfloat16 AMP with every LSTM launch on bfloat16.
+    A bfloat16 loss scaler keeps scale 1, so the loop's ``scale_loss``
+    passes the loss through, as without ``init_trainer``."""
+    import torch
+
+    with launch_dtypes() as seen:
+        counts, p50 = train_wordlm_main_path(seed, False, dev, power_line)
+    types = check_launch_dtypes("AMP word LM", seen, {
+        k: torch.bfloat16 for k in ("lstm_fwd", "lstm_bwd", "lstm_bwd_dw")})
+    log(f"AMP word LM (bfloat16): step p50 {p50 * 1e3:.2f} ms vs phase 8's "
+        f"float32 {f32_p50 * 1e3:.2f} ms; every LSTM launch on bfloat16 "
+        f"[{power_line}]")
+    return counts, {"step_ms_p50": p50 * 1e3,
+                    "f32_step_ms_p50": f32_p50 * 1e3, "launches": counts,
+                    "kernel_types": types, "card": power_line}
+
+
+# 21c: SGD, so that the update is linear in the unscaled gradient and a
+# wrong unscale shows (Adam's first update is scale-free); lr of the
+# measured update, and its tolerance against the update at scale 1 from
+# the same weights, of each parameter's largest update: a power-of-two
+# scale moves float16 values by whole exponents, so only the values that
+# are subnormal in float16 at scale 1 (and the roundings they feed) can
+# make the two differ (the softmax's ~1/V entries of dlogits are among
+# them); the whole update's factor against the scale-1 one, within
+# AMP_F16_FACTOR of 1, is what a wrong unscale would move
+F16_LR, AMP_F16_UPDATE, AMP_F16_FACTOR = 1e-2, 1e-2, 1e-3
+
+
+def amp_loss_scaling(seed, dev, max_steps=20):
+    """21c: BERT-base under ``amp.init("float16")``, SGD through
+    ``init_trainer``/``scale_loss`` from the scaler's default scale.
+    The batch's loss is a sum over ~6.5k positions, so its float16
+    gradients (the biases' sums over those rows) pass float16's range at
+    the first scales: each such step must leave every weight bit for bit
+    and halve the scale. The first step that does not overflow must
+    move every weight at that scale, and its update must match the
+    update at scale 1 from the same weights (:data:`AMP_F16_UPDATE`,
+    :data:`AMP_F16_FACTOR`)."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.contrib import amp
+
+    amp.disable()
+    amp.init("float16")
+    net, head, params, _ = build_trainer(seed, dev, BERT_BASE["num_layers"])
+    trainer = gluon.Trainer(params, "sgd", {"learning_rate": F16_LR})
+    amp.init_trainer(trainer)
+    scaler = trainer._amp_loss_scaler
+    batch = to_device(train_batch(seed + 1), dev)
+    rows = []
+    while len(rows) < max_steps:
+        scale = scaler.loss_scale
+        before = {k: p.data().clone() for k, p in params.items()}
+        with launch_dtypes() as seen:
+            loss = train_step(net, head, trainer, batch).item()
+        check_launch_dtypes(f"float16 AMP at scale {scale:g}", seen,
+                            bert_amp_types("float16"))
+        moved = sum(not torch.equal(before[k], p.data())
+                    for k, p in params.items())
+        rows.append({"scale": scale, "scale_after": scaler.loss_scale,
+                     "loss_per_token": loss / batch[-1],
+                     "params_moved": moved})
+        if moved:
+            break
+    skipped, last = rows[:-1], rows[-1]
+    log(f"AMP float16 loss scaling (BERT-base, SGD, {len(params)} "
+        f"parameters): " + "; ".join(
+            f"scale {r['scale']:g}: loss per token "
+            f"{r['loss_per_token']:.6f}, {r['params_moved']} moved, scale "
+            f"then {r['scale_after']:g}" for r in rows))
+    if not skipped or last["params_moved"] != len(params) or \
+            last["scale_after"] != last["scale"] or \
+            any(r["params_moved"] or r["scale_after"] != r["scale"] / 2
+                for r in skipped) or \
+            not all(np.isfinite(r["loss_per_token"]) for r in rows):
+        raise AssertionError(f"float16 loss scaling: {rows}; want steps "
+                             f"that overflow, each moving no weight and "
+                             f"halving the scale, then one moving all "
+                             f"{len(params)} at its scale")
+    # the same update at scale 1 from the same weights
+    scaled = {k: p.data().double() - before[k].double()
+              for k, p in params.items()}
+    for k, p in params.items():
+        p.set_data(before[k])
+    scaler._scale = 1.0
+    train_step(net, head, trainer, batch)
+    unit = {k: p.data().double() - before[k].double()
+            for k, p in params.items()}
+    gaps = {k: _grad_gap(scaled[k], unit[k]) for k in unit}
+    worst = max(gaps, key=gaps.get)
+    equal = sum(g == 0.0 for g in gaps.values())
+    factor = sum(float((scaled[k] * unit[k]).sum()) for k in unit) \
+        / sum(float((unit[k] ** 2).sum()) for k in unit)
+    log(f"AMP float16: the update at scale {last['scale']:g} against the "
+        f"update at scale 1 from the same weights: {equal} of "
+        f"{len(gaps)} parameters equal to the bit, the largest gap "
+        f"{gaps[worst]:.3e} of scale ({worst}; tol {AMP_F16_UPDATE}); the "
+        f"whole update {factor:.6f} times the scale-1 one (tol 1 +- "
+        f"{AMP_F16_FACTOR})")
+    if not (gaps[worst] <= AMP_F16_UPDATE
+            and abs(factor - 1) <= AMP_F16_FACTOR):
+        raise AssertionError(f"float16 update at scale {last['scale']} off "
+                             f"the scale-1 update: {worst} by "
+                             f"{gaps[worst]} of scale, factor {factor}")
+    amp.disable()
+    return {"steps": rows, "update_gap_to_scale_1": gaps[worst],
+            "update_gap_param": worst, "params_bit_equal": equal,
+            "update_factor_to_scale_1": factor}
+
+
+def read_scalars(path):
+    """``[(tag, value, step)]`` of a TensorBoard event file, each record
+    checked against its CRCs."""
+    import struct
+
+    from mxnet_tpu_torch.contrib.tensorboard import _masked_crc
+
+    def fields(buf):
+        out, i = [], 0
+        while i < len(buf):
+            key, shift = 0, 0
+            while True:
+                b = buf[i]
+                i += 1
+                key |= (b & 0x7F) << shift
+                shift += 7
+                if not b & 0x80:
+                    break
+            field, wire = key >> 3, key & 7
+            if wire in (0, 2):
+                v, shift = 0, 0
+                while True:
+                    b = buf[i]
+                    i += 1
+                    v |= (b & 0x7F) << shift
+                    shift += 7
+                    if not b & 0x80:
+                        break
+                if wire == 2:
+                    v, i = buf[i:i + v], i + v
+            elif wire == 1:
+                v, i = struct.unpack("<d", buf[i:i + 8])[0], i + 8
+            else:
+                v, i = struct.unpack("<f", buf[i:i + 4])[0], i + 4
+            out.append((field, v))
+        return out
+
+    scalars = []
+    with open(path, "rb") as f:
+        data = f.read()
+    i = 0
+    while i < len(data):
+        hdr = data[i:i + 8]
+        (n,) = struct.unpack("<Q", hdr)
+        rec = data[i + 12:i + 12 + n]
+        if struct.unpack("<I", data[i + 8:i + 12])[0] != _masked_crc(hdr) \
+                or struct.unpack("<I", data[i + 12 + n:i + 16 + n])[0] \
+                != _masked_crc(rec):
+            raise AssertionError(f"{path}: a record fails its CRC")
+        i += 16 + n
+        ev = dict(fields(rec))
+        if 5 in ev:
+            value = dict(fields(dict(fields(ev[5]))[1]))
+            scalars.append((value[1].decode(), value[2], ev.get(2, 0)))
+    return scalars
+
+
+def amp_estimator(seed, dev, power_line, tmp):
+    """21d: ``Estimator.fit`` of ``examples/mnist_gluon.py``'s MLP on its
+    synthetic MNIST (60000 to train, 10000 held out), one epoch, with
+    ``ValidationHandler``, ``MetricHandler``, ``StoppingHandler`` and
+    TensorBoard logging (a ``SummaryWriter`` a epoch,
+    ``LogMetricsCallback`` every 100 batches), read back; then
+    ``gluon.contrib.nn``'s layers card vs CPU."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import gluon, metric
+    from mxnet_tpu_torch.contrib import tensorboard
+    from mxnet_tpu_torch.examples.mnist_gluon import build, synthetic_mnist
+    from mxnet_tpu_torch.gluon.contrib import estimator as est_mod
+    from mxnet_tpu_torch.gluon.data.dataloader import tensor_batchify_fn
+    from mxnet_tpu_torch.model import BatchEndParam
+
+    x, y = synthetic_mnist(70000)
+    train = gluon.data.DataLoader(
+        gluon.data.ArrayDataset(x[:60000], y[:60000]), batch_size=64,
+        shuffle=True, device=dev, rng=np.random.default_rng(seed),
+        batchify_fn=tensor_batchify_fn)
+    val = gluon.data.DataLoader(
+        gluon.data.ArrayDataset(x[60000:], y[60000:]), batch_size=1000,
+        device=dev, batchify_fn=tensor_batchify_fn)
+    net = build(dev, seed)
+    acc = metric.Accuracy()
+    est = est_mod.Estimator(
+        net, gluon.loss.SoftmaxCrossEntropyLoss(), metrics=acc,
+        trainer=gluon.Trainer(net.collect_params(), "adam",
+                              {"learning_rate": 1e-3}))
+    validation = est_mod.ValidationHandler(val, est.evaluate)
+    writer = tensorboard.SummaryWriter(os.path.join(tmp, "epochs"))
+    callback = tensorboard.LogMetricsCallback(os.path.join(tmp, "batches"),
+                                              prefix="train")
+    written = []
+
+    class Board(est_mod.BatchEnd, est_mod.EpochEnd):
+        def __init__(self):
+            self.batch = 0
+
+        def batch_end(self, estimator, *args, **kwargs):
+            self.batch += 1
+            if self.batch % 100 == 0:
+                callback(BatchEndParam(epoch=0, nbatch=self.batch,
+                                       eval_metric=acc, locals=None))
+            return False
+
+        def epoch_end(self, estimator, epoch=0, *args, **kwargs):
+            for tag, v in (("train/accuracy", acc.get()[1]),
+                           ("val/accuracy", validation.results[-1][0][1])):
+                writer.add_scalar(tag, v, epoch)
+                written.append((tag, float(np.float32(v)), epoch))
+            return False
+
+    board = Board()
+    t0 = time.perf_counter()
+    est.fit(train, epochs=5, event_handlers=[
+        validation, est_mod.MetricHandler([acc]),
+        est_mod.StoppingHandler(max_epoch=1), board])
+    wall = time.perf_counter() - t0
+    writer.close()
+    callback.summary_writer.close()
+    val_acc = validation.results[-1][0][1]
+    back = read_scalars(writer.path)
+    per_batch = read_scalars(callback.summary_writer.path)
+    log(f"Estimator.fit (MNIST MLP, 1 epoch of 60000): {wall:.2f} s "
+        f"({60000 / wall:.1f} samples/s), train accuracy {acc.get()[1]:.4f}, "
+        f"held-out {val_acc:.4f} (gate > 0.8); TensorBoard: {back} read "
+        f"back, {len(per_batch)} batch scalars [{power_line}]")
+    if not val_acc > 0.8:
+        raise AssertionError(f"Estimator: held-out accuracy {val_acc}")
+    if back != written or len(per_batch) != board.batch // 100 or \
+            any(t != "train-accuracy" for t, _, _ in per_batch):
+        raise AssertionError(f"TensorBoard read back {back} / "
+                             f"{per_batch[:3]}, wrote {written}")
+    return {"seconds": wall, "samples_per_s": 60000 / wall,
+            "train_accuracy": acc.get()[1], "val_accuracy": val_acc,
+            "scalars": back, "batch_scalars": len(per_batch),
+            "contrib_nn": contrib_nn_card_vs_cpu(seed, dev),
+            "card": power_line}
+
+
+def contrib_nn_card_vs_cpu(seed, dev):
+    """``gluon.contrib.nn``'s layers on the card against the CPU, the
+    same weights, train mode (SyncBatchNorm's batch statistics): within
+    1e-5 of scale."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.contrib import nn as cnn
+
+    rng = np.random.RandomState(seed + 21)
+    vec = rng.randn(64, 256).astype(np.float32)
+    img = rng.randn(32, 64, 28, 28).astype(np.float32)
+    ids = rng.randint(0, 1000, (64, 16)).astype(np.float32)
+
+    def concurrent(kind, device):
+        block = getattr(cnn, kind)(axis=1)
+        block.add(nn.Dense(128, in_units=256, device=device),
+                  nn.Dense(64, activation="tanh", in_units=256,
+                           device=device), cnn.Identity())
+        return block
+
+    cases = {
+        "Concurrent": (lambda d: concurrent("Concurrent", d), vec),
+        "HybridConcurrent": (lambda d: concurrent("HybridConcurrent", d),
+                             vec),
+        "SyncBatchNorm": (lambda d: cnn.SyncBatchNorm(in_channels=64,
+                                                      device=d), img),
+        "SparseEmbedding": (lambda d: cnn.SparseEmbedding(1000, 64,
+                                                          device=d), ids),
+        "PixelShuffle2D": (lambda d: cnn.PixelShuffle2D(2), img),
+    }
+    out = {}
+    for name, (make, x) in cases.items():
+        cpu, card = make("cpu"), make(dev)
+        cpu.initialize(seed=seed)
+        for a, b in zip(card.collect_params().values(),
+                        cpu.collect_params().values()):
+            a.set_data(b.data().to(dev))
+        got = {}
+        for where, block, device in (("card", card, dev),
+                                     ("cpu", cpu, torch.device("cpu"))):
+            with autograd.record():
+                got[where] = block(torch.tensor(x, device=device))
+        gap = _grad_gap(got["card"].detach(), got["cpu"].detach())
+        out[name] = gap
+        if not gap <= 1e-5:
+            raise AssertionError(f"contrib.nn {name}: card vs CPU {gap} "
+                                 f"of scale")
+    log(f"gluon.contrib.nn card vs CPU (of scale; tol 1e-5): {out}")
+    return out
+
+
+def amp_phase(seed, dev, power_line, f32_p50, wordlm_p50):
+    """Phase 21 (module docstring). AMP is on inside it and off when it
+    returns, whatever happens. Returns the launches of its measured AMP
+    steps and segments by counter."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from mxnet_tpu_torch.contrib import amp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    m, secs = {"card": power_line}, {}
+    try:
+        t0 = time.perf_counter()
+        bert_counts, p50 = train_main_path(seed, False, dev, power_line,
+                                           half=BF16)
+        m["bert"] = {"step_ms_p50": p50 * 1e3,
+                     "f32_step_ms_p50": f32_p50 * 1e3,
+                     "ratio_to_f32": p50 / f32_p50}
+        log(f"AMP BERT-base MLM (bfloat16): step p50 {p50 * 1e3:.2f} ms vs "
+            f"phase 7's float32 {f32_p50 * 1e3:.2f} ms (ratio "
+            f"{p50 / f32_p50:.4f}) [{power_line}]")
+        gc.collect()
+        # phase 15's eager-vs-graphed gates (step 1, launches, loss)
+        with launch_dtypes() as seen:
+            m["bert"]["hybridized"] = hybrid_bert_mlm(
+                seed, dev, power_line, None,
+                label="BERT-base MLM under bfloat16 AMP")
+        check_launch_dtypes("AMP BERT-base hybridized", seen,
+                            bert_amp_types(BF16))
+        # the step of cross_device_train is the example's at scale 1
+        m["bert"]["card_vs_cpu"] = cross_device_train(
+            seed, dev, loss_tol=AMP_CPU_LOSS, grad_tol=AMP_CPU_GRAD,
+            label="training under bfloat16 AMP")
+        secs["bert"] = round(time.perf_counter() - t0, 1)
+        gc.collect()
+        t0 = time.perf_counter()
+        m["float16"] = amp_loss_scaling(seed, dev)
+        gc.collect()
+        secs["float16"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        amp.init(BF16)
+        lm_counts, m["wordlm"] = amp_wordlm(seed, dev, power_line,
+                                            wordlm_p50)
+        amp.disable()
+        secs["wordlm"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            m["estimator"] = amp_estimator(seed, dev, power_line, tmp)
+        secs["estimator"] = round(time.perf_counter() - t0, 1)
+    finally:
+        amp.disable()
+    log(f"phase 21 (mixed precision, training extras): "
+        f"{time.perf_counter() - t_phase:.1f} s (by part: {secs})")
+    log("phase 21 metrics: " + json.dumps(m, default=lambda o: None))
+    counts = {k: bert_counts[k] for k in bert_amp_types(BF16)}
+    counts.update({k: lm_counts[k]
+                   for k in ("lstm_fwd", "lstm_bwd", "lstm_bwd_dw")})
+    return counts
+
+
 KERNEL_NAMES = ("paged_attention", "flash_attention", "flash_attention_bwd",
                 "layer_norm", "layer_norm_bwd", "softmax_xent_fwd",
                 "softmax_xent_bwd", "lstm_fwd", "lstm_bwd", "lstm_bwd_dw")
@@ -6859,6 +7357,16 @@ def main():
         if e["name"] in by_deploy:
             e.setdefault("launches_by_path", {})["deploy"] = \
                 by_deploy[e["name"]]
+    # mixed precision: BERT-base MLM and the word LM under amp.init(),
+    # float16 loss scaling, the Estimator; the measured AMP steps' and
+    # segments' launches (counted from 0 over each run)
+    by_amp = amp_phase(args.seed, dev, power_line, zoo_p50, wordlm_p50)
+    for e in entries:
+        if e["name"] in by_amp:
+            e.setdefault("launches_by_path", {})["amp"] = by_amp[e["name"]]
+        if e["name"] == "lstm_bwd":
+            e["launches_by_path"]["amp_by_kernel"] = {
+                k: by_amp[k] for k in ("lstm_bwd", "lstm_bwd_dw")}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(power_line)

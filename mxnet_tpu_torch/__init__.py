@@ -41,7 +41,10 @@ forms (the JAX package's graph, letter for letter), ``SymbolBlock`` and
 ``Module`` import it, ``contrib.quantization.quantize_net`` rewrites a
 net to int8 (exact int32 products), ``nd.contrib``'s
 ``foreach``/``while_loop``/``cond`` are the control-flow ops and
-``mx.viz`` summarizes a graph.
+``mx.viz`` summarizes a graph. ``contrib.amp`` trains in mixed
+precision by MXNet's op lists (bfloat16, or float16 with loss scaling),
+``gluon.contrib.estimator`` fits a model through event handlers and
+``contrib.tensorboard`` writes TensorBoard's event files.
 Module names mirror the JAX package's so each counterpart is found at
 the same relative path, and the top-level names are the reference's
 (``mx.nd``, ``mx.cpu()``, ``mx.current_context()``, ...): the JAX

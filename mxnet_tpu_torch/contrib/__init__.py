@@ -1,17 +1,17 @@
-"""``mx.contrib``: int8 quantization (``contrib.quantization``).
+"""``mx.contrib``: mixed precision (``contrib.amp``), int8 quantization
+(``contrib.quantization``) and TensorBoard logging
+(``contrib.tensorboard``).
 
-Port of ``mxnet_tpu/contrib/__init__.py``. ``amp``, ``tensorboard`` and
-``onnx`` are not ported yet: each raises ``NotImplementedError`` naming
-its ROADMAP Queue 1 item.
+Port of ``mxnet_tpu/contrib/__init__.py``. ``onnx`` is not ported yet:
+it raises ``NotImplementedError`` naming its ROADMAP Queue 1 item.
 """
 from __future__ import annotations
 
-from . import quantization
+from . import amp, quantization, tensorboard
 
-__all__ = ["quantization"]
+__all__ = ["amp", "quantization", "tensorboard"]
 
-_WAITING = {"amp": "Training extras", "tensorboard": "Long tail",
-            "onnx": "Long tail"}
+_WAITING = {"onnx": "Long tail"}
 
 
 def __getattr__(name):

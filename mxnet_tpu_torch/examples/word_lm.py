@@ -6,13 +6,17 @@ BPTT over contiguous text, gradient clipping, perplexity.
 
     python -m mxnet_tpu_torch.examples.word_lm            # on the card
     python -m mxnet_tpu_torch.examples.word_lm --device cpu --quick
+    python -m mxnet_tpu_torch.examples.word_lm --amp bfloat16
 
 The text is the example's synthetic Markov corpus (each token strongly
 predicts the next, so perplexity can fall well below uniform); pass
 ``--data`` for a tokenized corpus (one token id per line). The LSTM
 runs the hand-written K6a/K6b kernels on the card (``ops/csrc/lstm.cu``).
 :func:`train_segments` is the training loop ``chip_smoke.py`` and the
-tests drive.
+tests drive. ``--amp`` trains in mixed precision (``contrib.amp``): the
+embedding, the LSTM (K6a/K6b in the half type) and the decoder in
+bfloat16 or float16, the loss in float32; the backward goes through
+``amp.scale_loss`` and the clipping threshold scales with the loss.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 
 from .. import autograd, gluon
 from ..context import resolve_device
+from ..contrib import amp
 from ..gluon import nn, rnn
 from ..gluon.utils import clip_global_norm
 from ..initializer import Xavier
@@ -86,16 +91,19 @@ def batchify(tokens, batch_size):
 def train_segments(net, trainer, data, bptt, clip, steps=None):
     """Truncated BPTT over ``data`` (batch, n) token ids, one segment
     of ``bptt`` tokens per step: detach the carried states, record the
-    forward and ``SoftmaxCrossEntropyLoss``, ``autograd.backward``,
-    ``clip_global_norm(grads, clip * bptt * batch)`` and
-    ``trainer.step(bptt * batch)``. Yields each segment's per-row loss
-    tensor (batch,), at most ``steps`` of them."""
+    forward and ``SoftmaxCrossEntropyLoss``, ``autograd.backward``
+    through ``amp.scale_loss`` (the loss itself without a loss scaler),
+    ``clip_global_norm(grads, clip * bptt * batch * scale)`` (the
+    gradients are scaled by the loss scale until the step divides it
+    out) and ``trainer.step(bptt * batch)``. Yields each segment's
+    per-row loss tensor (batch,), at most ``steps`` of them."""
     device = next(net.parameters()).device
     data = torch.as_tensor(np.asarray(data), device=device).long()
     batch = data.shape[0]
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     params = [p for p in net.collect_params().values()
               if p.grad_req != "null"]
+    scaler = getattr(trainer, "_amp_loss_scaler", None)
     states = net.begin_state(batch, device)
     starts = range(0, data.shape[1] - 1 - bptt, bptt)
     for seg, i in enumerate(starts):
@@ -106,8 +114,11 @@ def train_segments(net, trainer, data, bptt, clip, steps=None):
         with autograd.record():
             logits, states = net(xb, states)
             loss = loss_fn(logits, yb)
-        autograd.backward(loss)
-        clip_global_norm([p.grad() for p in params], clip * bptt * batch)
+        scale = scaler.loss_scale if scaler is not None else 1.0
+        with amp.scale_loss(loss, trainer) as scaled:
+            autograd.backward(scaled)
+        clip_global_norm([p.grad() for p in params],
+                         clip * bptt * batch * scale)
         trainer.step(bptt * batch)
         yield loss
 
@@ -131,6 +142,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--amp", default=None, choices=("bfloat16", "float16"),
+                    help="train in mixed precision (contrib.amp)")
     args = ap.parse_args(argv)
     if args.quick:
         args.vocab, args.emsize, args.nhid = 200, 64, 64
@@ -140,17 +153,26 @@ def main(argv=None):
     tokens = np.loadtxt(args.data, dtype=np.int32) if args.data else \
         synthetic_corpus(args.tokens, args.vocab)
     data = batchify(tokens, args.batch_size)
-    net = WordLM(args.vocab, args.emsize, args.nhid, args.nlayers,
-                 dropout=args.dropout, device=args.device)
-    net.initialize(init=Xavier(), seed=args.seed)
-    trainer = gluon.Trainer(net.collect_params(), args.optimizer,
-                            {"learning_rate": args.lr})
-    for epoch in range(args.epochs):
-        losses = [loss.mean().item() for loss in
-                  train_segments(net, trainer, data, args.bptt, args.clip)]
-        ppl = math.exp(sum(losses) / len(losses))
-        print(f"epoch {epoch}: perplexity {ppl:.1f} (uniform would be "
-              f"{args.vocab})")
+    if args.amp:
+        amp.init(args.amp)
+    try:
+        net = WordLM(args.vocab, args.emsize, args.nhid, args.nlayers,
+                     dropout=args.dropout, device=args.device)
+        net.initialize(init=Xavier(), seed=args.seed)
+        trainer = gluon.Trainer(net.collect_params(), args.optimizer,
+                                {"learning_rate": args.lr})
+        if args.amp:
+            amp.init_trainer(trainer)
+        for epoch in range(args.epochs):
+            losses = [loss.float().mean().item() for loss in
+                      train_segments(net, trainer, data, args.bptt,
+                                     args.clip)]
+            ppl = math.exp(sum(losses) / len(losses))
+            print(f"epoch {epoch}: perplexity {ppl:.1f} (uniform would "
+                  f"be {args.vocab})")
+    finally:
+        if args.amp:
+            amp.disable()
     return ppl
 
 

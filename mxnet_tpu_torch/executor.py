@@ -51,6 +51,7 @@ from . import autograd, envvars
 from .base import MXNetError
 from .context import current_context, resolve_device
 from .ndarray.ndarray import NDArray
+from .ndarray.register import dispatch_cast_generation
 
 __all__ = ["Executor"]
 
@@ -194,12 +195,12 @@ class Executor:
         names = list(bindings)
         arrays = [bindings[n] for n in names]
         # laid out as a block's key: (spec, training, recording,
-        # inference mode)
+        # inference mode, AMP generation)
         key = ((id(self._symbol),
                 tuple((n, tuple(a.shape), a.dtype, a.device, a.requires_grad)
                       for n, a in zip(names, arrays))),
                is_train, torch.is_grad_enabled(),
-               torch.is_inference_mode_enabled())
+               torch.is_inference_mode_enabled(), dispatch_cast_generation())
         psig = _psig(arrays)
         cache = self._graph_cache.entries
         entry = cache.get(key)

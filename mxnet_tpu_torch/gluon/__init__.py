@@ -3,7 +3,8 @@ reduced to what its training and serving paths use): ``nn`` layers
 (Dense, Embedding, LayerNorm, BatchNorm, the convolutions and pooling,
 Sequential, the Transformer encoder) as ``torch.nn.Module``s with
 Gluon's parameter names, ``rnn`` (the fused ``LSTM``, ``GRU`` and
-``RNN`` layers and the recurrent cells), ``contrib.rnn``,
+``RNN`` layers and the recurrent cells), ``contrib`` (``nn``,
+``rnn``, ``estimator``),
 ``model_zoo`` (BERT and the vision ResNets), ``data`` (datasets,
 samplers, ``DataLoader``, the vision datasets and transforms),
 ``Parameter``/``ParameterDict``, ``loss``, ``utils`` and the

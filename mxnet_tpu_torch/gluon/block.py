@@ -146,6 +146,7 @@ from ..context import resolve_device
 from ..ndarray import serialization
 from ..name import Prefix
 from ..ndarray.ndarray import NDArray, dtype_name
+from ..ndarray.register import dispatch_cast_generation
 from ..symbol import Symbol
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, is_deferred, materialize,
@@ -995,8 +996,10 @@ class HybridBlock(Block):
     def _call_cached_op(self, args, kwargs):
         leaves = []
         spec = _spec((args, kwargs), leaves)
+        # the AMP generation: a graph captured before amp.init() (or
+        # after it) is not replayed once the casts changed
         key = (spec, autograd.is_training(), torch.is_grad_enabled(),
-               torch.is_inference_mode_enabled())
+               torch.is_inference_mode_enabled(), dispatch_cast_generation())
         params = list(self.parameters())
         cache = self._cached_graph
         entry = cache.get(key)

@@ -1,9 +1,9 @@
 """Gluon contrib of the PyTorch port (``mxnet_tpu/gluon/contrib``'s
-counterpart): ``rnn`` (``VariationalDropoutCell``). The JAX package's
-``nn`` and ``estimator`` submodules are not ported yet (ROADMAP Queue
-1, 'Training extras')."""
+counterpart): ``nn`` (``Concurrent``, ``PixelShuffle2D``, ...), ``rnn``
+(``VariationalDropoutCell``) and ``estimator`` (``Estimator`` and its
+event handlers)."""
 from __future__ import annotations
 
-from . import rnn
+from . import estimator, nn, rnn
 
-__all__ = ["rnn"]
+__all__ = ["estimator", "nn", "rnn"]

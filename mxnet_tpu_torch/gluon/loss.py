@@ -12,11 +12,14 @@ kernel there either); the fused kernel path is the
 classes' ``hybrid_forward`` bodies over ``F`` (``mx.nd``), as written
 there (the JAX package has no kernel in them). ``CTCLoss`` runs the
 registered ``ctc_loss`` op (``ops/ctc.py``: the log-domain recursion
-over time, blank 0).
+over time, blank 0). Under ``contrib.amp`` the torch bodies cast as
+the JAX ops they stand for (``log_softmax``, ``sum`` and the final
+``mean`` in float32; ``register.amp_cast``).
 """
 from __future__ import annotations
 
 from ..ndarray import op_impl_nn as _nn
+from ..ndarray.register import amp_cast
 from .block import HybridBlock
 
 __all__ = ["CTCLoss", "CosineEmbeddingLoss", "HingeLoss", "HuberLoss",
@@ -34,6 +37,7 @@ def _apply_weighting(loss, weight=None, sample_weight=None):
 
 
 def _batch_mean(loss, batch_axis):
+    loss, = amp_cast("mean", loss)
     axes = tuple(i for i in range(loss.ndim) if i != batch_axis % loss.ndim)
     return loss.mean(dim=axes) if axes else loss
 
@@ -72,12 +76,13 @@ class SoftmaxCrossEntropyLoss(Loss):
 
     def forward(self, pred, label, sample_weight=None):
         if not self._from_logits:
-            pred = _nn.log_softmax(pred, axis=self._axis)
+            pred = _nn.log_softmax(*amp_cast("log_softmax", pred),
+                                   axis=self._axis)
         if self._sparse_label:
             loss = -_nn.pick(pred, label, axis=self._axis, keepdims=True)
         else:
-            loss = -(pred * label.reshape(pred.shape)).sum(
-                dim=self._axis, keepdim=True)
+            prod, = amp_cast("sum", pred * label.reshape(pred.shape))
+            loss = -prod.sum(dim=self._axis, keepdim=True)
         loss = _apply_weighting(loss, self._weight, sample_weight)
         return _batch_mean(loss, self._batch_axis)
 

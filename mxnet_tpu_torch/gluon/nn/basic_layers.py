@@ -29,6 +29,12 @@ own: on tensors they run that ``hybrid_forward`` over ``mx.nd``, as a
 user's block does, their parameters made with ``self.params.get``.
 ``BatchNorm``'s symbolic form is its predict-mode op, the graph
 ``export`` writes.
+
+Under ``contrib.amp`` each torch ``forward`` casts its tensors by the
+name of the op its ``hybrid_forward`` emits (``register.amp_cast``):
+Dense and Embedding run in the half type, LayerNorm and predict-mode
+BatchNorm in float32, and train-mode BatchNorm (``BatchNormTrain``,
+which no list names) on its inputs' own types, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ import torch.nn.functional as F
 from ... import autograd, ndarray
 from ...context import resolve_device
 from ...ndarray import op_impl_nn as _nn
+from ...ndarray.register import amp_cast
 from ..block import Block, HybridBlock, aux_updates_on
 
 __all__ = ["Activation", "BatchNorm", "Dense", "Dropout", "ELU", "Embedding",
@@ -134,7 +141,9 @@ class Dense(HybridBlock):
             self._finish_deferred(weight=(self._units, in_units))
         if self._flatten:
             x = x.reshape(x.shape[0], -1)
-        out = F.linear(x, self.weight, self.bias)
+        x, weight, bias = amp_cast("FullyConnected", x, self.weight,
+                                   self.bias)
+        out = F.linear(x, weight, bias)
         return self.act(out) if self.act is not None else out
 
     def hybrid_forward(self, F, x, weight, bias=None):
@@ -164,7 +173,7 @@ class Embedding(HybridBlock):
             self.weight._mx_grad_stype = "row_sparse"
 
     def forward(self, x):
-        return _nn.embedding(x, self.weight)
+        return _nn.embedding(*amp_cast("Embedding", x, self.weight))
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, input_dim=self._input_dim,
@@ -196,7 +205,8 @@ class LayerNorm(HybridBlock):
         if self._deferred:
             c = (x.shape[self._axis],)
             self._finish_deferred(gamma=c, beta=c)
-        return _nn.layer_norm(x, self.gamma, self.beta, axis=self._axis,
+        x, gamma, beta = amp_cast("LayerNorm", x, self.gamma, self.beta)
+        return _nn.layer_norm(x, gamma, beta, axis=self._axis,
                               eps=self._epsilon)
 
     def hybrid_forward(self, F, x, gamma, beta):
@@ -260,9 +270,11 @@ class BatchNorm(HybridBlock):
             self._finish_deferred(gamma=c, beta=c, running_mean=c,
                                   running_var=c)
         if autograd.is_training() and not self._use_global_stats:
+            x, gamma, beta, shift = amp_cast(
+                "BatchNormTrain", x, self.gamma, self.beta,
+                self.running_mean)
             out, mean, var = _nn.batch_norm_train(
-                x, self.gamma, self.beta, self.running_mean,
-                eps=self._epsilon, axis=self._axis,
+                x, gamma, beta, shift, eps=self._epsilon, axis=self._axis,
                 fix_gamma=self._fix_gamma)
             m = self._momentum
             if aux_updates_on():
@@ -271,8 +283,10 @@ class BatchNorm(HybridBlock):
                     rm.copy_(rm * m + mean.detach().to(rm.dtype) * (1 - m))
                     rv.copy_(rv * m + var.detach().to(rv.dtype) * (1 - m))
             return out
-        return _nn.batch_norm(x, self.gamma, self.beta, self.running_mean,
-                              self.running_var, eps=self._epsilon,
+        x, gamma, beta, mean, var = amp_cast(
+            "BatchNorm", x, self.gamma, self.beta, self.running_mean,
+            self.running_var)
+        return _nn.batch_norm(x, gamma, beta, mean, var, eps=self._epsilon,
                               fix_gamma=self._fix_gamma, axis=self._axis)
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):

@@ -13,7 +13,8 @@ not ported yet (ROADMAP 'Vision remainders'). ``device=None`` is the
 current context's device and raises without a card; pass
 ``device="cpu"`` (or use ``with mx.cpu():``) for the CPU. A Symbol goes
 through each layer's ``hybrid_forward``, the JAX layer's F-ops
-(``export``).
+(``export``). Under ``contrib.amp`` a convolution casts its tensors as
+the ``Convolution`` op (``register.amp_cast``).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 
 from ...context import resolve_device
 from ...ndarray import op_impl_nn as _nn
+from ...ndarray.register import amp_cast
 from ..block import HybridBlock
 from .basic_layers import Activation
 
@@ -80,7 +82,8 @@ class _Conv(HybridBlock):
             self._check_groups(self._channels, self._in_channels, groups)
             self._finish_deferred(weight=(
                 self._channels, self._in_channels // groups) + self._kernel)
-        out = _nn.convolution(x, self.weight, self.bias, **self._kwargs)
+        out = _nn.convolution(*amp_cast("Convolution", x, self.weight,
+                                        self.bias), **self._kwargs)
         return self.act(out) if self.act is not None else out
 
     def hybrid_forward(self, F, x, weight, bias=None):

@@ -9,7 +9,9 @@ CUDA kernel on the card), which masks per-row key lengths and packed
 ``segment_ids`` itself. With an additive mask (or attention dropout
 while training) it composes scores + masks + softmax in plain torch,
 as the JAX package composes batch_dot + softmax; the tests hold the
-two paths against each other.
+two paths against each other. Under ``contrib.amp`` the composed
+softmax casts as the JAX ``softmax`` op (float32); the projections cast
+in their ``Dense`` layers.
 
 A Symbol goes through each block's ``hybrid_forward``, the JAX
 package's F-op body (``export``): attention emits ``flash_attention``
@@ -26,6 +28,7 @@ import torch
 
 from ... import autograd
 from ...ndarray import op_impl_nn as _nn
+from ...ndarray.register import amp_cast
 from ..block import HybridBlock
 from .basic_layers import Activation, Dense, Dropout, LayerNorm
 
@@ -85,7 +88,7 @@ class MultiHeadAttention(HybridBlock):
                 scores = _nn.attention_segment_mask(scores, segment_ids)
             if self._causal:
                 scores = _nn.causal_mask_scores(scores)
-            probs = torch.softmax(scores, dim=-1)
+            probs = torch.softmax(*amp_cast("softmax", scores), dim=-1)
             if valid_length is not None:
                 probs = _nn.attention_zero_empty_rows(probs, valid_length)
             if segment_ids is not None:

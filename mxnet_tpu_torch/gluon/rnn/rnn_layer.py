@@ -34,6 +34,7 @@ from ...base import MXNetError
 from ...context import resolve_device
 from ...ndarray import op_impl_rnn
 from ...ndarray.ndarray import NDArray
+from ...ndarray.register import amp_cast
 from ..block import HybridBlock
 
 __all__ = ["GRU", "LSTM", "RNN"]
@@ -119,10 +120,15 @@ class _RNNLayer(HybridBlock):
         if self._layout == "NTC":
             inputs = inputs.transpose(0, 1)
         lstm = self._mode == "lstm"
+        # the tensors as the RNN op takes them (under AMP: all in the
+        # half type, the weights of every layer included)
+        inputs, h0, c0, *flat = amp_cast(
+            "RNN", inputs, states[0], states[1] if lstm else None,
+            *(w for layer in self.layer_params() for w in layer))
         out, h, c = op_impl_rnn.rnn_layers(
-            inputs, self.layer_params(), states[0],
-            states[1] if lstm else None, self._num_layers, self._dir == 2,
-            self._dropout, autograd.is_training(), mode=self._mode)
+            inputs, [tuple(flat[i:i + 4]) for i in range(0, len(flat), 4)],
+            h0, c0, self._num_layers, self._dir == 2, self._dropout,
+            autograd.is_training(), mode=self._mode)
         if self._layout == "NTC":
             out = out.transpose(0, 1)
         if skip_states:

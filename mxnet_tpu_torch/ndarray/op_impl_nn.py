@@ -106,14 +106,18 @@ def embedding(data, weight, input_dim=None, output_dim=None,
 # -- composed attention (the additive-mask path) ----------------------------
 @register_op("batch_dot_attention_scores")
 def batch_dot_attention_scores(query, key):
-    """(B,H,Sq,D),(B,H,Sk,D) -> (B,H,Sq,Sk) scores (unscaled)."""
-    return torch.einsum("bhqd,bhkd->bhqk", query, key)
+    """(B,H,Sq,D),(B,H,Sk,D) -> (B,H,Sq,Sk) scores (unscaled), in the
+    inputs' promoted type."""
+    dt = torch.promote_types(query.dtype, key.dtype)
+    return torch.einsum("bhqd,bhkd->bhqk", query.to(dt), key.to(dt))
 
 
 @register_op("batch_dot_attention_apply")
 def batch_dot_attention_apply(probs, value):
-    """(B,H,Sq,Sk),(B,H,Sk,D) -> (B,H,Sq,D)."""
-    return torch.einsum("bhqk,bhkd->bhqd", probs, value)
+    """(B,H,Sq,Sk),(B,H,Sk,D) -> (B,H,Sq,D), in the inputs' promoted
+    type (float32 probabilities against half values under AMP)."""
+    dt = torch.promote_types(probs.dtype, value.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs.to(dt), value.to(dt))
 
 
 @register_op("attention_length_mask")

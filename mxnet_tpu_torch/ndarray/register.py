@@ -25,6 +25,16 @@ numpy inputs become tensors on the op's device (float64 as float32, as
 ``out=`` copies the visible outputs into the given arrays (under
 ``no_grad``) and returns them; ``ctx=`` places an op without tensor
 inputs, and otherwise the first tensor input's device decides.
+
+**AMP.** ``contrib.amp.init()`` installs a cast hook
+(:func:`set_dispatch_cast_hook`): every op's tensor inputs pass through
+it in :func:`call_op_fn`, by the op's name, before the implementation
+runs, so eager calls, a symbol's walk and ``infer_shape`` all carry
+the casts. The built-in layers, whose ``forward`` calls the
+implementations directly, cast through :func:`amp_cast` by the name of
+the op their ``hybrid_forward`` emits. Each hook change bumps
+:func:`dispatch_cast_generation`, which the CachedOp's and the bound
+executor's keys carry.
 """
 from __future__ import annotations
 
@@ -40,8 +50,9 @@ from ..base import MXNetError
 from ..context import resolve_device
 from .ndarray import NDArray
 
-__all__ = ["Op", "call_op_fn", "get_op", "invoke", "list_ops",
-           "populate_namespace", "register_op"]
+__all__ = ["Op", "amp_cast", "call_op_fn", "dispatch_cast_generation",
+           "get_op", "invoke", "list_ops", "populate_namespace",
+           "register_op", "set_dispatch_cast_hook"]
 
 # name (and alias) -> Op; case-sensitive (FullyConnected vs broadcast_add)
 _OPS: dict = {}
@@ -254,11 +265,41 @@ def _positional_names(op):
     return names
 
 
+# the AMP cast hook, ``fn(op name, inputs) -> inputs`` (None: off), and
+# the count of its changes
+_DISPATCH_CAST_HOOK = None
+_DISPATCH_CAST_GENERATION = 0
+
+
+def set_dispatch_cast_hook(fn):
+    """Install (or clear with None) the AMP cast hook ``fn(op name,
+    inputs) -> inputs``; bumps :func:`dispatch_cast_generation`."""
+    global _DISPATCH_CAST_HOOK, _DISPATCH_CAST_GENERATION
+    _DISPATCH_CAST_HOOK = fn
+    _DISPATCH_CAST_GENERATION += 1
+
+
+def dispatch_cast_generation():
+    """How many times the cast hook changed: graphs captured under one
+    value are not served under another."""
+    return _DISPATCH_CAST_GENERATION
+
+
+def amp_cast(name, *inputs):
+    """``inputs`` as the op ``name`` takes them under AMP (a tuple);
+    themselves when AMP is off."""
+    hook = _DISPATCH_CAST_HOOK
+    return inputs if hook is None else tuple(hook(name, inputs))
+
+
 def call_op_fn(op, arrays, params):
-    """``op.fn(*arrays, **params)``, rebinding by the signature when a
-    param names one of the slots the tensors would take (a scalar
-    given between tensors, ``op(x, 2.0, y)``, arrives as inputs
-    ``[x, y]`` and params ``{<param1>: 2.0}``)."""
+    """``op.fn(*arrays, **params)`` on the inputs as the AMP hook casts
+    them, rebinding by the signature when a param names one of the
+    slots the tensors would take (a scalar given between tensors,
+    ``op(x, 2.0, y)``, arrives as inputs ``[x, y]`` and params
+    ``{<param1>: 2.0}``)."""
+    if _DISPATCH_CAST_HOOK is not None:
+        arrays = _DISPATCH_CAST_HOOK(op.name, arrays)
     if params:
         names = _positional_names(op)
         if names and any(n in params for n in names[:len(arrays)]):

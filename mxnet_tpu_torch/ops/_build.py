@@ -137,9 +137,11 @@ def launch(name, symbol, argtypes, device, *args, count=None):
     ``RuntimeError`` when that is not 0. The call switches the current
     device only when ``device`` is not already current: a launch on the
     current device costs no device switch. ``count``: ``(table,
-    kernel)``, the wrapper's launch counts and the name to add one to
+    kernel, code)``, the wrapper's launch counts, the name to add one to
     once the launch went out (to the stream's tally instead, when it
-    has one: :func:`tally`)."""
+    has one: :func:`tally`) and the :data:`DTYPE_CODES` value the launch
+    passes its kernel, so that a caller wrapping this function reads
+    each launch's operand type from the launch itself."""
     fn = _fns.get(symbol)
     if fn is None:
         fn = getattr(load(name), symbol)
@@ -160,7 +162,7 @@ def launch(name, symbol, argtypes, device, *args, count=None):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     if count is not None:
-        table, kernel = count
+        table, kernel, _ = count
         tallied = _TALLIES.get(stream)
         if tallied is None:
             table[kernel] += 1

@@ -221,6 +221,7 @@ def _launch(q, k, v, sm_scale, causal, q_offset, kv_lens, segment_ids):
         return o, lse
     strides = (ctypes.c_longlong * 12)(
         *(t.stride(i) for t in (q, k, v, o) for i in range(3)))
+    code = _build.DTYPE_CODES[q.dtype]
     _build.launch("flash_attention", "mxtt_flash_attention_fwd", _ARGS,
                   q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   kv_lens.data_ptr() if kv_lens is not None else None,
@@ -228,8 +229,8 @@ def _launch(q, k, v, sm_scale, causal, q_offset, kv_lens, segment_ids):
                   else None,
                   o.data_ptr(), lse.data_ptr(), ctypes.addressof(strides),
                   b, h, sq, skv, d, float(sm_scale), int(bool(causal)),
-                  int(q_offset), _build.DTYPE_CODES[q.dtype],
-                  count=(LAUNCHES, "flash_attention"))
+                  int(q_offset), code,
+                  count=(LAUNCHES, "flash_attention", code))
     return o, lse
 
 
@@ -247,6 +248,7 @@ def _launch_bwd(q, k, v, o, lse, do, dlse, sm_scale, causal, q_offset,
     strides = (ctypes.c_longlong * 24)(
         *(t.stride(i) for t in (q, k, v, do, o, dq, dk, dv)
           for i in range(3)))
+    code = _build.DTYPE_CODES[q.dtype]
     _build.launch("flash_attention_bwd", "mxtt_flash_attention_bwd",
                   _BWD_ARGS, q.device, q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(),
@@ -257,8 +259,7 @@ def _launch_bwd(q, k, v, o, lse, do, dlse, sm_scale, causal, q_offset,
                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                   ctypes.addressof(strides), b, h, sq, skv, d,
                   float(sm_scale), int(bool(causal)), int(q_offset),
-                  _build.DTYPE_CODES[q.dtype],
-                  count=(LAUNCHES, "flash_attention_bwd"))
+                  code, count=(LAUNCHES, "flash_attention_bwd", code))
     return dq, dk, dv
 
 

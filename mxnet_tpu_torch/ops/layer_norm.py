@@ -131,12 +131,13 @@ def _forward(x, gamma, beta, eps, return_stats):
              torch.empty(r, dtype=torch.float32, device=dev)) \
         if return_stats else None
     if r:
+        code = _build.DTYPE_CODES[x.dtype]
         _build.launch("layer_norm", "mxtt_layer_norm_fwd", _ARGS, dev,
                       x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                       y.data_ptr(), stats[0].data_ptr() if stats else None,
                       stats[1].data_ptr() if stats else None, r, d,
-                      float(eps), _build.DTYPE_CODES[x.dtype],
-                      count=(LAUNCHES, "layer_norm"))
+                      float(eps), code,
+                      count=(LAUNCHES, "layer_norm", code))
     return (y, *stats) if return_stats else y
 
 
@@ -168,12 +169,13 @@ def layer_norm_backward(x, gamma, mean, rstd, dy):
         blocks = min(_BWD_BLOCKS, -(-r // rows_a_block))
         part = torch.empty((2, blocks, d), dtype=torch.float32,
                            device=x.device)
+        code = _build.DTYPE_CODES[x.dtype]
         _build.launch("layer_norm", "mxtt_layer_norm_bwd", _BWD_ARGS,
                       x.device, x.data_ptr(), gamma.data_ptr(),
                       mean.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
                       dx.data_ptr(), part.data_ptr(), dgb.data_ptr(), r, d,
-                      blocks, _build.DTYPE_CODES[x.dtype],
-                      count=(LAUNCHES, "layer_norm_bwd"))
+                      blocks, code,
+                      count=(LAUNCHES, "layer_norm_bwd", code))
     return dx, dgb[0], dgb[1]
 
 

@@ -332,16 +332,17 @@ def lstm_forward(gin, w, h0, c0):
         # the columns past H)
         hbuf = gin.new_empty((2, n, plan["h_row"]))
         wg = gin.new_empty(plan["w_scratch"]) if plan["w_global"] else None
+        code = _build.DTYPE_CODES[gin.dtype]
         _build.launch("lstm", "mxtt_lstm_fwd", _FWD_ARGS, gin.device,
                       gin.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
                       h0.data_ptr(), c0.data_ptr(), out.data_ptr(),
                       cseq.data_ptr(), gates.data_ptr(), cbuf.data_ptr(),
                       hbuf.data_ptr(), wg.data_ptr() if wg is not None
                       else None, steps, n, hid,
-                      _build.DTYPE_CODES[gin.dtype], plan["blocks"],
+                      code, plan["blocks"],
                       plan["units_per_block"], plan["row_groups"],
                       plan["w_row"], plan["h_row"], plan["smem_bytes"],
-                      count=(LAUNCHES, "lstm_fwd"))
+                      count=(LAUNCHES, "lstm_fwd", code))
     return out, cseq, gates
 
 
@@ -387,12 +388,12 @@ def lstm_backward(gates, cseq, out, w, h0, c0, dout, dcseq):
                       hid, code,
                       plan["blocks"], plan["units_per_block"],
                       plan["row_groups"], plan["w_row"], plan["smem_bytes"],
-                      count=(LAUNCHES, "lstm_bwd"))
+                      count=(LAUNCHES, "lstm_bwd", code))
         _build.launch("lstm", "mxtt_lstm_bwd_dw", _DW_ARGS, gates.device,
                       out.data_ptr(), h0.data_ptr(), dgin.data_ptr(),
                       dw.data_ptr(), dw.stride(0), dw.stride(1), steps, n,
                       hid, code,
-                      count=(LAUNCHES, "lstm_bwd_dw"))
+                      count=(LAUNCHES, "lstm_bwd_dw", code))
     else:
         dw.zero_()
     return dgin, dh0, dc0, dw

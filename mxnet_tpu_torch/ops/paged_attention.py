@@ -194,6 +194,7 @@ def paged_flash_attention(q, k_pages, v_pages, page_table, kv_lens,
     vec = int(d * q.element_size() % 16 == 0
               and all(t.data_ptr() % 16 == 0 for t in (q, k_pages,
                                                        v_pages)))
+    code = _build.DTYPE_CODES[q.dtype]
     _build.launch("paged_attention", "mxtt_paged_attention_fwd", _ARGS,
                   q.device, q.data_ptr(), k_pages.data_ptr(),
                   v_pages.data_ptr(), page_table.data_ptr(),
@@ -201,6 +202,5 @@ def paged_flash_attention(q, k_pages, v_pages, page_table, kv_lens,
                   _tickets(q.device, b * h * sq * nz).data_ptr(), b, h, sq,
                   d,
                   page_size, n_table, vec, float(sm_scale),
-                  _build.DTYPE_CODES[q.dtype],
-                  count=(LAUNCHES, "paged_attention"))
+                  code, count=(LAUNCHES, "paged_attention", code))
     return out

@@ -105,11 +105,11 @@ def softmax_xent_forward(logits, labels):
     loss = torch.empty(n, dtype=torch.float32, device=x.device)
     lse = torch.empty(n, dtype=torch.float32, device=x.device)
     if n:
+        code = _build.DTYPE_CODES[x.dtype]
         _build.launch("softmax_xent", "mxtt_softmax_xent_fwd", _FWD_ARGS,
                       x.device, x.data_ptr(), lab.data_ptr(),
                       loss.data_ptr(), lse.data_ptr(), n, v,
-                      _build.DTYPE_CODES[x.dtype],
-                      count=(LAUNCHES, "softmax_xent_fwd"))
+                      code, count=(LAUNCHES, "softmax_xent_fwd", code))
     return loss, lse
 
 
@@ -129,11 +129,11 @@ def softmax_xent_backward(logits, labels, lse, g):
     lse, g = lse.float().contiguous(), g.float().contiguous()
     dx = torch.empty_like(x)
     if n:
+        code = _build.DTYPE_CODES[x.dtype]
         _build.launch("softmax_xent", "mxtt_softmax_xent_bwd", _BWD_ARGS,
                       x.device, x.data_ptr(), lab.data_ptr(),
                       lse.data_ptr(), g.data_ptr(), dx.data_ptr(), n, v,
-                      _build.DTYPE_CODES[x.dtype],
-                      count=(LAUNCHES, "softmax_xent_bwd"))
+                      code, count=(LAUNCHES, "softmax_xent_bwd", code))
     return dx
 
 

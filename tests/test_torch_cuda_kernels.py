@@ -2912,3 +2912,135 @@ def test_control_flow_on_the_card(cuda):
         for _ in range(2):
             assert torch.equal(block(d, h), want)
         assert graphs.captures() - c0 == captures
+
+
+# -- contrib.amp on the card (the kernels' operand types under AMP) -----------
+@pytest.fixture
+def amp_off():
+    from mxnet_tpu_torch.contrib import amp
+    yield amp
+    amp.disable()
+    assert not amp.is_initialized()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", ["bfloat16", "float16"])
+def test_amp_bert_step_sends_half_to_k1_k2_and_float32_to_k3_k4(cuda,
+                                                                amp_off,
+                                                                half):
+    """A 2-layer BERT + MLM head step under AMP: K1/K2 launch on the half
+    type, K3a/K3b/K4a/K4b on float32 (``chip_smoke.launch_dtypes``),
+    one launch a layer each; gradients float32 and finite."""
+    from mxnet_tpu_torch.examples.bert_mlm import (build, synthetic_batch,
+                                                   train_step)
+    smoke = _smoke()
+    net, head, _, trainer = build(cuda, vocab_size=1000, units=128,
+                                  hidden_size=256, num_layers=2,
+                                  num_heads=2, max_length=64)
+    amp_off.init(half)
+    amp_off.init_trainer(trainer)
+    trainer._amp_loss_scaler._scale = 2.0 ** 10 \
+        if half == "float16" else 1.0
+    batch = synthetic_batch(0, 4, 32, 1000, cuda)
+    before = launch_counts()
+    with smoke.launch_dtypes() as seen:
+        loss = train_step(net, head, trainer, batch)
+    after = launch_counts()
+    smoke.check_launch_dtypes("AMP step", seen, smoke.bert_amp_types(half))
+    assert {k: after[k] - before[k] for k in smoke.bert_amp_types(half)} \
+        == {"flash_attention": 2, "flash_attention_bwd": 2,
+            "layer_norm": 6, "layer_norm_bwd": 6, "softmax_xent_fwd": 1,
+            "softmax_xent_bwd": 1}
+    assert loss.dtype == torch.float32 and torch.isfinite(loss).all()
+    for p in trainer._params:
+        g = p.grad()
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+
+
+@pytest.mark.cuda
+def test_amp_lstm_sends_bfloat16_to_k6(cuda, amp_off):
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import rnn
+    smoke = _smoke()
+    net = rnn.LSTM(96, num_layers=2, layout="NTC", input_size=48,
+                   device=cuda)
+    x = torch.randn(8, 12, 48, device=cuda)
+    amp_off.init("bfloat16")
+    with smoke.launch_dtypes() as seen:
+        with autograd.record():
+            out = net(x)
+        out.float().sum().backward()
+    assert out.dtype == torch.bfloat16
+    smoke.check_launch_dtypes("AMP LSTM", seen, {
+        k: torch.bfloat16 for k in ("lstm_fwd", "lstm_bwd", "lstm_bwd_dw")})
+
+
+@pytest.mark.cuda
+def test_amp_float16_overflowed_step_is_skipped(cuda, amp_off):
+    """An overflowed float16 step moves no weight and halves the scale;
+    the next step's SGD update (linear in the unscaled gradient) equals
+    the update at scale 1 from the same weights within 1e-3 of its
+    scale: a power-of-two scale moves float16 values by whole
+    exponents, so only values subnormal at scale 1 could differ."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.Dense(10, in_units=32, device=cuda)
+    amp_off.init("float16")
+    params = list(net.collect_params().values())
+    trainer = gluon.Trainer(params, "sgd", {"learning_rate": 0.1})
+    amp_off.init_trainer(trainer)
+    x = torch.randn(16, 32, device=cuda)
+    y = torch.randint(0, 10, (16,), device=cuda).float()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step(scale):
+        trainer._amp_loss_scaler._scale = scale
+        w0 = [p.data().clone() for p in params]
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        with amp_off.scale_loss(loss, trainer) as scaled:
+            autograd.backward(scaled)
+        trainer.step(16)
+        return w0, [p.data().double() - w.double()
+                    for p, w in zip(params, w0)]
+
+    _, moved = step(2.0 ** 40)
+    assert all(not d.any() for d in moved)
+    assert trainer._amp_loss_scaler.loss_scale == 2.0 ** 39
+    w0, scaled = step(2.0 ** 8)
+    assert trainer._amp_loss_scaler.loss_scale == 2.0 ** 8
+    for p, w in zip(params, w0):
+        p.set_data(w)
+    _, unit = step(1.0)
+    for a, b in zip(scaled, unit):
+        assert b.abs().max() > 0
+        assert (a - b).abs().max() <= 1e-3 * b.abs().max()
+
+
+@pytest.mark.cuda
+def test_amp_state_keys_cached_op_and_executor_graphs(cuda, amp_off):
+    """A hybridized block and a bound executor capture a graph for each
+    AMP state on the card, and replay each state's own graph."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import graphs
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    net.add(nn.Dense(8, in_units=4, device=cuda))
+    net.hybridize()
+    x = torch.ones(2, 4, device=cuda)
+    s = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=4,
+                              no_bias=True, name="fc")
+    ex = s.simple_bind(mx.gpu(0), data=(2, 6), fc_weight=(4, 6))
+    seen = []
+    c0 = graphs.captures()
+    for state in ("off", "bfloat16", "off", "bfloat16"):
+        if state == "off":
+            amp_off.disable()
+        else:
+            amp_off.init(state)
+        seen.append((net(x).dtype, ex.forward()[0].dtype))
+    assert [a for a, _ in seen] == [torch.float32, torch.bfloat16] * 2
+    assert [b for _, b in seen] == [torch.float32, torch.bfloat16] * 2
+    # every switch bumps the generation the keys carry: each of the four
+    # states captures one graph for the block and one for the executor
+    assert graphs.captures() - c0 == 8
