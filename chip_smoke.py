@@ -363,7 +363,27 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
     ``gluon.contrib.nn``'s layers card vs CPU within 1e-5 of scale.
     Phase 3 times K1, K2 and K6a/K6b in bfloat16 at the AMP paths'
     shapes (the training batch's padded rows, the word LM's N=32)
-    beside float32, bound at the bfloat16 tensor-core rate.
+    beside float32, bound at the bfloat16 tensor-core rate;
+22. the NumPy frontend (``mx.np``/``mx.npx``; np-mode is off again when
+    the phase ends, whatever happens): (a) ``train-bertbase-mlm-b64s128``
+    through phase 7's own run and gates under ``npx.set_np()``, fed
+    ``mx.np`` arrays (``examples/bert_mlm.py``'s ``on_device(...,
+    as_np=True)``): the loss and the trunk's output are
+    ``mx.np.ndarray``s, K1/K2/K3a/K3b/K4a/K4b launch exactly as in
+    phase 7, and the 2 + 10 losses equal phase 7's bit for bit (same
+    seed, kernels and order: the model sees plain tensors); (b)
+    ``train-wordlm-wt2-b32t35`` through phase 8's run (both seed the
+    card's generator, so the dropout masks repeat) on ``mx.np`` token
+    ids: K6a/K6b as phase 8's, the 2 + 20 segment losses (so the
+    perplexity) bit for bit; then one direct ``npx.rnn`` (one LSTM
+    layer, T=35, N=32, 650 -> 650) and one ``npx.layer_norm`` (8192 x
+    768) against K6a's and K3a's plain versions at phase 3's tolerances,
+    one launch each; (c) the BERT-base trunk hybridized under
+    ``set_np``: one replay equal to eager bit for bit, its 12 K1 and 25
+    K3a launches all from the replay; (d) ``mx.np``'s ``einsum``,
+    ``unique``, ``linalg.solve`` and ``linalg.svd`` card vs CPU (einsum
+    1e-5, solve 1e-4, SVD max(m, n) eps of scale, unique equal), with
+    times.
 
 The op-dispatch phase also times one
 ``F.scaled_dot_product_attention`` call beside K1, K2 and K5 at head
@@ -384,9 +404,12 @@ graph for K1, K2, K3a, K3b, K4a and K4b; ``launches_by_path["deploy"]``
 counts phase 20's: one replay of the imported BERT-base graph for K1
 and K3a; ``launches_by_path["amp"]`` counts phase 21's: the 10
 measured bfloat16 BERT-base steps for K1, K2, K3a, K3b, K4a and K4b,
-the 20 measured word LM segments for K6a and K6b. K2, K6a and K6b
-carry ``bf16``, their row at the AMP path's shapes; K1 carries it on
-its padded case in ``cases``.
+the 20 measured word LM segments for K6a and K6b;
+``launches_by_path["np"]`` counts phase 22's: the 10 measured np-mode
+BERT-base steps for K1, K2, K3a, K3b, K4a and K4b, the 20 measured
+np-mode word LM segments for K6a and K6b. K2, K6a and K6b carry
+``bf16``, their row at the AMP path's shapes; K1 carries it on its
+padded case in ``cases``.
 
 The last three lines of standard output are ``{"kernels": [...]}``,
 then the card's name and power limit as ``nvidia-smi --query-gpu=
@@ -2113,10 +2136,10 @@ def build_trainer(seed, dev, num_layers):
     return build(dev, seed=seed, **dict(BERT_BASE, num_layers=num_layers))
 
 
-def to_device(batch, dev):
+def to_device(batch, dev, as_np=False):
     from mxnet_tpu_torch.examples.bert_mlm import on_device
 
-    return on_device(batch, dev)
+    return on_device(batch, dev, as_np)
 
 
 def train_step(net, head, trainer, batch, update=True):
@@ -2130,17 +2153,30 @@ def train_step(net, head, trainer, batch, update=True):
 
 
 def train_main_path(seed, profile, dev, power_line, steps=10, warmup=2,
-                    half=None):
+                    half=None, np_mode=False):
     """``train-bertbase-mlm-b64s128`` on the card; returns the launch
-    counts of the measured steps and the step p50. ``half``: train under
+    counts of the measured steps, the step p50 and every step's loss per
+    token, warm-up steps first. ``half``: train under
     ``amp.init(half)`` and ``amp.init_trainer`` (left on: the caller
     turns AMP off), with step 1 held against the float32 step 1 from
-    the same weights and every launch's operand type checked."""
+    the same weights and every launch's operand type checked.
+    ``np_mode``: build and train under ``npx.set_np()`` (off again when
+    it returns) on ``mx.np`` arrays, the loss an ``mx.np.ndarray``."""
     import numpy as np
     import torch
 
+    from mxnet_tpu_torch import numpy as mnp
+    from mxnet_tpu_torch import numpy_extension as npx
     from mxnet_tpu_torch import ops
     from mxnet_tpu_torch.contrib import amp
+
+    if np_mode:
+        npx.set_np()
+        try:
+            return train_main_path(seed, profile, dev, power_line, steps,
+                                   warmup, half)
+        finally:
+            npx.reset_np()
 
     layers = BERT_BASE["num_layers"]
     t0 = time.perf_counter()
@@ -2148,9 +2184,11 @@ def train_main_path(seed, profile, dev, power_line, steps=10, warmup=2,
     n_params = sum(p.data().numel() for p in params.values())
     log(f"model: BERT-base width, {layers} layers + MLM head, {n_params} "
         f"params ({time.perf_counter() - t0:.1f} s to build)")
-    batch = to_device(train_batch(seed), dev)
+    batch = to_device(train_batch(seed), dev, npx.is_np_array())
     n_valid = batch[-1]
     label = "training" if half is None else f"training under {half} AMP"
+    if npx.is_np_array():
+        label += " in np-mode"
     if half is not None:
         f32_loss = train_step(net, head, trainer, batch, False).item()
         amp.init(half)
@@ -2163,8 +2201,8 @@ def train_main_path(seed, profile, dev, power_line, steps=10, warmup=2,
         if not rel_f32 <= AMP_LOSS_VS_F32:
             raise AssertionError(f"{label}: step-1 loss {amp_loss} off the "
                                  f"float32 one {f32_loss} by {rel_f32}")
-    for _ in range(warmup):
-        train_step(net, head, trainer, batch)
+    warm = [train_step(net, head, trainer, batch).item() / n_valid
+            for _ in range(warmup)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
@@ -2177,6 +2215,13 @@ def train_main_path(seed, profile, dev, power_line, steps=10, warmup=2,
             times.append(time.perf_counter() - t0)
             losses.append(loss.item() / n_valid)
     counts = ops.launch_counts()
+    if npx.is_np_array():
+        out = net(*batch[:3])
+        if not isinstance(loss, mnp.ndarray) or \
+                not isinstance(out, mnp.ndarray):
+            raise AssertionError(f"{label}: loss {type(loss)}, output "
+                                 f"{type(out)}, want mx.np.ndarray")
+        del out
     peak = torch.cuda.max_memory_allocated(dev)
     types = check_launch_dtypes(label, seen, bert_amp_types(
         half or "float32"))
@@ -2195,7 +2240,7 @@ def train_main_path(seed, profile, dev, power_line, steps=10, warmup=2,
         raise AssertionError(f"{label}: loss did not fall: {losses}")
     dead = []
     for name, p in params.items():
-        g = p.grad()
+        g = p.grad().as_subclass(torch.Tensor)
         if g.dtype != torch.float32 or not bool(torch.isfinite(g).all()):
             raise AssertionError(f"{label}, {name}: gradient {g.dtype}, "
                                  f"finite {bool(torch.isfinite(g).all())}")
@@ -2225,8 +2270,8 @@ def train_main_path(seed, profile, dev, power_line, steps=10, warmup=2,
          "slot_tokens_per_s": slots / p50, "valid_tokens": n_valid,
          "loss_per_token": losses, "peak_memory_bytes": peak,
          "params": n_params, "launches": counts, "kernel_types": types,
-         "card": power_line}))
-    return counts, p50
+         "warmup_loss_per_token": warm, "card": power_line}))
+    return counts, p50, warm + losses
 
 
 def cross_device_train(seed, dev, steps=3, loss_tol=1e-4, grad_tol=1e-3,
@@ -2302,15 +2347,39 @@ def wordlm_data(vocab, batch, segments):
 
 
 def train_wordlm_main_path(seed, profile, dev, power_line, steps=20,
-                           warmup=2):
+                           warmup=2, np_mode=False):
     """``train-wordlm-wt2-b32t35`` on the card; returns the launch counts
-    of the measured segments and the step p50 in seconds."""
+    of the measured segments, the step p50 in seconds and every
+    segment's mean loss, warm-up segments first. The dropout masks draw
+    from the card's generator, seeded from ``seed`` (and put back
+    after), so every run of this path draws the same ones. ``np_mode``:
+    under ``npx.set_np()`` (off again when it returns), the token ids an
+    ``mx.np`` array, each segment's loss an ``mx.np.ndarray``."""
+    import torch
+
+    from mxnet_tpu_torch import numpy_extension as npx
+    from mxnet_tpu_torch import random as mx_random
+
+    with torch.random.fork_rng(devices=[dev]):
+        mx_random.seed(seed)
+        if not np_mode:
+            return _wordlm_run(seed, profile, dev, power_line, steps, warmup)
+        npx.set_np()
+        try:
+            return _wordlm_run(seed, profile, dev, power_line, steps, warmup)
+        finally:
+            npx.reset_np()
+
+
+def _wordlm_run(seed, profile, dev, power_line, steps, warmup):
     import gc
     import math
 
     import numpy as np
     import torch
 
+    from mxnet_tpu_torch import numpy as mnp
+    from mxnet_tpu_torch import numpy_extension as npx
     from mxnet_tpu_torch import ops
     from mxnet_tpu_torch.examples.word_lm import train_segments
 
@@ -2323,9 +2392,18 @@ def train_wordlm_main_path(seed, profile, dev, power_line, steps=20,
     log(f"model: word LM, vocab {WLM['vocab']}, emb {WLM['emb']}, "
         f"{WLM['layers']} x LSTM({WLM['hid']}), dropout {WLM['dropout']}, "
         f"{n_params} params ({time.perf_counter() - t0:.1f} s to build)")
+    np_mode = npx.is_np_array()
+    if np_mode:
+        data = mnp.array(data, ctx=dev)
     segs = train_segments(net, trainer, data, WLM["bptt"], WLM["clip"])
-    for _ in range(warmup):
-        next(segs)
+
+    def seg_loss(loss):
+        if np_mode and not isinstance(loss, mnp.ndarray):
+            raise AssertionError(f"np-mode word LM: loss {type(loss)}, "
+                                 f"want mx.np.ndarray")
+        return loss.as_subclass(torch.Tensor).double().mean().item()
+
+    warm = [seg_loss(next(segs)) for _ in range(warmup)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
@@ -2335,7 +2413,7 @@ def train_wordlm_main_path(seed, profile, dev, power_line, steps=20,
         loss = next(segs)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        losses.append(loss.double().mean().item())
+        losses.append(seg_loss(loss))
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     per_seg = {"lstm_fwd": WLM["layers"], "lstm_bwd": WLM["layers"],
@@ -2352,7 +2430,7 @@ def train_wordlm_main_path(seed, profile, dev, power_line, steps=20,
                              f"last 5 mean {last}: {losses}")
     dead = []
     for name, p in params.items():
-        g = p.grad()
+        g = p.grad().as_subclass(torch.Tensor)
         if not bool(torch.isfinite(g).all()):
             raise AssertionError(f"{name}: non-finite gradient")
         if g.abs().max().item() == 0.0:
@@ -2381,7 +2459,7 @@ def train_wordlm_main_path(seed, profile, dev, power_line, steps=20,
          "tokens_per_s": tokens / p50, "loss_per_token": losses,
          "perplexity": ppl, "peak_memory_bytes": peak, "params": n_params,
          "launches": counts, "card": power_line}))
-    return counts, p50
+    return counts, p50, warm + losses
 
 
 def cross_device_wordlm(seed, dev, steps=3, mode="lstm"):
@@ -6853,7 +6931,8 @@ def amp_wordlm(seed, dev, power_line, f32_p50):
     import torch
 
     with launch_dtypes() as seen:
-        counts, p50 = train_wordlm_main_path(seed, False, dev, power_line)
+        counts, p50, _ = train_wordlm_main_path(seed, False, dev,
+                                                power_line)
     types = check_launch_dtypes("AMP word LM", seen, {
         k: torch.bfloat16 for k in ("lstm_fwd", "lstm_bwd", "lstm_bwd_dw")})
     log(f"AMP word LM (bfloat16): step p50 {p50 * 1e3:.2f} ms vs phase 8's "
@@ -7171,7 +7250,7 @@ def amp_phase(seed, dev, power_line, f32_p50, wordlm_p50):
     m, secs = {"card": power_line}, {}
     try:
         t0 = time.perf_counter()
-        bert_counts, p50 = train_main_path(seed, False, dev, power_line,
+        bert_counts, p50, _ = train_main_path(seed, False, dev, power_line,
                                            half=BF16)
         m["bert"] = {"step_ms_p50": p50 * 1e3,
                      "f32_step_ms_p50": f32_p50 * 1e3,
@@ -7216,6 +7295,255 @@ def amp_phase(seed, dev, power_line, f32_p50, wordlm_p50):
     counts.update({k: lm_counts[k]
                    for k in ("lstm_fwd", "lstm_bwd", "lstm_bwd_dw")})
     return counts
+
+
+# -- phase 22: the NumPy frontend --------------------------------------------
+
+def np_kernel_calls(seed, dev):
+    """22b's direct calls on ``mx.np`` arrays: ``npx.rnn`` (one LSTM
+    layer at the word LM's shapes, T=35, N=32, 650 -> 650) and
+    ``npx.layer_norm`` (the training path's 8192 x 768, eps 1e-12), each
+    held against its kernel's plain version on the same inputs at phase
+    3's tolerances. Returns their metrics and launches."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch import numpy as mnp
+    from mxnet_tpu_torch import numpy_extension as npx
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.ops import lstm
+    from mxnet_tpu_torch.ops.layer_norm import layer_norm_reference
+
+    rs = np.random.RandomState(seed + 22)
+    t, n, h = WLM["bptt"], WLM["batch"], WLM["hid"]
+    x0 = rs.randn(t, n, h).astype("float32")
+    wi, wh = (rs.randn(4 * h, h).astype("float32") / h ** 0.5
+              for _ in range(2))
+    bi, bh = (rs.randn(4 * h).astype("float32") * 0.1 for _ in range(2))
+    h0, c0 = (rs.randn(1, n, h).astype("float32") * 0.5 for _ in range(2))
+    packed = np.concatenate([wi.ravel(), wh.ravel(), bi, bh])
+    ops.reset_launch_counts()
+    out, hn, cn = npx.rnn(*(mnp.array(a, ctx=dev) for a in
+                            (x0, packed, h0, c0)),
+                          state_size=h, num_layers=1, mode="lstm",
+                          state_outputs=True)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    if not all(isinstance(o, mnp.ndarray) for o in (out, hn, cn)):
+        raise AssertionError("npx.rnn gave no mx.np.ndarray")
+    # the plain version: the op's input projection, then K6a's plain
+    # recurrence
+    xt, wit, wht, bit, bht = (torch.tensor(a, device=dev)
+                              for a in (x0, wi, wh, bi, bh))
+    ref, ref_c, _ = lstm.lstm_forward_reference(
+        F.linear(xt, wit, bit) + bht, wht.t(),
+        torch.tensor(h0[0], device=dev), torch.tensor(c0[0], device=dev))
+    checks = [lstm_close(g.as_subclass(torch.Tensor), w, torch.float32)
+              for g, w in ((out, ref), (hn[0], ref[-1]), (cn[0], ref_c[-1]))]
+    rnn_err = max(e for _, e in checks)
+    log(f"npx.rnn (LSTM, T={t} N={n} H={h}): launches {launches}; "
+        f"output, h_n, c_n max_abs_err {rnn_err:.3e} against K6a's plain "
+        f"version (tol 1e-5 of each output's scale)")
+    if launches != {"lstm_fwd": 1} or not all(ok for ok, _ in checks):
+        raise AssertionError(f"npx.rnn: launches {launches}, {checks}")
+    r, d, eps = TRAIN_B * TRAIN_S, BERT_BASE["units"], 1e-12
+    lx = (rs.randn(r, d) * 0.5 + 3.0).astype("float32")
+    lg, lb = (rs.randn(d).astype("float32") for _ in range(2))
+    ops.reset_launch_counts()
+    y = npx.layer_norm(*(mnp.array(a, ctx=dev) for a in (lx, lg, lb)),
+                       axis=-1, eps=eps)
+    torch.cuda.synchronize()
+    ln_launches = {k: v for k, v in ops.launch_counts().items() if v}
+    ry = layer_norm_reference(*(torch.tensor(a, device=dev)
+                                for a in (lx, lg, lb)), eps)
+    y = y.as_subclass(torch.Tensor)
+    ln_err = (y - ry).abs().max().item()
+    log(f"npx.layer_norm (R={r} D={d} eps={eps}): launches {ln_launches}; "
+        f"max_abs_err {ln_err:.3e} against K3a's plain version (tol 1e-5 "
+        f"+ 2**-20 |y|)")
+    if ln_launches != {"layer_norm": 1} or \
+            not within_ulp(y, ry, 1e-5, 2.0 ** -20):
+        raise AssertionError(f"npx.layer_norm: launches {ln_launches}, "
+                             f"err {ln_err}")
+    return {"rnn_max_abs_err": rnn_err, "rnn_launches": launches,
+            "layer_norm_max_abs_err": ln_err,
+            "layer_norm_launches": ln_launches}
+
+
+def np_hybrid_bert(seed, dev, power_line):
+    """22c: the BERT-base trunk hybridized under ``npx.set_np()`` on the
+    training batch's ``mx.np`` ids: one replay equals the eager forward
+    bit for bit, and every launch of that call comes from the replay
+    (12 K1 and 25 K3a), with no capture after the first call."""
+    import torch
+
+    from mxnet_tpu_torch import graphs, ops
+    from mxnet_tpu_torch import numpy as mnp
+
+    net = build_trainer(seed, dev, BERT_BASE["num_layers"])[0]
+    ids, tt, lens = to_device(train_batch(seed), dev, as_np=True)[:3]
+    eager = net(ids, tt, lens)
+    net.hybridize()
+    net(ids, tt, lens)                  # capture
+    c0 = graphs.captures()
+    ops.reset_launch_counts()
+    graphs.reset_replayed_launches()
+    got = net(ids, tt, lens)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    replayed = {k: n for k, n in graphs.replayed_launches().items() if n}
+    want = {"flash_attention": BERT_BASE["num_layers"],
+            "layer_norm": 2 * BERT_BASE["num_layers"] + 1}
+    same = torch.equal(got.as_subclass(torch.Tensor),
+                       eager.as_subclass(torch.Tensor))
+    if not isinstance(got, mnp.ndarray) or not same or counts != want \
+            or replayed != want or graphs.captures() != c0:
+        raise AssertionError(f"np-mode hybridized BERT-base: type "
+                             f"{type(got)}, equal to eager {same}, "
+                             f"launches {counts}, from replays {replayed}, "
+                             f"captures {graphs.captures() - c0} after the "
+                             f"first call")
+    ms = cuda_ms(lambda: net(ids, tt, lens), iters=20, warmup=2)
+    log(f"np-mode BERT-base forward hybridized ({TRAIN_B} x {TRAIN_S}): "
+        f"replay equal to eager bit for bit; {counts} launches, all from "
+        f"the replay; {ms:.3f} ms a forward [{power_line}]")
+    return {"launches": counts, "ms": ms}
+
+
+def np_calls_card_vs_cpu(seed, dev):
+    """22d: ``einsum`` (8 x 128 x 256 by 256 x 256), ``unique`` (100000
+    ids in [0, 30522), with counts), ``linalg.solve`` (an SPD 256 x 256,
+    8 right-hand sides) and ``linalg.svd`` (256 x 128) on the card
+    against the same calls on the CPU: einsum within 1e-5 and solve
+    within 1e-4 of scale (K=256 float32 sums; n eps cond for the
+    solve), unique's values and counts equal, the singular values and
+    the card's U S Vh (against the input: the singular vectors' signs
+    are free) within max(m, n) float32 eps of scale, an SVD's backward
+    error (3.05e-5). Times each call."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import numpy as mnp
+
+    rs = np.random.RandomState(seed + 23)
+    m0 = rs.randn(256, 256).astype("float32")
+    host = {"a": rs.randn(8, 128, 256).astype("float32"),
+            "b": rs.randn(256, 256).astype("float32") / 16,
+            "ids": rs.randint(0, 30522, 100000).astype("int32"),
+            "spd": (m0 @ m0.T / 256 + np.eye(256)).astype("float32"),
+            "rhs": rs.randn(256, 8).astype("float32"),
+            "m": rs.randn(256, 128).astype("float32")}
+
+    def calls(where):
+        a = {k: mnp.array(v, ctx=where) for k, v in host.items()}
+        fns = {"einsum": lambda: mnp.einsum("bij,jk->bik", a["a"], a["b"]),
+               "unique": lambda: mnp.unique(a["ids"], return_counts=True),
+               "solve": lambda: mnp.linalg.solve(a["spd"], a["rhs"]),
+               "svd": lambda: mnp.linalg.svd(a["m"])}
+        return fns, {k: f() for k, f in fns.items()}
+
+    fns, card = calls(dev)
+    _, cpu = calls("cpu")
+
+    def rel(g, w):
+        w = w.as_subclass(torch.Tensor).double()
+        g = g.as_subclass(torch.Tensor).double().cpu()
+        return ((g - w).abs().max() / w.abs().max()).item()
+
+    gaps = {"einsum": rel(card["einsum"], cpu["einsum"]),
+            "solve": rel(card["solve"], cpu["solve"]),
+            "svd_s": rel(card["svd"][1], cpu["svd"][1])}
+    u, s_, vh = (x.as_subclass(torch.Tensor) for x in card["svd"])
+    gaps["svd_usv"] = rel((u * s_) @ vh, torch.tensor(host["m"]))
+    uniq = all(torch.equal(g.as_subclass(torch.Tensor).cpu(),
+                           w.as_subclass(torch.Tensor))
+               for g, w in zip(card["unique"], cpu["unique"]))
+    ms = {k: cuda_ms(f, iters=10, warmup=2) for k, f in fns.items()}
+    svd_tol = max(host["m"].shape) * float(np.finfo(np.float32).eps)
+    tols = {"einsum": 1e-5, "solve": 1e-4, "svd_s": svd_tol,
+            "svd_usv": svd_tol}
+    log(f"np calls card vs CPU: gaps of scale {gaps} (tols {tols}); unique "
+        f"values and counts equal: {uniq}; ms a call {ms}")
+    if not uniq or any(gaps[k] > tols[k] for k in tols):
+        raise AssertionError(f"np calls card vs CPU: {gaps}, unique {uniq}")
+    return {"gaps": gaps, "unique_equal": uniq, "ms": ms}
+
+
+def numpy_phase(seed, dev, power_line, bert, wordlm):
+    """Phase 22 (module docstring). ``bert``/``wordlm``: phase 7's and
+    phase 8's ``(launches, step p50, losses)``. np-mode is off when it
+    returns, whatever happens. Returns the launches of its measured
+    np-mode steps and segments by counter."""
+    import gc
+
+    import torch
+
+    from mxnet_tpu_torch import numpy_extension as npx
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    m, secs = {"card": power_line}, {}
+    try:
+        t0 = time.perf_counter()
+        counts, p50, losses = train_main_path(seed, False, dev, power_line,
+                                              np_mode=True)
+        kern = ("flash_attention", "flash_attention_bwd", "layer_norm",
+                "layer_norm_bwd", "softmax_xent_fwd", "softmax_xent_bwd")
+        got = {k: counts[k] for k in kern}
+        want = {k: bert[0][k] for k in kern}
+        if got != want or losses != bert[2]:
+            raise AssertionError(f"np-mode BERT-base MLM: launches {got} vs "
+                                 f"phase 7's {want}; losses {losses} vs "
+                                 f"{bert[2]}")
+        m["bert"] = {"step_ms_p50": p50 * 1e3,
+                     "classic_step_ms_p50": bert[1] * 1e3,
+                     "ratio_to_classic": p50 / bert[1], "launches": got}
+        log(f"np-mode BERT-base MLM: {len(losses)} losses equal phase 7's "
+            f"bit for bit, launches {got} as phase 7's; step p50 "
+            f"{p50 * 1e3:.2f} ms vs phase 7's {bert[1] * 1e3:.2f} ms (ratio "
+            f"{p50 / bert[1]:.4f}) [{power_line}]")
+        secs["bert"] = round(time.perf_counter() - t0, 1)
+        gc.collect()
+        t0 = time.perf_counter()
+        lm_counts, lm_p50, lm_losses = train_wordlm_main_path(
+            seed, False, dev, power_line, np_mode=True)
+        lm_kern = ("lstm_fwd", "lstm_bwd", "lstm_bwd_dw")
+        lm_got = {k: lm_counts[k] for k in lm_kern}
+        lm_want = {k: wordlm[0][k] for k in lm_kern}
+        if lm_got != lm_want or lm_losses != wordlm[2]:
+            raise AssertionError(f"np-mode word LM: launches {lm_got} vs "
+                                 f"phase 8's {lm_want}; losses {lm_losses} "
+                                 f"vs {wordlm[2]}")
+        m["wordlm"] = {"step_ms_p50": lm_p50 * 1e3,
+                       "classic_step_ms_p50": wordlm[1] * 1e3,
+                       "ratio_to_classic": lm_p50 / wordlm[1],
+                       "launches": lm_got}
+        log(f"np-mode word LM: {len(lm_losses)} segment losses (so the "
+            f"perplexity) equal phase 8's bit for bit, launches {lm_got} as "
+            f"phase 8's; step p50 {lm_p50 * 1e3:.2f} ms vs phase 8's "
+            f"{wordlm[1] * 1e3:.2f} ms [{power_line}]")
+        m["kernel_calls"] = np_kernel_calls(seed, dev)
+        secs["wordlm"] = round(time.perf_counter() - t0, 1)
+        gc.collect()
+        t0 = time.perf_counter()
+        npx.set_np()
+        m["hybridized"] = np_hybrid_bert(seed, dev, power_line)
+        npx.reset_np()
+        gc.collect()
+        secs["hybridized"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        m["calls"] = np_calls_card_vs_cpu(seed, dev)
+        secs["calls"] = round(time.perf_counter() - t0, 1)
+    finally:
+        npx.reset_np()
+    log(f"phase 22 (the NumPy frontend): {time.perf_counter() - t_phase:.1f}"
+        f" s (by part: {secs})")
+    log("phase 22 metrics: " + json.dumps(m, default=lambda o: None))
+    out = dict(got)
+    out.update(lm_got)
+    return out
 
 
 KERNEL_NAMES = ("paged_attention", "flash_attention", "flash_attention_bwd",
@@ -7284,10 +7612,11 @@ def main():
                                           power_line)
     encoder, encoder_info = serve_encoder(args.seed, args.profile, dev,
                                           power_line)
-    train, zoo_p50 = train_main_path(args.seed, args.profile, dev,
+    train, zoo_p50, train_losses = train_main_path(args.seed, args.profile,
+                                                   dev,
                                      power_line)
-    wordlm, wordlm_p50 = train_wordlm_main_path(args.seed, args.profile,
-                                                dev, power_line)
+    wordlm, wordlm_p50, wordlm_losses = train_wordlm_main_path(
+        args.seed, args.profile, dev, power_line)
     # the vision paths: no port kernel on them (cuDNN and torch's own)
     for dtype in ("float32", "bfloat16"):
         train_resnet_main_path(args.seed, args.profile, dev, power_line,
@@ -7367,6 +7696,19 @@ def main():
         if e["name"] == "lstm_bwd":
             e["launches_by_path"]["amp_by_kernel"] = {
                 k: by_amp[k] for k in ("lstm_bwd", "lstm_bwd_dw")}
+    # the NumPy frontend: BERT-base MLM and the word LM under set_np on
+    # mx.np arrays (the measured steps' and segments' launches, counted
+    # from 0 over each run), npx's kernel calls, np-mode hybridize and
+    # np/linalg calls card vs CPU
+    by_np = numpy_phase(args.seed, dev, power_line,
+                        (train, zoo_p50, train_losses),
+                        (wordlm, wordlm_p50, wordlm_losses))
+    for e in entries:
+        if e["name"] in by_np:
+            e.setdefault("launches_by_path", {})["np"] = by_np[e["name"]]
+        if e["name"] == "lstm_bwd":
+            e["launches_by_path"]["np_by_kernel"] = {
+                k: by_np[k] for k in ("lstm_bwd", "lstm_bwd_dw")}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(power_line)

@@ -44,7 +44,12 @@ net to int8 (exact int32 products), ``nd.contrib``'s
 ``mx.viz`` summarizes a graph. ``contrib.amp`` trains in mixed
 precision by MXNet's op lists (bfloat16, or float16 with loss scaling),
 ``gluon.contrib.estimator`` fits a model through event handlers and
-``contrib.tensorboard`` writes TensorBoard's event files.
+``contrib.tensorboard`` writes TensorBoard's event files. ``mx.np`` and
+``mx.npx`` are MXNet's deep-NumPy frontend (``numpy``,
+``numpy_extension``): ``mx.np.ndarray``, NumPy's functions over the op
+registry, ``np.linalg``/``np.random``, ``mx.sym.np``/``mx.sym.npx``,
+and np-mode Gluon under ``npx.set_np()``, whose models run on plain
+tensors inside and launch the classic path's kernels.
 Module names mirror the JAX package's so each counterpart is found at
 the same relative path, and the top-level names are the reference's
 (``mx.nd``, ``mx.cpu()``, ``mx.current_context()``, ...): the JAX
@@ -80,12 +85,31 @@ from .executor import Executor
 from .ndarray import NDArray
 from .symbol import Symbol
 
+# mx.np / mx.npx, the NumPy frontend: its _npi_* ops join mx.nd and
+# mx.sym; F.np / F.npx on the nd module that hybrid_forward gets, and
+# their symbolic forms on mx.sym
+from . import numpy as np  # noqa: A001
+from . import numpy, numpy_extension  # noqa: E402
+from . import numpy_extension as npx  # noqa: E402
+from .ndarray import register as _register  # noqa: E402
+from .symbol import numpy as _sym_np  # noqa: E402
+from .symbol import numpy_extension as _sym_npx  # noqa: E402
+from .symbol.symbol import _populate_symbol_ops  # noqa: E402
+from .util import is_np_array  # noqa: E402
+
+_NPI = {n for n in _register.list_ops() if n.startswith("_npi_")}
+_register.populate_namespace(ndarray.__name__, _NPI)
+_populate_symbol_ops(symbol, _NPI)
+ndarray.np, ndarray.npx = np, npx
+symbol.np, symbol.npx = _sym_np, _sym_npx
+
 __version__ = "0.1.0"
 __all__ = ["Context", "Executor", "MXNetError", "NDArray", "Symbol",
            "attribute", "autograd", "callback", "checkpoint", "context",
            "contrib", "cpu", "current_context", "engine", "executor", "filesystem",
            "gluon", "gpu", "image", "init", "initializer", "io", "kv", "kvstore", "lr_scheduler",
-           "metric", "mod", "model", "module", "monitor", "name", "nd",
-           "ndarray", "num_gpus", "operator", "optimizer", "random", "recordio",
+           "is_np_array", "metric", "mod", "model", "module", "monitor",
+           "name", "nd", "ndarray", "np", "npx", "num_gpus", "numpy",
+           "numpy_extension", "operator", "optimizer", "random", "recordio",
            "rnn",
            "sym", "symbol", "test_utils", "util", "visualization", "viz"]

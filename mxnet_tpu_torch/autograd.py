@@ -191,14 +191,18 @@ class hooks_off:
 
 
 def _head_grads(heads, head_grads):
+    """Heads and head gradients as plain tensors (torch's sweep reads
+    ``dtype`` in Python, which ``mx.np.ndarray`` gives as numpy's);
+    the default head gradient is ones."""
     if isinstance(heads, torch.Tensor):
         heads = [heads]
     if head_grads is None:
         head_grads = [None] * len(heads)
     elif isinstance(head_grads, torch.Tensor):
         head_grads = [head_grads]
-    return list(heads), [torch.ones_like(h) if g is None else g
-                         for h, g in zip(heads, head_grads)]
+    heads = [_untyped(h) for h in heads]
+    return heads, [torch.ones_like(h) if g is None else _untyped(g)
+                   for h, g in zip(heads, head_grads)]
 
 
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
@@ -270,7 +274,7 @@ class Function:
         raise NotImplementedError
 
     def __call__(self, *inputs):
-        from .ndarray.ndarray import NDArray
+        from .ndarray.ndarray import NDArray, as_nd, wrap_cls
 
         wrap = any(isinstance(x, NDArray) for x in inputs)
         if is_recording() and any(isinstance(x, torch.Tensor)
@@ -285,19 +289,24 @@ class Function:
             single = isinstance(outputs, torch.Tensor)
             outs = [outputs] if single else list(outputs)
         if wrap:
-            outs = [o.as_subclass(NDArray) if isinstance(o, torch.Tensor)
-                    and not isinstance(o, NDArray) else o for o in outs]
+            cls = wrap_cls(*inputs)
+            outs = [as_nd(o, cls=cls) if isinstance(o, torch.Tensor) else o
+                    for o in outs]
         return outs[0] if single else outs
 
 
 def _untyped(x):
+    """``x`` as a plain tensor, on the tape if ``x`` is."""
     from .ndarray.ndarray import NDArray
-    return x.as_subclass(torch.Tensor) if isinstance(x, NDArray) else x
+    if not isinstance(x, NDArray):
+        return x
+    with torch.enable_grad():
+        return x.as_subclass(torch.Tensor)
 
 
 def _typed(x):
-    from .ndarray.ndarray import NDArray
-    return x.as_subclass(NDArray) if isinstance(x, torch.Tensor) else x
+    from .ndarray.ndarray import as_nd
+    return as_nd(x) if isinstance(x, torch.Tensor) else x
 
 
 class _FunctionBridge(torch.autograd.Function):

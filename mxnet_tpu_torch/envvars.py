@@ -116,6 +116,11 @@ register("MXNET_TPU_SYMBOLIC_JIT", "bool", True,
          "compiled symbolic executor for Module/simple_bind (on the card "
          "one CUDA graph per binding key); ``0`` falls back to the eager "
          "per-op DAG walk (bug-bisection ladder)", scope="runtime")
+register("MXNET_TPU_MODEL_STORE", "path", None,
+         "root of the local pretrained-weight store "
+         "(``gluon/model_zoo/model_store.py``; falls back to "
+         "``$MXNET_HOME/models``, then ``~/.mxnet/models``)",
+         scope="runtime")
 register("MXNET_TPU_KV_PAGE_SIZE", "int", 16,
          "tokens per paged-KV-cache page (``serving/kvcache.py``): the "
          "allocation granule of the decode engine's attention memory",

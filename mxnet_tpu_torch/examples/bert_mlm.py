@@ -14,6 +14,7 @@ writes it: the model zoo's BERT trunk + ``BERTMLMHead``, Adam, and
 
     python -m mxnet_tpu_torch.examples.bert_mlm          # on the card
     python -m mxnet_tpu_torch.examples.bert_mlm --device cpu --quick
+    python -m mxnet_tpu_torch.examples.bert_mlm --np --amp none
 
 Under bfloat16 AMP the products (the QKV, output and FFN projections,
 the embeddings, the decoder) run in bfloat16, so the attention kernels
@@ -25,7 +26,10 @@ lengths uniform in [S/2, S], one label per valid position.
 ``chip_smoke.py`` builds, draws and steps through :func:`build`,
 :func:`synthetic_arrays` and :func:`train_step`: without ``init_trainer``
 ``scale_loss`` passes the loss through, so its float32 paths take the
-same step.
+same step. ``--np`` trains under ``npx.set_np()`` and feeds ``mx.np``
+arrays (``on_device(..., as_np=True)``): the outputs, the loss and the
+gradients are ``mx.np.ndarray``s, the model sees plain tensors, and the
+step launches the kernels the classic one does.
 """
 from __future__ import annotations
 
@@ -35,6 +39,8 @@ import numpy as np
 import torch
 
 from .. import autograd, gluon, nd
+from .. import numpy as mnp
+from .. import numpy_extension as npx
 from ..context import resolve_device
 from ..contrib import amp
 from ..gluon.model_zoo.bert import BERTMLMHead, BERTModel
@@ -74,20 +80,20 @@ def synthetic_arrays(seed, batch, seq_len, vocab_size):
     return lens, ids, labels, pos
 
 
-def on_device(arrays, device):
+def on_device(arrays, device, as_np=False):
     """:func:`synthetic_arrays`' batch as the step takes it:
-    ``(ids, token_types, valid_length, positions, labels, n_valid)``."""
+    ``(ids, token_types, valid_length, positions, labels, n_valid)``,
+    as tensors or (``as_np``) as ``mx.np`` arrays."""
     lens, ids, labels, pos = arrays
-    return (torch.tensor(ids, device=device),
-            torch.zeros(ids.shape, dtype=torch.int32, device=device),
-            torch.tensor(lens, device=device),
-            torch.tensor(pos, device=device),
-            torch.tensor(labels, device=device), int(lens.sum()))
+    make = (lambda a: mnp.array(a, ctx=device)) if as_np else \
+        (lambda a: torch.tensor(a, device=device))
+    return (make(ids), make(np.zeros(ids.shape, np.int32)), make(lens),
+            make(pos), make(labels), int(lens.sum()))
 
 
-def synthetic_batch(seed, batch, seq_len, vocab_size, device):
+def synthetic_batch(seed, batch, seq_len, vocab_size, device, as_np=False):
     return on_device(synthetic_arrays(seed, batch, seq_len, vocab_size),
-                     device)
+                     device, as_np)
 
 
 def train_step(net, head, trainer, batch, update=True):
@@ -120,6 +126,8 @@ def main(argv=None):
                     help="cuda (the default) or cpu")
     ap.add_argument("--quick", action="store_true",
                     help="a tiny model: 2 layers of 64 units, vocab 1000")
+    ap.add_argument("--np", action="store_true",
+                    help="train under npx.set_np() on mx.np arrays")
     args = ap.parse_args(argv)
     widths = dict(vocab_size=1000, units=64, hidden_size=128, num_heads=4,
                   max_length=64) if args.quick else {}
@@ -129,6 +137,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
     if args.amp != "none":
         amp.init(args.amp)
+    if args.np:
+        npx.set_np()
     try:
         net, head, _, trainer = build(dev, num_layers=args.layers,
                                    seed=args.seed, lr=args.lr, **widths)
@@ -136,7 +146,8 @@ def main(argv=None):
             amp.init_trainer(trainer)
         batch = synthetic_batch(args.seed + 4, args.batch_size,
                                 args.seq_len,
-                                widths.get("vocab_size", 30522), dev)
+                                widths.get("vocab_size", 30522), dev,
+                                as_np=args.np)
         losses = []
         for step in range(args.steps):
             loss = train_step(net, head, trainer, batch)
@@ -144,6 +155,8 @@ def main(argv=None):
             print(f"step {step}: loss per token {losses[-1]:.6f}")
     finally:
         amp.disable()
+        if args.np:
+            npx.reset_np()
     return losses
 
 

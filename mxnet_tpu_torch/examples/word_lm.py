@@ -17,6 +17,10 @@ tests drive. ``--amp`` trains in mixed precision (``contrib.amp``): the
 embedding, the LSTM (K6a/K6b in the half type) and the decoder in
 bfloat16 or float16, the loss in float32; the backward goes through
 ``amp.scale_loss`` and the clipping threshold scales with the loss.
+:func:`train_segments` also takes the token ids as an ``mx.np`` array
+under ``npx.set_np()``: every segment, output, loss and gradient is then
+an ``mx.np.ndarray``, and the layers still see plain tensors and launch
+the same kernels.
 """
 from __future__ import annotations
 
@@ -96,9 +100,13 @@ def train_segments(net, trainer, data, bptt, clip, steps=None):
     ``clip_global_norm(grads, clip * bptt * batch * scale)`` (the
     gradients are scaled by the loss scale until the step divides it
     out) and ``trainer.step(bptt * batch)``. Yields each segment's
-    per-row loss tensor (batch,), at most ``steps`` of them."""
+    per-row loss tensor (batch,), at most ``steps`` of them. ``data``
+    given as a tensor (an ``mx.np`` array: np-mode) is sliced as it
+    is."""
     device = next(net.parameters()).device
-    data = torch.as_tensor(np.asarray(data), device=device).long()
+    if not isinstance(data, torch.Tensor):
+        data = torch.as_tensor(np.asarray(data), device=device)
+    data = data.long()
     batch = data.shape[0]
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     params = [p for p in net.collect_params().values()

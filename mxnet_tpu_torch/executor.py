@@ -50,7 +50,7 @@ import torch
 from . import autograd, envvars
 from .base import MXNetError
 from .context import current_context, resolve_device
-from .ndarray.ndarray import NDArray
+from .ndarray.ndarray import as_nd
 from .ndarray.register import dispatch_cast_generation
 
 __all__ = ["Executor"]
@@ -180,8 +180,7 @@ class Executor:
                 outs = self._forward_graph(bindings, bool(is_train))
             else:
                 outs = self._symbol._eval(bindings, training=bool(is_train))
-        self.outputs = [o if isinstance(o, NDArray) else
-                        o.as_subclass(NDArray) for o in outs]
+        self.outputs = [as_nd(o) for o in outs]
         self._recording = bool(is_train)
         if self._monitor_callback is not None:
             for name, out in zip(self._symbol.list_outputs(), self.outputs):
@@ -245,9 +244,11 @@ class Executor:
                     buf.copy_(g)
 
     def _grad_names(self):
+        # an integer argument (ids, labels, shift counts) takes none
         return [n for n in self._symbol.list_arguments()
                 if self.grad_req.get(n, "null") != "null"
-                and n in self.arg_dict]
+                and n in self.arg_dict
+                and self.arg_dict[n].is_floating_point()]
 
     def reshape(self, partial_shaping=False, allow_up_sizing=False, **kwargs):
         from . import ndarray as nd

@@ -30,7 +30,9 @@ full-name files; a model prefix is stripped).
 **NDArray boundary.** When an argument of a top-level call is an
 ``NDArray`` (lists of them count), the block unwraps every argument to
 a plain tensor and wraps its outputs back: NDArray in, NDArray out;
-tensor in, tensor out. Nothing inside a model's forward dispatches
+tensor in, tensor out. The outputs are ``mx.np.ndarray``s under
+``npx.set_np()`` or when an argument is one (``ndarray.as_nd``).
+Nothing inside a model's forward dispatches
 through ``NDArray.__torch_function__``, and callers that pass tensors
 (the serving engines, the examples' training loops, the kernels'
 wrappers) see nothing of it.
@@ -145,7 +147,7 @@ from ..base import MXNetError
 from ..context import resolve_device
 from ..ndarray import serialization
 from ..name import Prefix
-from ..ndarray.ndarray import NDArray, dtype_name
+from ..ndarray.ndarray import NDArray, as_nd, dtype_name, wrap_cls
 from ..ndarray.register import dispatch_cast_generation
 from ..symbol import Symbol
 from .parameter import (DeferredInitializationError, Parameter,
@@ -445,12 +447,20 @@ def _unwrap(x):
     return x
 
 
-def _wrap(x):
+def _wrap(x, cls):
     if isinstance(x, torch.Tensor):
-        return x if isinstance(x, NDArray) else x.as_subclass(NDArray)
+        return as_nd(x, cls=cls)
     if type(x) in (list, tuple):
-        return type(x)(_wrap(v) for v in x)
+        return type(x)(_wrap(v, cls) for v in x)
     return x
+
+
+def _out_cls(args, kwargs):
+    """The class of a top-level call's outputs: ``mx.np.ndarray`` under
+    ``npx.set_np()`` or when an argument is one, else ``NDArray``."""
+    flat = [v for a in (*args, *kwargs.values())
+            for v in (a if type(a) in (list, tuple) else (a,))]
+    return wrap_cls(*flat)
 
 
 def _draw(name, chosen, rng, sigma, verbose, p):
@@ -581,9 +591,10 @@ class Block(nn.Module):
 
     def _call_nd(self, args, kwargs):
         """NDArray in, NDArray out (module docstring)."""
+        cls = _out_cls(args, kwargs)
         args = _unwrap(args)
         kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
-        return _wrap(self.__call__(*args, **kwargs))
+        return _wrap(self.__call__(*args, **kwargs), cls)
 
     def _call_symbolic(self, args, kwargs):
         """A Symbol in, the block's graph out (module docstring,

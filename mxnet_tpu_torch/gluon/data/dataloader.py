@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ...context import resolve_device
-from ...ndarray.ndarray import NDArray
+from ...ndarray.ndarray import NDArray, as_nd
 from .sampler import BatchSampler, RandomSampler, SequentialSampler
 
 __all__ = ["DataLoader", "default_batchify_fn", "tensor_batchify_fn"]
@@ -54,7 +54,7 @@ def default_batchify_fn(data):
 
 def _as_nd(batch):
     if isinstance(batch, torch.Tensor):
-        return batch.as_subclass(NDArray)
+        return as_nd(batch)
     if isinstance(batch, list):
         return [_as_nd(b) for b in batch]
     return batch

@@ -1,9 +1,10 @@
 """Model zoo of the PyTorch port (``mxnet_tpu/gluon/model_zoo``'s
 counterpart): the BERT trunk, its MLM/NSP heads and its serving entry,
-the vision ResNets (``vision``) and the Wide & Deep recommender."""
+the vision ResNets and VGGs (``vision``), the Wide & Deep recommender
+and the local pretrained-weight store (``model_store``)."""
 from __future__ import annotations
 
-from . import bert, vision
+from . import bert, model_store, vision
 from .bert import (BERTMLMHead, BERTModel, BERTNSPHead, bert_base,
                    bert_large, bert_serving_entry, get_bert)
 from . import wide_deep as wide_deep_zoo
@@ -11,4 +12,4 @@ from .wide_deep import WideDeep, wide_deep
 
 __all__ = ["BERTMLMHead", "BERTModel", "BERTNSPHead", "WideDeep", "bert",
            "bert_base", "bert_large", "bert_serving_entry", "get_bert",
-           "vision", "wide_deep", "wide_deep_zoo"]
+           "model_store", "vision", "wide_deep", "wide_deep_zoo"]

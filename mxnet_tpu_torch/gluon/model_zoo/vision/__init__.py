@@ -2,8 +2,8 @@
 (``mxnet_tpu/gluon/model_zoo/vision``'s counterpart): the ResNets and
 the VGGs. AlexNet, DenseNet, Inception, MobileNet and SqueezeNet are
 not ported yet (ROADMAP Queue 1, 'Vision remainders');
-``pretrained=True`` raises (the reference downloads the weights: load a
-``.params`` file instead)."""
+``pretrained=True`` loads the weights from the local model store
+(``model_store.py``), which never downloads."""
 from __future__ import annotations
 
 from . import resnet, vgg

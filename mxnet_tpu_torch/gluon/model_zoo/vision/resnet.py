@@ -405,26 +405,29 @@ resnet_block_versions = [
 ]
 
 
-def get_resnet(version, num_layers, pretrained=False, **kwargs):
+def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
+               **kwargs):
     """ResNet ``version`` (1 or 2) of ``num_layers`` (18, 34, 50, 101,
     152); ``kwargs`` go to the net (``classes``, ``thumbnail``,
-    ``stem``, ``device``, ...). ``pretrained=True`` raises: the
-    reference's ``model_store.py`` downloads the weights; load a
-    ``.params`` file with ``load_parameters`` instead."""
+    ``stem``, ``device``, ...). ``pretrained=True`` loads
+    ``resnet{num_layers}_v{version}`` from the local model store
+    (``model_store.py``: ``root``, else its default root) onto ``ctx``;
+    ``ctx`` also places the net when ``device`` is not given."""
     if num_layers not in resnet_spec:
         raise ValueError(f"Invalid number of layers: {num_layers}. Options "
                          f"are {sorted(resnet_spec)}")
     if version not in (1, 2):
         raise ValueError(f"Invalid resnet version: {version}.")
-    if pretrained:
-        raise NotImplementedError(
-            "pretrained=True: the reference's model_store.py downloads the "
-            "weights, which the port does not do; build the model and "
-            "load_parameters() a local .params file instead")
+    if ctx is not None:
+        kwargs.setdefault("device", ctx)
     block_type, layers, channels = resnet_spec[num_layers]
     block = resnet_block_versions[version - 1][block_type]
-    return resnet_net_versions[version - 1](block, layers, channels,
-                                            **kwargs)
+    net = resnet_net_versions[version - 1](block, layers, channels, **kwargs)
+    if pretrained:
+        from ..model_store import load_pretrained
+        load_pretrained(net, f"resnet{num_layers}_v{version}", ctx=ctx,
+                        root=root)
+    return net
 
 
 def resnet18_v1(**kwargs):

@@ -9,9 +9,9 @@ is the classifier. The parameters carry the JAX model's names (Gluon:
 structural: ``features.0.weight``, ..., ``output.bias``), so
 ``.params`` files pass between the two. The first Dense takes its
 width from the first batch (512 x 7 x 7 at 224 x 224). ``device=None``
-is the current context's device. ``pretrained=True`` raises: load a
-``.params`` file instead. ``export`` writes the JAX model's graph
-(each layer's ``hybrid_forward``).
+is the current context's device. ``pretrained=True`` loads the local
+model store's weights (``model_store.py``). ``export`` writes the JAX
+model's graph (each layer's ``hybrid_forward``).
 """
 from __future__ import annotations
 
@@ -74,21 +74,25 @@ vgg_spec = {11: ([1, 1, 2, 2, 2], [64, 128, 256, 512, 512]),
             19: ([2, 2, 4, 4, 4], [64, 128, 256, 512, 512])}
 
 
-def get_vgg(num_layers, pretrained=False, **kwargs):
+def get_vgg(num_layers, pretrained=False, ctx=None, root=None, **kwargs):
     """VGG of ``num_layers`` (11, 13, 16, 19); ``kwargs`` go to
-    :class:`VGG` (``classes``, ``batch_norm``, ``device``, ...)."""
+    :class:`VGG` (``classes``, ``batch_norm``, ``device``, ...).
+    ``pretrained=True`` loads ``vgg{num_layers}`` (``_bn`` with batch
+    norm) from the local model store (``model_store.py``: ``root``,
+    else its default root) onto ``ctx``; ``ctx`` also places the net
+    when ``device`` is not given."""
     if num_layers not in vgg_spec:
         raise ValueError(f"Invalid number of layers: {num_layers}. Options "
                          f"are {sorted(vgg_spec)}")
-    if pretrained:
-        raise NotImplementedError(
-            "pretrained=True: the reference's model_store.py downloads the "
-            "weights, which the port does not do; build the model and "
-            "load_parameters() a local .params file instead")
-    kwargs.pop("ctx", None)
-    kwargs.pop("root", None)
+    if ctx is not None:
+        kwargs.setdefault("device", ctx)
     layers, filters = vgg_spec[num_layers]
-    return VGG(layers, filters, **kwargs)
+    net = VGG(layers, filters, **kwargs)
+    if pretrained:
+        from ..model_store import load_pretrained
+        bn = "_bn" if kwargs.get("batch_norm") else ""
+        load_pretrained(net, f"vgg{num_layers}{bn}", ctx=ctx, root=root)
+    return net
 
 
 def vgg11(**kwargs):

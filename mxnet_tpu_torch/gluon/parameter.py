@@ -37,7 +37,7 @@ from torch.nn.parameter import UninitializedParameter
 from .. import autograd
 from ..base import MXNetError
 from ..context import resolve_device
-from ..ndarray.ndarray import NDArray, to_dtype
+from ..ndarray.ndarray import NDArray, as_nd, to_dtype
 
 __all__ = ["Constant", "DeferredInitializationError", "Parameter",
            "ParameterDict", "is_deferred", "materialize", "new_constant",
@@ -184,7 +184,7 @@ class Parameter:
     def data(self, ctx=None):
         """An NDArray view of the weight (shares its storage)."""
         self._check_initialized()
-        return self._tensor.detach().as_subclass(NDArray)
+        return as_nd(self._tensor.detach())
 
     def grad(self, ctx=None):
         """An NDArray view of the gradient; zeros before the first
@@ -196,7 +196,7 @@ class Parameter:
                              f"'{self.name}' because grad_req='null'")
         if self._tensor.grad is None:
             self._tensor.grad = torch.zeros_like(self._tensor)
-        return self._tensor.grad.as_subclass(NDArray)
+        return as_nd(self._tensor.grad)
 
     def list_data(self):
         """The weight on each context: one card holds one."""

@@ -33,7 +33,7 @@ from ... import autograd
 from ...base import MXNetError
 from ...context import resolve_device
 from ...ndarray import op_impl_rnn
-from ...ndarray.ndarray import NDArray
+from ...ndarray.ndarray import NDArray, as_nd
 from ...ndarray.register import amp_cast
 from ..block import HybridBlock
 
@@ -86,8 +86,8 @@ class _RNNLayer(HybridBlock):
             else resolve_device(kwargs.pop("device", ctx))
         if func is None:
             dtype = kwargs.pop("dtype", None) or torch.float32
-            return [torch.zeros(info["shape"], dtype=dtype, device=dev)
-                    .as_subclass(NDArray)
+            return [as_nd(torch.zeros(info["shape"], dtype=dtype,
+                                      device=dev))
                     for info in self.state_info(batch_size)]
         return [func(info["shape"], device=dev, **kwargs)
                 for info in self.state_info(batch_size)]

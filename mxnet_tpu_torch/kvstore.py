@@ -39,7 +39,7 @@ import torch
 
 from .base import MXNetError
 from .ndarray import sparse as _sp
-from .ndarray.ndarray import NDArray
+from .ndarray.ndarray import NDArray, as_nd
 from .ndarray.op_impl_basic import segment_sum
 from .optimizer.optimizer import get_updater, move_state
 
@@ -80,7 +80,7 @@ def _copy(v):
     if isinstance(v, _sp.BaseSparseNDArray):
         return v.copy()
     t = v.detach() if isinstance(v, torch.Tensor) else torch.as_tensor(v)
-    return t.clone().as_subclass(NDArray)
+    return as_nd(t.clone(), v)
 
 
 class KVStore:
@@ -233,8 +233,8 @@ def pull_rows(dense, dst, row_ids):
     with torch.no_grad():
         picked = src.index_select(0, uniq)
         if isinstance(dst, _sp.RowSparseNDArray):
-            dst._data = picked.to(device=dst.device, dtype=dst.dtype) \
-                .as_subclass(NDArray)
+            dst._data = as_nd(picked.to(device=dst.device,
+                                        dtype=dst.dtype), cls=NDArray)
             dst._aux = uniq.to(dst.device)
             return dst
         full = torch.zeros(src.shape, dtype=dst.dtype, device=src.device)

@@ -28,9 +28,10 @@ call take the same path to the same kernel. ``nd.relu``, ``nd.pick``,
 functions of those names. The update ops (``nd.sgd_update``, ...) are
 the JAX ops': they return the new weight and write the states back
 (the port's optimizers call ``op_impl_optimizer``'s in-place
-functions). A name of the JAX registry that is not ported yet
-(:data:`WAITING`) raises ``NotImplementedError`` naming its ROADMAP
-Queue 1 item.
+functions). The ``_npi_*`` operators of the NumPy frontend
+(``numpy/ops.py``) join the namespace when the package imports it. A
+name of the JAX registry that is not ported yet (:data:`WAITING`)
+raises ``NotImplementedError`` naming its ROADMAP Queue 1 item.
 """
 from __future__ import annotations
 
@@ -58,30 +59,10 @@ from .serialization import load, load_bytes, save, save_bytes  # noqa: E402
 # ----------------------------------------------------------------------
 # names of the JAX registry not ported yet, by ROADMAP Queue 1 item
 # ----------------------------------------------------------------------
-_NUMPY_OPS = tuple(
-    "_npi_" + n for n in """
-    all any append argwhere around array_split atleast_1d atleast_2d
-    atleast_3d average bincount bitwise_and bitwise_or bitwise_xor
-    broadcast_arrays broadcast_to cholesky column_stack copysign
-    count_nonzero cross cumprod det diagflat diagonal diff dot dstack
-    ediff1d eigh eigvalsh einsum equal exp2 flatnonzero floor_divide fmax
-    fmin fmod gcd greater greater_equal heaviside histogram hstack inner
-    interp inv invert isclose kron lcm ldexp left_shift less less_equal
-    logaddexp logaddexp2 logical_and logical_not logical_or logical_xor
-    lstsq matmul matrix_power matrix_rank median meshgrid moveaxis
-    multi_dot nan_to_num nanmax nanmean nanmin nonzero norm not_equal
-    outer pad percentile pinv ptp qr quantile random_beta random_chisquare
-    random_choice random_gumbel random_laplace random_logistic
-    random_lognormal random_pareto random_permutation random_power
-    random_rayleigh random_weibull right_shift roll rot90 searchsorted
-    signbit slogdet solve split_np std svd take_along_axis tensordot trace
-    tril triu unique var vdot vstack where""".split())
-
 WAITING = {
     "Vision remainders": (
         "Deconvolution", "UpSampling", "BilinearSampler", "LRN", "lrn",
         "ROIPooling", "GridGenerator", "SpatialTransformer"),
-    "Long tail": _NUMPY_OPS,
 }
 _WAITING_ITEM = {name: item for item, names in WAITING.items()
                  for name in names}

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.control_flow import cond, foreach, while_loop  # noqa: F401
-from .ndarray import NDArray
+from .ndarray import NDArray, as_nd
 from .register import get_op as _get_op
 from .register import invoke as _invoke
 
@@ -31,7 +31,7 @@ __all__ = ["AdaptiveAvgPooling2D", "BilinearResize2D",
 
 
 def _nd(t):
-    return t.as_subclass(NDArray)
+    return as_nd(t)
 
 
 def _plain(t):

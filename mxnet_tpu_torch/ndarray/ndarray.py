@@ -26,9 +26,10 @@ import torch
 
 from ..base import MXNetError
 from ..context import Context, resolve_device
+from ..util import _FLAGS as _NP_FLAGS
 
-__all__ = ["NDArray", "arange", "array", "empty", "full", "ones",
-           "waitall", "zeros"]
+__all__ = ["NDArray", "arange", "array", "as_nd", "empty", "full", "ones",
+           "waitall", "wrap_cls", "zeros"]
 
 # MXNet's dtype codes (mshadow kFloat32 = 0, ...), as the JAX package's
 # ``base.DTYPE_CODE_TO_NAME``
@@ -82,9 +83,44 @@ def from_raw_numpy(npv, name, device="cpu"):
     return torch.from_numpy(npv).to(device)
 
 
-def _unpickle(npv, name):
-    return from_raw_numpy(npv, name, resolve_device(None)) \
-        .as_subclass(NDArray)
+def _unpickle(npv, name, np_cls=False):
+    return as_nd(from_raw_numpy(npv, name, resolve_device(None)),
+                 cls=_NP_CLS if np_cls else NDArray)
+
+
+# the ``mx.np.ndarray`` class, installed by ``numpy.multiarray``, which
+# the package imports (the JAX package's ``_NP_CLS``)
+_NP_CLS = None
+
+
+def wrap_cls(*sources):
+    """The class an array made from ``sources`` takes: ``mx.np.ndarray``
+    under ``npx.set_np()`` or when a source already is one (the JAX
+    package's ``_wrap`` and ``invoke`` rule), else :class:`NDArray`."""
+    npc = _NP_CLS
+    if npc is not None:
+        if _NP_FLAGS["array"]:
+            return npc
+        for s in sources:
+            if isinstance(s, npc):
+                return npc
+    return NDArray
+
+
+def as_nd(t, *sources, cls=None):
+    """``t`` (a tensor) as ``cls``, by default :func:`wrap_cls` of
+    ``sources``: the one place the port wraps a plain tensor into an
+    array type. The wrap is an alias of the same storage, and stays on
+    the tape of a recorded tensor (the JAX package's
+    ``_convert_cls``)."""
+    if cls is None:
+        cls = wrap_cls(*sources)
+    return t if type(t) is cls else t.as_subclass(cls)
+
+
+def _tdtype(t):
+    """A tensor's torch dtype (``mx.np.ndarray.dtype`` is numpy's)."""
+    return torch.Tensor.dtype.__get__(t)
 
 
 class NDArray(torch.Tensor):
@@ -99,7 +135,7 @@ class NDArray(torch.Tensor):
     @property
     def grad(self):
         g = torch.Tensor.grad.__get__(self)
-        return None if g is None else g.as_subclass(NDArray)
+        return None if g is None else as_nd(g, self)
 
     @grad.setter
     def grad(self, value):
@@ -156,9 +192,19 @@ class NDArray(torch.Tensor):
 
     def astype(self, dtype, copy=True):
         dt = to_dtype(dtype)
-        if not copy and self.dtype == dt:
+        if not copy and _tdtype(self) == dt:
             return self
         return self.to(dt, copy=True)
+
+    def as_np_ndarray(self):
+        """This array as an ``mx.np.ndarray`` sharing its storage
+        (tape-linked under ``autograd.record()``)."""
+        return as_nd(self, cls=_NP_CLS)
+
+    def as_nd_ndarray(self):
+        """This array as a classic :class:`NDArray` sharing its
+        storage."""
+        return as_nd(self, cls=NDArray)
 
     def attach_grad(self, grad_req="write", stype=None):
         """Make this array a leaf with a zero gradient buffer (MXNet
@@ -173,7 +219,7 @@ class NDArray(torch.Tensor):
                              "autograd.record(); call detach() first")
         autograd.set_grad_req(self, grad_req)
         if grad_req != "null":
-            self.grad = torch.zeros(self.shape, dtype=self.dtype,
+            self.grad = torch.zeros(self.shape, dtype=_tdtype(self),
                                     device=self.device)
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
@@ -374,7 +420,7 @@ class NDArray(torch.Tensor):
         return _op("ones_like", [self])
 
     def __reduce_ex__(self, protocol):
-        return (_unpickle, raw_numpy(self))
+        return (_unpickle, raw_numpy(self) + (type(self) is _NP_CLS,))
 
     def __repr__(self, *, tensor_contents=None):
         return (f"\n{self.asnumpy()}\n<NDArray "
@@ -408,13 +454,12 @@ def array(source, ctx=None, dtype=None):
     dev, dt = _dev(ctx), to_dtype(dtype)
     if isinstance(source, torch.Tensor):
         t = source.detach().as_subclass(torch.Tensor)
-        return t.to(device=dev, dtype=dt or t.dtype, copy=True) \
-            .as_subclass(NDArray)
+        return as_nd(t.to(device=dev, dtype=dt or t.dtype, copy=True))
     npv = np.asarray(source)
     if dt is None:
         dt = torch.float32 if npv.dtype == np.float64 else to_dtype(npv.dtype)
-    return torch.from_numpy(np.array(npv, order="C")) \
-        .to(device=dev, dtype=dt).as_subclass(NDArray)
+    return as_nd(torch.from_numpy(np.array(npv, order="C"))
+                 .to(device=dev, dtype=dt))
 
 
 def _shape(shape):
@@ -422,19 +467,21 @@ def _shape(shape):
 
 
 def zeros(shape, ctx=None, dtype=None, **kwargs):
-    return torch.zeros(_shape(shape), dtype=to_dtype(dtype) or torch.float32,
-                       device=_dev(ctx)).as_subclass(NDArray)
+    return as_nd(torch.zeros(_shape(shape),
+                             dtype=to_dtype(dtype) or torch.float32,
+                             device=_dev(ctx)))
 
 
 def ones(shape, ctx=None, dtype=None, **kwargs):
-    return torch.ones(_shape(shape), dtype=to_dtype(dtype) or torch.float32,
-                      device=_dev(ctx)).as_subclass(NDArray)
+    return as_nd(torch.ones(_shape(shape),
+                            dtype=to_dtype(dtype) or torch.float32,
+                            device=_dev(ctx)))
 
 
 def full(shape, val, ctx=None, dtype=None):
-    return torch.full(_shape(shape), val,
-                      dtype=to_dtype(dtype) or torch.float32,
-                      device=_dev(ctx)).as_subclass(NDArray)
+    return as_nd(torch.full(_shape(shape), val,
+                            dtype=to_dtype(dtype) or torch.float32,
+                            device=_dev(ctx)))
 
 
 def empty(shape, ctx=None, dtype=None):
@@ -450,7 +497,7 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
                        device=_dev(ctx))
     if repeat > 1:
         out = out.repeat_interleave(repeat)
-    return out.as_subclass(NDArray)
+    return as_nd(out)
 
 
 def waitall():

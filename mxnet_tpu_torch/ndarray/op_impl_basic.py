@@ -344,13 +344,19 @@ def _reduce(fn):
     return impl
 
 
+def _mean(x, dim, keepdim):
+    # an integer array's mean is float32, as the JAX op's
+    return torch.mean(x if x.is_floating_point() else x.float(), dim,
+                      keepdim=keepdim)
+
+
 def _nanprod(x, dim, keepdim):
     return torch.prod(torch.nan_to_num(x, nan=1.0), dim, keepdim=keepdim)
 
 
 register_op("sum", aliases=("sum_axis",))(_reduce(torch.sum))
 register_op("nansum")(_reduce(torch.nansum))
-register_op("mean")(_reduce(torch.mean))
+register_op("mean")(_reduce(_mean))
 register_op("prod")(_reduce(torch.prod))
 register_op("nanprod")(_reduce(_nanprod))
 register_op("max", aliases=("max_axis",))(_reduce(torch.amax))
@@ -1110,9 +1116,10 @@ def softplus(x):
 def cumsum(x, axis=None, dtype=None):
     if dtype is not None:
         x = x.to(_dt(dtype))
+    # the input's type, as the JAX op's (torch sums integers in int64)
     if axis is None:
-        return torch.cumsum(x.reshape(-1), 0)
-    return torch.cumsum(x, int(axis))
+        return torch.cumsum(x.reshape(-1), 0, dtype=x.dtype)
+    return torch.cumsum(x, int(axis), dtype=x.dtype)
 
 
 @register_op("digamma")

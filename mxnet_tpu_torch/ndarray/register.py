@@ -19,6 +19,9 @@ a tensor keyword) returns ``NDArray``s; one given plain tensors returns
 plain tensors, so the F-ops of a ``hybrid_forward`` (whose block
 unwrapped its arguments) pay no ``__torch_function__`` dispatch. An op
 with no tensor input (the samplers) returns an ``NDArray`` on ``ctx``.
+The wrapped outputs are ``mx.np.ndarray``s under ``npx.set_np()`` or
+when an input is one (``ndarray.wrap_cls``, the JAX package's rule),
+and the ``wrap_cls`` that ``mx.np``'s functions pass otherwise.
 numpy inputs become tensors on the op's device (float64 as float32, as
 ``nd.array``); Python scalars stay scalars.
 
@@ -48,7 +51,8 @@ import torch
 
 from ..base import MXNetError
 from ..context import resolve_device
-from .ndarray import NDArray
+from .ndarray import NDArray, as_nd
+from .ndarray import wrap_cls as _wrap_cls
 
 __all__ = ["Op", "amp_cast", "call_op_fn", "dispatch_cast_generation",
            "get_op", "invoke", "list_ops", "populate_namespace",
@@ -180,8 +184,10 @@ def _device_of(inputs, params, ctx):
 _PLAIN = (torch.Tensor, torch.nn.Parameter)
 
 
-def invoke(op, inputs, params=None, out=None, ctx=None):
-    """Eager dispatch of one op (module docstring)."""
+def invoke(op, inputs, params=None, out=None, ctx=None, wrap_cls=None):
+    """Eager dispatch of one op (module docstring). ``wrap_cls`` is the
+    class of the outputs when they are wrapped (``mx.np``'s functions
+    give ``mx.np.ndarray``)."""
     params = {k: _parse_param(v) for k, v in (params or {}).items()
               if v is not None}
     # trailing None tensor inputs (a bias with no_bias=True) are dropped
@@ -235,8 +241,9 @@ def invoke(op, inputs, params=None, out=None, ctx=None):
                     d.copy_(o)
         results = dst
     elif nd_in:
-        results = [o.as_subclass(NDArray) if isinstance(o, torch.Tensor)
-                   and not isinstance(o, NDArray) else o for o in outs]
+        cls = wrap_cls or _wrap_cls(*inputs)
+        results = [as_nd(o, cls=cls) if isinstance(o, torch.Tensor) else o
+                   for o in outs]
     else:
         results = outs
     if len(results) == 1:

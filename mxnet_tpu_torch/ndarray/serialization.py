@@ -28,7 +28,8 @@ import torch
 from ..base import MXNetError
 from ..context import resolve_device
 from ..filesystem import open_uri
-from .ndarray import DTYPE_CODES, DTYPE_OF_CODE, NDArray, raw_numpy
+from .ndarray import (DTYPE_CODES, DTYPE_OF_CODE, NDArray, _tdtype, as_nd,
+                      raw_numpy)
 
 __all__ = ["load", "load_bytes", "load_sharded", "save", "save_bytes",
            "save_sharded"]
@@ -43,7 +44,7 @@ def _save_ndarray(arr):
     if not isinstance(arr, torch.Tensor):
         raise MXNetError(f"cannot save {type(arr).__name__}: NDArrays or "
                          f"tensors only")
-    code = DTYPE_CODES.get(arr.dtype)
+    code = DTYPE_CODES.get(_tdtype(arr))
     if code is None:
         raise MXNetError(f"cannot serialize dtype {arr.dtype}")
     # at least 1-d, as the JAX package writes (a scalar as shape (1,))
@@ -131,7 +132,7 @@ def _load_ndarray(r, device):
     raw = r.read_bytes(n * dt.itemsize)
     t = torch.frombuffer(bytearray(raw), dtype=dt) if n else \
         torch.empty(0, dtype=dt)
-    return t.reshape(shape).to(device).as_subclass(NDArray)
+    return as_nd(t.reshape(shape).to(device))
 
 
 def load_bytes(data, ctx=None):

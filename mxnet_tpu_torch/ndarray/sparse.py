@@ -46,7 +46,7 @@ import torch
 
 from ..base import MXNetError
 from ..context import Context, resolve_device
-from .ndarray import NDArray, array as _dense_array, to_dtype
+from .ndarray import NDArray, as_nd, array as _dense_array, to_dtype
 from .op_impl_basic import dot as _dense_dot
 from .op_impl_basic import segment_sum
 
@@ -61,7 +61,7 @@ def _plain(t):
 
 
 def _nd(t):
-    return t if isinstance(t, NDArray) else t.as_subclass(NDArray)
+    return t if isinstance(t, NDArray) else as_nd(t)
 
 
 def _tensor(src, device, dtype=None):

@@ -251,16 +251,16 @@ class _CustomFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, spec, *arrays):
-        from .ndarray.ndarray import NDArray
+        from .ndarray.ndarray import as_nd
 
         specs = spec.out_specs(arrays)
         dev = arrays[0].device
         if dev.type == "meta":
             outs = [torch.empty(s, dtype=t, device=dev) for s, t in specs]
         else:
-            in_data = [a.as_subclass(NDArray) for a in arrays]
-            out_data = [torch.zeros(s, dtype=t, device=dev)
-                        .as_subclass(NDArray) for s, t in specs]
+            in_data = [as_nd(a) for a in arrays]
+            out_data = [as_nd(torch.zeros(s, dtype=t, device=dev))
+                        for s, t in specs]
             op = spec.operator(arrays)
             spec.run("forward", lambda: op.forward(
                 is_train=spec.is_train, req=["write"] * len(out_data),
@@ -275,20 +275,19 @@ class _CustomFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        from .ndarray.ndarray import NDArray
+        from .ndarray.ndarray import as_nd
 
         spec = ctx.spec
         saved = ctx.saved_tensors
         arrays, outs = saved[:ctx.n_in], saved[ctx.n_in:]
-        out_grad = [(torch.zeros_like(o) if g is None else g)
-                    .as_subclass(NDArray) for g, o in zip(grads, outs)]
-        in_grad = [torch.zeros_like(a).as_subclass(NDArray)
-                   for a in arrays]
+        out_grad = [as_nd(torch.zeros_like(o) if g is None else g)
+                    for g, o in zip(grads, outs)]
+        in_grad = [as_nd(torch.zeros_like(a)) for a in arrays]
         op = spec.operator(arrays)
         spec.run("backward", lambda: op.backward(
             req=["write"] * len(in_grad), out_grad=out_grad,
-            in_data=[a.as_subclass(NDArray) for a in arrays],
-            out_data=[o.as_subclass(NDArray) for o in outs],
+            in_data=[as_nd(a) for a in arrays],
+            out_data=[as_nd(o) for o in outs],
             in_grad=in_grad, aux=[]))
         return (None,) + tuple(
             g.as_subclass(torch.Tensor) if _differentiable(a) else None

@@ -792,8 +792,9 @@ _OP_INPUT_NAMES = {
 }
 
 
-def _populate_symbol_ops(module):
-    """Generate ``mx.sym.<op>`` builders from the port's registry."""
+def _populate_symbol_ops(module, names=None):
+    """Generate the ``mx.sym.<op>`` functions from the port's registry
+    (those of ``names`` only, when given)."""
     from ..ndarray.register import _OPS
 
     def make(op):
@@ -885,4 +886,5 @@ def _populate_symbol_ops(module):
         return sym_fn
 
     for nm, op in _OPS.items():
-        setattr(module, nm, make(op))
+        if names is None or nm in names:
+            setattr(module, nm, make(op))

@@ -1,10 +1,9 @@
 """Small utilities (port of ``mxnet_tpu/util.py``, MXNet's
 ``util.py``): the numpy-semantics flags (``set_np``, ``is_np_array``,
 ``is_np_shape``, ``reset_np``, the scoped :class:`np_scope` and the
-:func:`use_np` decorator), :func:`makedirs` and :func:`getenv`. The
-port's arrays keep MXNet's classic semantics; the flags are kept for
-code that sets and reads them (the ``mx.np`` frontend is ROADMAP
-Queue 1, 'Long tail')."""
+:func:`use_np` decorator), :func:`makedirs` and :func:`getenv`. With
+``set_np()`` (``array=True``) on, the arrays the classic frontend and
+Gluon give back are ``mx.np.ndarray``s (``ndarray.wrap_cls``)."""
 from __future__ import annotations
 
 import functools

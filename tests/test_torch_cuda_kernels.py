@@ -1495,7 +1495,13 @@ def test_graph_decode_engine_streams_match_eager(cuda):
 def test_graph_encoder_engine_answers_match_eager(cuda):
     """``bert_serving_entry(hybridize=True)``: one graph per (rows,
     row_len) bucket, K1 and K3a inside; answers equal the eager
-    entry's to the bit, and traffic after the warm-up only replays."""
+    entry's to the bit, and traffic after the warm-up only replays.
+
+    A request's answer takes its batch's shapes (the row count and
+    length, its place in a packed row), and the engine batches what has
+    arrived when its worker polls: both runs must batch the burst
+    alike, so each lingers (``batch_wait_ms``) until the burst is in
+    and serves it as one batch."""
     from mxnet_tpu_torch.gluon.model_zoo.bert import (BERTModel,
                                                       bert_serving_entry)
     from mxnet_tpu_torch.serving import ServingEngine
@@ -1507,19 +1513,23 @@ def test_graph_encoder_engine_answers_match_eager(cuda):
     rng = np.random.RandomState(0)
     reqs = [rng.randint(1, 120, n).astype(np.int32)
             for n in (3, 9, 17, 30, 5, 12, 40, 7)]
-    answers, snaps = [], []
+    answers, snaps, batches = [], [], []
     for hybrid in (False, True):
         eng = ServingEngine(bert_serving_entry(net, hybridize=hybrid),
                             device=cuda, bucket_lens=(16, 64), max_rows=4,
-                            pool="mean")
+                            pool="mean", batch_wait_ms=2000)
         with eng:
             eng.warmup()
             warm = eng.snapshot()["compile_cache"]
+            b0 = eng.snapshot()["counters"].get("batches", 0)
             futs = [eng.submit(t) for t in reqs]
             answers.append([f.result(timeout=120) for f in futs])
-            snap = eng.snapshot()["compile_cache"]
-        snaps.append((warm, snap))
+            snap = eng.snapshot()
+        batches.append((snap["counters"]["batches"] - b0,
+                        snap["last_batch"]["requests"]))
+        snaps.append((warm, snap["compile_cache"]))
         net.hybridize(False)
+    assert batches == [(1, len(reqs))] * 2
     for a, b in zip(answers[1], answers[0]):
         assert np.array_equal(a, b)
     (_, eager), (warm, graphed) = snaps
@@ -3044,3 +3054,166 @@ def test_amp_state_keys_cached_op_and_executor_graphs(cuda, amp_off):
     # every switch bumps the generation the keys carry: each of the four
     # states captures one graph for the block and one for the executor
     assert graphs.captures() - c0 == 8
+
+
+# -- the NumPy frontend on the card (np-mode reaches the same kernels) --------
+@pytest.fixture
+def np_off():
+    from mxnet_tpu_torch import numpy_extension as npx
+    yield npx
+    npx.reset_np()
+    assert not npx.is_np_array()
+
+
+@pytest.mark.cuda
+def test_numpy_mode_bert_step_launches_and_bits_equal_classic(cuda, np_off):
+    """A 2-layer BERT + MLM head step under ``npx.set_np()`` on ``mx.np``
+    arrays: the loss is an ``mx.np.ndarray``, K1/K2/K3a/K3b/K4a/K4b
+    launch as in the classic step (one a layer each), and the loss and
+    every gradient equal the classic step's bit for bit."""
+    from mxnet_tpu_torch.examples.bert_mlm import (build, on_device,
+                                                   synthetic_arrays,
+                                                   train_step)
+    runs = {}
+    for mode in ("classic", "np"):
+        if mode == "np":
+            np_off.set_np()
+        net, head, params, trainer = build(cuda, vocab_size=1000, units=128,
+                                           hidden_size=256, num_layers=2,
+                                           num_heads=2, max_length=64)
+        batch = on_device(synthetic_arrays(0, 4, 32, 1000), cuda,
+                          as_np=mode == "np")
+        before = launch_counts()
+        loss = train_step(net, head, trainer, batch, update=False)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        runs[mode] = (loss, {k: after[k] - before[k] for k in after},
+                      {k: p.grad().as_subclass(torch.Tensor).clone()
+                       for k, p in params.items()})
+    assert type(runs["np"][0]).__name__ == "ndarray"
+    assert runs["np"][1] == runs["classic"][1]
+    assert {k: v for k, v in runs["np"][1].items() if v} == {
+        "flash_attention": 2, "flash_attention_bwd": 2, "layer_norm": 6,
+        "layer_norm_bwd": 6, "softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
+    assert torch.equal(runs["np"][0].as_subclass(torch.Tensor),
+                       runs["classic"][0].as_subclass(torch.Tensor))
+    for k, g in runs["np"][2].items():
+        assert torch.equal(g, runs["classic"][2][k]), k
+
+
+@pytest.mark.cuda
+def test_numpy_npx_rnn_and_layer_norm_reach_k6a_and_k3a(cuda, np_off):
+    """``npx.rnn`` (LSTM) and ``npx.layer_norm`` on ``mx.np`` arrays on
+    the card: one K6a and one K3a launch, results the registry ops'
+    (``nd.RNN``, ``nd.LayerNorm``) bit for bit and within 1e-5 of
+    scale of the plain versions."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch import numpy as mnp
+    from mxnet_tpu_torch import numpy_extension as npx
+    rs = np.random.RandomState(4)
+    t, n, h = 7, 3, 32
+    x0 = rs.randn(t, n, h).astype("float32")
+    wi, wh = (rs.randn(4 * h, h).astype("float32") / h ** 0.5
+              for _ in range(2))
+    bi, bh = (rs.randn(4 * h).astype("float32") * 0.1 for _ in range(2))
+    h0, c0 = (rs.randn(1, n, h).astype("float32") for _ in range(2))
+    packed = np.concatenate([wi.ravel(), wh.ravel(), bi, bh])
+    kw = dict(state_size=h, num_layers=1, mode="lstm", state_outputs=True)
+    before = launch_counts()
+    got = npx.rnn(*(mnp.array(a, ctx=cuda) for a in (x0, packed, h0, c0)),
+                  **kw)
+    assert launch_counts()["lstm_fwd"] == before["lstm_fwd"] + 1
+    assert all(type(g).__name__ == "ndarray" for g in got)
+    want = nd.RNN(*(nd.array(a, ctx=cuda) for a in (x0, packed, h0, c0)),
+                  **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.as_subclass(torch.Tensor),
+                           w.as_subclass(torch.Tensor))
+    xt, wit, wht, bit, bht = (torch.tensor(a, device=cuda)
+                              for a in (x0, wi, wh, bi, bh))
+    ref = lstm.lstm_forward_reference(F.linear(xt, wit, bit) + bht,
+                                      wht.t(), torch.tensor(h0[0],
+                                                            device=cuda),
+                                      torch.tensor(c0[0], device=cuda))[0]
+    out = got[0].as_subclass(torch.Tensor)
+    assert (out - ref).abs().max() <= 1e-5 * max(ref.abs().max(), 1.0)
+    lx = rs.randn(64, 768).astype("float32")
+    lg, lb = (rs.randn(768).astype("float32") for _ in range(2))
+    before = launch_counts()["layer_norm"]
+    y = npx.layer_norm(*(mnp.array(a, ctx=cuda) for a in (lx, lg, lb)),
+                       axis=-1, eps=1e-12)
+    assert launch_counts()["layer_norm"] == before + 1
+    assert type(y).__name__ == "ndarray"
+    ty = nd.LayerNorm(*(nd.array(a, ctx=cuda) for a in (lx, lg, lb)),
+                      axis=-1, eps=1e-12)
+    assert torch.equal(y.as_subclass(torch.Tensor),
+                       ty.as_subclass(torch.Tensor))
+    ry = ln.layer_norm_reference(*(torch.tensor(a, device=cuda)
+                                   for a in (lx, lg, lb)), 1e-12)
+    yt = y.as_subclass(torch.Tensor)
+    assert (yt - ry).abs().max() <= 1e-5 * ry.abs().max()
+
+
+@pytest.mark.cuda
+def test_numpy_mode_hybridized_replay_equals_eager(cuda, np_off):
+    """A 2-layer BERT trunk hybridized under ``npx.set_np()``: its
+    replay gives ``mx.np.ndarray``s equal to the eager forward bit for
+    bit, every launch from the replay."""
+    from mxnet_tpu_torch import graphs
+    from mxnet_tpu_torch.examples.bert_mlm import (build, on_device,
+                                                   synthetic_arrays)
+    np_off.set_np()
+    net = build(cuda, vocab_size=1000, units=128, hidden_size=256,
+                num_layers=2, num_heads=2, max_length=64)[0]
+    ids, tt, lens = on_device(synthetic_arrays(1, 4, 32, 1000), cuda,
+                              as_np=True)[:3]
+    eager = net(ids, tt, lens)
+    net.hybridize()
+    net(ids, tt, lens)
+    graphs.reset_replayed_launches()
+    before = launch_counts()
+    got = net(ids, tt, lens)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    made = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert type(got).__name__ == "ndarray"
+    assert torch.equal(got.as_subclass(torch.Tensor),
+                       eager.as_subclass(torch.Tensor))
+    assert made == {"flash_attention": 2, "layer_norm": 5}
+    assert {k: v for k, v in graphs.replayed_launches().items() if v} == made
+
+
+@pytest.mark.cuda
+def test_numpy_functions_on_the_card_match_the_cpu(cuda):
+    """``einsum``, ``unique``, ``linalg.solve``/``svd`` and a few
+    reductions on the card against the CPU: float32 products within
+    1e-5 of scale, the solve within 1e-4 (n eps cond), exact results
+    equal."""
+    from mxnet_tpu_torch import numpy as mnp
+    rs = np.random.RandomState(9)
+    a, b = rs.randn(4, 16, 32).astype("f"), rs.randn(32, 8).astype("f")
+    m = rs.randn(32, 32).astype("f")
+    spd = (m @ m.T / 32 + np.eye(32)).astype("f")
+    rhs = rs.randn(32, 3).astype("f")
+    ids = rs.randint(0, 50, 500).astype("int32")
+
+    def run(dev):
+        A = {k: mnp.array(v, ctx=dev) for k, v in
+             dict(a=a, b=b, spd=spd, rhs=rhs, ids=ids, m=m).items()}
+        return [mnp.einsum("bij,jk->bik", A["a"], A["b"]),
+                mnp.linalg.solve(A["spd"], A["rhs"]),
+                mnp.linalg.svd(A["m"])[1], A["a"].std(axis=1),
+                mnp.quantile(A["a"], 0.3, axis=2)], \
+            [*mnp.unique(A["ids"], return_counts=True),
+             mnp.argsort(A["ids"]), mnp.count_nonzero(A["ids"] > 20)]
+
+    gf, ge = run(cuda)
+    wf, we = run("cpu")
+    for g, w, tol in zip(gf, wf, (1e-5, 1e-4, 1e-5, 1e-5, 1e-5)):
+        g, w = g.as_subclass(torch.Tensor).cpu(), w.as_subclass(torch.Tensor)
+        assert (g - w).abs().max() <= tol * w.abs().max()
+    for g, w in zip(ge, we):
+        assert torch.equal(g.as_subclass(torch.Tensor).cpu(),
+                           w.as_subclass(torch.Tensor))

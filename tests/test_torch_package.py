@@ -105,7 +105,7 @@ def test_run_reference_child_imports_neither_jax_nor_the_jax_package(
         "import mxnet_tpu.symbol\n"
         "assert mx.symbol.__name__ == 'mxnet_tpu_torch.symbol'\n"
         "try:\n"
-        "    import mxnet_tpu.numpy_extension\n"
+        "    import mxnet_tpu.runtime\n"
         "except ModuleNotFoundError as e:\n"
         "    print('MISSING', e.name)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -115,7 +115,7 @@ def test_run_reference_child_imports_neither_jax_nor_the_jax_package(
         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout
-    assert "MISSING mxnet_tpu.numpy_extension" in out.stdout
+    assert "MISSING mxnet_tpu.runtime" in out.stdout
     assert '"launch_counts"' in out.stdout.splitlines()[-1]
 
 

@@ -90,12 +90,14 @@ def _captures(stdout):
 
 def test_mnist_module_script_quick_runs():
     stdout, counts = _run("example/mnist_module.py", "--quick")
+    tail = stdout[-3000:]
+    assert "final accuracy: " in stdout, tail
     acc = float(stdout.split("final accuracy: ")[1].split()[0])
-    assert acc > 0.8
-    assert not any(counts.values())
+    assert acc > 0.8, tail
+    assert not any(counts.values()), tail
     # on the CPU an executor's entry stands for its graphs: one for the
     # training key, one for predict's
-    assert _captures(stdout) == 2
+    assert _captures(stdout) == 2, tail
 
 
 def test_rnn_bucketing_script_quick_runs():

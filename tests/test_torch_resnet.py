@@ -53,6 +53,7 @@ from mxnet_tpu import gluon as jgluon
 from mxnet_tpu.gluon.model_zoo import vision as jvision
 from mxnet_tpu.gluon.model_zoo.vision import resnet as jresnet
 from mxnet_tpu_torch import autograd, gluon
+from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon.model_zoo import vision
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
 
@@ -276,7 +277,7 @@ def test_space_to_depth_stem_matches_plain_stem_and_jax():
           .detach().numpy(), 1e-5)
 
 
-def test_model_zoo_entry_points():
+def test_model_zoo_entry_points(tmp_path):
     net = vision.get_model("ResNet18_V1", classes=4, thumbnail=True,
                            device="cpu")
     net.initialize()
@@ -293,8 +294,10 @@ def test_model_zoo_entry_points():
     with pytest.raises(ValueError, match="names:bn_out"):
         vision.resnet18_v1(remat_stages=(3,), remat_policy="names:bn_out",
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="downloads"):
-        vision.resnet18_v1(pretrained=True, device="cpu")
+    # the local model store never downloads: a miss names the way in
+    with pytest.raises(MXNetError, match="publish_model_file"):
+        vision.resnet18_v1(pretrained=True, root=str(tmp_path),
+                           device="cpu")
     with pytest.raises(ValueError):
         vision.get_resnet(3, 18)
 

@@ -19,6 +19,17 @@ from mxnet_tpu_torch import attribute, engine, name, nd, test_utils, util
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _np_mode_off():
+    """The numpy flags are process-wide in both packages (and the port's
+    wrap reads them): each test leaves them off."""
+    yield
+    util.reset_np()
+    jutil.reset_np()
+    assert not util.is_np_array() and not util.is_np_shape()
+    assert not jutil.is_np_array() and not jutil.is_np_shape()
+
+
 def test_seed_repeats_draws_per_device():
     with tmx.cpu():
         tmx.random.seed(42)

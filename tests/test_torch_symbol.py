@@ -286,8 +286,10 @@ def test_jax_saved_symbol_json_loads_and_evaluates_equal(tmp_path):
 def test_waiting_names_raise_naming_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         tmx.sym.Deconvolution
-    with pytest.raises(NotImplementedError, match="Long tail"):
-        tmx.sym._npi_svd(tmx.sym.var("x"))
+    with pytest.raises(NotImplementedError, match="Vision remainders"):
+        tmx.sym.ROIPooling(tmx.sym.var("x"), tmx.sym.var("rois"))
+    # the NumPy frontend's ops build as any registry op's
+    assert tmx.sym._npi_svd(tmx.sym.var("x")).num_outputs == 3
     js = jmx.sym.UpSampling(jmx.sym.var("x"), scale=2,
                             sample_type="nearest", name="up")
     with pytest.raises(NotImplementedError, match="Vision remainders"):
