@@ -6,7 +6,7 @@
 Phases, each printed as it ends; any failure raises and exits non-zero:
 
 1. the card's name and power limit;
-2. build every kernel of the serving and training paths from
+2. build every kernel of the serving, training and input paths from
    ``mxnet_tpu_torch/ops/csrc`` (one ``nvcc`` per source, all at once);
 3. each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it, in float32 and bfloat16, with its time,
@@ -383,7 +383,35 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
     K3a launches all from the replay; (d) ``mx.np``'s ``einsum``,
     ``unique``, ``linalg.solve`` and ``linalg.svd`` card vs CPU (einsum
     1e-5, solve 1e-4, SVD max(m, n) eps of scale, unique equal), with
-    times.
+    times;
+23. model interchange and the native image batcher: (a)
+    ``mx.runtime.Features()`` reports CUDA and CUDNN; (b) the word LM's
+    inference graph at WikiText-2 widths (``sym_wordlm`` with
+    ``softmax`` and the final states as outputs; vocab 33278, embedding
+    650, 2 x LSTM(650), T=35, N=32, phase 17's weights) through
+    ``contrib.onnx.export_model`` to a file and ``import_model``, bound
+    on the card with every array given (each ONNX ``LSTM`` node a
+    1-layer ``RNN``), 20 segments carrying h/c against the original
+    graph: the probabilities within 1e-6 of scale (bit for bit
+    expected), K6a exactly 2 launches a segment on float32 operands,
+    ms a segment of both graphs; the same at ``SYM_SMALL`` widths card
+    vs CPU (losses 1e-4 relative, probabilities 1e-3 of scale); (c)
+    ``resnet50_v1`` (phase 20's), ``alexnet``, ``densenet121``,
+    ``inception_v3`` (299), ``squeezenet1_0``, ``mobilenet1_0`` and
+    ``mobilenet_v2_1_0`` at batch 32: Gluon net -> symbol -> ONNX ->
+    import -> bound on the card, within 1e-5 of scale of the Gluon
+    net's predict forward and the replay equal to the first call, ms a
+    batch; (d) 256 seeded JPEGs of mixed sizes (PIL, 4:2:0) in a
+    ``.rec`` and ``.idx``: ``io.ImageRecordIter`` takes
+    ``ImageRecordIterNative`` (C++ record threads, nvJPEG, one resize
+    kernel a batch) at batch 32, 3 x 224 x 224, an epoch's images/s
+    beside ``ImageRecordIterPy``'s on the same records and exactly one
+    resize launch a batch; the resize kernel on one batch's
+    nvJPEG-decoded pixels against its plain version, bit for bit, with
+    times and its bound; the batches against the PIL path (libjpeg's
+    decode, the kernel's plain version): mean |difference| at most
+    ``DECODE_MEAN`` levels and at most ``DECODE_FAR_SHARE`` of the values
+    more than ``DECODE_FAR`` apart, the labels equal.
 
 The op-dispatch phase also times one
 ``F.scaled_dot_product_attention`` call beside K1, K2 and K5 at head
@@ -407,7 +435,10 @@ measured bfloat16 BERT-base steps for K1, K2, K3a, K3b, K4a and K4b,
 the 20 measured word LM segments for K6a and K6b;
 ``launches_by_path["np"]`` counts phase 22's: the 10 measured np-mode
 BERT-base steps for K1, K2, K3a, K3b, K4a and K4b, the 20 measured
-np-mode word LM segments for K6a and K6b. K2, K6a and K6b carry
+np-mode word LM segments for K6a and K6b; ``launches_by_path["onnx"]``
+counts phase 23's: the imported ONNX word LM's 20 segments for K6a.
+The resize kernel's entry (``image_resize``, no Pallas counterpart)
+counts phase 23d's epoch of the native batcher. K2, K6a and K6b carry
 ``bf16``, their row at the AMP path's shapes; K1 carries it on its
 padded case in ``cases``.
 
@@ -6569,6 +6600,22 @@ def _images(seed, n, dev):
                       generator=g).to(dev)
 
 
+def deploy_resnet_net(seed, dev):
+    """Phase 20's ``resnet50_v1`` (Xavier weights from ``seed``, running
+    statistics from two train-mode batches, as a trained net has them)
+    and its batch of 32 seeded images."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    b = DEPLOY["batch"]
+    net = vision.resnet50_v1(prefix="resnetv10_", device=dev)
+    net.initialize(init=mx.init.Xavier(), seed=seed)
+    with mx.autograd.train_mode():
+        for k in range(2):
+            net(_images(seed + 10 + k, b, dev))
+    return net, _images(seed, b, dev)
+
+
 def deploy_resnet(seed, dev, power_line, tmp):
     """Phase 20a and 20e: ``resnet50_v1`` exported and imported through
     ``SymbolBlock.imports`` (hybridized) and ``Module``, each within
@@ -6579,16 +6626,9 @@ def deploy_resnet(seed, dev, power_line, tmp):
     import torch
 
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch.gluon.model_zoo import vision
 
     b = DEPLOY["batch"]
-    net = vision.resnet50_v1(prefix="resnetv10_", device=dev)
-    net.initialize(init=mx.init.Xavier(), seed=seed)
-    # running statistics as a trained net has them (train-mode forwards)
-    with mx.autograd.train_mode():
-        for k in range(2):
-            net(_images(seed + 10 + k, b, dev))
-    x = _images(seed, b, dev)
+    net, x = deploy_resnet_net(seed, dev)
     ref = net(x)
     f32_ms = cuda_ms(lambda: net(x), iters=10, warmup=2)
     sym_file, params_file = net.export(os.path.join(tmp, "resnet50"))
@@ -6876,7 +6916,8 @@ def launch_dtypes():
     from mxnet_tpu_torch.ops import _build
 
     launch = _build.launch
-    dtypes = {code: dt for dt, code in _build.DTYPE_CODES.items()}
+    dtypes = {code: dt for dt, code in {**_build.DTYPE_CODES,
+                                        **_build.OTHER_CODES}.items()}
     seen = {}
 
     def spy(*args, count=None):
@@ -7546,6 +7587,474 @@ def numpy_phase(seed, dev, power_line, bert, wordlm):
     return out
 
 
+# -- phase 23: model interchange and the native image batcher ----------------
+#: the vision families through ONNX at batch 32 (each family's native
+#: input size)
+ONNX_VISION = (("resnet50_v1", 224), ("alexnet", 224), ("densenet121", 224),
+               ("inception_v3", 299), ("squeezenet1_0", 224),
+               ("mobilenet1_0", 224), ("mobilenet_v2_1_0", 224))
+#: the native batcher's records: JPEGs of mixed sizes (every eighth of
+#: the output size: the kernel's copy path), batch 32 at 3 x 224 x 224
+NATIVE = dict(images=256, batch=32, size=224, low=160, high=400)
+#: nvJPEG against libjpeg's decode (PIL): the mean |difference| in
+#: levels, and the share of values more than FAR levels apart (libjpeg
+#: upsamples 4:2:0 chroma with its "fancy" triangle filter, nvJPEG
+#: without it, so sharp colour edges differ by tens of levels)
+DECODE_MEAN, DECODE_FAR, DECODE_FAR_SHARE = 2.0, 16, 0.01
+
+
+def jpeg_scene(rs, h, w):
+    """A seeded photo-like image (h, w, 3) uint8: colour ramps, a few
+    flat discs, mild noise."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([xx / w * 255, yy / h * 255, (xx + yy) / (h + w) * 255],
+                   -1)
+    for _ in range(6):
+        cy, cx = rs.randint(0, h), rs.randint(0, w)
+        r = rs.randint(8, max(9, min(h, w) // 3))
+        img[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = rs.randint(0, 256, 3)
+    return np.clip(img + rs.randn(h, w, 3) * 4, 0, 255).astype(np.uint8)
+
+
+def decode_gap(got, want):
+    """(mean |difference| in levels, share of values more than
+    ``DECODE_FAR`` levels apart, max) of two uint8 tensors."""
+    d = (got.cpu().int() - want.cpu().int()).abs()
+    return (float(d.float().mean()), float((d > DECODE_FAR).float().mean()),
+            int(d.max()))
+
+
+def onnx_wordlm(mx, vocab, emb, hid, layers):
+    """``sym_wordlm``'s graph for inference and ONNX: ``softmax`` in
+    place of ``SoftmaxOutput`` and the final states as plain outputs
+    (``BlockGrad`` and the label have no ONNX mapping)."""
+    with mx.name.NameManager():
+        e = mx.sym.Embedding(mx.sym.var("data"), input_dim=vocab,
+                             output_dim=emb, name="embed")
+        r = mx.sym.RNN(e, state_size=hid, num_layers=layers, mode="lstm",
+                       state_outputs=True, name="lstm")
+        flat = mx.sym.Reshape(r[0], shape=(-1, hid), name="flat")
+        fc = mx.sym.FullyConnected(flat, num_hidden=vocab, name="decoder")
+        return mx.sym.Group([mx.sym.softmax(fc, name="softmax"), r[1],
+                             r[2]])
+
+
+def onnx_round_trip(mx, sym, params, shapes, path):
+    """``export_model`` of ``sym`` with ``params`` to ``path``, then
+    ``import_model`` on the current context; returns (symbol,
+    arg_params, aux_params, file bytes, export s, import s)."""
+    from mxnet_tpu_torch.contrib import onnx
+
+    t0 = time.perf_counter()
+    onnx.export_model(sym, params, input_shapes=shapes, onnx_file_path=path)
+    t1 = time.perf_counter()
+    got = onnx.import_model(path)
+    return (*got, os.path.getsize(path), t1 - t0, time.perf_counter() - t1)
+
+
+def lm_segments(ex, segs):
+    """Predict-mode segments of a bound LM graph, the final states
+    carried into the next segment; returns the probabilities (on the
+    card) and each segment's wall time."""
+    import torch
+
+    probs, times = [], []
+    for x, _, _, _ in segs:
+        t0 = time.perf_counter()
+        outs = ex.forward(is_train=False, data=x)
+        with torch.no_grad():
+            ex.arg_dict["lstm_state"].copy_(outs[1])
+            ex.arg_dict["lstm_state_cell"].copy_(outs[2])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        probs.append(outs[0].as_subclass(torch.Tensor).clone())
+    return probs, times
+
+
+def onnx_bind(mx, sym, ctx, args, feeds, aux=None):
+    """``sym`` bound on ``ctx`` for inference with every array given:
+    ``args`` and ``aux`` (the imported parameters; the importer puts
+    BatchNorm's running statistics in ``aux``, which the graph reads as
+    arguments) and ``feeds`` (inputs, states), the arrays the graph does
+    not read (an RNN's packed vector) left out."""
+    given = {**args, **(aux or {})}
+    # the executor copies each forward's inputs into its bound arrays:
+    # the feeds are bound as copies
+    arrays = {k: feeds[k].clone() if k in feeds else given[k]
+              for k in sym.list_arguments()}
+    return sym.bind(ctx, arrays, grad_req="null", aux_states={
+        k: given[k] for k in sym.list_auxiliary_states()})
+
+
+def onnx_wordlm_phase(seed, dev, power_line, tmp, segments=20):
+    """Phase 23b: the word LM's inference graph at WikiText-2 widths
+    through ONNX, replayed on the card against the original graph;
+    returns K6a's launches over the imported graph's segments."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import ops
+
+    v, e, h, n_l = WLM["vocab"], WLM["emb"], WLM["hid"], WLM["layers"]
+    b, t = WLM["batch"], WLM["bptt"]
+    net, _ = build_wordlm(seed, dev, v, 0.0)       # phase 17's weights
+    weights = {k: w.clone() for k, w in sym_weights_of(net).items()}
+    del net
+    sym = onnx_wordlm(mx, v, e, h, n_l)
+    ctx = mx.gpu(dev.index)
+    (isym, args, _, nbytes, t_exp, t_imp) = onnx_round_trip(
+        mx, sym, weights, {"data": (t, b)}, os.path.join(tmp, "wordlm.onnx"))
+    stray = "lstm_parameters" in args and \
+        "lstm_parameters" not in isym.list_arguments()
+    segs = sym_segments(wordlm_data(v, b, segments + 1), t, dev)[:segments]
+    states = {k: torch.zeros(n_l, b, h, device=dev)
+              for k in ("lstm_state", "lstm_state_cell")}
+    orig = onnx_bind(mx, sym, ctx, weights, dict(states, data=segs[0][0]))
+    imp = onnx_bind(mx, isym, ctx, args,
+                    {k: s.clone() for k, s in
+                     dict(states, data=segs[0][0]).items()})
+    want, t_orig = lm_segments(orig, segs)
+    ops.reset_launch_counts()
+    with launch_dtypes() as seen:
+        got, t_imp_seg = lm_segments(imp, segs)
+    counts = ops.launch_counts()
+    types = check_launch_dtypes("ONNX LM", seen, {"lstm_fwd": torch.float32})
+    if counts["lstm_fwd"] != n_l * segments or counts["lstm_bwd"]:
+        raise AssertionError(f"imported LM: K6a launched "
+                             f"{counts['lstm_fwd']} times in {segments} "
+                             f"segments, want {n_l} a segment, no backward")
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    gap = max(_rel_gap(g, w) for g, w in zip(got, want))
+    if not gap <= 1e-6:
+        raise AssertionError(f"imported LM: probabilities {gap:.3e} of "
+                             f"scale from the original graph (tol 1e-6)")
+    p_orig, p_imp = float(np.median(t_orig)), float(np.median(t_imp_seg))
+    log(f"ONNX word LM (vocab {v}, embed {e}, {n_l} x LSTM {h}, T={t}, "
+        f"N={b}; phase 17's weights): file {nbytes} bytes (the packed "
+        f"lstm_parameters rides along unread: {stray}), export "
+        f"{t_exp:.1f} s, import {t_imp:.1f} s; {segments} segments "
+        f"carrying h/c: probabilities "
+        f"{'bit for bit' if same else f'within {gap:.3e} of scale'} of "
+        f"the original graph; K6a {counts['lstm_fwd']} launches "
+        f"({n_l} a segment, operands {types['lstm_fwd']}); ms a segment: "
+        f"original {p_orig * 1e3:.3f}, imported {p_imp * 1e3:.3f} "
+        f"[{power_line}]")
+    del orig, imp, got, want
+    small = onnx_wordlm_card_vs_cpu(seed, dev, tmp)
+    return counts, {"file_bytes": nbytes, "export_s": t_exp,
+                    "import_s": t_imp, "bits": same, "gap": gap,
+                    "stray_packed_initializer": stray,
+                    "segment_ms": {"original": [x * 1e3 for x in t_orig],
+                                   "imported": [x * 1e3 for x in t_imp_seg]},
+                    "p50_ms": {"original": p_orig * 1e3,
+                               "imported": p_imp * 1e3},
+                    "card_vs_cpu": small, "card": power_line}
+
+
+def onnx_wordlm_card_vs_cpu(seed, dev, tmp):
+    """The imported LM at ``SYM_SMALL`` widths on the card and on the
+    CPU, three segments (phase 17's gates: each segment's loss per token
+    within 1e-4 relative; the probabilities, the loss's gradient
+    through the logits, within 1e-3 of scale)."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    s = SYM_SMALL
+    sym = onnx_wordlm(mx, s["vocab"], s["emb"], s["hid"], s["layers"])
+    shapes = sym_shapes(s["vocab"], s["emb"], s["hid"], s["layers"],
+                        s["bptt"], s["batch"])
+    rng = np.random.RandomState(seed + 23)
+    weights = {n: torch.tensor(rng.uniform(-0.1, 0.1, shapes[n]),
+                               dtype=torch.float32) for n in SYM_WEIGHTS}
+    data = wordlm_data(s["vocab"], s["batch"], s["steps"])
+    runs = {}
+    for name, device, ctx in (("cuda", dev, mx.gpu(dev.index)),
+                              ("cpu", torch.device("cpu"), mx.cpu())):
+        with ctx:
+            isym, args, _, _, _, _ = onnx_round_trip(
+                mx, sym, {k: w.to(device) for k, w in weights.items()},
+                {"data": (s["bptt"], s["batch"])},
+                os.path.join(tmp, f"small-{name}.onnx"))
+        segs = sym_segments(data, s["bptt"], device)[:s["steps"]]
+        feeds = {k: torch.zeros(shapes[k], device=device)
+                 for k in ("lstm_state", "lstm_state_cell")}
+        ex = onnx_bind(mx, isym, ctx, args, dict(feeds, data=segs[0][0]))
+        probs, _ = lm_segments(ex, segs)
+        runs[name] = (probs, [float(-p.gather(1, y.long()[:, None]).log()
+                                    .mean()) for p, (_, y, _, _) in
+                              zip(probs, segs)])
+    rel = max(abs(a - c) / abs(c) for a, c in zip(runs["cuda"][1],
+                                                  runs["cpu"][1]))
+    pgap = max(_rel_gap(g.cpu(), w) for g, w in zip(runs["cuda"][0],
+                                                    runs["cpu"][0]))
+    log(f"ONNX LM card vs CPU ({s['layers']} x {s['hid']}, vocab "
+        f"{s['vocab']}, batch {s['batch']}): losses {runs['cuda'][1]} "
+        f"(card) vs {runs['cpu'][1]} (cpu), max relative gap {rel:.3e} "
+        f"(tol 1e-4); probabilities within {pgap:.3e} of scale (tol 1e-3)")
+    if not rel <= 1e-4 or not pgap <= 1e-3:
+        raise AssertionError(f"ONNX LM card vs CPU: losses {rel}, "
+                             f"probabilities {pgap}")
+    return {"loss_rel": rel, "prob_gap": pgap}
+
+
+def onnx_vision(seed, dev, power_line, tmp):
+    """Phase 23c: each family of ``ONNX_VISION`` (ResNet-50 as phase 20
+    builds it, the others with Xavier weights from ``seed`` and running
+    statistics from two train-mode batches) exported to ONNX, imported
+    and bound on the card at batch 32, against the Gluon net's predict
+    forward on the same batch (1e-5 of scale; deterministic cuDNN);
+    returns {family: numbers}."""
+    import gc
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    b = DEPLOY["batch"]
+    ctx = mx.gpu(dev.index)
+    out = {}
+    for fam, size in ONNX_VISION:
+        g = torch.Generator().manual_seed(seed)
+        x = torch.rand(b, 3, size, size, generator=g).to(dev)
+        if fam == "resnet50_v1":
+            net, _ = deploy_resnet_net(seed, dev)
+        else:
+            net = getattr(vision, fam)(device=dev)
+            net.initialize(init=mx.init.Xavier(), seed=seed)
+            with mx.autograd.train_mode():
+                for k in range(2):
+                    net(torch.rand(b, 3, size, size, generator=g).to(dev))
+        ref = net(x)
+        gluon_ms = cuda_ms(lambda: net(x), iters=5, warmup=1)
+        sym = net(mx.sym.var("data"))
+        params = {net.prefix + k: p.detach()
+                  for k, p in net.gluon_params().items()}
+        isym, args, auxs, nbytes, t_exp, t_imp = onnx_round_trip(
+            mx, sym, params, {"data": tuple(x.shape)},
+            os.path.join(tmp, f"{fam}.onnx"))
+        ex = onnx_bind(mx, isym, ctx, args, {"data": x}, auxs)
+        got = [ex.forward(is_train=False, data=x)[0]
+               .as_subclass(torch.Tensor).clone() for _ in range(2)]
+        onnx_ms = cuda_ms(lambda: ex.forward(is_train=False, data=x),
+                          iters=5, warmup=1)
+        torch.cuda.synchronize()
+        gap = _rel_gap(got[0], ref)
+        out[fam] = {"gap": gap, "replay_bits": torch.equal(*got),
+                    "nodes": len(json.loads(isym.tojson())["nodes"]),
+                    "file_bytes": nbytes, "export_s": t_exp,
+                    "import_s": t_imp, "gluon_ms": gluon_ms,
+                    "imported_ms": onnx_ms, "input": size}
+        log(f"ONNX {fam} at batch {b}, {size}^2: file {nbytes} bytes "
+            f"(export {t_exp:.1f} s, import {t_imp:.1f} s), imported "
+            f"graph {gap:.2e} of scale from the Gluon net, replay "
+            f"{'equal to' if out[fam]['replay_bits'] else 'unlike'} its "
+            f"first call; ms a batch: Gluon eager {gluon_ms:.3f}, "
+            f"imported graph {onnx_ms:.3f} [{power_line}]")
+        if not gap <= 1e-5 or not out[fam]["replay_bits"]:
+            raise AssertionError(f"ONNX {fam}: {gap:.3e} of scale from the "
+                                 f"Gluon net (tol 1e-5), replay bits "
+                                 f"{out[fam]['replay_bits']}")
+        del net, ex, args, auxs, isym, sym, params, ref, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def native_records(seed, tmp):
+    """``NATIVE['images']`` seeded JPEG records (PIL, quality 90, 4:2:0)
+    of mixed sizes and their index; returns (rec, idx)."""
+    import io as _io
+
+    import numpy as np
+    from PIL import Image
+
+    import mxnet_tpu_torch as mx
+
+    r = NATIVE
+    rs = np.random.RandomState(seed + 29)
+    rec, idx = os.path.join(tmp, "jpeg.rec"), os.path.join(tmp, "jpeg.idx")
+    w = mx.recordio.MXIndexedRecordIO(idx, rec, "w")
+    for i in range(r["images"]):
+        hw = (r["size"], r["size"]) if i % 8 == 0 else \
+            tuple(rs.randint(r["low"], r["high"], 2))
+        buf = _io.BytesIO()
+        Image.fromarray(jpeg_scene(rs, *hw)).save(buf, format="JPEG",
+                                                  quality=90)
+        w.write_idx(i, mx.recordio.pack(
+            mx.recordio.IRHeader(0, float(rs.randint(1000)), i, 0),
+            buf.getvalue()))
+    w.close()
+    return rec, idx
+
+
+def native_batcher(seed, dev, power_line, tmp):
+    """Phase 23d: ``io.ImageRecordIter`` over seeded JPEG records goes to
+    ``ImageRecordIterNative`` (C++ record threads, nvJPEG, one resize
+    kernel a batch); returns the resize kernel's JSON entry (its
+    launches from the epoch's run)."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.io import native
+    from mxnet_tpu_torch.ops import image
+
+    r = NATIVE
+    b, size = r["batch"], r["size"]
+    rec, idx = native_records(seed, tmp)
+    ctx = mx.gpu(dev.index)
+    it = mx.io.ImageRecordIter(path_imgrec=rec, path_imgidx=idx,
+                               data_shape=(3, size, size), batch_size=b,
+                               ctx=ctx)
+    if not isinstance(it, mx.io.ImageRecordIterNative):
+        raise AssertionError(f"ImageRecordIter gave {type(it).__name__}")
+    # the main path: one epoch, launches counted from 0 over it
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    n = sum(batch.data[0].shape[0] for batch in it)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ops.launch_counts()["image_resize"]
+    want_batches = r["images"] // b
+    if n != want_batches * b or launches != want_batches:
+        raise AssertionError(f"native epoch: {n} images, {launches} "
+                             f"resize launches; want {want_batches * b} "
+                             f"and {want_batches}")
+    t0 = time.perf_counter()
+    py = mx.image.ImageRecordIterPy(path_imgrec=rec, path_imgidx=idx,
+                                    data_shape=(3, size, size),
+                                    batch_size=b, ctx=ctx)
+    n_py = sum(b - (batch.pad or 0) for batch in py)
+    torch.cuda.synchronize()
+    py_secs = time.perf_counter() - t0
+    # the whole batch against the PIL path (the kernel's plain version)
+    card = native.NativeImageBatcher(rec, idx, batch_size=b,
+                                     data_shape=(3, size, size), device=dev)
+    host = native.NativeImageBatcher(rec, idx, batch_size=b,
+                                     data_shape=(3, size, size),
+                                     device="cpu")
+    means, fars, worst = [], [], 0
+    for _ in range(want_batches):
+        (g, gl), (c, cl) = card.next(), host.next()
+        if not torch.equal(gl.cpu(), cl):
+            raise AssertionError("native batcher: labels differ card vs CPU")
+        mean, far, mx_ = decode_gap(g, c)
+        means.append(mean)
+        fars.append(far)
+        worst = max(worst, mx_)
+    card.close()
+    host.close()
+    mean, far = float(np.mean(means)), float(np.max(fars))
+    # the kernel against its plain version on the same nvJPEG pixels
+    dec = image.JpegDecoder(dev)
+    reader = native.NativeBatcher(rec, idx, batch_size=b)
+    streams = [mx.recordio.unpack(x)[1] for x in reader.next()]
+    reader.close()
+    imgs = [dec.decode(s) for s in streams]
+    before = ops.launch_counts()["image_resize"]
+    got = image.resize_assemble(imgs, size, size)
+    one = ops.launch_counts()["image_resize"] - before
+    want = torch.stack([image.resize_bilinear_reference(i, size, size)
+                        for i in imgs])
+    torch.cuda.synchronize()
+    err = float((got.int() - want.int()).abs().max())
+    copies = sum(tuple(i.shape[:2]) == (size, size) for i in imgs)
+    ms = device_ms(lambda: image.resize_assemble(imgs, size, size))
+    call_ms = cuda_ms(lambda: image.resize_assemble(imgs, size, size))
+    plain_ms = device_ms(lambda: torch.stack(
+        [image.resize_bilinear_reference(i, size, size) for i in imgs]),
+        iters=5, warmup=1)
+    read = sum(i.numel() for i in imgs)
+    nbytes = read + got.numel()
+    # a bilinear sample: 4 products of 2 and 3 sums a channel value
+    flops = got.numel() * 11
+    bms_bytes = nbytes / PEAK_HBM_BPS * 1e3
+    bms_ops = flops / PEAK_F32_FLOPS * 1e3
+    del imgs, got, want
+    dec.close()
+    ips, py_ips = n / secs, n_py / py_secs
+    log(f"native image batcher ({r['images']} JPEGs of {r['low']}.."
+        f"{r['high']}^2, every eighth {size}^2; batch {b} at 3 x {size} x "
+        f"{size}): ImageRecordIter -> ImageRecordIterNative, {ips:.1f} "
+        f"images/s (C++ record threads, nvJPEG, {launches} resize "
+        f"launches, one a batch) against ImageRecordIterPy's {py_ips:.1f} "
+        f"on the same records; card vs the PIL path: mean |diff| {mean:.3f} "
+        f"levels (tol {DECODE_MEAN}), at most {far:.4f} of the values more "
+        f"than {DECODE_FAR} apart (tol {DECODE_FAR_SHARE}), max {worst}; "
+        f"the kernel on one batch's nvJPEG pixels ({copies} copied) "
+        f"against its plain version: max |diff| {err:.0f} (bit for bit "
+        f"required); device {ms * 1e3:.2f} us kernel ({call_ms * 1e3:.2f} "
+        f"a call, host included), {plain_ms * 1e3:.2f} plain; bound "
+        f"{max(bms_bytes, bms_ops) * 1e3:.2f} us ({nbytes} B) "
+        f"[{power_line}]")
+    if err != 0 or one != 1:
+        raise AssertionError(f"resize kernel against its plain version: "
+                             f"max |diff| {err}, {one} launches")
+    if not mean <= DECODE_MEAN or not far <= DECODE_FAR_SHARE:
+        raise AssertionError(f"native batcher card vs PIL: mean {mean}, "
+                             f"share past {DECODE_FAR} levels {far}")
+    return {"name": "image_resize", "route": "cuda",
+            "source": "mxnet_tpu_torch/ops/csrc/image_batch.cu",
+            "replaces": "none (no Pallas kernel): src/cc/image_batcher.cc"
+                        ":103 ResizeBilinear on host threads",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bms_bytes, bms_ops),
+            "bound_by": "bytes" if bms_bytes >= bms_ops else "operations",
+            "library_ms": None,
+            "library": "none: no one PyTorch call resizes images of "
+                       "mixed sizes into one batch",
+            "shape": f"{b} images of {r['low']}..{r['high']}^2 -> "
+                     f"{b} x 3 x {size} x {size} uint8",
+            "images_per_s": ips, "py_images_per_s": py_ips,
+            "decode_vs_pil": {"mean": mean, "far_share": far,
+                              "max": worst}, "card": power_line}
+
+
+def interchange_phase(seed, dev, power_line):
+    """Phase 23 (module docstring). Returns K6a's launches over the
+    imported LM's segments and the resize kernel's JSON entry."""
+    import gc
+    import tempfile
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    feats = mx.runtime.Features()
+    if not (feats.is_enabled("CUDA") and feats.is_enabled("CUDNN")):
+        raise AssertionError(f"mx.runtime.Features: {list(feats.values())}")
+    log(f"mx.runtime.Features: {list(feats.values())}")
+    m, secs = {"card": power_line}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        lm_counts, m["wordlm"] = onnx_wordlm_phase(seed, dev, power_line,
+                                                   tmp)
+        secs["wordlm"] = round(time.perf_counter() - t0, 1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        m["vision"] = onnx_vision(seed, dev, power_line, tmp)
+        secs["vision"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        entry = native_batcher(seed, dev, power_line, tmp)
+        secs["native_io"] = round(time.perf_counter() - t0, 1)
+    log(f"phase 23 (model interchange, the native batcher): "
+        f"{time.perf_counter() - t_phase:.1f} s (by part: {secs})")
+    log("phase 23 metrics: " + json.dumps(m, default=lambda o: None))
+    return {k: n for k, n in lm_counts.items() if n}, entry
+
+
 KERNEL_NAMES = ("paged_attention", "flash_attention", "flash_attention_bwd",
                 "layer_norm", "layer_norm_bwd", "softmax_xent_fwd",
                 "softmax_xent_bwd", "lstm_fwd", "lstm_bwd", "lstm_bwd_dw")
@@ -7709,6 +8218,16 @@ def main():
         if e["name"] == "lstm_bwd":
             e["launches_by_path"]["np_by_kernel"] = {
                 k: by_np[k] for k in ("lstm_bwd", "lstm_bwd_dw")}
+    # model interchange: the ONNX word LM's imported graph (K6a, its 20
+    # segments counted from 0), the vision families through ONNX, and
+    # the native image batcher's epoch (the resize kernel, counted from
+    # 0 over it)
+    by_onnx, resize_entry = interchange_phase(args.seed, dev, power_line)
+    for e in entries:
+        if e["name"] in by_onnx:
+            e.setdefault("launches_by_path", {})["onnx"] = \
+                by_onnx[e["name"]]
+    entries.append(resize_entry)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(power_line)

@@ -71,7 +71,7 @@ from . import io, kvstore, lr_scheduler, metric, ndarray, optimizer
 from . import attribute, engine, name, random, test_utils, util
 from . import callback, executor, model, module, monitor, rnn, symbol
 from . import operator
-from . import filesystem, image, recordio
+from . import filesystem, image, recordio, runtime
 from . import contrib, visualization
 from . import visualization as viz
 from . import initializer as init
@@ -111,5 +111,5 @@ __all__ = ["Context", "Executor", "MXNetError", "NDArray", "Symbol",
            "is_np_array", "metric", "mod", "model", "module", "monitor",
            "name", "nd", "ndarray", "np", "npx", "num_gpus", "numpy",
            "numpy_extension", "operator", "optimizer", "random", "recordio",
-           "rnn",
+           "rnn", "runtime",
            "sym", "symbol", "test_utils", "util", "visualization", "viz"]

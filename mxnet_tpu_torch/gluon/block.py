@@ -257,14 +257,14 @@ class _SymbolicNames:
         self.param = {}
         self._vars = {}
 
-        def walk(mod, prefix):
+        def walk(mod, prefix, scope):
             self.prefix.setdefault(id(mod), prefix)
             for name, t in mod.named_parameters(recurse=False):
                 self.param.setdefault(id(t), prefix + name)
-            for child in mod.children():
-                walk(child, prefix + getattr(child, "_prefix", ""))
+            for child, full, inner in _children_names(mod, scope):
+                walk(child, full, inner)
 
-        walk(root, root._prefix)
+        walk(root, root._prefix, root._prefix)
 
     def var(self, t, name, view=None):
         """The variable of parameter ``t`` (the first name it was given
@@ -280,6 +280,19 @@ class _SymbolicNames:
                            wd_mult=getattr(view, "wd_mult", 1.0))
             self._vars[id(t)] = v
         return v
+
+
+def _children_names(mod, scope):
+    """``(child, its full prefix, the prefix its own children extend)``
+    for each child of ``mod``, whose children extend ``scope``. A child
+    extends its own prefix for its children, unless it is marked
+    ``_flat_scope``: a block whose children the JAX block makes in its
+    parent's name scope (it never enters its own), so their names
+    extend the parent's prefix."""
+    for child in mod.children():
+        full = scope + getattr(child, "_prefix", "")
+        yield child, full, scope if getattr(child, "_flat_scope", False) \
+            else full
 
 
 class _Const:
@@ -622,8 +635,8 @@ class Block(nn.Module):
                 raise MXNetError(
                     f"{type(self).__name__} '{self.name}' has no symbolic "
                     f"form: its forward is torch code, which a Symbol "
-                    f"cannot go through (ROADMAP Queue 1, 'Long tail'); "
-                    f"{type(e).__name__}: {e}") from e
+                    f"cannot go through (a hybrid_forward of F-ops gives "
+                    f"it one); {type(e).__name__}: {e}") from e
         prefix = names.prefix.get(id(self), self._prefix)
         if self._reg_params:
             own = {k: (self._reg_keys[k], v._tensor, v)
@@ -804,17 +817,17 @@ class Block(nn.Module):
         none)."""
         out = {}
 
-        def walk(mod, prefix):
+        def walk(mod, prefix, scope):
             for name, p in mod.named_parameters(recurse=False):
                 if prefix + name in out:
                     raise ValueError(f"two parameters named "
                                      f"{prefix + name!r}: give the "
                                      f"children their Gluon prefixes")
                 out[prefix + name] = p
-            for child in mod.children():
-                walk(child, prefix + getattr(child, "_prefix", ""))
+            for child, full, inner in _children_names(mod, scope):
+                walk(child, full, inner)
 
-        walk(self, "")
+        walk(self, "", "")
         return out
 
     def collect_params(self, select=None):

@@ -138,9 +138,9 @@ class _RNNLayer(HybridBlock):
     def hybrid_forward(self, F, inputs, states=None, **params):
         raise MXNetError(
             f"{type(self).__name__} '{self.name}' has no symbolic form: "
-            f"the fused recurrent layer runs on tensors only (the JAX "
-            f"layer cannot trace a Symbol either; ROADMAP Queue 1, 'Long "
-            f"tail'); build the graph with mx.sym.RNN or mx.rnn's cells")
+            f"the fused recurrent layer runs on tensors only, and the "
+            f"reference layer has none either (the JAX layer cannot trace "
+            f"a Symbol); build the graph with mx.sym.RNN or mx.rnn's cells")
 
 
 class RNN(_RNNLayer):

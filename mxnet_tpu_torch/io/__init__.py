@@ -1,7 +1,8 @@
 """Data input of the PyTorch port (``mxnet_tpu/io``'s counterpart): the
 data iterators (``io.py``: ``NDArrayIter``, ``CSVIter``, ``LibSVMIter``,
-``MNISTIter``, ...) and the sequence packing encoder serving uses
-(``packing.py``)."""
+``MNISTIter``, ``ImageRecordIter``, ...), the native RecordIO reader and
+image batcher (``native.py``) and the sequence packing encoder serving
+uses (``packing.py``)."""
 from __future__ import annotations
 
 from .io import (CSVIter, DataBatch, DataDesc, DataIter, ImageRecordIter,

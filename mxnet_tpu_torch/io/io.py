@@ -9,10 +9,11 @@ feature ids, the reference's ``iter_libsvm.cc`` contract) into CSR
 batches (``ndarray.sparse.CSRNDArray``) with ``round_batch``,
 ``num_parts``/``part_index`` sharding, a ``label_libsvm`` file and
 ``max_row_nnz`` (the densest row, for ``sparse.csr_to_ell``).
-``ImageRecordIter`` reads RecordIO images through the Python pipeline,
-``image.ImageRecordIterPy``, for every request (the JAX package does
-too whenever its native reader is absent); the native reader,
-``ImageRecordIterNative``, is not ported and raises.
+``ImageRecordIter`` reads RecordIO images through the native batcher,
+``ImageRecordIterNative`` (``io.native``: C++ record threads, nvJPEG
+and one resize kernel on the card), when the request is a plain resize
+from an indexed file, as the JAX package picks its own, and through the
+Python pipeline, ``image.ImageRecordIterPy``, otherwise.
 """
 from __future__ import annotations
 
@@ -594,18 +595,70 @@ class MNISTIter(DataIter):
 
 
 def ImageRecordIter(**kwargs):
-    """RecordIO image batches (``iter_image_recordio_2.cc`` analog): the
-    Python pipeline, ``image.ImageRecordIterPy``, with the reference
-    iterator's keywords (``path_imgrec``, ``data_shape``, ``batch_size``,
-    ``shuffle``, ``rand_crop``, ``rand_mirror``, ``mean_r``..., ``ctx``)."""
+    """RecordIO image batches (``iter_image_recordio_2.cc`` analog), with
+    the reference iterator's keywords (``path_imgrec``, ``path_imgidx``,
+    ``data_shape``, ``batch_size``, ``shuffle``, ``rand_crop``,
+    ``rand_mirror``, ``mean_r``..., ``ctx``). A plain resize to
+    ``data_shape`` from an indexed file (no augmenter, one label) goes
+    to the native batcher, :class:`ImageRecordIterNative`, as the JAX
+    package picks its own; everything else to the Python pipeline,
+    ``image.ImageRecordIterPy``. The native batcher's failures raise:
+    nothing falls back."""
+    aug_keys = {"rand_crop", "rand_mirror", "mean_r", "mean_g", "mean_b",
+                "std_r", "std_g", "std_b", "rand_gray", "brightness",
+                "contrast", "saturation", "aug_list", "resize", "mean",
+                "std"}
+    wants_aug = any(kwargs.get(k) for k in aug_keys) \
+        or int(kwargs.get("label_width", 1) or 1) > 1
+    if not wants_aug and kwargs.get("path_imgidx"):
+        return ImageRecordIterNative(**kwargs)
     from ..image import ImageRecordIterPy
     return ImageRecordIterPy(**kwargs)
 
 
-def ImageRecordIterNative(**kwargs):
-    """The native RecordIO image batcher: not ported."""
-    raise NotImplementedError(
-        "ImageRecordIterNative: the native RecordIO reader (io/native.py, "
-        "src/cc/image_batcher.cc built with -ljpeg) is not ported (ROADMAP "
-        "Queue 1, 'Long tail'); io.ImageRecordIter reads the same records "
-        "through the Python pipeline")
+class ImageRecordIterNative(DataIter):
+    """DataIter over the native image batcher (``io.native``): records
+    read on C++ threads, JPEG decode and one resize-and-assemble kernel
+    a batch on ``ctx``'s device (nvJPEG on the card, PIL and the
+    kernel's plain version on the CPU). The batches hold the raw 0-255
+    pixel values in ``dtype``, as the JAX iterator's; the last partial
+    batch is discarded."""
+
+    def __init__(self, path_imgrec=None, path_imgidx=None,
+                 data_shape=(3, 224, 224), batch_size=32, shuffle=False,
+                 seed=0, preprocess_threads=4, num_parts=1, part_index=0,
+                 label_width=1, data_name="data",
+                 label_name="softmax_label", ctx=None, dtype="float32",
+                 **kwargs):
+        from . import native
+        super().__init__(batch_size)
+        self._ctx = ctx or current_context()
+        self._dtype = dtype
+        self._shape = tuple(data_shape)
+        self._batcher = native.NativeImageBatcher(
+            path_imgrec, path_imgidx, batch_size=batch_size,
+            data_shape=self._shape, num_threads=preprocess_threads,
+            shuffle=shuffle, seed=seed, num_parts=num_parts,
+            part_index=part_index, device=self._ctx)
+        self._data_name = data_name
+        self._label_name = label_name
+
+    @property
+    def provide_data(self):
+        return [DataDesc(self._data_name, (self.batch_size,) + self._shape)]
+
+    @property
+    def provide_label(self):
+        return [DataDesc(self._label_name, (self.batch_size,))]
+
+    def reset(self):
+        self._batcher.reset()
+
+    def next(self):
+        out = self._batcher.next()
+        if out is None:
+            raise StopIteration
+        data, labels = out
+        x = array(data, ctx=self._ctx, dtype=self._dtype)
+        return DataBatch(data=[x], label=[array(labels, ctx=self._ctx)],
+                         pad=0)

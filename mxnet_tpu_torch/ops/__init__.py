@@ -3,7 +3,9 @@
 
 The wrappers live in their modules (``ops.flash_attention``,
 ``ops.layer_norm``, ``ops.lstm``, ``ops.paged_attention``,
-``ops.softmax_xent``); the package keeps the modules' names free, so
+``ops.softmax_xent``, and ``ops.image``: the native image batcher's
+resize kernel, which has no Pallas counterpart); the package keeps the
+modules' names free, so
 ``ops.flash_attention`` is the module. Each module counts its kernels'
 launches by name; a backward counts apart from its forward
 (``flash_attention_bwd``, ``layer_norm_bwd``, ``softmax_xent_bwd``,
@@ -12,6 +14,7 @@ launches by name; a backward counts apart from its forward
 from __future__ import annotations
 
 from . import flash_attention as _flash
+from . import image as _image
 from . import layer_norm as _layer_norm
 from . import lstm as _lstm
 from . import paged_attention as _paged
@@ -29,7 +32,7 @@ __all__ = ["add_launch_counts", "launch_counts", "layer_norm_fused",
 
 # each wrapper module keeps its own {kernel name: launches}
 _COUNTS = (_paged.LAUNCHES, _flash.LAUNCHES, _layer_norm.LAUNCHES,
-           _xent.LAUNCHES, _lstm.LAUNCHES)
+           _xent.LAUNCHES, _lstm.LAUNCHES, _image.LAUNCHES)
 
 
 def launch_counts():

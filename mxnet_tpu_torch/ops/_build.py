@@ -26,21 +26,27 @@ import threading
 
 import torch
 
-__all__ = ["ARCH_FLAGS", "BUILD_DIR", "DTYPE_CODES", "SOURCES", "build_all",
-           "launch", "load", "nvcc_path", "plain", "tally"]
+__all__ = ["ARCH_FLAGS", "BUILD_DIR", "DTYPE_CODES", "LIBS", "OTHER_CODES",
+           "SOURCES", "build_all", "launch", "load", "nvcc_path", "plain",
+           "tally"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 #: the kernels of this package, by name (``csrc/<name>.cu``)
 SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd",
-           "layer_norm", "softmax_xent", "lstm")
+           "layer_norm", "softmax_xent", "lstm", "image_batch")
+#: libraries of the CUDA toolkit a source links, by source (found at run
+#: time through the toolkit's ``lib64``, written into the library)
+LIBS = {"image_batch": ("nvjpeg",)}
 #: headers every source may include
 HEADERS = ("common.cuh",)
 #: Hopper with its arch-specific features (wgmma, setmaxnreg)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: the ``dtype`` argument of the kernels' C entry points
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the operand codes of kernels over other types (a launch's ``count``)
+OTHER_CODES = {torch.uint8: 3}
 
 _lock = threading.Lock()
 _libs = {}
@@ -93,8 +99,14 @@ def _start(name):
         return None, None, lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+    nvcc = nvcc_path()
+    cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, src]
+    if LIBS.get(name):
+        lib64 = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.realpath(nvcc))), "lib64")
+        cmd += [f"-L{lib64}", "-Xlinker", f"-rpath={lib64}",
+                *(f"-l{x}" for x in LIBS[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, lib

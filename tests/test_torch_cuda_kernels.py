@@ -3217,3 +3217,104 @@ def test_numpy_functions_on_the_card_match_the_cpu(cuda):
     for g, w in zip(ge, we):
         assert torch.equal(g.as_subclass(torch.Tensor).cpu(),
                            w.as_subclass(torch.Tensor))
+
+
+# -- the native image batcher's device side and ONNX (phase 23) -------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_hw", [(224, 224), (31, 45), (7, 300)])
+def test_image_resize_kernel_matches_plain_bit_for_bit(cuda, out_hw):
+    """The resize-and-assemble kernel against its plain version on the
+    same HWC images (mixed sizes, one of the output size: the copy
+    path): bit for bit, one launch a batch."""
+    from mxnet_tpu_torch.ops import image
+    rs = np.random.RandomState(sum(out_hw))
+    sizes = [out_hw, (1, 1), (500, 3), (17, 29), (300, 224)]
+    imgs = [torch.tensor(rs.randint(0, 256, s + (3,)), dtype=torch.uint8,
+                         device=cuda) for s in sizes]
+    before = launch_counts()["image_resize"]
+    got = image.resize_assemble(imgs, *out_hw)
+    after = launch_counts()["image_resize"]
+    want = torch.stack([image.resize_bilinear_reference(i, *out_hw)
+                        for i in imgs])
+    torch.cuda.synchronize()
+    assert after - before == 1
+    assert torch.equal(got, want)
+    assert torch.equal(got[0], imgs[0].permute(2, 0, 1))
+
+
+@pytest.mark.cuda
+def test_nvjpeg_batches_against_the_pil_path(cuda, tmp_path):
+    """``NativeImageBatcher`` on the card (nvJPEG, the kernel) against
+    the CPU's (PIL, the plain version) on seeded photo-like JPEGs:
+    labels equal, pixels within ``chip_smoke.DECODE_MEAN`` levels on
+    the mean and at most ``DECODE_FAR_SHARE`` of them more than
+    ``DECODE_FAR`` apart (libjpeg's fancy chroma upsampling, which
+    nvJPEG does not do); a record that is no JPEG is skipped on both."""
+    import io
+    import warnings
+
+    from PIL import Image
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.io import native
+    c = _smoke()
+    rs = np.random.RandomState(3)
+    rec = mx.recordio.MXIndexedRecordIO(str(tmp_path / "a.idx"),
+                                        str(tmp_path / "a.rec"), "w")
+    for i in range(24):
+        buf = io.BytesIO()
+        h, w = rs.randint(40, 200, 2)
+        Image.fromarray(c.jpeg_scene(rs, h, w)).save(buf, format="JPEG")
+        data = b"not a jpeg" if i == 5 else buf.getvalue()
+        rec.write_idx(i, mx.recordio.pack(
+            mx.recordio.IRHeader(0, float(i), i, 0), data))
+    rec.close()
+    kw = dict(batch_size=8, data_shape=(3, 64, 48))
+    card = native.NativeImageBatcher(str(tmp_path / "a.rec"),
+                                     str(tmp_path / "a.idx"), device=cuda,
+                                     **kw)
+    host = native.NativeImageBatcher(str(tmp_path / "a.rec"),
+                                     str(tmp_path / "a.idx"), device="cpu",
+                                     **kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for _ in range(3):
+            (g, gl), (h_, hl) = card.next(), host.next()
+            assert g.device.type == "cuda" and g.shape == h_.shape
+            assert torch.equal(gl.cpu(), hl)
+            mean, far, _ = c.decode_gap(g, h_)
+            assert mean <= c.DECODE_MEAN and far <= c.DECODE_FAR_SHARE
+    assert card.next() is None and host.next() is None
+
+
+@pytest.mark.cuda
+def test_onnx_lm_replays_on_k6a_as_the_original_graph(cuda, tmp_path):
+    """A 2-layer LSTM LM through ONNX, bound on the card: each imported
+    ``LSTM`` node one K6a launch, the probabilities the original
+    graph's bit for bit."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray.op_impl_rnn import rnn_param_size
+    c = _smoke()
+    V, E, H, L, T, N = 300, 32, 48, 2, 7, 4
+    rs = np.random.RandomState(0)
+    weights = {k: torch.tensor(v, device=cuda) for k, v in {
+        "embed_weight": rs.randn(V, E).astype("f"),
+        "lstm_parameters": rs.randn(rnn_param_size(L, E, H, False,
+                                                   "lstm")).astype("f") * .2,
+        "decoder_weight": rs.randn(V, H).astype("f") * .2,
+        "decoder_bias": rs.randn(V).astype("f")}.items()}
+    sym = c.onnx_wordlm(mx, V, E, H, L)
+    isym, args, _, _, _, _ = c.onnx_round_trip(
+        mx, sym, weights, {"data": (T, N)}, str(tmp_path / "lm.onnx"))
+    feeds = {"data": torch.tensor(rs.randint(0, V, (T, N)), device=cuda,
+                                  dtype=torch.float32),
+             "lstm_state": torch.zeros(L, N, H, device=cuda),
+             "lstm_state_cell": torch.zeros(L, N, H, device=cuda)}
+    ctx = mx.gpu(cuda.index or 0)
+    want = c.onnx_bind(mx, sym, ctx, weights, feeds).forward()[0]
+    before = launch_counts()["lstm_fwd"]
+    got = c.onnx_bind(mx, isym, ctx, args, feeds).forward()[0]
+    torch.cuda.synchronize()
+    assert launch_counts()["lstm_fwd"] - before == L
+    assert torch.equal(got.as_subclass(torch.Tensor),
+                       want.as_subclass(torch.Tensor))

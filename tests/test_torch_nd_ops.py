@@ -369,18 +369,45 @@ def test_registry_covers_the_jax_registry_less_the_waiting_list():
 
 
 # the items with unported names: the registry's waiting list, and the
-# Long tail, whose registry names (the _npi_* ops) are ported while its
-# other pieces still raise naming it
+# Long tail, whose pieces are all ported now (its registry names, the
+# _npi_* ops, mx.contrib.onnx and the native image batcher)
 @pytest.mark.parametrize("item", sorted(set(tnd.WAITING) | {"Long tail"}))
-def test_waiting_names_raise_naming_their_roadmap_item(item):
+def test_waiting_names_raise_naming_their_roadmap_item(item, tmp_path):
     for name in tnd.WAITING.get(item, ()):
         with pytest.raises(NotImplementedError, match=f"'{item}'"):
             getattr(tnd, name)
     if item == "Long tail":
+        import io
+
+        from PIL import Image
+
+        assert "Long tail" not in tnd.WAITING
         assert not any(n.startswith("_npi_") for names in
                        tnd.WAITING.values() for n in names)
-        with pytest.raises(NotImplementedError, match="'Long tail'"):
-            tmx.contrib.onnx
-        with pytest.raises(NotImplementedError, match="'Long tail'"):
-            tmx.io.ImageRecordIterNative(path_imgrec="x.rec",
-                                         data_shape=(3, 8, 8), batch_size=2)
+        # mx.contrib.onnx round-trips a graph
+        path = str(tmp_path / "fc.onnx")
+        with tmx.cpu():
+            fc = tmx.sym.FullyConnected(tmx.sym.var("data"), num_hidden=2,
+                                        no_bias=True, name="fc")
+            tmx.contrib.onnx.export_model(
+                fc, {"fc_weight": tmx.nd.ones((2, 3))},
+                input_shapes={"data": (1, 3)}, onnx_file_path=path)
+            sym, args, _ = tmx.contrib.onnx.import_model(path)
+        assert sorted(args) == ["fc_weight"] and \
+            "fc_weight" in sym.list_arguments()
+        # ImageRecordIterNative reads JPEG records
+        rec = tmx.recordio.MXIndexedRecordIO(str(tmp_path / "x.idx"),
+                                             str(tmp_path / "x.rec"), "w")
+        for i in range(2):
+            buf = io.BytesIO()
+            Image.new("RGB", (9, 7), (10 * i, 20, 30)).save(buf, "JPEG")
+            rec.write_idx(i, tmx.recordio.pack(
+                tmx.recordio.IRHeader(0, float(i), i, 0), buf.getvalue()))
+        rec.close()
+        it = tmx.io.ImageRecordIterNative(
+            path_imgrec=str(tmp_path / "x.rec"),
+            path_imgidx=str(tmp_path / "x.idx"), data_shape=(3, 8, 8),
+            batch_size=2, ctx=tmx.cpu())
+        batch = it.next()
+        assert batch.data[0].shape == (2, 3, 8, 8)
+        assert batch.label[0].asnumpy().tolist() == [0.0, 1.0]

@@ -105,7 +105,7 @@ def test_run_reference_child_imports_neither_jax_nor_the_jax_package(
         "import mxnet_tpu.symbol\n"
         "assert mx.symbol.__name__ == 'mxnet_tpu_torch.symbol'\n"
         "try:\n"
-        "    import mxnet_tpu.runtime\n"
+        "    import mxnet_tpu.profiler\n"
         "except ModuleNotFoundError as e:\n"
         "    print('MISSING', e.name)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -115,7 +115,7 @@ def test_run_reference_child_imports_neither_jax_nor_the_jax_package(
         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout
-    assert "MISSING mxnet_tpu.runtime" in out.stdout
+    assert "MISSING mxnet_tpu.profiler" in out.stdout
     assert '"launch_counts"' in out.stdout.splitlines()[-1]
 
 
@@ -214,7 +214,7 @@ def test_k1_and_k3a_wrappers_on_cpu_take_the_plain_version_unbuilt():
                            "flash_attention_bwd", "layer_norm",
                            "layer_norm_bwd", "softmax_xent_fwd",
                            "softmax_xent_bwd", "lstm_fwd", "lstm_bwd",
-                           "lstm_bwd_dw"}
+                           "lstm_bwd_dw", "image_resize"}
     o, lse = flash_attention.flash_attention_with_lse(
         q, q, q, kv_lens=(seg > 0).sum(1, dtype=torch.int32),
         segment_ids=seg)

@@ -284,8 +284,10 @@ def test_model_zoo_entry_points(tmp_path):
     assert tuple(net(torch.rand(1, 3, 8, 8)).shape) == (1, 4)
     assert "conv2d0_weight" in net.gluon_params() and \
         net.gluon_params()["conv2d0_weight"].shape == (64, 3, 3, 3)
+    assert type(vision.get_model("mobilenet1.0", classes=4,
+                                 device="cpu")).__name__ == "MobileNet"
     with pytest.raises(ValueError, match="not supported"):
-        vision.get_model("mobilenet1.0")
+        vision.get_model("resnet9000_v1")
     marked = vision.resnet18_v1(remat_stages=(3,), device="cpu")
     stages = [m for m in marked.features.children()
               if m.prefix.startswith("stage")]

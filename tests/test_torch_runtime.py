@@ -1,6 +1,7 @@
 """The port's runtime modules against the JAX package's on the CPU:
 ``random`` (seeding), ``engine`` (``wait_all``, bulk size), ``name``,
-``attribute``, ``util`` (the np flags) and ``test_utils``."""
+``attribute``, ``util`` (the np flags), ``test_utils`` and ``runtime``
+(``mx.runtime.Features``)."""
 import os
 
 import numpy as np
@@ -194,3 +195,22 @@ def test_rand_ndarray_takes_sparse_stypes_as_jax(stype, shape, density):
     assert got.stype == want.stype == stype
     assert got.shape == tuple(want.shape)
     np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
+
+
+def test_runtime_features_keep_the_jax_keys():
+    """The twelve keys of the JAX package's ``Features``; the port
+    detects through torch: ``CUDA``/``CUDNN`` from ``torch.cuda`` and
+    ``torch.backends.cudnn`` (none here), no TPU, XLA, Pallas or dist
+    kvstore; the other keys keep the JAX package's values."""
+    from mxnet_tpu import runtime as jruntime
+
+    want, got = jruntime.Features(), tmx.runtime.Features()
+    assert list(got) == list(want)
+    assert [f.name for f in tmx.runtime.feature_list()] == list(want)
+    ours = {"TPU": False, "CUDA": torch.cuda.is_available(),
+            "CUDNN": torch.cuda.is_available()
+            and torch.backends.cudnn.is_available(),
+            "XLA": False, "PALLAS": False, "DIST_KVSTORE": False}
+    for k in want:
+        assert got.is_enabled(k) == ours.get(k, want.is_enabled(k)), k
+    assert repr(got["F16C"]) == repr(want["F16C"])

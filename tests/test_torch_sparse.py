@@ -367,12 +367,17 @@ def test_data_iterators_match_jax(tmp_path, kind):
 
 
 def test_image_record_iter_is_not_ported_yet():
-    """The native reader is not ported and raises naming its item;
-    ``ImageRecordIter`` is the Python pipeline (``image.py``), which
-    opens the file (``tests/test_torch_image_io.py`` reads records)."""
-    with pytest.raises(NotImplementedError, match="'Long tail'"):
-        tmx.io.ImageRecordIterNative(path_imgrec="x.rec",
-                                     data_shape=(3, 8, 8), batch_size=2)
+    """Both readers are ported now: the native one
+    (``ImageRecordIterNative``, ``tests/test_torch_native_io.py``)
+    refuses a file it cannot open when it is made, and
+    ``ImageRecordIter`` without an index is the Python pipeline
+    (``image.py``), which opens the file
+    (``tests/test_torch_image_io.py`` reads records)."""
+    with pytest.raises(IOError, match="cannot open no-such.rec"):
+        tmx.io.ImageRecordIterNative(path_imgrec="no-such.rec",
+                                     path_imgidx="no-such.idx",
+                                     data_shape=(3, 8, 8), batch_size=2,
+                                     ctx=tmx.cpu())
     with pytest.raises(FileNotFoundError):
         tmx.io.ImageRecordIter(path_imgrec="no-such.rec",
                                data_shape=(3, 8, 8), batch_size=2)
